@@ -1,0 +1,279 @@
+// The shared skeleton of the client models' temporal-blocked sweeps: K
+// time steps per pass over device memory, for one stacked (ny, nx)
+// block of N state planes, M float aux planes and an optional int8
+// mask code.
+//
+// Replaces the no-exchange branch of the TPU kernel
+// dl_esm_inf_tpu/ops/sweep.py::make_stencil_sweep (`kernel`, the
+// window DMAs, `tile`/`emit`); the client's one-step function, which
+// the TPU kernel traced from Python, is a device functor here.
+//
+// Design.  Each CTA owns a TY x TX output tile and stages a window of
+// the tile plus a ring of R = K * REACH cells on every side in dynamic
+// shared memory: the state planes, the aux planes and the code byte.
+// Window reads outside the block are clamped to its edge, so the kernel
+// never reads outside the (ny, nx) block.  The CTA then applies the
+// client's step K times in shared memory; the inputs of sub-step k are
+// valid on the window inset by k * REACH, its outputs on the window
+// inset by (k + 1) * REACH, so after K sub-steps exactly the output
+// tile is valid and is written back.  Cells within R of the block edge
+// hold finite values of no meaning, like the halo cells of the plain
+// version; callers compare internal points.
+//
+// A client step is a struct with
+//   using G = Geom<K, REACH>;  static constexpr int N, M;  CODE (bool);
+//   using Tile = sweep::Tile<T, N, M, CODE, G>;  Consts (POD of doubles);
+//   __device__ explicit Step(const Consts&);      // casts to T, once
+//   __device__ void substep(Tile&, int k) const;
+// `substep` runs its own phases and barriers, and returns only after a
+// __syncthreads() that follows its last shared-memory write.  Scalars
+// are folded on the host in double, in the grouping of the plain
+// PyTorch step, and cast once to T; with --fmad=false the kernel then
+// rounds where the plain version rounds.
+//
+// What bounds it.  A sweep moves N state planes in and out plus the
+// aux planes and the code once per K steps, a few bytes per point and
+// step, so at 1024^2 the HBM bound is around a microsecond per step on
+// an H100: the kernels are bound by shared-memory traffic, the
+// barriers between phases and the redundant ring work of temporal
+// blocking (a 32 x 32 tile with an 8-cell ring stages 2.25x its area).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sweep {
+
+constexpr int TX = 32;
+constexpr int TY = 32;
+constexpr int NT = 256;
+
+template <int K, int REACH>
+struct Geom {
+  static constexpr int R = K * REACH;
+  static constexpr int WY = TY + 2 * R;
+  static constexpr int WX = TX + 2 * R;
+  static constexpr int WC = WY * WX;
+  static constexpr int CPT = (WC + NT - 1) / NT;   // window points a thread
+};
+
+// Window points, half-open: rows [y0, y1), columns [x0, x1).
+struct Box {
+  int y0, y1, x0, x1;
+};
+
+// The window inset by `lo` cells from its low edges and `hi` from its
+// high edges.
+template <class G>
+__device__ __forceinline__ Box inset(int lo, int hi) {
+  return Box{lo, G::WY - hi, lo, G::WX - hi};
+}
+
+// The device pointers of one launch.
+template <typename T, int N, int M>
+struct Planes {
+  const T* in[N];
+  T* out[N];
+  const T* aux[M > 0 ? M : 1];
+  const int8_t* code;
+  int ny, nx;
+};
+
+// The shared-memory window: N state planes, M aux planes, the code.
+template <typename T, int N, int M, bool CODE, class G>
+struct Tile {
+  static constexpr size_t bytes =
+      static_cast<size_t>(N + M) * G::WC * sizeof(T) + (CODE ? G::WC : 0);
+  T* s[N];
+  T* a[M > 0 ? M : 1];
+  int8_t* code;
+
+  __device__ explicit Tile(unsigned char* raw) {
+    T* base = reinterpret_cast<T*>(raw);
+#pragma unroll
+    for (int f = 0; f < N; ++f) s[f] = base + f * G::WC;
+#pragma unroll
+    for (int f = 0; f < (M > 0 ? M : 1); ++f) a[f] = base + (N + f) * G::WC;
+    code = reinterpret_cast<int8_t*>(base + (N + M) * G::WC);
+  }
+
+  // mask bit b of the code at window index i, as 0/1 in T
+  __device__ __forceinline__ T bit(int i, int b) const {
+    return static_cast<T>((static_cast<int>(code[i]) >> b) & 1);
+  }
+};
+
+// f(i, wy, wx) for every window point of `b`, spread over the threads.
+template <class G, class F>
+__device__ __forceinline__ void for_box(const Box& b, F f) {
+  const int w = b.x1 - b.x0;
+  const int n = (b.y1 - b.y0) * w;
+  for (int j = threadIdx.x; j < n; j += NT) {
+    const int dy = j / w;
+    const int wy = b.y0 + dy, wx = b.x0 + (j - dy * w);
+    f(wy * G::WX + wx, wy, wx);
+  }
+}
+
+// Compute NV new values per point of `b` into registers with
+// f(i, wy, wx, out), wait until every thread has read the old values,
+// then store them into the planes `dst`.  The caller adds the barrier
+// that must follow the stores before anyone reads them.
+template <class G, typename T, int NV, class F>
+__device__ __forceinline__ void staged_update(const Box& b, T* const (&dst)[NV],
+                                              F f) {
+  const int w = b.x1 - b.x0;
+  const int n = (b.y1 - b.y0) * w;
+  T v[G::CPT][NV];
+#pragma unroll
+  for (int q = 0; q < G::CPT; ++q) {
+    const int j = threadIdx.x + q * NT;
+    if (j < n) {
+      const int dy = j / w;
+      const int wy = b.y0 + dy, wx = b.x0 + (j - dy * w);
+      f(wy * G::WX + wx, wy, wx, v[q]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < G::CPT; ++q) {
+    const int j = threadIdx.x + q * NT;
+    if (j < n) {
+      const int dy = j / w;
+      const int i = (b.y0 + dy) * G::WX + b.x0 + (j - dy * w);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) dst[c][i] = v[q][c];
+    }
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(NT)
+sweep_kernel(Planes<typename S::T, S::N, S::M> p, typename S::Consts c) {
+  using G = typename S::G;
+  constexpr int R = G::R, WX = G::WX, WC = G::WC;
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  typename S::Tile t(sweep_smem);
+
+  // stage the window, clamped to the block
+  const int x0 = blockIdx.x * TX - R;
+  const int y0 = blockIdx.y * TY - R;
+  for (int i = threadIdx.x; i < WC; i += NT) {
+    const int wy = i / WX, wx = i - wy * WX;
+    const int gy = min(max(y0 + wy, 0), p.ny - 1);
+    const int gx = min(max(x0 + wx, 0), p.nx - 1);
+    const size_t g = static_cast<size_t>(gy) * p.nx + gx;
+#pragma unroll
+    for (int f = 0; f < S::N; ++f) t.s[f][i] = p.in[f][g];
+#pragma unroll
+    for (int f = 0; f < S::M; ++f) t.a[f][i] = p.aux[f][g];
+    if (S::CODE) t.code[i] = p.code[g];
+  }
+  const S step(c);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = 0; k < S::K; ++k) step.substep(t, k);
+
+  // write back the output tile
+  for (int i = threadIdx.x; i < TY * TX; i += NT) {
+    const int ty = i / TX, tx = i - ty * TX;
+    const int gy = blockIdx.y * TY + ty, gx = blockIdx.x * TX + tx;
+    if (gy >= p.ny || gx >= p.nx) continue;
+    const int w = (ty + R) * WX + tx + R;
+    const size_t g = static_cast<size_t>(gy) * p.nx + gx;
+#pragma unroll
+    for (int f = 0; f < S::N; ++f) p.out[f][g] = t.s[f][w];
+  }
+}
+
+template <class S>
+cudaError_t launch(const Planes<typename S::T, S::N, S::M>& p,
+                   const typename S::Consts& c, cudaStream_t stream) {
+  constexpr size_t smem = S::Tile::bytes;
+  // the attribute is per device: set it once for each device used
+  static int attr_device = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (attr_device != dev) {
+    err = cudaFuncSetAttribute(sweep_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    attr_device = dev;
+  }
+  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  sweep_kernel<S><<<grid, NT, smem, stream>>>(p, c);
+  return cudaGetLastError();
+}
+
+// Launch S<T, K> for the runtime K in [KC, KMAX].
+template <template <typename, int> class S, typename T, int KMAX, int KC = 1>
+cudaError_t launch_k(int K, const Planes<T, S<T, 1>::N, S<T, 1>::M>& p,
+                     const typename S<T, 1>::Consts& c, cudaStream_t stream) {
+  if constexpr (KC > KMAX) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (K == KC) return launch<S<T, KC>>(p, c, stream);
+    return launch_k<S, T, KMAX, KC + 1>(K, p, c, stream);
+  }
+}
+
+template <class C>
+constexpr int num_consts() {
+  static_assert(sizeof(C) % sizeof(double) == 0, "Consts holds doubles");
+  return static_cast<int>(sizeof(C) / sizeof(double));
+}
+
+template <template <typename, int> class S, typename T, int KMAX>
+cudaError_t launch_typed(int K, const void* const* in, void* const* out,
+                         const void* const* aux, const void* code, int ny,
+                         int nx, const typename S<T, 1>::Consts& c,
+                         cudaStream_t stream) {
+  constexpr int N = S<T, 1>::N, M = S<T, 1>::M;
+  Planes<T, N, M> p;
+  for (int f = 0; f < N; ++f) {
+    p.in[f] = static_cast<const T*>(in[f]);
+    p.out[f] = static_cast<T*>(out[f]);
+  }
+  p.aux[0] = nullptr;
+  for (int f = 0; f < M; ++f) p.aux[f] = static_cast<const T*>(aux[f]);
+  p.code = static_cast<const int8_t*>(code);
+  p.ny = ny;
+  p.nx = nx;
+  return launch_k<S, T, KMAX>(K, p, c, stream);
+}
+
+// The body of a client's C entry point.  dtype_code: 0 = float32,
+// 1 = float64.  in/out/aux are arrays of device pointers of contiguous
+// (ny, nx) planes; `consts` is host memory, read before the launch
+// returns.  Launches on `stream` without synchronising and returns
+// cudaGetLastError() of the launch.
+template <template <typename, int> class S, int KMAX>
+int launch_entry(int dtype_code, int K, const void* const* in,
+                 void* const* out, const void* const* aux, const void* code,
+                 int ny, int nx, const double* consts, int n_consts,
+                 void* stream) {
+  using C = typename S<float, 1>::Consts;
+  if (n_consts != num_consts<C>() || ny < 1 || nx < 1 || K < 1 ||
+      K > KMAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  C c;
+  double* dst = reinterpret_cast<double*>(&c);
+  for (int i = 0; i < n_consts; ++i) dst[i] = consts[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype_code == 0) {
+    err = launch_typed<S, float, KMAX>(K, in, out, aux, code, ny, nx, c, s);
+  } else if (dtype_code == 1) {
+    err = launch_typed<S, double, KMAX>(K, in, out, aux, code, ny, nx, c, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace sweep

@@ -1,0 +1,168 @@
+"""The temporal-blocked stencil sweep of the client models.
+
+Counterpart of ``dl_esm_inf_tpu/ops/sweep.py::make_stencil_sweep``
+without the fused exchange: K applications of a model's one-step
+function per pass over memory, after one halo exchange of depth
+``K * reach``.  :func:`make_sweep` returns ``sweep(state, aux) ->
+state`` for one stacked block; what runs depends only on where the
+tensors lie:
+
+* a CPU tensor runs :func:`stencil_sweep_reference`, the kernels' plain
+  PyTorch version: the model's step applied K times on the whole block
+  (the JAX package's jnp sweep schedule);
+* a CUDA tensor launches the model's hand-written kernel
+  ``csrc/<name>.cu`` (built on the shared skeleton
+  ``csrc/stencil_sweep.cuh``) through a :class:`StencilSweepKernel`, or
+  raises.
+
+Cells within ``K * reach`` of the block edge hold finite values of no
+meaning in both versions (the plain one wraps its shifts around the
+block, the kernel clamps its reads to the block); they are halo or
+padding cells, which the next exchange overwrites or the masks keep
+inert.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: the kernels' ceiling on ring cells per side, K * reach (as the JAX
+#: package's window ring)
+RING = 8
+
+
+def stencil_sweep_reference(step_fn, K: int, state, aux=()):
+    """``step_fn(*state, *aux) -> state`` applied K times (plain
+    PyTorch)."""
+    s = tuple(state)
+    for _ in range(K):
+        s = tuple(step_fn(*s, *aux))
+    return s
+
+
+class StencilSweepKernel:
+    """ctypes wrapper of one client kernel, ``csrc/<name>.cu``.
+
+    The kernel takes ``n_state`` float planes in and out, ``n_aux``
+    float aux planes and, with ``has_code``, the int8 mask code, all
+    contiguous ``(ny, nx)`` CUDA tensors of one float dtype.
+    ``kmax[variant]`` is its ceiling on K.  ``launches`` counts the
+    kernel launches this wrapper has made (and nothing else); callers
+    may reset it."""
+
+    _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+    def __init__(self, name: str, *, n_state: int, n_aux: int = 0,
+                 has_code: bool = False, kmax=(RING,)):
+        self.name = name
+        self.source = f"{name}.cu"
+        self.n_state = n_state
+        self.n_aux = n_aux
+        self.has_code = has_code
+        self.kmax = tuple(kmax)
+        self.launches = 0
+        self._fn = None
+        self._nconsts = None
+
+    def build(self):
+        """Build (once) and bind the library; returns its BuiltLibrary."""
+        from .cuda_build import load_library
+        built = load_library(self.name, (self.source,))
+        if self._fn is None:
+            fn = getattr(built.lib, f"{self.name}_launch")
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            nconst = getattr(built.lib, f"{self.name}_num_consts")
+            nconst.argtypes = []
+            nconst.restype = ctypes.c_int
+            self._nconsts = nconst()
+            self._fn = fn
+        return built
+
+    def _check(self, state, aux, code, K, variant):
+        if len(state) != self.n_state or len(aux) != self.n_aux:
+            raise ValueError(
+                f"{self.name}: expected {self.n_state} state and "
+                f"{self.n_aux} aux planes, got {len(state)} and {len(aux)}")
+        if (code is None) == self.has_code:
+            raise ValueError(f"{self.name}: the mask code is "
+                             f"{'required' if self.has_code else 'not taken'}")
+        if not 0 <= variant < len(self.kmax):
+            raise ValueError(f"{self.name}: no variant {variant}")
+        if not 1 <= K <= self.kmax[variant]:
+            raise ValueError(f"{self.name} takes 1..{self.kmax[variant]} "
+                             f"sub-steps, got {K}")
+        ref = state[0]
+        if ref.device.type != "cuda":
+            raise ValueError(f"{self.name} needs CUDA tensors, got "
+                             f"{ref.device}")
+        if ref.dtype not in self._DTYPE_CODES:
+            raise TypeError(f"{self.name} takes float32/float64 planes, "
+                            f"got {ref.dtype}")
+        if ref.dim() != 2:
+            raise ValueError(f"expected (ly, lx) planes, got "
+                             f"{tuple(ref.shape)}")
+        named = ([(f"state[{i}]", t, ref.dtype) for i, t in enumerate(state)]
+                 + [(f"aux[{i}]", t, ref.dtype) for i, t in enumerate(aux)]
+                 + ([("mask_codes", code, torch.int8)] if self.has_code
+                    else []))
+        for name, t, dt in named:
+            if t.device != ref.device or t.dtype != dt or t.shape != ref.shape:
+                raise ValueError(
+                    f"{name}: expected {dt} {tuple(ref.shape)} on "
+                    f"{ref.device}, got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+
+    def __call__(self, state, aux=(), code=None, *, consts, K: int,
+                 variant: int = 0):
+        """Advance ``state`` by K steps; returns new tensors."""
+        state, aux = tuple(state), tuple(aux)
+        self._check(state, aux, code, K, variant)
+        self.build()
+        if len(consts) != self._nconsts:
+            raise ValueError(f"{self.name}: expected {self._nconsts} "
+                             f"constants, got {len(consts)}")
+        out = tuple(torch.empty_like(s) for s in state)
+
+        def ptrs(ts):
+            return (ctypes.c_void_p * max(len(ts), 1))(
+                *(t.data_ptr() for t in ts))
+        ny, nx = state[0].shape
+        dev = state[0].device
+        err = self._fn(self._DTYPE_CODES[state[0].dtype], K, variant,
+                       ptrs(state), ptrs(out), ptrs(aux),
+                       code.data_ptr() if code is not None else None, ny, nx,
+                       (ctypes.c_double * len(consts))(*consts), len(consts),
+                       torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return out
+
+
+def make_sweep(kernel: StencilSweepKernel, step_fn, *, K: int, consts,
+               prepare, variant: int = 0):
+    """``sweep(state, aux) -> state``: K steps of ``step_fn`` on one
+    stacked block.  ``aux`` holds the kernel's float aux planes and then,
+    if it takes one, the int8 mask code (the JAX sweep's aux);
+    ``prepare(aux)`` turns them into the plain step's trailing
+    arguments (decoded masks)."""
+    consts = [float(c) for c in consts]
+
+    def sweep(state, aux):
+        if state[0].device.type == "cpu":
+            return stencil_sweep_reference(step_fn, K, state, prepare(aux))
+        planes = tuple(aux[:kernel.n_aux])
+        code = aux[kernel.n_aux] if kernel.has_code else None
+        return kernel(state, planes, code, consts=consts, K=K,
+                      variant=variant)
+    return sweep

@@ -214,7 +214,11 @@ def test_port_never_imports_jax():
         "p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 19, mods\n"
+        "for m in ('ops.stencil_sweep', 'models.gravity_wave', "
+        "'models.shallow', 'models.twolayer', 'models.tracer', "
+        "'interop'):\n"
+        "    assert p.__name__ + '.' + m in mods, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'dl_esm_inf_tpu.')) or "
         "k == 'dl_esm_inf_tpu')\n"
