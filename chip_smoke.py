@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port's main paths: the NEMOLite2D
-flagship and the four sweep-engine client models (gravity wave,
-shallow, two-layer, tracer).
+flagship, the four sweep-engine client models (gravity wave, shallow,
+two-layer, tracer), the elliptic-solver path (Helmholtz solver with the
+fused Chebyshev sweep, the semi-implicit model) and the N-layer model.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -10,7 +11,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the five hand-written kernels from
+2. build: compiles the seven hand-written kernels from
    dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, all at
    once (build/torch_kernels/); prints each library's registers and
    spills;
@@ -32,7 +33,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
       benchmark configures it (bench.py measure_client_models): run(n)
       with the model's launch counter reset just before, finiteness,
       kernel vs plain after the run and for one sweep, and times on the
-      card.
+      card;
+7. the fused Chebyshev sweep: kernel vs plain bitwise at float64 and
+   float32 (K = 1..8, 1 and 4 tiles, a land ring with an island, four
+   chained sweeps with scalars that change per sweep), and a fused
+   solve against the plain Chebyshev solve at an equal iteration
+   count; then the main path as bench.py measure_solver configures it
+   (1024^2, lam 50, K = 4, float32): converged, launches = niters / K,
+   solve times on the kernel and the plain path;
+8. the semi-implicit model (scripts/solverbench.py's configuration:
+   1024^2, dt 0.5, depth 10, CG, float32): ms/step, CG iterations per
+   step, mass drift, one Chebyshev step; and a small float64 run on
+   the card against the same run on the CPU;
+9. the N-layer model: kernel vs plain bitwise at float64 and float32
+   (L = 1..4, K = 1..8, 1 and 4 tiles), the numpy golden at float64,
+   and the main path (1024^2, 3 layers, K = 8, float32) with its
+   launch count and times.
 
 The line before the last is the kernel report as JSON; the last line is
 the result as JSON.  Imports nothing of JAX.
@@ -54,13 +70,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tests"))
 
+import dl_esm_inf_tpu_torch as tdl  # noqa: E402
 from dl_esm_inf_tpu_torch.models import gravity_wave as gw  # noqa: E402
 from dl_esm_inf_tpu_torch.models import nemolite2d as nl  # noqa: E402
+from dl_esm_inf_tpu_torch.models import nlayer as nlm  # noqa: E402
+from dl_esm_inf_tpu_torch.models import semi_implicit as si  # noqa: E402
 from dl_esm_inf_tpu_torch.models import shallow as sh  # noqa: E402
 from dl_esm_inf_tpu_torch.models import tracer as tr  # noqa: E402
 from dl_esm_inf_tpu_torch.models import twolayer as tl  # noqa: E402
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import fused_step as fs  # noqa: E402
+from dl_esm_inf_tpu_torch.ops import solvers as so  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
+    exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
     stencil_sweep_reference)
 from nemolite2d_golden import golden_run  # noqa: E402
@@ -95,7 +117,8 @@ def phase_device() -> str:
 
 
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
-           tl.twolayer_sweep, tr.tracer_sweep)
+           tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
+           nlm.nlayer_sweep)
 
 
 def phase_build() -> None:
@@ -515,6 +538,352 @@ def phase_client_main(c: Client) -> dict:
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
+# --- the elliptic-solver path ---------------------------------------------
+
+def _solver_grid(n, ndom, K, dtype, island=True):
+    """A walled n x n grid on the card; with ``island``, the land block
+    of tests/test_solvers.py's fused-sweep test, scaled to n."""
+    tmask = gw.default_tmask(n, n)
+    if island:
+        tmask[n * 5 // 16: n * 15 // 32, n * 25 // 64: n * 5 // 8] = 0
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
+                 device=DEV)
+    g.decompose(n, n, ndomains=ndom, halo_width=K)
+    tdl.grid_init(g, 1.0, 1.0, tmask)
+    return g, tmask
+
+
+def _rhs(g, tmask, seed):
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal(tmask.shape) * (tmask == 1)
+    return tdl.Field(g, tdl.T_POINTS, init_global_data=b).data
+
+
+def _internal_max_abs(g, a, b) -> float:
+    inner = g.region_mask(dtype=torch.float64).bool()
+    return max(float((x - y).abs()[inner].max()) for x, y in zip(a, b))
+
+
+def phase_cheb_parity() -> None:
+    """The kernel against its plain version, four chained sweeps from a
+    random (x, r, d) with the solver's recurrence scalars, which differ
+    from sweep to sweep: bitwise."""
+    n, lam_x, lam_y, sweeps = 128, 6.0, 4.0, 4
+    worst, cases = 0.0, 0
+    for dtype in (torch.float64, torch.float32):
+        for ndom in (1, 4):
+            for K in range(1, 9):
+                g, tmask = _solver_grid(n, ndom, K, dtype)
+                s = so.HelmholtzSolver(g, lam_x, lam_y, method="chebyshev",
+                                       steps_per_exchange=K, fused=True)
+                sweep = s._make_cheb_sweep(K)
+                prep = so.cheb_prepare(s._codes, lam_x, lam_y, dtype)
+                exchK = exchange_multi_fn(g.halo_spec, depth=K)
+                rng = np.random.default_rng(K + 10 * ndom)
+                ker = tuple(torch.from_numpy(rng.standard_normal(
+                    g.array_shape)).to(DEV, dtype) for _ in range(3))
+                ref = ker
+                scal = so.chebyshev_scalars(*s._lam_bounds, sweeps * K)
+                before = so.helmholtz_cheb_sweep.launches
+                for j in range(sweeps):
+                    sc = scal[j * K:(j + 1) * K]
+                    ker = sweep(*exchK(ker), sc)
+                    ref = stencil_sweep_reference(
+                        so.cheb_step, K, exchK(ref), prep,
+                        scalars=[tuple(r) for r in sc])
+                torch.cuda.synchronize()
+                if so.helmholtz_cheb_sweep.launches - before != sweeps:
+                    raise AssertionError("cheb parity did not go through "
+                                         "the kernel")
+                d = _internal_max_abs(g, ker, ref)
+                if d != 0.0 or not all(torch.isfinite(t).all() for t in ker):
+                    raise AssertionError(
+                        f"cheb kernel vs plain {dtype} ndomains={ndom} "
+                        f"K={K}: max abs {d:.3e}, expected bitwise")
+                worst, cases = max(worst, d), cases + 1
+    print(f"helmholtz_cheb_sweep parity: kernel vs plain {n}^2 land ring "
+          f"+ island, {cases} cases (f64 and f32, K=1..8, ndomains 1 and "
+          f"4, {sweeps} sweeps, scalars per sweep): max abs {worst:.3e} "
+          f"(bitwise required)", flush=True)
+    # a fused solve against the plain Chebyshev solve, equal iterations
+    for dtype in (torch.float64, torch.float32):
+        g, tmask = _solver_grid(n, 4, 4, dtype)
+        b = _rhs(g, tmask, 5)
+        xs, infos = [], []
+        for fused in (True, False):
+            s = so.HelmholtzSolver(g, lam_x, lam_y, method="chebyshev",
+                                   steps_per_exchange=4, fused=fused,
+                                   maxiter=64, tol=1e-30)
+            x, info = s.solve(b)
+            xs.append(x)
+            infos.append(info)
+        if [i["iterations"] for i in infos] != [64, 64]:
+            raise AssertionError(f"iteration counts {infos}")
+        d = _internal_max_abs(g, (xs[0],), (xs[1],))
+        print(f"helmholtz_cheb_sweep solve {dtype}: fused vs plain "
+              f"Chebyshev, {n}^2, 4 tiles, K=4, 64 iterations each: max "
+              f"abs diff {d:.3e}; rel_res {infos[0]['rel_res']:.3e} vs "
+              f"{infos[1]['rel_res']:.3e}", flush=True)
+
+
+def phase_cheb_main() -> dict:
+    """bench.py measure_solver's configuration on the card."""
+    N, K, lam = MAIN_SIZE, 4, 50.0
+    g, tmask = _solver_grid(N, 1, K, None, island=False)
+    if g.dtype != torch.float32:
+        raise AssertionError(f"expected the float32 default on CUDA, got "
+                             f"{g.dtype}")
+    b = _rhs(g, tmask, 0)
+    s = so.HelmholtzSolver(g, lam, lam, method="chebyshev",
+                           steps_per_exchange=K, fused=True)
+    sp = so.HelmholtzSolver(g, lam, lam, method="chebyshev",
+                            steps_per_exchange=K)
+    kern = so.helmholtz_cheb_sweep
+    torch.cuda.synchronize()
+    kern.launches = 0
+    x, info = s.solve(b)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    niters = s.niters()
+    if not info["converged"]:
+        raise AssertionError(f"fused Chebyshev did not converge: {info}")
+    if launches != niters // K or info["iterations"] != niters:
+        raise AssertionError(f"fused solve launched {launches} sweeps for "
+                             f"{info['iterations']} iterations, K={K}")
+    if tuple(x.shape) != g.array_shape or not torch.isfinite(x).all():
+        raise AssertionError("fused solve: solution is not finite")
+    xp_, infop = sp.solve(b)
+    d_solve = _internal_max_abs(g, (x,), (xp_,))
+    if not infop["converged"] or not d_solve <= TOL_F32 * float(
+            xp_.abs().max()):
+        raise AssertionError(f"fused vs plain solve {d_solve:.3e}, {infop}")
+
+    # one sweep of the wrapper against its plain version at the main
+    # path's shapes, on a mid-solve state
+    sweep = s._make_cheb_sweep(K)
+    prep = so.cheb_prepare(s._codes, lam, lam, g.dtype)
+    sc = so.chebyshev_scalars(*s._lam_bounds, niters)[:K]
+    state = (x, b - x, 0.01 * b)
+    ker = sweep(*state, sc)
+    ref = stencil_sweep_reference(so.cheb_step, K, state, prep,
+                                  scalars=[tuple(r) for r in sc])
+    max_abs = _internal_max_abs(g, ker, ref)
+    if max_abs != 0.0:
+        raise AssertionError(f"cheb one sweep kernel vs plain f32: "
+                             f"{max_abs:.3e}, expected bitwise")
+    ms = _time_ms(lambda: sweep(*state, sc), 200)
+    plain_ms = _time_ms(lambda: stencil_sweep_reference(
+        so.cheb_step, K, state, prep, scalars=[tuple(r) for r in sc]), 20)
+    reps = [0]
+
+    def solve_varied(solver):
+        reps[0] += 1
+        solver.solve(b * (1.0 + 1e-6 * reps[0]))
+    solve_ms = _time_ms(lambda: solve_varied(s), 10)
+    solve_plain_ms = _time_ms(lambda: solve_varied(sp), 3)
+    print(f"helmholtz_cheb_sweep main f32 {N}^2 lam={lam} K={K}: "
+          f"iterations {info['iterations']}, rel_res {info['rel_res']:.3e} "
+          f"(tol {s.tol:.3e}), launches {launches} (= {niters}/{K}); fused "
+          f"vs plain solve max abs {d_solve:.3e}", flush=True)
+    print(f"helmholtz_cheb_sweep timing f32 {N}^2 K={K}: solve on the "
+          f"kernel path {solve_ms:.3f} ms, on the plain path "
+          f"{solve_plain_ms:.3f} ms (varied rhs); one sweep: kernel "
+          f"{ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/iteration), plain "
+          f"{plain_ms * 1e3:.2f} us", flush=True)
+    return {"name": "helmholtz_cheb_sweep", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/csrc/helmholtz_cheb_sweep.cu",
+            "replaces": "dl_esm_inf_tpu/ops/solvers.py:553",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def _semi_step_ms(m, nsteps: int) -> tuple[float, dict]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = m.run(nsteps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / nsteps, info
+
+
+def phase_semi_implicit() -> None:
+    """scripts/solverbench.py's semi-implicit configuration on the card,
+    and a small float64 run on the card against the CPU."""
+    N = MAIN_SIZE
+    m = si.build(N, N, dt=0.5, depth=10.0, device=DEV)
+    if m.grid.dtype != torch.float32:
+        raise AssertionError(f"expected the float32 default on CUDA, got "
+                             f"{m.grid.dtype}")
+    m.set_initial_eta(gaussian_eta(N, N, amp=0.5))
+    m.run(1)
+    m0 = m.mass()
+    ms_step, info = _semi_step_ms(m, 5)
+    drift = abs(m.mass() - m0) / abs(m0)
+    for f in (m.eta, m.u, m.v):
+        if not torch.isfinite(f.data).all():
+            raise AssertionError("semi-implicit state is not finite")
+    if not drift < 1e-3:
+        raise AssertionError(f"semi-implicit mass drift {drift:.3e}")
+    mc = si.build(N, N, dt=0.5, depth=10.0, solver="chebyshev", device=DEV)
+    mc.set_initial_eta(gaussian_eta(N, N, amp=0.5))
+    mc.run(1)
+    ms_cheb, info_c = _semi_step_ms(mc, 1)
+    print(f"semi_implicit main f32 {N}^2 dt=0.5 depth=10: CG "
+          f"{ms_step:.2f} ms/step (host clock, 5 steps), "
+          f"{info['cg_iterations_per_step']:.1f} CG iterations/step, mass "
+          f"drift {drift:.2e}; Chebyshev {ms_cheb:.2f} ms/step, "
+          f"{info_c['cg_iterations_per_step']:.0f} iterations/step",
+          flush=True)
+    # the card against the CPU, float64, CG and Chebyshev, open north
+    n, steps, worst = 48, 10, 0.0
+    for kw in (dict(), dict(solver="chebyshev"),
+               dict(open_north=True, bc_amp=0.05, bc_omega=0.2)):
+        got = []
+        for dev in (DEV, "cpu"):
+            mm = si.build(n, n, ndomains=4, dt=1.0, depth=10.0, tol=1e-12,
+                          dtype=torch.float64, device=dev, **kw)
+            mm.set_initial_eta(gaussian_eta(n, n, amp=0.6))
+            mm.run(steps)
+            got.append(mm.gather())
+        d = _rel_diff(got[0], got[1])
+        if not d <= 1e-9:
+            raise AssertionError(f"semi-implicit card vs CPU {kw}: {d:.3e}")
+        worst = max(worst, d)
+    print(f"semi_implicit f64 {n}^2, 4 tiles, {steps} steps (CG, Chebyshev,"
+          f" open north): card vs CPU max rel diff {worst:.3e} (tol 1e-9)",
+          flush=True)
+
+
+# --- the N-layer model -----------------------------------------------------
+
+def _nlayer_eta0(n, layers):
+    return np.stack([gaussian_eta(n, n, amp=0.5 * (k + 1)) * (-1) ** k
+                     for k in range(layers)])
+
+
+def phase_nlayer_parity() -> None:
+    n, steps = 64, 19
+    worst, cases = 0.0, 0
+    for dtype in (torch.float64, torch.float32):
+        for L in range(1, nlm.KERNEL_MAX_LAYERS + 1):
+            for ndom in (1, 4):
+                for K in range(1, 9):
+                    ms = [nlm.build(n, n, ndomains=ndom, dt=0.01, layers=L,
+                                    fused=f, steps_per_sweep=K, dtype=dtype,
+                                    device=DEV) for f in (True, False)]
+                    for m in ms:
+                        m.set_initial(_nlayer_eta0(n, L))
+                    before = nlm.nlayer_sweep.launches
+                    ms[0].run(steps)
+                    if (nlm.nlayer_sweep.launches - before
+                            != steps // K + steps % K):
+                        raise AssertionError(f"nlayer L={L} K={K}: the fused"
+                                             " run did not go through the "
+                                             "kernel")
+                    ms[1].run(steps)
+                    ga, gb = ms[0].gather(), ms[1].gather()
+                    d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
+                    if d != 0.0:
+                        raise AssertionError(
+                            f"nlayer kernel vs plain {dtype} L={L} "
+                            f"ndomains={ndom} K={K}: {d:.3e}, expected "
+                            "bitwise")
+                    worst, cases = max(worst, d), cases + 1
+    print(f"nlayer_sweep parity: kernel vs plain {n}^2, {cases} cases (f64 "
+          f"and f32, L=1..{nlm.KERNEL_MAX_LAYERS}, K=1..8, ndomains 1 and "
+          f"4), {steps} steps: max abs {worst:.3e} (bitwise required)",
+          flush=True)
+
+
+def phase_nlayer_golden() -> None:
+    """tests/test_nlayer.py's golden (48x40, 4 domains, dt 0.01, 60
+    steps, rtol 1e-11, atol 1e-13) on the kernel at K = 8."""
+    gnx, gny, steps, report = 48, 40, 60, []
+    for L in (1, 3, 4):
+        e0 = np.zeros((L, gny, gnx))
+        e0[0] = gaussian_eta(gnx, gny, amp=0.5)
+        if L > 1:
+            e0[1] = -gaussian_eta(gnx, gny, amp=2.0)
+        m = nlm.build(gnx, gny, ndomains=4, dt=0.01, layers=L, fused=True,
+                      steps_per_sweep=8, dtype=torch.float64, device=DEV)
+        m.set_initial(e0)
+        before = nlm.nlayer_sweep.launches
+        m.run(steps)
+        if nlm.nlayer_sweep.launches - before != steps // 8 + steps % 8:
+            raise AssertionError("nlayer golden did not go through the "
+                                 "kernel")
+        want = nlm.golden_reference(e0, nlm.default_tmask(gnx, gny), 1.0,
+                                    1.0, 0.01, steps)
+        got = m.gather()
+        err = 0.0
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-11,
+                                       atol=1e-13, err_msg=f"L={L} {k}")
+            err = max(err, float(np.abs(got[k] - want[k]).max()))
+        report.append(f"L={L} max abs {err:.2e}")
+    print(f"nlayer_sweep golden f64 {gnx}x{gny} ndomains=4 K=8 {steps} "
+          f"steps: " + "; ".join(report) + " (rtol 1e-11, atol 1e-13)",
+          flush=True)
+
+
+def phase_nlayer_main() -> dict:
+    N, K, L, n = MAIN_SIZE, 8, 3, 404
+    kern = nlm.nlayer_sweep
+    m = nlm.build(N, N, layers=L, fused=True, steps_per_sweep=K, device=DEV)
+    if m.grid.dtype != torch.float32:
+        raise AssertionError(f"expected the float32 default on CUDA, got "
+                             f"{m.grid.dtype}")
+    m.set_initial(_nlayer_eta0(N, L))
+    torch.cuda.synchronize()
+    kern.launches = 0
+    m.run(n)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    if launches != n // K + n % K:
+        raise AssertionError(f"nlayer main path launched the kernel "
+                             f"{launches} times, expected {n // K + n % K}")
+    for f in (m.eta, m.u, m.v):
+        if (tuple(f.data.shape) != (L,) + m.grid.array_shape
+                or not torch.isfinite(f.data).all()):
+            raise AssertionError("nlayer main path state is not finite")
+    mp = nlm.build(N, N, layers=L, fused=False, steps_per_sweep=K,
+                   device=DEV)
+    mp.set_initial(_nlayer_eta0(N, L))
+    mp.run(n)
+    d_run = _rel_diff(m.gather(), mp.gather())
+    if not d_run <= TOL_F32:
+        raise AssertionError(f"nlayer kernel vs plain f32 after {n} steps: "
+                             f"{d_run:.3e} > {TOL_F32}")
+    flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    sweep = m._make_sweep(K)
+    prep = m._prepare(m._sweep_aux)
+    ker = sweep(flat, m._sweep_aux)
+    ref = stencil_sweep_reference(m._sweep_step, K, flat, prep)
+    max_abs = _internal_max_abs(m.grid, ker, ref)
+    if max_abs != 0.0:
+        raise AssertionError(f"nlayer one sweep kernel vs plain f32: "
+                             f"{max_abs:.3e}, expected bitwise")
+    ms = _time_ms(lambda: sweep(flat, m._sweep_aux), 200)
+    plain_ms = _time_ms(lambda: stencil_sweep_reference(
+        m._sweep_step, K, flat, prep), 20)
+    us_k = _run_step_us(m, 50 * K, 5)
+    us_p = _run_step_us(mp, 5 * K, 3)
+    print(f"nlayer_sweep main f32 {N}^2 L={L} K={K}: run({n}) launches="
+          f"{launches} (= {n}//{K} + {n}%{K}); finite; kernel vs plain after "
+          f"{n} steps rel {d_run:.3e}, one sweep max abs {max_abs:.3e}",
+          flush=True)
+    print(f"nlayer_sweep timing f32 {N}^2 L={L} K={K}: run on the kernel "
+          f"path {us_k:.2f} us/step ({N * N / us_k:.0f} Mpt/s), on the plain "
+          f"path {us_p:.2f} us/step; one sweep: kernel {ms * 1e3:.2f} us "
+          f"({ms * 1e3 / K:.2f} us/step), plain {plain_ms * 1e3:.2f} us",
+          flush=True)
+    return {"name": "nlayer_sweep", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/csrc/nlayer_sweep.cu",
+            "replaces": "dl_esm_inf_tpu/models/nlayer.py:178",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -525,6 +894,12 @@ def main() -> None:
         phase_client_parity(c)
         phase_client_golden(c)
         kernels.append(phase_client_main(c))
+    phase_cheb_parity()
+    kernels.append(phase_cheb_main())
+    phase_semi_implicit()
+    phase_nlayer_parity()
+    phase_nlayer_golden()
+    kernels.append(phase_nlayer_main())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

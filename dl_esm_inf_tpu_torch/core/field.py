@@ -6,8 +6,10 @@ grid's device: every tile with its halo ring, zero-filled on creation.
 The staggering truth table (which points are the field's *internal*
 region) is :func:`staggering_offsets`, as in the JAX package.
 
-This slice carries what the NEMOLite2D flagship uses: data get/set,
-the plain halo exchange, checksum, gather and the internal mask.
+This slice carries what the models use: data get/set, the plain halo
+exchange, checksum, gather, the internal mask and multi-level fields
+(``levels=N``: data of shape ``(N, ny, nx)`` whose level axis rides one
+halo exchange, checksum and gather).
 """
 from __future__ import annotations
 
@@ -34,34 +36,55 @@ def staggering_offsets(grid: Grid, point) -> tuple[int, int]:
 
 
 class Field:
-    """A real 2D field bound to a grid-point type (reference r2d_field)."""
+    """A real field bound to a grid-point type (reference r2d_field).
+
+    ``levels=None`` gives the reference's 2D field; ``levels=N`` a
+    multi-level field of shape ``(N, ny, nx)``: the level axis is a
+    leading dim of the same stacked tensor, carried whole through the
+    exchange, the checksum and the gather."""
 
     def __init__(self, grid: Grid, grid_points, init_global_data=None,
-                 dtype=None):
+                 dtype=None, levels: int | None = None):
         if grid.decomp is None or not grid._initialised:
             raise RuntimeError(
                 "grid must be decomposed and initialised before creating "
                 "fields (reference requires grid_init first)")
+        if levels is not None and levels < 1:
+            raise ValueError(f"levels must be >= 1, got {levels}")
         self.grid = grid
         self.defined_on = GridPoints(grid_points)
         self.dtype = kinds.as_dtype(dtype) if dtype is not None else grid.dtype
         self._off = staggering_offsets(grid, self.defined_on)
+        self.levels = None if levels is None else int(levels)
         d = grid.decomp
         if init_global_data is not None:
             g = np.asarray(init_global_data)
-            if g.shape != (d.global_ny, d.global_nx):
+            want = self._lead + (d.global_ny, d.global_nx)
+            if g.shape != want:
                 raise ValueError(
-                    f"init_global_data shape {g.shape} != "
-                    f"{(d.global_ny, d.global_nx)}")
-            self.set_data(layout.stack_global(
-                d, g, mode="zeros", dtype=kinds.np_dtype(self.dtype)))
+                    f"init_global_data shape {g.shape} != {want}")
+            self.set_data(self._stack(g))
         else:
-            self.data = torch.zeros(grid.array_shape, dtype=self.dtype,
-                                    device=grid.device)
+            self.data = torch.zeros(self._lead + grid.array_shape,
+                                    dtype=self.dtype, device=grid.device)
+
+    @property
+    def _lead(self) -> tuple:
+        return () if self.levels is None else (self.levels,)
+
+    def _stack(self, g: np.ndarray) -> np.ndarray:
+        """Host scatter of global data (levels first) with zero halos."""
+        d, npdt = self.grid.decomp, kinds.np_dtype(self.dtype)
+        if self.levels is None:
+            return layout.stack_global(d, g, mode="zeros", dtype=npdt)
+        return np.stack([layout.stack_global(d, g[k], mode="zeros",
+                                             dtype=npdt)
+                         for k in range(self.levels)])
 
     @property
     def internal_mask(self) -> torch.Tensor:
-        """Mask selecting in-domain internal points of every tile."""
+        """Mask selecting in-domain internal points of every tile; 2D,
+        it broadcasts over the levels of a multi-level field."""
         if self.defined_on == ALL_POINTS:
             return torch.ones(self.grid.array_shape, dtype=self.dtype,
                               device=self.grid.device)
@@ -70,18 +93,20 @@ class Field:
     # --- communication ------------------------------------------------------
     def halo_exchange(self, depth: int = 1) -> None:
         """Refresh this field's halo ring to ``depth`` (<= the halo
-        width).  Only the plain transport exists in the port so far."""
+        width), every level at once.  Only the plain transport exists
+        in the port so far."""
         self.data = halo_mod.exchange(self.data, self.grid.halo_spec, depth)
 
     # --- reductions / gather -------------------------------------------------
     def checksum(self) -> float:
-        """Sum of |internal points| over all tiles (reference
+        """Sum of |internal points| over all tiles and levels (reference
         fld_checksum), accumulated in the checksum dtype."""
         return masked_sum(self.data.abs(), self.internal_mask)
 
     def gather_inner_data(self) -> np.ndarray:
-        """The global (global_ny, global_nx) array of internal points as
-        a host array (reference gather_inner_data)."""
+        """The global ``(global_ny, global_nx)`` array of internal points
+        (``(levels, global_ny, global_nx)`` for a multi-level field) as a
+        host array (reference gather_inner_data)."""
         return gather_to_host(layout.unstack_internal(self.grid.decomp,
                                                       self.data))
 
@@ -94,9 +119,10 @@ class Field:
         """Replace the stacked array from host data (reference set_data)."""
         arr = (array if isinstance(array, torch.Tensor)
                else torch.as_tensor(np.asarray(array)))
-        if tuple(arr.shape) != self.grid.array_shape:
+        want = self._lead + self.grid.array_shape
+        if tuple(arr.shape) != want:
             raise ValueError(
-                f"set_data expects stacked shape {self.grid.array_shape}, "
+                f"set_data expects stacked shape {want}, "
                 f"got {tuple(arr.shape)}")
         self.data = arr.to(device=self.grid.device, dtype=self.dtype,
                            memory_format=torch.contiguous_format, copy=True)

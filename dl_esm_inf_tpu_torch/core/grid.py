@@ -10,7 +10,8 @@ Differences from the JAX package: there is no device mesh and no
 sharding.  A grid lives on ONE explicit ``torch.device``, and all
 shards of its decomposition are tiles of one stacked tensor on it.
 The per-point (curvilinear) scale factors and the lazily built metric
-arrays come in a later slice.
+arrays come in a later slice; :meth:`Grid.scatter_exchanged` brings
+global coefficient arrays (solver couplings, face depths) in.
 """
 from __future__ import annotations
 
@@ -150,6 +151,21 @@ class Grid:
         self._tmask_np = stacked.cpu().numpy()
         self._initialised = True
         self._region_masks.clear()
+
+    def scatter_exchanged(self, global_arr, mode: str = "edge",
+                          dtype=None) -> torch.Tensor:
+        """Scatter a global ``(gny, gnx)`` array to the stacked layout
+        and halo-exchange it to full depth, so every halo cell carries
+        its source cell's value (seam- and wrap-correct).  The one way
+        coefficient-like operands enter the step programs (solver
+        couplings, face depths, boundary masks)."""
+        from ..parallel import halo as halo_mod
+        dt = kinds.as_dtype(dtype) if dtype is not None else self.dtype
+        stacked = torch.from_numpy(layout.stack_global(
+            self.decomp, np.asarray(global_arr), mode=mode,
+            dtype=kinds.np_dtype(dt))).to(device=self.device, dtype=dt)
+        return halo_mod.exchange(stacked, self.halo_spec,
+                                 depth=self.decomp.halo)
 
     def global_tmask(self) -> np.ndarray:
         """The global (global_ny, global_nx) T mask as a host array."""

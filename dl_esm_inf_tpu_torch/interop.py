@@ -23,9 +23,11 @@ def load_reference_state(model, arrays: dict, istep0: int = 0) -> None:
     """Load a JAX model's gathered state into the port's ``model``.
 
     ``arrays`` holds the global internal state fields under the names
-    ``model.gather()`` uses (``(gny, gnx)`` numpy arrays, e.g. from the
-    JAX model's ``gather()``): ``sshn/un/vn`` for NEMOLite2D,
-    ``eta/u/v`` for the gravity-wave and shallow models,
+    ``model.gather()`` uses (``(gny, gnx)`` numpy arrays, and
+    ``(layers, gny, gnx)`` for the multi-level fields of the N-layer
+    model, e.g. from the JAX model's ``gather()``): ``sshn/un/vn`` for
+    NEMOLite2D, ``eta/u/v`` for the gravity-wave, shallow,
+    semi-implicit and N-layer models,
     ``eta1/eta2/u1/v1/u2/v2`` for the two-layer model, ``c`` for the
     tracer.  Optionally it also holds the inputs the state was computed
     with: ``tmask`` (global T mask), ``depth`` (scalar or global T-point
@@ -35,7 +37,8 @@ def load_reference_state(model, arrays: dict, istep0: int = 0) -> None:
     would belong to different problems; a mismatch raises
     ``ValueError``.  ``istep0`` is the number of steps the state has
     taken, for the models with a clock (it sets the model time of the
-    NEMOLite2D tidal forcing)."""
+    NEMOLite2D tidal forcing and of the semi-implicit model's open
+    boundary)."""
     grid = model.grid
     d = grid.decomp
     shape = (d.global_ny, d.global_nx)
@@ -69,10 +72,11 @@ def load_reference_state(model, arrays: dict, istep0: int = 0) -> None:
         raise ValueError(f"missing state fields {missing}")
     for name, field in fields.items():
         a = np.asarray(arrays[name])
-        if a.shape != shape:
-            raise ValueError(f"{name}: expected global internal {shape}, "
+        want = field._lead + shape
+        if a.shape != want:
+            raise ValueError(f"{name}: expected global internal {want}, "
                              f"got {a.shape}")
-        field.set_data(layout.stack_global(d, a, mode="zeros", dtype=npdt))
+        field.set_data(field._stack(a))
         if d.halo:
             field.halo_exchange(d.halo)
     if hasattr(model, "_istep0"):

@@ -1,0 +1,250 @@
+"""N-layer linear stacked shallow-water model (multi-level client).
+
+Counterpart of ``dl_esm_inf_tpu/models/nlayer.py``: the two-layer model
+generalised to any number of stacked fluid layers, on multi-level
+fields (``Field(levels=N)``) whose level axis rides one halo exchange
+per step.
+
+Linearised layered equations (flat bottom, f=0, forward-backward),
+``eta[k]`` the displacement of the interface ABOVE layer k (eta[0] is
+the free surface), ``H[k]`` the rest thicknesses, reduced gravities
+``gp[k]`` across each interior interface:
+
+    P[k]      = g*eta[0] + sum_{j=1..k} gp[j]*eta[j]   (cumsum over k)
+    du[k]/dt  = -dP[k]/dx,   dv[k]/dt = -dP[k]/dy      (on U/V faces)
+    deta[k]/dt = -sum_{j=k..N-1} H[j]*div(u[j])        (reverse cumsum)
+
+For N=2 this is models/twolayer.py.  ``build(fused=True)`` advances K
+steps per depth-K exchange: the 3N level planes are flattened once
+around the sweep loop onto the sweep's state, through the hand-written
+kernel ``csrc/nlayer_sweep.cu`` on a CUDA grid (1 to
+:data:`KERNEL_MAX_LAYERS` layers) and through its plain version
+(:meth:`NLayerModel._layer_step` K times) on the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.constants import (ARAKAWA_C, BC_EXTERNAL, BC_NONE, OFFSET_NE,
+                              T_POINTS, U_POINTS, V_POINTS)
+from ..core.field import Field
+from ..core.grid import Grid, grid_init
+from ..ops import stencils as st
+from ..ops.fastpath import SweepClient, fast_path_grid_args
+from ..ops.stencil_sweep import RING, StencilSweepKernel
+from .gravity_wave import (default_tmask, gaussian_eta,  # noqa: F401
+                           wet_update_masks)
+
+#: the layer counts the CUDA kernel is built for (f64, K=8, 4 layers
+#: stage 12 planes of 48x48 + the code: 218 KiB of the 227 KiB a block
+#: may use)
+KERNEL_MAX_LAYERS = 4
+
+#: the process's one wrapper of the N-layer sweep kernel; variant
+#: ``L - 1`` takes L layers (3L state planes)
+nlayer_sweep = StencilSweepKernel(
+    "nlayer_sweep", has_code=True,
+    n_state=tuple(3 * L for L in range(1, KERNEL_MAX_LAYERS + 1)),
+    kmax=(RING,) * KERNEL_MAX_LAYERS)
+
+
+class NLayerModel(SweepClient):
+    """eta/u/v as (layers, ny, nx) multi-level fields, advanced eagerly."""
+
+    sweep_kernel = nlayer_sweep
+    _fields = ("eta", "u", "v")
+
+    def __init__(self, grid: Grid, dt: float, layers: int = 3,
+                 g: float = 9.81, gp=0.02, thickness=None):
+        if layers < 1:
+            raise ValueError(f"layers must be >= 1, got {layers}")
+        self.grid = grid
+        self.layers = L = int(layers)
+        self.dt, self.g = float(dt), float(g)
+        gp = np.broadcast_to(np.asarray(gp, np.float64),
+                             (max(L - 1, 1),)).copy()
+        #: pressure weights per interface: g above layer 0, reduced
+        #: gravities across the interior interfaces
+        self._pw = np.concatenate(([g], gp[: L - 1]))
+        if thickness is None:
+            thickness = np.full(L, 100.0 / L)
+        self._H = np.broadcast_to(np.asarray(thickness, np.float64),
+                                  (L,)).copy()
+        if np.any(self._H <= 0):
+            raise ValueError("layer thicknesses must be positive")
+
+        self.eta = Field(grid, T_POINTS, levels=L)
+        self.u = Field(grid, U_POINTS, levels=L)
+        self.v = Field(grid, V_POINTS, levels=L)
+
+        self._t_upd, self._u_wet, self._v_wet = wet_update_masks(
+            grid, grid.dtype)
+        self._mask_codes = st.pack_mask_bits(
+            (self._t_upd, self._u_wet, self._v_wet)).contiguous()
+        self._step_aux = (self._t_upd, self._u_wet, self._v_wet)
+        self._sweep_aux = (self._mask_codes,)
+        self._variant = L - 1
+        self._init_fast_path()
+
+    # ------------------------------------------------------------------
+    def set_initial(self, eta_global=None) -> None:
+        """``eta_global``: (layers, gny, gnx) interface displacements."""
+        if eta_global is None:
+            return
+        g = np.asarray(eta_global)
+        d = self.grid.decomp
+        want = (self.layers, d.global_ny, d.global_nx)
+        if g.shape != want:
+            raise ValueError(
+                f"set_initial expects eta of shape {want}, got {g.shape}")
+        self.eta.set_data(self.eta._stack(g))
+        self.eta.halo_exchange(1)
+
+    # ------------------------------------------------------------------
+    def _step_math(self, eta, u, v, t_upd, u_wet, v_wet):
+        """One forward-backward step on (layers, ly, lx) blocks; the
+        level couplings are cumulative sums along the level axis."""
+        dt = self.dt
+        dx, dy = self.grid.dx, self.grid.dy
+        pw = torch.as_tensor(self._pw, dtype=eta.dtype,
+                             device=eta.device)[:, None, None]
+        H = torch.as_tensor(self._H, dtype=eta.dtype,
+                            device=eta.device)[:, None, None]
+        # layer pressures: cumulative sum down the stack
+        p = torch.cumsum(pw * eta, dim=-3)
+        un = (u - dt * st.ddx(p, dx)) * u_wet
+        vn = (v - dt * st.ddy(p, dy)) * v_wet
+        div = st.ddx_back(un, dx) + st.ddy_back(vn, dy)
+        # each interface moves with the transport of every layer below
+        # it: reverse cumulative sum
+        flux = torch.flip(torch.cumsum(torch.flip(H * div, (-3,)), dim=-3),
+                          (-3,))
+        etan = torch.where(t_upd > 0, eta - dt * flux, eta)
+        return etan, un, vn
+
+    def _layer_step(self, etas, us, vs, t_upd, u_wet, v_wet):
+        """The same step on per-layer 2D planes (the sweep kernel's form:
+        a Python unroll over layers, no level axis)."""
+        L = self.layers
+        dt = self.dt
+        dx, dy = self.grid.dx, self.grid.dy
+        pk = None
+        new_us, new_vs, divs = [], [], []
+        for k in range(L):
+            contrib = float(self._pw[k]) * etas[k]
+            pk = contrib if pk is None else pk + contrib
+            un = (us[k] - dt * st.ddx(pk, dx)) * u_wet
+            vn = (vs[k] - dt * st.ddy(pk, dy)) * v_wet
+            new_us.append(un)
+            new_vs.append(vn)
+            divs.append(st.ddx_back(un, dx) + st.ddy_back(vn, dy))
+        acc = None
+        new_etas = [None] * L
+        for k in range(L - 1, -1, -1):
+            contrib = float(self._H[k]) * divs[k]
+            acc = contrib if acc is None else acc + contrib
+            new_etas[k] = torch.where(t_upd > 0, etas[k] - dt * acc, etas[k])
+        return tuple(new_etas) + tuple(new_us) + tuple(new_vs)
+
+    # ------------------------------------------------------------------
+    def enable_fast_path(self, steps_per_sweep: int = 1) -> None:
+        """Switch to the fused 3L-plane sweep (the JAX package's
+        ``enable_pallas``); needs ``halo_width >= K``.  On a CUDA grid
+        the kernel takes 1..KERNEL_MAX_LAYERS layers; more raise here,
+        and nothing falls back to the plain version."""
+        if (self.grid.device.type != "cpu"
+                and self.layers > KERNEL_MAX_LAYERS):
+            raise ValueError(
+                f"the CUDA N-layer sweep takes 1..{KERNEL_MAX_LAYERS} "
+                f"layers, got {self.layers}")
+        super().enable_fast_path(steps_per_sweep)
+
+    def _sweep_step(self, *planes):
+        """:meth:`_layer_step` on the sweep's flat state, the 3L planes
+        (etas, us, vs) followed by the decoded masks: the kernel's plain
+        version is this step K times."""
+        L = self.layers
+        return self._layer_step(planes[:L], planes[L:2 * L],
+                                planes[2 * L:3 * L], *planes[3 * L:])
+
+    def _prepare(self, aux):
+        return st.unpack_mask_bits(aux[0], 3, self.grid.dtype)
+
+    def kernel_constants(self) -> list[float]:
+        """The kernel's scalars: dt, dx, dy, then the pressure weights
+        and thicknesses, zero-padded to KERNEL_MAX_LAYERS each."""
+        pw = np.zeros(KERNEL_MAX_LAYERS)
+        H = np.zeros(KERNEL_MAX_LAYERS)
+        n = min(self.layers, KERNEL_MAX_LAYERS)
+        pw[:n], H[:n] = self._pw[:n], self._H[:n]
+        return [self.dt, self.grid.dx, self.grid.dy, *pw.tolist(),
+                *H.tolist()]
+
+    def _to_planes(self, state):
+        """(eta, u, v) level tensors -> the 3L planes (etas, us, vs)."""
+        return tuple(f[k] for f in state for k in range(self.layers))
+
+    def _from_planes(self, planes):
+        L = self.layers
+        return tuple(torch.stack(planes[i * L:(i + 1) * L])
+                     for i in range(3))
+
+    def checksums(self) -> dict:
+        return {"eta": self.eta.checksum(), "u": self.u.checksum(),
+                "v": self.v.checksum()}
+
+
+def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.02,
+          layers: int = 3, tmask=None, halo_width: int = 1,
+          fused: bool = False, steps_per_sweep: int = 1, dtype=None,
+          device="cpu", **kw) -> NLayerModel:
+    """Walled grid (dx = dy = 1) + model on ``device``;
+    ``fused``/``steps_per_sweep`` as in :func:`.gravity_wave.build`."""
+    halo_width = fast_path_grid_args(fused, steps_per_sweep, 1, halo_width)
+    grid = Grid(ARAKAWA_C, (BC_EXTERNAL, BC_EXTERNAL, BC_NONE), OFFSET_NE,
+                dtype=dtype, device=device)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
+    grid_init(grid, 1.0, 1.0, default_tmask(gnx, gny) if tmask is None
+              else tmask)
+    model = NLayerModel(grid, dt=dt, layers=layers, **kw)
+    if fused:
+        model.enable_fast_path(steps_per_sweep=steps_per_sweep)
+    elif steps_per_sweep > 1:
+        model.set_steps_per_exchange(steps_per_sweep)
+    return model
+
+
+def golden_reference(eta0, tmask, dx, dy, dt, nsteps, g: float = 9.81,
+                     gp=0.02, thickness=None) -> dict:
+    """Independent NumPy transcription: explicit per-layer Python loops
+    (no cumsum, no level vectorisation) over explicit rolls."""
+    eta0 = np.asarray(eta0, np.float64)
+    layers = eta0.shape[0]
+    pw = np.concatenate(([g], np.broadcast_to(
+        np.asarray(gp, np.float64), (max(layers - 1, 1),))[: layers - 1]))
+    H = (np.full(layers, 100.0 / layers) if thickness is None
+         else np.broadcast_to(np.asarray(thickness, np.float64), (layers,)))
+    wet_t = (tmask == 1).astype(np.float64)
+    u_wet = wet_t * np.roll(wet_t, -1, axis=1)
+    v_wet = wet_t * np.roll(wet_t, -1, axis=0)
+    e = eta0.copy()
+    u = np.zeros_like(e)
+    v = np.zeros_like(e)
+    xp = lambda a: np.roll(a, -1, axis=1)  # noqa: E731
+    xm = lambda a: np.roll(a, 1, axis=1)   # noqa: E731
+    yp = lambda a: np.roll(a, -1, axis=0)  # noqa: E731
+    ym = lambda a: np.roll(a, 1, axis=0)   # noqa: E731
+    for _ in range(nsteps):
+        pk = np.zeros_like(e[0])
+        divs = []
+        for k in range(layers):
+            pk = pk + pw[k] * e[k]
+            u[k] = (u[k] - dt * (xp(pk) - pk) / dx) * u_wet
+            v[k] = (v[k] - dt * (yp(pk) - pk) / dy) * v_wet
+            divs.append((u[k] - xm(u[k])) / dx + (v[k] - ym(v[k])) / dy)
+        acc = np.zeros_like(e[0])
+        for k in range(layers - 1, -1, -1):
+            acc = acc + H[k] * divs[k]
+            e[k] = np.where(wet_t > 0, e[k] - dt * acc, e[k])
+    return {"eta": e, "u": u, "v": v}

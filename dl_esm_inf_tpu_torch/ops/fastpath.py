@@ -70,7 +70,10 @@ class SweepClient:
     step's trailing arguments) and ``_sweep_aux`` (the sweep's aux: float
     planes, then the mask code), calls :meth:`_init_fast_path`, and
     defines ``_step_math(*state, *step_aux) -> state``, ``_prepare(aux)
-    -> step_aux`` and ``kernel_constants()``."""
+    -> step_aux`` and ``kernel_constants()``.  A model whose state is not
+    the sweep's planes as they are (the N-layer model's level fields)
+    overrides :meth:`_to_planes`, :meth:`_from_planes` and
+    :meth:`_sweep_step`."""
 
     reach = 1
     _variant = 0
@@ -93,12 +96,25 @@ class SweepClient:
         set_steps_per_exchange(self, reach=self.reach,
                                steps_per_sweep=steps_per_sweep)
 
+    def _to_planes(self, state):
+        """The state as the sweep's planes (the fused path converts once
+        per run, not per sweep)."""
+        return state
+
+    def _from_planes(self, planes):
+        return planes
+
+    def _sweep_step(self, *planes_and_aux):
+        """The sweep's one step on its planes: the kernel's plain
+        version is this step K times."""
+        return self._step_math(*planes_and_aux)
+
     def _make_sweep(self, K: int):
         """The fused K-step sweep: the CUDA kernel for CUDA tensors, its
         plain version for CPU tensors."""
         if K not in self._sweep_cache:
             self._sweep_cache[K] = make_sweep(
-                self.sweep_kernel, self._step_math, K=K,
+                self.sweep_kernel, self._sweep_step, K=K,
                 consts=self.kernel_constants(), prepare=self._prepare,
                 variant=self._variant)
         return self._sweep_cache[K]
@@ -125,6 +141,8 @@ class SweepClient:
 
         def prog(state):
             state = tuple(state)
+            if fused:
+                state = tuple(self._to_planes(state))
             base = 0
             if blocked:
                 for _ in range(nsteps // K):
@@ -136,7 +154,7 @@ class SweepClient:
             for _ in range(base, nsteps):
                 state = (self._make_sweep(1)(exch1(state), self._sweep_aux)
                          if fused else self._block_step(exch1, *state))
-            return state
+            return tuple(self._from_planes(state)) if fused else state
         return prog
 
     def run(self, nsteps: int) -> None:

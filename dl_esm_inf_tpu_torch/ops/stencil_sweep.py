@@ -32,12 +32,15 @@ import torch
 RING = 8
 
 
-def stencil_sweep_reference(step_fn, K: int, state, aux=()):
+def stencil_sweep_reference(step_fn, K: int, state, aux=(), scalars=None):
     """``step_fn(*state, *aux) -> state`` applied K times (plain
-    PyTorch)."""
+    PyTorch).  With ``scalars`` (K rows of per-sub-step scalars, the JAX
+    sweep's SMEM scalars), sub-step k calls
+    ``step_fn(*state, *aux, *scalars[k])``."""
     s = tuple(state)
-    for _ in range(K):
-        s = tuple(step_fn(*s, *aux))
+    for k in range(K):
+        extra = () if scalars is None else tuple(scalars[k])
+        s = tuple(step_fn(*s, *aux, *extra))
     return s
 
 
@@ -47,9 +50,10 @@ class StencilSweepKernel:
     The kernel takes ``n_state`` float planes in and out, ``n_aux``
     float aux planes and, with ``has_code``, the int8 mask code, all
     contiguous ``(ny, nx)`` CUDA tensors of one float dtype.
-    ``kmax[variant]`` is its ceiling on K.  ``launches`` counts the
-    kernel launches this wrapper has made (and nothing else); callers
-    may reset it."""
+    ``kmax[variant]`` is its ceiling on K; a kernel whose variants take
+    different plane counts gives ``n_state`` per variant (a tuple).
+    ``launches`` counts the kernel launches this wrapper has made (and
+    nothing else); callers may reset it."""
 
     _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -86,15 +90,18 @@ class StencilSweepKernel:
         return built
 
     def _check(self, state, aux, code, K, variant):
-        if len(state) != self.n_state or len(aux) != self.n_aux:
+        if not 0 <= variant < len(self.kmax):
+            raise ValueError(f"{self.name}: no variant {variant} (takes "
+                             f"0..{len(self.kmax) - 1})")
+        n_state = (self.n_state[variant] if isinstance(self.n_state, tuple)
+                   else self.n_state)
+        if len(state) != n_state or len(aux) != self.n_aux:
             raise ValueError(
-                f"{self.name}: expected {self.n_state} state and "
+                f"{self.name}: expected {n_state} state and "
                 f"{self.n_aux} aux planes, got {len(state)} and {len(aux)}")
         if (code is None) == self.has_code:
             raise ValueError(f"{self.name}: the mask code is "
                              f"{'required' if self.has_code else 'not taken'}")
-        if not 0 <= variant < len(self.kmax):
-            raise ValueError(f"{self.name}: no variant {variant}")
         if not 1 <= K <= self.kmax[variant]:
             raise ValueError(f"{self.name} takes 1..{self.kmax[variant]} "
                              f"sub-steps, got {K}")

@@ -214,9 +214,10 @@ def test_port_never_imports_jax():
         "p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 19, mods\n"
+        "assert len(mods) >= 22, mods\n"
         "for m in ('ops.stencil_sweep', 'models.gravity_wave', "
         "'models.shallow', 'models.twolayer', 'models.tracer', "
+        "'ops.solvers', 'models.semi_implicit', 'models.nlayer', "
         "'interop'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "

@@ -13,13 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+import dl_esm_inf_tpu_torch as tdl
 from dl_esm_inf_tpu_torch.models import gravity_wave as gw
 from dl_esm_inf_tpu_torch.models import nemolite2d as nl
+from dl_esm_inf_tpu_torch.models import nlayer as nlm
 from dl_esm_inf_tpu_torch.models import shallow as sh
 from dl_esm_inf_tpu_torch.models import tracer as tr
 from dl_esm_inf_tpu_torch.models import twolayer as tl
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu_torch.ops import fused_step as fs
+from dl_esm_inf_tpu_torch.ops import solvers as so
+from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
+from dl_esm_inf_tpu_torch.parallel.halo import exchange_multi_fn
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from nemolite2d_golden import golden_run  # noqa: E402
@@ -226,3 +231,133 @@ def test_client_kernels_match_golden(cuda_device):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-11, atol=1e-12,
                                    err_msg=k)
+
+
+# --- the fused Chebyshev sweep and the N-layer sweep ---------------------
+
+def _cheb_solver(device, ndom, K, dtype, fused=True, **kw):
+    tmask = gw.default_tmask(GNX, GNY)
+    tmask[20:30, 25:45] = 0                        # an island
+    grid = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                    tdl.BC_NONE), tdl.OFFSET_NE,
+                    dtype=dtype, device=device)
+    grid.decompose(GNX, GNY, ndomains=ndom, halo_width=K)
+    tdl.grid_init(grid, 1.0, 1.0, tmask)
+    return so.HelmholtzSolver(grid, 6.0, 4.0, method="chebyshev",
+                              steps_per_exchange=K, fused=fused, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("K", list(range(1, 9)))
+def test_cheb_kernel_matches_plain(cuda_device, K, ndom, dtype):
+    """Three chained sweeps with the solver's recurrence scalars (new
+    ones in every sweep) on the kernel and on its plain version:
+    bitwise on the internal cells, as both round every operation once
+    in the same order."""
+    s = _cheb_solver(cuda_device, ndom, K, dtype)
+    sweep = s._make_cheb_sweep(K)
+    prep = so.cheb_prepare(s._codes, 6.0, 4.0, dtype)
+    exch = exchange_multi_fn(s.grid.halo_spec, depth=K)
+    rng = np.random.default_rng(K)
+    ker = tuple(torch.from_numpy(rng.standard_normal(s.grid.array_shape))
+                .to(cuda_device, dtype) for _ in range(3))
+    ref = ker
+    scal = so.chebyshev_scalars(*s._lam_bounds, 3 * K)
+    before = so.helmholtz_cheb_sweep.launches
+    for j in range(3):
+        sc = scal[j * K:(j + 1) * K]
+        ker = sweep(*exch(ker), sc)
+        ref = stencil_sweep_reference(so.cheb_step, K, exch(ref), prep,
+                                      scalars=[tuple(r) for r in sc])
+    torch.cuda.synchronize()
+    assert so.helmholtz_cheb_sweep.launches - before == 3
+    inner = s.grid.region_mask(dtype=torch.float64).bool()
+    for a, b in zip(ker, ref):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a[inner], b[inner])
+
+
+@pytest.mark.gpu
+def test_cheb_fused_solve_matches_plain_solve(cuda_device):
+    b = np.random.default_rng(1).standard_normal((GNY, GNX))
+    xs = []
+    for fused in (True, False):
+        s = _cheb_solver(cuda_device, 4, 4, torch.float64, fused=fused,
+                         tol=1e-11)
+        x, info = s.solve(tdl.Field(s.grid, tdl.T_POINTS,
+                                    init_global_data=b))
+        assert info["converged"] and info["iterations"] == s.niters()
+        xs.append(x)
+    inner = s.grid.region_mask(dtype=torch.float64).bool()
+    assert torch.equal(xs[0][inner], xs[1][inner])
+
+
+@pytest.mark.gpu
+def test_cheb_wrapper_checks_its_inputs(cuda_device):
+    s = _cheb_solver(cuda_device, 1, 2, torch.float32)
+    kern = so.helmholtz_cheb_sweep
+    state = [torch.zeros(s.grid.array_shape, dtype=torch.float32,
+                         device=cuda_device) for _ in range(3)]
+    consts = so.cheb_sweep_constants(6.0, 4.0, np.ones((2, 2)))
+    before = kern.launches
+    with pytest.raises(ValueError, match="sub-steps"):
+        kern(state, (), s._codes, consts=consts, K=9)
+    with pytest.raises(ValueError, match="constants"):
+        kern(state, (), s._codes, consts=consts[:-1], K=2)
+    with pytest.raises(ValueError, match="mask_codes"):
+        kern(state, (), s._codes.to(torch.int32), consts=consts, K=2)
+    with pytest.raises(ValueError, match="1..8"):
+        _cheb_solver(cuda_device, 1, 9, torch.float32)
+    assert kern.launches == before
+
+
+def _nlayer_eta0(layers):
+    return np.stack([gaussian_eta(GNX, GNY, amp=0.5 * (k + 1)) * (-1) ** k
+                     for k in range(layers)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("K", list(range(1, 9)))
+@pytest.mark.parametrize("layers", [1, 2, 3, 4])
+def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
+    """The N-layer kernel against the model's plain path after 19 steps
+    (n // K sweeps + n % K single steps): bitwise."""
+    ms = [nlm.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=layers,
+                    fused=f, steps_per_sweep=K, dtype=dtype,
+                    device=cuda_device) for f in (True, False)]
+    for m in ms:
+        m.set_initial(_nlayer_eta0(layers))
+    before = nlm.nlayer_sweep.launches
+    ms[0].run(19)
+    torch.cuda.synchronize()
+    assert nlm.nlayer_sweep.launches - before == 19 // K + 19 % K
+    ms[1].run(19)
+    got, want = ms[0].gather(), ms[1].gather()
+    for k in want:
+        assert np.all(np.isfinite(got[k])), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_nlayer_outside_the_kernel_set_raises(cuda_device):
+    """Five layers, or K beyond 8, raise on the card: nothing runs the
+    plain version instead."""
+    with pytest.raises(ValueError, match="1..4 layers"):
+        nlm.build(GNX, GNY, layers=5, fused=True, device=cuda_device)
+    with pytest.raises(ValueError, match="steps_per_sweep"):
+        nlm.build(GNX, GNY, layers=3, fused=True, steps_per_sweep=9,
+                  device=cuda_device)
+    m = nlm.build(GNX, GNY, layers=2, fused=True, device=cuda_device)
+    planes = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    before = nlm.nlayer_sweep.launches
+    with pytest.raises(ValueError, match="no variant 4"):
+        nlm.nlayer_sweep(planes + planes[:9], (), m._mask_codes,
+                         consts=m.kernel_constants(), K=1, variant=4)
+    with pytest.raises(ValueError, match="sub-steps"):
+        nlm.nlayer_sweep(planes, (), m._mask_codes,
+                         consts=m.kernel_constants(), K=9, variant=1)
+    assert nlm.nlayer_sweep.launches == before
