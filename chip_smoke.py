@@ -1,7 +1,9 @@
 """GPU smoke run of the PyTorch port's main paths: the NEMOLite2D
 flagship, the four sweep-engine client models (gravity wave, shallow,
 two-layer, tracer), the elliptic-solver path (Helmholtz solver with the
-fused Chebyshev sweep, the semi-implicit model) and the N-layer model.
+fused Chebyshev sweep, the semi-implicit model), the N-layer model, and
+the kernel-metadata layer (invoke, Schedule, the fused schedule sweep
+generated as CUDA from each schedule) with the PSy-built flagship.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -12,9 +14,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles the seven hand-written kernels from
-   dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, all at
-   once (build/torch_kernels/); prints each library's registers and
-   spills;
+   dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
+   the schedule sweeps that phase 10 generates (one source per schedule
+   structure, dtype and K), all at once (build/torch_kernels/); prints
+   each library's registers and spills;
 3. flagship kernel vs plain, float64: the fused model on the kernel
    against the same model on the plain PyTorch path, 256^2 and 1024^2,
    K = 1..4, 1 and 4 tiles, 101 steps from a Gaussian bump;
@@ -48,13 +51,36 @@ Phases (each prints a line; any failure raises and exits non-zero):
 9. the N-layer model: kernel vs plain bitwise at float64 and float32
    (L = 1..4, K = 1..8, 1 and 4 tiles), the numpy golden at float64,
    and the main path (1024^2, 3 layers, K = 8, float32) with its
-   launch count and times.
+   launch count and times;
+10. the fused schedule sweep (a CUDA kernel generated from a kernel
+   schedule): the generated kernel against the plain fused tier at
+   float64 and float32 on the PSy-built flagship (256^2, repeats 1-3 at
+   halo 8, 1 and 4 tiles, 30 steps, through fused_program and fused),
+   on seeded generic schedules (shifts E/W/N/S/EE plus a scalar,
+   internal or all points, walled and periodic, 1-16 tiles), a
+   nine-mask schedule (two code planes), a schedule whose slot is
+   written under two masks, and a scratch chain at 3 repeats; the PSy
+   model on the kernel against the production model at float64 (34x30,
+   4 tiles, 30 steps, 1e-10); and the main path NemoLite2DPsy(1024,
+   1024, halo_width=8) at float32, run(n, fused=True): launches = n,
+   finite, kernel vs plain, and us/step on the kernel path (repeats 1,
+   2, 3), the plain fused tier, the plain schedule, and the production
+   flagship kernel at K = 4 beside them, with the copy bandwidth of the
+   card measured in the same run.
+
+Every kernel entry carries its bound: the larger of the bytes it must
+move (inputs read once, outputs written once) over the H100's 3.35 TB/s
+and the operations of its plain version on the same inputs (counted
+per element) over the card's peak rate for the dtype; and library_ms,
+the time of one PyTorch call computing the same function, or null where
+none does (none does for these multi-plane masked sweeps).
 
 The line before the last is the kernel report as JSON; the last line is
 the result as JSON.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -66,11 +92,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tests"))
 
 import dl_esm_inf_tpu_torch as tdl  # noqa: E402
+from dl_esm_inf_tpu_torch.api import kernel_meta as km  # noqa: E402
 from dl_esm_inf_tpu_torch.models import gravity_wave as gw  # noqa: E402
 from dl_esm_inf_tpu_torch.models import nemolite2d as nl  # noqa: E402
 from dl_esm_inf_tpu_torch.models import nlayer as nlm  # noqa: E402
@@ -79,8 +107,12 @@ from dl_esm_inf_tpu_torch.models import shallow as sh  # noqa: E402
 from dl_esm_inf_tpu_torch.models import tracer as tr  # noqa: E402
 from dl_esm_inf_tpu_torch.models import twolayer as tl  # noqa: E402
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta  # noqa: E402
+from dl_esm_inf_tpu_torch.models.nemolite2d_psy import (  # noqa: E402
+    NemoLite2DPsy)
 from dl_esm_inf_tpu_torch.ops import fused_step as fs  # noqa: E402
+from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import solvers as so  # noqa: E402
+from dl_esm_inf_tpu_torch.ops import stencils as st  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
     exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
@@ -99,6 +131,55 @@ TOL_F32 = 1e-6
 MAIN_N = 402                     # n // 4 sweeps + n % 4 single steps
 PARITY_SIZES = (256, 1024)
 MAIN_SIZE = 1024
+#: NVIDIA's data sheet, H100 SXM:
+#: HBM3 bytes/s and the peak rate of non-tensor-core arithmetic by dtype
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the arithmetic of the PyTorch operations run under it, one
+    per output element (a reduction: one per input element); data
+    movement (rolls, copies, stacks, casts) counts nothing."""
+    ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "where", "sqrt",
+             "reciprocal", "clamp", "clamp_min", "clamp_max", "minimum",
+             "maximum", "gt", "lt", "ge", "le", "eq", "ne", "abs", "sin",
+             "exp", "pow", "bitwise_and", "bitwise_right_shift",
+             "__and__", "__rshift__", "cumsum", "sign", "copysign"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in ("sum", "amax", "amin"):
+            self.ops += max((a.numel() for a in args
+                             if isinstance(a, torch.Tensor)), default=0)
+        elif name in self.ARITH and isinstance(out, torch.Tensor):
+            self.ops += out.numel()
+        return out
+
+
+def _count_ops(fn) -> int:
+    with _OpCount() as c:
+        fn()
+    return c.ops
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: int, ops: int, dtype) -> dict:
+    """bound_ms / bound_by of a kernel call from the bytes it must move
+    and the operations it must do."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def phase_device() -> str:
@@ -122,20 +203,28 @@ KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
 
 
 def phase_build() -> None:
+    """The seven libraries and every generated schedule sweep phase 10
+    needs, built at once (one nvcc per source)."""
+    from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(lambda k: k.build(), KERNELS))
+    tasks = [k.build for k in KERNELS] + _schedule_builds()
+    with ThreadPoolExecutor(len(tasks)) as pool:
+        list(pool.map(lambda task: task(), tasks))
     wall = time.perf_counter() - t0
+    built = list(cuda_build._loaded.values())
     for b in built:
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", b.log)]
         spill = sum(int(a) + int(c) for a, c in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", b.log))
+        smem = [int(x) for x in re.findall(r"(\d+) bytes smem", b.log)]
         reg_s = f"{min(regs)}-{max(regs)}" if regs else "?"
         print(f"build: {b.path.name} nvcc {b.seconds:.1f}s; ptxas: "
               f"{len(regs)} kernels, {reg_s} registers, {spill} bytes "
-              f"spilled", flush=True)
-    print(f"build: {len(built)} libraries in {wall:.1f}s (in parallel)",
-          flush=True)
+              f"spilled" + (f", {max(smem)} B static smem" if smem and
+                            max(smem) else ""), flush=True)
+    n_gen = sum(1 for b in built if b.source is not None)
+    print(f"build: {len(built)} libraries ({n_gen} generated schedule "
+          f"sweeps) in {wall:.1f}s (in parallel)", flush=True)
 
 
 def _rel_diff(ga: dict, gb: dict) -> float:
@@ -292,11 +381,15 @@ def phase_main() -> dict:
     print(f"timing f64 {N}^2 K={K}: kernel {us_k64:.2f} us/step "
           f"({N * N / us_k64:.0f} Mpt/s), plain {us_p64:.2f} us/step "
           f"({N * N / us_p64:.0f} Mpt/s)", flush=True)
+    ops = _count_ops(lambda: fs.fused_step_reference(
+        *state, codes, forcing, p=m.p, dx=m.grid.dx, dy=m.grid.dy,
+        fcor=m._fcor, depth=m.depth))
     return {"name": "nemolite2d_sweep", "route": "cuda",
             "source": "dl_esm_inf_tpu_torch/csrc/nemolite2d_sweep.cu",
             "replaces": "dl_esm_inf_tpu/ops/pallas_step.py:33",
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **_bound(_nbytes(*state, codes, *ker), ops, state[0].dtype)}
 
 
 # --- the sweep-engine client models ---------------------------------------
@@ -532,10 +625,13 @@ def phase_client_main(c: Client) -> dict:
           f"path {us_p:.2f} us/step ({N * N / us_p:.0f} Mpt/s); one sweep: "
           f"kernel {ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/step), plain "
           f"{plain_ms * 1e3:.2f} us", flush=True)
+    ops = _count_ops(lambda: stencil_sweep_reference(m._step_math, K, state,
+                                                     prep))
     return {"name": c.name, "route": "cuda",
             "source": f"dl_esm_inf_tpu_torch/csrc/{kern.source}",
             "replaces": c.replaces, "launches": launches,
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **_bound(_nbytes(*state, *aux, *ker), ops, state[0].dtype)}
 
 
 # --- the elliptic-solver path ---------------------------------------------
@@ -691,11 +787,14 @@ def phase_cheb_main() -> dict:
           f"{solve_plain_ms:.3f} ms (varied rhs); one sweep: kernel "
           f"{ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/iteration), plain "
           f"{plain_ms * 1e3:.2f} us", flush=True)
+    ops = _count_ops(lambda: stencil_sweep_reference(
+        so.cheb_step, K, state, prep, scalars=[tuple(r) for r in sc]))
     return {"name": "helmholtz_cheb_sweep", "route": "cuda",
             "source": "dl_esm_inf_tpu_torch/csrc/helmholtz_cheb_sweep.cu",
             "replaces": "dl_esm_inf_tpu/ops/solvers.py:553",
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **_bound(_nbytes(*state, s._codes, *ker), ops, g.dtype)}
 
 
 def _semi_step_ms(m, nsteps: int) -> tuple[float, dict]:
@@ -877,11 +976,398 @@ def phase_nlayer_main() -> dict:
           f"path {us_p:.2f} us/step; one sweep: kernel {ms * 1e3:.2f} us "
           f"({ms * 1e3 / K:.2f} us/step), plain {plain_ms * 1e3:.2f} us",
           flush=True)
+    ops = _count_ops(lambda: stencil_sweep_reference(m._sweep_step, K, flat,
+                                                     prep))
     return {"name": "nlayer_sweep", "route": "cuda",
             "source": "dl_esm_inf_tpu_torch/csrc/nlayer_sweep.cu",
             "replaces": "dl_esm_inf_tpu/models/nlayer.py:178",
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops,
+                     m.grid.dtype)}
+
+# --- the kernel-metadata layer: the generated schedule sweep ---------------
+
+#: kernel vs plain in phase 10: max |diff| on internal points over the
+#: fields' max |value|.  Both evaluate the same operations in the same
+#: order (bodies written op for op, --fmad=false): 0 expected.
+TOL_SCHED = {torch.float64: 1e-12, torch.float32: 1e-5}
+PSY_N, PSY_STEPS = 256, 30
+PSY_MAIN_N = 100
+
+#: (stencil rows, torch shift, CUDA read) of the generic schedules
+_SHIFTS = {
+    "E": ((0, 11, 0), st.xp, "x(0, 1)"),
+    "W": ((0, 110, 0), st.xm, "x(0, -1)"),
+    "N": ((10, 10, 0), st.yp, "x(1, 0)"),
+    "S": ((0, 10, 10), st.ym, "x(-1, 0)"),
+    "EE": ((0, 12, 0), lambda a: st.xp(st.xp(a)), "x(0, 2)"),
+}
+
+
+def _arg(access, element, rows=None):
+    return km.Arg(access, element,
+                  km.Stencil(*rows) if rows else km.GO_POINTWISE)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_kernel(name: str, space: int):
+    """out = shift(x) + a (the JAX package's fuzz kernel) with its CUDA
+    body."""
+    rows, fn, read = _SHIFTS[name]
+
+    @km.kernel(args=[_arg(km.GO_WRITE, km.GO_CT),
+                     _arg(km.GO_READ, km.GO_CT, rows),
+                     _arg(km.GO_READ, km.GO_R_SCALAR)],
+               iterates_over=space, name=f"shift_{name}_{space}",
+               cuda=f"out = {read} + T(a);")
+    def shift_plus(out, x, a):
+        return fn(x) + a
+    return shift_plus
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_kernel(c: float):
+    @km.kernel(args=[_arg(km.GO_WRITE, km.GO_CT), _arg(km.GO_READ, km.GO_CT)],
+               name=f"scale_{c!r}", cuda=f"out = T({c!r}) * x();")
+    def scale(out, x):
+        return c * x
+    return scale
+
+
+@km.kernel(args=[_arg(km.GO_READWRITE, km.GO_CT)], name="incr",
+           cuda="x = x() + T(1.0);")
+def _incr(x):
+    return x + 1.0
+
+
+@km.kernel(args=[_arg(km.GO_READWRITE, km.GO_CT)], name="bc_fill_all",
+           iterates_over=km.GO_ALL_PTS, cuda="b = b() * T(0.5) + T(21.0);")
+def _fill_all(b):
+    return b * 0.5 + 21.0
+
+
+def _sched_grid(n, ndom, halo, dtype, wrap=False):
+    bc = tdl.BC_PERIODIC if wrap else tdl.BC_EXTERNAL
+    g = tdl.Grid(tdl.ARAKAWA_C, (bc, bc, tdl.BC_NONE), tdl.OFFSET_NE,
+                 dtype=dtype, device=DEV)
+    g.decompose(n, n, ndomains=ndom, halo_width=halo)
+    tdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
+def _fuzz_specs():
+    """Seeded generic schedules (seed 42, the JAX package's fuzz):
+    (label, shift names, scalars, spaces, wrap, n, tiles, halo)."""
+    rng = np.random.default_rng(42)
+    out = []
+    for trial in range(8):
+        wrap = bool(rng.integers(0, 2))
+        n = int(rng.choice([64, 96, 128]))
+        ndom = int(rng.choice([1, 4, 8, 16]))
+        names = [str(x) for x in rng.choice(list(_SHIFTS),
+                                             size=int(rng.integers(1, 4)))]
+        scal = [float(rng.uniform(-1, 1)) for _ in names]
+        spaces = [km.GO_ALL_PTS if rng.integers(0, 3) == 0
+                  else km.GO_INTERNAL_PTS for _ in names]
+        halo = max(sum(2 if x == "EE" else 1 for x in names), 1)
+        out.append((f"fuzz{trial} {'+'.join(names)} "
+                    f"{'periodic' if wrap else 'walled'} {n}^2 "
+                    f"ndomains={ndom}", names, scal, spaces, wrap, n, ndom,
+                    halo))
+    return out
+
+
+def _ramp(n, seed):
+    return np.random.default_rng(seed).standard_normal((n, n))
+
+
+def _generic_case(kind, dtype, plain, spec=None):
+    """(run, fields to compare, expected launches) of one generic
+    schedule on fresh fields; building it builds its kernels."""
+    if kind == "fuzz":
+        label, names, scal, spaces, wrap, n, ndom, halo = spec
+        g = _sched_grid(n, ndom, halo, dtype, wrap)
+        a = tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(n, n + ndom))
+        b = tdl.Field(g, tdl.T_POINTS)
+        calls, cur = [], a
+        for nm, sc, sp in zip(names, scal, spaces):
+            calls.append((_shift_kernel(nm, sp), b, cur, sc))
+            cur = b
+        prog = km.Schedule(*calls).fused_program(1, plain=plain)
+        return prog, (a, b), 1
+    if kind == "nine_masks":
+        g = _sched_grid(96, 4, 1, dtype)
+        src = tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 9))
+        outs = [tdl.Field(g, tdl.T_POINTS) for _ in range(9)]
+        sched = km.Schedule(*[(_scale_kernel(k + 1.0), o, src)
+                              for k, o in enumerate(outs)])
+        if len(sched._fused_masks()) != 2:
+            raise AssertionError("nine masks should pack into 2 planes")
+        prog = sched.fused_program(1, plain=plain)
+        return prog, tuple(outs), 1
+    if kind == "multi_mask":
+        g = _sched_grid(96, 4, 8, dtype)
+        a, b, c = (tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 3)),
+                   tdl.Field(g, tdl.T_POINTS), tdl.Field(g, tdl.T_POINTS))
+        east = _shift_kernel("E", km.GO_INTERNAL_PTS)
+        sched = km.Schedule((east, b, a, 0.0), (east, c, b, 0.0),
+                            (_fill_all, b), (_incr, a))
+        prog = sched.fused_program(3, plain=plain)
+        return prog, (a, b, c), 3
+    assert kind == "scratch_chain"
+    g = _sched_grid(96, 4, 8, dtype)
+    a, b = (tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 5)),
+            tdl.Field(g, tdl.T_POINTS))
+    sched = km.Schedule((_shift_kernel("E", km.GO_INTERNAL_PTS), b, a, 1.5),
+                        (_scale_kernel(0.5), a, b))
+    prog3 = sched.fused_program(4, repeats=3, plain=plain)
+    rows = [[[0.25 * i + j] for j in range(3)] for i in range(4)]
+    return (lambda: prog3(scalars=rows)), (a, b), 4
+
+
+def _generic_cases():
+    return ([("fuzz", s) for s in _fuzz_specs()]
+            + [("nine_masks", None), ("multi_mask", None),
+               ("scratch_chain", None)])
+
+
+def _psy_case(dtype, ndom, r, variant, plain, n=PSY_N, steps=PSY_STEPS):
+    """(run, fields, expected launches) of the PSy flagship at halo 8:
+    ``steps`` steps through fused_program (light variant) or through
+    repeated fused calls (full variant) at ``r`` repeats per sweep."""
+    m = NemoLite2DPsy(n, n, ndomains=ndom, halo_width=8, dtype=dtype,
+                      device=DEV)
+    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    rows = [[m._scalars_at(i * r + j) for j in range(r)]
+            for i in range(steps // r)]
+    if variant == "light":
+        prog = m._sched.fused_program(steps // r, repeats=r, plain=plain)
+        return (lambda: prog(scalars=rows)), (m.sshn_t, m.un, m.vn), \
+            steps // r
+    m._sched._fused_prog(1, r, plain)
+
+    def run():
+        for row in rows:
+            m._sched.fused(row, repeats=r, plain=plain)
+    return run, (m.sshn_t, m.un, m.vn), steps // r
+
+
+def _schedule_builds():
+    """One task per generated source phase 10 needs: each builds its
+    case's kernel side, which generates and compiles the sources."""
+    tasks = []
+    for dtype in (torch.float64, torch.float32):
+        for r in (1, 2, 3):
+            tasks.append(functools.partial(_psy_case, dtype, 1, r, "light",
+                                           False, n=64, steps=2 * r))
+        for kind, spec in _generic_cases():
+            tasks.append(functools.partial(_generic_case, kind, dtype, False,
+                                           spec))
+    return tasks
+
+
+def _inner_diff(fa, fb) -> tuple[float, float]:
+    """(max |a - b|, max |a - b| / max |b|) on internal points, over
+    fields."""
+    worst_abs = worst_rel = 0.0
+    for a, b in zip(fa, fb):
+        ga, gb = a.gather_inner_data(), b.gather_inner_data()
+        d = float(np.abs(ga - gb).max())
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / max(float(np.abs(gb).max()), 1e-300))
+    return worst_abs, worst_rel
+
+
+def _check_case(label, make, dtype):
+    run_k, fk, n_launch = make(False)
+    run_p, fp, _ = make(True)
+    before = ss.schedule_sweep.launches
+    run_k()
+    torch.cuda.synchronize()
+    got = ss.schedule_sweep.launches - before
+    if got != n_launch:
+        raise AssertionError(f"schedule sweep {label} {dtype}: {got} "
+                             f"launches, expected {n_launch}")
+    run_p()
+    if ss.schedule_sweep.launches - before != n_launch:
+        raise AssertionError(f"{label}: the plain route launched a kernel")
+    d_abs, d = _inner_diff(fk, fp)
+    for f in fk:
+        if not torch.isfinite(f.data).all():
+            raise AssertionError(f"schedule sweep {label}: not finite")
+    if not d <= TOL_SCHED[dtype]:
+        raise AssertionError(f"schedule sweep {label} {dtype}: kernel vs "
+                             f"plain {d:.3e} > {TOL_SCHED[dtype]}")
+    return d_abs
+
+
+def phase_schedule_parity() -> None:
+    for dtype in (torch.float64, torch.float32):
+        worst, cases = 0.0, 0
+        for r in (1, 2, 3):
+            for ndom in (1, 4):
+                for variant in ("light", "full"):
+                    d = _check_case(
+                        f"PSy r={r} ndomains={ndom} {variant}",
+                        lambda p, r=r, ndom=ndom, v=variant:
+                        _psy_case(dtype, ndom, r, v, p), dtype)
+                    worst, cases = max(worst, d), cases + 1
+        print(f"schedule_sweep parity {dtype}: PSy flagship {PSY_N}^2, "
+              f"{PSY_STEPS} steps, repeats 1-3 at halo 8, 1 and 4 tiles, "
+              f"fused_program and fused: {cases} cases, max abs diff "
+              f"{worst:.3e} on internal points (tol {TOL_SCHED[dtype]} x "
+              "max|field|)", flush=True)
+        report = []
+        for kind, spec in _generic_cases():
+            label = spec[0] if spec else kind
+            d = _check_case(label, lambda p, k=kind, s=spec:
+                            _generic_case(k, dtype, p, s), dtype)
+            report.append(f"{label}: {d:.1e}")
+        print(f"schedule_sweep parity {dtype} (kernel vs plain, max abs "
+              "diff on internal points): " + "; ".join(report), flush=True)
+
+
+def phase_psy_vs_production() -> None:
+    """NemoLite2DPsy fused on the card against the production model on
+    the card, float64, 34x30, 4 tiles, 30 steps (1e-10, the JAX test)."""
+    gnx, gny, steps = 34, 30, 30
+    eta0 = gaussian_eta(gnx, gny, amp=0.2)
+    m = NemoLite2DPsy(gnx, gny, ndomains=4, dtype=torch.float64, device=DEV)
+    m.set_initial_ssh(eta0)
+    before = ss.schedule_sweep.launches
+    m.run(steps, fused=True)
+    if ss.schedule_sweep.launches - before != steps:
+        raise AssertionError("PSy run did not go through the kernel")
+    got = m.gather()
+    report = []
+    for fused in (False, True):
+        p = nl.build(gnx, gny, ndomains=4, dtype=torch.float64, fused=fused,
+                     steps_per_sweep=4 if fused else 1, device=DEV)
+        p.set_initial_ssh(eta0)
+        p.run(steps)
+        want = p.gather()
+        err = 0.0
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-10,
+                                       atol=1e-10, err_msg=k)
+            err = max(err, float(np.abs(got[k] - want[k]).max()))
+        report.append(f"vs production {'kernel K=4' if fused else 'plain'}"
+                      f" max abs {err:.2e}")
+    print(f"NemoLite2DPsy f64 {gnx}x{gny} 4 tiles {steps} steps on the "
+          f"generated kernel: " + "; ".join(report) + " (tol 1e-10)",
+          flush=True)
+
+
+def _copy_gbs() -> float:
+    """Device-to-device copy bandwidth (read + write bytes / time) of a
+    256 MiB float32 buffer, CUDA events."""
+    src = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEV)
+    dst = torch.empty_like(src)
+    ms = _time_ms(lambda: dst.copy_(src), 20)
+    return 2 * src.numel() * 4 / (ms * 1e-3) / 1e9
+
+
+def _psy_run(m, nsteps, repeats=1, plain=False):
+    """``nsteps`` steps of the PSy model through the fused program at
+    ``repeats`` steps per sweep: the generated kernel, or with ``plain``
+    its plain version."""
+    n = nsteps // repeats
+    m._sched.fused_program(n, repeats=repeats, plain=plain)(
+        scalars=[[m._scalars_at(m._step + i * repeats + j)
+                  for j in range(repeats)] for i in range(n)])
+    m._step += n * repeats
+
+
+def phase_psy_main() -> dict:
+    N, n = MAIN_SIZE, PSY_MAIN_N
+    gbs = _copy_gbs()
+    m = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
+    if m.grid.dtype != torch.float32:
+        raise AssertionError(f"expected the float32 default on CUDA, got "
+                             f"{m.grid.dtype}")
+    m.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    mp = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
+    mp.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    m._sched.fused_program(n)                 # build before the count
+    torch.cuda.synchronize()
+    ss.schedule_sweep.launches = 0
+    m.run(n, fused=True)
+    torch.cuda.synchronize()
+    launches = ss.schedule_sweep.launches
+    if launches != n:
+        raise AssertionError(f"PSy main path launched the schedule sweep "
+                             f"{launches} times, expected {n}")
+    fields = (m.sshn_t, m.un, m.vn)
+    for f in fields:
+        if (tuple(f.data.shape) != m.grid.array_shape
+                or not torch.isfinite(f.data).all()):
+            raise AssertionError("PSy main path state is not finite")
+    _psy_run(mp, n, plain=True)
+    d_run = _inner_diff(fields, (mp.sshn_t, mp.un, mp.vn))[1]
+    if not d_run <= TOL_F32:
+        raise AssertionError(f"PSy kernel vs plain f32 after {n} steps: "
+                             f"{d_run:.3e} > {TOL_F32}")
+
+    # one sweep of the light variant (n - 1 of the n launches) against
+    # its plain version, on the main path's state
+    sched = m._sched
+    sweep, st_slots, x_slots = sched._fused_prog(n, 1)[3]["light"]
+    psweep = sched._fused_prog(n, 1, True)[3]["light"][0]
+    ro_slots = sched._fused_prog(n, 1)[2]
+    slot = lambda i: sched._slots[i].data  # noqa: E731
+    state = tuple(slot(i) for i in st_slots)
+    ros = tuple(slot(i) for i in ro_slots)
+    extra = tuple(slot(i) for i in x_slots)
+    rows = [tuple(float(v) for v in sched._user_scalar_vector(
+        m._scalars_at(m._step)))]
+    ker = sweep(state, ros, extra, rows)
+    ref = psweep(state, ros, extra, rows)
+    inner = m.sshn_t.internal_mask.bool()
+    max_abs = max(float((a - b).abs()[inner].max()) for a, b in zip(ker, ref))
+    scale = max(float(b.abs()[inner].max()) for b in ref)
+    if not max_abs <= TOL_F32 * scale:
+        raise AssertionError(f"PSy one sweep kernel vs plain: {max_abs:.3e}")
+    ms = _time_ms(lambda: sweep(state, ros, extra, rows), 200)
+    plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 20)
+    ops = _count_ops(lambda: psweep(state, ros, extra, rows))
+    code = torch.stack(sched._fused_masks())
+    nbytes = _nbytes(*state, *ker, *ros, *extra, *sched._consts, code)
+    bound = _bound(nbytes, ops, torch.float32)
+
+    def us(run, steps, reps):
+        return 1e3 * _time_ms(lambda: run(steps), reps) / steps
+    us_k = us(lambda k: m.run(k, fused=True), n, 5)
+    us_rep = {}
+    for r in (2, 3):
+        mr = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
+        mr.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+        _psy_run(mr, n - n % r, r)
+        us_rep[r] = us(lambda k, mr=mr, r=r: _psy_run(mr, k, r), 60, 5)
+    us_plain_fused = us(lambda k: _psy_run(mp, k, plain=True), 10, 3)
+    us_sched = us(mp.run, 5, 3)
+    prod = nl.build(N, N, fused=True, steps_per_sweep=4, device=DEV)
+    prod.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    prod.run(400)
+    us_prod = 1e3 * _time_ms(lambda: prod.run(400), 3) / 400
+    print(f"PSy main f32 {N}^2 halo 8: run({n}, fused=True) launches="
+          f"{launches} (= n); finite; kernel vs plain after {n} steps rel "
+          f"{d_run:.3e}, one light sweep max abs {max_abs:.3e}", flush=True)
+    print(f"PSy timing f32 {N}^2 (state: Gaussian bump after {n}+ steps): "
+          f"kernel path {us_k:.2f} us/step (repeats 1), "
+          f"{us_rep[2]:.2f} (repeats 2), {us_rep[3]:.2f} (repeats 3); plain "
+          f"fused tier {us_plain_fused:.2f} us/step; plain schedule "
+          f"{us_sched:.2f} us/step; production flagship kernel K=4 "
+          f"{us_prod:.2f} us/step; one light sweep: kernel {ms * 1e3:.2f} "
+          f"us, plain {plain_ms * 1e3:.2f} us; "
+          f"{nbytes / state[0].numel():.1f} B/pt per sweep, bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}; copy "
+          f"{gbs:.0f} GB/s gives {nbytes / gbs / 1e3:.2f} us)", flush=True)
+    return {"name": "schedule_sweep", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
+            "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def main() -> None:
@@ -900,6 +1386,9 @@ def main() -> None:
     phase_nlayer_parity()
     phase_nlayer_golden()
     kernels.append(phase_nlayer_main())
+    phase_schedule_parity()
+    phase_psy_vs_production()
+    kernels.append(phase_psy_main())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,12 @@
 The same 2D finite-difference earth-system modelling infrastructure as
 the JAX package beside it (Arakawa-C grids, staggered fields, domain
 decomposition with halo exchange, reductions), in eager PyTorch, with
-hand-written CUDA kernels for the hot paths.  It imports ``torch`` and
-never ``jax``.  Every object names its device explicitly: a ``Grid``
-carries a ``torch.device``, and nothing picks one from the hardware
-found.
+hand-written CUDA kernels for the hot paths, and the PSyclone-style
+kernel-metadata layer (``api.kernel_meta``: ``invoke``, ``Schedule``,
+whose fused sweep is generated as CUDA from the schedule).  It imports
+``torch`` and never ``jax``.  A ``Grid`` carries a ``torch.device``: the
+card (``cuda``) unless the caller passes another, as the CPU tests do
+with ``device="cpu"``; without a card and without a device it raises.
 
 Quick start::
 
@@ -14,7 +16,7 @@ Quick start::
 
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
-                   dl.OFFSET_NE, device="cpu")
+                   dl.OFFSET_NE)                # on the card
     grid.decompose(jpiglo, jpjglo)
     dl.grid_init(grid, dx, dy, tmask)          # tmask: global (ny, nx)
     u = dl.Field(grid, dl.U_POINTS)

@@ -7,7 +7,8 @@ The staggering truth table (which points are the field's *internal*
 region) is :func:`staggering_offsets`, as in the JAX package.
 
 This slice carries what the models use: data get/set, the plain halo
-exchange, checksum, gather, the internal mask and multi-level fields
+exchange, checksum, gather, the internal and external (global boundary
+ring, ``GO_EXTERNAL_PTS``) masks and multi-level fields
 (``levels=N``: data of shape ``(N, ny, nx)`` whose level axis rides one
 halo exchange, checksum and gather).
 """
@@ -89,6 +90,29 @@ class Field:
             return torch.ones(self.grid.array_shape, dtype=self.dtype,
                               device=self.grid.device)
         return self.grid.region_mask(*self._off, dtype=self.dtype)
+
+    def internal_mask_np(self) -> np.ndarray:
+        """:attr:`internal_mask` as a host bool array."""
+        if self.defined_on == ALL_POINTS:
+            return np.ones(self.grid.array_shape, dtype=bool)
+        return layout.region_mask(self.grid.decomp, *self._off)
+
+    @property
+    def external_mask(self) -> torch.Tensor:
+        """Mask of this field's GLOBAL boundary ring: whole minus
+        internal in global coordinates (field_mod.f90:604-622), the
+        same cells whatever the decomposition.  ALL_POINTS fields have
+        whole == internal (field_mod.f90:624-650): the ring is empty."""
+        if self.defined_on == ALL_POINTS:
+            return torch.zeros(self.grid.array_shape, dtype=self.dtype,
+                               device=self.grid.device)
+        return self.grid.external_mask(*self._off, dtype=self.dtype)
+
+    def external_mask_np(self) -> np.ndarray:
+        """:attr:`external_mask` as a host bool array."""
+        if self.defined_on == ALL_POINTS:
+            return np.zeros(self.grid.array_shape, dtype=bool)
+        return layout.external_mask(self.grid.decomp, *self._off)
 
     # --- communication ------------------------------------------------------
     def halo_exchange(self, depth: int = 1) -> None:

@@ -3,14 +3,15 @@
 Counterpart of ``dl_esm_inf_tpu/core/grid.py`` (reference ``grid_type``
 + ``grid_init``).  It validates the grid kind, offset convention and
 boundary conditions, owns the domain decomposition, holds the T-point
-mask with its edge replication, the constant scale factors ``dx``/``dy``
-and the :class:`~..parallel.halo.HaloSpec`.
+mask with its edge replication, the constant scale factors ``dx``/``dy``,
+the lazily built metric arrays (``dx_t`` ... ``gphif``, replaced by
+per-point arrays through :meth:`Grid.set_scale_factors`), the region
+and external masks and the :class:`~..parallel.halo.HaloSpec`.
 
 Differences from the JAX package: there is no device mesh and no
-sharding.  A grid lives on ONE explicit ``torch.device``, and all
-shards of its decomposition are tiles of one stacked tensor on it.
-The per-point (curvilinear) scale factors and the lazily built metric
-arrays come in a later slice; :meth:`Grid.scatter_exchanged` brings
+sharding.  A grid lives on ONE ``torch.device`` (the card unless the
+caller passes another), and all shards of its decomposition are tiles
+of one stacked tensor on it.  :meth:`Grid.scatter_exchanged` brings
 global coefficient arrays (solver couplings, face depths) in.
 """
 from __future__ import annotations
@@ -27,11 +28,14 @@ from ..parallel.halo import HaloSpec
 
 
 class Grid:
-    """An Arakawa-C staggered grid on one device."""
+    """An Arakawa-C staggered grid on one device.
+
+    ``device=None`` is the card (``cuda``); without one it raises, and
+    ``device="cpu"`` runs on the CPU."""
 
     def __init__(self, grid_name=ARAKAWA_C,
                  boundary_conditions=(BC.EXTERNAL, BC.EXTERNAL, BC.NONE),
-                 grid_offsets=Offset.NE, dtype=None, device="cpu"):
+                 grid_offsets=Offset.NE, dtype=None, device=None):
         kind = GridKind(grid_name)
         if kind == ARAKAWA_B:
             raise NotImplementedError(
@@ -64,6 +68,9 @@ class Grid:
         self._tmask_np = None      # host copy for mask derivation
         self._initialised = False
         self._region_masks = {}
+        self._lazy = {}            # constant metric arrays, built on use
+        self._curvi = {}           # per-point scale factors (curvilinear)
+        self._curvi_derived: set = set()   # area_* entries derived here
 
     # ------------------------------------------------------------------
     @property
@@ -111,7 +118,7 @@ class Grid:
         self._initialised = False
         self.tmask = None
         self._tmask_np = None
-        self._region_masks.clear()
+        self._clear_caches()
         self.halo_spec = HaloSpec(
             nprocx=decomp.nprocx, nprocy=decomp.nprocy,
             halo=decomp.halo,
@@ -150,7 +157,13 @@ class Grid:
         self.tmask = stacked
         self._tmask_np = stacked.cpu().numpy()
         self._initialised = True
+        self._clear_caches()
+
+    def _clear_caches(self) -> None:
         self._region_masks.clear()
+        self._lazy.clear()
+        self._curvi.clear()
+        self._curvi_derived.clear()
 
     def scatter_exchanged(self, global_arr, mode: str = "edge",
                           dtype=None) -> torch.Tensor:
@@ -167,6 +180,114 @@ class Grid:
         return halo_mod.exchange(stacked, self.halo_spec,
                                  depth=self.decomp.halo)
 
+    # ------------------------------------------------------------------
+    # Scale-factor / area / latitude arrays.  The regular grid's constant
+    # arrays materialise on first use; set_scale_factors replaces any of
+    # them with per-point arrays (GO_ORTHOGONAL_CURVILINEAR,
+    # kernel_mod.f90:43-44).
+    def _const_array(self, key: str, value: float) -> torch.Tensor:
+        if key not in self._lazy:
+            self._lazy[key] = torch.full(self.array_shape, value,
+                                         dtype=self.dtype,
+                                         device=self.device)
+        return self._lazy[key]
+
+    def _scale_array(self, name: str, const_key: str, value: float):
+        if name in self._curvi:
+            return self._curvi[name]
+        return self._const_array(const_key, value)
+
+    #: per-point array names set_scale_factors accepts (the reference's
+    #: e1/e2/area/gphi families, grid_mod.f90:121-134)
+    SCALE_FACTOR_NAMES = ("dx_t", "dx_u", "dx_v", "dx_f",
+                          "dy_t", "dy_u", "dy_v", "dy_f",
+                          "area_t", "area_u", "area_v",
+                          "gphiu", "gphiv", "gphif")
+
+    @property
+    def is_curvilinear(self) -> bool:
+        """True once per-point scale factors are installed: the grid
+        then honours kernels declaring GO_ORTHOGONAL_CURVILINEAR."""
+        return bool(self._curvi)
+
+    def set_scale_factors(self, **arrays) -> None:
+        """Install per-point scale factors, areas or latitudes.
+
+        Pass GLOBAL ``(global_ny, global_nx)`` arrays for any of
+        :data:`SCALE_FACTOR_NAMES`; they are scattered to the stacked
+        layout (edge-replicated into halos and padding like the tmask;
+        on periodic axes one exchange gives seam halos their wrap
+        partner's values) and served by the grid-property getters of
+        :mod:`~..api.kernel_meta`.  A missing ``area_*`` is derived as
+        ``dx_* * dy_*`` when both are present (grid_mod.f90:505-510)."""
+        if not self._initialised:
+            raise RuntimeError("call init() before set_scale_factors()")
+        unknown = sorted(set(arrays) - set(self.SCALE_FACTOR_NAMES))
+        if unknown:
+            raise ValueError(
+                f"unknown scale-factor name(s) {unknown}; valid names: "
+                f"{self.SCALE_FACTOR_NAMES}")
+        for name, arr in arrays.items():
+            arr = np.asarray(arr, dtype=kinds.np_dtype(self.dtype))
+            if arr.shape != (self.global_ny, self.global_nx):
+                raise ValueError(
+                    f"{name} must be the GLOBAL array "
+                    f"({self.global_ny}, {self.global_nx}), got "
+                    f"{arr.shape}")
+            dev = torch.from_numpy(
+                layout.stack_global(self.decomp, arr, mode="edge")
+            ).to(self.device)
+            if (self.wrap_x or self.wrap_y) and self.decomp.halo > 0:
+                from ..parallel import halo as halo_mod
+                dev = halo_mod.exchange(dev, self.halo_spec,
+                                        depth=self.decomp.halo)
+            self._curvi[name] = dev
+            self._curvi_derived.discard(name)
+        for pt in ("t", "u", "v"):
+            area = f"area_{pt}"
+            inputs_changed = f"dx_{pt}" in arrays or f"dy_{pt}" in arrays
+            if area in self._curvi_derived and inputs_changed:
+                del self._curvi[area]          # stale derivation
+                self._curvi_derived.discard(area)
+            if (area not in self._curvi and f"dx_{pt}" in self._curvi
+                    and f"dy_{pt}" in self._curvi):
+                self._curvi[area] = (self._curvi[f"dx_{pt}"]
+                                     * self._curvi[f"dy_{pt}"])
+                self._curvi_derived.add(area)
+
+    @property
+    def dx_t(self): return self._scale_array("dx_t", "dx_c", self.dx)
+    @property
+    def dy_t(self): return self._scale_array("dy_t", "dy_c", self.dy)
+    @property
+    def dx_u(self): return self._scale_array("dx_u", "dx_c", self.dx)
+    @property
+    def dy_u(self): return self._scale_array("dy_u", "dy_c", self.dy)
+    @property
+    def dx_v(self): return self._scale_array("dx_v", "dx_c", self.dx)
+    @property
+    def dy_v(self): return self._scale_array("dy_v", "dy_c", self.dy)
+    @property
+    def dx_f(self): return self._scale_array("dx_f", "dx_c", self.dx)
+    @property
+    def dy_f(self): return self._scale_array("dy_f", "dy_c", self.dy)
+    @property
+    def area_t(self):
+        return self._scale_array("area_t", "area", self.dx * self.dy)
+    @property
+    def area_u(self):
+        return self._scale_array("area_u", "area", self.dx * self.dy)
+    @property
+    def area_v(self):
+        return self._scale_array("area_v", "area", self.dx * self.dy)
+    #: f-plane latitude, constant 50 degrees (grid_mod.f90:512-523)
+    @property
+    def gphiu(self): return self._scale_array("gphiu", "gphi", 50.0)
+    @property
+    def gphiv(self): return self._scale_array("gphiv", "gphi", 50.0)
+    @property
+    def gphif(self): return self._scale_array("gphif", "gphi", 50.0)
+
     def global_tmask(self) -> np.ndarray:
         """The global (global_ny, global_nx) T mask as a host array."""
         return np.asarray(layout.unstack_internal(self.decomp,
@@ -181,6 +302,19 @@ class Grid:
         key = (off_x, off_y, dtype)
         if key not in self._region_masks:
             m = layout.region_mask(self.decomp, off_x, off_y)
+            self._region_masks[key] = torch.from_numpy(m).to(
+                device=self.device, dtype=dtype)
+        return self._region_masks[key]
+
+    def external_mask(self, off_x: int = 0, off_y: int = 0,
+                      dtype=None) -> torch.Tensor:
+        """Mask of the GLOBAL boundary ring (whole minus internal in
+        global coordinates, :func:`~.layout.external_mask`): the write
+        mask of ``GO_EXTERNAL_PTS`` kernels.  Cached."""
+        dtype = kinds.as_dtype(dtype) if dtype is not None else self.dtype
+        key = ("ext", off_x, off_y, dtype)
+        if key not in self._region_masks:
+            m = layout.external_mask(self.decomp, off_x, off_y)
             self._region_masks[key] = torch.from_numpy(m).to(
                 device=self.device, dtype=dtype)
         return self._region_masks[key]

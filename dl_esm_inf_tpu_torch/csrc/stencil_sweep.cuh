@@ -1,7 +1,9 @@
 // The shared skeleton of the client models' temporal-blocked sweeps: K
 // time steps per pass over device memory, for one stacked (ny, nx)
-// block of N state planes, M float aux planes and an optional int8
-// mask code.
+// block of N state planes, M float aux planes, MI int32 aux planes and
+// NC int8 mask-code planes (MI = 0 and NC = 0 or 1 for the hand-written
+// clients; the sweeps generated from kernel schedules,
+// ops/schedule_sweep.py, use them all).
 //
 // Replaces the no-exchange branch of the TPU kernel
 // dl_esm_inf_tpu/ops/sweep.py::make_stencil_sweep (`kernel`, the
@@ -9,8 +11,9 @@
 // the TPU kernel traced from Python, is a device functor here.
 //
 // Design.  Each CTA owns a TY x TX output tile and stages a window of
-// the tile plus a ring of R = K * REACH cells on every side in dynamic
-// shared memory: the state planes, the aux planes and the code byte.
+// the tile plus a ring of R cells on every side (K * REACH unless the
+// client names another ring) in dynamic shared memory: the state
+// planes, the aux planes and the code bytes.
 // Window reads outside the block are clamped to its edge, so the kernel
 // never reads outside the (ny, nx) block.  The CTA then applies the
 // client's step K times in shared memory; the inputs of sub-step k are
@@ -23,6 +26,8 @@
 // A client step is a struct with
 //   using G = Geom<K, REACH>;  static constexpr int N, M;  CODE (bool);
 //   using Tile = sweep::Tile<T, N, M, CODE, G>;  Consts (POD of doubles);
+// (Tile<T, N, M, CODE, G, MI, NC> adds MI int32 planes and NC code
+// planes);
 //   __device__ explicit Step(const Consts&);      // casts to T, once
 //   __device__ void substep(Tile&, int k) const;
 // `substep` runs its own phases and barriers, and returns only after a
@@ -49,9 +54,9 @@ constexpr int TX = 32;
 constexpr int TY = 32;
 constexpr int NT = 256;
 
-template <int K, int REACH>
+template <int K, int REACH, int RING = K * REACH>
 struct Geom {
-  static constexpr int R = K * REACH;
+  static constexpr int R = RING;
   static constexpr int WY = TY + 2 * R;
   static constexpr int WX = TX + 2 * R;
   static constexpr int WC = WY * WX;
@@ -70,9 +75,19 @@ __device__ __forceinline__ Box inset(int lo, int hi) {
   return Box{lo, G::WY - hi, lo, G::WX - hi};
 }
 
-// The device pointers of one launch.
-template <typename T, int N, int M>
-struct Planes {
+// The int32 aux planes of a launch (none for MI = 0, which keeps the
+// layout of Planes what it was before they existed).
+template <int MI>
+struct IntAux {
+  const int32_t* auxi[MI];
+};
+template <>
+struct IntAux<0> {};
+
+// The device pointers of one launch.  The NC code planes lie one after
+// another from `code`, ny * nx bytes each.
+template <typename T, int N, int M, int MI = 0>
+struct Planes : IntAux<MI> {
   const T* in[N];
   T* out[N];
   const T* aux[M > 0 ? M : 1];
@@ -80,13 +95,19 @@ struct Planes {
   int ny, nx;
 };
 
-// The shared-memory window: N state planes, M aux planes, the code.
-template <typename T, int N, int M, bool CODE, class G>
+// The shared-memory window: N state planes, M aux planes, MI int32 aux
+// planes, NC code planes (one when CODE, by default).
+template <typename T, int N, int M, bool CODE, class G, int MI = 0,
+          int NC = (CODE ? 1 : 0)>
 struct Tile {
+  static constexpr int NINT = MI, NCODE = NC;
   static constexpr size_t bytes =
-      static_cast<size_t>(N + M) * G::WC * sizeof(T) + (CODE ? G::WC : 0);
+      static_cast<size_t>(N + M) * G::WC * sizeof(T) +
+      static_cast<size_t>(MI) * G::WC * sizeof(int32_t) +
+      static_cast<size_t>(NC) * G::WC;
   T* s[N];
   T* a[M > 0 ? M : 1];
+  int32_t* ai[MI > 0 ? MI : 1];
   int8_t* code;
 
   __device__ explicit Tile(unsigned char* raw) {
@@ -95,12 +116,48 @@ struct Tile {
     for (int f = 0; f < N; ++f) s[f] = base + f * G::WC;
 #pragma unroll
     for (int f = 0; f < (M > 0 ? M : 1); ++f) a[f] = base + (N + f) * G::WC;
-    code = reinterpret_cast<int8_t*>(base + (N + M) * G::WC);
+    int32_t* ibase = reinterpret_cast<int32_t*>(base + (N + M) * G::WC);
+#pragma unroll
+    for (int f = 0; f < (MI > 0 ? MI : 1); ++f) ai[f] = ibase + f * G::WC;
+    code = reinterpret_cast<int8_t*>(ibase + MI * G::WC);
   }
 
   // mask bit b of the code at window index i, as 0/1 in T
   __device__ __forceinline__ T bit(int i, int b) const {
     return static_cast<T>((static_cast<int>(code[i]) >> b) & 1);
+  }
+
+  // mask bit b of code plane c at window index i
+  __device__ __forceinline__ bool bit_set(int i, int c, int b) const {
+    return ((static_cast<int>(code[c * G::WC + i]) >> b) & 1) != 0;
+  }
+};
+
+// Square root in the type of its argument, correctly rounded (as
+// torch.sqrt on the card).
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return ::sqrt(x); }
+
+// Reads of one staged plane around a window point: a(dj, di) is the
+// value dj rows north and di columns east, a() the point's own.
+template <typename V, int WX>
+struct At {
+  const V* p;
+  __device__ __forceinline__ V operator()(int dj, int di) const {
+    return p[dj * WX + di];
+  }
+  __device__ __forceinline__ V operator()() const { return *p; }
+};
+
+// A plane a kernel call writes: reads as At does (the values before the
+// call), and `w = value` sets the call's new value at the point, held in
+// v (the old value until assigned).
+template <typename V, int WX>
+struct Put : At<V, WX> {
+  V v;
+  __device__ __forceinline__ Put& operator=(V x) {
+    v = x;
+    return *this;
   }
 };
 
@@ -149,16 +206,21 @@ __device__ __forceinline__ void staged_update(const Box& b, T* const (&dst)[NV],
 }
 
 template <class S>
+using PlanesOf = Planes<typename S::T, S::N, S::M, S::Tile::NINT>;
+
+template <class S>
 __global__ void __launch_bounds__(NT)
-sweep_kernel(Planes<typename S::T, S::N, S::M> p, typename S::Consts c) {
+sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
   using G = typename S::G;
   constexpr int R = G::R, WX = G::WX, WC = G::WC;
+  constexpr int MI = S::Tile::NINT, NC = S::Tile::NCODE;
   extern __shared__ __align__(16) unsigned char sweep_smem[];
   typename S::Tile t(sweep_smem);
 
   // stage the window, clamped to the block
   const int x0 = blockIdx.x * TX - R;
   const int y0 = blockIdx.y * TY - R;
+  const size_t plane = static_cast<size_t>(p.ny) * p.nx;
   for (int i = threadIdx.x; i < WC; i += NT) {
     const int wy = i / WX, wx = i - wy * WX;
     const int gy = min(max(y0 + wy, 0), p.ny - 1);
@@ -168,7 +230,12 @@ sweep_kernel(Planes<typename S::T, S::N, S::M> p, typename S::Consts c) {
     for (int f = 0; f < S::N; ++f) t.s[f][i] = p.in[f][g];
 #pragma unroll
     for (int f = 0; f < S::M; ++f) t.a[f][i] = p.aux[f][g];
-    if (S::CODE) t.code[i] = p.code[g];
+    if constexpr (MI > 0) {
+#pragma unroll
+      for (int f = 0; f < MI; ++f) t.ai[f][i] = p.auxi[f][g];
+    }
+#pragma unroll
+    for (int f = 0; f < NC; ++f) t.code[f * WC + i] = p.code[f * plane + g];
   }
   const S step(c);
   __syncthreads();
@@ -189,8 +256,8 @@ sweep_kernel(Planes<typename S::T, S::N, S::M> p, typename S::Consts c) {
 }
 
 template <class S>
-cudaError_t launch(const Planes<typename S::T, S::N, S::M>& p,
-                   const typename S::Consts& c, cudaStream_t stream) {
+cudaError_t launch(const PlanesOf<S>& p, const typename S::Consts& c,
+                   cudaStream_t stream) {
   constexpr size_t smem = S::Tile::bytes;
   // the attribute is per device: set it once for each device used
   static int attr_device = -1;

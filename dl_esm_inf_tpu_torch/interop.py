@@ -29,16 +29,18 @@ def load_reference_state(model, arrays: dict, istep0: int = 0) -> None:
     NEMOLite2D, ``eta/u/v`` for the gravity-wave, shallow,
     semi-implicit and N-layer models,
     ``eta1/eta2/u1/v1/u2/v2`` for the two-layer model, ``c`` for the
-    tracer.  Optionally it also holds the inputs the state was computed
-    with: ``tmask`` (global T mask), ``depth`` (scalar or global T-point
-    array, for the models with a depth) and, for the tracer, its face
+    tracer; ``sshn/un/vn`` for the PSy-built flagship too
+    (``NemoLite2DPsy``).  Optionally it also holds the inputs the state
+    was computed with: ``tmask`` (global T mask), ``depth`` (scalar or
+    global T-point array, for the models with a depth) and, for the
+    tracer, its face
     velocities ``u``/``v`` (scalars or global arrays, as given to
     ``build``).  Those must equal the port model's own, or the states
     would belong to different problems; a mismatch raises
     ``ValueError``.  ``istep0`` is the number of steps the state has
     taken, for the models with a clock (it sets the model time of the
-    NEMOLite2D tidal forcing and of the semi-implicit model's open
-    boundary)."""
+    NEMOLite2D tidal forcing, the step counter of ``NemoLite2DPsy``, and
+    the model time of the semi-implicit model's open boundary)."""
     grid = model.grid
     d = grid.decomp
     shape = (d.global_ny, d.global_nx)
@@ -81,5 +83,7 @@ def load_reference_state(model, arrays: dict, istep0: int = 0) -> None:
             field.halo_exchange(d.halo)
     if hasattr(model, "_istep0"):
         model._istep0 = int(istep0)
+    elif hasattr(model, "_step"):           # the PSy-built flagship
+        model._step = int(istep0)
     if hasattr(model, "_sync_face_ssh"):
         model._sync_face_ssh()

@@ -132,8 +132,8 @@ def build(gnx: int = 256, gny: int = 256, ndomains=None, dt: float = 0.05,
           g: float = 9.81, depth: float = 10.0, dx: float = 1.0,
           dy: float = 1.0, tmask=None, dtype=None, halo_width: int = 1,
           fused: bool = False, steps_per_sweep: int = 1,
-          device="cpu") -> GravityWaveModel:
-    """Grid + land-ring tmask + model on ``device``.
+          device=None) -> GravityWaveModel:
+    """Grid + land-ring tmask + model on ``device`` (default: the card).
 
     ``fused=True`` (the JAX package's ``pallas=True``) advances with the
     fused sweep; ``steps_per_sweep=K`` (up to 8) adds temporal blocking,

@@ -588,8 +588,9 @@ def build(gnx: int = 256, gny: int = 256, ndomains=None,
           params: Params = Params(), depth: float = 100.0,
           open_north: bool = True, dtype=None,
           halo_width: int = 1, fused: bool = False,
-          steps_per_sweep: int = 1, device="cpu") -> NemoLite2D:
-    """Convenience constructor: grid + tmask + model on ``device``.
+          steps_per_sweep: int = 1, device=None) -> NemoLite2D:
+    """Convenience constructor: grid + tmask + model on ``device``
+    (default: the card).
 
     ``fused=True`` (the JAX package's ``pallas=True``) advances with the
     fused sweep: the CUDA kernel for a CUDA device, its plain version on

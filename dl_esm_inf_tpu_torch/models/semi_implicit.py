@@ -296,9 +296,10 @@ def build(gnx: int = 128, gny: int = 128, ndomains=None, dt: float = 1.0,
           dy: float = 1.0, tmask=None, dtype=None, tol: float | None = None,
           maxiter=None, differentiable: bool = False, solver: str = "cg",
           open_north: bool = False, bc_amp: float = 0.0,
-          bc_omega: float = 0.0, device="cpu") -> SemiImplicitModel:
-    """Grid + land-ring tmask + model on ``device`` (``open_north=True``
-    leaves the north edge wet: a radiative Flather boundary)."""
+          bc_omega: float = 0.0, device=None) -> SemiImplicitModel:
+    """Grid + land-ring tmask + model on ``device`` (default: the card;
+    ``open_north=True`` leaves the north edge wet: a radiative Flather
+    boundary)."""
     grid = Grid(ARAKAWA_C, (BC_EXTERNAL, BC_EXTERNAL, BC_NONE), OFFSET_NE,
                 dtype=dtype, device=device)
     grid.decompose(gnx, gny, ndomains=ndomains, halo_width=1)

@@ -92,10 +92,10 @@ class ShallowModel(SweepClient):
 
 def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.01,
           halo_width: int = 1, fused: bool = False,
-          steps_per_sweep: int = 1, dtype=None, device="cpu",
+          steps_per_sweep: int = 1, dtype=None, device=None,
           **kw) -> ShallowModel:
     """Doubly-periodic SW-offset grid (all wet, dx = dy = 1) + model on
-    ``device``; ``fused``/``steps_per_sweep`` as in
+    ``device`` (default: the card); ``fused``/``steps_per_sweep`` as in
     :func:`.gravity_wave.build`."""
     halo_width = fast_path_grid_args(fused, steps_per_sweep, 1, halo_width)
     grid = Grid(ARAKAWA_C, (BC_PERIODIC, BC_PERIODIC, BC_NONE), OFFSET_SW,

@@ -197,9 +197,9 @@ def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.1,
           tmask: np.ndarray | None = None, halo_width: int | None = None,
           dx: float = 1.0, dy: float = 1.0, fused: bool = False,
           steps_per_sweep: int = 1, dtype=None,
-          device="cpu") -> TracerModel:
+          device=None) -> TracerModel:
     """Tracer model on a walled domain (one-cell land ring by default)
-    on ``device``.
+    on ``device`` (default: the card).
 
     ``u``/``v`` are scalars or global face arrays; ``halo_width``
     defaults to the scheme's stencil reach (2 for vanleer);

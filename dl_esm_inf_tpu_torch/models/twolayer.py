@@ -106,9 +106,9 @@ class TwoLayerModel(SweepClient):
 
 def build(gnx: int = 128, gny: int = 128, ndomains=None, dt: float = 0.02,
           tmask=None, halo_width: int = 1, fused: bool = False,
-          steps_per_sweep: int = 1, dtype=None, device="cpu",
+          steps_per_sweep: int = 1, dtype=None, device=None,
           **kw) -> TwoLayerModel:
-    """Walled grid (dx = dy = 1) + model on ``device``;
+    """Walled grid (dx = dy = 1) + model on ``device`` (default: the card);
     ``fused``/``steps_per_sweep`` as in :func:`.gravity_wave.build`."""
     halo_width = fast_path_grid_args(fused, steps_per_sweep, 1, halo_width)
     grid = Grid(ARAKAWA_C, (BC_EXTERNAL, BC_EXTERNAL, BC_NONE), OFFSET_NE,

@@ -1,12 +1,15 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each library is compiled by ``nvcc`` from the sources under
-``dl_esm_inf_tpu_torch/csrc/`` into a shared object with a plain C
-interface, loaded with ``ctypes``.  Libraries are built at first use into
-``build/torch_kernels/`` at the root of the checkout, under a name keyed
-by a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads in milliseconds.  A failed build raises: nothing
-falls back to another path.
+``dl_esm_inf_tpu_torch/csrc/``, or from a generated source (the sweep
+kernels generated from kernel schedules, :mod:`.schedule_sweep`), into a
+shared object with a plain C interface, loaded with ``ctypes``.
+Libraries are built at first use into ``build/torch_kernels/`` at the
+root of the checkout, under a name keyed by a hash of the sources, the
+shared headers and the flags, so a changed source rebuilds and an
+unchanged one loads in milliseconds.  A generated source is written
+there too, beside its library.  A failed build raises: nothing falls
+back to another path.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -36,9 +40,12 @@ class BuiltLibrary:
     path: Path
     seconds: float        # compile time; 0.0 when loaded from the cache
     log: str              # nvcc's diagnostics (the ptxas report)
+    source: Path | None = None   # the generated source, if any
 
 
 _loaded: dict[str, BuiltLibrary] = {}
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -55,21 +62,41 @@ def find_nvcc() -> str:
         "kernels of dl_esm_inf_tpu_torch cannot be built")
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> BuiltLibrary:
-    """Build (if needed) and load ``lib<name>`` from ``csrc/<sources>``."""
-    if name in _loaded:
-        return _loaded[name]
+def load_library(name: str, sources: tuple[str, ...] = (), *,
+                 generated: str | None = None) -> BuiltLibrary:
+    """Build (if needed) and load ``lib<name>`` from ``csrc/<sources>``,
+    or from the source text ``generated`` (which may include the headers
+    under ``csrc/`` only).  Safe to call from several threads."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _loaded:
+            _loaded[name] = _build(name, sources, generated)
+    return _loaded[name]
+
+
+def _build(name: str, sources, generated) -> BuiltLibrary:
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if generated is not None:
+        h.update(b"generated:" + generated.encode())
     for p in sorted(paths) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    digest = h.hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    src = BUILD_DIR / f"{name}-{digest}.cu" if generated is not None else None
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        include = []
+        if src is not None:
+            tmp_src = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp_src.write_text(generated)
+            os.replace(tmp_src, src)
+            paths, include = [src], ["-I", str(CSRC)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp),
                *(str(p) for p in paths)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -81,6 +108,4 @@ def load_library(name: str, sources: tuple[str, ...]) -> BuiltLibrary:
                 f"building lib{name} failed (nvcc exit {res.returncode}):\n"
                 f"{' '.join(cmd)}\n{log}")
         os.replace(tmp, out)
-    built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-    _loaded[name] = built
-    return built
+    return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log, src)

@@ -39,6 +39,10 @@ from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
 
 torch.set_num_threads(2)
 
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+
 RTOL, ATOL = 1e-12, 1e-13
 GNX, GNY = 96, 64
 NSTEPS = 20                     # K = 8: two sweeps and four single steps
@@ -153,7 +157,7 @@ def _torch(arrays):
 def test_step_math_matches_jax(name):
     c = CLIENTS[name]
     mj = c.jmod.build(GNX, GNY, **c.kw)
-    mt = c.tmod.build(GNX, GNY, **c.kw)
+    mt = c.tmod.build(GNX, GNY, **c.kw, **CPU)
     state, aux = _block(c, 24, 40, seed=len(name))
     tprep = mt._prepare(_torch(aux))
     jprep = [np.asarray(a) for a in tprep]
@@ -176,7 +180,7 @@ def test_sweep_reference_matches_jax_sweeps(name):
     K = c.K
     mj = c.jmod.build(GNX, GNY, pallas=True, steps_per_sweep=K, **c.kw)
     mj.enable_pallas(interpret=True, steps_per_sweep=K)
-    mt = c.tmod.build(GNX, GNY, **c.kw)
+    mt = c.tmod.build(GNX, GNY, **c.kw, **CPU)
     ly, lx = mj.grid.halo_spec.local_ny, mj.grid.halo_spec.local_nx
     state, aux = _block(c, ly, lx, seed=K)
     got = stencil_sweep_reference(mt._step_math, K, _torch(state),
@@ -209,7 +213,7 @@ def test_slice_matches_jax_and_golden(name, ndom):
                       steps_per_sweep=c.K, **c.kw)
     mj.enable_pallas(interpret=True, steps_per_sweep=c.K)
     mt = c.tmod.build(GNX, GNY, ndomains=ndom, fused=True,
-                      steps_per_sweep=c.K, **c.kw)
+                      steps_per_sweep=c.K, **c.kw, **CPU)
     assert mt.grid.dtype == torch.float64 and mt.use_fused
     assert mt.grid.decomp.nprocx * mt.grid.decomp.nprocy == ndom
     for m in (mj, mt):
@@ -232,10 +236,10 @@ def test_plain_schedules_match_fused(name):
     depth-K*reach exchange) equals the fused path's plain version
     bitwise at 4 domains."""
     c = CLIENTS[name]
-    ms = [c.tmod.build(GNX, GNY, ndomains=4, **c.kw),
-          c.tmod.build(GNX, GNY, ndomains=4, steps_per_sweep=3, **c.kw),
+    ms = [c.tmod.build(GNX, GNY, ndomains=4, **c.kw, **CPU),
+          c.tmod.build(GNX, GNY, ndomains=4, steps_per_sweep=3, **c.kw, **CPU),
           c.tmod.build(GNX, GNY, ndomains=4, fused=True, steps_per_sweep=3,
-                       **c.kw)]
+                       **c.kw, **CPU)]
     assert [m.use_fused for m in ms] == [False, False, True]
     for m in ms:
         _init(name, m)
@@ -253,7 +257,7 @@ def test_tracer_mass_conserved_exactly(scheme):
     u, v = _gyre(N, N)
     m = ttr.build(N, N, ndomains=4, dt=0.2, u=u / 30.0, v=v / 30.0,
                   kappa=0.05, scheme=scheme, fused=True,
-                  steps_per_sweep=4)
+                  steps_per_sweep=4, **CPU)
     m.set_initial_tracer(tgw.gaussian_eta(N, N, amp=1.0, width=0.08)
                          + 0.01)
     m0 = m.mass()
@@ -270,7 +274,7 @@ def test_tracer_tvd_no_new_extrema():
     final = {}
     for scheme in ("upwind", "vanleer"):
         m = ttr.build(N, N, dt=0.5, u=0.5, v=0.0, scheme=scheme, fused=True,
-                      steps_per_sweep=4)
+                      steps_per_sweep=4, **CPU)
         m.set_initial_tracer(c0)
         m.run(40)
         c = m.gather()["c"]
@@ -293,7 +297,7 @@ def test_state_carried_from_jax(name):
     _init(name, mj)
     mj.run(n1)
     mt = c.tmod.build(GNX, GNY, ndomains=4, fused=True,
-                      steps_per_sweep=c.K, **c.kw)
+                      steps_per_sweep=c.K, **c.kw, **CPU)
     state = dict(mj.gather(), tmask=mt.grid.global_tmask())
     if c.tmod is ttr:
         state.update(u=c.kw["u"], v=c.kw["v"])
@@ -323,8 +327,9 @@ def test_guards_and_no_fallback(name):
     is never taken for it."""
     c = CLIENTS[name]
     with pytest.raises(ValueError, match="steps_per_sweep"):
-        c.tmod.build(GNX, GNY, fused=True, steps_per_sweep=c.K + 1, **c.kw)
-    m = c.tmod.build(GNX, GNY, fused=True, **c.kw)       # halo = reach
+        c.tmod.build(GNX, GNY, fused=True, steps_per_sweep=c.K + 1, **c.kw,
+                     **CPU)
+    m = c.tmod.build(GNX, GNY, fused=True, **c.kw, **CPU)       # halo = reach
     with pytest.raises(ValueError, match="halo_width"):
         m.enable_fast_path(steps_per_sweep=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -349,7 +354,8 @@ def test_shallow_requires_sw_periodic():
     from dl_esm_inf_tpu_torch.core.constants import (ARAKAWA_C, BC_NONE,
                                                      BC_PERIODIC, OFFSET_NE)
     from dl_esm_inf_tpu_torch.core.grid import Grid, grid_init
-    grid = Grid(ARAKAWA_C, (BC_PERIODIC, BC_PERIODIC, BC_NONE), OFFSET_NE)
+    grid = Grid(ARAKAWA_C, (BC_PERIODIC, BC_PERIODIC, BC_NONE), OFFSET_NE,
+                **CPU)
     grid.decompose(16, 16)
     grid_init(grid, 1.0, 1.0)
     with pytest.raises(ValueError, match="SW offset"):
@@ -360,7 +366,7 @@ def test_masks_match_jax():
     """The update masks and the int8 code the kernels read equal the
     JAX model's, halo cells included (4 domains, walls)."""
     mj = jgw.build(GNX, GNY, ndomains=4)
-    mt = tgw.build(GNX, GNY, ndomains=4)
+    mt = tgw.build(GNX, GNY, ndomains=4, **CPU)
     np.testing.assert_array_equal(mt._mask_codes.numpy(),
                                   np.asarray(mj._mask_codes))
     for a, b in zip(mt._step_aux, (mj._t_upd, mj._u_wet, mj._v_wet)):

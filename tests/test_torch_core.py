@@ -33,6 +33,10 @@ from dl_esm_inf_tpu_torch.parallel import collectives as tcoll
 
 torch.set_num_threads(2)
 
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+
 REPO = Path(__file__).resolve().parents[1]
 
 DECOMP_CASES = [
@@ -78,7 +82,7 @@ def _grids(gnx, gny, ndom, halo, periodic):
     bcs = (bc, bc, jdl.BC_NONE)
     gj = jdl.Grid(jdl.ARAKAWA_C, bcs, jdl.OFFSET_NE)
     gj.decompose(gnx, gny, ndomains=ndom, halo_width=halo)
-    gt = tdl.Grid(tdl.ARAKAWA_C, bcs, tdl.OFFSET_NE)
+    gt = tdl.Grid(tdl.ARAKAWA_C, bcs, tdl.OFFSET_NE, **CPU)
     gt.decompose(gnx, gny, ndomains=ndom, halo_width=halo)
     return gj, gt
 
@@ -196,7 +200,7 @@ def test_precision_policy(monkeypatch):
     tdl.set_working_precision("bf16")
     try:
         assert tkinds.wp("cpu") == torch.bfloat16
-        assert tdl.Grid().dtype == torch.bfloat16
+        assert tdl.Grid(**CPU).dtype == torch.bfloat16
     finally:
         tdl.set_working_precision(None)
     assert tkinds.sum_dtype(torch.float64) == torch.float64
@@ -214,11 +218,12 @@ def test_port_never_imports_jax():
         "p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 22, mods\n"
+        "assert len(mods) >= 26, mods\n"
         "for m in ('ops.stencil_sweep', 'models.gravity_wave', "
         "'models.shallow', 'models.twolayer', 'models.tracer', "
         "'ops.solvers', 'models.semi_implicit', 'models.nlayer', "
-        "'interop'):\n"
+        "'interop', 'api.kernel_meta', 'ops.schedule_sweep', "
+        "'models.nemolite2d_psy'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'dl_esm_inf_tpu.')) or "
@@ -239,6 +244,40 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
         tdl.Grid(device="cuda")
+
+
+def _default_device_entry_points():
+    from dl_esm_inf_tpu_torch.models import (gravity_wave, nemolite2d,
+                                             nlayer, semi_implicit, shallow,
+                                             tracer, twolayer)
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    return {"Grid": lambda **kw: tdl.Grid(**kw),
+            "nemolite2d": lambda **kw: nemolite2d.build(16, 16, **kw),
+            "gravity_wave": lambda **kw: gravity_wave.build(16, 16, **kw),
+            "shallow": lambda **kw: shallow.build(16, 16, **kw),
+            "twolayer": lambda **kw: twolayer.build(16, 16, **kw),
+            "tracer": lambda **kw: tracer.build(16, 16, **kw),
+            "semi_implicit": lambda **kw: semi_implicit.build(16, 16, **kw),
+            "nlayer": lambda **kw: nlayer.build(16, 16, **kw),
+            "NemoLite2DPsy": lambda **kw: NemoLite2DPsy(16, 16, **kw)}
+
+
+@pytest.mark.parametrize("entry", ["Grid", "nemolite2d", "gravity_wave",
+                                   "shallow", "twolayer", "tracer",
+                                   "semi_implicit", "nlayer",
+                                   "NemoLite2DPsy"])
+def test_default_device_is_the_card(monkeypatch, entry):
+    """Every entry point runs on the card unless given a device: with no
+    CUDA device and no ``device`` it raises, naming ``device="cpu"``;
+    it never carries on on the CPU.  With ``device="cpu"`` it runs
+    there."""
+    make = _default_device_entry_points()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    made = make(**CPU)
+    grid = made if entry == "Grid" else made.grid
+    assert grid.device == torch.device("cpu")
 
 
 def test_environment_and_logging(capsys):

@@ -361,3 +361,88 @@ def test_nlayer_outside_the_kernel_set_raises(cuda_device):
         nlm.nlayer_sweep(planes, (), m._mask_codes,
                          consts=m.kernel_constants(), K=9, variant=1)
     assert nlm.nlayer_sweep.launches == before
+
+
+# --- the fused schedule sweep generated from a kernel schedule -----------
+
+def _psy(device, ndom, dtype, halo=8):
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    m = NemoLite2DPsy(GNX, GNY, ndomains=ndom, halo_width=halo, dtype=dtype,
+                      device=device)
+    m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.2))
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("repeats", [1, 2, 3])
+def test_psy_schedule_kernel_matches_plain(cuda_device, repeats, ndom,
+                                           dtype):
+    """The PSy flagship's generated sweep kernel against the plain fused
+    tier, 12 steps: bitwise on internal points (the CUDA bodies follow
+    the torch bodies operation for operation)."""
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    mk, mp = _psy(cuda_device, ndom, dtype), _psy(cuda_device, ndom, dtype)
+    n = 12 // repeats
+    rows = [[mk._scalars_at(i * repeats + j) for j in range(repeats)]
+            for i in range(n)]
+    before = ss.schedule_sweep.launches
+    mk._sched.fused_program(n, repeats=repeats)(scalars=rows)
+    torch.cuda.synchronize()
+    assert ss.schedule_sweep.launches - before == n
+    mp._sched.fused_program(n, repeats=repeats, plain=True)(scalars=rows)
+    assert ss.schedule_sweep.launches - before == n
+    got, want = mk.gather(), mp.gather()
+    for k in want:
+        assert np.all(np.isfinite(got[k])), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_psy_schedule_kernel_matches_production(cuda_device):
+    m = _psy(cuda_device, 4, torch.float64, halo=5)
+    m.run(30, fused=True)
+    p = nl.build(GNX, GNY, ndomains=4, dtype=torch.float64, device=cuda_device)
+    p.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.2))
+    p.run(30)
+    got, want = m.gather(), p.gather()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-10, atol=1e-10,
+                                   err_msg=k)
+
+
+@pytest.mark.gpu
+def test_schedule_sweep_refuses_what_it_cannot_generate(cuda_device):
+    """On a CUDA grid: a kernel without a CUDA body and a levels=N field
+    raise NotImplementedError; nothing is launched, nothing runs the
+    plain version instead."""
+    from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+
+    @km.kernel(args=[km.Arg(km.GO_WRITE, km.GO_CT),
+                     km.Arg(km.GO_READ, km.GO_CT)], name="torch_only")
+    def torch_only(out, x):
+        return 2.0 * x
+
+    @km.kernel(args=[km.Arg(km.GO_WRITE, km.GO_CT),
+                     km.Arg(km.GO_READ, km.GO_CT)], name="doubled",
+               cuda="out = T(2.0) * x();")
+    def doubled(out, x):
+        return 2.0 * x
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE,
+                 device=cuda_device)
+    g.decompose(GNX, GNY, ndomains=4, halo_width=2)
+    tdl.grid_init(g, 1.0, 1.0)
+    a, b = tdl.Field(g, tdl.T_POINTS), tdl.Field(g, tdl.T_POINTS)
+    w3 = tdl.Field(g, tdl.T_POINTS, levels=3)
+    before = ss.schedule_sweep.launches
+    with pytest.raises(NotImplementedError, match="torch_only"):
+        km.Schedule((torch_only, b, a)).fused()
+    with pytest.raises(NotImplementedError, match="levels=N"):
+        km.Schedule((doubled, w3, a)).fused()
+    assert ss.schedule_sweep.launches == before
+    # the plain tiers run on the card as torch operations
+    km.Schedule((torch_only, b, a))()
+    km.invoke(torch_only, b, a)

@@ -27,6 +27,10 @@ from nemolite2d_golden import golden_run
 
 torch.set_num_threads(2)
 
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+
 RTOL, ATOL = 1e-12, 1e-13       # as tests/test_pallas_step.py
 GNX, GNY = 96, 64
 
@@ -115,7 +119,8 @@ def test_slice_matches_jax(ndom, K, ref):
         mj.enable_pallas(interpret=True, steps_per_sweep=K)
     else:
         mj = jnl.build(GNX, GNY, ndomains=ndom)
-    mt = tnl.build(GNX, GNY, ndomains=ndom, fused=True, steps_per_sweep=K)
+    mt = tnl.build(GNX, GNY, ndomains=ndom, fused=True, steps_per_sweep=K,
+                   **CPU)
     assert mt.grid.dtype == torch.float64 and mt.use_fused
     for m in (mj, mt):
         m.set_initial_ssh(j_gaussian(GNX, GNY, amp=0.5))
@@ -131,7 +136,8 @@ def test_golden_short_horizon_tight(fused):
     """As tests/test_nemolite2d_golden.py: 10 steps, every term live."""
     gnx, gny = 34, 30
     ssh0 = gaussian_eta(gnx, gny, amp=0.2)
-    m = tnl.build(gnx, gny, fused=fused, steps_per_sweep=4 if fused else 1)
+    m = tnl.build(gnx, gny, fused=fused, steps_per_sweep=4 if fused else 1,
+                  **CPU)
     m.set_initial_ssh(ssh0)
     m.run(10)
     want = golden_run(tnl.default_tmask(gnx, gny), ssh0, 10, m.p, m.grid.dx,
@@ -143,7 +149,8 @@ def test_golden_short_horizon_tight(fused):
 def test_golden_40_steps(ndom):
     gnx, gny = 34, 30
     ssh0 = gaussian_eta(gnx, gny, amp=0.2)
-    m = tnl.build(gnx, gny, ndomains=ndom, fused=True, steps_per_sweep=3)
+    m = tnl.build(gnx, gny, ndomains=ndom, fused=True, steps_per_sweep=3,
+                  **CPU)
     m.set_initial_ssh(ssh0)
     m.run(40)
     want = golden_run(tnl.default_tmask(gnx, gny), ssh0, 40, m.p, m.grid.dx,
@@ -160,7 +167,7 @@ def test_variable_bathymetry_plain_path_matches_jax():
     mj = jnl.build(gnx, gny, ndomains=4, depth=depth, halo_width=4,
                    steps_per_sweep=2)
     mt = tnl.build(gnx, gny, ndomains=4, depth=depth, halo_width=4,
-                   fused=True, steps_per_sweep=2)
+                   fused=True, steps_per_sweep=2, **CPU)
     for m in (mj, mt):
         m.set_initial_ssh(ssh0)
         m.run(9)
@@ -178,7 +185,8 @@ def test_state_carried_from_jax(ndom):
     mj = jnl.build(GNX, GNY, ndomains=ndom)
     mj.set_initial_ssh(j_gaussian(GNX, GNY, amp=0.5))
     mj.run(n1)
-    mt = tnl.build(GNX, GNY, ndomains=ndom, fused=True, steps_per_sweep=2)
+    mt = tnl.build(GNX, GNY, ndomains=ndom, fused=True, steps_per_sweep=2,
+                   **CPU)
     state = dict(mj.gather(), tmask=tnl.default_tmask(GNX, GNY), depth=100.0)
     load_reference_state(mt, state, istep0=n1)
     _assert_close(mt.gather(), mj.gather(), rtol=0, atol=0)
@@ -194,11 +202,11 @@ def test_state_carried_from_jax(ndom):
 
 def test_guards():
     with pytest.raises(ValueError, match="steps_per_sweep"):
-        tnl.build(32, 32, fused=True, steps_per_sweep=5)
+        tnl.build(32, 32, fused=True, steps_per_sweep=5, **CPU)
     with pytest.raises(ValueError, match="halo_width >= 4"):
-        m = tnl.build(32, 32, fused=True)          # halo 2
+        m = tnl.build(32, 32, fused=True, **CPU)          # halo 2
         m.enable_fast_path(steps_per_sweep=2)
-    m = tnl.build(32, 32, fused=True, steps_per_sweep=2)
+    m = tnl.build(32, 32, fused=True, steps_per_sweep=2, **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.enable_fast_path(steps_per_sweep=2, transport="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

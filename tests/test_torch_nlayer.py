@@ -33,6 +33,10 @@ from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
 
 torch.set_num_threads(2)
 
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+
 RTOL, ATOL = 1e-12, 1e-13
 GNX, GNY = 48, 40
 
@@ -72,7 +76,7 @@ def test_step_math_and_layer_step_match_jax(layers):
     mj = jnl.build(GNX, GNY, layers=layers, thickness=np.arange(1, layers + 1)
                    * 10.0, gp=0.03)
     mt = tnl.build(GNX, GNY, layers=layers, thickness=np.arange(1, layers + 1)
-                   * 10.0, gp=0.03)
+                   * 10.0, gp=0.03, **CPU)
     (eta, u, v), code = _block(layers, 24, 40, seed=layers)
     masks = tst.unpack_mask_bits(torch.from_numpy(code), 3, torch.float64)
     jm = [np.asarray(m) for m in masks]
@@ -105,7 +109,7 @@ def test_sweep_reference_matches_jax_pallas_interpret():
     L, K = 3, 3
     mj = jnl.build(GNX, GNY, layers=L, pallas=True, steps_per_sweep=K)
     mj.enable_pallas(interpret=True, steps_per_sweep=K)
-    mt = tnl.build(GNX, GNY, layers=L)
+    mt = tnl.build(GNX, GNY, layers=L, **CPU)
     ly, lx = mj.grid.halo_spec.local_ny, mj.grid.halo_spec.local_nx
     (eta, u, v), code = _block(L, ly, lx, seed=7)
     planes = [a[k] for a in (eta, u, v) for k in range(L)]
@@ -131,7 +135,7 @@ def test_slice_matches_jax(ndom, fused, K):
     L = 3
     mj = jnl.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=L)
     mt = tnl.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=L, fused=fused,
-                   steps_per_sweep=K)
+                   steps_per_sweep=K, **CPU)
     assert mt.use_fused == fused and mt._sweep_K == K
     for m in (mj, mt):
         m.set_initial(init_eta(L))
@@ -150,7 +154,7 @@ def test_vs_golden(layers):
                                 0.01, 60)
     for fused in (True, False):
         m = tnl.build(GNX, GNY, ndomains=4, dt=0.01, layers=layers,
-                      fused=fused, steps_per_sweep=8 if fused else 1)
+                      fused=fused, steps_per_sweep=8 if fused else 1, **CPU)
         m.set_initial(e0)
         m.run(60)
         _assert_close(m.gather(), want, rtol=1e-11, atol=1e-13)
@@ -163,9 +167,11 @@ def test_two_layers_equal_the_twolayer_model():
     e1 = tnl.gaussian_eta(GNX, GNY, amp=0.5)
     e2 = -tnl.gaussian_eta(GNX, GNY, amp=2.0)
     mn = tnl.build(GNX, GNY, ndomains=4, dt=0.01, layers=2, gp=0.02,
-                   thickness=[20.0, 80.0], fused=True, steps_per_sweep=8)
+                   thickness=[20.0, 80.0], fused=True, steps_per_sweep=8,
+                   **CPU)
     mn.set_initial(np.stack([e1, e2]))
-    mt = ttl.build(GNX, GNY, ndomains=4, dt=0.01, gp=0.02, h1=20.0, h2=80.0)
+    mt = ttl.build(GNX, GNY, ndomains=4, dt=0.01, gp=0.02, h1=20.0, h2=80.0,
+                   **CPU)
     mt.set_initial(e1, e2)
     mn.run(50)
     mt.run(50)
@@ -183,7 +189,7 @@ def test_one_tile_equals_four_tiles():
     out = []
     for ndom in (1, 4):
         m = tnl.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=3, fused=True,
-                      steps_per_sweep=4)
+                      steps_per_sweep=4, **CPU)
         m.set_initial(e0)
         m.run(21)
         out.append(m.gather())
@@ -194,7 +200,7 @@ def test_per_interface_volume_conserved():
     """Closed basin: every interface displacement integrates to a
     constant (tests/test_nlayer.py)."""
     m = tnl.build(40, 40, ndomains=4, dt=0.01, layers=3, fused=True,
-                  steps_per_sweep=8)
+                  steps_per_sweep=8, **CPU)
     m.set_initial(init_eta(3, 40, 40))
     wet = tnl.default_tmask(40, 40) == 1
     v0 = [m.gather()["eta"][k][wet].sum() for k in range(3)]
@@ -216,7 +222,7 @@ def test_level_field_round_trip_and_checksum_match_jax(pts, ndom):
     jdl.grid_init(gj, 1.0, 1.0)
     gt = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_PERIODIC, tdl.BC_EXTERNAL,
                                   tdl.BC_NONE), tdl.OFFSET_NE,
-                  dtype="float64")
+                  dtype="float64", **CPU)
     gt.decompose(24, 16, ndomains=ndom, halo_width=2)
     tdl.grid_init(gt, 1.0, 1.0)
     g = np.random.default_rng(ndom).standard_normal((3, 16, 24))
@@ -250,7 +256,7 @@ def test_state_carried_from_jax():
     mj.set_initial(init_eta(L))
     mj.run(5)
     mt = tnl.build(GNX, GNY, ndomains=4, dt=0.01, layers=L, fused=True,
-                   steps_per_sweep=4)
+                   steps_per_sweep=4, **CPU)
     state = dict(mj.gather(), tmask=mt.grid.global_tmask())
     load_reference_state(mt, state)
     _assert_close(mt.gather(), mj.gather(), rtol=0, atol=0)
@@ -266,12 +272,12 @@ def test_guards_and_no_fallback():
     is not on the CPU goes to the kernel or raises, and the plain version
     is never taken for it."""
     with pytest.raises(ValueError, match="layers"):
-        tnl.build(16, 16, layers=0)
+        tnl.build(16, 16, layers=0, **CPU)
     with pytest.raises(ValueError, match="thickness"):
-        tnl.build(16, 16, layers=2, thickness=[10.0, -1.0])
+        tnl.build(16, 16, layers=2, thickness=[10.0, -1.0], **CPU)
     with pytest.raises(ValueError, match="steps_per_sweep"):
-        tnl.build(32, 32, fused=True, steps_per_sweep=9)
-    m = tnl.build(32, 32, layers=2, fused=True)           # halo = 1
+        tnl.build(32, 32, fused=True, steps_per_sweep=9, **CPU)
+    m = tnl.build(32, 32, layers=2, fused=True, **CPU)           # halo = 1
     with pytest.raises(ValueError, match="halo_width"):
         m.enable_fast_path(steps_per_sweep=2)
     with pytest.raises(NotImplementedError, match="A10"):
@@ -298,12 +304,12 @@ def test_guards_and_no_fallback():
         kern(meta(6), (), code, variant=1, **dict(call, K=9))
     assert kern.launches == before
     # a grid that is not on the CPU refuses five layers up front
-    m5 = tnl.build(16, 16, layers=5)
+    m5 = tnl.build(16, 16, layers=5, **CPU)
     m5.grid.device = torch.device("meta")
     with pytest.raises(ValueError, match="1..4 layers"):
         m5.enable_fast_path(1)
     # on the CPU five layers run the plain version, as documented
-    m5 = tnl.build(GNX, GNY, layers=5, fused=True, steps_per_sweep=2)
+    m5 = tnl.build(GNX, GNY, layers=5, fused=True, steps_per_sweep=2, **CPU)
     m5.set_initial(np.concatenate([init_eta(3), init_eta(2)]))
     m5.run(5)
     assert all(np.isfinite(a).all() for a in m5.gather().values())

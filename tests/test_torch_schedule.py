@@ -1,0 +1,708 @@
+"""The port's kernel Schedule against the JAX package's.
+
+Mirrors tests/test_schedule.py.  The same schedule of twin kernels (a
+jnp body for the JAX package, a torch body for the port) on the same
+seeded fields, at float64:
+
+* the static exchange plan (``schedule.exchanges``) is EQUAL to the JAX
+  plan;
+* the plain tier (``schedule()``) equals the JAX jnp tier;
+* the fused tier (``fused``, ``fused_program``), which on the CPU runs
+  the sweep's plain PyTorch version, equals the JAX jnp tier and the
+  JAX fused tier in interpret mode, on internal points (rtol/atol
+  1e-12; halo cells hold values of no meaning in both);
+* the CUDA generator emits a source for these schedules and refuses a
+  kernel without a CUDA body; on a CUDA grid the fused tier raises
+  ``NotImplementedError`` for such a kernel or a ``levels=N`` field.
+  The generated kernels themselves run in tests/test_torch_gpu.py and
+  ``chip_smoke.py``.
+"""
+import functools
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import dl_esm_inf_tpu as jdl
+from dl_esm_inf_tpu.api import kernel_meta as jkm
+from dl_esm_inf_tpu.ops import stencils as jst
+
+import dl_esm_inf_tpu_torch as tdl
+from dl_esm_inf_tpu_torch.api import kernel_meta as tkm
+from dl_esm_inf_tpu_torch.ops import schedule_sweep as tss
+from dl_esm_inf_tpu_torch.ops import stencils as tst
+
+torch.set_num_threads(2)
+
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+TOL = dict(rtol=1e-12, atol=1e-12)
+
+
+def _args(km, spec):
+    out = []
+    for acc, el, *sten in spec:
+        element = (getattr(km.GridProp, el.split(".")[1])
+                   if el.startswith("GridProp.") else getattr(km, el))
+        out.append(km.Arg(getattr(km, acc), element,
+                          km.Stencil(*sten[0]) if sten else km.GO_POINTWISE))
+    return out
+
+
+def twin(spec, jfn, tfn, cuda=None, **kw):
+    """The same metadata on a jnp body, and on a torch body with its
+    CUDA point body."""
+    jw = functools.wraps(jfn)(lambda *a: jfn(*a))
+    return (jkm.kernel(args=_args(jkm, spec), **kw)(jw),
+            tkm.kernel(args=_args(tkm, spec), cuda=cuda, **kw)(tfn))
+
+
+J_EAST_PLUS, T_EAST_PLUS = twin(
+    [("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT", (0, 11, 0)),
+     ("GO_READ", "GO_R_SCALAR")],
+    lambda out, x, a: jst.xp(x) + a, lambda out, x, a: tst.xp(x) + a,
+    cuda="out = x(0, 1) + T(a);", name="east_plus")
+J_DOUBLE, T_DOUBLE = twin(
+    [("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+    lambda out, x: 2.0 * x, lambda out, x: 2.0 * x,
+    cuda="out = T(2.0) * x();", name="double")
+J_TOTAL, T_TOTAL = twin(
+    [("GO_SUM", "GO_R_SCALAR"), ("GO_READ", "GO_CT")],
+    lambda x: jnp.sum(x), lambda x: torch.sum(x), name="total")
+J_INCR, T_INCR = twin([("GO_READWRITE", "GO_CT")], lambda x: x + 1.0,
+                      lambda x: x + 1.0, cuda="x = x() + T(1.0);",
+                      name="incr")
+
+
+def grids(gnx=12, gny=10, ndom=4, halo=1, wrap=False, dx=1.0):
+    out = []
+    for dl, extra in ((jdl, {}), (tdl, CPU)):
+        bc = dl.BC_PERIODIC if wrap else dl.BC_EXTERNAL
+        g = dl.Grid(dl.ARAKAWA_C, (bc, bc, dl.BC_NONE), dl.OFFSET_NE,
+                    **extra)
+        g.decompose(gnx, gny, ndomains=ndom, halo_width=halo,
+                    **({"align_y": 8} if dl is jdl else {}))
+        dl.grid_init(g, dx, dx)
+        out.append(g)
+    return out
+
+
+def chain_fields(g, vals=None):
+    """a (a ramp, or ``vals``), b, c on one grid of either package."""
+    dl = jdl if isinstance(g, jdl.Grid) else tdl
+    gny, gnx = g.global_ny, g.global_nx
+    if vals is None:
+        vals = np.arange(gnx * gny, dtype=float).reshape(gny, gnx)
+    return (dl.Field(g, dl.T_POINTS, init_global_data=vals),
+            dl.Field(g, dl.T_POINTS), dl.Field(g, dl.T_POINTS))
+
+
+def same(fj, ft, **tol):
+    np.testing.assert_allclose(ft.gather_inner_data(),
+                               np.asarray(fj.gather_inner_data()),
+                               **(tol or TOL))
+
+
+# --- the plain tier and the exchange plan ------------------------------------
+
+def test_exchange_plan_equals_jax():
+    for calls in (lambda k, a, b, c: ((k[0], b, a, 3.0), (k[0], c, b, 1.0),
+                                      (k[1], b, c)),
+                  lambda k, a, b, c: ((k[0], b, a, 3.0), (k[0], c, a, 1.0)),
+                  lambda k, a, b, c: ((k[1], b, a), (k[0], c, b, 0.5),
+                                      (k[0], a, c, 0.5), (k[0], b, a, 1.0))):
+        gj, gt = grids()
+        sj = jkm.Schedule(*calls((J_EAST_PLUS, J_DOUBLE), *chain_fields(gj)))
+        st_ = tkm.Schedule(*calls((T_EAST_PLUS, T_DOUBLE),
+                                  *chain_fields(gt)))
+        assert st_.exchanges == sj.exchanges
+    gj, gt = grids()
+    aj, bj, cj = chain_fields(gj)
+    at, bt, ct = chain_fields(gt)
+    plan = tkm.Schedule((T_EAST_PLUS, bt, at, 3.0),
+                        (T_EAST_PLUS, ct, at, 1.0)).exchanges
+    assert set(plan) == {0} and plan[0][0] == (1,)
+
+
+def test_schedule_matches_jax_and_eager_invokes():
+    """A dependent chain across tile seams: the port's schedule == its
+    eager invokes == the JAX jnp schedule (bitwise on internal
+    points)."""
+    gj, gt, ge = *grids(), grids()[1]
+    aj, bj, cj = chain_fields(gj)
+    at, bt, ct = chain_fields(gt)
+    ae, be, ce = chain_fields(ge)
+    jkm.Schedule((J_EAST_PLUS, bj, aj, 3.0), (J_EAST_PLUS, cj, bj, 1.0),
+                 (J_DOUBLE, bj, cj))()
+    tkm.Schedule((T_EAST_PLUS, bt, at, 3.0), (T_EAST_PLUS, ct, bt, 1.0),
+                 (T_DOUBLE, bt, ct))()
+    tkm.invoke(T_EAST_PLUS, be, ae, 3.0)
+    tkm.invoke(T_EAST_PLUS, ce, be, 1.0)
+    tkm.invoke(T_DOUBLE, be, ce)
+    for fj, ft, fe in ((bj, bt, be), (cj, ct, ce)):
+        np.testing.assert_array_equal(ft.gather_inner_data(),
+                                      fe.gather_inner_data())
+        same(fj, ft, rtol=0, atol=0)
+
+
+def test_schedule_reductions_and_rerun():
+    gj, gt = grids(8, 8, 4)
+    ones = np.ones((8, 8))
+    aj, bj, _ = chain_fields(gj, ones)
+    at, bt, _ = chain_fields(gt, ones)
+    sj = jkm.Schedule((J_DOUBLE, bj, aj), (J_TOTAL, bj))
+    st_ = tkm.Schedule((T_DOUBLE, bt, at), (T_TOTAL, bt))
+    assert st_() == sj() == 128.0
+    assert st_() == 128.0
+
+
+def test_schedule_scalar_rebind():
+    gj, gt = grids(8, 8, 2)
+    aj, bj, _ = chain_fields(gj)
+    at, bt, _ = chain_fields(gt)
+    sj = jkm.Schedule((J_EAST_PLUS, bj, aj, 0.0))
+    st_ = tkm.Schedule((T_EAST_PLUS, bt, at, 0.0))
+    st_(scalars=[5.0])
+    sj(scalars=[5.0])
+    same(bj, bt)
+    m = bt.internal_mask_np()
+    plus5 = bt.get_data()[m].copy()
+    st_(scalars=[0.0])
+    np.testing.assert_allclose(plus5 - bt.get_data()[m], 5.0, rtol=1e-12)
+
+
+def test_schedule_rebind_cannot_clobber_grid_scalars():
+    jk, tk = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT"),
+                   ("GO_READ", "GO_R_SCALAR"),
+                   ("GO_READ", "GridProp.GRID_DX_CONST")],
+                  lambda out, x, a, dx: a * x * dx,
+                  lambda out, x, a, dx: a * x * dx)
+    gj, gt = grids(8, 8, 2, dx=2.5)
+    xj, oj, _ = chain_fields(gj, np.ones((8, 8)))
+    xt, ot, _ = chain_fields(gt, np.ones((8, 8)))
+    jkm.Schedule((jk, oj, xj, 3.0))(scalars=[4.0])
+    s = tkm.Schedule((tk, ot, xt, 3.0))
+    s(scalars=[4.0])
+    assert np.allclose(ot.get_data()[ot.internal_mask_np()], 4.0 * 2.5)
+    same(oj, ot)
+    with pytest.raises(ValueError, match="1 user scalar"):
+        s(scalars=[4.0, 9.0])
+
+
+def test_schedule_depth_guard_and_arity():
+    g0 = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                  tdl.BC_NONE), tdl.OFFSET_NE, **CPU)
+    g0.decompose(12, 10, ndomains=1, halo_width=0)
+    tdl.grid_init(g0, 1.0, 1.0)
+    a0, b0, _ = chain_fields(g0)
+    with pytest.raises(ValueError, match="halo depth"):
+        tkm.Schedule((T_EAST_PLUS, b0, a0, 1.0))
+    _, gt = grids()
+    a, b, _ = chain_fields(gt)
+    with pytest.raises(TypeError, match="caller arguments"):
+        tkm.Schedule((T_EAST_PLUS, b, a))
+    with pytest.raises(ValueError, match="empty schedule"):
+        tkm.Schedule()
+
+
+def test_invoke_schedule_with_grid_property():
+    jk, tk = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT"),
+                   ("GO_READ", "GridProp.GRID_DX_CONST")],
+                  lambda out, x, dx: x * dx, lambda out, x, dx: x * dx)
+    gj, gt = grids(8, 8, 2)
+    aj, bj, _ = chain_fields(gj)
+    at, bt, _ = chain_fields(gt)
+    jkm.invoke_schedule((jk, bj, aj))
+    assert tkm.invoke_schedule((tk, bt, at)) is None
+    same(bj, bt)
+
+
+def test_schedule_rejects_wrong_kernel_arity():
+    _, tk = twin([("GO_WRITE", "GO_CT"), ("GO_WRITE", "GO_CT"),
+                  ("GO_READ", "GO_CT")],
+                 lambda o1, o2, x: 2.0 * x, lambda o1, o2, x: 2.0 * x)
+    _, gt = grids()
+    a, b, c = chain_fields(gt)
+    with pytest.raises(ValueError, match="declares 2 written"):
+        tkm.Schedule((tk, b, c, a))()
+
+
+def test_schedule_consts_deduplicated():
+    jk, tk = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT"),
+                   ("GO_READ", "GridProp.GRID_AREA_T")],
+                  lambda out, x, area: x * area,
+                  lambda out, x, area: x * area,
+                  cuda="out = x() * area();")
+    _, gt = grids(32, 32, 4, halo=4)
+    a, b, c = chain_fields(gt)
+    s = tkm.Schedule((tk, b, a), (tk, c, b), (tk, c, c))
+    assert len(s._consts) == 1
+    s()
+    np.testing.assert_allclose(c.gather_inner_data(), a.gather_inner_data(),
+                               rtol=1e-12)
+
+
+# --- the fused tier (its plain version on the CPU) ---------------------------
+
+def fused_pair(calls, halo=4, ndom=4, gnx=32, gny=32, wrap=False, fields=None):
+    """(JAX fields, port fields, JAX schedule, port schedule) of
+    ``calls(kernels, *fields)``."""
+    gj, gt = grids(gnx, gny, ndom, halo=halo, wrap=wrap)
+    fj = (fields or chain_fields)(gj)
+    ft = (fields or chain_fields)(gt)
+    return (fj, ft, jkm.Schedule(*calls(J, *fj)),
+            tkm.Schedule(*calls(T, *ft)))
+
+
+J = types.SimpleNamespace(east_plus=J_EAST_PLUS, double=J_DOUBLE,
+                          incr=J_INCR)
+T = types.SimpleNamespace(east_plus=T_EAST_PLUS, double=T_DOUBLE,
+                          incr=T_INCR)
+
+
+def _chain3(k, a, b, c):
+    return ((k.east_plus, b, a, 3.0), (k.double, c, b),
+            (k.east_plus, c, c, 0.5))
+
+
+@pytest.mark.parametrize("ndom", [1, 4, 16])
+def test_fused_schedule_matches_jax(ndom):
+    """The whole sequence as ONE sweep (single up-front exchange,
+    redundant halo compute) == the JAX jnp schedule and the JAX fused
+    sweep in interpret mode, across tile seams (16 tiles:
+    over-decomposed in the JAX package too)."""
+    fj, ft, sj, st_ = fused_pair(_chain3, ndom=ndom)
+    st_.fused()
+    sj.fused(interpret=True)
+    gj = grids(32, 32, ndom, halo=4)[0]
+    fjj = chain_fields(gj)
+    jkm.Schedule(*_chain3(J, *fjj))()
+    for x_j, x_t, x_jj in zip(fj, ft, fjj):
+        same(x_j, x_t)
+        same(x_jj, x_t)
+
+
+def test_fused_schedule_repeats_and_scalars():
+    calls = lambda k, a, b, c: ((k.east_plus, b, a, 1.5), (k.double, a, b))
+    fj, ft, sj, st_ = fused_pair(calls, halo=8)
+    for _ in range(3):
+        sj(scalars=[2.5])
+    st_.fused(scalars=[2.5], repeats=3)
+    for x_j, x_t in zip(fj, ft):
+        same(x_j, x_t)
+
+
+def test_fused_schedule_per_repeat_scalars():
+    calls = lambda k, a, b, c: ((k.east_plus, b, a, 0.0), (k.double, a, b))
+    fj, ft, sj, st_ = fused_pair(calls, halo=8)
+    series = [[0.25], [-1.0], [3.5]]
+    sj.fused(scalars=series, repeats=3, interpret=True)
+    st_.fused(scalars=series, repeats=3)
+    for x_j, x_t in zip(fj, ft):
+        same(x_j, x_t)
+    with pytest.raises(ValueError, match="per-repeat scalars"):
+        st_.fused(scalars=[[1.0]], repeats=3)
+
+
+def test_fused_schedule_flat_scalars_with_0d_values():
+    calls = lambda k, a, b, c: ((k.east_plus, b, a, 0.0),)
+    fj, ft, sj, st_ = fused_pair(calls)
+    sj(scalars=[5.0])
+    st_.fused(scalars=[torch.tensor(5.0, dtype=torch.float64)])
+    same(fj[1], ft[1])
+
+
+def test_fused_schedule_grid_property_array():
+    jk, tk = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT"),
+                   ("GO_READ", "GridProp.GRID_AREA_T")],
+                  lambda out, x, area: x * area,
+                  lambda out, x, area: x * area, cuda="out = x() * area();")
+    gj, gt = grids(32, 32, 4, halo=4, dx=0.5)
+    aj, bj, _ = chain_fields(gj)
+    at, bt, _ = chain_fields(gt)
+    jkm.Schedule((jk, bj, aj)).fused(interpret=True)
+    tkm.Schedule((tk, bt, at)).fused()
+    same(bj, bt)
+
+
+def test_fused_schedule_guards():
+    _, gt = grids(32, 32, 4, halo=1)
+    a, b, c = chain_fields(gt)
+    with pytest.raises(NotImplementedError, match="reduction"):
+        tkm.Schedule((T_TOTAL, a)).fused()
+    s = tkm.Schedule((T_EAST_PLUS, b, a, 1.0), (T_EAST_PLUS, c, b, 1.0))
+    assert s.fused_erosion(1) == 2
+    with pytest.raises(ValueError, match="halo_width=2"):
+        s.fused()
+    with pytest.raises(ValueError, match="repeats must be"):
+        tkm.Schedule((T_DOUBLE, b, a)).fused(repeats=0)
+
+
+def _fuzz_cases():
+    """tests/test_schedule.py::test_fused_schedule_fuzz's seeded chains
+    (seed 42): random shifts, scalars, spaces, sizes, tile counts and
+    wrap.  Yields (trial, names, scalars, spaces, wrap, gnx, gny, ndom,
+    halo, values)."""
+    rng = np.random.default_rng(42)
+    for trial in range(6):
+        wrap = bool(rng.integers(0, 2))
+        gnx = int(rng.choice([24, 32, 40]))
+        gny = int(rng.choice([24, 32, 40]))
+        ndom = int(rng.choice([1, 4, 8, 16]))
+        n_calls = int(rng.integers(1, 4))
+        names = [str(n) for n in rng.choice(list(SHIFTS), size=n_calls)]
+        halo = max(sum(2 if n == "EE" else 1 for n in names), 1)
+        vals = rng.standard_normal((gny, gnx))
+        rng.standard_normal((gny, gnx))     # the JAX test's second build
+        scal, spaces = [], []
+        for _ in names:
+            scal.append(float(rng.uniform(-1, 1)))
+            spaces.append(tkm.GO_ALL_PTS if rng.integers(0, 3) == 0
+                          else tkm.GO_INTERNAL_PTS)
+        yield trial, names, scal, spaces, wrap, gnx, gny, ndom, halo, vals
+
+
+#: (stencil rows, jnp shift, torch shift, CUDA read) of the fuzz
+SHIFTS = {
+    "E": ((0, 11, 0), jst.xp, tst.xp, "x(0, 1)"),
+    "W": ((0, 110, 0), jst.xm, tst.xm, "x(0, -1)"),
+    "N": ((10, 10, 0), jst.yp, tst.yp, "x(1, 0)"),
+    "S": ((0, 10, 10), jst.ym, tst.ym, "x(-1, 0)"),
+    "EE": ((0, 12, 0), lambda a: jst.xp(jst.xp(a)),
+           lambda a: tst.xp(tst.xp(a)), "x(0, 2)"),
+}
+
+
+def fuzz_kernel(name, space, tag):
+    rows, jf, tf, read = SHIFTS[name]
+    return twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT", rows),
+                 ("GO_READ", "GO_R_SCALAR")],
+                lambda out, x, a: jf(x) + a, lambda out, x, a: tf(x) + a,
+                cuda=f"out = {read} + T(a);", iterates_over=space,
+                name=f"fz_{tag}_{name}")
+
+
+def test_fused_schedule_fuzz():
+    ran = 0
+    for trial, names, scal, spaces, wrap, gnx, gny, ndom, halo, vals in \
+            _fuzz_cases():
+        try:
+            gj, gt = grids(gnx, gny, ndom, halo=halo, wrap=wrap)
+            gj2 = grids(gnx, gny, ndom, halo=halo, wrap=wrap)[0]
+        except ValueError:
+            continue        # indivisible periodic decomposition
+        fs = [(dl.Field(g, dl.T_POINTS, init_global_data=vals),
+               dl.Field(g, dl.T_POINTS))
+              for dl, g in ((jdl, gj), (jdl, gj2), (tdl, gt))]
+        calls = [[], [], []]
+        cur = [f[0] for f in fs]
+        for k, (nm, s, sp) in enumerate(zip(names, scal, spaces)):
+            jk, tk = fuzz_kernel(nm, sp, f"{trial}{k}")
+            for i, kern in enumerate((jk, jk, tk)):
+                calls[i].append((kern, fs[i][1], cur[i], s))
+            cur = [f[1] for f in fs]
+        jkm.Schedule(*calls[0])()
+        jkm.Schedule(*calls[1]).fused(interpret=True)
+        tkm.Schedule(*calls[2]).fused()
+        msg = f"trial {trial}: {names} wrap={wrap} ndom={ndom} {gnx}x{gny}"
+        for j in (0, 1):
+            want = np.asarray(fs[j][1].gather_inner_data())
+            np.testing.assert_allclose(fs[2][1].gather_inner_data(), want,
+                                       err_msg=msg, **TOL)
+        ran += 1
+    assert ran >= 4
+
+
+def test_fused_program_scratch_slot_matches_jax():
+    """A written-before-read SCRATCH slot (b) streams read-only through
+    the light loop; all slots equal the JAX fused program."""
+    calls = lambda k, a, b, c: ((k.east_plus, b, a, 1.5), (k.double, a, b))
+    fj, ft, sj, st_ = fused_pair(calls, halo=8)
+    sj.fused_program(4, interpret=True)(scalars=[1.5])
+    st_.fused_program(4)(scalars=[1.5])
+    for x_j, x_t in zip(fj, ft):
+        same(x_j, x_t)
+
+
+def _multi_mask(km, k, a, b, c):
+    fill = km.kernel(args=_args(km, [("GO_READWRITE", "GO_CT")]),
+                     iterates_over=km.GO_ALL_PTS, name="bc_fill_all",
+                     **({"cuda": "b = b() * T(0.5) + T(21.0);"}
+                        if km is tkm else {}))(lambda b: b * 0.5 + 21.0)
+    return ((k.east_plus, b, a, 0.0),     # b: interior mask write
+            (k.east_plus, c, b, 0.0),     # stencil read of b
+            (fill, b),                    # b: a SECOND (all-points) mask
+            (k.incr, a))                  # a feeds forward
+
+
+def test_fused_program_multi_mask_written_slot_is_carried():
+    """The scratch rule needs ONE write mask: b, written under two
+    masks, is carried; the port equals the JAX fused program and the
+    plain schedule run three times."""
+    gj, gt = grids(32, 32, 4, halo=8)
+    fj, ft = chain_fields(gj), chain_fields(gt)
+    gp = grids(32, 32, 4, halo=8)[1]
+    fp = chain_fields(gp)
+    jkm.Schedule(*_multi_mask(jkm, J, *fj)).fused_program(
+        3, interpret=True)()
+    tkm.Schedule(*_multi_mask(tkm, T, *ft)).fused_program(3)()
+    plain = tkm.Schedule(*_multi_mask(tkm, T, *fp))
+    for _ in range(3):
+        plain()
+    for x_j, x_t, x_p in zip(fj, ft, fp):
+        same(x_j, x_t)
+        np.testing.assert_allclose(x_t.gather_inner_data(),
+                                   x_p.gather_inner_data(), **TOL)
+
+
+def test_fused_program_readwrite_first_touch_is_carried():
+    calls = lambda k, a, b, c: ((k.incr, a),)
+    fj, ft, sj, st_ = fused_pair(calls, halo=8)
+    for _ in range(3):
+        sj()
+    st_.fused_program(3)()
+    same(fj[0], ft[0])
+
+
+def test_fused_schedule_more_than_eight_masks():
+    """Nine write masks: two packed code planes."""
+    kerns = [twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                  lambda out, x, k=k: (k + 1.0) * x,
+                  lambda out, x, k=k: (k + 1.0) * x,
+                  cuda=f"out = T({k + 1.0!r}) * x();", name=f"scale9_{k}")
+             for k in range(9)]
+
+    def fields9(g):
+        dl = jdl if isinstance(g, jdl.Grid) else tdl
+        a = chain_fields(g)[0]
+        return (a,) + tuple(dl.Field(g, dl.T_POINTS) for _ in range(9))
+    gj, gt = grids(32, 32, 4, halo=4)
+    fj, ft = fields9(gj), fields9(gt)
+    sj = jkm.Schedule(*[(k[0], o, fj[0]) for k, o in zip(kerns, fj[1:])])
+    st_ = tkm.Schedule(*[(k[1], o, ft[0]) for k, o in zip(kerns, ft[1:])])
+    assert len(st_._masks) == 9
+    sj.fused(interpret=True)
+    st_.fused()
+    assert len(st_._fused_masks()) == 2
+    for x_j, x_t in zip(fj[1:], ft[1:]):
+        same(x_j, x_t)
+
+
+def _level_fields(g, levels_vals=None):
+    dl = jdl if isinstance(g, jdl.Grid) else tdl
+    gny, gnx = g.global_ny, g.global_nx
+    vals = np.arange(gnx * gny, dtype=float).reshape(gny, gnx)
+    return (dl.Field(g, dl.T_POINTS, init_global_data=vals),
+            dl.Field(g, dl.T_POINTS, levels=3))
+
+
+def test_fused_program_multilevel_scratch():
+    """A levels=3 scratch slot (2D results broadcast to every level)
+    rides the multi-step loop on the plain path."""
+    spec3 = [("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT", (0, 11, 0))]
+    j3, t3 = twin(spec3, lambda out3, x: jst.xp(x),
+                  lambda out3, x: tst.xp(x), name="east_to_levels")
+    jm, tm = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                  lambda out, x3: x3.sum(axis=0) * 0.25,
+                  lambda out, x3: x3.sum(dim=0) * 0.25, name="level_mean")
+    gj, gt = grids(32, 32, 4, halo=8)
+    (aj, wj), (at, wt) = _level_fields(gj), _level_fields(gt)
+    jkm.Schedule((j3, wj, aj), (jm, aj, wj)).fused_program(
+        3, interpret=True)()
+    tkm.Schedule((t3, wt, at), (tm, at, wt)).fused_program(3)()
+    same(aj, at)
+    same(wj, wt)
+
+
+def test_fused_schedule_multilevel_matches_jax():
+    """levels=3 fields fuse as 3 planes each on the plain path: an
+    nlayer-style sequence (cumsum pressure, reverse-cumsum flux, a
+    read-only 3-level forcing, a 2D vertical sum), twice per schedule."""
+    mspec = [("GO_READWRITE", "GO_CU"), ("GO_READWRITE", "GO_CV"),
+             ("GO_READ", "GO_CT", (10, 11, 0)), ("GO_READ", "GO_R_SCALAR")]
+
+    def jmom(u, v, eta, dt):
+        p = jnp.cumsum(0.6 * eta, axis=0)
+        return u - dt * (jst.xp(p) - p), v - dt * (jst.yp(p) - p)
+
+    def tmom(u, v, eta, dt):
+        p = torch.cumsum(0.6 * eta, dim=0)
+        return u - dt * (tst.xp(p) - p), v - dt * (tst.yp(p) - p)
+    cspec = [("GO_READWRITE", "GO_CT"), ("GO_READ", "GO_CU", (0, 110, 0)),
+             ("GO_READ", "GO_CV", (0, 10, 10)), ("GO_READ", "GO_CT"),
+             ("GO_READ", "GO_R_SCALAR")]
+
+    def jcont(eta, u, v, frc, dt):
+        div = (u - jst.xm(u)) + (v - jst.ym(v))
+        flux = jnp.flip(jnp.cumsum(jnp.flip(0.8 * div, 0), axis=0), 0)
+        return eta - dt * flux + dt * frc
+
+    def tcont(eta, u, v, frc, dt):
+        div = (u - tst.xm(u)) + (v - tst.ym(v))
+        flux = torch.flip(torch.cumsum(torch.flip(0.8 * div, (0,)), dim=0),
+                          (0,))
+        return eta - dt * flux + dt * frc
+    kmom = twin(mspec, jmom, tmom, name="mom3")
+    kcont = twin(cspec, jcont, tcont, name="cont3")
+    ksum = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                lambda out, x: x.sum(axis=0), lambda out, x: x.sum(dim=0),
+                name="vsum")
+
+    def fields(g):
+        dl = jdl if isinstance(g, jdl.Grid) else tdl
+        g3 = 0.1 * np.random.default_rng(7).standard_normal(
+            (3, g.global_ny, g.global_nx))
+        return (dl.Field(g, dl.T_POINTS, init_global_data=g3, levels=3),
+                dl.Field(g, dl.U_POINTS, levels=3),
+                dl.Field(g, dl.V_POINTS, levels=3),
+                dl.Field(g, dl.T_POINTS, init_global_data=0.01 * g3,
+                         levels=3),
+                dl.Field(g, dl.T_POINTS))
+    dt = 0.05
+
+    def calls(i, e, u, v, f, c):
+        return ((kmom[i], u, v, e, dt), (kcont[i], e, u, v, f, dt),
+                (kmom[i], u, v, e, dt), (kcont[i], e, u, v, f, dt),
+                (ksum[i], c, e))
+    gj, gt = grids(32, 32, 4, halo=4)
+    gjj = grids(32, 32, 4, halo=4)[0]
+    fj, ft, fjj = fields(gj), fields(gt), fields(gjj)
+    jkm.Schedule(*calls(0, *fj)).fused(interpret=True)
+    jkm.Schedule(*calls(0, *fjj))()
+    tkm.Schedule(*calls(1, *ft)).fused()
+    for x_j, x_t, x_jj in zip(fj, ft, fjj):
+        same(x_j, x_t)
+        same(x_jj, x_t)
+
+
+def test_fused_schedule_multilevel_2d_result_broadcasts():
+    jset, tset = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                      lambda out3, c2: 2.0 * c2, lambda out3, c2: 2.0 * c2,
+                      name="set_all_levels")
+    jrel, trel = twin(
+        [("GO_READWRITE", "GO_CT", (0, 11, 0))],
+        lambda e: 0.5 * (e + jnp.stack([jst.xp(e[k]) for k in range(3)])),
+        lambda e: 0.5 * (e + torch.stack([tst.xp(e[k]) for k in range(3)])),
+        name="relax")
+
+    def fields(g):
+        dl = jdl if isinstance(g, jdl.Grid) else tdl
+        c = dl.Field(g, dl.T_POINTS, init_global_data=np.random.default_rng(
+            3).standard_normal((g.global_ny, g.global_nx)))
+        return dl.Field(g, dl.T_POINTS, levels=3), c
+    gj, gt = grids(32, 32, 4, halo=4)
+    (ej, cj), (et, ct) = fields(gj), fields(gt)
+    jkm.Schedule((jset, ej, cj), (jrel, ej)).fused(interpret=True)
+    tkm.Schedule((tset, et, ct), (trel, et)).fused()
+    same(ej, et)
+    _, twrong = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                     lambda out3, c2: c2,
+                     lambda out3, c2: torch.stack([c2, c2]),
+                     name="wrong_levels")
+    e3, c3 = fields(grids(32, 32, 4, halo=4)[1])
+    with pytest.raises(ValueError, match="level planes"):
+        tkm.Schedule((twrong, e3, c3)).fused()
+
+
+# --- the CUDA generator and the CUDA-grid guards -----------------------------
+
+def _generated(sched, repeats=1, nsteps=2):
+    """The generated sources of a schedule's fused variants, as the
+    fused tier on a CUDA grid would build them."""
+    captured = []
+    real = tss.generate
+
+    def spy(*a, **kw):
+        gen = real(*a, **kw)
+        captured.append(gen)
+        return gen
+    grid = sched._grid
+    dev, build = grid.device, tss.schedule_sweep.build
+    grid.device = types.SimpleNamespace(type="cuda")
+    tss.generate = spy
+    tss.schedule_sweep.build = lambda gen: None      # no nvcc here
+    try:
+        sched._build_fused(repeats, nsteps=nsteps)
+    finally:
+        tss.generate = real
+        tss.schedule_sweep.build = build
+        grid.device = dev
+    return captured
+
+
+def test_generator_emits_the_psy_and_fuzz_schedules():
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    m = NemoLite2DPsy(34, 30, ndomains=4, halo_width=8, **CPU)
+    for rep, ring in ((1, 3), (2, 5), (3, 7)):
+        full, light = _generated(m._sched, repeats=rep)[:2]
+        for gen in (full, light):
+            assert gen.K == rep and gen.ring == ring
+            assert '#include "stencil_sweep.cuh"' in gen.text
+            assert "schedule_sweep_launch" in gen.text
+            assert gen.text.count("__syncthreads();") == 13
+            for kname in ("next_sshu_code", "momentum_v_code",
+                          "bc_flather_u_code", "copy_code"):
+                assert kname in gen.text
+            assert (gen.n_int, gen.n_codes, gen.n_scalars) == (1, 1, 20)
+        # full: 8 state + 3 read-only planes; light: 3 carried state,
+        # 5 scratch + 3 read-only
+        assert (full.n_state, full.n_aux) == (8, 3)
+        assert (light.n_state, light.n_aux) == (3, 8)
+    # the same structure gives the same source, whatever the scalars
+    again = _generated(m._sched, repeats=1)[0]
+    assert again.name == _generated(m._sched, repeats=1)[0].name
+    for trial, names, scal, spaces, wrap, gnx, gny, ndom, halo, vals in \
+            _fuzz_cases():
+        try:
+            gt = grids(gnx, gny, ndom, halo=halo, wrap=wrap)[1]
+        except ValueError:
+            continue
+        a, b, _ = chain_fields(gt, vals)
+        calls, cur = [], a
+        for k, (nm, s, sp) in enumerate(zip(names, scal, spaces)):
+            calls.append((fuzz_kernel(nm, sp, f"g{trial}{k}")[1], b, cur, s))
+            cur = b
+        gen = _generated(tkm.Schedule(*calls), nsteps=1)[0]
+        assert gen.text.count("__syncthreads();") == len(names)
+        assert SHIFTS[names[-1]][3] in gen.text
+
+
+def test_fused_tier_on_a_cuda_grid_refuses_what_it_cannot_generate():
+    """On a CUDA grid a kernel without a CUDA body, or a levels=N field,
+    raises NotImplementedError naming the kernel / ROADMAP item; nothing
+    runs the plain version instead and nothing is launched."""
+    _, gt = grids(32, 32, 4, halo=4)
+    a, b, _ = chain_fields(gt)
+    _, no_cuda = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                      lambda out, x: x, lambda out, x: x, name="no_cuda_body")
+    before = tss.schedule_sweep.launches
+    with pytest.raises(NotImplementedError, match="no_cuda_body"):
+        _generated(tkm.Schedule((no_cuda, b, a)))
+    w3 = tdl.Field(gt, tdl.T_POINTS, levels=3)
+    with pytest.raises(NotImplementedError, match="levels=N"):
+        _generated(tkm.Schedule((T_DOUBLE, w3, a)))
+    with pytest.raises(NotImplementedError, match="no CUDA body"):
+        tss.generate(tkm.Schedule((no_cuda, b, a))._steps, state_slots=[0],
+                     extra_slots=(), ro_slots=[1], consts=(), n_masks=1,
+                     n_scalars=0, K=1, ring=0, dtype=torch.float64)
+    assert tss.schedule_sweep.launches == before
+
+
+def test_generator_checks_shared_memory_and_names():
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    m = NemoLite2DPsy(34, 30, ndomains=1, halo_width=8, dtype=torch.float64,
+                      **CPU)
+    gens = _generated(m._sched, repeats=3)
+    # f64 at ring 7: 11 float planes, tmask and one code plane, 46^2 cells
+    assert gens[0].smem_bytes == 46 * 46 * (11 * 8 + 4 + 1) == 196788
+    _, gt = grids(32, 32, 4, halo=4)
+    a, b, _ = chain_fields(gt)
+    _, bad = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                  lambda out, sw_x: sw_x, lambda out, sw_x: sw_x,
+                  cuda="out = sw_x();", name="bad_names")
+    with pytest.raises(ValueError, match="sw_x"):
+        _generated(tkm.Schedule((bad, b, a)))

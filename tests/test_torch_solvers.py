@@ -35,6 +35,10 @@ from dl_esm_inf_tpu_torch.ops import solvers as tso
 
 torch.set_num_threads(2)
 
+#: the port runs on the card unless told otherwise; these tests run on
+#: the CPU
+CPU = dict(device="cpu")
+
 
 def dense_solve(act, lam_x, lam_y, b, wrap=False):
     """Independent dense construction of (I + lam*L) with no-flux walls
@@ -94,7 +98,7 @@ def _grids(gnx, gny, ndom, tmask, halo=1, wrap=False, dtype="float64"):
     jdl.grid_init(gj, 1.0, 1.0, tmask)
     tbc = (tdl.BC_PERIODIC if wrap else tdl.BC_EXTERNAL)
     gt = tdl.Grid(tdl.ARAKAWA_C, (tbc, tbc, tdl.BC_NONE), tdl.OFFSET_NE,
-                  dtype=dtype)
+                  dtype=dtype, **CPU)
     gt.decompose(gnx, gny, ndomains=ndom, halo_width=halo)
     tdl.grid_init(gt, 1.0, 1.0, tmask)
     return gj, gt
@@ -297,7 +301,7 @@ def test_solver_guards():
         tso.HelmholtzSolver(g9, 1.0, 1.0, method="chebyshev",
                             steps_per_exchange=9, fused=True)
     bare = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
-                                    tdl.BC_NONE), tdl.OFFSET_NE)
+                                    tdl.BC_NONE), tdl.OFFSET_NE, **CPU)
     with pytest.raises(ValueError, match="grid_init"):
         tso.HelmholtzSolver(bare, 1.0, 1.0)
 
@@ -382,7 +386,7 @@ def test_semi_implicit_matches_jax(name):
     kw = SI_CASES[name]
     e0 = jsi.gaussian_eta(N_SI, N_SI, amp=0.6)
     mj = jsi.build(N_SI, N_SI, ndomains=4, dt=1.0, tol=1e-12, **kw)
-    mt = tsi.build(N_SI, N_SI, ndomains=4, dt=1.0, tol=1e-12, **kw)
+    mt = tsi.build(N_SI, N_SI, ndomains=4, dt=1.0, tol=1e-12, **kw, **CPU)
     for m in (mj, mt):
         m.set_initial_eta(e0)
     ij, it = mj.run(20), mt.run(20)
@@ -402,7 +406,7 @@ def test_semi_implicit_conserves_mass_beyond_cfl():
     to solver tolerance (no-flux faces telescope), as
     tests/test_solvers.py pins for the JAX model."""
     N = 40
-    m = tsi.build(N, N, ndomains=4, dt=2.0, depth=10.0, tol=1e-10)
+    m = tsi.build(N, N, ndomains=4, dt=2.0, depth=10.0, tol=1e-10, **CPU)
     m.set_initial_eta(tsi.gaussian_eta(N, N, amp=1.0))
     m.run(3)
     m0 = m.mass()
@@ -420,7 +424,7 @@ def test_semi_implicit_state_carried_from_jax():
     mj = jsi.build(N_SI, N_SI, **kw)
     mj.set_initial_eta(jsi.gaussian_eta(N_SI, N_SI, amp=0.6))
     mj.run(6)
-    mt = tsi.build(N_SI, N_SI, **kw)
+    mt = tsi.build(N_SI, N_SI, **kw, **CPU)
     state = dict(mj.gather(), depth=_ridge(N_SI),
                  tmask=mt.grid.global_tmask())
     load_reference_state(mt, state, istep0=6)
@@ -437,21 +441,21 @@ def test_semi_implicit_state_carried_from_jax():
 
 def test_semi_implicit_guards():
     with pytest.raises(ValueError, match="solver='cg'"):
-        tsi.build(16, 16, solver="chebyshev", differentiable=True)
+        tsi.build(16, 16, solver="chebyshev", differentiable=True, **CPU)
     with pytest.raises(NotImplementedError, match="A10"):
-        tsi.build(16, 16, differentiable=True)
+        tsi.build(16, 16, differentiable=True, **CPU)
     with pytest.raises(ValueError, match="solver"):
-        tsi.build(16, 16, solver="jacobi")
+        tsi.build(16, 16, solver="jacobi", **CPU)
     with pytest.raises(ValueError, match="theta"):
-        tsi.build(16, 16, theta=0.4)
+        tsi.build(16, 16, theta=0.4, **CPU)
     with pytest.raises(ValueError, match="positive"):
-        tsi.build(16, 16, depth=np.zeros((16, 16)))
+        tsi.build(16, 16, depth=np.zeros((16, 16)), **CPU)
     with pytest.raises(ValueError, match="gny"):
-        tsi.build(16, 16, depth=np.ones((3, 3)))
+        tsi.build(16, 16, depth=np.ones((3, 3)), **CPU)
     with pytest.raises(NotImplementedError, match="A10"):
-        tsi.build(16, 16).step_program(2, remat_chunk=1)
+        tsi.build(16, 16, **CPU).step_program(2, remat_chunk=1)
     grid = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_PERIODIC,
-                                    tdl.BC_NONE), tdl.OFFSET_NE)
+                                    tdl.BC_NONE), tdl.OFFSET_NE, **CPU)
     grid.decompose(16, 16)
     tdl.grid_init(grid, 1.0, 1.0)
     with pytest.raises(ValueError, match="periodic"):
