@@ -1,9 +1,12 @@
 """GPU smoke run of the PyTorch port's main paths: the NEMOLite2D
 flagship, the four sweep-engine client models (gravity wave, shallow,
 two-layer, tracer), the elliptic-solver path (Helmholtz solver with the
-fused Chebyshev sweep, the semi-implicit model), the N-layer model, and
-the kernel-metadata layer (invoke, Schedule, the fused schedule sweep
-generated as CUDA from each schedule) with the PSy-built flagship.
+fused Chebyshev sweep, the semi-implicit model), the N-layer model, the
+kernel-metadata layer (invoke, Schedule, the fused schedule sweep
+generated as CUDA from each schedule) with the PSy-built flagship, and
+the halo-exchange transports (the exchange kernel behind
+Field.halo_exchange(transport="remote_dma"), the flagship's
+transport="fused") with variable bathymetry on the flagship kernel.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -13,7 +16,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the seven hand-written kernels from
+2. build: compiles the eight hand-written kernels from
    dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
    the schedule sweeps that phase 10 generates (one source per schedule
    structure, dtype and K), all at once (build/torch_kernels/); prints
@@ -66,14 +69,38 @@ Phases (each prints a line; any failure raises and exits non-zero):
    finite, kernel vs plain, and us/step on the kernel path (repeats 1,
    2, 3), the plain fused tier, the plain schedule, and the production
    flagship kernel at K = 4 beside them, with the copy bandwidth of the
-   card measured in the same run.
+   card measured in the same run;
+11. the exchange kernel against the plain exchange, bitwise on every
+   cell: 1, 2x1, 1x2, 2x2, 3x2 and 4x4 tiles, walled, x-, y- and doubly
+   periodic, halo 1, 2 and 8 at every depth, float32, float64 and int32,
+   2D and 3 levels; then Field.halo_exchange(transport="remote_dma") with
+   the plain exchange replaced by a function that raises;
+12. the flagship kernel with variable bathymetry (a seeded positive
+   depth plane) against its plain version, bitwise, float64 and float32,
+   K = 1..4, 1 and 4 tiles, 101 steps;
+13. the fused transport: the flagship with enable_fast_path(K,
+   transport="fused") (halo 8; 1, 2x2, 4x1 and 1x4 tiles; K = 1..4;
+   float64 and float32) against the same model with the ppermute
+   transport on the kernel, bitwise on internal points, and at float64
+   against the plain path (1e-12); one fused sweep on periodic grids
+   against the plain exchange followed by the sweep, bitwise everywhere;
+14. the transports' main paths at 1024^2, float32: the flagship in 2x2
+   tiles at K = 4 with the fused and the ppermute transport (us/step,
+   launches = n / K, the plain exchange replaced by a raising function
+   throughout, and no arithmetic beside the forcing), the flagship with
+   variable bathymetry, the exchange through Field.halo_exchange in 1,
+   2x2 and 4x4 tiles at halo 8, depth 1 and 8, 2D and 3 levels (us per
+   call: kernel, plain, and the exchange_index gather as one indexing
+   call), and the example model on the card under both transports.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
 and the operations of its plain version on the same inputs (counted
 per element) over the card's peak rate for the dtype; and library_ms,
 the time of one PyTorch call computing the same function, or null where
-none does (none does for these multi-plane masked sweeps).
+none does (none does for these multi-plane masked sweeps; for the
+exchange it is one advanced-indexing call with the row and column maps
+of exchange_index made beforehand).
 
 The line before the last is the kernel report as JSON; the last line is
 the result as JSON.  Imports nothing of JAX.
@@ -99,6 +126,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 import dl_esm_inf_tpu_torch as tdl  # noqa: E402
 from dl_esm_inf_tpu_torch.api import kernel_meta as km  # noqa: E402
+from dl_esm_inf_tpu_torch.models import example_model as exm  # noqa: E402
 from dl_esm_inf_tpu_torch.models import gravity_wave as gw  # noqa: E402
 from dl_esm_inf_tpu_torch.models import nemolite2d as nl  # noqa: E402
 from dl_esm_inf_tpu_torch.models import nlayer as nlm  # noqa: E402
@@ -113,6 +141,8 @@ from dl_esm_inf_tpu_torch.ops import fused_step as fs  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import solvers as so  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import stencils as st  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel import halo as halo_mod  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
     exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
@@ -199,11 +229,11 @@ def phase_device() -> str:
 
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
-           nlm.nlayer_sweep)
+           nlm.nlayer_sweep, hk.halo_exchange)
 
 
 def phase_build() -> None:
-    """The seven libraries and every generated schedule sweep phase 10
+    """The eight libraries and every generated schedule sweep phase 10
     needs, built at once (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -1370,6 +1400,453 @@ def phase_psy_main() -> dict:
             "plain_ms": plain_ms, **bound}
 
 
+# --- the halo-exchange transports and variable bathymetry -----------------
+
+#: (ndomainx, ndomainy) of the exchange's parity sweep
+EXCH_TILES = ((1, 1), (2, 1), (1, 2), (2, 2), (3, 2), (4, 4))
+EXCH_WRAPS = ((False, False), (True, False), (False, True), (True, True))
+
+
+def _exch_grid(ndx, ndy, wrap, halo, n=None, ny=None):
+    """A grid on the card; without ``n``, a small one whose walled axes
+    carry a remainder (padding in the last tile)."""
+    bc = [tdl.BC_PERIODIC if w else tdl.BC_EXTERNAL for w in wrap]
+    g = tdl.Grid(tdl.ARAKAWA_C, (bc[0], bc[1], tdl.BC_NONE), tdl.OFFSET_NE,
+                 dtype=torch.float32, device=DEV)
+    gnx = n if n is not None else 6 * ndx + (0 if wrap[0] else 1)
+    gny = ny or n or 5 * ndy + (0 if wrap[1] else 2)
+    g.decompose(gnx, gny, ndomainx=ndx, ndomainy=ndy, halo_width=halo)
+    tdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
+def _unique_block(shape, dtype, seed=0):
+    """Distinct values per cell, permuted from a seed (exact in f32 and
+    int32 below 2**24)."""
+    n = int(np.prod(shape))
+    vals = np.random.default_rng(seed).permutation(n).reshape(shape)
+    return torch.from_numpy(vals).to(DEV, dtype)
+
+
+def phase_exchange_parity() -> None:
+    """The exchange kernel against the plain exchange (and the gather of
+    exchange_index) on the card: bitwise on every cell."""
+    kern, cases = hk.halo_exchange, 0
+    before = kern.launches
+    for ndx, ndy in EXCH_TILES:
+        for wrap in EXCH_WRAPS:
+            for halo in (1, 2, 8):
+                spec = _exch_grid(ndx, ndy, wrap, halo).halo_spec
+                for depth in range(1, halo + 1):
+                    rows, cols = halo_mod.exchange_index(spec, depth, DEV)
+                    for dtype in (torch.float32, torch.float64, torch.int32):
+                        for lead in ((), (3,)):
+                            a = _unique_block(lead + spec.array_shape, dtype,
+                                              cases)
+                            got = hk.exchange_kernel(a, spec, depth)
+                            want = halo_mod._exchange_blocks((a,), spec,
+                                                             depth)[0]
+                            gather = a.index_select(-2, rows).index_select(
+                                -1, cols)
+                            if not (torch.equal(got, want)
+                                    and torch.equal(got, gather)):
+                                raise AssertionError(
+                                    f"exchange kernel {ndx}x{ndy} wrap={wrap}"
+                                    f" halo={halo} depth={depth} {dtype} "
+                                    f"lead={lead}: not bitwise equal")
+                            cases += 1
+    torch.cuda.synchronize()
+    if kern.launches - before != cases:
+        raise AssertionError("exchange parity did not go through the kernel")
+
+    # the kernel path never calls the plain exchange
+    g = _exch_grid(2, 2, (True, True), 2, n=32)
+    vals = np.random.default_rng(7).standard_normal((3, 32, 32))
+    fa = tdl.Field(g, tdl.T_POINTS, init_global_data=vals, levels=3)
+    fb = tdl.Field(g, tdl.T_POINTS, init_global_data=vals, levels=3)
+    fb.halo_exchange(2)
+    _plain_exchange_refused(lambda: fa.halo_exchange(2, transport="remote_dma"))
+    if not torch.equal(fa.data, fb.data):
+        raise AssertionError("Field.halo_exchange remote_dma != ppermute")
+    print(f"halo_exchange parity: kernel vs plain exchange and vs the "
+          f"exchange_index gather, {cases} cases ({len(EXCH_TILES)} tilings,"
+          f" walled / x / y / xy periodic, halo 1, 2, 8 at every depth, "
+          f"f32, f64, int32, 2D and 3 levels): bitwise on every cell; "
+          f"Field.halo_exchange(transport='remote_dma') with the plain "
+          f"exchange raising: equal to ppermute", flush=True)
+
+
+def _bathymetry(n, seed=11):
+    """A seeded positive depth plane, 50-150 m."""
+    return 50.0 + 100.0 * np.random.default_rng(seed).random((n, n))
+
+
+def phase_ht_parity() -> None:
+    n, steps, worst, cases = PARITY_N, 101, 0.0, 0
+    depth = _bathymetry(n)
+    for dtype in (torch.float64, torch.float32):
+        for ndom in (1, 4):
+            for K in (1, 2, 3, 4):
+                ms = []
+                for fused in (True, False):
+                    m = nl.build(n, n, ndomains=ndom, fused=fused,
+                                 steps_per_sweep=K, halo_width=2 * K,
+                                 depth=depth, dtype=dtype, device=DEV)
+                    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+                    ms.append(m)
+                before = fs.nemolite2d_sweep.launches
+                ms[0].run(steps)
+                if (fs.nemolite2d_sweep.launches - before
+                        != steps // K + steps % K):
+                    raise AssertionError(f"ht K={K}: the fused run did not "
+                                         "go through the kernel")
+                ms[1].run(steps)
+                ga, gb = ms[0].gather(), ms[1].gather()
+                d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
+                if d != 0.0 or not all(np.isfinite(ga[k]).all() for k in ga):
+                    raise AssertionError(
+                        f"ht kernel vs plain {dtype} ndomains={ndom} K={K}: "
+                        f"max abs {d:.3e}, expected bitwise")
+                worst, cases = max(worst, d), cases + 1
+    print(f"nemolite2d_sweep ht parity: kernel vs plain {n}^2, seeded depth "
+          f"50-150 m, {cases} cases (f64 and f32, K=1..4, ndomains 1 and 4),"
+          f" {steps} steps: max abs {worst:.3e} (bitwise required)",
+          flush=True)
+
+
+def _flagship(n, ndx, ndy, K, dtype, transport=None, depth=100.0, halo=8):
+    """The flagship on ``ndx`` x ``ndy`` tiles at halo ``halo``: on the
+    kernel with ``transport``, else on the plain path at K steps per
+    exchange."""
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
+                 device=DEV)
+    g.decompose(n, n, ndomainx=ndx, ndomainy=ndy, halo_width=halo)
+    tdl.grid_init(g, 1000.0, 1000.0, nl.default_tmask(n, n))
+    m = nl.NemoLite2D(g, depth=depth)
+    if transport is None:
+        m.set_steps_per_exchange(K)
+    else:
+        m.enable_fast_path(K, transport=transport)
+    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    return m
+
+
+def phase_fused_transport() -> None:
+    n, steps = PARITY_N, 101
+    worst, worst_plain, cases = 0.0, 0.0, 0
+    for dtype in (torch.float64, torch.float32):
+        for ndx, ndy in ((1, 1), (2, 2), (4, 1), (1, 4)):
+            for K in (1, 2, 3, 4):
+                mf = _flagship(n, ndx, ndy, K, dtype, "fused")
+                mp = _flagship(n, ndx, ndy, K, dtype, "ppermute")
+                before = fs.nemolite2d_sweep.launches
+                mf.run(steps)
+                if (fs.nemolite2d_sweep.launches - before
+                        != steps // K + steps % K):
+                    raise AssertionError("fused transport did not go "
+                                         "through the kernel")
+                mp.run(steps)
+                ga, gb = mf.gather(), mp.gather()
+                d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
+                if d != 0.0:
+                    raise AssertionError(
+                        f"fused vs ppermute {dtype} {ndx}x{ndy} K={K}: max "
+                        f"abs {d:.3e}, expected bitwise")
+                if dtype == torch.float64:
+                    ml = _flagship(n, ndx, ndy, K, dtype)
+                    ml.run(steps)
+                    dp = _rel_diff(ga, ml.gather())
+                    if not dp <= TOL_F64:
+                        raise AssertionError(
+                            f"fused vs plain f64 {ndx}x{ndy} K={K}: {dp:.3e}")
+                    worst_plain = max(worst_plain, dp)
+                worst, cases = max(worst, d), cases + 1
+    # one fused sweep on periodic grids (the 1x1 case is the JAX
+    # package's self-loopback) equals the exchange followed by the sweep
+    p, loop = nl.Params(), 0
+    for ndx, ndy in ((1, 1), (2, 2)):
+        for dtype in (torch.float64, torch.float32):
+            g = _exch_grid(ndx, ndy, (True, True), 8, n=64)
+            spec = g.halo_spec
+            rng = np.random.default_rng(ndx)
+            state = [torch.from_numpy(a * rng.standard_normal(
+                g.array_shape)).to(DEV, dtype) for a in (0.2, 0.05, 0.05)]
+            codes = nl.encode_masks(g.tmask).contiguous()
+            fcor = float(2.0 * p.omega * np.sin(50.0 * p.d2r))
+            forcing = [0.01, 0.02, 0.03, 0.04]
+            for K in (1, 4):
+                mk = functools.partial(fs.make_fused_step, *g.array_shape,
+                                       dtype, p, 1000.0, 1000.0, fcor, 100.0,
+                                       steps_per_sweep=K)
+                got = mk(exchange_spec=spec)(*state, codes, forcing[:K])
+                ex = [halo_mod.exchange(a, spec, spec.halo) for a in state]
+                want = mk()(*ex, codes, forcing[:K])
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"fused sweep on a periodic {ndx}x"
+                                         f"{ndy} grid {dtype} K={K} != "
+                                         "exchange + sweep")
+                loop += 1
+    print(f"fused transport: flagship {n}^2 halo 8, {cases} cases (f64 and "
+          f"f32; 1, 2x2, 4x1, 1x4 tiles; K=1..4; {steps} steps): fused vs "
+          f"ppermute on the kernel max abs {worst:.3e} on internal points "
+          f"(bitwise required); f64 fused vs plain max rel diff "
+          f"{worst_plain:.3e} (tol {TOL_F64}); {loop} periodic sweeps "
+          f"(1x1 and 2x2, f64 and f32, K 1 and 4) equal to exchange + sweep "
+          f"on every cell", flush=True)
+
+
+def _plain_exchange_refused(fn):
+    """Run ``fn`` with the plain exchange replaced by a function that
+    raises."""
+    saved = halo_mod._exchange_blocks
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain exchange ran on the kernel path")
+    halo_mod._exchange_blocks = hk._exchange_blocks = refuse
+    try:
+        return fn()
+    finally:
+        halo_mod._exchange_blocks = hk._exchange_blocks = saved
+
+
+def _gather_ms(a, spec, depth, want, reps) -> float:
+    """ms of the library call for the exchange: one ``aten::index`` of
+    ``a`` by the row and column maps of ``exchange_index``, made once
+    beforehand as a kernel's constants are (the port never calls it)."""
+    rows, cols = halo_mod.exchange_index(spec, depth, DEV)
+    rows = rows[:, None]
+    if not torch.equal(a[..., rows, cols], want):
+        raise AssertionError("the exchange_index gather != plain exchange")
+    return _time_ms(lambda: a[..., rows, cols], reps)
+
+
+def _program_ops(m, n) -> int:
+    """Arithmetic element-operations (``_count_ops``) of the model's
+    n-step program beyond its forcing series (the host-side bc_ssh
+    values).  Copies and slices count nothing, so this does not show the
+    plain exchange absent: ``_plain_exchange_refused`` does."""
+    prog = m.step_program(n)
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    bathy = (m._ht,) if m._ht is not None else ()
+    return (_count_ops(lambda: prog(m._istep0, state, m._mask_codes, *bathy))
+            - _count_ops(lambda: m.forcing_series(m._istep0, n)))
+
+
+def _flagship_entry(m, K, launches, name, replaces, extra_bytes=()):
+    """One sweep of the model's kernel against its plain version on the
+    main path's state: the kernel entry of the JSON line."""
+    fused = m._make_fused(K)
+    forcing = m.forcing_series(m._istep0, K)
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    codes, ht = m._mask_codes, m._ht
+    spec = m.grid.halo_spec if m._in_sweep_exchange else None
+
+    def plain():
+        s = (exchange_multi_fn(spec, spec.halo)(state) if spec is not None
+             else state)
+        return fs.fused_step_reference(*s, codes, forcing, p=m.p,
+                                       dx=m.grid.dx, dy=m.grid.dy,
+                                       fcor=m._fcor, depth=m.depth or 0.0,
+                                       ht=ht)
+    ker = fused(*state, codes, forcing, ht=ht)
+    ref = plain()
+    inner = m.sshn_t.internal_mask.bool()
+    max_abs = max(float((a - b).abs()[inner].max()) for a, b in zip(ker, ref))
+    if max_abs != 0.0:
+        raise AssertionError(f"{name} one sweep kernel vs plain: "
+                             f"{max_abs:.3e}, expected bitwise")
+    ms = _time_ms(lambda: fused(*state, codes, forcing, ht=ht), 200)
+    plain_ms = _time_ms(plain, 20)
+    ops = _count_ops(plain)
+    return {"name": name, "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/csrc/nemolite2d_sweep.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **_bound(_nbytes(*state, codes, *extra_bytes, *ker), ops,
+                     state[0].dtype)}
+
+
+def phase_transport_main() -> list:
+    N, K, n = MAIN_SIZE, 4, 400
+    kernels = []
+    # the fused transport: the flagship in 2x2 tiles at K = 4
+    mf = _flagship(N, 2, 2, K, torch.float32, "fused")
+    mp = _flagship(N, 2, 2, K, torch.float32, "ppermute")
+    mf.run(K)                                   # build before the count
+    mp.run(K)
+    torch.cuda.synchronize()
+    fs.nemolite2d_sweep.launches = hk.halo_exchange.launches = 0
+    _plain_exchange_refused(lambda: mf.run(n))
+    torch.cuda.synchronize()
+    launches, ex_launches = (fs.nemolite2d_sweep.launches,
+                             hk.halo_exchange.launches)
+    if launches != n // K:
+        raise AssertionError(f"fused transport main path launched "
+                             f"{launches} sweeps, expected {n // K}")
+    for t in (mf.sshn_t.data, mf.un.data, mf.vn.data):
+        if not torch.isfinite(t).all():
+            raise AssertionError("fused transport state is not finite")
+    mp.run(n)
+    d = _rel_diff(mf.gather(), mp.gather())
+    if d != 0.0:
+        raise AssertionError(f"fused vs ppermute after {n} steps: {d:.3e}")
+    ops_f, ops_p = _program_ops(mf, n), _program_ops(mp, n)
+    if ops_f != 0:
+        raise AssertionError(f"the fused program ran {ops_f} arithmetic "
+                             "element-operations besides its forcing")
+    us_f = _run_step_us(mf, n, 5)
+    us_p = _run_step_us(mp, n, 5)
+    us_f2 = _run_step_us(mf, n, 5)
+    us_p2 = _run_step_us(mp, n, 5)
+    print(f"fused transport main f32 {N}^2 2x2 tiles K={K}: run({n}) "
+          f"launches={launches} (= {n}/{K}), exchange-kernel launches "
+          f"{ex_launches} (the trailing face-ssh exchange), plain exchange "
+          f"raising throughout; fused vs ppermute after {n} steps rel "
+          f"{d:.3e}; arithmetic element-operations of the {n}-step program "
+          f"besides the forcing: fused {ops_f}, ppermute {ops_p}", flush=True)
+    print(f"fused transport timing f32 {N}^2 2x2 K={K}: run on the kernel "
+          f"with the fused transport {us_f:.2f} / {us_f2:.2f} us/step, with "
+          f"the ppermute transport {us_p:.2f} / {us_p2:.2f} us/step (order "
+          f"fused, ppermute, fused, ppermute)", flush=True)
+    for ndx, ndy in ((1, 1), (4, 4)):
+        pair = [_flagship(N, ndx, ndy, K, torch.float32, t)
+                for t in ("fused", "ppermute")]
+        us = [_run_step_us(mm, n, 5) for mm in pair + pair]
+        print(f"fused transport timing f32 {N}^2 {ndx}x{ndy} K={K}: fused "
+              f"{us[0]:.2f} / {us[2]:.2f} us/step, ppermute {us[1]:.2f} / "
+              f"{us[3]:.2f} us/step (same order)", flush=True)
+    entry = _flagship_entry(mf, K, launches, "nemolite2d_sweep_exchange",
+                            "dl_esm_inf_tpu/ops/sweep.py:164")
+    sweep_pp = _time_ms(lambda: mp._make_fused(K)(*exchange_multi_fn(
+        mp.grid.halo_spec, 2 * K)((mp.sshn_t.data, mp.un.data, mp.vn.data)),
+        mp._mask_codes, [0.0] * K), 200)
+    print(f"fused transport one sweep f32 {N}^2 2x2 K={K}: kernel with the "
+          f"exchange {entry['ms'] * 1e3:.2f} us, plain exchange + kernel "
+          f"{sweep_pp * 1e3:.2f} us, plain version "
+          f"{entry['plain_ms'] * 1e3:.2f} us; bound "
+          f"{entry['bound_ms'] * 1e3:.2f} us", flush=True)
+    kernels.append(entry)
+
+    # variable bathymetry on the kernel: the flagship, 1 tile, K = 4
+    mh = nl.build(N, N, fused=True, steps_per_sweep=K, depth=_bathymetry(N),
+                  device=DEV)
+    mh.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    mh.run(K)
+    torch.cuda.synchronize()
+    fs.nemolite2d_sweep.launches = 0
+    mh.run(n)
+    torch.cuda.synchronize()
+    launches = fs.nemolite2d_sweep.launches
+    if launches != n // K:
+        raise AssertionError(f"ht main path launched {launches} sweeps")
+    if not all(torch.isfinite(t).all()
+               for t in (mh.sshn_t.data, mh.un.data, mh.vn.data)):
+        raise AssertionError("ht main path state is not finite")
+    mhp = nl.build(N, N, fused=False, steps_per_sweep=K,
+                   depth=_bathymetry(N), device=DEV)
+    mhp.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    mhp.run(n + K)
+    d = _rel_diff(mh.gather(), mhp.gather())
+    if d != 0.0:
+        raise AssertionError(f"ht kernel vs plain after {n + K} steps "
+                             f"{d:.3e}")
+    us_h = _run_step_us(mh, n, 5)
+    us_hp = _run_step_us(mhp, 40, 3)
+    entry = _flagship_entry(mh, K, launches, "nemolite2d_sweep_ht",
+                            "dl_esm_inf_tpu/ops/pallas_step.py:33",
+                            (mh._ht,))
+    print(f"ht main f32 {N}^2 K={K}: run({n}) launches={launches}; finite; "
+          f"kernel vs plain after {n + K} steps rel {d:.3e}; run on the "
+          f"kernel {us_h:.2f} us/step, plain {us_hp:.2f} us/step; one sweep "
+          f"{entry['ms'] * 1e3:.2f} us, plain {entry['plain_ms'] * 1e3:.2f} "
+          f"us, bound {entry['bound_ms'] * 1e3:.2f} us", flush=True)
+    kernels.append(entry)
+
+    # the standalone exchange through Field.halo_exchange
+    configs = [((1, 1), (True, True), 8), ((2, 2), (False, False), 1),
+               ((2, 2), (False, False), 8), ((4, 4), (False, False), 1),
+               ((4, 4), (False, False), 8)]
+    fields, report = [], []
+    for tiles, wrap, depth in configs:
+        g = _exch_grid(*tiles, wrap, 8, n=N)
+        for levels in (None, 3):
+            lead = () if levels is None else (levels,)
+            f = tdl.Field(g, tdl.T_POINTS, levels=levels)
+            f.data = _unique_block(lead + g.array_shape, torch.float32)
+            fields.append((tiles, wrap, depth, levels, f, f.data))
+    hk.halo_exchange.launches = 0
+    for _, _, depth, _, f, _ in fields:
+        f.halo_exchange(depth, transport="remote_dma")
+    torch.cuda.synchronize()
+    launches = hk.halo_exchange.launches
+    if launches != len(fields):
+        raise AssertionError(f"Field.halo_exchange launched {launches} "
+                             f"kernels for {len(fields)} calls")
+    for tiles, wrap, depth, levels, f, a in fields:
+        spec = f.grid.halo_spec
+        want = halo_mod.exchange(a, spec, depth)
+        if not torch.equal(f.data, want):
+            raise AssertionError(f"exchange {tiles} depth {depth} levels "
+                                 f"{levels}: kernel != plain")
+        max_abs = float((f.data - want).abs().max())
+        ms = _time_ms(lambda: hk.exchange_kernel(a, spec, depth), 200)
+        plain_ms = _time_ms(lambda: halo_mod.exchange(a, spec, depth), 50)
+        lib_ms = _gather_ms(a, spec, depth, want, 200)
+        bound = {**_bound(2 * _nbytes(a), 0, torch.float32),
+                 "library_ms": lib_ms}
+        report.append(f"{tiles[0]}x{tiles[1]}{' periodic' if wrap[0] else ''}"
+                      f" depth {depth} {'2D' if levels is None else '3 levels'}"
+                      f": kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+                      f"us, index gather {lib_ms * 1e3:.2f} us, bound "
+                      f"{bound['bound_ms'] * 1e3:.2f} us")
+        if (tiles, depth, levels) == ((2, 2), 8, None):
+            kernels.append({
+                "name": "halo_exchange", "route": "cuda",
+                "source": "dl_esm_inf_tpu_torch/csrc/halo_exchange.cu",
+                "replaces": "dl_esm_inf_tpu/parallel/halo_pallas.py:46",
+                "launches": launches, "max_abs_err": max_abs, "ms": ms,
+                "plain_ms": plain_ms, **bound})
+    print(f"halo_exchange main f32 {N}^2 halo 8 through Field.halo_exchange"
+          f"(transport='remote_dma'): {launches} calls, {launches} launches, "
+          f"bitwise equal to the plain exchange; " + "; ".join(report),
+          flush=True)
+    # a block large enough for the kernel's own time to show past the
+    # host's cost of a call
+    big = 4 * N
+    spec = _exch_grid(2, 2, (False, False), 8, n=big).halo_spec
+    a = _unique_block(spec.array_shape, torch.float32)
+    want = halo_mod.exchange(a, spec, 8)
+    if not torch.equal(hk.exchange_kernel(a, spec, 8), want):
+        raise AssertionError(f"exchange {big}^2: kernel != plain")
+    ms = _time_ms(lambda: hk.exchange_kernel(a, spec, 8), 100)
+    plain_ms = _time_ms(lambda: halo_mod.exchange(a, spec, 8), 20)
+    lib_ms = _gather_ms(a, spec, 8, want, 100)
+    bound = _bound(2 * _nbytes(a), 0, torch.float32)["bound_ms"]
+    print(f"halo_exchange f32 {big}^2 2x2 halo 8 depth 8: kernel "
+          f"{ms * 1e3:.2f} us ({2 * _nbytes(a) / ms / 1e6:.0f} GB/s), plain "
+          f"{plain_ms * 1e3:.2f} us, index gather {lib_ms * 1e3:.2f} us "
+          f"({2 * _nbytes(a) / lib_ms / 1e6:.0f} GB/s), bound "
+          f"{bound * 1e3:.2f} us; bitwise equal", flush=True)
+
+    # the example model on the card, both transports
+    for ndom in (1, 2, 4):
+        want = None
+        for transport in ("ppermute", "remote_dma"):
+            sums = exm.run(4, 10, ndomains=ndom, device=DEV,
+                           transport=transport)
+            g = tdl.Grid(device=DEV)
+            g.decompose(4, 10, ndomains=ndom)
+            tdl.grid_init(g, 1.0, 1.0)
+            want = exm.expected_checksum(tdl.Field(g, tdl.T_POINTS))
+            if not all(v == want for v in sums.values()):
+                raise AssertionError(f"example model ndomains={ndom} "
+                                     f"{transport}: {sums} != {want}")
+    print("example model on the card: ndomains 1, 2, 4 under both "
+          "transports, checksums equal to the analytic ones", flush=True)
+    return kernels
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1389,6 +1866,10 @@ def main() -> None:
     phase_schedule_parity()
     phase_psy_vs_production()
     kernels.append(phase_psy_main())
+    phase_exchange_parity()
+    phase_ht_parity()
+    phase_fused_transport()
+    kernels.extend(phase_transport_main())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

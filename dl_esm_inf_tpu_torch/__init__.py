@@ -30,7 +30,9 @@ from .core.constants import (  # noqa: F401
     TMASK_DRY, TMASK_OUTSIDE, TMASK_WET)
 from .core.decomposition import (  # noqa: F401
     Decomposition, choose_process_grid, decompose, reference_subdomains)
-from .core.field import Field, field_checksum  # noqa: F401
+from .core.field import (  # noqa: F401
+    Field, copy_field, copy_field_patch, field_checksum, free_field,
+    set_field)
 from .core.grid import Grid, grid_init  # noqa: F401
 from .core.kinds import set_working_precision, wp  # noqa: F401
 from .core.region import Halo, Region, Subdomain  # noqa: F401

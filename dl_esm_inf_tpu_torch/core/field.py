@@ -6,11 +6,15 @@ grid's device: every tile with its halo ring, zero-filled on creation.
 The staggering truth table (which points are the field's *internal*
 region) is :func:`staggering_offsets`, as in the JAX package.
 
-This slice carries what the models use: data get/set, the plain halo
-exchange, checksum, gather, the internal and external (global boundary
-ring, ``GO_EXTERNAL_PTS``) masks and multi-level fields
-(``levels=N``: data of shape ``(N, ny, nx)`` whose level axis rides one
-halo exchange, checksum and gather).
+It carries the JAX field's surface: the internal and whole regions of
+each tile, data get/set and the device sub-region IO, the halo exchange
+under both transports (``"ppermute"``, the plain exchange; ``"remote_dma"``,
+the exchange kernel of :mod:`..parallel.halo_kernel` on a CUDA grid),
+the single-tile periodic wrap copies, checksum, integral, max_abs,
+gather, the internal and external (global boundary ring,
+``GO_EXTERNAL_PTS``) masks, multi-level fields (``levels=N``: data of
+shape ``(N, ny, nx)`` whose level axis rides one halo exchange, checksum
+and gather) and the module-level copy/set/free operations.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ import numpy as np
 import torch
 
 from . import kinds, layout
-from .constants import ALL_POINTS, GridPoints, Offset
+from .constants import ALL_POINTS, BC_PERIODIC, GridPoints, NBOUNDARY, Offset
 from .grid import Grid
+from .region import Halo, Region
 from ..parallel import halo as halo_mod
+from ..parallel import halo_kernel
 from ..parallel.collectives import gather_to_host, masked_sum
 
 
@@ -68,6 +74,7 @@ class Field:
         else:
             self.data = torch.zeros(self._lead + grid.array_shape,
                                     dtype=self.dtype, device=grid.device)
+        self.halos = _periodic_bc_halos(self)
 
     @property
     def _lead(self) -> tuple:
@@ -82,6 +89,39 @@ class Field:
                                              dtype=npdt)
                          for k in range(self.levels)])
 
+    # --- regions ------------------------------------------------------------
+    @property
+    def num_halos(self) -> int:
+        return len(self.halos)
+
+    def internal_region(self, rank: int = 0) -> Region:
+        """Internal region of one tile, in its local coordinates (the
+        reference's per-rank ``field%internal``)."""
+        d = self.grid.decomp
+        if self.defined_on == ALL_POINTS:
+            return Region(0, d.local_nx, 0, d.local_ny)
+        sub = d.subdomains[rank]
+        gx0, gy0 = sub.global_.xstart, sub.global_.ystart
+        h = d.halo
+        xs = h + max(self._off[0] - gx0, 0)
+        ys = h + max(self._off[1] - gy0, 0)
+        return Region(xs, h + sub.global_.nx, ys, h + sub.global_.ny)
+
+    @property
+    def internal(self) -> Region:
+        """Tile 0's internal region (one tile: THE internal region)."""
+        return self.internal_region(0)
+
+    def whole_region(self, rank: int = 0) -> Region:
+        """internal +/- NBOUNDARY (reference field_mod.f90:604-622)."""
+        if self.defined_on == ALL_POINTS:
+            return self.internal_region(rank)
+        return self.internal_region(rank).grow(NBOUNDARY)
+
+    @property
+    def whole(self) -> Region:
+        return self.whole_region(0)
+
     @property
     def internal_mask(self) -> torch.Tensor:
         """Mask selecting in-domain internal points of every tile; 2D,
@@ -95,7 +135,7 @@ class Field:
         """:attr:`internal_mask` as a host bool array."""
         if self.defined_on == ALL_POINTS:
             return np.ones(self.grid.array_shape, dtype=bool)
-        return layout.region_mask(self.grid.decomp, *self._off)
+        return self.grid.region_mask_np(*self._off)
 
     @property
     def external_mask(self) -> torch.Tensor:
@@ -112,20 +152,49 @@ class Field:
         """:attr:`external_mask` as a host bool array."""
         if self.defined_on == ALL_POINTS:
             return np.zeros(self.grid.array_shape, dtype=bool)
-        return layout.external_mask(self.grid.decomp, *self._off)
+        return self.grid.external_mask_np(*self._off)
 
     # --- communication ------------------------------------------------------
-    def halo_exchange(self, depth: int = 1) -> None:
+    def halo_exchange(self, depth: int = 1,
+                      transport: str = "ppermute") -> None:
         """Refresh this field's halo ring to ``depth`` (<= the halo
-        width), every level at once.  Only the plain transport exists
-        in the port so far."""
-        self.data = halo_mod.exchange(self.data, self.grid.halo_spec, depth)
+        width), every level at once (field_mod.f90:1231-1256).
+
+        ``transport``: ``"ppermute"``, the plain exchange of
+        :mod:`..parallel.halo`, or ``"remote_dma"``, the exchange kernel
+        (:mod:`..parallel.halo_kernel`: one launch on a CUDA grid, its
+        plain version on the CPU).  The names are the JAX package's."""
+        if transport == "ppermute":
+            self.data = halo_mod.exchange(self.data, self.grid.halo_spec,
+                                          depth)
+        elif transport == "remote_dma":
+            self.data = halo_kernel.exchange_kernel(
+                self.data, self.grid.halo_spec, depth)
+        else:
+            raise ValueError(f"unknown halo transport {transport!r}")
+
+    def apply_periodic_bcs(self) -> None:
+        """Apply the single-tile periodic wrap copies of :attr:`halos`
+        (reference init_periodic_bc_halos targets, field_mod.f90:
+        1394-1464); on a split axis the wrap is part of
+        :meth:`halo_exchange`."""
+        for hd in self.halos:
+            copy_field_patch(self, hd.source, hd.dest)
 
     # --- reductions / gather -------------------------------------------------
     def checksum(self) -> float:
         """Sum of |internal points| over all tiles and levels (reference
         fld_checksum), accumulated in the checksum dtype."""
         return masked_sum(self.data.abs(), self.internal_mask)
+
+    def integral(self) -> float:
+        """Signed sum of internal points over all tiles (the building
+        block of volume and mass diagnostics)."""
+        return masked_sum(self.data, self.internal_mask)
+
+    def max_abs(self) -> float:
+        """max |internal points| over all tiles (CFL monitoring)."""
+        return float((self.data.abs() * self.internal_mask).max())
 
     def gather_inner_data(self) -> np.ndarray:
         """The global ``(global_ny, global_nx)`` array of internal points
@@ -151,7 +220,86 @@ class Field:
         self.data = arr.to(device=self.grid.device, dtype=self.dtype,
                            memory_format=torch.contiguous_format, copy=True)
 
+    def read_from_device(self, region: Region) -> np.ndarray:
+        """Host copy of a sub-region of the stacked array (the
+        reference's partial device-to-host sync, field_mod.f90:407-465)."""
+        sy, sx = region.slices()
+        return gather_to_host(self.data[..., sy, sx])
+
+    def write_to_device(self, region: Region, values) -> None:
+        """Update a sub-region from host values (reference
+        write_to_device, field_mod.f90:467-525)."""
+        sy, sx = region.slices()
+        data = self.data.clone()
+        data[..., sy, sx] = torch.as_tensor(
+            np.asarray(values, dtype=kinds.np_dtype(self.dtype)))
+        self.data = data
+
+    def local_view(self, rank: int = 0) -> np.ndarray:
+        """One tile's local array, halo ring included (the reference's
+        per-rank ``field%data``); a host copy."""
+        return layout.shard_view(self.grid.decomp, self.get_data(), rank)
+
+
+# ---------------------------------------------------------------------------
+# Module-level operations of the reference's interface
+# (field_mod.f90:191-194)
+# ---------------------------------------------------------------------------
+
+def copy_field(field_in: Field, field_out: Field) -> None:
+    """copy_2dfield (field_mod.f90:1152-1174)."""
+    field_out.data = field_in.data.to(field_out.dtype, copy=True)
+
+
+def copy_field_patch(field: Field, src: Region, dest: Region) -> None:
+    """copy_2dfield_patch (field_mod.f90:1179-1187)."""
+    ssy, ssx = src.slices()
+    dsy, dsx = dest.slices()
+    data = field.data.clone()
+    data[..., dsy, dsx] = field.data[..., ssy, ssx]
+    field.data = data
+
+
+def set_field(fld: Field, val) -> None:
+    """set_field (field_mod.f90:1191-1202)."""
+    fld.data = torch.full(fld._lead + fld.grid.array_shape, val,
+                          dtype=fld.dtype, device=fld.grid.device)
+
 
 def field_checksum(field: Field) -> float:
     """fld_checksum (field_mod.f90:1209-1219)."""
     return field.checksum()
+
+
+def free_field(fld: Field) -> None:
+    """r2d_free_field (field_mod.f90:395-403)."""
+    fld.data = None
+
+
+def _periodic_bc_halos(fld: Field) -> tuple[Halo, ...]:
+    """Wrap-copy descriptors for periodic BCs on a single tile
+    (reference init_periodic_bc_halos, field_mod.f90:1394-1464).  They
+    exist only along periodic axes that are not split: on a split axis
+    the wrap rides the halo exchange, and a copy within tile 0 would
+    overwrite its seam halos with the wrong tile's data."""
+    if fld.defined_on == ALL_POINTS:
+        return ()
+    halos: list[Halo] = []
+    r = fld.internal_region(0)
+    d = fld.grid.decomp
+    if fld.grid.boundary_conditions[0] == BC_PERIODIC and d.nprocx == 1:
+        # E-most column <- W-most internal column, W-most <- E-most
+        halos.append(Halo(
+            source=Region(r.xstart, r.xstart + 1, r.ystart, r.ystop),
+            dest=Region(r.xstop, r.xstop + 1, r.ystart, r.ystop)))
+        halos.append(Halo(
+            source=Region(r.xstop - 1, r.xstop, r.ystart, r.ystop),
+            dest=Region(r.xstart - 1, r.xstart, r.ystart, r.ystop)))
+    if fld.grid.boundary_conditions[1] == BC_PERIODIC and d.nprocy == 1:
+        halos.append(Halo(
+            source=Region(r.xstart - 1, r.xstop + 1, r.ystart, r.ystart + 1),
+            dest=Region(r.xstart - 1, r.xstop + 1, r.ystop, r.ystop + 1)))
+        halos.append(Halo(
+            source=Region(r.xstart - 1, r.xstop + 1, r.ystop - 1, r.ystop),
+            dest=Region(r.xstart - 1, r.xstop + 1, r.ystart - 1, r.ystart)))
+    return tuple(halos)

@@ -23,6 +23,7 @@ from . import kinds, layout
 from .constants import (ARAKAWA_B, ARAKAWA_C, BC, BC_PERIODIC, GridKind,
                         Offset)
 from .decomposition import Decomposition, decompose as _decompose
+from .region import Subdomain
 from ..parallel import environment as env
 from ..parallel.halo import HaloSpec
 
@@ -82,9 +83,23 @@ class Grid:
         return self.boundary_conditions[1] == BC_PERIODIC
 
     @property
+    def nx(self) -> int:
+        """Local tile x extent incl. halos and padding (reference
+        grid%nx)."""
+        return self.decomp.local_nx
+
+    @property
+    def ny(self) -> int:
+        return self.decomp.local_ny
+
+    @property
     def array_shape(self) -> tuple[int, int]:
         """Shape of the stacked array: (nprocy*ny, nprocx*nx)."""
         return (self.decomp.array_ny, self.decomp.array_nx)
+
+    def subdomain(self, rank: int = 0) -> Subdomain:
+        """One tile's subdomain (reference grid%subdomain, per rank)."""
+        return self.decomp.subdomains[rank]
 
     # ------------------------------------------------------------------
     def decompose(self, domainx: int, domainy: int, ndomains=None,
@@ -288,6 +303,37 @@ class Grid:
     @property
     def gphif(self): return self._scale_array("gphif", "gphi", 50.0)
 
+    def get_tmask(self) -> torch.Tensor:
+        """Reference grid%get_tmask (grid_mod.f90:169-177): the stacked
+        int32 T mask on this grid's device."""
+        return self.tmask
+
+    def xt_1d(self) -> np.ndarray:
+        """x coordinate of T points per stacked column (host array):
+        the global 1-based index times dx, extended into halo and padding
+        columns as the reference extends it (grid_mod.f90:536-556)."""
+        gx = layout.global_x_index(self.decomp)
+        return ((gx + 1) * self.dx).astype(kinds.np_dtype(self.dtype))
+
+    def yt_1d(self) -> np.ndarray:
+        gy = layout.global_y_index(self.decomp)
+        return ((gy + 1) * self.dy).astype(kinds.np_dtype(self.dtype))
+
+    @property
+    def xt(self) -> torch.Tensor:
+        """:meth:`xt_1d` broadcast to the stacked array, on the device."""
+        if "xt" not in self._lazy:
+            self._lazy["xt"] = torch.from_numpy(self.xt_1d()).to(
+                self.device).expand(self.array_shape).contiguous()
+        return self._lazy["xt"]
+
+    @property
+    def yt(self) -> torch.Tensor:
+        if "yt" not in self._lazy:
+            self._lazy["yt"] = torch.from_numpy(self.yt_1d()).to(
+                self.device)[:, None].expand(self.array_shape).contiguous()
+        return self._lazy["yt"]
+
     def global_tmask(self) -> np.ndarray:
         """The global (global_ny, global_nx) T mask as a host array."""
         return np.asarray(layout.unstack_internal(self.decomp,
@@ -306,6 +352,10 @@ class Grid:
                 device=self.device, dtype=dtype)
         return self._region_masks[key]
 
+    def region_mask_np(self, off_x: int = 0, off_y: int = 0) -> np.ndarray:
+        """:meth:`region_mask` as a host bool array."""
+        return layout.region_mask(self.decomp, off_x, off_y)
+
     def external_mask(self, off_x: int = 0, off_y: int = 0,
                       dtype=None) -> torch.Tensor:
         """Mask of the GLOBAL boundary ring (whole minus internal in
@@ -318,6 +368,11 @@ class Grid:
             self._region_masks[key] = torch.from_numpy(m).to(
                 device=self.device, dtype=dtype)
         return self._region_masks[key]
+
+
+    def external_mask_np(self, off_x: int = 0, off_y: int = 0) -> np.ndarray:
+        """:meth:`external_mask` as a host bool array."""
+        return layout.external_mask(self.decomp, off_x, off_y)
 
 
 def grid_init(grid: Grid, dx: float, dy: float, tmask=None,

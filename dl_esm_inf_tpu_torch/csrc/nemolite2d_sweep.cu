@@ -4,17 +4,40 @@
 // Replaces the TPU kernel dl_esm_inf_tpu/ops/pallas_step.py::
 // make_fused_step, i.e. the generic sweep engine
 // dl_esm_inf_tpu/ops/sweep.py::make_stencil_sweep instantiated with
-// models/nemolite2d.py::step_math (square-cell path, flat bathymetry).
-// It computes (sshn, un, vn, mask_code_i8, forcing[K]) -> (ssha, ua, va),
+// models/nemolite2d.py::step_math (square-cell path), with flat or
+// variable bathymetry, and the same sweep with the halo exchange inside it
+// (dl_esm_inf_tpu/ops/sweep.py::make_stencil_sweep with exchange_spec, the
+// "fused" transport).
+// It computes (sshn, un, vn, mask_code_i8[, ht], forcing[K]) -> (ssha, ua,
+// va),
 // operation for operation in the order of the plain PyTorch step
 // (dl_esm_inf_tpu_torch/models/nemolite2d.py::step_math), so at float64
 // the two agree to roundoff.  Build with --fmad=false: a contracted
 // multiply-add rounds once where the plain version rounds twice.
 //
+// Two template flags select the variants; with both off the kernel is the
+// flat-depth sweep it was before they existed.
+//  * HT: variable bathymetry.  The T-point depth ht is a fourth input
+//    plane, staged like the state.  Its halo is edge-replicated and time
+//    invariant, so it needs no ring of its own.  The face depths
+//    hu = avg_x(ht), hv = avg_y(ht) and the Flather coefficients
+//    cu, cv = -sqrt(g / max(h, 1e-3)) are derived per point from the
+//    staged plane, operation for operation as make_prep derives them
+//    (PyTorch evaluates g / h as reciprocal(h) * g).
+//  * EXCH: the halo exchange of the state at the full halo depth happens
+//    in the staging: every window point of the three state planes is read
+//    from where the exchange would have put it (halo_remap.cuh), after the
+//    clamp to the block edge.  The output equals the exchange followed by
+//    the sweep, bitwise, in one launch and with no byte more.  The aux
+//    planes (code, ht) are not exchanged, as in the JAX package.  On one
+//    card every tile is in the same array and the launch reads only its
+//    inputs, so the fence and barrier of the TPU transport have nothing to
+//    order.
+//
 // Design.  Each CTA owns a TY x TX output tile and stages a window of
 // the tile plus a ring of R = 2K cells on every side (the step's reach
 // is 2) in shared memory: the three state planes, an ssha scratch plane
-// and the int8 mask code.  It then advances K sub-steps in shared
+// and the int8 mask code (and the ht plane).  It then advances K sub-steps in shared
 // memory; the valid region shrinks by 2 per sub-step, so after K
 // sub-steps exactly the output tile is valid and is written back.  A
 // sub-step has three phases separated by __syncthreads(): continuity
@@ -35,10 +58,15 @@
 // redundant ring compute (a 32x32 tile with an 8-cell ring computes up
 // to 2.25x its own area) and shared-memory latency.  This first version
 // buys simplicity with that redundancy; larger tiles, register blocking
-// and staged intermediates are later work.
+// and staged intermediates are later work.  HT adds one read of the ht
+// plane per sweep (4 B/pt at float32), one more shared-memory plane and
+// the per-point face depths; EXCH adds no bytes, only the integer map of
+// every staged state point.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "halo_remap.cuh"
 
 namespace {
 
@@ -55,36 +83,40 @@ struct Consts {
   double cu, cv;                  // Flather: -sqrt(g/max(h, 1e-3))
   double ux_adv, ux_vis, uy_adv, uy_vis, u_cor, u_hpg;
   double vy_adv, vy_vis, vx_adv, vx_vis, v_cor, v_hpg;
+  double g;                       // gravity (Flather, variable depth)
   double forcing[4];              // bc_ssh value of each sub-step
 };
-constexpr int kNumConsts = 23;
+constexpr int kNumConsts = 24;
 static_assert(sizeof(Consts) == kNumConsts * sizeof(double), "layout");
 
-template <typename T, int K>
+template <typename T, int K, bool HT>
 struct Window {
   static constexpr int R = 2 * K;
   static constexpr int WY = TY + 2 * R;
   static constexpr int WX = TX + 2 * R;
   static constexpr int WC = WY * WX;
   static constexpr int CPT = (WC + NT - 1) / NT;
-  static constexpr size_t smem_bytes = 4 * WC * sizeof(T) + WC;
+  static constexpr int PLANES = HT ? 5 : 4;
+  static constexpr size_t smem_bytes = PLANES * WC * sizeof(T) + WC;
 };
 
-template <typename T, int K>
+template <typename T, int K, bool HT, bool EXCH>
 __global__ void __launch_bounds__(NT)
 nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
                   const T* __restrict__ vn_g,
-                  const int8_t* __restrict__ code_g, T* __restrict__ ssha_g,
+                  const int8_t* __restrict__ code_g,
+                  const T* __restrict__ ht_g, T* __restrict__ ssha_g,
                   T* __restrict__ ua_g, T* __restrict__ va_g, int ny,
-                  int nx, Consts c) {
-  using W = Window<T, K>;
+                  int nx, Consts c, HaloRemap m) {
+  using W = Window<T, K, HT>;
   constexpr int R = W::R, WY = W::WY, WX = W::WX, WC = W::WC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_ssh = reinterpret_cast<T*>(smem_raw);
   T* s_u = s_ssh + WC;
   T* s_v = s_u + WC;
   T* s_a = s_v + WC;
-  int8_t* s_code = reinterpret_cast<int8_t*>(s_a + WC);
+  T* s_ht = s_a + WC;                      // staged only when HT
+  int8_t* s_code = reinterpret_cast<int8_t*>(s_a + (W::PLANES - 3) * WC);
 
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * TX - R;
@@ -95,10 +127,16 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
     const int gy = min(max(y0 + wy, 0), ny - 1);
     const int gx = min(max(x0 + wx, 0), nx - 1);
     const size_t g = static_cast<size_t>(gy) * nx + gx;
-    s_ssh[idx] = sshn_g[g];
-    s_u[idx] = un_g[g];
-    s_v[idx] = vn_g[g];
+    size_t gs = g;
+    if constexpr (EXCH) {
+      gs = static_cast<size_t>(halo_remap_row(m, gy)) * nx +
+           halo_remap_col(m, gx);
+    }
+    s_ssh[idx] = sshn_g[gs];
+    s_u[idx] = un_g[gs];
+    s_v[idx] = vn_g[gs];
     s_code[idx] = code_g[g];
+    if constexpr (HT) s_ht[idx] = ht_g[g];
   }
 
   const T cw = static_cast<T>(c.cw), fric = static_cast<T>(c.fric);
@@ -113,6 +151,7 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
   const T v_cor = static_cast<T>(c.v_cor), v_hpg = static_cast<T>(c.v_hpg);
   const T one = static_cast<T>(1), half = static_cast<T>(0.5);
   const T zero = static_cast<T>(0);
+  const T grav = static_cast<T>(c.g), hmin = static_cast<T>(1e-3);
   __syncthreads();
 
   // mask bit b of the code (bits: t_wet, u_wet, v_wet, bc, flather_u,
@@ -127,9 +166,27 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
   auto sshv = [&](int i) -> T {
     return (sw(i) + sw(i + WX)) * (one - half * bit(i, 2));
   };
-  auto depu = [&](int i) -> T { return hu + sshu(i); };
-  auto depv = [&](int i) -> T { return hv + sshv(i); };
-  auto z = [&](int i) -> T { return ht + s_ssh[i]; };
+  // depth bases at the T point, the east U face and the north V face
+  auto ht_at = [&](int i) -> T {
+    if constexpr (HT) return s_ht[i];
+    else return ht;
+  };
+  auto hu_at = [&](int i) -> T {
+    if constexpr (HT) return half * (s_ht[i] + s_ht[i + 1]);
+    else return hu;
+  };
+  auto hv_at = [&](int i) -> T {
+    if constexpr (HT) return half * (s_ht[i] + s_ht[i + WX]);
+    else return hv;
+  };
+  // Flather coefficient -sqrt(g / max(h, 1e-3))
+  auto flather = [&](T h, T flat) -> T {
+    if constexpr (HT) return -sqrt((one / (h < hmin ? hmin : h)) * grav);
+    else return flat;
+  };
+  auto depu = [&](int i) -> T { return hu_at(i) + sshu(i); };
+  auto depv = [&](int i) -> T { return hv_at(i) + sshv(i); };
+  auto z = [&](int i) -> T { return ht_at(i) + s_ssh[i]; };
 
   // momentum_u pieces
   auto wx_u = [&](int j) -> T {            // at the west T centre of face j
@@ -200,7 +257,8 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
         const T rd = one / du;
         const T r = (s_u[idx] + (term_x + term_y + corhpg) * rd)
                     * (fric * bit(idx, 1));
-        ua[q] = bit(idx, 4) != zero ? cu * sshu(idx) : r;
+        ua[q] = bit(idx, 4) != zero ? flather(hu_at(idx), cu) * sshu(idx)
+                                    : r;
       }
       {
         const T term_y = wy_v(idx + WX) - wy_v(idx);
@@ -210,7 +268,8 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
         const T rd = one / dv;
         const T r = (s_v[idx] + (term_y + term_x + corhpg) * rd)
                     * (fric * bit(idx, 2));
-        va[q] = bit(idx, 5) != zero ? cv * sshv(idx) : r;
+        va[q] = bit(idx, 5) != zero ? flather(hv_at(idx), cv) * sshv(idx)
+                                    : r;
       }
     }
     __syncthreads();
@@ -242,42 +301,58 @@ nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
   }
 }
 
-template <typename T, int K>
-cudaError_t launch(const void* sshn, const void* un, const void* vn,
-                   const void* code, void* ssha, void* ua, void* va, int ny,
-                   int nx, const Consts& c, cudaStream_t stream) {
-  constexpr size_t smem = Window<T, K>::smem_bytes;
+// The launch's pointers and extents.
+struct Args {
+  const void *sshn, *un, *vn, *code, *ht;
+  void *ssha, *ua, *va;
+  int ny, nx;
+};
+
+template <typename T, int K, bool HT, bool EXCH>
+cudaError_t launch(const Args& a, const Consts& c, const HaloRemap& m,
+                   cudaStream_t stream) {
+  constexpr size_t smem = Window<T, K, HT>::smem_bytes;
   // the attribute is per device: set it once for each device used
   static int attr_device = -1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (attr_device != dev) {
-    err = cudaFuncSetAttribute(nemo_sweep_kernel<T, K>,
+    err = cudaFuncSetAttribute(nemo_sweep_kernel<T, K, HT, EXCH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     attr_device = dev;
   }
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY);
-  nemo_sweep_kernel<T, K><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(sshn), static_cast<const T*>(un),
-      static_cast<const T*>(vn), static_cast<const int8_t*>(code),
-      static_cast<T*>(ssha), static_cast<T*>(ua), static_cast<T*>(va), ny, nx,
-      c);
+  const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY);
+  nemo_sweep_kernel<T, K, HT, EXCH><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(a.sshn), static_cast<const T*>(a.un),
+      static_cast<const T*>(a.vn), static_cast<const int8_t*>(a.code),
+      static_cast<const T*>(a.ht), static_cast<T*>(a.ssha),
+      static_cast<T*>(a.ua), static_cast<T*>(a.va), a.ny, a.nx, c, m);
   return cudaGetLastError();
 }
 
+template <typename T, int K>
+cudaError_t dispatch_flags(bool ht, bool exch, const Args& a,
+                           const Consts& c, const HaloRemap& m,
+                           cudaStream_t s) {
+  if (ht) {
+    return exch ? launch<T, K, true, true>(a, c, m, s)
+                : launch<T, K, true, false>(a, c, m, s);
+  }
+  return exch ? launch<T, K, false, true>(a, c, m, s)
+              : launch<T, K, false, false>(a, c, m, s);
+}
+
 template <typename T>
-cudaError_t dispatch_k(int K, const void* sshn, const void* un,
-                       const void* vn, const void* code, void* ssha, void* ua,
-                       void* va, int ny, int nx, const Consts& c,
-                       cudaStream_t s) {
+cudaError_t dispatch_k(int K, bool ht, bool exch, const Args& a,
+                       const Consts& c, const HaloRemap& m, cudaStream_t s) {
   switch (K) {
-    case 1: return launch<T, 1>(sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
-    case 2: return launch<T, 2>(sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
-    case 3: return launch<T, 3>(sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
-    case 4: return launch<T, 4>(sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
+    case 1: return dispatch_flags<T, 1>(ht, exch, a, c, m, s);
+    case 2: return dispatch_flags<T, 2>(ht, exch, a, c, m, s);
+    case 3: return dispatch_flags<T, 3>(ht, exch, a, c, m, s);
+    case 4: return dispatch_flags<T, 4>(ht, exch, a, c, m, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -290,25 +365,41 @@ extern "C" {
 int nemo_sweep_num_consts() { return kNumConsts; }
 
 // dtype_code: 0 = float32, 1 = float64.  All pointers are device
-// pointers of contiguous (ny, nx) planes, except `consts` (host memory,
-// read before the launch returns).  Launches on `stream` without
-// synchronising and returns cudaGetLastError() of the launch.
+// pointers of contiguous (ny, nx) planes, except `consts` and `remap`
+// (host memory, read before the launch returns).  `ht` is null for flat
+// bathymetry; `remap` is null (n_remap 0) for a sweep without the
+// exchange, else the fields of HaloRemap with depth = halo.  Launches on
+// `stream` without synchronising and returns cudaGetLastError() of the
+// launch.
 int nemo_sweep_launch(int dtype_code, int K, const void* sshn,
                       const void* un, const void* vn, const void* code,
-                      void* ssha, void* ua, void* va, int ny, int nx,
-                      const double* consts, int n_consts, void* stream) {
-  if (n_consts != kNumConsts || ny < 1 || nx < 1) {
+                      const void* ht, void* ssha, void* ua, void* va, int ny,
+                      int nx, const double* consts, int n_consts,
+                      const int* remap, int n_remap, void* stream) {
+  const bool exch = remap != nullptr;
+  if (n_consts != kNumConsts || ny < 1 || nx < 1 ||
+      n_remap != (exch ? kHaloRemapInts : 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Consts c;
   double* dst = reinterpret_cast<double*>(&c);
   for (int i = 0; i < kNumConsts; ++i) dst[i] = consts[i];
+  HaloRemap m{};
+  if (exch) {
+    int* mi = reinterpret_cast<int*>(&m);
+    for (int i = 0; i < kHaloRemapInts; ++i) mi[i] = remap[i];
+    if (m.nprocy * m.local_ny != ny || m.nprocx * m.local_nx != nx) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const Args a{sshn, un, vn, code, ht, ssha, ua, va, ny, nx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool has_ht = ht != nullptr;
   cudaError_t err;
   if (dtype_code == 0) {
-    err = dispatch_k<float>(K, sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
+    err = dispatch_k<float>(K, has_ht, exch, a, c, m, s);
   } else if (dtype_code == 1) {
-    err = dispatch_k<double>(K, sshn, un, vn, code, ssha, ua, va, ny, nx, c, s);
+    err = dispatch_k<double>(K, has_ht, exch, a, c, m, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -20,7 +20,8 @@ op for op in the JAX package's order.  The fused path
 (``build(fused=True)``, the JAX package's ``pallas=True``) advances K
 steps per halo exchange through :mod:`..ops.fused_step`: on a CUDA
 tensor that is the hand-written sweep kernel, on a CPU tensor its plain
-version.  Steps run eagerly; there is no ``jit``.
+version.  With ``enable_fast_path(K, transport="fused")`` the exchange
+moves inside the sweep.  Steps run eagerly; there is no ``jit``.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from ..ops.fastpath import (enable_fast_path, fast_path_grid_args,
 from ..ops.fused_step import KMAX, fused_step_reference, make_fused_step
 from ..parallel.halo import exchange_multi_fn
 
-_ROADMAP = "see ROADMAP.md queue A9/B10"
+_ROADMAP = "see ROADMAP.md queue A9"
 
 
 @dataclass(frozen=True)
@@ -410,6 +411,9 @@ class NemoLite2D:
         #: advance with the fused sweep (the CUDA kernel on a CUDA grid)
         self.use_fused = False
         self._sweep_K = 1
+        #: halo transport of the fused sweep: "ppermute" (the exchange
+        #: around the kernel) or "fused" (the exchange inside it)
+        self._transport = "ppermute"
         self._fused_cache = {}
 
     def _valid_cell_mask(self) -> np.ndarray:
@@ -424,22 +428,40 @@ class NemoLite2D:
 
     # ------------------------------------------------------------------
     def enable_fast_path(self, steps_per_sweep: int = 1,
-                         transport: str = "plain") -> None:
+                         transport: str = "ppermute") -> None:
         """Switch the step to the fused sweep (the JAX package's
         ``enable_pallas``).  Needs a depth-2K halo: the kernel has no
         mid-step exchange, so the whole K-step chain must fit the halo
-        (``build(halo_width=2*steps_per_sweep)``)."""
-        if transport != "plain":
-            raise NotImplementedError(
-                f"transport={transport!r}: the exchange fused into the "
-                f"sweep is not ported yet ({_ROADMAP})")
-        if self._ht is not None and self.grid.device.type == "cuda":
-            raise NotImplementedError(
-                "variable bathymetry on the CUDA sweep kernel is not "
-                "ported yet (the ht aux plane, ROADMAP queue B); use the "
-                "plain path (fused=False)")
-        enable_fast_path(self, reach=2, kmax=KMAX,
-                         steps_per_sweep=steps_per_sweep)
+        (``build(halo_width=2*steps_per_sweep)``).
+
+        ``transport="ppermute"`` (or its old name ``"plain"``) exchanges
+        the state before each sweep; ``"fused"`` moves that exchange
+        inside the sweep (the JAX package's remote-DMA transport): on a
+        CUDA grid the kernel reads each staged state point from where the
+        exchange would have put it, in the same launch.  It exchanges the
+        full halo depth, as the JAX package does.  Of the JAX package's
+        guards for it the port keeps those that protect the semantics
+        (the K steps fit the halo, one state dtype, the block is the
+        spec's); the TPU's 8-row and 128-lane alignment, ``2*depth`` within
+        a landing block and tiles at least as deep as the halo (against an
+        in-flight DMA overlapping its own send rows) describe remote DMA
+        between devices and do not apply to one launch over one array."""
+        if transport == "plain":
+            transport = "ppermute"
+        if transport not in ("ppermute", "fused"):
+            raise ValueError(f"unknown transport {transport!r}")
+        prev = (self.use_fused, self._sweep_K, self._transport)
+        self._fused_cache.clear()
+        try:
+            enable_fast_path(self, reach=2, kmax=KMAX,
+                             steps_per_sweep=steps_per_sweep)
+            self._transport = transport
+            self._make_fused(self._sweep_K)       # fail fast on bad configs
+        except Exception:
+            # leave the model as it was, not half-configured
+            self.use_fused, self._sweep_K, self._transport = prev
+            self._fused_cache.clear()
+            raise
 
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
         """Communication avoidance on the plain path: K chained
@@ -454,7 +476,9 @@ class NemoLite2D:
             self._fused_cache[K] = make_fused_step(
                 ly, lx, self.grid.dtype, self.p, self.grid.dx, self.grid.dy,
                 self._fcor, self.depth if self._ht is None else 0.0,
-                steps_per_sweep=K, variable_bathy=self._ht is not None)
+                steps_per_sweep=K, variable_bathy=self._ht is not None,
+                exchange_spec=(self.grid.halo_spec if self._in_sweep_exchange
+                               else None))
         return self._fused_cache[K]
 
     def _make_plain_sweep(self, K: int):
@@ -464,13 +488,25 @@ class NemoLite2D:
             fused_step_reference, p=self.p, dx=self.grid.dx, dy=self.grid.dy,
             fcor=self._fcor, depth=self.depth if self._ht is None else 0.0)
 
+    @property
+    def _in_sweep_exchange(self) -> bool:
+        """The fused sweep exchanges the state itself."""
+        return self.use_fused and self._transport == "fused"
+
+    @property
+    def _field_transport(self) -> str:
+        """The transport of the model's own field exchanges: with the
+        exchange in the sweep, the exchange kernel, so that on the card
+        nothing of the model runs the plain exchange."""
+        return "remote_dma" if self._in_sweep_exchange else "ppermute"
+
     # ------------------------------------------------------------------
     def set_initial_ssh(self, ssh_global: np.ndarray) -> None:
         stacked = layout.stack_global(self.grid.decomp,
                                       np.asarray(ssh_global), mode="zeros",
                                       dtype=kinds.np_dtype(self.grid.dtype))
         self.sshn_t.set_data(stacked)
-        self.sshn_t.halo_exchange(1)
+        self.sshn_t.halo_exchange(1, transport=self._field_transport)
         self._sync_face_ssh()
 
     def _sync_face_ssh(self) -> None:
@@ -491,14 +527,16 @@ class NemoLite2D:
     # ------------------------------------------------------------------
     def _block_step(self, exch, forcing, sshn_t, un, vn, mask_codes,
                     dep=None):
-        """One step after a depth-min(halo, 2) exchange; ``forcing`` is
-        this step's bc_ssh value."""
+        """One step after a depth-min(halo, 2) exchange (inside the K=1
+        sweep with the fused transport); ``forcing`` is this step's
+        bc_ssh value."""
         p = self.p
         dx, dy = self.grid.dx, self.grid.dy
         h = self.grid.halo_spec.halo
         if dep is None:
             dep = self.depth
-        sshn_t, un, vn = exch((sshn_t, un, vn))
+        if not self._in_sweep_exchange:
+            sshn_t, un, vn = exch((sshn_t, un, vn))
         if self.use_fused:
             return self._make_fused(1)(sshn_t, un, vn, mask_codes, [forcing],
                                        ht=dep if self._ht is not None
@@ -513,8 +551,10 @@ class NemoLite2D:
     def _block_sweep(self, exch, fused, forcing, sshn_t, un, vn,
                      mask_codes, dep=None):
         """K steps after ONE depth-2K exchange (temporal blocking);
-        ``forcing`` holds the K sub-steps' bc_ssh values."""
-        sshn_t, un, vn = exch((sshn_t, un, vn))
+        ``forcing`` holds the K sub-steps' bc_ssh values.  With the fused
+        transport the sweep exchanges and ``exch`` is skipped."""
+        if not self._in_sweep_exchange:
+            sshn_t, un, vn = exch((sshn_t, un, vn))
         return fused(sshn_t, un, vn, mask_codes, forcing,
                      ht=dep if self._ht is not None else None)
 
@@ -525,6 +565,10 @@ class NemoLite2D:
         ``nsteps // K`` sweeps of K steps, each after one depth-2K
         exchange, then ``nsteps % K`` single steps."""
         if overlap:
+            if self._in_sweep_exchange:
+                raise ValueError(
+                    "overlap mode is redundant with transport='fused' and "
+                    "would exchange twice")
             raise NotImplementedError(
                 f"overlap mode is not ported yet ({_ROADMAP})")
         if remat_chunk is not None:
@@ -564,7 +608,7 @@ class NemoLite2D:
         self.sshn_t.data, self.un.data, self.vn.data = out
         self._istep0 += nsteps
         # keep the derived U/V-face ssh fields in sync for API users
-        self.sshn_t.halo_exchange(1)
+        self.sshn_t.halo_exchange(1, transport=self._field_transport)
         self._sync_face_ssh()
 
     @property

@@ -4,15 +4,20 @@ Counterpart of ``dl_esm_inf_tpu/ops/pallas_step.py::make_fused_step``.
 :func:`make_fused_step` returns ``fused(sshn, un, vn, mask_codes,
 forcing, ht=None) -> (ssha, ua, va)`` for one stacked ``(ly, lx)``
 block, advancing ``K = len(forcing)`` steps after one depth-2K halo
-exchange.  What runs depends only on where the tensors lie:
+exchange, with flat bathymetry or the T-point depth plane ``ht``.  With
+an ``exchange_spec`` the sweep does that exchange itself, at the full
+halo depth (the JAX package's fused transport).  What runs depends only
+on where the tensors lie:
 
 * a CUDA tensor launches the hand-written kernel
   ``csrc/nemolite2d_sweep.cu`` through :data:`nemolite2d_sweep`
   (built with ``nvcc`` at first use, see :mod:`.cuda_build`), or raises;
-* a CPU tensor runs :func:`fused_step_reference`, the kernel's plain
-  PyTorch version: K chained :func:`..models.nemolite2d.step_math` calls
-  on the whole block with the hoisted constants built once (the JAX
-  package's ``_make_jnp_sweep``).
+* a CPU tensor runs the kernel's plain PyTorch version: the exchange
+  of :mod:`..parallel.halo` where the sweep has one, then
+  :func:`fused_step_reference`, K chained
+  :func:`..models.nemolite2d.step_math` calls on the whole block with
+  the hoisted constants built once (the JAX package's
+  ``_make_jnp_sweep``).
 
 Cells within 2K of the block edge hold finite values of no meaning in
 both versions (the plain one wraps its shifts around the block, the
@@ -26,6 +31,8 @@ import ctypes
 import torch
 
 from . import stencils as st
+from ..parallel.halo import HaloSpec, exchange_multi
+from ..parallel.halo_kernel import remap_args
 
 #: the kernel's ceiling on sub-steps per sweep (its ring is 2K cells)
 KMAX = 4
@@ -53,7 +60,8 @@ def kernel_constants(p, dx: float, dy: float, fcor: float, depth: float,
     kernel casts each once to the working type, as the plain version's
     Python scalars are).  Depth-derived values (ht, hu, hv, cu, cv) are
     computed by ``make_prep`` itself in the working dtype, so the two
-    versions share them exactly."""
+    versions share them exactly; the variable-depth kernel derives them
+    per point and reads only ``g`` of them."""
     from ..models.nemolite2d import make_prep
     pr = make_prep(torch.zeros((1, 1), dtype=torch.int8), depth, p, dtype,
                    dx=dx, dy=dy)
@@ -70,6 +78,7 @@ def kernel_constants(p, dx: float, dy: float, fcor: float, depth: float,
         -0.5 * p.rdt / dy, p.rdt * p.visc / (dy * dy),
         -0.25 * p.rdt / dx, 0.5 * p.rdt * p.visc / (dx * dx),
         -0.25 * p.rdt * fcor, -p.rdt * p.g / dy,
+        p.g,
     ]
 
 
@@ -92,9 +101,10 @@ class SweepKernel:
         if self._fn is None:
             fn = built.lib.nemo_sweep_launch
             fn.argtypes = ([ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 7
+                           + [ctypes.c_void_p] * 8
                            + [ctypes.c_int, ctypes.c_int,
                               ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
             nconst = built.lib.nemo_sweep_num_consts
@@ -104,7 +114,11 @@ class SweepKernel:
             self._fn = fn
         return built
 
-    def __call__(self, sshn, un, vn, codes, consts, forcing):
+    def __call__(self, sshn, un, vn, codes, consts, forcing, ht=None,
+                 exchange: HaloSpec | None = None):
+        """One sweep; ``ht`` selects the variable-depth variant and
+        ``exchange`` the one that exchanges the state at the spec's full
+        halo depth while it stages it."""
         K = len(forcing)
         if not 1 <= K <= KMAX:
             raise ValueError(f"the sweep kernel takes 1..{KMAX} sub-steps, "
@@ -117,16 +131,24 @@ class SweepKernel:
                             f"got {sshn.dtype}")
         if sshn.dim() != 2:
             raise ValueError(f"expected (ly, lx) planes, got {sshn.shape}")
-        for name, t, dt in (("un", un, sshn.dtype), ("vn", vn, sshn.dtype),
-                            ("mask_codes", codes, torch.int8)):
+        planes = [("sshn", sshn, sshn.dtype), ("un", un, sshn.dtype),
+                  ("vn", vn, sshn.dtype), ("mask_codes", codes, torch.int8)]
+        if ht is not None:
+            planes.append(("ht", ht, sshn.dtype))
+        for name, t, dt in planes[1:]:
             if t.device != dev or t.dtype != dt or t.shape != sshn.shape:
                 raise ValueError(
                     f"{name}: expected {dt} {tuple(sshn.shape)} on {dev}, "
                     f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        for name, t in (("sshn", sshn), ("un", un), ("vn", vn),
-                        ("mask_codes", codes)):
+        for name, t, _ in planes:
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
+        remap = None
+        if exchange is not None:
+            if exchange.array_shape != tuple(sshn.shape):
+                raise ValueError(f"exchange spec block {exchange.array_shape}"
+                                 f" != sweep block {tuple(sshn.shape)}")
+            remap = remap_args(exchange, exchange.halo)
         self.build()
         vals = list(consts) + [float(f) for f in forcing] + [0.0] * (KMAX - K)
         if len(vals) != self._nconsts:
@@ -138,8 +160,10 @@ class SweepKernel:
         ny, nx = sshn.shape
         err = self._fn(self._DTYPE_CODES[sshn.dtype], K, sshn.data_ptr(),
                        un.data_ptr(), vn.data_ptr(), codes.data_ptr(),
+                       None if ht is None else ht.data_ptr(),
                        ssha.data_ptr(), ua.data_ptr(), va.data_ptr(), ny, nx,
                        (ctypes.c_double * len(vals))(*vals), len(vals),
+                       remap, 0 if remap is None else len(remap),
                        torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"nemolite2d sweep kernel launch failed: "
@@ -154,17 +178,34 @@ nemolite2d_sweep = SweepKernel()
 
 def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
                     fcor: float, depth: float, steps_per_sweep: int = 1,
-                    variable_bathy: bool = False):
+                    variable_bathy: bool = False,
+                    exchange_spec: HaloSpec | None = None):
     """Build the fused K-step callable for ``(ly, lx)`` blocks:
     ``fused(sshn, un, vn, mask_codes_i8, forcing, ht=None)`` with
-    ``len(forcing) == steps_per_sweep``.
+    ``len(forcing) == steps_per_sweep``; ``ht`` is the T-point depth
+    plane when ``variable_bathy`` (``depth`` is then ignored).
 
-    The CUDA kernel covers the square-cell (``dx == dy``), flat-
-    bathymetry configuration that ``build`` makes; on CUDA tensors any
-    other configuration raises ``NotImplementedError``."""
+    ``exchange_spec``: the sweep exchanges the state (not ``ht`` or the
+    mask codes, which do not change) at the spec's full halo depth before
+    its K steps, as the JAX package's fused transport does: the caller
+    does not exchange.  The block is the spec's whole stacked array, the
+    K steps must fit its halo (``2K <= halo``) and the three state planes
+    share one dtype.
+
+    The CUDA kernel covers the square-cell (``dx == dy``) configuration
+    that ``build`` makes; on CUDA tensors other cells raise
+    ``NotImplementedError``."""
     K = int(steps_per_sweep)
     if not 1 <= K <= KMAX:
         raise ValueError(f"steps_per_sweep must be in [1, {KMAX}], got {K}")
+    ex = exchange_spec
+    if ex is not None:
+        if ex.array_shape != (ly, lx):
+            raise ValueError(f"exchange_spec block {ex.array_shape} != "
+                             f"sweep block {(ly, lx)}")
+        if 2 * K > ex.halo:
+            raise ValueError(f"fused exchange needs halo >= the whole-sweep "
+                             f"erosion {2 * K}, spec has {ex.halo}")
     consts = None
 
     def fused(sshn, un, vn, mask_codes_i8, forcing, ht=None):
@@ -175,20 +216,26 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
         if tuple(sshn.shape) != (ly, lx) or sshn.dtype != dtype:
             raise ValueError(f"expected ({ly}, {lx}) {dtype} blocks, got "
                              f"{tuple(sshn.shape)} {sshn.dtype}")
+        if ex is not None and not un.dtype == vn.dtype == sshn.dtype:
+            raise ValueError("fused exchange requires uniform state dtypes; "
+                             "use the ppermute transport for mixed-dtype "
+                             "state")
+        if variable_bathy and ht is None:
+            raise ValueError("variable_bathy: pass the depth plane ht")
+        ht = ht if variable_bathy else None
         if sshn.device.type == "cpu":
+            if ex is not None:
+                sshn, un, vn = exchange_multi((sshn, un, vn), ex, ex.halo)
             return fused_step_reference(
                 sshn, un, vn, mask_codes_i8, forcing, p=p, dx=dx, dy=dy,
-                fcor=fcor, depth=depth, ht=ht if variable_bathy else None)
-        if variable_bathy or ht is not None:
-            raise NotImplementedError(
-                "variable bathymetry on the CUDA sweep kernel is not ported "
-                "yet (the ht aux plane, ROADMAP queue B)")
+                fcor=fcor, depth=depth, ht=ht)
         if dx != dy:
             raise NotImplementedError(
                 "the CUDA sweep kernel implements the square-cell path "
                 f"(dx == dy); got dx={dx}, dy={dy}")
         if consts is None:
             consts = kernel_constants(p, dx, dy, fcor, depth, sshn.dtype)
-        return nemolite2d_sweep(sshn, un, vn, mask_codes_i8, consts, forcing)
+        return nemolite2d_sweep(sshn, un, vn, mask_codes_i8, consts, forcing,
+                                ht=ht, exchange=ex)
 
     return fused

@@ -19,6 +19,11 @@ direction keeps its existing boundary values.  Fields are grouped by
 dtype and leading shape, and strips of one group move together; fields
 of different dtypes are never stacked into one message, so an int32
 halo is never upcast through a float.
+
+The two phases are separable, so an exchange is also a gather by a row
+and a column index (:func:`exchange_index`): the geometry the exchange
+kernels of :mod:`.halo_kernel` and the flagship sweep evaluate on the
+card.  :func:`_exchange_blocks` stays their plain version.
 """
 from __future__ import annotations
 
@@ -68,11 +73,7 @@ def _exchange_blocks(blks, spec: HaloSpec, depth: int):
     do_y = spec.nprocy > 1 or spec.wrap_y
     if not (do_x or do_y):
         return tuple(blks)
-    if rx != spec.nprocx or ry != spec.nprocy:
-        raise NotImplementedError(
-            "single-device exchange: every tile must live on this device "
-            f"(repx={rx}, repy={ry}, nprocx={spec.nprocx}, "
-            f"nprocy={spec.nprocy})")
+    _check_one_device(spec)
 
     groups: list[tuple[tuple, list[int]]] = []
     for k, b in enumerate(blks):
@@ -138,6 +139,46 @@ def _check_depth(spec: HaloSpec, depth: int) -> None:
     if depth < 1 or depth > spec.halo:
         raise ValueError(
             f"halo-exchange depth {depth} outside [1, halo={spec.halo}]")
+
+
+def _check_one_device(spec: HaloSpec) -> None:
+    if spec.repx != spec.nprocx or spec.repy != spec.nprocy:
+        raise NotImplementedError(
+            "single-device exchange: every tile must live on this device "
+            f"(repx={spec.repx}, repy={spec.repy}, nprocx={spec.nprocx}, "
+            f"nprocy={spec.nprocy})")
+
+
+def _axis_index(i, h, d, t, l, n, wrap):
+    k, r = i // l, i % l
+    west = (r >= h - d) & (r < h) & ((k > 0) | wrap)
+    east = (r >= h + t) & (r < h + t + d) & ((k < n - 1) | wrap)
+    src = torch.where(west, ((k - 1) % n) * l + r + t, i)
+    return torch.where(east, ((k + 1) % n) * l + r - t, src)
+
+
+def exchange_index(spec: HaloSpec, depth: int,
+                   device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rows, cols)``: the exchange of ``depth`` as a gather,
+    ``exchange(a) == a.index_select(-2, rows).index_select(-1, cols)``.
+
+    The x phase moves columns over every row of a tile and the y phase
+    then moves full-width rows, so the two are separable: a point in a
+    west (south) halo strip of depth ``depth`` reads the column (row)
+    ``tile_nx`` (``tile_ny``) further on in the tile before it, one in an
+    east (north) strip the one as far back in the tile after it, where
+    that neighbour exists (wrap pairs on periodic axes); every other
+    point reads itself.  The Python mirror of ``csrc/halo_remap.cuh``,
+    the geometry both exchange kernels use."""
+    _check_depth(spec, depth)
+    _check_one_device(spec)
+    h = spec.halo
+    ny, nx = spec.array_shape
+    rows = _axis_index(torch.arange(ny, device=device), h, depth,
+                       spec.tile_ny, spec.local_ny, spec.nprocy, spec.wrap_y)
+    cols = _axis_index(torch.arange(nx, device=device), h, depth,
+                       spec.tile_nx, spec.local_nx, spec.nprocx, spec.wrap_x)
+    return rows, cols
 
 
 def exchange(data: torch.Tensor, spec: HaloSpec,

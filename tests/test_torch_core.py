@@ -223,7 +223,8 @@ def test_port_never_imports_jax():
         "'models.shallow', 'models.twolayer', 'models.tracer', "
         "'ops.solvers', 'models.semi_implicit', 'models.nlayer', "
         "'interop', 'api.kernel_meta', 'ops.schedule_sweep', "
-        "'models.nemolite2d_psy'):\n"
+        "'models.nemolite2d_psy', 'parallel.halo_kernel', "
+        "'models.example_model', 'testing'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'dl_esm_inf_tpu.')) or "

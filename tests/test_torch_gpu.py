@@ -105,9 +105,12 @@ def test_wrapper_checks_its_inputs(cuda_device):
         fs.nemolite2d_sweep(*s, codes, consts, [0.0] * 5)
     with pytest.raises(ValueError, match="constants"):
         fs.nemolite2d_sweep(*s, codes, consts[:-1], [0.0])
-    with pytest.raises(NotImplementedError, match="bathymetry"):
-        nl.build(GNX, GNY, fused=True, device=cuda_device,
-                 depth=np.full((GNY, GNX), 50.0))
+    with pytest.raises(ValueError, match="ht"):
+        fs.nemolite2d_sweep(*s, codes, consts, [0.0], ht=s[0].float()
+                            if s[0].dtype == torch.float64 else s[0].double())
+    with pytest.raises(ValueError, match="exchange spec block"):
+        fs.nemolite2d_sweep(*(t[:-1] for t in s), codes[:-1], consts, [0.0],
+                            exchange=m.grid.halo_spec)
 
 
 # --- the sweep-engine client models -------------------------------------
@@ -446,3 +449,134 @@ def test_schedule_sweep_refuses_what_it_cannot_generate(cuda_device):
     # the plain tiers run on the card as torch operations
     km.Schedule((torch_only, b, a))()
     km.invoke(torch_only, b, a)
+
+
+# --- the halo-exchange transports and variable bathymetry ---------------
+
+def _exch_grid(device, tiles, wrap, halo):
+    bc = [tdl.BC_PERIODIC if w else tdl.BC_EXTERNAL for w in wrap]
+    g = tdl.Grid(tdl.ARAKAWA_C, (bc[0], bc[1], tdl.BC_NONE), tdl.OFFSET_NE,
+                 device=device)
+    base = max(halo, 5)
+    g.decompose(base * tiles[0] + (0 if wrap[0] else 1),
+                base * tiles[1] + (0 if wrap[1] else 2), ndomainx=tiles[0],
+                ndomainy=tiles[1], halo_width=halo)
+    tdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [1, 2, 8])
+@pytest.mark.parametrize("wrap", [(False, False), (True, False),
+                                  (False, True), (True, True)])
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 1), (1, 2), (2, 2), (3, 2),
+                                   (4, 4)])
+def test_exchange_kernel_matches_plain(cuda_device, tiles, wrap, halo):
+    """The exchange kernel copies words: bitwise equal to the plain
+    exchange on every cell, at every depth, for float32, float64 and
+    int32, 2D and 3 levels."""
+    from dl_esm_inf_tpu_torch.parallel import halo as hm
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    spec = _exch_grid(cuda_device, tiles, wrap, halo).halo_spec
+    rng = np.random.default_rng(halo)
+    before = hk.halo_exchange.launches
+    n = 0
+    for depth in range(1, halo + 1):
+        for dtype in (torch.float32, torch.float64, torch.int32):
+            for lead in ((), (3,)):
+                shape = lead + spec.array_shape
+                a = torch.from_numpy(rng.permutation(int(np.prod(shape)))
+                                     .reshape(shape)).to(cuda_device, dtype)
+                got = hk.exchange_kernel(a, spec, depth)
+                want = hm._exchange_blocks((a,), spec, depth)[0]
+                assert got.dtype == dtype
+                assert torch.equal(got, want), (depth, dtype, lead)
+                n += 1
+    torch.cuda.synchronize()
+    assert hk.halo_exchange.launches - before == n
+
+
+@pytest.mark.gpu
+def test_exchange_kernel_checks_its_inputs(cuda_device):
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    spec = _exch_grid(cuda_device, (2, 2), (True, True), 2).halo_spec
+    a = torch.zeros(spec.array_shape, device=cuda_device)
+    with pytest.raises(TypeError, match="float32/float64/int32"):
+        hk.halo_exchange(a.to(torch.int16), spec, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.halo_exchange(a.t().contiguous().t(), spec, 1)
+    with pytest.raises(ValueError, match="blocks"):
+        hk.halo_exchange(a[:-1], spec, 1)
+    with pytest.raises(ValueError, match="depth"):
+        hk.halo_exchange(a, spec, 3)
+
+
+def _bathymetry(gnx, gny, seed=11):
+    return 50.0 + 100.0 * np.random.default_rng(seed).random((gny, gnx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_ht_kernel_matches_plain(cuda_device, K, ndom, dtype):
+    """Variable bathymetry on the kernel: the face depths and Flather
+    coefficients derived per point as make_prep derives them, bitwise
+    equal to the plain version."""
+    depth = _bathymetry(GNX, GNY)
+    ms = [nl.build(GNX, GNY, ndomains=ndom, fused=f, steps_per_sweep=K,
+                   halo_width=2 * K, depth=depth, dtype=dtype,
+                   device=cuda_device) for f in (True, False)]
+    for m in ms:
+        m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.5))
+    before = fs.nemolite2d_sweep.launches
+    ms[0].run(23)
+    assert fs.nemolite2d_sweep.launches - before == 23 // K + 23 % K
+    ms[1].run(23)
+    got, want = ms[0].gather(), ms[1].gather()
+    for k in want:
+        assert np.all(np.isfinite(got[k])), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _transport_model(device, tiles, K, dtype, transport):
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
+                 device=device)
+    g.decompose(GNX, GNY, ndomainx=tiles[0], ndomainy=tiles[1],
+                halo_width=8)
+    tdl.grid_init(g, 1000.0, 1000.0, nl.default_tmask(GNX, GNY))
+    m = nl.NemoLite2D(g, depth=_bathymetry(GNX, GNY) if K == 3 else 100.0)
+    m.enable_fast_path(K, transport=transport)
+    m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.5))
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 2), (4, 1), (1, 4)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_fused_transport_matches_ppermute(cuda_device, K, tiles, dtype):
+    """The exchange inside the sweep (one launch per sweep, the plain
+    exchange never called) equals the ppermute transport on the kernel
+    bitwise on internal points; K = 3 runs with variable bathymetry."""
+    from dl_esm_inf_tpu_torch.parallel import halo as hm
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    mf = _transport_model(cuda_device, tiles, K, dtype, "fused")
+    mp = _transport_model(cuda_device, tiles, K, dtype, "ppermute")
+    saved = hm._exchange_blocks
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain exchange ran on the fused path")
+    before = fs.nemolite2d_sweep.launches
+    hm._exchange_blocks = hk._exchange_blocks = refuse
+    try:
+        mf.run(23)
+    finally:
+        hm._exchange_blocks = hk._exchange_blocks = saved
+    assert fs.nemolite2d_sweep.launches - before == 23 // K + 23 % K
+    mp.run(23)
+    got, want = mf.gather(), mp.gather()
+    for k in want:
+        assert np.all(np.isfinite(got[k])), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -207,8 +207,8 @@ def test_guards():
         m = tnl.build(32, 32, fused=True, **CPU)          # halo 2
         m.enable_fast_path(steps_per_sweep=2)
     m = tnl.build(32, 32, fused=True, steps_per_sweep=2, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.enable_fast_path(steps_per_sweep=2, transport="fused")
+    with pytest.raises(ValueError, match="unknown transport"):
+        m.enable_fast_path(steps_per_sweep=2, transport="carrier-pigeon")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.step_program(4, overlap=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
