@@ -6,7 +6,10 @@ kernel-metadata layer (invoke, Schedule, the fused schedule sweep
 generated as CUDA from each schedule) with the PSy-built flagship, and
 the halo-exchange transports (the exchange kernel behind
 Field.halo_exchange(transport="remote_dma"), the flagship's
-transport="fused") with variable bathymetry on the flagship kernel.
+transport="fused") with variable bathymetry on the flagship kernel,
+rectangular cells on the flagship kernel, and the kernel-variant
+microbench (python -m dl_esm_inf_tpu_torch.kbench) with the flagship's
+history file and checkpoint.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -16,7 +19,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the eight hand-written kernels from
+2. build: compiles the nine hand-written kernel libraries from
    dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
    the schedule sweeps that phase 10 generates (one source per schedule
    structure, dtype and K), all at once (build/torch_kernels/); prints
@@ -91,7 +94,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
    variable bathymetry, the exchange through Field.halo_exchange in 1,
    2x2 and 4x4 tiles at halo 8, depth 1 and 8, 2D and 3 levels (us per
    call: kernel, plain, and the exchange_index gather as one indexing
-   call), and the example model on the card under both transports.
+   call), and the example model on the card under both transports;
+15. the kernel-variant microbench's variants (csrc/nemolite2d_variants.cu):
+   dma and compute kernel vs plain bitwise on every cell (f64 and f32,
+   K = 1..4, 1 and 4 tiles, compute at reps 1 and 3), compute(reps=1) vs
+   the production kernel bitwise on every cell, compute_fast within
+   TOL_FAST per pass on internal points; the byte loads of the code plane
+   in each dma kernel's SASS (cuobjdump);
+16. rectangular cells: the flagship kernel vs the plain path bitwise on
+   internal points at dx/dy = 1000/1500 and 1500/1000 (f64 and f32,
+   K = 1..4, 1 and 2x2 tiles, flat, variable depth and the fused
+   transport);
+17. the kbench path at 1024^2 f32: prod, dma, compute and compute_fast at
+   K = 1, 2, 4 (us per step by the slope method over CUDA graphs, the
+   variants' launch counts reset just before), the split of a production
+   step into the DMA floor, the compute floor and the remainder, the three
+   variants' kernel entries; the flagship CLI on the card writing a
+   history file read back by load_netcdf; save_model / load_model on the
+   card, bitwise, and the resumed run equal to the uninterrupted one.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -100,7 +120,10 @@ per element) over the card's peak rate for the dtype; and library_ms,
 the time of one PyTorch call computing the same function, or null where
 none does (none does for these multi-plane masked sweeps; for the
 exchange it is one advanced-indexing call with the row and column maps
-of exchange_index made beforehand).
+of exchange_index made beforehand; for the dma variant, three torch.add
+over its planes).  The compute variants are bound by the plain step's
+element operations per point and step (ops_per_point) times the points,
+K and the passes.
 
 The line before the last is the kernel report as JSON; the last line is
 the result as JSON.  Imports nothing of JAX.
@@ -229,11 +252,11 @@ def phase_device() -> str:
 
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
-           nlm.nlayer_sweep, hk.halo_exchange)
+           nlm.nlayer_sweep, hk.halo_exchange, fs.variant_dma)
 
 
 def phase_build() -> None:
-    """The eight libraries and every generated schedule sweep phase 10
+    """The nine libraries and every generated schedule sweep phase 10
     needs, built at once (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -1514,15 +1537,16 @@ def phase_ht_parity() -> None:
           flush=True)
 
 
-def _flagship(n, ndx, ndy, K, dtype, transport=None, depth=100.0, halo=8):
-    """The flagship on ``ndx`` x ``ndy`` tiles at halo ``halo``: on the
-    kernel with ``transport``, else on the plain path at K steps per
-    exchange."""
+def _flagship(n, ndx, ndy, K, dtype, transport=None, depth=100.0, halo=8,
+              dx=1000.0, dy=1000.0):
+    """The flagship on ``ndx`` x ``ndy`` tiles at halo ``halo`` with
+    ``dx`` x ``dy`` cells: on the kernel with ``transport``, else on the
+    plain path at K steps per exchange."""
     g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
                                  tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
                  device=DEV)
     g.decompose(n, n, ndomainx=ndx, ndomainy=ndy, halo_width=halo)
-    tdl.grid_init(g, 1000.0, 1000.0, nl.default_tmask(n, n))
+    tdl.grid_init(g, dx, dy, nl.default_tmask(n, n))
     m = nl.NemoLite2D(g, depth=depth)
     if transport is None:
         m.set_steps_per_exchange(K)
@@ -1847,6 +1871,324 @@ def phase_transport_main() -> list:
     return kernels
 
 
+# --- the kernel-variant microbench, rectangular cells, the utilities ------
+
+#: compute_fast vs its plain version (exact reciprocal, one Newton step):
+#: max |diff| on internal points over the field's max |value|, per pass
+#: of the K sub-steps (the approximate reciprocal's last bits, fed back)
+TOL_FAST = 1e-6
+#: passes of the compute variants' kernel entries (K = 4: 32 steps)
+VAR_REPS = 8
+
+
+def _graph_ms(fn, n: int) -> float:
+    """ms per call of ``fn`` from one CUDA graph of ``n`` calls replayed
+    under CUDA events: the card's time, without the host's cost of a
+    call (a ``dma`` sweep is shorter than that cost)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (3 * n)
+
+
+def _max_abs(a, b, where=None) -> float:
+    return max(float((x - y).abs().max() if where is None
+                     else (x - y).abs()[where].max()) for x, y in zip(a, b))
+
+
+def _sass_byte_loads(lib: Path) -> dict:
+    """Byte loads from global memory (LDG .U8/.S8) per kernel in the
+    library's SASS, by cuobjdump."""
+    from dl_esm_inf_tpu_torch.ops.cuda_build import find_nvcc
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        out[name] = len(re.findall(r"LDG\.E\.(?:U|S)8", part))
+    return out
+
+
+def phase_variants_parity() -> None:
+    """The dma and compute variant kernels against their plain versions,
+    compute(reps=1) against production, compute_fast within TOL_FAST; and
+    the dma kernels' code loads in their SASS."""
+    n, cases, worst_fast = PARITY_N, 0, 0.0
+    kerns = fs.VARIANT_KERNELS.values()
+    before = sum(k.launches for k in kerns)
+    for dtype in (torch.float64, torch.float32):
+        for ndom in (1, 4):
+            m = nl.build(n, n, ndomains=ndom, fused=True, steps_per_sweep=4,
+                         dtype=dtype, device=DEV)
+            m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+            m.run(8)
+            state = (m.sshn_t.data, m.un.data, m.vn.data)
+            codes, inner = m._mask_codes, m.sshn_t.internal_mask.bool()
+            args = (*m.grid.array_shape, dtype, m.p, m.grid.dx, m.grid.dy,
+                    m._fcor, m.depth)
+            plain = dict(p=m.p, dx=m.grid.dx, dy=m.grid.dy, fcor=m._fcor,
+                         depth=m.depth)
+            for K in (1, 2, 3, 4):
+                f = m.forcing_series(m._istep0, K)
+                label = f"{dtype} ndomains={ndom} K={K}"
+                prod = fs.make_fused_step(*args, steps_per_sweep=K)(
+                    *state, codes, f)
+                got = fs.make_variant(*args, K, "dma")(*state, codes, f)
+                if _max_abs(got, fs.variant_dma_reference(*state, codes, f)):
+                    raise AssertionError(f"dma kernel vs plain {label}: not "
+                                         "bitwise")
+                cases += 1
+                for reps in (1, 3):
+                    got = fs.make_variant(*args, K, "compute")(
+                        *state, codes, f, reps=reps)
+                    want = fs.variant_compute_reference(*state, codes, f,
+                                                        reps, **plain)
+                    if _max_abs(got, want):
+                        raise AssertionError(f"compute kernel vs plain {label}"
+                                             f" reps={reps}: not bitwise")
+                    if reps == 1 and _max_abs(got, prod):
+                        raise AssertionError(f"compute(reps=1) vs production "
+                                             f"{label}: not bitwise")
+                    cases += 1
+                    if dtype != torch.float32:
+                        continue
+                    got = fs.make_variant(*args, K, "compute_fast")(
+                        *state, codes, f, reps=reps)
+                    want = fs.variant_compute_reference(
+                        *state, codes, f, reps, fast=True, **plain)
+                    rel = (_max_abs(got, want, inner)
+                           / max(float(w.abs()[inner].max()) for w in want))
+                    if not rel <= TOL_FAST * reps:
+                        raise AssertionError(f"compute_fast {label} reps="
+                                             f"{reps}: {rel:.3e}")
+                    worst_fast = max(worst_fast, rel / reps)
+    torch.cuda.synchronize()
+    if sum(k.launches for k in kerns) - before < cases:
+        raise AssertionError("variant parity did not go through the kernels")
+    loads = _sass_byte_loads(fs.variant_dma.build().path)
+    dma = {k: v for k, v in loads.items() if "nemo_dma_kernel" in k}
+    prod_loads = [v for k, v in _sass_byte_loads(
+        fs.nemolite2d_sweep.build().path).items() if "nemo_sweep_kernel" in k]
+    if len(dma) != 8 or min(dma.values()) < 1:
+        raise AssertionError(f"dma kernels without byte loads: {dma}")
+    print(f"variants parity: {cases} cases (dma; compute at reps 1 and 3; "
+          f"f64 and f32, K=1..4, ndomains 1 and 4, {n}^2): kernel vs plain "
+          f"bitwise on every cell, compute(reps=1) = production bitwise on "
+          f"every cell; compute_fast vs plain max rel {worst_fast:.3e} per "
+          f"pass on internal points (tol {TOL_FAST}); SASS: "
+          f"{min(dma.values())}-{max(dma.values())} byte loads (LDG .U8/.S8)"
+          f" in each of the 8 dma kernels, {min(prod_loads)}-"
+          f"{max(prod_loads)} in the production kernels", flush=True)
+
+
+#: rectangular cells of phase 16 (dx, dy), m
+RECT_CELLS = ((1000.0, 1500.0), (1500.0, 1000.0))
+
+
+def phase_rect_parity() -> None:
+    """The flagship kernel on rectangular cells against the plain path,
+    bitwise: flat, variable depth (HT) and the fused transport (EXCH)."""
+    n, steps, cases = PARITY_N, 23, 0
+    depth = _bathymetry(n)
+    for dx, dy in RECT_CELLS:
+        for dtype in (torch.float64, torch.float32):
+            for ndx, ndy in ((1, 1), (2, 2)):
+                for variant in ("flat", "ht", "exch"):
+                    for K in (1, 2, 3, 4):
+                        kw = dict(depth=depth if variant == "ht" else 100.0,
+                                  dx=dx, dy=dy)
+                        mk = _flagship(n, ndx, ndy, K, dtype, "fused"
+                                       if variant == "exch" else "ppermute",
+                                       **kw)
+                        mp = _flagship(n, ndx, ndy, K, dtype, **kw)
+                        before = fs.nemolite2d_sweep.launches
+                        mk.run(steps)
+                        if (fs.nemolite2d_sweep.launches - before
+                                != steps // K + steps % K):
+                            raise AssertionError("rectangular run did not go "
+                                                 "through the kernel")
+                        mp.run(steps)
+                        ga, gb = mk.gather(), mp.gather()
+                        d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
+                        if d != 0.0 or not all(np.isfinite(ga[k]).all()
+                                               for k in ga):
+                            raise AssertionError(
+                                f"rectangular dx/dy={dx}/{dy} {dtype} "
+                                f"{ndx}x{ndy} {variant} K={K}: max abs "
+                                f"{d:.3e}, expected bitwise")
+                        cases += 1
+    print(f"rectangular cells: flagship kernel vs plain {n}^2, dx/dy "
+          f"1000/1500 and 1500/1000, {cases} cases (f64 and f32, 1 and 2x2 "
+          f"tiles, flat / ht / fused transport, K=1..4), {steps} steps: "
+          f"bitwise on internal points", flush=True)
+
+
+def _ring_work(K: int) -> tuple[float, float]:
+    """Points updated per sweep by continuity and by momentum over the
+    tile's K sub-steps of points (the regions 2k+1 and 2k+2 inside the
+    32 + 4K window)."""
+    w, t = fs.TILE + 4 * K, fs.TILE
+    cont = sum((w - 2 * (2 * k + 1)) ** 2 for k in range(K)) / (K * t * t)
+    mom = sum((w - 2 * (2 * k + 2)) ** 2 for k in range(K)) / (K * t * t)
+    return cont, mom
+
+
+def _variant_entries(m) -> list:
+    """The three variant kernels' entries of the JSON line, on the
+    kbench model's state: dma at K = 1 (its library call is three
+    ``torch.add``), compute and compute_fast at K = 4 with VAR_REPS
+    passes (bound by their operations: the plain step's element
+    operations per point and step, times the points, K and the passes;
+    no library call)."""
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    codes, inner = m._mask_codes, m.sshn_t.internal_mask.bool()
+    args = (*m.grid.array_shape, m.grid.dtype, m.p, m.grid.dx, m.grid.dy,
+            m._fcor, m.depth)
+    plain_kw = dict(p=m.p, dx=m.grid.dx, dy=m.grid.dy, fcor=m._fcor,
+                    depth=m.depth)
+    src = "dl_esm_inf_tpu_torch/csrc/nemolite2d_variants.cu"
+    entries = []
+    f1 = m.forcing_series(0, 1)
+    var = fs.make_variant(*args, 1, "dma")
+    ker = var(*state, codes, f1)
+    max_abs = _max_abs(ker, fs.variant_dma_reference(*state, codes, f1))
+    if max_abs != 0.0:
+        raise AssertionError(f"dma entry: kernel vs plain {max_abs:.3e}")
+    lib_ms = _graph_ms(lambda: [torch.add(x, f1[0]) for x in state], 50)
+    ops = _count_ops(lambda: fs.variant_dma_reference(*state, codes, f1))
+    entries.append({
+        "name": "nemolite2d_variant_dma", "route": "cuda", "source": src,
+        "replaces": "scripts/kbench.py:53 make_variant (dma)",
+        "max_abs_err": max_abs,
+        "ms": _graph_ms(lambda: var(*state, codes, f1), 50),
+        "plain_ms": _time_ms(lambda: fs.variant_dma_reference(
+            *state, codes, f1), 20),
+        **_bound(_nbytes(*state, codes, *ker), ops, torch.float32),
+        "library_ms": lib_ms, "K": 1})
+    f4 = m.forcing_series(0, 4)
+    ops_pp = _count_ops(lambda: fs.fused_step_reference(
+        *state, codes, f4, **plain_kw)) / (4 * state[0].numel())
+    for mode in ("compute", "compute_fast"):
+        fast = mode == "compute_fast"
+        var = fs.make_variant(*args, 4, mode)
+        ker = var(*state, codes, f4, reps=VAR_REPS)
+        want = fs.variant_compute_reference(*state, codes, f4, VAR_REPS,
+                                            fast=fast, **plain_kw)
+        if not all(bool(torch.isfinite(a).all()) for a in ker):
+            raise AssertionError(f"{mode} entry: output not finite")
+        max_abs = _max_abs(ker, want, inner)
+        scale = max(float(w.abs()[inner].max()) for w in want)
+        if max_abs > (TOL_FAST * VAR_REPS * scale if fast else 0.0):
+            raise AssertionError(f"{mode} entry: kernel vs plain "
+                                 f"{max_abs:.3e}")
+        ops = ops_pp * state[0].numel() * 4 * VAR_REPS
+        entries.append({
+            "name": f"nemolite2d_variant_{mode}", "route": "cuda",
+            "source": src,
+            "replaces": f"scripts/kbench.py:53 make_variant ({mode})",
+            "max_abs_err": max_abs,
+            "ms": _graph_ms(lambda: var(*state, codes, f4, reps=VAR_REPS), 10),
+            "plain_ms": _time_ms(lambda: fs.variant_compute_reference(
+                *state, codes, f4, VAR_REPS, fast=fast, **plain_kw), 3),
+            **_bound(_nbytes(*state, codes, *ker), int(ops), torch.float32),
+            "K": 4, "reps": VAR_REPS, "ops_per_point": ops_pp})
+    return entries
+
+
+def phase_kbench() -> list:
+    """The kbench path at 1024^2 f32 (prod, dma, compute, compute_fast at
+    K = 1, 2, 4 and the split), the variants' kernel entries, the
+    flagship CLI writing a history file, and a checkpoint round trip on
+    the card."""
+    import tempfile
+    from dl_esm_inf_tpu_torch import kbench
+    from dl_esm_inf_tpu_torch.utils import checkpoint, io as dio
+    kerns = list(fs.VARIANT_KERNELS.values())
+    torch.cuda.synchronize()
+    for k in kerns:
+        k.launches = 0
+    res = kbench.main(["--n", str(MAIN_SIZE), "--ks", "1,2,4",
+                       "--device", DEV.type])
+    torch.cuda.synchronize()
+    launches = {k.mode: k.launches for k in kerns}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"kbench did not launch every variant: "
+                             f"{launches}")
+    for K, r in res.items():
+        cont, mom = _ring_work(K)
+        print(f"kbench split K={K}: prod {r['prod']:.3f} us/step = dma floor "
+              f"{r['dma']:.3f} + compute floor {r['compute']:.3f} + remainder "
+              f"{r['prod'] - r['dma'] - r['compute']:.3f}; compute_fast "
+              f"{r['compute_fast']:.3f}; ring work continuity {cont:.2f}x, "
+              f"momentum {mom:.2f}x the tile", flush=True)
+    m = kbench._model(MAIN_SIZE, DEV)
+    entries = _variant_entries(m)
+    for e in entries:
+        e["launches"] = launches[e["name"].removeprefix("nemolite2d_variant_")]
+        print(f"{e['name']} f32 {MAIN_SIZE}^2 K={e['K']}: one launch "
+              f"{e['ms'] * 1e3:.2f} us (CUDA graph), plain "
+              f"{e['plain_ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.2f} "
+              f"us by {e['bound_by']}"
+              + (f", library {e['library_ms'] * 1e3:.2f} us"
+                 if e["library_ms"] is not None else "")
+              + (f", {e['ops_per_point']:.1f} operations per point and step"
+                 if "ops_per_point" in e else "")
+              + f"; kbench launches {e['launches']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the flagship CLI with a history file, read back
+        path = str(Path(tmp) / "hist.nc")
+        fs.nemolite2d_sweep.launches = 0
+        nl.main(["258", "20", DEV.type, path])
+        if fs.nemolite2d_sweep.launches != 5:
+            raise AssertionError(f"CLI launched {fs.nemolite2d_sweep.launches}"
+                                 " sweeps for 5 report intervals of 4 steps")
+        d = dio.load_netcdf(path)
+        if (d["dimensions"] != {"time": 5, "y": 258, "x": 258}
+                or d["variables"]["time"].tolist() != [80.0 * i for i in
+                                                       range(1, 6)]
+                or not all(np.isfinite(d["variables"][k]).all()
+                           for k in ("ssh", "u", "v"))):
+            raise AssertionError(f"history file: {d['dimensions']}")
+        # a checkpoint on the card: save, load, resume
+        ck = str(Path(tmp) / "ck.npz")
+        ms = [nl.build(PARITY_N, PARITY_N, fused=True, steps_per_sweep=4,
+                       device=DEV) for _ in range(2)]
+        ms[0].set_initial_ssh(gaussian_eta(PARITY_N, PARITY_N, amp=0.2))
+        ms[0].run(21)
+        checkpoint.save_model(ck, ms[0])
+        meta = checkpoint.load_model(ck, ms[1])
+        ga, gb = ms[0].gather(), ms[1].gather()
+        if meta["step"] != 21 or ms[1]._istep0 != 21 or any(
+                not np.array_equal(ga[k], gb[k]) for k in ga):
+            raise AssertionError("checkpoint load is not bitwise")
+        for mm in ms:
+            mm.run(21)
+        ga, gb = ms[0].gather(), ms[1].gather()
+        if any(not np.array_equal(ga[k], gb[k]) for k in ga):
+            raise AssertionError("the resumed run != the uninterrupted run")
+    print(f"flagship CLI on the card: 258^2, 20 steps, history file of 5 "
+          f"ssh/u/v records read back by load_netcdf; checkpoint save_model /"
+          f" load_model at step 21 ({PARITY_N}^2 f32): bitwise, and the "
+          f"resumed run equals the uninterrupted one bitwise after 21 more "
+          f"steps", flush=True)
+    return entries
+
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1870,6 +2212,9 @@ def main() -> None:
     phase_ht_parity()
     phase_fused_transport()
     kernels.extend(phase_transport_main())
+    phase_variants_parity()
+    phase_rect_parity()
+    kernels.extend(phase_kbench())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,10 +107,19 @@ class Grid:
                   align: int | None = None,
                   align_y: int = 1) -> Decomposition:
         """Decompose the global domain into tiles (reference
-        go_decompose).  With no sizing given the domain is one tile;
-        every tile lives on this grid's device."""
+        go_decompose); every tile lives on this grid's device.  With no
+        sizing given, the ``GOCEAN_OMP_GRID`` environment variable
+        ("NxM") is the (ndomainx, ndomainy) request, as in the JAX
+        package (the reference's tiling-grid override,
+        field_mod.f90:1473-1503); unset or malformed, the domain is one
+        tile (the JAX package's "every device": the port has one)."""
         if ndomains is None and ndomainx is None and ndomainy is None:
-            ndomains = 1
+            from ..utils.config import read_env
+            tile_grid = read_env().tile_grid
+            if tile_grid is not None:
+                ndomainx, ndomainy = tile_grid
+            else:
+                ndomains = 1
         decomp = _decompose(domainx, domainy, ndomains=ndomains,
                             ndomainx=ndomainx, ndomainy=ndomainy,
                             halo_width=halo_width, align=align,

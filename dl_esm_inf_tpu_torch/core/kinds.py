@@ -43,13 +43,18 @@ def _parse(name: str) -> torch.dtype:
 
 
 def as_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or a name."""
+    """A torch dtype from a torch dtype, a numpy dtype or a name (a
+    numpy integer or bool dtype maps to its torch twin, for integer
+    fields)."""
     if isinstance(dtype, torch.dtype):
         return dtype
     if isinstance(dtype, str):
         return _parse(dtype)
     import numpy as np
-    return _parse(np.dtype(dtype).name)
+    dt = np.dtype(dtype)
+    if dt.kind in "iub":
+        return torch.from_numpy(np.empty(0, dt)).dtype
+    return _parse(dt.name)
 
 
 def set_working_precision(dtype) -> None:

@@ -300,6 +300,17 @@ def _recip_exact(x):
     return 1.0 / x
 
 
+def _recip_fast(x):
+    """One Newton step ``r * (2 - x r)`` on the reciprocal: the JAX
+    package's fast reciprocal, whose ``r`` is the hardware's approximate
+    one.  Here ``r`` is exact, which makes this the plain version of the
+    ``compute_fast`` variant kernel (``csrc/nemolite2d_variants.cu``,
+    ``rcp.approx.ftz.f32``); the two differ by the approximation's last
+    bits."""
+    r = 1.0 / x
+    return r * (2.0 - x * r)
+
+
 def step_math(sshn_t, un, vn, mask_codes, p: Params, dx, dy, fcor, depth,
               forcing, exch_mid=None, recip=_recip_exact, masks=None,
               prep: StepPrep | None = None):
@@ -658,10 +669,12 @@ def build(gnx: int = 256, gny: int = 256, ndomains=None,
 
 def main(argv=None):
     """CLI demo: ``python -m dl_esm_inf_tpu_torch.models.nemolite2d
-    [N] [steps] [device]`` runs the flagship on an N x N domain (258 by
-    default) on ``device`` (``cuda`` by default; ``cpu`` runs the plain
-    version of the same schedule) and prints per-field checksums every
-    report interval and the rate after the first interval."""
+    [N] [steps] [device] [hist.nc]`` runs the flagship on an N x N domain
+    (258 by default) on ``device`` (``cuda`` by default; ``cpu`` runs the
+    plain version of the same schedule) and prints per-field checksums
+    every report interval and the rate after the first interval.  The
+    optional fourth argument writes a NetCDF history file: one ssh/u/v
+    record per report interval (the JAX package's third argument)."""
     import sys
     import time as _time
 
@@ -671,11 +684,18 @@ def main(argv=None):
     n = int(args[0]) if args else 258
     nsteps = int(args[1]) if len(args) > 1 else 100
     device = torch.device(args[2] if len(args) > 2 else "cuda")
+    hist_path = args[3] if len(args) > 3 else None
     m = build(n, n, fused=True, steps_per_sweep=4, device=device)
     if nsteps < 1:
         print("nothing to do (nsteps < 1)")
         return
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    hist = None
+    if hist_path:
+        from ..utils.io import NetCDFTimeSeries
+        hist = NetCDFTimeSeries(
+            hist_path, {"ssh": m.sshn_t, "u": m.un, "v": m.vn},
+            global_attrs={"title": f"nemolite2d {n}x{n}"})
     report = max(1, nsteps // 5)
     done = 0
     warmed = False
@@ -696,6 +716,11 @@ def main(argv=None):
                 warmed = True
         print(f"step {done:6d}  " +
               "  ".join(f"{k}={v:.10E}" for k, v in cs.items()), flush=True)
+        if hist is not None:
+            hist.append(time=done * m.p.rdt)
+    if hist is not None:
+        hist.close()
+        print(f"history written to {hist_path}")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     if timed_steps:

@@ -23,6 +23,13 @@ Cells within 2K of the block edge hold finite values of no meaning in
 both versions (the plain one wraps its shifts around the block, the
 kernel clamps its reads to the block); they are halo or padding cells,
 which the next exchange overwrites or the masks keep inert.
+
+:func:`make_variant` is the kernel-variant microbench's counterpart of
+``scripts/kbench.py::make_variant``: the production sweep's memory floor
+(``dma``) and compute floor (``compute``, ``compute_fast``), as the
+kernel ``csrc/nemolite2d_variants.cu`` on CUDA tensors and as their
+plain versions (:func:`variant_dma_reference`,
+:func:`variant_compute_reference`) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -56,17 +63,21 @@ def fused_step_reference(sshn, un, vn, mask_codes, forcing, *, p, dx, dy,
 def kernel_constants(p, dx: float, dy: float, fcor: float, depth: float,
                      dtype: torch.dtype) -> list[float]:
     """The kernel's scalar prefactors, folded on the host in double in
-    the grouping of ``momentum_u``/``momentum_v``/``make_prep`` (the
-    kernel casts each once to the working type, as the plain version's
-    Python scalars are).  Depth-derived values (ht, hu, hv, cu, cv) are
-    computed by ``make_prep`` itself in the working dtype, so the two
-    versions share them exactly; the variable-depth kernel derives them
-    per point and reads only ``g`` of them."""
-    from ..models.nemolite2d import make_prep
+    the grouping of ``continuity``/``momentum_u``/``momentum_v``/
+    ``make_prep`` (the kernel casts each once to the working type, as the
+    plain version's Python scalars are).  Depth-derived values (ht, hu,
+    hv, cu, cv) are computed by ``make_prep`` itself in the working
+    dtype, so the two versions share them exactly; the variable-depth
+    kernel derives them per point and reads only ``g`` of them.  The
+    rectangular flag selects the continuity order of ``step_math`` for
+    ``dx != dy``."""
+    from ..models.nemolite2d import _is_square, make_prep
     pr = make_prep(torch.zeros((1, 1), dtype=torch.int8), depth, p, dtype,
                    dx=dx, dy=dy)
     return [
         p.rdt / dx,                              # cw = (rdt/dx) * t_wet
+        p.rdt / dy,                              # rectangular cells
+        0.0 if _is_square(dx, dy) else 1.0,      # rect
         1.0 / (1.0 + p.cbfr * p.rdt),            # fric
         float(pr.ht), float(pr.hu), float(pr.hv),
         float(pr.cu), float(pr.cv),
@@ -82,13 +93,51 @@ def kernel_constants(p, dx: float, dy: float, fcor: float, depth: float,
     ]
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+def _check_inputs(what: str, K: int, sshn, un, vn, codes, extra=()):
+    """Raise unless the planes are what the kernels take: contiguous
+    ``(ly, lx)`` CUDA planes of one float dtype (and the int8 code), and
+    1..KMAX sub-steps."""
+    if not 1 <= K <= KMAX:
+        raise ValueError(f"{what} takes 1..{KMAX} sub-steps, got {K}")
+    dev = sshn.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    if sshn.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32/float64 state, got "
+                        f"{sshn.dtype}")
+    if sshn.dim() != 2:
+        raise ValueError(f"expected (ly, lx) planes, got {sshn.shape}")
+    planes = [("sshn", sshn, sshn.dtype), ("un", un, sshn.dtype),
+              ("vn", vn, sshn.dtype), ("mask_codes", codes, torch.int8),
+              *extra]
+    for name, t, dt in planes[1:]:
+        if t.device != dev or t.dtype != dt or t.shape != sshn.shape:
+            raise ValueError(
+                f"{name}: expected {dt} {tuple(sshn.shape)} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t, _ in planes:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_consts(consts, forcing, n: int) -> list[float]:
+    """The launch's constants: the host-folded prefactors, then the K
+    sub-steps' forcing padded to KMAX."""
+    vals = (list(consts) + [float(f) for f in forcing]
+            + [0.0] * (KMAX - len(forcing)))
+    if len(vals) != n:
+        raise ValueError(f"expected {n - KMAX} constants, got {len(consts)}")
+    return vals
+
+
 class SweepKernel:
     """ctypes wrapper of ``csrc/nemolite2d_sweep.cu``.
 
     ``launches`` counts the kernel launches this wrapper has made (and
     nothing else); callers may reset it."""
-
-    _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
     def __init__(self):
         self.launches = 0
@@ -120,29 +169,9 @@ class SweepKernel:
         ``exchange`` the one that exchanges the state at the spec's full
         halo depth while it stages it."""
         K = len(forcing)
-        if not 1 <= K <= KMAX:
-            raise ValueError(f"the sweep kernel takes 1..{KMAX} sub-steps, "
-                             f"got {K}")
+        extra = [] if ht is None else [("ht", ht, sshn.dtype)]
+        _check_inputs("the sweep kernel", K, sshn, un, vn, codes, extra)
         dev = sshn.device
-        if dev.type != "cuda":
-            raise ValueError(f"the sweep kernel needs CUDA tensors, got {dev}")
-        if sshn.dtype not in self._DTYPE_CODES:
-            raise TypeError(f"the sweep kernel takes float32/float64 state, "
-                            f"got {sshn.dtype}")
-        if sshn.dim() != 2:
-            raise ValueError(f"expected (ly, lx) planes, got {sshn.shape}")
-        planes = [("sshn", sshn, sshn.dtype), ("un", un, sshn.dtype),
-                  ("vn", vn, sshn.dtype), ("mask_codes", codes, torch.int8)]
-        if ht is not None:
-            planes.append(("ht", ht, sshn.dtype))
-        for name, t, dt in planes[1:]:
-            if t.device != dev or t.dtype != dt or t.shape != sshn.shape:
-                raise ValueError(
-                    f"{name}: expected {dt} {tuple(sshn.shape)} on {dev}, "
-                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        for name, t, _ in planes:
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
         remap = None
         if exchange is not None:
             if exchange.array_shape != tuple(sshn.shape):
@@ -150,15 +179,12 @@ class SweepKernel:
                                  f" != sweep block {tuple(sshn.shape)}")
             remap = remap_args(exchange, exchange.halo)
         self.build()
-        vals = list(consts) + [float(f) for f in forcing] + [0.0] * (KMAX - K)
-        if len(vals) != self._nconsts:
-            raise ValueError(f"expected {self._nconsts - KMAX} constants, "
-                             f"got {len(consts)}")
+        vals = _launch_consts(consts, forcing, self._nconsts)
         ssha = torch.empty_like(sshn)
         ua = torch.empty_like(un)
         va = torch.empty_like(vn)
         ny, nx = sshn.shape
-        err = self._fn(self._DTYPE_CODES[sshn.dtype], K, sshn.data_ptr(),
+        err = self._fn(_DTYPE_CODES[sshn.dtype], K, sshn.data_ptr(),
                        un.data_ptr(), vn.data_ptr(), codes.data_ptr(),
                        None if ht is None else ht.data_ptr(),
                        ssha.data_ptr(), ua.data_ptr(), va.data_ptr(), ny, nx,
@@ -192,9 +218,8 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
     K steps must fit its halo (``2K <= halo``) and the three state planes
     share one dtype.
 
-    The CUDA kernel covers the square-cell (``dx == dy``) configuration
-    that ``build`` makes; on CUDA tensors other cells raise
-    ``NotImplementedError``."""
+    Square (``dx == dy``) and rectangular cells both run on the kernel,
+    each in the continuity order of :func:`step_math`."""
     K = int(steps_per_sweep)
     if not 1 <= K <= KMAX:
         raise ValueError(f"steps_per_sweep must be in [1, {KMAX}], got {K}")
@@ -229,13 +254,242 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
             return fused_step_reference(
                 sshn, un, vn, mask_codes_i8, forcing, p=p, dx=dx, dy=dy,
                 fcor=fcor, depth=depth, ht=ht)
-        if dx != dy:
-            raise NotImplementedError(
-                "the CUDA sweep kernel implements the square-cell path "
-                f"(dx == dy); got dx={dx}, dy={dy}")
         if consts is None:
             consts = kernel_constants(p, dx, dy, fcor, depth, sshn.dtype)
         return nemolite2d_sweep(sshn, un, vn, mask_codes_i8, consts, forcing,
                                 ht=ht, exchange=ex)
 
     return fused
+
+
+# ---------------------------------------------------------------------------
+# The kernel-variant microbench (scripts/kbench.py make_variant)
+# ---------------------------------------------------------------------------
+
+#: the kernels' tile (csrc/nemolite2d_step.cuh: TY x TX)
+TILE = 32
+#: what make_variant's modes run: the production sweep, a variant of
+#: csrc/nemolite2d_variants.cu, or nothing (``tight`` only records a TPU
+#: rule)
+VARIANT_MODES = ("prod", "full", "unroll", "dma", "compute", "compute_fast",
+                 "tight")
+
+
+def variant_dma_reference(sshn, un, vn, mask_codes, forcing):
+    """Plain version of the ``dma`` variant: ``x + f_0 + ... + f_{K-1}``
+    on each state plane, summed in that order, behind the select on the
+    code value 127 (never taken) that keeps the kernel's code loads."""
+    never = mask_codes == 127
+    zero = torch.zeros((), dtype=sshn.dtype, device=sshn.device)
+    s = (sshn, un, vn)
+    for f in forcing:
+        s = tuple(torch.where(never, zero, x + f) for x in s)
+    return s
+
+
+def _tile_windows(a, K: int):
+    """Every tile's staged window, ``(ntiles, 32 + 4K, 32 + 4K)``: the
+    tile with its ring of 2K cells, reads clamped to the block edge (the
+    kernels' staging); and the tile counts ``(nty, ntx)``."""
+    ly, lx = a.shape
+    R, w = 2 * K, TILE + 4 * K
+    nty, ntx = -(-ly // TILE), -(-lx // TILE)
+    ar = torch.arange(w, device=a.device)
+    ry = (torch.arange(nty, device=a.device)[:, None] * TILE - R
+          + ar).clamp_(0, ly - 1)
+    rx = (torch.arange(ntx, device=a.device)[:, None] * TILE - R
+          + ar).clamp_(0, lx - 1)
+    win = a[ry[:, None, :, None], rx[None, :, None, :]]
+    return win.reshape(nty * ntx, w, w), (nty, ntx)
+
+
+def _untile(win, K: int, nty: int, ntx: int, ly: int, lx: int):
+    """The tiles (window centres) put back into the ``(ly, lx)`` block."""
+    R = 2 * K
+    t = win[:, R:R + TILE, R:R + TILE].reshape(nty, ntx, TILE, TILE)
+    return (t.permute(0, 2, 1, 3).reshape(nty * TILE, ntx * TILE)
+            [:ly, :lx].contiguous())
+
+
+def _inset(w: int, r: int, device):
+    """The window points at least ``r`` cells inside a ``w x w`` window."""
+    i = torch.arange(w, device=device)
+    inside = (i >= r) & (i < w - r)
+    return inside[:, None] & inside[None, :]
+
+
+def variant_compute_reference(sshn, un, vn, mask_codes, forcing, reps=1, *,
+                              p, dx, dy, fcor, depth, fast=False):
+    """Plain version of the ``compute``/``compute_fast`` variants: every
+    tile's window staged as the kernel stages it, then ``reps`` passes of
+    the K sub-steps (:func:`step_math` on the window, kept on the
+    kernel's shrinking regions: continuity 2k+1 and momentum 2k+2 cells
+    inside), each feeding its output back, the new surface and the
+    scratch plane swapped every sub-step as the kernel swaps them (the
+    scratch starts as a copy of the surface).  ``fast`` takes
+    :func:`_recip_fast` for the two ``1/dep`` divisions: an exact
+    reciprocal and one Newton step, where the kernel starts the step from
+    the hardware's approximate reciprocal."""
+    from ..models.nemolite2d import (_recip_exact, _recip_fast, make_prep,
+                                     step_math)
+    K = len(forcing)
+    ly, lx = sshn.shape
+    codes, (nty, ntx) = _tile_windows(mask_codes, K)
+    ssh, u, v = (_tile_windows(a, K)[0] for a in (sshn, un, vn))
+    scratch = ssh.clone()
+    prep = make_prep(codes, depth, p, sshn.dtype, dx=dx, dy=dy)
+    recip = _recip_fast if fast else _recip_exact
+    w, dev = TILE + 4 * K, sshn.device
+    regions = [(_inset(w, 2 * k + 1, dev), _inset(w, 2 * k + 2, dev))
+               for k in range(K)]
+    for _ in range(reps):
+        for (ra, rb), f in zip(regions, forcing):
+            a, ua, va = step_math(ssh, u, v, codes, p, dx, dy, fcor, depth,
+                                  f, recip=recip, prep=prep)
+            scratch = torch.where(ra, a, scratch)
+            u = torch.where(rb, ua, u)
+            v = torch.where(rb, va, v)
+            ssh, scratch = scratch, ssh
+    return tuple(_untile(t, K, nty, ntx, ly, lx) for t in (ssh, u, v))
+
+
+class VariantKernel:
+    """ctypes wrapper of one mode of ``csrc/nemolite2d_variants.cu``
+    (``dma``, ``compute`` or ``compute_fast``).
+
+    ``launches`` counts the kernel launches this wrapper has made (and
+    nothing else); callers may reset it."""
+
+    _MODES = {"dma": 0, "compute": 1, "compute_fast": 2}
+
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.launches = 0
+        self._fn = None
+
+    def build(self):
+        """Build (once) and bind the library; returns its BuiltLibrary."""
+        from .cuda_build import load_library
+        built = load_library("nemolite2d_variants",
+                             ("nemolite2d_variants.cu",))
+        if self._fn is None:
+            fn = built.lib.nemo_variant_launch
+            fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                           + [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            nconst = built.lib.nemo_variant_num_consts
+            nconst.argtypes = []
+            nconst.restype = ctypes.c_int
+            self._nconsts = nconst()
+            self._fn = fn
+        return built
+
+    def __call__(self, sshn, un, vn, codes, consts, forcing, reps=1):
+        """One launch: K = len(forcing) sub-steps, ``reps`` passes of
+        them for the compute modes (``dma`` takes 1)."""
+        what = f"the {self.mode} variant kernel"
+        _check_inputs(what, len(forcing), sshn, un, vn, codes)
+        if reps < 1 or (self.mode == "dma" and reps != 1):
+            raise ValueError(f"{what}: reps must be >= 1 (1 for dma), got "
+                             f"{reps}")
+        if self.mode == "compute_fast" and sshn.dtype != torch.float32:
+            raise TypeError(f"{what} is float32 only, got {sshn.dtype}")
+        self.build()
+        vals = _launch_consts(consts, forcing, self._nconsts)
+        ssha = torch.empty_like(sshn)
+        ua = torch.empty_like(un)
+        va = torch.empty_like(vn)
+        ny, nx = sshn.shape
+        err = self._fn(self._MODES[self.mode], _DTYPE_CODES[sshn.dtype],
+                       len(forcing), sshn.data_ptr(), un.data_ptr(),
+                       vn.data_ptr(), codes.data_ptr(), ssha.data_ptr(),
+                       ua.data_ptr(), va.data_ptr(), ny, nx,
+                       (ctypes.c_double * len(vals))(*vals), len(vals), reps,
+                       torch.cuda.current_stream(sshn.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+        self.launches += 1
+        return ssha, ua, va
+
+
+#: the process's wrappers of the three variant kernels, one per mode
+variant_dma = VariantKernel("dma")
+variant_compute = VariantKernel("compute")
+variant_compute_fast = VariantKernel("compute_fast")
+VARIANT_KERNELS = {k.mode: k for k in (variant_dma, variant_compute,
+                                        variant_compute_fast)}
+
+
+def make_variant(ly: int, lx: int, dtype, p, dx: float, dy: float,
+                 fcor: float, depth: float, steps_per_sweep: int = 1,
+                 mode: str = "dma"):
+    """Build one mode of the kernel-variant microbench for ``(ly, lx)``
+    blocks (the counterpart of scripts/kbench.py ``make_variant``):
+    ``var(sshn, un, vn, mask_codes_i8, forcing, reps=1) -> (ssha, ua,
+    va)`` with ``len(forcing) == steps_per_sweep``, flat depth.
+
+    * ``prod`` (and ``full``, ``unroll``, the TPU's two pipeline
+      schedules of the same step): the production sweep,
+      :func:`make_fused_step`;
+    * ``dma``: the production sweep's loads and stores with a copy for
+      the compute (:func:`variant_dma_reference`);
+    * ``compute`` / ``compute_fast``: ``reps`` passes of the K sub-steps
+      on resident windows, no memory traffic per pass
+      (:func:`variant_compute_reference`); ``compute_fast`` is float32
+      only;
+    * ``tight`` raises: it records a rule of the TPU compiler.
+
+    On CUDA tensors the variants launch ``csrc/nemolite2d_variants.cu``
+    (or raise); on CPU tensors they run their plain versions."""
+    K = int(steps_per_sweep)
+    if not 1 <= K <= KMAX:
+        raise ValueError(f"steps_per_sweep must be in [1, {KMAX}], got {K}")
+    if mode == "tight":
+        raise ValueError(
+            "mode 'tight' records a Mosaic rule, not a variant: a TPU "
+            "window's rows come in multiples of 8, so Mosaic rejects the "
+            "(TY+4)-row window and the production ring is 8 rows; a CUDA "
+            "window has no such alignment, so there is nothing to measure")
+    if mode not in VARIANT_MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of "
+                         f"{VARIANT_MODES}")
+    if mode == "compute_fast" and dtype != torch.float32:
+        raise ValueError(f"compute_fast is float32 only (the approximate "
+                         f"reciprocal is rcp.approx.f32), got {dtype}")
+    if mode in ("prod", "full", "unroll"):
+        fused = make_fused_step(ly, lx, dtype, p, dx, dy, fcor, depth,
+                                steps_per_sweep=K)
+
+        def prod(sshn, un, vn, mask_codes_i8, forcing, reps=1):
+            if reps != 1:
+                raise ValueError("reps applies to the compute modes")
+            return fused(sshn, un, vn, mask_codes_i8, forcing)
+        return prod
+
+    kern = VARIANT_KERNELS[mode]
+    consts = None
+
+    def var(sshn, un, vn, mask_codes_i8, forcing, reps=1):
+        nonlocal consts
+        if len(forcing) != K:
+            raise ValueError(f"expected {K} forcing values, got "
+                             f"{len(forcing)}")
+        if tuple(sshn.shape) != (ly, lx) or sshn.dtype != dtype:
+            raise ValueError(f"expected ({ly}, {lx}) {dtype} blocks, got "
+                             f"{tuple(sshn.shape)} {sshn.dtype}")
+        if reps < 1 or (mode == "dma" and reps != 1):
+            raise ValueError(f"reps must be >= 1 (1 for dma), got {reps}")
+        if sshn.device.type == "cpu":
+            if mode == "dma":
+                return variant_dma_reference(sshn, un, vn, mask_codes_i8,
+                                             forcing)
+            return variant_compute_reference(
+                sshn, un, vn, mask_codes_i8, forcing, reps, p=p, dx=dx,
+                dy=dy, fcor=fcor, depth=depth, fast=mode == "compute_fast")
+        if consts is None:
+            consts = kernel_constants(p, dx, dy, fcor, depth, sshn.dtype)
+        return kern(sshn, un, vn, mask_codes_i8, consts, forcing, reps=reps)
+
+    return var

@@ -580,3 +580,121 @@ def test_fused_transport_matches_ppermute(cuda_device, K, tiles, dtype):
     for k in want:
         assert np.all(np.isfinite(got[k])), k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# --- the kernel-variant microbench and rectangular cells -----------------
+
+#: compute_fast vs its plain version, relative on internal points, per
+#: pass (chip_smoke.TOL_FAST)
+TOL_FAST = 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_variant_kernels_match_plain(cuda_device, K, ndom, dtype):
+    """dma and compute (reps 1 and 3) bitwise with their plain versions
+    on every cell, compute(reps=1) bitwise with production, compute_fast
+    within TOL_FAST per pass."""
+    m = nl.build(GNX, GNY, ndomains=ndom, fused=True, steps_per_sweep=4,
+                 dtype=dtype, device=cuda_device)
+    m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.5))
+    m.run(8)
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    codes, inner = m._mask_codes, m.sshn_t.internal_mask.bool()
+    args = (*m.grid.array_shape, dtype, m.p, m.grid.dx, m.grid.dy, m._fcor,
+            m.depth)
+    plain = dict(p=m.p, dx=m.grid.dx, dy=m.grid.dy, fcor=m._fcor,
+                 depth=m.depth)
+    f = m.forcing_series(m._istep0, K)
+    before = {k: v.launches for k, v in fs.VARIANT_KERNELS.items()}
+    got = fs.make_variant(*args, K, "dma")(*state, codes, f)
+    for g, w in zip(got, fs.variant_dma_reference(*state, codes, f)):
+        assert torch.equal(g, w)
+    prod = fs.make_fused_step(*args, steps_per_sweep=K)(*state, codes, f)
+    for reps in (1, 3):
+        got = fs.make_variant(*args, K, "compute")(*state, codes, f,
+                                                   reps=reps)
+        want = fs.variant_compute_reference(*state, codes, f, reps, **plain)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if reps == 1:
+            for g, w in zip(got, prod):
+                assert torch.equal(g, w)
+        if dtype == torch.float32:
+            got = fs.make_variant(*args, K, "compute_fast")(
+                *state, codes, f, reps=reps)
+            want = fs.variant_compute_reference(*state, codes, f, reps,
+                                                fast=True, **plain)
+            for g, w in zip(got, want):
+                assert torch.isfinite(g).all()
+                rel = (g - w).abs()[inner].max() / w.abs()[inner].max()
+                assert rel <= TOL_FAST * reps
+    torch.cuda.synchronize()
+    after = {k: v.launches for k, v in fs.VARIANT_KERNELS.items()}
+    assert after["dma"] - before["dma"] == 1
+    assert after["compute"] - before["compute"] == 2
+    assert after["compute_fast"] - before["compute_fast"] == (
+        2 if dtype == torch.float32 else 0)
+
+
+@pytest.mark.gpu
+def test_variant_wrappers_check_their_inputs(cuda_device):
+    m = nl.build(GNX, GNY, fused=True, device=cuda_device)
+    s = (m.sshn_t.data, m.un.data, m.vn.data)
+    consts = fs.kernel_constants(m.p, 1000.0, 1000.0, m._fcor, 100.0,
+                                 s[0].dtype)
+    codes = m._mask_codes
+    with pytest.raises(TypeError, match="float32/float64"):
+        fs.variant_compute(*(t.to(torch.bfloat16) for t in s), codes, consts,
+                           [0.0])
+    with pytest.raises(ValueError, match="mask_codes"):
+        fs.variant_dma(*s, codes.to(torch.int32), consts, [0.0])
+    with pytest.raises(ValueError, match="sub-steps"):
+        fs.variant_compute(*s, codes, consts, [0.0] * 5)
+    with pytest.raises(ValueError, match="reps"):
+        fs.variant_dma(*s, codes, consts, [0.0], reps=2)
+    with pytest.raises(ValueError, match="constants"):
+        fs.variant_compute(*s, codes, consts[:-1], [0.0])
+    with pytest.raises(TypeError, match="float32 only"):
+        fs.variant_compute_fast(*(t.double() for t in s), codes, consts,
+                                [0.0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["flat", "ht", "exch"])
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dxdy", [(1000.0, 1500.0), (1500.0, 1000.0)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_rect_kernel_matches_plain(cuda_device, K, dxdy, dtype, tiles,
+                                   variant):
+    """Rectangular cells on the flagship kernel, bitwise with the plain
+    path on internal points: flat, variable depth (HT) and the fused
+    transport (EXCH)."""
+    def model(transport):
+        g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                     tdl.BC_NONE), tdl.OFFSET_NE,
+                     dtype=dtype, device=cuda_device)
+        g.decompose(GNX, GNY, ndomainx=tiles[0], ndomainy=tiles[1],
+                    halo_width=8)
+        tdl.grid_init(g, *dxdy, nl.default_tmask(GNX, GNY))
+        m = nl.NemoLite2D(g, depth=(_bathymetry(GNX, GNY)
+                                    if variant == "ht" else 100.0))
+        if transport is None:
+            m.set_steps_per_exchange(K)
+        else:
+            m.enable_fast_path(K, transport=transport)
+        m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.5))
+        return m
+    mk = model("fused" if variant == "exch" else "ppermute")
+    mp = model(None)
+    before = fs.nemolite2d_sweep.launches
+    mk.run(23)
+    assert fs.nemolite2d_sweep.launches - before == 23 // K + 23 % K
+    mp.run(23)
+    got, want = mk.gather(), mp.gather()
+    for k in want:
+        assert np.all(np.isfinite(got[k])), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

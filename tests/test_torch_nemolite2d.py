@@ -14,10 +14,13 @@ import torch
 
 import jax.numpy as jnp
 
+import dl_esm_inf_tpu as jdl
 from dl_esm_inf_tpu.models import nemolite2d as jnl
 from dl_esm_inf_tpu.models.gravity_wave import gaussian_eta as j_gaussian
+from dl_esm_inf_tpu.ops import stencils as jst
 from dl_esm_inf_tpu.ops.pallas_step import make_fused_step as j_make_fused
 
+import dl_esm_inf_tpu_torch as tdl
 from dl_esm_inf_tpu_torch.interop import load_reference_state
 from dl_esm_inf_tpu_torch.models import nemolite2d as tnl
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
@@ -104,6 +107,76 @@ def test_fused_step_reference_matches_jax_sweeps(K):
         np.testing.assert_allclose(g.numpy()[r:-r, r:-r],
                                    np.asarray(w)[r:-r, r:-r], rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("bathy", ["flat", "variable"])
+@pytest.mark.parametrize("dx,dy", [(1000.0, 1500.0), (1500.0, 1000.0)])
+def test_rectangular_cells_match_jax(dx, dy, bathy, K):
+    """Rectangular cells: the port's fused plain path (the kernel's
+    plain version) against the JAX chained jnp step and the JAX Pallas
+    sweep in interpret mode (cells >= 2K from the block edge), float64,
+    flat and variable depth."""
+    ly, lx = 32, 128
+    sshn, un, vn, cj, ct = _block_inputs(ly, lx, seed=K)
+    pj, pt = jnl.Params(), tnl.Params()
+    forcing = [0.01 * (k + 1) for k in range(K)]
+    ht = None
+    if bathy == "variable":
+        ht = 60.0 + 40.0 * np.random.default_rng(K).random((ly, lx))
+    got = tfs.fused_step_reference(
+        *(torch.from_numpy(a) for a in (sshn, un, vn)), ct, forcing, p=pt,
+        dx=dx, dy=dy, fcor=_fcor(pt), depth=100.0,
+        ht=None if ht is None else torch.from_numpy(ht))
+    if ht is None:
+        dep = 100.0
+    else:
+        hj = jnp.asarray(ht)
+        dep = (hj, jst.avg_x(hj), jst.avg_y(hj))
+    prep = jnl.make_prep(jnp.asarray(cj), dep, pj, jnp.float64, dx=dx, dy=dy)
+    s = (sshn, un, vn)
+    for f in forcing:
+        s = jnl.step_math(*s, jnp.asarray(cj), pj, dx, dy, _fcor(pj), dep, f,
+                          prep=prep)
+    for w, g in zip(s, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    fused = j_make_fused(ly, lx, "float64", pj, dx, dy, _fcor(pj), 100.0,
+                         interpret=True, steps_per_sweep=K,
+                         variable_bathy=ht is not None)
+    pal = fused(*(jnp.asarray(a) for a in (sshn, un, vn)), jnp.asarray(cj),
+                jnp.asarray(forcing),
+                **({} if ht is None else {"ht": jnp.asarray(ht)}))
+    r = 2 * K
+    for w, g in zip(pal, got):
+        np.testing.assert_allclose(g.numpy()[r:-r, r:-r],
+                                   np.asarray(w)[r:-r, r:-r], rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("ndom", [1, 4])
+def test_rectangular_slice_matches_jax(ndom):
+    """The whole slice on a rectangular-cell grid: port NemoLite2D on the
+    fused plain path (K = 2, variable depth) against the JAX flagship on
+    its jnp path, float64."""
+    gnx, gny = 40, 30
+    depth = 60.0 + 40.0 * np.random.default_rng(3).random((gny, gnx))
+    jg = jdl.Grid(jdl.ARAKAWA_C, (jdl.BC_EXTERNAL, jdl.BC_EXTERNAL,
+                                  jdl.BC_NONE), jdl.OFFSET_NE)
+    jg.decompose(gnx, gny, ndomains=ndom, halo_width=4)
+    jdl.grid_init(jg, 1500.0, 1000.0, tnl.default_tmask(gnx, gny))
+    mj = jnl.NemoLite2D(jg, depth=depth)
+    mj.set_steps_per_exchange(2)
+    tg = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                  tdl.BC_NONE), tdl.OFFSET_NE, **CPU)
+    tg.decompose(gnx, gny, ndomains=ndom, halo_width=4)
+    tdl.grid_init(tg, 1500.0, 1000.0, tnl.default_tmask(gnx, gny))
+    mt = tnl.NemoLite2D(tg, depth=depth)
+    mt.enable_fast_path(steps_per_sweep=2)
+    for m in (mj, mt):
+        m.set_initial_ssh(j_gaussian(gnx, gny, amp=0.5))
+        m.run(7)
+    _assert_close(mt.gather(), mj.gather())
 
 
 @pytest.mark.parametrize("ref", ["pallas", "jnp"])
