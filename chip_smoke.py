@@ -9,7 +9,9 @@ Field.halo_exchange(transport="remote_dma"), the flagship's
 transport="fused") with variable bathymetry on the flagship kernel,
 rectangular cells on the flagship kernel, and the kernel-variant
 microbench (python -m dl_esm_inf_tpu_torch.kbench) with the flagship's
-history file and checkpoint.
+history file and checkpoint, and the port across ranks: the fence's
+oracles and gangs of 2 and 4 ranks on the one card (the launcher, the
+exchange between processes through peer memory, the 2-rank flagship).
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -111,7 +113,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
    step into the DMA floor, the compute floor and the remainder, the three
    variants' kernel entries; the flagship CLI on the card writing a
    history file read back by load_netcdf; save_model / load_model on the
-   card, bitwise, and the resumed run equal to the uninterrupted one.
+   card, bitwise, and the resumed run equal to the uninterrupted one;
+18. the fence (csrc/fence_oracle.cu on csrc/rdma_fence.cuh) through
+   python -m dl_esm_inf_tpu_torch.parallel.fence_oracle's entry point:
+   the positive oracle bitwise (and against its plain version,
+   FenceModel), the negative timing out at its 200 ms budget, the
+   control completing; the oracle kernel's launches counted (3);
+19. gangs of 2 and 4 ranks on the card (dl_esm_inf_tpu_torch.launch
+   running dl_esm_inf_tpu_torch.parallel.mp_check): tests/mp_worker.py's
+   hill, checksum, round-trip and periodic legs (24x20, 16x16, 8 tiles)
+   bitwise against this single process; Field.halo_exchange at 1024^2
+   f32, halo 8, depth 1 and 8, 2D and 3 levels, walled and periodic,
+   under both transports, each bitwise against the single-process plain
+   exchange, with the rdma kernel's launches equal to the remote_dma
+   calls; two back-to-back remote_dma calls with the last rank 50 ms
+   late, bitwise; the fence round trip between 2 ranks; the flagship at
+   1024^2 f32, K=4, halo 8, 2 ranks x 1 tile, 40 steps, bitwise against
+   one process with 2 tiles, with us/step of both (CUDA events).
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -121,7 +139,10 @@ the time of one PyTorch call computing the same function, or null where
 none does (none does for these multi-plane masked sweeps; for the
 exchange it is one advanced-indexing call with the row and column maps
 of exchange_index made beforehand; for the dma variant, three torch.add
-over its planes).  The compute variants are bound by the plain step's
+over its planes; for the exchange between ranks, the gloo ppermute
+exchange of the same block).  The fence oracle's bound is its tile's
+bytes; what bounds a fence is latency, reported as the round trip.  The
+compute variants are bound by the plain step's
 element operations per point and step (ops_per_point) times the points,
 K and the passes.
 
@@ -132,6 +153,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -164,12 +186,16 @@ from dl_esm_inf_tpu_torch.ops import fused_step as fs  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import solvers as so  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import stencils as st  # noqa: E402
+from dl_esm_inf_tpu_torch.launch import launch as launch_gang  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel import fence_oracle as fo  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel import halo as halo_mod  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel import rdma  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
     exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
     stencil_sweep_reference)
+from dl_esm_inf_tpu_torch.testing import init_field_hill  # noqa: E402
 from nemolite2d_golden import golden_run  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -252,11 +278,12 @@ def phase_device() -> str:
 
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
-           nlm.nlayer_sweep, hk.halo_exchange, fs.variant_dma)
+           nlm.nlayer_sweep, hk.halo_exchange, fs.variant_dma,
+           rdma.halo_exchange_rdma, fo.fence_oracle)
 
 
 def phase_build() -> None:
-    """The nine libraries and every generated schedule sweep phase 10
+    """The eleven libraries and every generated schedule sweep phase 10
     needs, built at once (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -2188,6 +2215,196 @@ def phase_kbench() -> list:
     return entries
 
 
+# --- ranks: the fence and the exchange between processes -------------------
+
+#: seconds a gang of ranks may take before it is stopped (the rdma waits'
+#: own budget, rdma.BUDGET_S, is shorter)
+GANG_TIMEOUT = 420
+GANG_STEPS = 40
+
+
+def phase_fence() -> dict:
+    """The three fence oracles on the card (csrc/fence_oracle.cu) through
+    their entry point, with the oracle kernel's launches counted; the
+    positive oracle against its plain version (FenceModel) and timed."""
+    torch.cuda.synchronize()
+    fo.fence_oracle.launches = 0
+    res = fo.main(["cuda"])
+    launches = fo.fence_oracle.launches
+    if launches != 3:
+        raise AssertionError(f"the fence oracles launched {launches} "
+                             "kernels, expected 3")
+    x = torch.from_numpy(fo.oracle_input()).to(DEV)
+    o, status = fo.fence_oracle.positive(x)
+    ref = fo.positive_reference(x)
+    max_abs = float((o - ref).abs().max())
+    if status != [0, 0] or max_abs != 0.0:
+        raise AssertionError(f"positive oracle vs FenceModel: {max_abs}")
+    if not 0.15 < res["negative_s"] < 5.0:
+        raise AssertionError(f"negative oracle took {res['negative_s']} s "
+                             f"for a {fo.NEGATIVE_BUDGET_S} s budget")
+    ms = _time_ms(lambda: fo.fence_oracle.positive(x), 50)
+    plain_ms = _time_ms(lambda: fo.positive_reference(x), 20)
+    return {"name": "fence_oracle", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/csrc/fence_oracle.cu",
+            "replaces": "scripts/fence_oracle.py:49",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms,
+            **_bound(_nbytes(x, o), 0, torch.float32),
+            "negative_ms": res["negative_s"] * 1e3,
+            "control_ms": res["control_s"] * 1e3}
+
+
+def _gang(nproc: int, legs: str, out: Path) -> dict:
+    """Rank 0's results of ``nproc`` ranks of mp_check on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    rc = launch_gang(None, ["--out", str(out), "--legs", legs, "--n",
+                            str(MAIN_SIZE), "--ndomains", "8", "--steps",
+                            str(GANG_STEPS), "--reps", "20", "--rounds",
+                            "200"],
+                     num_processes=nproc, base_env=env,
+                     module="dl_esm_inf_tpu_torch.parallel.mp_check",
+                     timeout=GANG_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(f"the {nproc}-rank gang exited {rc}")
+    print(f"gang of {nproc} ranks ({legs}): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(np.load(out))
+
+
+def _check_small_legs(r: dict, nproc: int) -> None:
+    """tests/mp_worker.py's legs across ranks against the single-process
+    port on the card: hill, checksum, round trip, periodic bitwise; the
+    32x32 flagship within TOL_F32 of its field's max."""
+    def grid(bcs, gnx, gny):
+        g = tdl.Grid(tdl.ARAKAWA_C, bcs, tdl.OFFSET_NE, device=DEV)
+        g.decompose(gnx, gny, ndomains=8)
+        tdl.grid_init(g, 1.0, 1.0)
+        return g
+    walled = (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL, tdl.BC_NONE)
+    g = grid(walled, 24, 20)
+    f = tdl.Field(g, tdl.T_POINTS)
+    init_field_hill(f, -666.0)
+    f.halo_exchange(1)
+    ones = tdl.Field(g, tdl.T_POINTS, init_global_data=np.ones((20, 24)))
+    vals = np.arange(480.0).reshape(20, 24)
+    pg = grid((tdl.BC_PERIODIC, tdl.BC_PERIODIC, tdl.BC_NONE), 16, 16)
+    pf = tdl.Field(pg, tdl.T_POINTS,
+                   init_global_data=np.arange(256.0).reshape(16, 16))
+    pf.halo_exchange(1)
+    m = nl.build(32, 32, ndomains=8, open_north=True, device=DEV)
+    m.set_initial_ssh(gaussian_eta(32, 32, amp=0.2))
+    m.run(10)
+    checks = {"hill": np.array_equal(r["hill"], f.get_data()),
+              "checksum": float(r["gsum"]) == tdl.field_checksum(ones) == 480,
+              "roundtrip": np.array_equal(r["roundtrip"],
+                                          (vals + 1.0).astype(np.float32)),
+              "periodic": np.array_equal(r["periodic"], pf.get_data())}
+    if not all(checks.values()):
+        raise AssertionError(f"{nproc} ranks vs one process: {checks}")
+    d = _rel_diff({k: r[f"nl_{k}"] for k in ("sshn", "un", "vn")}, m.gather())
+    if not d <= TOL_F32:
+        raise AssertionError(f"{nproc}-rank 32^2 flagship rel {d:.3e}")
+    print(f"{nproc} ranks (8 tiles), small legs vs one process on the card: "
+          f"hill, checksum 480, round trip, periodic bitwise; 32^2 flagship "
+          f"10 steps rel {d:.3e}", flush=True)
+
+
+def _check_exchange_legs(r: dict, nproc: int) -> None:
+    keys = sorted(k for k in r if k.startswith("exch_equal_"))
+    bad = [k for k in keys if not bool(r[k])]
+    if len(keys) != 16 or bad:
+        raise AssertionError(f"{nproc}-rank exchanges != one process: {bad}")
+    if not bool(r["skew_equal"]):
+        raise AssertionError(f"{nproc} ranks: the skewed remote_dma pair "
+                             "!= one process")
+    if float(r["rdma_max_abs_err"]) != 0.0:
+        raise AssertionError(f"{nproc} ranks: rdma kernel vs plain "
+                             f"{float(r['rdma_max_abs_err'])}")
+    if int(r["exch_rdma_launches"]) != int(r["exch_rdma_calls"]):
+        raise AssertionError(f"{nproc} ranks: {int(r['exch_rdma_launches'])} "
+                             f"rdma launches for {int(r['exch_rdma_calls'])} "
+                             "remote_dma calls")
+    us = {k.removeprefix("exch_us_walled_2d_"): float(r[k]) for k in r
+          if k.startswith("exch_us_")}
+    print(f"{nproc} ranks, Field.halo_exchange f32 {MAIN_SIZE}^2 halo 8: 16 "
+          f"exchanges (walled/periodic, depth 1/8, 2D/3 levels, both "
+          f"transports) bitwise equal to one process; skewed remote_dma pair "
+          f"bitwise; rdma launches {int(r['exch_rdma_launches'])} = calls; "
+          f"us per call (walled 2D): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items())),
+          flush=True)
+
+
+def phase_ranks() -> dict:
+    """Gangs of 2 and 4 ranks on the card (dl_esm_inf_tpu_torch.launch
+    running parallel/mp_check.py): the small legs, Field.halo_exchange at
+    1024^2 under both transports, the skewed pair, the fence round trip,
+    and the 2-rank flagship against the single-process 2-tile run."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        r2 = _gang(2, "core,periodic,exchange,skew,flagship,fence",
+                   Path(tmp) / "r2.npz")
+        r4 = _gang(4, "core,periodic,exchange,skew", Path(tmp) / "r4.npz")
+    for nproc, r in ((2, r2), (4, r4)):
+        _check_small_legs(r, nproc)
+        _check_exchange_legs(r, nproc)
+    rt_us = float(r2["fence_round_trip_us"])
+    print(f"fence round trip between 2 ranks on one card: {rt_us:.1f} us "
+          f"(ping-pong, 200 rounds)", flush=True)
+
+    # the flagship: 2 ranks x 1 tile against one process with 2 tiles
+    N, K = MAIN_SIZE, 4
+    if int(r2["nl_launches"]) != GANG_STEPS // K:
+        raise AssertionError(f"2-rank flagship launched "
+                             f"{int(r2['nl_launches'])} sweeps per rank")
+    m = nl.build(N, N, ndomains=2, fused=True, steps_per_sweep=K,
+                 halo_width=8, device=DEV)
+    m.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    m.run(GANG_STEPS)
+    g = m.gather()
+    d = max(float(np.abs(r2[f"big_{k}"] - g[k]).max()) for k in g)
+    if d != 0.0:
+        raise AssertionError(f"2-rank flagship vs one process: max abs {d}")
+    us_1 = _time_ms(lambda: m.run(GANG_STEPS), 3) * 1e3 / GANG_STEPS
+    us_2 = float(r2["nl_us_per_step"])
+    print(f"flagship f32 {N}^2 K={K} halo 8, {GANG_STEPS} steps: 2 ranks x 1 "
+          f"tile bitwise equal to one process with 2 tiles; {us_2:.2f} "
+          f"us/step on 2 ranks (gloo exchange), {us_1:.2f} us/step in one "
+          f"process (ppermute); sweep launches per rank "
+          f"{int(r2['nl_launches'])}", flush=True)
+
+    nbytes = int(r2["rdma_block_bytes"])
+    entry = {"name": "halo_exchange_rdma", "route": "cuda",
+             "source": "dl_esm_inf_tpu_torch/csrc/halo_exchange_rdma.cu",
+             "replaces": "dl_esm_inf_tpu/parallel/halo_pallas.py:46",
+             "launches": int(r2["exch_rdma_launches"]),
+             "max_abs_err": float(r2["rdma_max_abs_err"]),
+             "ms": float(r2["exch_us_walled_2d_d8_remote_dma"]) / 1e3,
+             "plain_ms": float(r2["rdma_plain_us"]) / 1e3,
+             **_bound(2 * nbytes, 0, torch.float32),
+             "library_ms": float(r2["exch_us_walled_2d_d8_ppermute"]) / 1e3,
+             "ranks": 2,
+             "ms_4_ranks": float(r4["exch_us_walled_2d_d8_remote_dma"]) / 1e3,
+             "library_ms_4_ranks":
+                 float(r4["exch_us_walled_2d_d8_ppermute"]) / 1e3,
+             "launches_4_ranks": int(r4["exch_rdma_launches"]),
+             "fence_round_trip_us": rt_us,
+             "flagship_2_ranks_us_per_step": us_2,
+             "flagship_1_process_us_per_step": us_1}
+    print(f"halo_exchange_rdma f32 {N}^2 halo 8 depth 8 2D: 2 ranks "
+          f"{entry['ms'] * 1e3:.1f} us per call vs gloo ppermute "
+          f"{entry['library_ms'] * 1e3:.1f} us; 4 ranks "
+          f"{entry['ms_4_ranks'] * 1e3:.1f} vs "
+          f"{entry['library_ms_4_ranks'] * 1e3:.1f} us; plain version "
+          f"(protocol simulated over 2 blocks) "
+          f"{entry['plain_ms'] * 1e3:.1f} us; bound "
+          f"{entry['bound_ms'] * 1e3:.2f} us", flush=True)
+    return entry
+
 
 def main() -> None:
     phase_device()
@@ -2215,6 +2432,8 @@ def main() -> None:
     phase_variants_parity()
     phase_rect_parity()
     kernels.extend(phase_kbench())
+    kernels.append(phase_fence())
+    kernels.append(phase_ranks())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

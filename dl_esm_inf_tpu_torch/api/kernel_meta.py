@@ -39,6 +39,7 @@ from ..core.field import Field
 from ..ops import schedule_sweep as ss
 from ..ops.stencil_sweep import RING, stencil_sweep_reference
 from ..ops.stencils import pack_mask_bits, unpack_mask_bits
+from ..parallel import environment as env
 from ..parallel.halo import _exchange_blocks, exchange, exchange_multi
 
 _ROADMAP = "ROADMAP.md queue B9"
@@ -418,6 +419,7 @@ def invoke(kern, *args, exchange_halos: bool = True):
     Written fields are updated in place (their ``.data`` is replaced);
     reduction results are returned as Python floats.
     """
+    env.require_one_rank("invoke", "M3")
     meta: KernelMeta = kern._meta
     grid, records = _bind_call(meta, args)
 
@@ -487,6 +489,7 @@ class Schedule:
     """
 
     def __init__(self, *calls, exchange_halos: bool = True):
+        env.require_one_rank("a kernel Schedule", "M3")
         if not calls:
             raise ValueError("empty schedule")
         self._slots: list = []          # distinct Fields, in first-use order

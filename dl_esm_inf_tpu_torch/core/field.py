@@ -1,8 +1,13 @@
 """Fields on the staggered grid.
 
 Counterpart of ``dl_esm_inf_tpu/core/field.py`` (reference ``r2d_field``).
-A field's storage is one tensor in stacked local-shard layout on its
-grid's device: every tile with its halo ring, zero-filled on creation.
+A field's storage is one tensor per rank in stacked local-shard layout on
+its grid's device: the rank's block of tiles, each with its halo ring,
+zero-filled on creation.  Host arrays in and out (``init_global_data``,
+:meth:`Field.set_data`, :meth:`Field.get_data`, the gathers) are whole:
+the stacked layout of every rank's block, or the global domain.  With
+more than one rank the reductions, gathers and exchanges are
+collective.
 The staggering truth table (which points are the field's *internal*
 region) is :func:`staggering_offsets`, as in the JAX package.
 
@@ -27,7 +32,7 @@ from .grid import Grid
 from .region import Halo, Region
 from ..parallel import halo as halo_mod
 from ..parallel import halo_kernel
-from ..parallel.collectives import gather_to_host, masked_sum
+from ..parallel.collectives import gather_to_host, global_max, masked_sum
 
 
 def staggering_offsets(grid: Grid, point) -> tuple[int, int]:
@@ -134,7 +139,7 @@ class Field:
     def internal_mask_np(self) -> np.ndarray:
         """:attr:`internal_mask` as a host bool array."""
         if self.defined_on == ALL_POINTS:
-            return np.ones(self.grid.array_shape, dtype=bool)
+            return np.ones(self.grid.global_array_shape, dtype=bool)
         return self.grid.region_mask_np(*self._off)
 
     @property
@@ -151,7 +156,7 @@ class Field:
     def external_mask_np(self) -> np.ndarray:
         """:attr:`external_mask` as a host bool array."""
         if self.defined_on == ALL_POINTS:
-            return np.zeros(self.grid.array_shape, dtype=bool)
+            return np.zeros(self.grid.global_array_shape, dtype=bool)
         return self.grid.external_mask_np(*self._off)
 
     # --- communication ------------------------------------------------------
@@ -194,42 +199,52 @@ class Field:
 
     def max_abs(self) -> float:
         """max |internal points| over all tiles (CFL monitoring)."""
-        return float((self.data.abs() * self.internal_mask).max())
+        return global_max(self.data.abs() * self.internal_mask)
 
     def gather_inner_data(self) -> np.ndarray:
         """The global ``(global_ny, global_nx)`` array of internal points
         (``(levels, global_ny, global_nx)`` for a multi-level field) as a
         host array (reference gather_inner_data)."""
-        return gather_to_host(layout.unstack_internal(self.grid.decomp,
-                                                      self.data))
+        return layout.unstack_internal(self.grid.decomp, self.get_data())
 
     # --- host <-> device ------------------------------------------------------
     def get_data(self) -> np.ndarray:
-        """Host copy of the stacked array (reference get_data)."""
-        return gather_to_host(self.data)
+        """Host copy of the whole stacked array (reference get_data)."""
+        return gather_to_host(self.data, self.grid.halo_spec)
 
     def set_data(self, array) -> None:
-        """Replace the stacked array from host data (reference set_data)."""
+        """Replace the data from the whole stacked array (reference
+        set_data); this rank keeps its block."""
         arr = (array if isinstance(array, torch.Tensor)
                else torch.as_tensor(np.asarray(array)))
-        want = self._lead + self.grid.array_shape
+        want = self._lead + self.grid.global_array_shape
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"set_data expects stacked shape {want}, "
                 f"got {tuple(arr.shape)}")
-        self.data = arr.to(device=self.grid.device, dtype=self.dtype,
-                           memory_format=torch.contiguous_format, copy=True)
+        self.data = self.grid.local_block(arr).to(
+            device=self.grid.device, dtype=self.dtype,
+            memory_format=torch.contiguous_format, copy=True)
 
     def read_from_device(self, region: Region) -> np.ndarray:
         """Host copy of a sub-region of the stacked array (the
-        reference's partial device-to-host sync, field_mod.f90:407-465)."""
+        reference's partial device-to-host sync, field_mod.f90:407-465);
+        across ranks, of the gathered whole."""
         sy, sx = region.slices()
+        if self.grid.halo_spec.num_ranks > 1:
+            return self.get_data()[..., sy, sx]
         return gather_to_host(self.data[..., sy, sx])
 
     def write_to_device(self, region: Region, values) -> None:
         """Update a sub-region from host values (reference
-        write_to_device, field_mod.f90:467-525)."""
+        write_to_device, field_mod.f90:467-525); across ranks, through
+        the gathered whole."""
         sy, sx = region.slices()
+        if self.grid.halo_spec.num_ranks > 1:
+            whole = self.get_data()
+            whole[..., sy, sx] = np.asarray(values)
+            self.set_data(whole)
+            return
         data = self.data.clone()
         data[..., sy, sx] = torch.as_tensor(
             np.asarray(values, dtype=kinds.np_dtype(self.dtype)))
@@ -252,9 +267,15 @@ def copy_field(field_in: Field, field_out: Field) -> None:
 
 
 def copy_field_patch(field: Field, src: Region, dest: Region) -> None:
-    """copy_2dfield_patch (field_mod.f90:1179-1187)."""
+    """copy_2dfield_patch (field_mod.f90:1179-1187); the regions are in
+    the whole stacked layout."""
     ssy, ssx = src.slices()
     dsy, dsx = dest.slices()
+    if field.grid.halo_spec.num_ranks > 1:
+        whole = field.get_data()
+        whole[..., dsy, dsx] = whole[..., ssy, ssx]
+        field.set_data(whole)
+        return
     data = field.data.clone()
     data[..., dsy, dsx] = field.data[..., ssy, ssx]
     field.data = data

@@ -9,10 +9,15 @@ per-point arrays through :meth:`Grid.set_scale_factors`), the region
 and external masks and the :class:`~..parallel.halo.HaloSpec`.
 
 Differences from the JAX package: there is no device mesh and no
-sharding.  A grid lives on ONE ``torch.device`` (the card unless the
-caller passes another), and all shards of its decomposition are tiles
-of one stacked tensor on it.  :meth:`Grid.scatter_exchanged` brings
-global coefficient arrays (solver couplings, face depths) in.
+sharding.  The ranks of the run (:mod:`..parallel.environment`) take
+the mesh's place: :func:`rank_grid` lays them out as the JAX package
+lays devices out, and each rank holds its block of tiles as one stacked
+tensor on its own ``torch.device`` (the card unless the caller passes
+another).  One rank holds every tile.  Device tensors (``tmask``, the
+masks, ``xt``/``yt``, the metric arrays) are this rank's block; host
+arrays (``*_np``, ``xt_1d``/``yt_1d``, :meth:`Grid.global_tmask`) describe
+the whole stacked layout.  :meth:`Grid.scatter_exchanged` brings global
+coefficient arrays (solver couplings, face depths) in.
 """
 from __future__ import annotations
 
@@ -25,7 +30,34 @@ from .constants import (ARAKAWA_B, ARAKAWA_C, BC, BC_PERIODIC, GridKind,
 from .decomposition import Decomposition, decompose as _decompose
 from .region import Subdomain
 from ..parallel import environment as env
+from ..parallel.collectives import gather_to_host
 from ..parallel.halo import HaloSpec
+
+
+def rank_grid(px: int, py: int, nranks: int) -> tuple[int, int]:
+    """``(my, mx)``: the rank grid of a ``px x py`` tile decomposition
+    over ``nranks`` ranks, each rank holding a ``(py/my) x (px/mx)``
+    block of tiles (the JAX package's ``_make_mesh``): the largest grid
+    with ``my | py``, ``mx | px`` and ``my*mx <= nranks``, the most
+    balanced among equals.  It must use every rank: a rank without tiles
+    raises."""
+    best = None
+    for my in range(1, py + 1):
+        if py % my:
+            continue
+        for mx in range(1, px + 1):
+            if px % mx or my * mx > nranks:
+                continue
+            key = (my * mx, min(my, mx))   # most ranks, then balanced
+            if best is None or key > best[0]:
+                best = (key, (my, mx))
+    my, mx = best[1]
+    if my * mx != nranks:
+        raise ValueError(
+            f"decomposition {px}x{py} cannot be split over {nranks} ranks "
+            f"(at most {my * mx} ranks get an equal block of tiles); "
+            "choose a tile count with a factor grid of the rank count")
+    return my, mx
 
 
 class Grid:
@@ -94,8 +126,30 @@ class Grid:
 
     @property
     def array_shape(self) -> tuple[int, int]:
-        """Shape of the stacked array: (nprocy*ny, nprocx*nx)."""
+        """Shape of this rank's stacked block: (repy*ny, repx*nx); one
+        rank holds the whole (nprocy*ny, nprocx*nx)."""
+        return self.halo_spec.array_shape
+
+    @property
+    def global_array_shape(self) -> tuple[int, int]:
+        """Shape of the whole stacked layout, every rank's block."""
         return (self.decomp.array_ny, self.decomp.array_nx)
+
+    def local_block(self, stacked):
+        """This rank's block of a whole-stacked-layout array (leading
+        dims carried); the array itself on one rank."""
+        spec = self.halo_spec
+        if spec.num_ranks == 1:
+            return stacked
+        iy, ix = spec.rank_coords(env.get_rank())
+        ny, nx = spec.array_shape
+        return stacked[..., iy * ny: (iy + 1) * ny, ix * nx: (ix + 1) * nx]
+
+    def block_tensor(self, stacked: np.ndarray, dtype=None) -> torch.Tensor:
+        """A whole-stacked-layout host array as this rank's block on the
+        device."""
+        return torch.from_numpy(np.ascontiguousarray(
+            self.local_block(stacked))).to(device=self.device, dtype=dtype)
 
     def subdomain(self, rank: int = 0) -> Subdomain:
         """One tile's subdomain (reference grid%subdomain, per rank)."""
@@ -111,15 +165,16 @@ class Grid:
         sizing given, the ``GOCEAN_OMP_GRID`` environment variable
         ("NxM") is the (ndomainx, ndomainy) request, as in the JAX
         package (the reference's tiling-grid override,
-        field_mod.f90:1473-1503); unset or malformed, the domain is one
-        tile (the JAX package's "every device": the port has one)."""
+        field_mod.f90:1473-1503); unset or malformed, the domain has one
+        tile per rank (the JAX package's "every device").  The tiles are
+        split over the run's ranks by :func:`rank_grid`."""
         if ndomains is None and ndomainx is None and ndomainy is None:
             from ..utils.config import read_env
             tile_grid = read_env().tile_grid
             if tile_grid is not None:
                 ndomainx, ndomainy = tile_grid
             else:
-                ndomains = 1
+                ndomains = env.get_num_ranks()
         decomp = _decompose(domainx, domainy, ndomains=ndomains,
                             ndomainx=ndomainx, ndomainy=ndomainy,
                             halo_width=halo_width, align=align,
@@ -135,6 +190,8 @@ class Grid:
                     f"({glob}) to divide evenly into {nproc} tiles "
                     f"(got tile={tile}); choose a divisible size or a "
                     "different process grid")
+        my, mx = rank_grid(decomp.nprocx, decomp.nprocy,
+                           env.get_num_ranks())
 
         self.decomp = decomp
         self.global_nx = domainx
@@ -149,7 +206,7 @@ class Grid:
             tile_nx=decomp.tile_nx, tile_ny=decomp.tile_ny,
             local_nx=decomp.local_nx, local_ny=decomp.local_ny,
             wrap_x=self.wrap_x, wrap_y=self.wrap_y,
-            repx=decomp.nprocx, repy=decomp.nprocy)
+            repx=decomp.nprocx // mx, repy=decomp.nprocy // my)
         return self.decomp
 
     # ------------------------------------------------------------------
@@ -171,15 +228,14 @@ class Grid:
         if tmask is None:
             tmask = np.ones((self.global_ny, self.global_nx), dtype=np.int32)
         tmask = np.asarray(tmask, dtype=np.int32)
-        stacked = torch.from_numpy(
-            layout.stack_global(self.decomp, tmask, mode="edge")
-        ).to(self.device)
+        stacked = self.block_tensor(
+            layout.stack_global(self.decomp, tmask, mode="edge"))
         if (self.wrap_x or self.wrap_y) and self.decomp.halo > 0:
             from ..parallel import halo as halo_mod
             stacked = halo_mod.exchange(stacked, self.halo_spec,
                                         depth=self.decomp.halo)
         self.tmask = stacked
-        self._tmask_np = stacked.cpu().numpy()
+        self._tmask_np = gather_to_host(stacked, self.halo_spec)
         self._initialised = True
         self._clear_caches()
 
@@ -198,9 +254,9 @@ class Grid:
         couplings, face depths, boundary masks)."""
         from ..parallel import halo as halo_mod
         dt = kinds.as_dtype(dtype) if dtype is not None else self.dtype
-        stacked = torch.from_numpy(layout.stack_global(
+        stacked = self.block_tensor(layout.stack_global(
             self.decomp, np.asarray(global_arr), mode=mode,
-            dtype=kinds.np_dtype(dt))).to(device=self.device, dtype=dt)
+            dtype=kinds.np_dtype(dt)), dtype=dt)
         return halo_mod.exchange(stacked, self.halo_spec,
                                  depth=self.decomp.halo)
 
@@ -258,9 +314,8 @@ class Grid:
                     f"{name} must be the GLOBAL array "
                     f"({self.global_ny}, {self.global_nx}), got "
                     f"{arr.shape}")
-            dev = torch.from_numpy(
-                layout.stack_global(self.decomp, arr, mode="edge")
-            ).to(self.device)
+            dev = self.block_tensor(
+                layout.stack_global(self.decomp, arr, mode="edge"))
             if (self.wrap_x or self.wrap_y) and self.decomp.halo > 0:
                 from ..parallel import halo as halo_mod
                 dev = halo_mod.exchange(dev, self.halo_spec,
@@ -332,15 +387,15 @@ class Grid:
     def xt(self) -> torch.Tensor:
         """:meth:`xt_1d` broadcast to the stacked array, on the device."""
         if "xt" not in self._lazy:
-            self._lazy["xt"] = torch.from_numpy(self.xt_1d()).to(
-                self.device).expand(self.array_shape).contiguous()
+            self._lazy["xt"] = self.block_tensor(np.broadcast_to(
+                self.xt_1d()[None, :], self.global_array_shape))
         return self._lazy["xt"]
 
     @property
     def yt(self) -> torch.Tensor:
         if "yt" not in self._lazy:
-            self._lazy["yt"] = torch.from_numpy(self.yt_1d()).to(
-                self.device)[:, None].expand(self.array_shape).contiguous()
+            self._lazy["yt"] = self.block_tensor(np.broadcast_to(
+                self.yt_1d()[:, None], self.global_array_shape))
         return self._lazy["yt"]
 
     def global_tmask(self) -> np.ndarray:
@@ -357,8 +412,7 @@ class Grid:
         key = (off_x, off_y, dtype)
         if key not in self._region_masks:
             m = layout.region_mask(self.decomp, off_x, off_y)
-            self._region_masks[key] = torch.from_numpy(m).to(
-                device=self.device, dtype=dtype)
+            self._region_masks[key] = self.block_tensor(m, dtype=dtype)
         return self._region_masks[key]
 
     def region_mask_np(self, off_x: int = 0, off_y: int = 0) -> np.ndarray:
@@ -374,8 +428,7 @@ class Grid:
         key = ("ext", off_x, off_y, dtype)
         if key not in self._region_masks:
             m = layout.external_mask(self.decomp, off_x, off_y)
-            self._region_masks[key] = torch.from_numpy(m).to(
-                device=self.device, dtype=dtype)
+            self._region_masks[key] = self.block_tensor(m, dtype=dtype)
         return self._region_masks[key]
 
 

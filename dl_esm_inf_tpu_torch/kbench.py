@@ -35,6 +35,7 @@ import torch
 from .models import nemolite2d as nl
 from .models.gravity_wave import gaussian_eta
 from .ops.fused_step import make_variant
+from .parallel.environment import require_one_rank
 from .utils.profiling import slope_time
 
 MODES = ("prod", "dma", "compute", "compute_fast")
@@ -48,6 +49,7 @@ CHAINS = {"prod": (10, 50), "dma": (10, 50), "compute": (2, 8),
 
 
 def _model(n: int, device):
+    require_one_rank("the kernel-variant microbench", "M3")
     m = nl.build(n, n, fused=True, steps_per_sweep=4, dtype=torch.float32,
                  device=device)
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))

@@ -43,9 +43,10 @@ from ..ops import stencils as st
 from ..ops.fastpath import (enable_fast_path, fast_path_grid_args,
                             set_steps_per_exchange)
 from ..ops.fused_step import KMAX, fused_step_reference, make_fused_step
+from ..parallel import environment as env
 from ..parallel.halo import exchange_multi_fn
 
-_ROADMAP = "see ROADMAP.md queue A9"
+_ROADMAP = "see ROADMAP.md queue M4"
 
 
 @dataclass(frozen=True)
@@ -387,7 +388,6 @@ class NemoLite2D:
         self.grid = grid
         self.p = params
         dtype = grid.dtype
-        dev = grid.device
 
         self.sshn_t = Field(grid, T_POINTS)
         self.sshn_u = Field(grid, U_POINTS)
@@ -405,13 +405,14 @@ class NemoLite2D:
             arr = np.asarray(depth, dtype=kinds.np_dtype(dtype))
             if arr.min() <= 0:
                 raise ValueError("bathymetry must be positive everywhere")
-            stacked = layout.stack_global(grid.decomp, arr, mode="edge")
-            self._ht = torch.from_numpy(stacked).to(device=dev, dtype=dtype)
+            self._ht = grid.block_tensor(
+                layout.stack_global(grid.decomp, arr, mode="edge"),
+                dtype=dtype)
 
         # One int8 mask code per point is the only per-point constant the
         # step reads; padding and beyond-domain cells are forced dry so
         # they stay inert.
-        valid = torch.from_numpy(self._valid_cell_mask()).to(dev)
+        valid = grid.block_tensor(self._valid_cell_mask())
         tm = torch.where(valid, grid.tmask, 0).to(torch.int8)
         self._tmask_i8 = tm
         self._mask_codes = encode_masks(tm).contiguous()
@@ -461,6 +462,9 @@ class NemoLite2D:
             transport = "ppermute"
         if transport not in ("ppermute", "fused"):
             raise ValueError(f"unknown transport {transport!r}")
+        if transport == "fused":
+            env.require_one_rank('the flagship with transport="fused"',
+                                 "M1")
         prev = (self.use_fused, self._sweep_K, self._transport)
         self._fused_cache.clear()
         try:

@@ -37,6 +37,7 @@ from ..ops import stencils as st
 from ..ops.solvers import (chebyshev_block, chebyshev_iterations,
                            default_tol, helmholtz_coefficients,
                            make_helmholtz_matvec, pcg_block)
+from ..parallel import environment as env
 from ..parallel import halo as halo_mod
 from ..parallel.collectives import masked_sum
 from ..parallel.halo import exchange_multi_fn
@@ -69,6 +70,7 @@ class SemiImplicitModel:
 
         ``differentiable=True`` (the JAX package's adjoint solve through
         ``lax.custom_linear_solve``) is not ported yet."""
+        env.require_one_rank("the semi-implicit model", "M2")
         if not 0.5 <= theta <= 1.0:
             raise ValueError(f"theta must be in [0.5, 1], got {theta}"
                              " (below 0.5 the scheme is unstable)")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import kinds, layout
+from ..parallel import environment as env
 from ..parallel import halo as halo_mod
 from ..parallel.halo import exchange_multi_fn
 from . import stencils as st
@@ -65,6 +66,7 @@ def pcg_block(matvec, b, x0, weight, *, tol: float, maxiter: int,
     Returns ``(x, iters, rel_res)`` with ``x``'s halo ring stale,
     ``iters`` a Python int and ``rel_res`` a 0-dim tensor of the
     accumulation dtype."""
+    env.require_one_rank("CG's dot products", "M2")
     acc = kinds.sum_dtype(b.dtype)
     w = weight.to(acc)
     zero = torch.zeros((), dtype=acc, device=b.device)
@@ -316,6 +318,8 @@ class HelmholtzSolver:
         if grid.halo_spec is None or grid.tmask is None:
             raise ValueError("grid must be initialised (grid_init) "
                              "before building a solver")
+        env.require_one_rank("the Helmholtz solver (its dot products and "
+                             "residuals)", "M2")
         if method not in ("cg", "chebyshev"):
             raise ValueError(f"method must be 'cg' or 'chebyshev', "
                              f"got {method!r}")

@@ -1,42 +1,72 @@
 """Global reductions and gathers (reference ``global_sum`` / ``gather``).
 
-Counterpart of ``dl_esm_inf_tpu/parallel/collectives.py``.  With every
-shard on one device a reduction is a plain tensor reduction, accumulated
-in :func:`..core.kinds.sum_dtype` of the data (float64 for float64
-data).  A multi-process version over ``torch.distributed`` adds an
-all-reduce here in a later slice.
+Counterpart of ``dl_esm_inf_tpu/parallel/collectives.py``.  A reduction
+reduces this rank's block in :func:`..core.kinds.sum_dtype` of the data
+(float64 for float64 data) and, with more than one rank, all-reduces
+the partial results in that dtype over the process group (gloo, through
+host memory).  :func:`gather_to_host` all-gathers every rank's block
+into the whole stacked layout on every rank, as the JAX package's
+``process_allgather`` does.  With more than one rank each of these is
+collective: every rank calls it, in the same order.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import kinds
+from . import environment as env
 
 
 def _acc(data: torch.Tensor) -> torch.Tensor:
     return data.to(kinds.sum_dtype(data.dtype))
 
 
+def _all_reduce(local: torch.Tensor, op) -> float:
+    """The all-reduce of one rank's 0-d partial result, in its dtype."""
+    if env.get_num_ranks() > 1:
+        buf = local.detach().reshape(1).cpu()
+        dist.all_reduce(buf, op=op)
+        return float(buf[0])
+    return float(local)
+
+
 def global_sum(data: torch.Tensor) -> float:
-    """Scalar sum over a stacked-layout tensor."""
-    return float(_acc(data).sum())
+    """Scalar sum over every rank's stacked-layout block."""
+    return _all_reduce(_acc(data).sum(), dist.ReduceOp.SUM)
 
 
 def global_min(data: torch.Tensor) -> float:
-    return float(_acc(data).min())
+    return _all_reduce(_acc(data).min(), dist.ReduceOp.MIN)
 
 
 def global_max(data: torch.Tensor) -> float:
-    return float(_acc(data).max())
+    return _all_reduce(_acc(data).max(), dist.ReduceOp.MAX)
 
 
 def masked_sum(data: torch.Tensor, mask: torch.Tensor) -> float:
-    """Sum of ``data`` where ``mask`` is nonzero, in the checksum dtype."""
+    """Sum of ``data`` where ``mask`` is nonzero, in the checksum dtype,
+    over every rank."""
     acc = _acc(data)
-    return float((acc * mask.to(acc.dtype)).sum())
+    return _all_reduce((acc * mask.to(acc.dtype)).sum(), dist.ReduceOp.SUM)
 
 
-def gather_to_host(data: torch.Tensor) -> np.ndarray:
-    """Full host copy of a tensor as a numpy array."""
-    return data.detach().cpu().numpy()
+def gather_to_host(data: torch.Tensor, spec=None) -> np.ndarray:
+    """Host copy of a stacked-layout tensor as a numpy array.  With more
+    than one rank ``data`` is this rank's block and ``spec`` (the grid's
+    :class:`~.halo.HaloSpec`) places it: every rank receives the whole
+    stacked layout."""
+    local = data.detach().cpu()
+    nranks = env.get_num_ranks()
+    if nranks == 1:
+        return local.numpy()
+    if spec is None or spec.num_ranks != nranks:
+        raise ValueError("gathering across ranks needs the grid's halo "
+                         "spec, whose rank grid is this run's")
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(nranks)]
+    dist.all_gather(parts, local)
+    rows = [torch.cat(parts[iy * spec.ranks_x: (iy + 1) * spec.ranks_x],
+                      dim=-1) for iy in range(spec.ranks_y)]
+    return torch.cat(rows, dim=-2).numpy()

@@ -1,11 +1,12 @@
-"""Halo exchange for the stacked local-shard layout, on one device.
+"""Halo exchange for the stacked local-shard layout, across ranks.
 
 Counterpart of ``dl_esm_inf_tpu/parallel/halo.py``.  A field is ONE
-tensor of shape ``(nprocy*local_ny, nprocx*local_nx)``: every logical
-shard (tile) sits side by side with its own halo ring.  In this slice
-all tiles live on one device — the JAX package's over-decomposition
-case on a 1x1 mesh (``repx = nprocx``, ``repy = nprocy``) — so every
-seam is a local strip shift and no message leaves the device.
+tensor per rank of shape ``(repy*local_ny, repx*local_nx)``: the rank's
+block of logical shards (tiles) side by side, each with its own halo
+ring.  The ranks form a ``ranks_y x ranks_x`` grid
+(:meth:`..core.grid.Grid.decompose`, the JAX package's device mesh);
+one rank holding every tile is the JAX package's over-decomposition on
+a 1x1 mesh, where every seam is a local strip shift.
 
 One exchange is two phases:
 
@@ -14,31 +15,39 @@ One exchange is two phases:
    halos just received included) move north and south, so diagonal
    corners arrive by sequencing.
 
-Periodic axes add the wrap pair.  A tile with no neighbour in some
-direction keeps its existing boundary values.  Fields are grouped by
-dtype and leading shape, and strips of one group move together; fields
-of different dtypes are never stacked into one message, so an int32
-halo is never upcast through a float.
+Every tile's strips shift one slot along the tile axis; the strip that
+crosses a rank seam travels to the neighbouring rank over
+``torch.distributed`` (the JAX package's ``ppermute``; gloo, with CUDA
+strips staged through host memory).  Periodic axes add the wrap pair.
+A tile with no neighbour in some direction keeps its existing boundary
+values.  Fields are grouped by dtype and leading shape, and strips of
+one group move together; fields of different dtypes are never stacked
+into one message, so an int32 halo is never upcast through a float.
 
-The two phases are separable, so an exchange is also a gather by a row
-and a column index (:func:`exchange_index`): the geometry the exchange
-kernels of :mod:`.halo_kernel` and the flagship sweep evaluate on the
-card.  :func:`_exchange_blocks` stays their plain version.
+On one rank the two phases are separable, so an exchange is also a
+gather by a row and a column index (:func:`exchange_index`): the
+geometry the exchange kernels of :mod:`.halo_kernel` and the flagship
+sweep evaluate on the card.  :func:`_exchange_blocks` stays their plain
+version, and the plain transport between ranks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+
+from . import environment as env
 
 
 @dataclass(frozen=True)
 class HaloSpec:
-    """Static facts the exchange needs.
+    """Static facts the exchange needs; the same on every rank.
 
     ``repx``/``repy`` are the over-decomposition factors: logical tiles
-    per device along each axis.  On one device they equal
-    ``nprocx``/``nprocy``."""
+    per rank along each axis.  The rank grid is ``ranks_y x ranks_x``
+    (``nprocy/repy x nprocx/repx``); rank ``r`` sits at row
+    ``r // ranks_x`` and column ``r % ranks_x``."""
 
     nprocx: int
     nprocy: int
@@ -53,8 +62,77 @@ class HaloSpec:
     repy: int = 1
 
     @property
+    def ranks_x(self) -> int:
+        """Rank-grid extent along x (the JAX package's ``meshx``)."""
+        return self.nprocx // self.repx
+
+    @property
+    def ranks_y(self) -> int:
+        return self.nprocy // self.repy
+
+    @property
+    def num_ranks(self) -> int:
+        return self.ranks_x * self.ranks_y
+
+    @property
     def array_shape(self) -> tuple[int, int]:
+        """Shape of one rank's block: ``(repy*local_ny, repx*local_nx)``."""
+        return (self.repy * self.local_ny, self.repx * self.local_nx)
+
+    @property
+    def global_array_shape(self) -> tuple[int, int]:
+        """Shape of the whole stacked layout, every rank's block."""
         return (self.nprocy * self.local_ny, self.nprocx * self.local_nx)
+
+    def rank_coords(self, rank: int) -> tuple[int, int]:
+        """``(iy, ix)`` of ``rank`` in the rank grid."""
+        return divmod(rank, self.ranks_x)
+
+    def rank_at(self, iy: int, ix: int) -> int:
+        """The rank at ``(iy, ix)``, wrap-indexed on both axes."""
+        return (iy % self.ranks_y) * self.ranks_x + ix % self.ranks_x
+
+
+def _shift_tiles(up, down, dim: int, nr: int, i: int, wrap: bool,
+                 plus: int, minus: int):
+    """``(from_minus, from_plus)`` for one group's strips: tile t of the
+    rank's row of tiles receives tile t-1's ``up`` strip and tile t+1's
+    ``down`` strip along ``dim`` (the JAX package's ``shift_tiles`` /
+    ``shift_tiles_up``).  The strip that crosses a rank seam comes from
+    the ``minus`` / ``plus`` rank; at a walled edge nothing is sent and
+    the slot holds zeros, which the caller's masks discard."""
+    if nr == 1:
+        return torch.roll(up, 1, dims=dim), torch.roll(down, -1, dims=dim)
+    n = up.shape[dim]
+    first = torch.zeros_like(up.narrow(dim, 0, 1))
+    last = torch.zeros_like(down.narrow(dim, 0, 1))
+    _send_recv([(up.narrow(dim, n - 1, 1), plus, i < nr - 1 or wrap, 0),
+                (down.narrow(dim, 0, 1), minus, i > 0 or wrap, 1)],
+               [(first, minus, i > 0 or wrap, 0),
+                (last, plus, i < nr - 1 or wrap, 1)])
+    return (torch.cat([first, up.narrow(dim, 0, n - 1)], dim),
+            torch.cat([down.narrow(dim, 1, n - 1), last], dim))
+
+
+def _send_recv(sends, recvs) -> None:
+    """One batch of point-to-point messages, ``(tensor, peer, active,
+    tag)`` each; receives are written into their tensors.  gloo moves
+    host memory, so a CUDA strip is staged through the host."""
+    ops, staged = [], []
+    for t, peer, active, tag in sends:
+        if active:
+            ops.append(dist.P2POp(dist.isend, t.contiguous().cpu(), peer,
+                                  tag=tag))
+    for t, peer, active, tag in recvs:
+        if active:
+            buf = torch.empty(t.shape, dtype=t.dtype)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+            staged.append((t, buf))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for t, buf in staged:
+        t.copy_(buf)
 
 
 def _exchange_blocks(blks, spec: HaloSpec, depth: int):
@@ -62,18 +140,26 @@ def _exchange_blocks(blks, spec: HaloSpec, depth: int):
 
     Every tile's edge strips shift one slot along the tile axis (tile t
     receives tile t-1's east strip and tile t+1's west strip); the
+    strips that cross a rank seam come from the neighbouring ranks, the
     wrap pair closes the ring on periodic axes, and tiles without a
-    neighbour keep their own values.  Inputs are not modified."""
+    neighbour keep their own values.  Inputs are not modified.  A spec
+    whose one rank holds every tile exchanges locally in any process;
+    one split over ranks is collective: every rank calls it, in the same
+    order."""
     h, d = spec.halo, depth
     w, hgt = spec.tile_nx, spec.tile_ny
     rx, ry = spec.repx, spec.repy
     ly, lx = spec.local_ny, spec.local_nx
+    mx, my = spec.ranks_x, spec.ranks_y
     blks = list(blks)
     do_x = spec.nprocx > 1 or spec.wrap_x
     do_y = spec.nprocy > 1 or spec.wrap_y
     if not (do_x or do_y):
         return tuple(blks)
-    _check_one_device(spec)
+    iy, ix = 0, 0
+    if spec.num_ranks > 1:
+        _check_rank_layout(spec)
+        iy, ix = spec.rank_coords(env.get_rank())
 
     groups: list[tuple[tuple, list[int]]] = []
     for k, b in enumerate(blks):
@@ -105,11 +191,15 @@ def _exchange_blocks(blks, spec: HaloSpec, depth: int):
         # strips: (..., ry, ly, rx, d); the tile-column axis is -2
         east_src = batch([v[..., h + w - d: h + w] for v in vs])
         west_src = batch([v[..., h: h + d] for v in vs])
-        from_west = [torch.roll(m, 1, dims=-2) for m in east_src]
-        from_east = [torch.roll(m, -1, dims=-2) for m in west_src]
-        gcol = torch.arange(rx, device=out[0].device)
+        shifted = [_shift_tiles(e, wst, -2, mx, ix, spec.wrap_x,
+                                spec.rank_at(iy, ix + 1),
+                                spec.rank_at(iy, ix - 1))
+                   for e, wst in zip(east_src, west_src)]
+        from_west = [fw for fw, _ in shifted]
+        from_east = [fe for _, fe in shifted]
+        gcol = ix * rx + torch.arange(rx, device=out[0].device)
         has_w = ((gcol > 0) | spec.wrap_x)[:, None]
-        has_e = ((gcol < rx - 1) | spec.wrap_x)[:, None]
+        has_e = ((gcol < spec.nprocx - 1) | spec.wrap_x)[:, None]
         for k, v in enumerate(vs):
             v[..., h - d: h] = torch.where(
                 has_w, unbatch(from_west, k), v[..., h - d: h])
@@ -120,11 +210,15 @@ def _exchange_blocks(blks, spec: HaloSpec, depth: int):
         # strips: (..., ry, d, rx, lx); the tile-row axis is -4
         north_src = batch([v[..., h + hgt - d: h + hgt, :, :] for v in vs])
         south_src = batch([v[..., h: h + d, :, :] for v in vs])
-        from_south = [torch.roll(m, 1, dims=-4) for m in north_src]
-        from_north = [torch.roll(m, -1, dims=-4) for m in south_src]
-        grow = torch.arange(ry, device=out[0].device)
+        shifted = [_shift_tiles(nth, sth, -4, my, iy, spec.wrap_y,
+                                spec.rank_at(iy + 1, ix),
+                                spec.rank_at(iy - 1, ix))
+                   for nth, sth in zip(north_src, south_src)]
+        from_south = [fs for fs, _ in shifted]
+        from_north = [fn for _, fn in shifted]
+        grow = iy * ry + torch.arange(ry, device=out[0].device)
         has_s = ((grow > 0) | spec.wrap_y)[:, None, None, None]
-        has_n = ((grow < ry - 1) | spec.wrap_y)[:, None, None, None]
+        has_n = ((grow < spec.nprocy - 1) | spec.wrap_y)[:, None, None, None]
         for k, v in enumerate(vs):
             v[..., h - d: h, :, :] = torch.where(
                 has_s, unbatch(from_south, k), v[..., h - d: h, :, :])
@@ -141,10 +235,22 @@ def _check_depth(spec: HaloSpec, depth: int) -> None:
             f"halo-exchange depth {depth} outside [1, halo={spec.halo}]")
 
 
-def _check_one_device(spec: HaloSpec) -> None:
+def _check_rank_layout(spec: HaloSpec) -> None:
+    """The spec's rank grid is this run's: one block per rank."""
+    if (spec.nprocx % spec.repx or spec.nprocy % spec.repy
+            or spec.num_ranks != env.get_num_ranks()):
+        raise ValueError(
+            f"the decomposition's rank grid ({spec.ranks_y}x{spec.ranks_x}:"
+            f" {spec.nprocy}x{spec.nprocx} tiles, {spec.repy}x{spec.repx} "
+            f"per rank) does not match the run's {env.get_num_ranks()} "
+            "rank(s)")
+
+
+def _check_one_rank(spec: HaloSpec) -> None:
+    """Every tile of the spec lives in this rank's one block."""
     if spec.repx != spec.nprocx or spec.repy != spec.nprocy:
         raise NotImplementedError(
-            "single-device exchange: every tile must live on this device "
+            "single-rank exchange: every tile must live on this rank "
             f"(repx={spec.repx}, repy={spec.repy}, nprocx={spec.nprocx}, "
             f"nprocy={spec.nprocy})")
 
@@ -171,7 +277,7 @@ def exchange_index(spec: HaloSpec, depth: int,
     point reads itself.  The Python mirror of ``csrc/halo_remap.cuh``,
     the geometry both exchange kernels use."""
     _check_depth(spec, depth)
-    _check_one_device(spec)
+    _check_one_rank(spec)
     h = spec.halo
     ny, nx = spec.array_shape
     rows = _axis_index(torch.arange(ny, device=device), h, depth,

@@ -15,7 +15,10 @@ depends only on where the block lies:
 Both evaluate the two-phase exchange of :mod:`.halo`; the kernel as the
 gather of ``csrc/halo_remap.cuh`` (mirrored by
 :func:`.halo.exchange_index`), one read and one write of the block.
-float32, float64 and int32 blocks move bit for bit.
+float32, float64 and int32 blocks move bit for bit.  That is the
+exchange of one rank holding every tile; across ranks (one tile per
+rank) :func:`exchange_kernel` is :func:`.rdma.exchange`, the fenced
+exchange through peer memory.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import ctypes
 
 import torch
 
-from .halo import HaloSpec, _check_depth, _check_one_device, _exchange_blocks
+from . import rdma
+from .halo import HaloSpec, _check_depth, _check_one_rank, _exchange_blocks
 
 #: element sizes the kernel copies, by the dtypes it takes
 _ELEM_BYTES = {torch.float32: 4, torch.int32: 4, torch.float64: 8}
@@ -79,7 +83,7 @@ class HaloExchangeKernel:
         if not data.is_contiguous():
             raise ValueError("the exchanged block must be contiguous")
         _check_depth(spec, depth)
-        _check_one_device(spec)
+        _check_one_rank(spec)
         self.build()
         out = torch.empty_like(data)
         ny, nx = spec.array_shape
@@ -104,9 +108,13 @@ def make_block_exchange(spec: HaloSpec, depth: int = 1,
     """``fn(blk) -> blk``: the exchange of ``depth`` for stacked blocks of
     shape ``lead_shape + spec.array_shape`` (a multi-level field's level
     axis is a leading dim, carried whole).  Functional: returns a new
-    tensor."""
+    tensor.  Across ranks, one tile per rank, the fenced exchange of
+    :mod:`.rdma`."""
     _check_depth(spec, depth)
-    _check_one_device(spec)
+    if spec.num_ranks > 1:
+        rdma._check_one_tile(spec)
+    else:
+        _check_one_rank(spec)
     lead_shape = tuple(int(n) for n in lead_shape)
     if any(n < 1 for n in lead_shape):
         raise ValueError(f"lead_shape must be positive, got {lead_shape}")
@@ -124,7 +132,9 @@ def exchange_kernel(data: torch.Tensor, spec: HaloSpec,
                     depth: int = 1) -> torch.Tensor:
     """Refresh the halo rings of one stacked-layout tensor through the
     kernel (its plain version on the CPU); a drop-in for
-    :func:`.halo.exchange`."""
+    :func:`.halo.exchange`.  Across ranks: :func:`.rdma.exchange`."""
+    if spec.num_ranks > 1:
+        return rdma.exchange(data, spec, depth)
     if data.device.type == "cpu":
         _check_depth(spec, depth)
         return _exchange_blocks((data,), spec, depth)[0]

@@ -24,12 +24,14 @@ import numpy as np
 
 from ..core import kinds, layout
 from ..core.field import Field
+from ..parallel.environment import require_one_rank
 
 
 def save_fields(path: str, fields: dict, step: int = 0,
                 attrs: dict | None = None) -> None:
     """Save named fields' *global internal* arrays + metadata to .npz
     (written to a temporary name, then moved into place)."""
+    require_one_rank("saving a checkpoint", "M5")
     arrays = {}
     meta = {"step": int(step), "names": sorted(fields), "version": 1}
     if attrs:
@@ -51,6 +53,7 @@ def load_fields(path: str, fields: dict) -> dict:
     own decomposition (which may differ from the saving run's), and
     refresh their depth-1 halos.  Returns the metadata dict; plain
     arrays in ``fields`` come back under its ``"arrays"``."""
+    require_one_rank("loading a checkpoint", "M5")
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         loaded = {}

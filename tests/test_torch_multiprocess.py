@@ -1,0 +1,458 @@
+"""The port across ranks on the CPU: gangs of the port's launcher over
+gloo against the JAX package's single-process run, the fence oracles on
+the fence's plain version, and the simulated remote-DMA protocol against
+the JAX exchange.
+
+Gangs run ``python -m dl_esm_inf_tpu_torch.launch -n N -m
+dl_esm_inf_tpu_torch.parallel.mp_check`` (the port's counterpart of
+tests/mp_worker.py) on CPU ranks at float64, one gang per rank count,
+each bounded by a timeout that stops it; every comparison is with this
+process's JAX run on the conftest's 8-device CPU mesh, as
+tests/test_multiprocess.py compares: the hill, round trip and periodic
+legs bitwise, the checksum exact, the flagship within 1e-12 / 1e-13.
+The kernels (``csrc/halo_exchange_rdma.cu``, ``csrc/fence_oracle.cu``)
+run on the card only (``chip_smoke.py``); here their plain versions do.
+"""
+import itertools
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from filelock import FileLock
+
+import dl_esm_inf_tpu as jdl
+from dl_esm_inf_tpu.models import nemolite2d as jnl
+from dl_esm_inf_tpu.models.gravity_wave import gaussian_eta
+from dl_esm_inf_tpu.parallel import halo as jhalo
+from dl_esm_inf_tpu.testing import init_field_hill
+
+import dl_esm_inf_tpu_torch as tdl
+from dl_esm_inf_tpu_torch.core.grid import rank_grid
+from dl_esm_inf_tpu_torch.launch import launch
+from dl_esm_inf_tpu_torch.parallel import environment as tenv
+from dl_esm_inf_tpu_torch.parallel import fence_oracle as tfo
+from dl_esm_inf_tpu_torch.parallel import rdma as trdma
+from dl_esm_inf_tpu_torch.parallel.halo import HaloSpec
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+GANG_TIMEOUT = 120.0
+RTOL, ATOL = 1e-12, 1e-13          # tests/test_multiprocess.py:124-125
+
+WALLED = (jdl.BC_EXTERNAL, jdl.BC_EXTERNAL, jdl.BC_NONE)
+PERIODIC = (jdl.BC_PERIODIC, jdl.BC_PERIODIC, jdl.BC_NONE)
+
+
+def _env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_")) and k not in tenv.ENV_PROTOCOL}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + sys.path)
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _gang(tmp_path_factory, nproc, ndomains, legs, *extra):
+    """Rank 0's results of one gang, run once per test session: under
+    xdist the workers share the session's temporary root, and the first
+    to ask runs the gang while the others wait for its file."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / f"torch_mp_np{nproc}.npz"
+    with FileLock(str(out) + ".lock"):
+        if not out.exists():
+            tmp = root / f"torch_mp_np{nproc}.tmp.npz"
+            rc = launch(None, ["--out", str(tmp), "--device", "cpu",
+                               "--ndomains", str(ndomains), "--legs", legs,
+                               *extra],
+                        num_processes=nproc, base_env=_env(),
+                        module="dl_esm_inf_tpu_torch.parallel.mp_check",
+                        timeout=GANG_TIMEOUT)
+            assert rc == 0, f"{nproc}-rank gang exited {rc}"
+            os.replace(tmp, out)
+    return dict(np.load(out))
+
+
+@pytest.fixture(scope="module")
+def np2(tmp_path_factory):
+    """2 ranks x 4 tiles each (8 domains)."""
+    return _gang(tmp_path_factory, 2, 8, "core,periodic,guards")
+
+
+@pytest.fixture(scope="module")
+def np4(tmp_path_factory):
+    """4 ranks x 2 tiles: rank seams on both axes."""
+    return _gang(tmp_path_factory, 4, 8, "core,periodic")
+
+
+@pytest.fixture(scope="module")
+def np6(tmp_path_factory):
+    """6 ranks x 1 tile: the forced non-square 3x2 rank grid, where every
+    seam is a rank seam; also the remote-DMA transport's plain version
+    across ranks."""
+    return _gang(tmp_path_factory, 6, 6,
+                 "core,hill_rdma,exchange,skew", "--n", "48", "--reps", "1")
+
+
+def _jax_grid(bcs, gnx, gny, ndom):
+    g = jdl.Grid(jdl.ARAKAWA_C, bcs, jdl.OFFSET_NE)
+    g.decompose(gnx, gny, ndomains=ndom)
+    jdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
+def _check_core(res, ndom):
+    gnx, gny = 24, 20
+    grid = _jax_grid(WALLED, gnx, gny, ndom)
+    fld = jdl.Field(grid, jdl.T_POINTS)
+    init_field_hill(fld, -666.0)
+    fld.halo_exchange(1)
+    np.testing.assert_array_equal(res["hill"], fld.get_data())
+    assert float(res["gsum"]) == gnx * gny
+    vals = np.arange(gnx * gny, dtype=float).reshape(gny, gnx)
+    np.testing.assert_array_equal(res["roundtrip"], vals + 1.0)
+    m = jnl.build(32, 32, ndomains=ndom, open_north=True)
+    m.set_initial_ssh(gaussian_eta(32, 32, amp=0.2))
+    m.run(10)
+    for k, v in m.gather().items():
+        np.testing.assert_allclose(res[f"nl_{k}"], v, rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+
+
+def _check_periodic(res, ndom):
+    g = _jax_grid(PERIODIC, 16, 16, ndom)
+    pf = jdl.Field(g, jdl.T_POINTS,
+                   init_global_data=np.arange(256.0).reshape(16, 16))
+    pf.halo_exchange(1)
+    np.testing.assert_array_equal(res["periodic"], pf.get_data())
+
+
+@pytest.mark.parametrize("gang,ndom", [("np2", 8), ("np4", 8), ("np6", 6)])
+def test_gang_core_legs_match_jax(gang, ndom, request):
+    """Hill, checksum, round trip and the flagship across 2, 4 and 6
+    ranks equal the JAX package's single-process run."""
+    res = request.getfixturevalue(gang)
+    assert int(res["world_size"]) == int(gang[2:])
+    _check_core(res, ndom)
+    np.testing.assert_array_equal(res["region_io"],
+                                  np.full(res["region_io"].shape, 7.0))
+    assert res["region_io"].shape[0] == 4
+
+
+@pytest.mark.parametrize("gang", ["np2", "np4"])
+def test_gang_periodic_matches_jax(gang, request):
+    _check_periodic(request.getfixturevalue(gang), 8)
+
+
+def test_gang_remote_dma_plain_across_ranks(np6):
+    """transport="remote_dma" across CPU ranks (the protocol's plain
+    version over the gathered blocks) equals the ppermute exchange and
+    the JAX one, bitwise."""
+    np.testing.assert_array_equal(np6["hill_rdma"], np6["hill"])
+
+
+def test_gang_exchange_legs_bitwise(np6):
+    """Field.halo_exchange across 6 ranks, both transports, walled and
+    periodic, depth 1 and 8, 2D and 3 levels: each equal to the
+    single-rank exchange of the whole stacked array; the counting-skew
+    leg too; and the remote-DMA path's count of calls."""
+    keys = [k for k in np6 if k.startswith("exch_equal_")]
+    assert len(keys) == 16
+    assert all(bool(np6[k]) for k in keys), [k for k in keys
+                                             if not bool(np6[k])]
+    assert bool(np6["skew_equal"])
+    assert float(np6["rdma_max_abs_err"]) == 0.0
+    # on CPU ranks the wrapper of the kernel is not reached
+    assert int(np6["exch_rdma_launches"]) == 0
+    assert int(np6["exch_rdma_calls"]) == 8
+
+
+def test_gang_guards_raise(np2):
+    """Every path not ported across ranks raises NotImplementedError
+    naming ROADMAP.md with 2 ranks, instead of a per-rank answer."""
+    assert list(np2["guards_raised"]) == list(np2["guards_all"])
+    assert len(np2["guards_all"]) == 15
+
+
+# --- the launcher ---------------------------------------------------------------
+
+def test_launcher_world_size(tmp_path):
+    """Each rank sees the gang's world size and its own rank."""
+    script = tmp_path / "prog.py"
+    script.write_text(
+        "import sys\n"
+        "import dl_esm_inf_tpu_torch as dl\n"
+        "dl.initialise()\n"
+        "n, r = dl.get_num_ranks(), dl.get_rank()\n"
+        "open(sys.argv[1] + f'/rank{r}', 'w').write(str(n))\n"
+        "dl.finalise()\n")
+    rc = launch(str(script), [str(tmp_path)], num_processes=3,
+                base_env=_env(), timeout=GANG_TIMEOUT)
+    assert rc == 0
+    assert [(tmp_path / f"rank{r}").read_text() for r in range(3)] == \
+        ["3"] * 3
+
+
+def test_launcher_cli_module(tmp_path):
+    """``python -m dl_esm_inf_tpu_torch.launch -n 2 -m module args``."""
+    out = tmp_path / "r.npz"
+    res = subprocess.run(
+        [sys.executable, "-m", "dl_esm_inf_tpu_torch.launch", "-n", "2",
+         "-m", "dl_esm_inf_tpu_torch.parallel.mp_check", "--out", str(out),
+         "--device", "cpu", "--legs", "periodic", "--ndomains", "2"],
+        cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=GANG_TIMEOUT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert int(np.load(out)["world_size"]) == 2
+
+
+def test_launch_aborts_gang_on_rank_failure(tmp_path):
+    """A dying rank terminates the rest at once (mpirun-style abort)."""
+    script = tmp_path / "boom.py"
+    script.write_text(
+        "import os, sys, time\n"
+        "if os.environ['RANK'] == '1':\n"
+        "    sys.exit(3)\n"
+        "time.sleep(120)\n")
+    t0 = time.monotonic()
+    rc = launch(str(script), [], num_processes=2, base_env=_env())
+    assert rc == 3
+    assert time.monotonic() - t0 < 60
+
+
+def test_launch_timeout_stops_gang(tmp_path):
+    script = tmp_path / "slow.py"
+    script.write_text("import time\ntime.sleep(120)\n")
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        launch(str(script), [], num_processes=2, base_env=_env(),
+               timeout=1.0)
+    assert time.monotonic() - t0 < 30
+
+
+# --- the environment and the rank grid ---------------------------------------
+
+def test_partial_env_protocol_raises(monkeypatch):
+    for k in tenv.ENV_PROTOCOL:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
+        tenv.initialise()
+
+
+def test_one_process_environment():
+    assert (tenv.get_rank(), tenv.get_num_ranks(), tenv.on_master()) == \
+        (0, 1, True)
+    tenv.require_one_rank("anything", "M1")      # one rank: no raise
+
+
+def test_default_device_is_the_local_rank_card(monkeypatch):
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    if torch.cuda.is_available():
+        want = 3 % torch.cuda.device_count()
+        assert tenv.resolve_device(None) == torch.device("cuda", want)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tenv.resolve_device(None)
+
+
+@pytest.mark.parametrize("px,py,nranks,want", [
+    (4, 2, 2, (1, 2)), (4, 2, 4, (2, 2)), (4, 2, 8, (2, 4)),
+    (3, 2, 6, (2, 3)), (2, 1, 2, (1, 2)), (1, 2, 2, (2, 1)),
+    (4, 4, 1, (1, 1))])
+def test_rank_grid(px, py, nranks, want):
+    assert rank_grid(px, py, nranks) == want
+
+
+@pytest.mark.parametrize("px,py,nranks", [(3, 1, 2), (2, 2, 3), (1, 1, 2)])
+def test_rank_grid_without_tiles_raises(px, py, nranks):
+    with pytest.raises(ValueError, match="ranks"):
+        rank_grid(px, py, nranks)
+
+
+def test_one_rank_grid_is_unchanged():
+    """World size 1: one rank holds every tile, as before."""
+    g = tdl.Grid(device="cpu")
+    g.decompose(24, 20, ndomains=8)
+    spec = g.halo_spec
+    assert (spec.repx, spec.repy) == (spec.nprocx, spec.nprocy)
+    assert spec.num_ranks == 1
+    assert g.array_shape == g.global_array_shape == spec.global_array_shape
+
+
+# --- the fence and the simulated protocol ------------------------------------
+
+def test_fence_oracles_on_the_plain_fence():
+    """The three oracles on FenceModel: positive bitwise, negative would
+    block, control completes."""
+    res = tfo.run_oracles("cpu")
+    assert res["positive"] and res["negative_timed_out"]
+    assert res["control_completed"]
+
+
+def test_fence_model_counts():
+    f = trdma.FenceModel()
+    assert not f.try_wait(0, trdma.ready_slot(0, 0))
+    f.signal(0, trdma.ready_slot(1, 0), 2)
+    assert not f.try_wait(0, trdma.ready_slot(0, 0))    # other phase
+    assert f.try_wait(0, trdma.ready_slot(1, 0))
+    assert f.try_wait(0, trdma.ready_slot(1, 0))
+    assert not f.try_wait(0, trdma.ready_slot(1, 0))    # consumed
+
+
+#: one tile per rank: (ranks_x, ranks_y)
+LAYOUTS = [(2, 1), (1, 2), (2, 2), (3, 2)]
+
+
+def _extent(layout, wrap, halo):
+    base = max(halo, 5)
+    return tuple(base * t + (0 if wrap else 1) for t in layout)
+
+
+def _spec_and_jax(layout, wrap, halo):
+    gnx, gny = _extent(layout, wrap, halo)
+    bcs = PERIODIC if wrap else WALLED
+    gj = jdl.Grid(jdl.ARAKAWA_C, bcs, jdl.OFFSET_NE)
+    gj.decompose(gnx, gny, ndomainx=layout[0], ndomainy=layout[1],
+                 halo_width=halo)
+    jdl.grid_init(gj, 1.0, 1.0)
+    gt = tdl.Grid(tdl.ARAKAWA_C, bcs, tdl.OFFSET_NE, device="cpu")
+    gt.decompose(gnx, gny, ndomainx=layout[0], ndomainy=layout[1],
+                 halo_width=halo)
+    spec = HaloSpec(**{**gt.halo_spec.__dict__, "repx": 1, "repy": 1})
+    return spec, gj
+
+
+def _split(a, spec):
+    """Whole stacked array -> the ranks' one-tile blocks, rank order."""
+    ly, lx = spec.array_shape
+    return [a[..., iy * ly: (iy + 1) * ly, ix * lx: (ix + 1) * lx]
+            for iy, ix in (spec.rank_coords(r)
+                           for r in range(spec.num_ranks))]
+
+
+def _join(blocks, spec):
+    rows = [torch.cat(blocks[iy * spec.ranks_x: (iy + 1) * spec.ranks_x],
+                      dim=-1) for iy in range(spec.ranks_y)]
+    return torch.cat(rows, dim=-2)
+
+
+def _unique(shape, dtype, seed):
+    n = int(np.prod(shape))
+    return np.random.default_rng(seed).permutation(n).reshape(shape).astype(
+        dtype)
+
+
+@pytest.mark.parametrize("wrap", [False, True], ids=["walled", "periodic"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=str)
+def test_simulated_rdma_matches_jax_exchange(layout, wrap):
+    """The remote-DMA protocol simulated over one-tile rank blocks equals
+    the JAX ppermute exchange on the 8-device mesh, bitwise: every depth
+    1..halo at float64, the full depth with 3 levels and at int32."""
+    halo = 3
+    spec, gj = _spec_and_jax(layout, wrap, halo)
+    cases = [(d, np.float64, ()) for d in range(1, halo + 1)]
+    cases += [(halo, np.float64, (3,)), (halo, np.int32, ())]
+    for depth, dtype, lead in cases:
+        a = _unique(lead + spec.global_array_shape, dtype, depth)
+        want = np.asarray(jhalo.exchange(a, gj.mesh, gj.halo_spec, depth))
+        blocks = _split(torch.from_numpy(a), spec)
+        got = _join(trdma.exchange_reference(blocks, spec, depth), spec)
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=str((depth, dtype, lead)))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=str)
+def test_simulated_rdma_counting_skew(layout):
+    """Two calls per rank over one persistent fence, with the last rank
+    run far behind (every other rank takes many steps per step of it):
+    counting buffers the skew, and both calls equal two plain exchanges."""
+    spec, _ = _spec_and_jax(layout, True, 2)
+    fence, land = trdma.FenceModel(), trdma._Landing()
+    firsts = [torch.from_numpy(_unique(spec.global_array_shape, np.float64,
+                                       s)) for s in (1, 2)]
+    outs = [[b.clone() for b in _split(a, spec)] for a in firsts]
+    last = spec.num_ranks - 1
+    live = {r: itertools.chain(*(trdma._rank_protocol(
+        r, outs[c][r], spec, 2, fence, land, trdma.COLLECTIVE_ID_EXCHANGE)
+        for c in (0, 1))) for r in range(spec.num_ranks)}
+    order = [r for r in range(last) for _ in range(5)] + [last]
+    while live:
+        before = fence.events
+        for r in order:
+            if r in live:
+                try:
+                    next(live[r])
+                except StopIteration:
+                    del live[r]
+        assert not live or fence.events != before, "stuck"
+    for c in (0, 1):
+        want = _join(trdma.exchange_reference(_split(firsts[c], spec), spec,
+                                              2), spec)
+        assert torch.equal(_join(outs[c], spec), want)
+
+
+def test_simulated_rdma_without_fence_is_caught():
+    """With the readiness fence made vacuous (every ready and barrier
+    slot signalled ahead), a fast rank overwrites a landing buffer its
+    neighbour has not read yet: the simulation raises."""
+    spec, _ = _spec_and_jax((2, 1), True, 2)
+    fence, land = trdma.FenceModel(), trdma._Landing()
+    for r in range(2):
+        fence.signal(r, trdma.barrier_slot(trdma.COLLECTIVE_ID_EXCHANGE), 8)
+        for phase, direction in itertools.product((0, 1), (0, 1)):
+            fence.signal(r, trdma.ready_slot(phase, direction), 8)
+    blocks = _split(torch.zeros(spec.global_array_shape), spec)
+    live = {r: itertools.chain(*(trdma._rank_protocol(
+        r, blocks[r].clone(), spec, 1, fence, land,
+        trdma.COLLECTIVE_ID_EXCHANGE) for _ in range(2))) for r in range(2)}
+    with pytest.raises(RuntimeError, match="overwritten"):
+        for r in itertools.cycle([0] * 5 + [1]):
+            if r in live:
+                try:
+                    next(live[r])
+                except StopIteration:
+                    del live[r]
+            if not live:
+                break
+
+
+def test_simulated_rdma_stuck_raises():
+    """A protocol that cannot progress (a rank missing) raises."""
+    spec, _ = _spec_and_jax((2, 1), False, 2)
+    blocks = _split(torch.zeros(spec.global_array_shape), spec)
+    with pytest.raises(RuntimeError, match="stuck"):
+        trdma.exchange_reference(blocks, spec, 1, order=[0])
+
+
+def test_remote_dma_guards():
+    spec, _ = _spec_and_jax((2, 2), False, 2)
+    over = HaloSpec(**{**spec.__dict__, "nprocx": 4, "repx": 2})
+    with pytest.raises(NotImplementedError, match="one tile per device"):
+        trdma.exchange_reference([torch.zeros(over.array_shape)] * 4, over,
+                                 1)
+    with pytest.raises(ValueError, match="depth"):
+        trdma.exchange_reference(_split(torch.zeros(
+            spec.global_array_shape), spec), spec, 3)
+    meta = torch.empty(spec.array_shape, device="meta")
+    with pytest.raises(ValueError, match="rank grid"):
+        trdma.exchange(meta, spec, 1)        # one process, 4-rank spec
+
+
+@pytest.mark.gpu
+def test_fence_oracles_on_card():
+    """The oracle kernels on the card (csrc/fence_oracle.cu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the fence kernels have no CPU mode)")
+    before = tfo.fence_oracle.launches
+    res = tfo.run_oracles("cuda")
+    assert res["negative_timed_out"] and res["control_completed"]
+    assert tfo.fence_oracle.launches - before == 3
