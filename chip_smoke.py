@@ -11,7 +11,9 @@ rectangular cells on the flagship kernel, and the kernel-variant
 microbench (python -m dl_esm_inf_tpu_torch.kbench) with the flagship's
 history file and checkpoint, and the port across ranks: the fence's
 oracles and gangs of 2 and 4 ranks on the one card (the launcher, the
-exchange between processes through peer memory, the 2-rank flagship).
+exchange between processes through peer memory, the 2-rank flagship, and
+the flagship's fused transport across ranks: the exchange between
+processes inside the sweep).
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -21,7 +23,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the nine hand-written kernel libraries from
+2. build: compiles the twelve hand-written kernel libraries from
    dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
    the schedule sweeps that phase 10 generates (one source per schedule
    structure, dtype and K), all at once (build/torch_kernels/); prints
@@ -57,9 +59,12 @@ Phases (each prints a line; any failure raises and exits non-zero):
    step, mass drift, one Chebyshev step; and a small float64 run on
    the card against the same run on the CPU;
 9. the N-layer model: kernel vs plain bitwise at float64 and float32
-   (L = 1..4, K = 1..8, 1 and 4 tiles), the numpy golden at float64,
-   and the main path (1024^2, 3 layers, K = 8, float32) with its
-   launch count and times;
+   (L = 1..5 and 8, K = 1..8, and at K = 8 the tiles' boundaries up to
+   32 layers; 1 and 4 tiles), the numpy golden at float64, and the main
+   path (1024^2, 3 layers, K = 8, float32) with its launch count and
+   times, and one sweep of 5 and 8 layers (float32 and float64, on the
+   tile the shared-memory budget gives) against its plain version, with
+   its time;
 10. the fused schedule sweep (a CUDA kernel generated from a kernel
    schedule): the generated kernel against the plain fused tier at
    float64 and float32 on the PSy-built flagship (256^2, repeats 1-3 at
@@ -129,7 +134,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
    calls; two back-to-back remote_dma calls with the last rank 50 ms
    late, bitwise; the fence round trip between 2 ranks; the flagship at
    1024^2 f32, K=4, halo 8, 2 ranks x 1 tile, 40 steps, bitwise against
-   one process with 2 tiles, with us/step of both (CUDA events).
+   one process with 2 tiles, with us/step of both (CUDA events); the
+   flagship with transport="fused" (csrc/nemolite2d_sweep_rdma.cu: the
+   exchange between processes inside the sweep) at 1024^2 f32, K=4,
+   halo 8, 40 steps on 2 (2x1) and 4 (2x2) ranks, one tile each, bitwise
+   against one process with the same tiles, the same sweeps alternating
+   with remote_dma exchanges on the same spec and with the last rank
+   50 ms late, bitwise, the rdma sweep's launches (one per sweep), one
+   sweep against its plain version, and us per sweep and per step beside
+   the gloo ppermute transport.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -140,7 +153,8 @@ none does (none does for these multi-plane masked sweeps; for the
 exchange it is one advanced-indexing call with the row and column maps
 of exchange_index made beforehand; for the dma variant, three torch.add
 over its planes; for the exchange between ranks, the gloo ppermute
-exchange of the same block).  The fence oracle's bound is its tile's
+exchange of the same block; for the sweep with the exchange between
+ranks, the gloo ppermute exchange followed by the sweep kernel).  The fence oracle's bound is its tile's
 bytes; what bounds a fence is latency, reported as the round trip.  The
 compute variants are bound by the plain step's
 element operations per point and step (ops_per_point) times the points,
@@ -152,6 +166,7 @@ the result as JSON.  Imports nothing of JAX.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import os
 import re
@@ -279,11 +294,12 @@ def phase_device() -> str:
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
            nlm.nlayer_sweep, hk.halo_exchange, fs.variant_dma,
-           rdma.halo_exchange_rdma, fo.fence_oracle)
+           rdma.halo_exchange_rdma, fo.fence_oracle,
+           fs.nemolite2d_sweep_rdma)
 
 
 def phase_build() -> None:
-    """The eleven libraries and every generated schedule sweep phase 10
+    """The twelve libraries and every generated schedule sweep phase 10
     needs, built at once (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -940,38 +956,51 @@ def _nlayer_eta0(n, layers):
                      for k in range(layers)])
 
 
+#: the N-layer parity cases: these layer counts at every K, and beyond
+#: them (layers, dtype) at K=8 on the 16- and 8-cell tiles' boundaries
+NLAYER_LAYERS = (1, 2, 3, 4, 5, 8)
+NLAYER_EDGE = ((9, torch.float64), (10, torch.float64), (16, torch.float64),
+               (18, torch.float32), (19, torch.float32), (32, torch.float32))
+
+
+def _nlayer_cases():
+    for dtype in (torch.float64, torch.float32):
+        for L in NLAYER_LAYERS:
+            for K in range(1, 9):
+                yield dtype, L, K
+    for L, dtype in NLAYER_EDGE:
+        yield dtype, L, 8
+
+
 def phase_nlayer_parity() -> None:
     n, steps = 64, 19
-    worst, cases = 0.0, 0
-    for dtype in (torch.float64, torch.float32):
-        for L in range(1, nlm.KERNEL_MAX_LAYERS + 1):
-            for ndom in (1, 4):
-                for K in range(1, 9):
-                    ms = [nlm.build(n, n, ndomains=ndom, dt=0.01, layers=L,
-                                    fused=f, steps_per_sweep=K, dtype=dtype,
-                                    device=DEV) for f in (True, False)]
-                    for m in ms:
-                        m.set_initial(_nlayer_eta0(n, L))
-                    before = nlm.nlayer_sweep.launches
-                    ms[0].run(steps)
-                    if (nlm.nlayer_sweep.launches - before
-                            != steps // K + steps % K):
-                        raise AssertionError(f"nlayer L={L} K={K}: the fused"
-                                             " run did not go through the "
-                                             "kernel")
-                    ms[1].run(steps)
-                    ga, gb = ms[0].gather(), ms[1].gather()
-                    d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
-                    if d != 0.0:
-                        raise AssertionError(
-                            f"nlayer kernel vs plain {dtype} L={L} "
-                            f"ndomains={ndom} K={K}: {d:.3e}, expected "
-                            "bitwise")
-                    worst, cases = max(worst, d), cases + 1
+    worst, cases, tiles = 0.0, 0, set()
+    for (dtype, L, K), ndom in itertools.product(_nlayer_cases(), (1, 4)):
+        tiles.add(nlm.kernel_tile(L, dtype, K))
+        ms = [nlm.build(n, n, ndomains=ndom, dt=0.01, layers=L, fused=f,
+                        steps_per_sweep=K, dtype=dtype, device=DEV)
+              for f in (True, False)]
+        for m in ms:
+            m.set_initial(_nlayer_eta0(n, L))
+        before = nlm.nlayer_sweep.launches
+        ms[0].run(steps)
+        if nlm.nlayer_sweep.launches - before != steps // K + steps % K:
+            raise AssertionError(f"nlayer L={L} K={K}: the fused run did "
+                                 "not go through the kernel")
+        ms[1].run(steps)
+        ga, gb = ms[0].gather(), ms[1].gather()
+        d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
+        if d != 0.0:
+            raise AssertionError(f"nlayer kernel vs plain {dtype} L={L} "
+                                 f"ndomains={ndom} K={K}: {d:.3e}, expected "
+                                 "bitwise")
+        worst, cases = max(worst, d), cases + 1
+    edge = ", ".join(f"{L} {str(d).removeprefix('torch.')}"
+                     for L, d in NLAYER_EDGE)
     print(f"nlayer_sweep parity: kernel vs plain {n}^2, {cases} cases (f64 "
-          f"and f32, L=1..{nlm.KERNEL_MAX_LAYERS}, K=1..8, ndomains 1 and "
-          f"4), {steps} steps: max abs {worst:.3e} (bitwise required)",
-          flush=True)
+          f"and f32, L={NLAYER_LAYERS} at K=1..8, L={edge} at K=8; tiles "
+          f"{sorted(tiles)}; ndomains 1 and 4), {steps} steps: max abs "
+          f"{worst:.3e} (bitwise required)", flush=True)
 
 
 def phase_nlayer_golden() -> None:
@@ -1064,7 +1093,52 @@ def phase_nlayer_main() -> dict:
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms,
             **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops,
-                     m.grid.dtype)}
+                     m.grid.dtype),
+            "us_per_step": us_k, "many_layers": _nlayer_many_main(N, K)}
+
+
+def _nlayer_many_main(N: int, K: int) -> list:
+    """More than four layers at 1024^2, K=8 (the run-time layer variants
+    on the tile the shared-memory budget gives): one sweep kernel vs
+    plain bitwise and timed, its bound, and run's us/step at float32."""
+    out = []
+    for L, dtype in ((5, torch.float32), (8, torch.float32),
+                     (5, torch.float64), (8, torch.float64)):
+        m = nlm.build(N, N, layers=L, fused=True, steps_per_sweep=K,
+                      dtype=dtype, device=DEV)
+        m.set_initial(_nlayer_eta0(N, L))
+        flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
+        sweep = m._make_sweep(K)
+        prep = m._prepare(m._sweep_aux)
+        nlm.nlayer_sweep.launches = 0
+        ker = sweep(flat, m._sweep_aux)
+        torch.cuda.synchronize()
+        ref = stencil_sweep_reference(m._sweep_step, K, flat, prep)
+        max_abs = _internal_max_abs(m.grid, ker, ref)
+        if max_abs != 0.0 or nlm.nlayer_sweep.launches != 1:
+            raise AssertionError(f"nlayer L={L} {dtype} one sweep kernel vs "
+                                 f"plain: {max_abs:.3e}, expected bitwise")
+        ms = _time_ms(lambda: sweep(flat, m._sweep_aux), 50)
+        plain_ms = _time_ms(lambda: stencil_sweep_reference(
+            m._sweep_step, K, flat, prep), 3)
+        ops = _count_ops(lambda: stencil_sweep_reference(
+            m._sweep_step, K, flat, prep))
+        row = {"layers": L, "dtype": str(dtype).removeprefix("torch."),
+               "tile": nlm.kernel_tile(L, dtype, K), "max_abs_err": max_abs,
+               "ms": ms, "plain_ms": plain_ms,
+               **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops, dtype)}
+        row["us_per_step"] = (_run_step_us(m, 20 * K, 3)
+                              if dtype == torch.float32 else None)
+        del row["library_ms"]
+        out.append(row)
+        print(f"nlayer_sweep {N}^2 L={L} {row['dtype']} K={K}: tile "
+              f"{row['tile']}; one sweep kernel vs plain bitwise; kernel "
+              f"{ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/step), plain "
+              f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} "
+              f"us ({row['bound_by']})"
+              + (f"; run {row['us_per_step']:.2f} us/step"
+                 if row["us_per_step"] is not None else ""), flush=True)
+    return out
 
 # --- the kernel-metadata layer: the generated schedule sweep ---------------
 
@@ -2255,7 +2329,7 @@ def phase_fence() -> dict:
             "control_ms": res["control_s"] * 1e3}
 
 
-def _gang(nproc: int, legs: str, out: Path) -> dict:
+def _gang(nproc: int, legs: str, out: Path, *extra) -> dict:
     """Rank 0's results of ``nproc`` ranks of mp_check on the card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2264,7 +2338,7 @@ def _gang(nproc: int, legs: str, out: Path) -> dict:
     rc = launch_gang(None, ["--out", str(out), "--legs", legs, "--n",
                             str(MAIN_SIZE), "--ndomains", "8", "--steps",
                             str(GANG_STEPS), "--reps", "20", "--rounds",
-                            "200"],
+                            "200", *extra],
                      num_processes=nproc, base_env=env,
                      module="dl_esm_inf_tpu_torch.parallel.mp_check",
                      timeout=GANG_TIMEOUT)
@@ -2339,19 +2413,93 @@ def _check_exchange_legs(r: dict, nproc: int) -> None:
           flush=True)
 
 
-def phase_ranks() -> dict:
+#: the fused transport across ranks: K, sweeps (GANG_STEPS steps) and the
+#: tile layout of each gang
+FUSED_K = 4
+FUSED_LAYOUT = {2: (2, 1), 4: (2, 2)}
+
+
+def _fused_args(nproc: int) -> tuple:
+    px, py = FUSED_LAYOUT[nproc]
+    return ("--fused-layouts", f"{px}x{py}", "--fused-k", str(FUSED_K),
+            "--fused-shape", f"{MAIN_SIZE}x{MAIN_SIZE}", "--fused-sweeps",
+            str(GANG_STEPS // FUSED_K))
+
+
+def _check_fused_legs(r: dict, nproc: int) -> tuple[dict, object]:
+    """The flagship with transport="fused" across ``nproc`` ranks (one
+    tile each) against one process holding the same tiles (the fused
+    transport's one-array kernel), bitwise; the alternating and skewed
+    runs against it; the kernel's launches and its one-sweep comparison
+    with its plain version.  Returns the gang's numbers and the
+    one-process model."""
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu_torch.parallel import mp_check
+    px, py = FUSED_LAYOUT[nproc]
+    K, sweeps = FUSED_K, GANG_STEPS // FUSED_K
+    tag = f"{px}x{py}_k{K}"
+    args = SimpleNamespace(fused_shape=f"{MAIN_SIZE}x{MAIN_SIZE}",
+                           device=DEV)
+    mh = mp_check.fused_model(args, px, py, K, variable_depth=True)
+    mh.run(sweeps * K)
+    gh = mh.gather()
+    d_ht = max(float(np.abs(r[f"ffht_{k}"] - gh[k]).max()) for k in gh)
+    m = mp_check.fused_model(args, px, py, K)
+    m.run(sweeps * K)
+    g = m.gather()
+    d = max(float(np.abs(r[f"ff_{tag}_{k}"] - g[k]).max()) for k in g)
+    d_alt = max(float(np.abs(r[f"falt_{k}"] - g[k]).max()) for k in g)
+    d_skew = max(float(np.abs(r[f"fskew_{k}"] - g[k]).max()) for k in g)
+    launches = int(r[f"ff_launches_{tag}"])
+    err = float(r[f"ff_max_abs_err_{tag}"])
+    if (d, d_alt, d_skew, d_ht, err) != (0.0,) * 5 or not bool(
+            r["falt_exch_equal"]) or str(r["falt_tag"]) != tag or str(
+            r["ffht_tag"]) != tag:
+        raise AssertionError(
+            f"{nproc}-rank fused transport vs one process: max abs {d}, "
+            f"alternating {d_alt} (exchanges equal: "
+            f"{bool(r['falt_exch_equal'])}), skewed {d_skew}, variable "
+            f"depth f64 {d_ht}; kernel vs plain {err}")
+    if launches != sweeps:
+        raise AssertionError(f"{nproc}-rank fused transport launched the "
+                             f"rdma sweep {launches} times for {sweeps} "
+                             "sweeps")
+    us = {k: float(r[f"ff_{k}_{tag}"]) for k in (
+        "sweep_us", "pp_sweep_us", "run_us", "pp_run_us", "plain_us")}
+    print(f"fused transport f32 {MAIN_SIZE}^2 K={K} halo 8, {nproc} ranks "
+          f"({px}x{py} tiles, one each), {sweeps * K} steps: bitwise equal "
+          f"to one process with the same tiles, and so is the same run at "
+          f"float64 over a seeded depth plane; {sweeps} sweeps alternating "
+          f"with remote_dma exchanges of a 3-level field (each equal to the "
+          f"plain exchange) and with the last rank 50 ms late: bitwise; rdma"
+          f" sweep launches per rank {launches}; kernel vs plain one sweep "
+          f"{err}; per sweep: kernel {us['sweep_us']:.1f} us, gloo ppermute "
+          f"exchange + sweep {us['pp_sweep_us']:.1f} us, plain "
+          f"{us['plain_us']:.1f} us; run: fused {us['run_us']:.2f} us/step, "
+          f"ppermute {us['pp_run_us']:.2f} us/step", flush=True)
+    return {"launches": launches, "max_abs_err": err, "us": us,
+            "bytes": int(r[f"ff_bytes_{tag}"])}, m
+
+
+def phase_ranks() -> list:
     """Gangs of 2 and 4 ranks on the card (dl_esm_inf_tpu_torch.launch
     running parallel/mp_check.py): the small legs, Field.halo_exchange at
     1024^2 under both transports, the skewed pair, the fence round trip,
-    and the 2-rank flagship against the single-process 2-tile run."""
+    the 2-rank flagship against the single-process 2-tile run, and the
+    flagship's fused transport across 2 (2x1) and 4 (2x2) ranks against
+    one process with the same tiles."""
     import tempfile
+    fused_legs = "flagship_fused,fused_alternate,fused_skew"
     with tempfile.TemporaryDirectory() as tmp:
-        r2 = _gang(2, "core,periodic,exchange,skew,flagship,fence",
-                   Path(tmp) / "r2.npz")
-        r4 = _gang(4, "core,periodic,exchange,skew", Path(tmp) / "r4.npz")
+        r2 = _gang(2, f"core,periodic,exchange,skew,flagship,fence,"
+                      f"{fused_legs}", Path(tmp) / "r2.npz", *_fused_args(2))
+        r4 = _gang(4, f"core,periodic,exchange,skew,{fused_legs}",
+                   Path(tmp) / "r4.npz", *_fused_args(4))
     for nproc, r in ((2, r2), (4, r4)):
         _check_small_legs(r, nproc)
         _check_exchange_legs(r, nproc)
+    (f2, m2), (f4, _) = _check_fused_legs(r2, 2), _check_fused_legs(r4, 4)
     rt_us = float(r2["fence_round_trip_us"])
     print(f"fence round trip between 2 ranks on one card: {rt_us:.1f} us "
           f"(ping-pong, 200 rounds)", flush=True)
@@ -2403,6 +2551,48 @@ def phase_ranks() -> dict:
           f"(protocol simulated over 2 blocks) "
           f"{entry['plain_ms'] * 1e3:.1f} us; bound "
           f"{entry['bound_ms'] * 1e3:.2f} us", flush=True)
+    return [entry, _fused_entry(f2, f4, m2)]
+
+
+def _fused_entry(f2: dict, f4: dict, m) -> dict:
+    """The rdma sweep's kernel entry: 2 ranks (4 beside it); bound from
+    one rank's bytes (its planes once, the strips it sends) and the plain
+    step's operations on a rank's block (the 2-rank layout of the
+    one-process model ``m``); the library yardstick is the same sweep on
+    the gloo ppermute transport (exchange, then the sweep kernel)."""
+    spec = m.grid.halo_spec
+    rank_block = (spec.local_ny, spec.local_nx)     # one tile per rank
+    blk = torch.zeros(rank_block, dtype=m.grid.dtype, device=DEV)
+    code = torch.zeros(rank_block, dtype=torch.int8, device=DEV)
+    forcing = m.forcing_series(0, FUSED_K)
+    ops = _count_ops(lambda: fs.fused_step_reference(
+        blk, blk, blk, code, forcing, p=m.p, dx=m.grid.dx, dy=m.grid.dy,
+        fcor=m._fcor, depth=m.depth))
+    u2, u4 = f2["us"], f4["us"]
+    entry = {"name": "nemolite2d_sweep_rdma", "route": "cuda",
+             "source": "dl_esm_inf_tpu_torch/csrc/nemolite2d_sweep_rdma.cu",
+             "replaces": "dl_esm_inf_tpu/ops/sweep.py:383",
+             "launches": f2["launches"], "max_abs_err": f2["max_abs_err"],
+             "ms": u2["sweep_us"] / 1e3, "plain_ms": u2["plain_us"] / 1e3,
+             **_bound(f2["bytes"], ops, m.grid.dtype),
+             "library_ms": u2["pp_sweep_us"] / 1e3,
+             "ranks": 2, "K": FUSED_K,
+             "run_us_per_step": u2["run_us"],
+             "ppermute_run_us_per_step": u2["pp_run_us"],
+             "launches_4_ranks": f4["launches"],
+             "max_abs_err_4_ranks": f4["max_abs_err"],
+             "ms_4_ranks": u4["sweep_us"] / 1e3,
+             "plain_ms_4_ranks": u4["plain_us"] / 1e3,
+             "library_ms_4_ranks": u4["pp_sweep_us"] / 1e3,
+             "run_us_per_step_4_ranks": u4["run_us"],
+             "ppermute_run_us_per_step_4_ranks": u4["pp_run_us"]}
+    print(f"nemolite2d_sweep_rdma f32 {MAIN_SIZE}^2 K={FUSED_K}: 2 ranks "
+          f"{entry['ms'] * 1e3:.1f} us per sweep vs gloo ppermute "
+          f"{entry['library_ms'] * 1e3:.1f} us, 4 ranks "
+          f"{entry['ms_4_ranks'] * 1e3:.1f} vs "
+          f"{entry['library_ms_4_ranks'] * 1e3:.1f} us; bound "
+          f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']})",
+          flush=True)
     return entry
 
 
@@ -2433,7 +2623,7 @@ def main() -> None:
     phase_rect_parity()
     kernels.extend(phase_kbench())
     kernels.append(phase_fence())
-    kernels.append(phase_ranks())
+    kernels.extend(phase_ranks())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,229 +3,47 @@
 //
 // Replaces the TPU kernel dl_esm_inf_tpu/parallel/halo_pallas.py::
 // make_block_exchange on its multi-device path: one tile per rank, a
-// whole-block copy, the entry barrier, then per phase the readiness fence,
-// the remote writes of the edge strips, a delivery signal, and the merge
-// of the received strips where the rank has a neighbour.  The sequence is
-// halo_pallas.py:114-261's:
-//
-//   1. out = in (the exchange is functional, like the ppermute path);
-//   2. entry barrier on collective id 1 (rdma.py: COLLECTIVE_ID_EXCHANGE);
-//   3. x phase: fence(0, east, west); my east interior strip (d columns x
-//      ly rows x lead) -> east peer's landing[x][0], my west strip -> west
-//      peer's landing[x][1]; signal delivery, wait for mine; merge into the
-//      west halo columns where has_w, the east ones where has_e;
-//   4. y phase: fence(1, north, south); the full-width rows (x halos just
-//      merged included, so corners arrive by sequencing) -> north peer's
-//      landing[y][0] and south peer's landing[y][1]; deliver, wait, merge
-//      where has_s / has_n.
-//
-// Landing buffers, not peer outputs: a peer's output tensor changes every
-// call, its window (cudaMalloc'd once per (spec, dtype, lead), exported
-// with cudaIpcGetMemHandle) does not.  Sends are wrap-indexed on every
-// axis that exchanges, so every rank signals and waits the same counts
-// (rdma.py's SPMD symmetry); a walled edge merges nothing.
+// whole-block copy (out = in: the exchange is functional, like the
+// ppermute path), then the protocol of rdma_protocol.cuh on collective
+// id 1 (rdma.py: COLLECTIVE_ID_EXCHANGE): the entry barrier, and per
+// phase the readiness fence, the remote writes of the edge strips, a
+// delivery signal, and the merge of the received strips where the rank
+// has a neighbour.  This file also holds the windows' host side
+// (allocate, export, open, close, read the status), which the fused
+// transport's sweep (nemolite2d_sweep_rdma.cu) shares through rdma.py.
 //
 // Ordering.  The copy is its own launch (many CTAs) before the protocol
-// launch on the same stream, so the protocol reads a complete `out`.  The
-// protocol is ONE CTA: its strips are small (2*d*(ly + lx) elements per
-// level), so one CTA moves them in a few microseconds, and __syncthreads
-// orders its phases without a grid-wide barrier or a cooperative launch.
-// Thread 0 signals and waits; every thread fences its stores with
-// __threadfence_system before the CTA barrier that precedes a signal, and
-// reads landing buffers only after the wait's acquire fence.
+// launch on the same stream, so the protocol reads a complete `out`; the
+// protocol is one CTA, so no CTA waits on another CTA of its grid.
 //
 // What bounds it.  Bytes: the copy reads and writes the block once (2.6 us
 // for a 1040^2 float32 block at 3.35 TB/s); the strips are ~1% of that.
 // Latency: two fence round trips and two deliveries between processes,
-// which on one card without MPS wait for the context scheduler.  Elements
-// move as raw 4- or 8-byte words: float32, int32 and float64 bit for bit.
+// which on one card without MPS wait for the context scheduler.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "rdma_fence.cuh"
+#include "rdma_protocol.cuh"
 
 namespace {
 
-constexpr int kCopyThreads = 256;
-constexpr int kProtoThreads = 1024;
-
-// The geometry and the window layout, as the wrapper passes them (int64
-// array, in this order).
-struct RdmaGeo {
-  long long lead, ly, lx;        // block: (lead, ly, lx), one tile
-  long long h, d, w, hgt;        // halo, depth, tile_nx, tile_ny
-  long long do_x, do_y;          // phases that run
-  long long has_w, has_e, has_s, has_n;
-  long long cid;                 // collective id of the entry barrier
-  long long land_x, land_y;      // byte offsets of landing[x][0], [y][0]
-  long long land_x_bytes, land_y_bytes;  // bytes of one landing buffer
-};
-constexpr int kGeoInts = 18;
-static_assert(sizeof(RdmaGeo) == kGeoInts * sizeof(long long), "layout");
-
-__device__ inline unsigned* slots_of(char* win) {
-  return reinterpret_cast<unsigned*>(win);
-}
-
-__device__ inline int* status_of(char* win) {
-  return reinterpret_cast<int*>(win + kNumSlots * sizeof(unsigned));
-}
-
-template <typename E>
-__device__ inline E* landing(char* win, long long off, long long bytes,
-                             int dir) {
-  return reinterpret_cast<E*>(win + off + dir * bytes);
-}
-
-// Strip element i -> its offsets in the block: the plus-side send (ps),
-// the minus-side send (ms), the minus-side halo (md), the plus-side halo
-// (pd).  x: i = (row over lead*ly, column c of d).
-struct XMap {
-  long long lx, h, d, w;
-  __device__ void operator()(long long i, long long& ps, long long& ms,
-                             long long& md, long long& pd) const {
-    const long long row = i / d, c = i - row * d;
-    ps = row * lx + h + w - d + c;   // my east interior strip
-    ms = row * lx + h + c;           // my west interior strip
-    md = row * lx + h - d + c;       // my west halo
-    pd = row * lx + h + w + c;       // my east halo
-  }
-};
-
-// y: i = (level l, row r of d, column c of lx), full width.
-struct YMap {
-  long long ly, lx, h, d, hgt;
-  __device__ void operator()(long long i, long long& ps, long long& ms,
-                             long long& md, long long& pd) const {
-    const long long c = i % lx, r = (i / lx) % d, l = i / (lx * d);
-    const long long base = l * ly;
-    ps = (base + h + hgt - d + r) * lx + c;   // my north interior rows
-    ms = (base + h + r) * lx + c;             // my south interior rows
-    md = (base + h - d + r) * lx + c;         // my south halo
-    pd = (base + h + hgt + r) * lx + c;       // my north halo
-  }
-};
-
-template <typename E>
-__global__ void __launch_bounds__(kCopyThreads)
-rdma_copy_kernel(const E* __restrict__ in, E* __restrict__ out, long long n) {
-  for (long long i = blockIdx.x * (long long)kCopyThreads + threadIdx.x;
-       i < n; i += (long long)gridDim.x * kCopyThreads) {
-    out[i] = in[i];
-  }
-}
-
-// One phase: fence, send both strips, deliver, wait, merge; `map` is the
-// phase's XMap or YMap.
-template <typename E, typename Src>
-__device__ bool run_phase(E* out, char* mine, char* plus, char* minus,
-                          int phase, long long n, long long off,
-                          long long bytes, bool has_minus, bool has_plus,
-                          Src map, unsigned long long deadline,
-                          int* ok) {
-  unsigned* my_slots = slots_of(mine);
-  int* status = status_of(mine);
-  if (threadIdx.x == 0) {
-    *ok = fence_phase(my_slots, slots_of(plus), slots_of(minus), phase,
-                      deadline, status);
-  }
-  __syncthreads();
-  if (!*ok) return false;
-  // my plus-side strip lands in plus's landing[phase][0] (from its
-  // minus side), my minus-side strip in minus's landing[phase][1]
-  E* to_plus = landing<E>(plus, off, bytes, 0);
-  E* to_minus = landing<E>(minus, off, bytes, 1);
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    long long ps, ms, md, pd;
-    map(i, ps, ms, md, pd);
-    to_plus[i] = out[ps];
-    to_minus[i] = out[ms];
-  }
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    fence_signal(slots_of(plus), kSlotDelivered + 2 * phase + 0);
-    fence_signal(slots_of(minus), kSlotDelivered + 2 * phase + 1);
-    for (int dir = 0; dir < 2 && *ok; ++dir) {
-      if (!fence_wait(my_slots, kSlotDelivered + 2 * phase + dir,
-                      deadline)) {
-        fence_fail(status, kSlotDelivered + 2 * phase + dir);
-        *ok = 0;
-      }
-    }
-  }
-  __syncthreads();
-  if (!*ok) return false;
-  const volatile E* from_minus = landing<E>(mine, off, bytes, 0);
-  const volatile E* from_plus = landing<E>(mine, off, bytes, 1);
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    long long ps, ms, md, pd;
-    map(i, ps, ms, md, pd);
-    if (has_minus) out[md] = from_minus[i];
-    if (has_plus) out[pd] = from_plus[i];
-  }
-  __syncthreads();   // the merge is complete before the next phase reads
-  return true;
-}
-
-template <typename E>
-__global__ void __launch_bounds__(kProtoThreads)
-rdma_exchange_kernel(E* out, char* mine, char* east, char* west,
-                     char* north, char* south, RdmaGeo g,
-                     unsigned long long budget_ns) {
-  __shared__ int ok;
-  __shared__ unsigned long long deadline;
-  const long long ly = g.ly, lx = g.lx, h = g.h, d = g.d;
-  if (threadIdx.x == 0) {
-    deadline = fence_clock() + budget_ns;
-    unsigned* peers[4];
-    int np = 0;
-    if (g.do_x) { peers[np++] = slots_of(east); peers[np++] = slots_of(west); }
-    if (g.do_y) { peers[np++] = slots_of(north); peers[np++] = slots_of(south); }
-    ok = fence_entry_barrier(slots_of(mine), peers, np,
-                             static_cast<int>(g.cid), deadline,
-                             status_of(mine));
-  }
-  __syncthreads();
-  if (!ok) return;
-  if (g.do_x) {
-    const XMap xmap{lx, h, d, g.w};
-    if (!run_phase<E>(out, mine, east, west, 0, g.lead * ly * d, g.land_x,
-                      g.land_x_bytes, g.has_w, g.has_e, xmap, deadline,
-                      &ok)) {
-      return;
-    }
-  }
-  if (g.do_y) {
-    const YMap ymap{ly, lx, h, d, g.hgt};
-    run_phase<E>(out, mine, north, south, 1, g.lead * d * lx, g.land_y,
-                 g.land_y_bytes, g.has_s, g.has_n, ymap, deadline, &ok);
-  }
-}
+using rdma::RdmaGeo;
 
 template <typename E>
 cudaError_t launch(const void* in, void* out, char* const* wins,
                    const RdmaGeo& g, unsigned long long budget_ns,
                    cudaStream_t s) {
-  const long long n = g.lead * g.ly * g.lx;
-  const long long blocks = (n + kCopyThreads - 1) / kCopyThreads;
-  rdma_copy_kernel<E><<<static_cast<int>(blocks < 4096 ? blocks : 4096),
-                        kCopyThreads, 0, s>>>(static_cast<const E*>(in),
-                                              static_cast<E*>(out), n);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = rdma::launch_copy<E>(in, out, g.lead * g.ly * g.lx, s);
   if (err != cudaSuccess) return err;
-  rdma_exchange_kernel<E><<<1, kProtoThreads, 0, s>>>(
-      static_cast<E*>(out), wins[0], wins[1], wins[2], wins[3], wins[4], g,
-      budget_ns);
-  return cudaGetLastError();
+  return rdma::launch_protocol<E>(out, wins, g, budget_ns, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-int rdma_num_geo_ints() { return kGeoInts; }
+int rdma_num_geo_ints() { return rdma::kGeoInts; }
 int rdma_num_slots() { return kNumSlots; }
 
 // Allocate a zeroed window of `bytes` on `device` and export it:
@@ -278,11 +96,8 @@ int rdma_read_status(void* win, int* out, void* stream) {
 int rdma_exchange_launch(int elem_bytes, const void* in, void* out,
                          void* const* wins, const long long* geo, int n_geo,
                          unsigned long long budget_ns, void* stream) {
-  if (n_geo != kGeoInts) return static_cast<int>(cudaErrorInvalidValue);
   RdmaGeo g;
-  long long* dst = reinterpret_cast<long long*>(&g);
-  for (int i = 0; i < kGeoInts; ++i) dst[i] = geo[i];
-  if (g.lead < 1 || g.ly < 1 || g.lx < 1 || g.d < 1 || g.d > g.h) {
+  if (!rdma::read_geo(geo, n_geo, &g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   char* w[5];

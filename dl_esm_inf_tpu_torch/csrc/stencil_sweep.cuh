@@ -54,11 +54,16 @@ constexpr int TX = 32;
 constexpr int TY = 32;
 constexpr int NT = 256;
 
-template <int K, int REACH, int RING = K * REACH>
+// A window's geometry: an EDGE x EDGE output tile (TY x TX unless a client
+// names a smaller one, as the N-layer sweep does for many layers) and its
+// ring of R cells.
+template <int K, int REACH, int RING = K * REACH, int EDGE = TX>
 struct Geom {
+  static_assert(TY == TX, "square tiles");
   static constexpr int R = RING;
-  static constexpr int WY = TY + 2 * R;
-  static constexpr int WX = TX + 2 * R;
+  static constexpr int TILE = EDGE;
+  static constexpr int WY = EDGE + 2 * R;
+  static constexpr int WX = EDGE + 2 * R;
   static constexpr int WC = WY * WX;
   static constexpr int CPT = (WC + NT - 1) / NT;   // window points a thread
 };
@@ -218,8 +223,8 @@ sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
   typename S::Tile t(sweep_smem);
 
   // stage the window, clamped to the block
-  const int x0 = blockIdx.x * TX - R;
-  const int y0 = blockIdx.y * TY - R;
+  const int x0 = blockIdx.x * G::TILE - R;
+  const int y0 = blockIdx.y * G::TILE - R;
   const size_t plane = static_cast<size_t>(p.ny) * p.nx;
   for (int i = threadIdx.x; i < WC; i += NT) {
     const int wy = i / WX, wx = i - wy * WX;
@@ -244,15 +249,21 @@ sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
   for (int k = 0; k < S::K; ++k) step.substep(t, k);
 
   // write back the output tile
-  for (int i = threadIdx.x; i < TY * TX; i += NT) {
-    const int ty = i / TX, tx = i - ty * TX;
-    const int gy = blockIdx.y * TY + ty, gx = blockIdx.x * TX + tx;
+  for (int i = threadIdx.x; i < G::TILE * G::TILE; i += NT) {
+    const int ty = i / G::TILE, tx = i - ty * G::TILE;
+    const int gy = blockIdx.y * G::TILE + ty, gx = blockIdx.x * G::TILE + tx;
     if (gy >= p.ny || gx >= p.nx) continue;
     const int w = (ty + R) * WX + tx + R;
     const size_t g = static_cast<size_t>(gy) * p.nx + gx;
 #pragma unroll
     for (int f = 0; f < S::N; ++f) p.out[f][g] = t.s[f][w];
   }
+}
+
+// The launch grid of a (ny, nx) block: one CTA per EDGE x EDGE tile.
+template <int EDGE>
+inline dim3 tile_grid(int ny, int nx) {
+  return dim3((nx + EDGE - 1) / EDGE, (ny + EDGE - 1) / EDGE);
 }
 
 template <class S>
@@ -271,7 +282,7 @@ cudaError_t launch(const PlanesOf<S>& p, const typename S::Consts& c,
     if (err != cudaSuccess) return err;
     attr_device = dev;
   }
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid<S::G::TILE>(p.ny, p.nx);
   sweep_kernel<S><<<grid, NT, smem, stream>>>(p, c);
   return cudaGetLastError();
 }

@@ -43,7 +43,6 @@ from ..ops import stencils as st
 from ..ops.fastpath import (enable_fast_path, fast_path_grid_args,
                             set_steps_per_exchange)
 from ..ops.fused_step import KMAX, fused_step_reference, make_fused_step
-from ..parallel import environment as env
 from ..parallel.halo import exchange_multi_fn
 
 _ROADMAP = "see ROADMAP.md queue M4"
@@ -451,7 +450,11 @@ class NemoLite2D:
         inside the sweep (the JAX package's remote-DMA transport): on a
         CUDA grid the kernel reads each staged state point from where the
         exchange would have put it, in the same launch.  It exchanges the
-        full halo depth, as the JAX package does.  Of the JAX package's
+        full halo depth, as the JAX package does.  Across ranks it needs
+        one tile per rank (several raise ``ValueError``), and each sweep
+        exchanges with the neighbouring ranks through peer memory
+        (``csrc/nemolite2d_sweep_rdma.cu``; on the CPU the protocol's plain
+        version).  Of the JAX package's
         guards for it the port keeps those that protect the semantics
         (the K steps fit the halo, one state dtype, the block is the
         spec's); the TPU's 8-row and 128-lane alignment, ``2*depth`` within
@@ -462,9 +465,6 @@ class NemoLite2D:
             transport = "ppermute"
         if transport not in ("ppermute", "fused"):
             raise ValueError(f"unknown transport {transport!r}")
-        if transport == "fused":
-            env.require_one_rank('the flagship with transport="fused"',
-                                 "M1")
         prev = (self.use_fused, self._sweep_K, self._transport)
         self._fused_cache.clear()
         try:

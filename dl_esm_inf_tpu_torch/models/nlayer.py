@@ -17,9 +17,15 @@ the free surface), ``H[k]`` the rest thicknesses, reduced gravities
 For N=2 this is models/twolayer.py.  ``build(fused=True)`` advances K
 steps per depth-K exchange: the 3N level planes are flattened once
 around the sweep loop onto the sweep's state, through the hand-written
-kernel ``csrc/nlayer_sweep.cu`` on a CUDA grid (1 to
-:data:`KERNEL_MAX_LAYERS` layers) and through its plain version
-(:meth:`NLayerModel._layer_step` K times) on the CPU.
+kernel ``csrc/nlayer_sweep.cu`` on a CUDA grid and through its plain
+version (:meth:`NLayerModel._layer_step` K times) on the CPU.
+
+On the card a CTA stages its tile's window of all 3L planes in shared
+memory, so the layer count is bounded by the 227 KiB a block may use:
+:func:`kernel_tile` picks the tile edge per (L, dtype, K), 32 cells for
+L <= 4 (the compiled variants) and the largest of 32, 16 and 8 that
+holds the window beyond, and raises above what the 8-cell tile holds
+(at float64, K=8: 16 layers) or above :data:`KERNEL_MAX_LAYERS`.
 """
 from __future__ import annotations
 
@@ -36,17 +42,71 @@ from ..ops.stencil_sweep import RING, StencilSweepKernel
 from .gravity_wave import (default_tmask, gaussian_eta,  # noqa: F401
                            wet_update_masks)
 
-#: the layer counts the CUDA kernel is built for (f64, K=8, 4 layers
-#: stage 12 planes of 48x48 + the code: 218 KiB of the 227 KiB a block
-#: may use)
-KERNEL_MAX_LAYERS = 4
+#: the layer counts compiled into the CUDA kernel, on 32-cell tiles
+#: (f64, K=8, 4 layers stage 12 planes of 48x48 + the code: 218 KiB of
+#: the 227 KiB a block may use)
+COMPILED_LAYERS = 4
+#: the most layers the kernel takes (its launch's parameter block holds
+#: 3L plane pointers each way and the weights); the shared memory may
+#: allow fewer (:func:`kernel_tile`)
+KERNEL_MAX_LAYERS = 32
+#: the tile edges of the run-time layer variants 4, 5, 6
+MANY_TILES = (32, 16, 8)
+#: shared memory a block may use on an H100 (sm_90), and the static
+#: shared memory of the run-time layer variants (plane pointers, weights)
+SMEM_LIMIT = 232448
+_MANY_STATIC = 2048
 
 #: the process's one wrapper of the N-layer sweep kernel; variant
-#: ``L - 1`` takes L layers (3L state planes)
+#: ``L - 1`` takes L = 1..4 layers (3L state planes), variants 4, 5, 6
+#: any 4 < L <= KERNEL_MAX_LAYERS on 32-, 16- and 8-cell tiles
 nlayer_sweep = StencilSweepKernel(
     "nlayer_sweep", has_code=True,
-    n_state=tuple(3 * L for L in range(1, KERNEL_MAX_LAYERS + 1)),
-    kmax=(RING,) * KERNEL_MAX_LAYERS)
+    n_state=tuple(3 * L for L in range(1, COMPILED_LAYERS + 1))
+    + (range(3 * (COMPILED_LAYERS + 1), 3 * KERNEL_MAX_LAYERS + 1, 3),)
+    * len(MANY_TILES),
+    kmax=(RING,) * (COMPILED_LAYERS + len(MANY_TILES)))
+
+
+def window_bytes(layers: int, dtype, K: int, tile: int) -> int:
+    """Shared memory of one CTA's window: 3L planes of ``(tile + 2K)^2``
+    points and the code byte per point."""
+    w = (tile + 2 * K) ** 2
+    return 3 * layers * w * dtype.itemsize + w
+
+
+def kernel_tile(layers: int, dtype, K: int) -> int:
+    """The kernel's tile edge for ``layers`` at ``dtype`` and K: 32 for
+    the compiled L <= 4, else the largest of :data:`MANY_TILES` whose
+    window fits the shared memory a block may use.  Raises ValueError
+    where none does, or above :data:`KERNEL_MAX_LAYERS`."""
+    if layers > KERNEL_MAX_LAYERS:
+        raise ValueError(
+            f"the CUDA N-layer sweep takes at most {KERNEL_MAX_LAYERS} "
+            f"layers (its launch's parameter block), got {layers}")
+    if layers <= COMPILED_LAYERS:
+        return 32
+    budget = SMEM_LIMIT - _MANY_STATIC
+    for tile in MANY_TILES:
+        if window_bytes(layers, dtype, K, tile) <= budget:
+            return tile
+    fits = max((n for n in range(1, layers)
+                if window_bytes(n, dtype, K, MANY_TILES[-1]) <= budget),
+               default=0)
+    raise ValueError(
+        f"{layers} layers at {dtype} and K={K} do not fit the shared "
+        f"memory budget of a block (227 KiB, {budget} B for the window): "
+        f"even an {MANY_TILES[-1]}-cell tile stages "
+        f"{window_bytes(layers, dtype, K, MANY_TILES[-1])} B; at most "
+        f"{fits} layers fit")
+
+
+def kernel_variant(layers: int, dtype, K: int) -> int:
+    """The kernel variant that takes ``layers`` at ``dtype`` and K."""
+    tile = kernel_tile(layers, dtype, K)
+    if layers <= COMPILED_LAYERS:
+        return layers - 1
+    return COMPILED_LAYERS + MANY_TILES.index(tile)
 
 
 class NLayerModel(SweepClient):
@@ -84,7 +144,6 @@ class NLayerModel(SweepClient):
             (self._t_upd, self._u_wet, self._v_wet)).contiguous()
         self._step_aux = (self._t_upd, self._u_wet, self._v_wet)
         self._sweep_aux = (self._mask_codes,)
-        self._variant = L - 1
         self._init_fast_path()
 
     # ------------------------------------------------------------------
@@ -151,14 +210,22 @@ class NLayerModel(SweepClient):
     def enable_fast_path(self, steps_per_sweep: int = 1) -> None:
         """Switch to the fused 3L-plane sweep (the JAX package's
         ``enable_pallas``); needs ``halo_width >= K``.  On a CUDA grid
-        the kernel takes 1..KERNEL_MAX_LAYERS layers; more raise here,
-        and nothing falls back to the plain version."""
-        if (self.grid.device.type != "cpu"
-                and self.layers > KERNEL_MAX_LAYERS):
-            raise ValueError(
-                f"the CUDA N-layer sweep takes 1..{KERNEL_MAX_LAYERS} "
-                f"layers, got {self.layers}")
+        the layers must fit the kernel (:func:`kernel_tile`); more raise
+        here, and nothing falls back to the plain version."""
+        if self.grid.device.type != "cpu":
+            kernel_tile(self.layers, self.grid.dtype, int(steps_per_sweep))
         super().enable_fast_path(steps_per_sweep)
+
+    def _kernel_variant(self, K: int) -> int:
+        """The kernel variant for K; on a CPU grid, where the plain
+        version takes any L, layers the kernel cannot take get none (-1,
+        which the wrapper refuses for a tensor off the CPU)."""
+        try:
+            return kernel_variant(self.layers, self.grid.dtype, K)
+        except ValueError:
+            if self.grid.device.type != "cpu":
+                raise
+            return -1
 
     def _sweep_step(self, *planes):
         """:meth:`_layer_step` on the sweep's flat state, the 3L planes
@@ -172,14 +239,15 @@ class NLayerModel(SweepClient):
         return st.unpack_mask_bits(aux[0], 3, self.grid.dtype)
 
     def kernel_constants(self) -> list[float]:
-        """The kernel's scalars: dt, dx, dy, then the pressure weights
-        and thicknesses, zero-padded to KERNEL_MAX_LAYERS each."""
+        """The kernel's scalars: dt, dx, dy, the layer count, then the
+        pressure weights and thicknesses, zero-padded to
+        KERNEL_MAX_LAYERS each."""
         pw = np.zeros(KERNEL_MAX_LAYERS)
         H = np.zeros(KERNEL_MAX_LAYERS)
         n = min(self.layers, KERNEL_MAX_LAYERS)
         pw[:n], H[:n] = self._pw[:n], self._H[:n]
-        return [self.dt, self.grid.dx, self.grid.dy, *pw.tolist(),
-                *H.tolist()]
+        return [self.dt, self.grid.dx, self.grid.dy, float(self.layers),
+                *pw.tolist(), *H.tolist()]
 
     def _to_planes(self, state):
         """(eta, u, v) level tensors -> the 3L planes (etas, us, vs)."""

@@ -67,7 +67,8 @@ class SweepClient:
     A subclass sets ``sweep_kernel`` (its :class:`~.stencil_sweep.
     StencilSweepKernel`), ``_fields`` (the names of its state Field
     attributes) and, where they differ from the defaults, ``reach`` and
-    ``_variant`` (the kernel variant); it sets ``_step_aux`` (the plain
+    ``_variant`` (the kernel variant, or :meth:`_kernel_variant` where
+    it depends on K); it sets ``_step_aux`` (the plain
     step's trailing arguments) and ``_sweep_aux`` (the sweep's aux: float
     planes, then the mask code), calls :meth:`_init_fast_path`, and
     defines ``_step_math(*state, *step_aux) -> state``, ``_prepare(aux)
@@ -115,6 +116,10 @@ class SweepClient:
         version is this step K times."""
         return self._step_math(*planes_and_aux)
 
+    def _kernel_variant(self, K: int) -> int:
+        """The kernel variant of the K-step sweep."""
+        return self._variant
+
     def _make_sweep(self, K: int):
         """The fused K-step sweep: the CUDA kernel for CUDA tensors, its
         plain version for CPU tensors."""
@@ -122,7 +127,7 @@ class SweepClient:
             self._sweep_cache[K] = make_sweep(
                 self.sweep_kernel, self._sweep_step, K=K,
                 consts=self.kernel_constants(), prepare=self._prepare,
-                variant=self._variant)
+                variant=self._kernel_variant(K))
         return self._sweep_cache[K]
 
     def _block_step(self, exch, *state):

@@ -6,14 +6,20 @@ forcing, ht=None) -> (ssha, ua, va)`` for one stacked ``(ly, lx)``
 block, advancing ``K = len(forcing)`` steps after one depth-2K halo
 exchange, with flat bathymetry or the T-point depth plane ``ht``.  With
 an ``exchange_spec`` the sweep does that exchange itself, at the full
-halo depth (the JAX package's fused transport).  What runs depends only
-on where the tensors lie:
+halo depth (the JAX package's fused transport); across ranks, one tile
+per rank, that exchange is the fenced protocol of :mod:`..parallel.rdma`
+between the ranks' blocks.  What runs depends only on where the tensors
+lie:
 
 * a CUDA tensor launches the hand-written kernel
-  ``csrc/nemolite2d_sweep.cu`` through :data:`nemolite2d_sweep`
-  (built with ``nvcc`` at first use, see :mod:`.cuda_build`), or raises;
+  ``csrc/nemolite2d_sweep.cu`` through :data:`nemolite2d_sweep` (across
+  ranks ``csrc/nemolite2d_sweep_rdma.cu`` through
+  :data:`nemolite2d_sweep_rdma`), built with ``nvcc`` at first use (see
+  :mod:`.cuda_build`), or raises;
 * a CPU tensor runs the kernel's plain PyTorch version: the exchange
-  of :mod:`..parallel.halo` where the sweep has one, then
+  of :mod:`..parallel.halo` where the sweep has one (across ranks the
+  protocol simulated over the gathered blocks,
+  :func:`..parallel.rdma.exchange` on collective id 2), then
   :func:`fused_step_reference`, K chained
   :func:`..models.nemolite2d.step_math` calls on the whole block with
   the hoisted constants built once (the JAX package's
@@ -38,7 +44,8 @@ import ctypes
 import torch
 
 from . import stencils as st
-from ..parallel.halo import HaloSpec, exchange_multi
+from ..parallel import rdma
+from ..parallel.halo import HaloSpec, _check_rank_layout, exchange_multi
 from ..parallel.halo_kernel import remap_args
 
 #: the kernel's ceiling on sub-steps per sweep (its ring is 2K cells)
@@ -202,6 +209,94 @@ class SweepKernel:
 nemolite2d_sweep = SweepKernel()
 
 
+class SweepRdmaKernel:
+    """ctypes wrapper of ``csrc/nemolite2d_sweep_rdma.cu``: the sweep
+    with the exchange between ranks inside it (one tile per rank).
+
+    Each call stages the state, exchanges it with the neighbouring ranks
+    through their windows of collective id 2 (the windows are kept by
+    :data:`..parallel.rdma.halo_exchange_rdma`), advances K steps, then
+    waits for the stream and raises if a wait ran out of its budget.
+    ``launches`` counts the calls that launched (copies, protocol and
+    sweep are one call, nothing else); callers may reset it."""
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def build(self):
+        """Build (once) and bind the library; returns its BuiltLibrary."""
+        from .cuda_build import load_library
+        built = load_library("nemolite2d_sweep_rdma",
+                             ("nemolite2d_sweep_rdma.cu",))
+        if self._fn is None:
+            lib = built.lib
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            fn = lib.nemo_sweep_rdma_launch
+            fn.argtypes = ([i, i] + [vp] * 9 + [i, i,
+                           ctypes.POINTER(ctypes.c_double), i,
+                           ctypes.POINTER(vp),
+                           ctypes.POINTER(ctypes.c_longlong), i,
+                           ctypes.c_ulonglong, vp])
+            fn.restype = i
+            for name in ("nemo_sweep_rdma_num_consts",
+                         "nemo_sweep_rdma_num_geo_ints"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            if lib.nemo_sweep_rdma_num_geo_ints() != rdma.GEO_INTS:
+                raise RuntimeError("libnemolite2d_sweep_rdma's geometry "
+                                   "does not match rdma.py's")
+            self._nconsts = lib.nemo_sweep_rdma_num_consts()
+            self._fn = fn
+        return built
+
+    def __call__(self, sshn, un, vn, codes, consts, forcing, spec: HaloSpec,
+                 ht=None):
+        """One sweep of this rank's block after the exchange at the
+        spec's full halo depth; collective (every rank calls it)."""
+        K = len(forcing)
+        extra = [] if ht is None else [("ht", ht, sshn.dtype)]
+        _check_inputs("the rdma sweep kernel", K, sshn, un, vn, codes, extra)
+        if spec.array_shape != tuple(sshn.shape):
+            raise ValueError(f"exchange spec block {spec.array_shape} != "
+                             f"sweep block {tuple(sshn.shape)}")
+        rdma._check_one_tile(spec)
+        _check_rank_layout(spec)
+        self.build()
+        ex = rdma.halo_exchange_rdma
+        win = ex.window(spec, sshn.dtype, (3,), sshn.device,
+                        rdma.COLLECTIVE_ID_SWEEP)
+        if win.broken:
+            raise RuntimeError(f"this sweep's exchange window is unusable: "
+                               f"{win.broken}")
+        geo, wins = ex.protocol_args(win, spec, spec.halo, 3,
+                                     rdma.COLLECTIVE_ID_SWEEP)
+        vals = _launch_consts(consts, forcing, self._nconsts)
+        xs = torch.empty((3,) + tuple(sshn.shape), dtype=sshn.dtype,
+                         device=sshn.device)
+        ssha = torch.empty_like(sshn)
+        ua = torch.empty_like(un)
+        va = torch.empty_like(vn)
+        ny, nx = sshn.shape
+        stream = torch.cuda.current_stream(sshn.device).cuda_stream
+        err = self._fn(_DTYPE_CODES[sshn.dtype], K, sshn.data_ptr(),
+                       un.data_ptr(), vn.data_ptr(), codes.data_ptr(),
+                       None if ht is None else ht.data_ptr(), xs.data_ptr(),
+                       ssha.data_ptr(), ua.data_ptr(), va.data_ptr(), ny, nx,
+                       (ctypes.c_double * len(vals))(*vals), len(vals), wins,
+                       geo, len(geo), int(rdma.BUDGET_S * 1e9), stream)
+        if err != 0:
+            raise RuntimeError(f"nemolite2d rdma sweep kernel launch failed: "
+                               f"CUDA error {err}")
+        self.launches += 1
+        ex.check_status(win, stream, "the rdma sweep")
+        return ssha, ua, va
+
+
+#: the process's one wrapper of the sweep with the exchange between ranks
+nemolite2d_sweep_rdma = SweepRdmaKernel()
+
+
 def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
                     fcor: float, depth: float, steps_per_sweep: int = 1,
                     variable_bathy: bool = False,
@@ -214,9 +309,11 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
     ``exchange_spec``: the sweep exchanges the state (not ``ht`` or the
     mask codes, which do not change) at the spec's full halo depth before
     its K steps, as the JAX package's fused transport does: the caller
-    does not exchange.  The block is the spec's whole stacked array, the
-    K steps must fit its halo (``2K <= halo``) and the three state planes
-    share one dtype.
+    does not exchange.  The block is the spec's whole stacked array (this
+    rank's block), the K steps must fit its halo (``2K <= halo``) and the
+    three state planes share one dtype.  Across ranks the spec must hold
+    one tile per rank, as the remote-DMA exchange requires; the sweep is
+    then collective.
 
     Square (``dx == dy``) and rectangular cells both run on the kernel,
     each in the continuity order of :func:`step_math`."""
@@ -231,6 +328,13 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
         if 2 * K > ex.halo:
             raise ValueError(f"fused exchange needs halo >= the whole-sweep "
                              f"erosion {2 * K}, spec has {ex.halo}")
+        if ex.num_ranks > 1 and (ex.repx > 1 or ex.repy > 1):
+            raise ValueError(
+                f"the fused transport across ranks needs one tile per rank "
+                f"(the remote-DMA exchange's rule); this decomposition has "
+                f"{ex.repy}x{ex.repx} tiles per rank: decompose into one "
+                f"tile per rank or use the ppermute transport")
+    across = ex is not None and ex.num_ranks > 1
     consts = None
 
     def fused(sshn, un, vn, mask_codes_i8, forcing, ht=None):
@@ -249,13 +353,20 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
             raise ValueError("variable_bathy: pass the depth plane ht")
         ht = ht if variable_bathy else None
         if sshn.device.type == "cpu":
-            if ex is not None:
+            if across:
+                sshn, un, vn = rdma.exchange(
+                    torch.stack((sshn, un, vn)), ex, ex.halo,
+                    cid=rdma.COLLECTIVE_ID_SWEEP).unbind(0)
+            elif ex is not None:
                 sshn, un, vn = exchange_multi((sshn, un, vn), ex, ex.halo)
             return fused_step_reference(
                 sshn, un, vn, mask_codes_i8, forcing, p=p, dx=dx, dy=dy,
                 fcor=fcor, depth=depth, ht=ht)
         if consts is None:
             consts = kernel_constants(p, dx, dy, fcor, depth, sshn.dtype)
+        if across:
+            return nemolite2d_sweep_rdma(sshn, un, vn, mask_codes_i8, consts,
+                                         forcing, ex, ht=ht)
         return nemolite2d_sweep(sshn, un, vn, mask_codes_i8, consts, forcing,
                                 ht=ht, exchange=ex)
 

@@ -51,7 +51,8 @@ class StencilSweepKernel:
     float aux planes and, with ``has_code``, the int8 mask code, all
     contiguous ``(ny, nx)`` CUDA tensors of one float dtype.
     ``kmax[variant]`` is its ceiling on K; a kernel whose variants take
-    different plane counts gives ``n_state`` per variant (a tuple).
+    different plane counts gives ``n_state`` per variant (a tuple), where
+    a variant that takes several counts gives them as a ``range``.
     ``launches`` counts the kernel launches this wrapper has made (and
     nothing else); callers may reset it."""
 
@@ -95,9 +96,12 @@ class StencilSweepKernel:
                              f"0..{len(self.kmax) - 1})")
         n_state = (self.n_state[variant] if isinstance(self.n_state, tuple)
                    else self.n_state)
-        if len(state) != n_state or len(aux) != self.n_aux:
+        counts = n_state if isinstance(n_state, range) else (n_state,)
+        if len(state) not in counts or len(aux) != self.n_aux:
+            want = (f"{n_state.start}..{n_state[-1]} (step {n_state.step})"
+                    if isinstance(n_state, range) else n_state)
             raise ValueError(
-                f"{self.name}: expected {n_state} state and "
+                f"{self.name}: expected {want} state and "
                 f"{self.n_aux} aux planes, got {len(state)} and {len(aux)}")
         if (code is None) == self.has_code:
             raise ValueError(f"{self.name}: the mask code is "

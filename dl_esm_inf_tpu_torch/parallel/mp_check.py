@@ -20,7 +20,9 @@ Legs (``--legs``, comma separated):
 * ``hill_rdma``: the hill leg with ``transport="remote_dma"`` (one tile
   per rank);
 * ``guards``: every path that is not ported across ranks must raise
-  ``NotImplementedError``; records which did;
+  ``NotImplementedError``; records which did, and which ran (the
+  flagship's fused transport, one tile per rank), and that the fused
+  transport refuses several tiles per rank;
 * ``exchange``: ``Field.halo_exchange`` at ``--n``^2 (halo 8, depth 1
   and 8, 2D and 3 levels, walled and doubly periodic) under both
   transports, each held bitwise against the plain single-rank exchange
@@ -31,7 +33,22 @@ Legs (``--legs``, comma separated):
   delayed 50 ms before the second (counting skew), each held bitwise;
 * ``flagship``: the flagship at ``--n``^2, K=4, halo 8, one tile per rank,
   ``--steps`` steps; its gathered fields and µs/step (CUDA events);
-* ``fence``: the fence round trip between ranks 0 and 1 (µs).
+* ``fence``: the fence round trip between ranks 0 and 1 (µs);
+* ``flagship_fused``: the flagship with ``transport="fused"`` (the
+  exchange between ranks inside the sweep) on each rank layout of
+  ``--fused-layouts`` that has one tile per rank (``PXxPY`` tiles, e.g.
+  ``4x1,1x4,2x2``) at each K of ``--fused-k``, ``--fused-shape``, halo
+  8, ``--fused-sweeps`` sweeps from a seeded start; its gathered fields
+  and the rdma sweep's launches; on the card also µs per sweep and per
+  step of both transports, and the kernel against its plain version on
+  one sweep; then the last of them over a seeded depth plane at
+  float64;
+* ``fused_alternate``: on the last layout at the largest K, sweeps
+  alternating with standalone ``remote_dma`` exchanges of a 3-level
+  field on the same spec; the model's fields and each exchange held
+  against the runs without alternation and the plain exchange;
+* ``fused_skew``: the same sweeps with the last rank 50 ms late before
+  the second, held against the run without skew.
 """
 from __future__ import annotations
 
@@ -144,21 +161,37 @@ def leg_guards(res, a):
         "kbench": lambda: __import__(
             "dl_esm_inf_tpu_torch.kbench", fromlist=["_model"])._model(
                 n, torch.device(dev)),
-        "fused_transport": lambda: flag.enable_fast_path(4, "fused"),
+        "fused_transport": lambda: _fused_runs(n, dev),
         "checkpoint_save": lambda: checkpoint.save_fields(
             "never-written.npz", {"f": fld}),
         "checkpoint_load": lambda: checkpoint.load_fields(
             "never-read.npz", {"f": fld}),
     }
-    raised = []
+    raised, ran = [], []
     for name, fn in cases.items():
         try:
             fn()
+            ran.append(name)
         except NotImplementedError as e:
             if "ROADMAP" in str(e):
                 raised.append(name)
     res["guards_raised"] = np.array(sorted(raised))
+    res["guards_ran"] = np.array(sorted(ran))
     res["guards_all"] = np.array(sorted(cases))
+    try:       # several tiles per rank: the fused transport refuses them
+        flag.enable_fast_path(4, "fused")
+        refused = False
+    except ValueError as e:
+        refused = "one tile per rank" in str(e)
+    res["fused_multi_tile_refused"] = np.asarray(refused)
+
+
+def _fused_runs(n, dev):
+    """The flagship with the fused transport, one tile per rank: runs."""
+    m = nl.build(n, n, ndomains=env.get_num_ranks(), halo_width=8,
+                 device=dev)
+    m.enable_fast_path(4, "fused")
+    m.run(5)
 
 
 def _copy_kernel(km):
@@ -331,10 +364,175 @@ def leg_fence(res, a):
             res["fence_round_trip_us"] = np.asarray(us)
 
 
+def _layouts(a):
+    """The ``--fused-layouts`` that give every rank one tile."""
+    out = []
+    for item in a.fused_layouts.split(","):
+        px, py = (int(v) for v in item.split("x"))
+        if px * py == env.get_num_ranks():
+            out.append((px, py))
+    if not out:
+        raise ValueError(f"no layout of {a.fused_layouts!r} has "
+                         f"{env.get_num_ranks()} tiles")
+    return out
+
+
+def fused_model(a, px, py, K, transport="fused", variable_depth=False):
+    """The flagship on ``px x py`` tiles, halo 8, from the seeded start
+    (a Gaussian bump and seeded noise, made with numpy), with the fused
+    sweep of K steps on ``transport``; ``variable_depth``: at float64
+    over a seeded depth plane (50-150 m), else at the device's default
+    dtype over the flat 100 m."""
+    gnx, gny = (int(v) for v in a.fused_shape.split("x"))
+    g = dl.Grid(dl.ARAKAWA_C, WALLED, dl.OFFSET_NE, device=a.device,
+                dtype=torch.float64 if variable_depth else None)
+    g.decompose(gnx, gny, ndomainx=px, ndomainy=py, halo_width=HALO)
+    dl.grid_init(g, 1000.0, 1000.0, nl.default_tmask(gnx, gny))
+    depth = (50.0 + 100.0 * np.random.default_rng(11).random((gny, gnx))
+             if variable_depth else 100.0)
+    m = nl.NemoLite2D(g, depth=depth)
+    m.enable_fast_path(K, transport)
+    m.set_initial_ssh(fused_initial_ssh(gnx, gny))
+    return m
+
+
+def fused_initial_ssh(gnx, gny, seed=9):
+    """The fused legs' start: a Gaussian bump plus seeded noise."""
+    rng = np.random.default_rng(seed)
+    return (gaussian_eta(gnx, gny, amp=0.2)
+            + 0.01 * rng.standard_normal((gny, gnx)))
+
+
+def _tag(px, py, K):
+    return f"{px}x{py}_k{K}"
+
+
+def leg_flagship_fused(res, a):
+    for px, py in _layouts(a):
+        for K in (int(k) for k in a.fused_k.split(",")):
+            m = fused_model(a, px, py, K)
+            dev = m.grid.device
+            fs.nemolite2d_sweep_rdma.launches = 0
+            m.run(a.fused_sweeps * K)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tag = _tag(px, py, K)
+            res[f"ff_launches_{tag}"] = np.asarray(
+                fs.nemolite2d_sweep_rdma.launches)
+            for k, v in m.gather().items():
+                res[f"ff_{tag}_{k}"] = v
+            if dev.type == "cuda":
+                _fused_timing(res, a, m, px, py, K, tag)
+    # the variable-depth sweep at float64, on the last layout
+    m = fused_model(a, px, py, K, variable_depth=True)
+    m.run(a.fused_sweeps * K)
+    for k, v in m.gather().items():
+        res[f"ffht_{k}"] = v
+    res["ffht_tag"] = np.asarray(_tag(px, py, K))
+
+
+def _fused_timing(res, a, m, px, py, K, tag):
+    """On the card: µs per sweep of the kernel and of the ppermute
+    transport's exchange + sweep (the library yardstick), µs per step of
+    both transports' ``run``, and the kernel against its plain version
+    (the protocol simulated over the gathered blocks, then the K steps)
+    on one sweep's inputs."""
+    dev, spec, rank = m.grid.device, m.grid.halo_spec, env.get_rank()
+    steps = a.fused_sweeps * K
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    forcing = m.forcing_series(0, K)
+    fused = m._make_fused(K)
+    pp = fused_model(a, px, py, K, transport="ppermute")
+    sweep = pp._make_fused(K)
+    exch = halo_mod.exchange_multi_fn(spec, depth=2 * K)
+    res[f"ff_sweep_us_{tag}"] = np.asarray(_us_per_call(
+        lambda: fused(*state, m._mask_codes, forcing), dev, a.reps))
+    res[f"ff_pp_sweep_us_{tag}"] = np.asarray(_us_per_call(
+        lambda: sweep(*exch(state), m._mask_codes, forcing), dev, a.reps))
+    res[f"ff_run_us_{tag}"] = np.asarray(_us_per_call(
+        lambda: m.run(steps), dev, 2) / steps)
+    res[f"ff_pp_run_us_{tag}"] = np.asarray(_us_per_call(
+        lambda: pp.run(steps), dev, 2) / steps)
+    got = fused(*state, m._mask_codes, forcing)
+    stacked = torch.stack(state)
+    blocks = [torch.empty_like(stacked) for _ in range(spec.num_ranks)]
+    dist.all_gather(blocks, stacked)
+
+    def plain():
+        ex = rdma.exchange_reference(blocks, spec, spec.halo,
+                                     cid=rdma.COLLECTIVE_ID_SWEEP)[rank]
+        return fs.fused_step_reference(
+            *ex.unbind(0), m._mask_codes, forcing, p=m.p, dx=m.grid.dx,
+            dy=m.grid.dy, fcor=m._fcor, depth=m.depth)
+    want = plain()
+    h = spec.halo
+    inner = (slice(h, h + spec.tile_ny), slice(h, h + spec.tile_nx))
+    err = torch.tensor([max(float((g[inner] - w[inner]).abs().max())
+                            for g, w in zip(got, want))],
+                       dtype=torch.float64)
+    dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    res[f"ff_max_abs_err_{tag}"] = np.asarray(float(err[0]))
+    if rank == 0:
+        res[f"ff_plain_us_{tag}"] = np.asarray(_local_us(plain, dev, 3))
+        # each input and output plane once, and the strips sent
+        ly, lx = spec.array_shape
+        res[f"ff_bytes_{tag}"] = np.asarray(
+            (6 * ly * lx + 3 * 2 * h * (ly + lx)) * stacked.element_size()
+            + m._mask_codes.numel())
+
+
+def _alternation(res, a, skew):
+    """Sweeps of the last layout at the largest K, each run alone (one
+    sweep and the model's own remote_dma exchange of the surface), with
+    either a standalone remote_dma exchange of a 3-level field on the
+    same spec between them, or the last rank 50 ms late before the
+    second; the fields after all of them."""
+    rank, nranks = env.get_rank(), env.get_num_ranks()
+    px, py = _layouts(a)[-1]
+    K = max(int(k) for k in a.fused_k.split(","))
+    m = fused_model(a, px, py, K)
+    spec, dev = m.grid.halo_spec, m.grid.device
+    exch_ok = []
+    dist.barrier()
+    for i in range(a.fused_sweeps):
+        if skew and i == 1 and rank == nranks - 1:
+            time.sleep(0.05)
+        m.run(K)
+        if not skew:
+            full = _whole(spec, (3,), m.grid.dtype, seed=300 + i)
+            f = dl.Field(m.grid, dl.T_POINTS, levels=3)
+            f.set_data(full)
+            f.halo_exchange(HALO, transport="remote_dma")
+            got = f.get_data()
+            if rank == 0:
+                want = halo_mod.exchange(full.to(dev), _one_rank_spec(spec),
+                                         HALO)
+                exch_ok.append(bool(np.array_equal(got,
+                                                   want.cpu().numpy())))
+    name = "fskew" if skew else "falt"
+    for k, v in m.gather().items():
+        res[f"{name}_{k}"] = v
+    res[f"{name}_tag"] = np.asarray(_tag(px, py, K))
+    if not skew and rank == 0:
+        res["falt_exch_equal"] = np.asarray(
+            all(exch_ok) and len(exch_ok) == a.fused_sweeps)
+
+
+def leg_fused_alternate(res, a):
+    _alternation(res, a, skew=False)
+
+
+def leg_fused_skew(res, a):
+    _alternation(res, a, skew=True)
+
+
 LEGS = {"core": leg_core, "periodic": leg_periodic,
         "hill_rdma": leg_hill_rdma, "guards": leg_guards,
         "exchange": leg_exchange, "skew": leg_skew,
-        "flagship": leg_flagship, "fence": leg_fence}
+        "flagship": leg_flagship, "fence": leg_fence,
+        "flagship_fused": leg_flagship_fused,
+        "fused_alternate": leg_fused_alternate,
+        "fused_skew": leg_fused_skew}
 
 
 def main(argv=None) -> None:
@@ -352,6 +550,13 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=200)
+    ap.add_argument("--fused-layouts", default="2x1,2x2",
+                    help="tile layouts PXxPY of the fused legs")
+    ap.add_argument("--fused-k", default="4",
+                    help="K values of the fused legs, comma separated")
+    ap.add_argument("--fused-shape", default="1024x1024",
+                    help="GNXxGNY of the fused legs")
+    ap.add_argument("--fused-sweeps", type=int, default=10)
     a = ap.parse_args(argv)
     dl.initialise()
     if a.ndomains is None:

@@ -14,6 +14,13 @@ writing its edge strips straight into its neighbours' memory:
   (gathered through the process group), with :class:`FenceModel` for
   the counting semaphores.
 
+The flagship's fused transport across ranks
+(``csrc/nemolite2d_sweep_rdma.cu``, wrapped by
+:mod:`..ops.fused_step`) runs the same protocol on the state's three
+planes at the full halo depth, on collective id
+:data:`COLLECTIVE_ID_SWEEP` and a window of its own; its plain version is
+:func:`exchange` with that id on the stacked planes.
+
 The protocol (``halo_pallas.py:114-261``): a whole-block copy; the entry
 barrier on the kernel's collective id; then per phase (x, then y) the
 readiness fence, the edge strips written into the neighbours' landing
@@ -30,13 +37,16 @@ or two calls ahead is buffered.  Every wait on the card is bounded by a
 budget (:data:`BUDGET_S`); one that runs out makes the wrapper
 raise.
 
-**The windows.**  Each rank allocates, once per ``(spec, dtype, lead,
-device)``, one window with ``cudaMalloc`` (the slots, a status pair and
+**The windows.**  Each rank allocates, once per ``(collective id, spec,
+dtype, lead, device)``, one window with ``cudaMalloc`` (the slots, a status pair and
 four landing buffers sized for the halo width), exports it with
 ``cudaIpcGetMemHandle``, exchanges the handles with
 ``dist.all_gather_object`` and opens its neighbours' (:func:`window`).
 :func:`close_windows` closes them; :func:`..environment.finalise` calls
-it after a barrier, before the process group goes.  IPC needs the peers
+it after a barrier, before the process group goes.  The collective id
+in the key keeps a sweep's signals and a standalone exchange's apart:
+neither can consume the other's, whatever order they run in.  IPC needs
+the peers
 on one card or on cards with peer access; only one card was available to
 test it.
 """
@@ -209,14 +219,16 @@ def _rank_protocol(rank, out, spec, depth, fence, land, cid):
 
 
 def exchange_reference(blocks, spec: HaloSpec, depth: int,
-                       order=None) -> list:
+                       order=None,
+                       cid: int = COLLECTIVE_ID_EXCHANGE) -> list:
     """The exchange of :func:`exchange` for every rank at once: ``blocks``
     is the list of the ranks' one-tile blocks (``(..., local_ny,
     local_nx)``, rank order), and the result their exchanged copies.  The
     ranks' protocols run interleaved, one step each in turn (``order``, a
     list of ranks, sets the turn order and may repeat a rank to run it
-    ahead), over a fresh :class:`FenceModel`.  A protocol that can make
-    no progress raises."""
+    ahead), over a fresh :class:`FenceModel`, with the entry barrier on
+    collective id ``cid``.  A protocol that can make no progress
+    raises."""
     _check_depth(spec, depth)
     _check_one_tile(spec)
     if len(blocks) != spec.num_ranks:
@@ -224,8 +236,7 @@ def exchange_reference(blocks, spec: HaloSpec, depth: int,
                          f"{len(blocks)}")
     fence, land = FenceModel(), _Landing()
     outs = [b.clone() for b in blocks]
-    live = {r: _rank_protocol(r, outs[r], spec, depth, fence, land,
-                              COLLECTIVE_ID_EXCHANGE)
+    live = {r: _rank_protocol(r, outs[r], spec, depth, fence, land, cid)
             for r in range(spec.num_ranks)}
     order = list(range(spec.num_ranks)) if order is None else list(order)
     while live:
@@ -279,7 +290,7 @@ def _layout(spec: HaloSpec, elem: int, lead: tuple) -> tuple[int, ...]:
 
 class RdmaExchangeKernel:
     """ctypes wrapper of ``csrc/halo_exchange_rdma.cu`` and the keeper of
-    this process's windows.
+    this process's windows (the fused-transport sweep's too).
 
     ``launches`` counts the exchanges this wrapper has launched (the
     block copy and the protocol kernel, one per call; nothing else);
@@ -326,11 +337,13 @@ class RdmaExchangeKernel:
             raise RuntimeError(f"{what} failed: CUDA error {err}")
 
     def window(self, spec: HaloSpec, dtype, lead: tuple,
-               device: torch.device) -> Window:
-        """This rank's window for ``(spec, dtype, lead)`` on ``device``,
-        with its neighbours' opened; made on first use, which is
-        collective (every rank calls it, in the same order)."""
-        key = (spec, dtype, lead, device)
+               device: torch.device,
+               cid: int = COLLECTIVE_ID_EXCHANGE) -> Window:
+        """This rank's window for ``(spec, dtype, lead)`` on ``device``
+        and the kernel of collective id ``cid``, with its neighbours'
+        opened; made on first use, which is collective (every rank calls
+        it, in the same order)."""
+        key = (cid, spec, dtype, lead, device)
         if key in self._windows:
             return self._windows[key]
         self.build()
@@ -366,8 +379,38 @@ class RdmaExchangeKernel:
             self._check(self._lib.rdma_free(win.ptr), "freeing a window")
         self._windows.clear()
 
+    def protocol_args(self, win: Window, spec: HaloSpec, depth: int,
+                      nlead: int, cid: int):
+        """The protocol's geometry (``RdmaGeo`` of
+        ``csrc/rdma_protocol.cuh``) and the five window pointers (mine,
+        east, west, north, south) for this rank, as C arrays."""
+        nb = neighbours(spec, env.get_rank())
+        do_x, do_y = _phases(spec)
+        has = _has(spec, env.get_rank())
+        geo = (nlead, spec.local_ny, spec.local_nx, spec.halo, depth,
+               spec.tile_nx, spec.tile_ny, int(do_x), int(do_y),
+               *(int(b) for b in has), cid,
+               win.land_x, win.land_y, win.land_x_bytes, win.land_y_bytes)
+        wins = (ctypes.c_void_p * 5)(win.ptr, win.peers[nb.east],
+                                     win.peers[nb.west], win.peers[nb.north],
+                                     win.peers[nb.south])
+        return (ctypes.c_longlong * len(geo))(*geo), wins
+
+    def check_status(self, win: Window, stream: int, what: str) -> None:
+        """Wait for ``stream`` and raise if a wait of any launch so far on
+        ``win`` ran out of its budget; the window is then unusable."""
+        status = (ctypes.c_int * 2)()
+        self._check(self._lib.rdma_read_status(win.ptr, status, stream),
+                    f"reading the {what} status")
+        if status[0] != 0:
+            win.broken = (f"a wait on slot {status[1]} ran out of its "
+                          f"{BUDGET_S} s budget")
+            raise RuntimeError(f"{what} on rank {env.get_rank()}: "
+                               f"{win.broken} (a peer is dead or stalled)")
+
     def __call__(self, data: torch.Tensor, spec: HaloSpec,
-                 depth: int) -> torch.Tensor:
+                 depth: int, cid: int = COLLECTIVE_ID_EXCHANGE
+                 ) -> torch.Tensor:
         if data.device.type != "cuda":
             raise ValueError(f"the rdma exchange kernel needs a CUDA tensor, "
                              f"got {data.device}")
@@ -384,38 +427,20 @@ class RdmaExchangeKernel:
         _check_one_tile(spec)
         _check_rank_layout(spec)
         lead = tuple(data.shape[:-2])
-        win = self.window(spec, data.dtype, lead, data.device)
+        win = self.window(spec, data.dtype, lead, data.device, cid)
         if win.broken:
             raise RuntimeError(f"this exchange window is unusable: "
                                f"{win.broken}")
-        rank = env.get_rank()
-        nb = neighbours(spec, rank)
-        do_x, do_y = _phases(spec)
-        has = _has(spec, rank)
         nlead = data.numel() // (spec.local_ny * spec.local_nx)
-        geo = (nlead, spec.local_ny, spec.local_nx, spec.halo, depth,
-               spec.tile_nx, spec.tile_ny, int(do_x), int(do_y),
-               *(int(b) for b in has), COLLECTIVE_ID_EXCHANGE,
-               win.land_x, win.land_y, win.land_x_bytes, win.land_y_bytes)
-        wins = (ctypes.c_void_p * 5)(win.ptr, win.peers[nb.east],
-                                     win.peers[nb.west], win.peers[nb.north],
-                                     win.peers[nb.south])
-        geo_c = (ctypes.c_longlong * len(geo))(*geo)
+        geo, wins = self.protocol_args(win, spec, depth, nlead, cid)
         out = torch.empty_like(data)
         stream = torch.cuda.current_stream(data.device).cuda_stream
         self._check(self._lib.rdma_exchange_launch(
             _ELEM_BYTES[data.dtype], data.data_ptr(), out.data_ptr(),
-            wins, geo_c, len(geo), int(BUDGET_S * 1e9), stream),
+            wins, geo, len(geo), int(BUDGET_S * 1e9), stream),
             "the rdma exchange kernel launch")
         self.launches += 1
-        status = (ctypes.c_int * 2)()
-        self._check(self._lib.rdma_read_status(win.ptr, status, stream),
-                    "reading the exchange status")
-        if status[0] != 0:
-            win.broken = (f"a wait on slot {status[1]} ran out of its "
-                          f"{BUDGET_S} s budget")
-            raise RuntimeError(f"rdma exchange on rank {rank}: "
-                               f"{win.broken} (a peer is dead or stalled)")
+        self.check_status(win, stream, "rdma exchange")
         return out
 
 
@@ -429,16 +454,18 @@ def close_windows() -> None:
     halo_exchange_rdma.close_windows()
 
 
-def exchange(data: torch.Tensor, spec: HaloSpec,
-             depth: int = 1) -> torch.Tensor:
+def exchange(data: torch.Tensor, spec: HaloSpec, depth: int = 1, *,
+             cid: int = COLLECTIVE_ID_EXCHANGE) -> torch.Tensor:
     """Refresh the halo ring of this rank's one-tile block: the kernel on
     a CUDA tensor, its plain version (:func:`exchange_reference` over the
-    gathered blocks) on a CPU tensor.  Collective."""
+    gathered blocks) on a CPU tensor; the entry barrier on collective id
+    ``cid``.  Collective."""
     _check_depth(spec, depth)
     _check_one_tile(spec)
     _check_rank_layout(spec)
     if data.device.type == "cpu":
         blocks = [torch.empty_like(data) for _ in range(spec.num_ranks)]
         dist.all_gather(blocks, data.contiguous())
-        return exchange_reference(blocks, spec, depth)[env.get_rank()]
-    return halo_exchange_rdma(data, spec, depth)
+        return exchange_reference(blocks, spec, depth,
+                                  cid=cid)[env.get_rank()]
+    return halo_exchange_rdma(data, spec, depth, cid)

@@ -346,20 +346,50 @@ def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layers", [5, 8])
+def test_nlayer_kernel_many_layers_matches_plain(cuda_device, layers, dtype):
+    """More than four layers (the run-time layer variants, on the tile
+    the shared-memory budget gives: f32 32 cells, f64 16) at K=8, 1 and
+    4 tiles: bitwise with the plain path after 19 steps."""
+    for ndom in (1, 4):
+        ms = [nlm.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=layers,
+                        fused=f, steps_per_sweep=8, dtype=dtype,
+                        device=cuda_device) for f in (True, False)]
+        for m in ms:
+            m.set_initial(_nlayer_eta0(layers))
+        assert ms[0]._kernel_variant(8) == 4 + nlm.MANY_TILES.index(
+            nlm.kernel_tile(layers, dtype, 8))
+        before = nlm.nlayer_sweep.launches
+        ms[0].run(19)
+        torch.cuda.synchronize()
+        assert nlm.nlayer_sweep.launches - before == 19 // 8 + 19 % 8
+        ms[1].run(19)
+        got, want = ms[0].gather(), ms[1].gather()
+        for k in want:
+            assert np.all(np.isfinite(got[k])), k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.gpu
 def test_nlayer_outside_the_kernel_set_raises(cuda_device):
-    """Five layers, or K beyond 8, raise on the card: nothing runs the
-    plain version instead."""
-    with pytest.raises(ValueError, match="1..4 layers"):
-        nlm.build(GNX, GNY, layers=5, fused=True, device=cuda_device)
+    """Layers beyond the shared-memory budget or the kernel's 32, or K
+    beyond 8, raise on the card: nothing runs the plain version
+    instead."""
+    with pytest.raises(ValueError, match="shared memory budget"):
+        nlm.build(GNX, GNY, layers=17, fused=True, steps_per_sweep=8,
+                  dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 32 layers"):
+        nlm.build(GNX, GNY, layers=33, fused=True, device=cuda_device)
     with pytest.raises(ValueError, match="steps_per_sweep"):
         nlm.build(GNX, GNY, layers=3, fused=True, steps_per_sweep=9,
                   device=cuda_device)
     m = nlm.build(GNX, GNY, layers=2, fused=True, device=cuda_device)
     planes = m._to_planes((m.eta.data, m.u.data, m.v.data))
     before = nlm.nlayer_sweep.launches
-    with pytest.raises(ValueError, match="no variant 4"):
+    with pytest.raises(ValueError, match="no variant 7"):
         nlm.nlayer_sweep(planes + planes[:9], (), m._mask_codes,
-                         consts=m.kernel_constants(), K=1, variant=4)
+                         consts=m.kernel_constants(), K=1, variant=7)
     with pytest.raises(ValueError, match="sub-steps"):
         nlm.nlayer_sweep(planes, (), m._mask_codes,
                          consts=m.kernel_constants(), K=9, variant=1)

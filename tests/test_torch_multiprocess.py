@@ -1,7 +1,14 @@
 """The port across ranks on the CPU: gangs of the port's launcher over
 gloo against the JAX package's single-process run, the fence oracles on
 the fence's plain version, and the simulated remote-DMA protocol against
-the JAX exchange.
+the JAX exchange.  The 4-rank gang also runs the flagship with
+``transport="fused"`` (the exchange between ranks inside the sweep, its
+plain version here) on 4x1, 1x4 and 2x2 rank layouts: the 4x1 and 1x4
+runs against the JAX fused-transport kernel bitwise at float64 (driven
+in a child process, tests/jax_fused_reference.py, whose XLA emits no
+FMA, so that it rounds where the port does), the 2x2 run against the
+port's single-process 4-tile run on the ppermute transport, bitwise; and
+sweeps alternating with standalone exchanges, and a skewed rank.
 
 Gangs run ``python -m dl_esm_inf_tpu_torch.launch -n N -m
 dl_esm_inf_tpu_torch.parallel.mp_check`` (the port's counterpart of
@@ -10,8 +17,8 @@ each bounded by a timeout that stops it; every comparison is with this
 process's JAX run on the conftest's 8-device CPU mesh, as
 tests/test_multiprocess.py compares: the hill, round trip and periodic
 legs bitwise, the checksum exact, the flagship within 1e-12 / 1e-13.
-The kernels (``csrc/halo_exchange_rdma.cu``, ``csrc/fence_oracle.cu``)
-run on the card only (``chip_smoke.py``); here their plain versions do.
+The kernels (``csrc/halo_exchange_rdma.cu``, ``csrc/fence_oracle.cu``,
+``csrc/nemolite2d_sweep_rdma.cu``) run on the card only (``chip_smoke.py``); here their plain versions do.
 """
 import itertools
 import os
@@ -85,10 +92,43 @@ def np2(tmp_path_factory):
     return _gang(tmp_path_factory, 2, 8, "core,periodic,guards")
 
 
+#: the fused legs of the 4-rank gang: layouts, K values, extent, sweeps
+FUSED_LAYOUTS, FUSED_K, FUSED_SHAPE, FUSED_SWEEPS = ("4x1,1x4,2x2", "2,4",
+                                                     "48x64", 3)
+
+
 @pytest.fixture(scope="module")
 def np4(tmp_path_factory):
-    """4 ranks x 2 tiles: rank seams on both axes."""
-    return _gang(tmp_path_factory, 4, 8, "core,periodic")
+    """4 ranks x 2 tiles: rank seams on both axes; and the fused
+    transport's legs, one tile per rank."""
+    return _gang(tmp_path_factory, 4, 8,
+                 "core,periodic,flagship_fused,fused_alternate,fused_skew",
+                 "--fused-layouts", FUSED_LAYOUTS, "--fused-k", FUSED_K,
+                 "--fused-shape", FUSED_SHAPE, "--fused-sweeps",
+                 str(FUSED_SWEEPS))
+
+
+@pytest.fixture(scope="module")
+def jax_fused(tmp_path_factory):
+    """The JAX fused-transport kernel on the 4x1 and 1x4 layouts (one
+    child process per test run, as the gangs)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / "jax_fused_reference.npz"
+    with FileLock(str(out) + ".lock"):
+        if not out.exists():
+            env = _env()
+            env["JAX_PLATFORMS"] = "cpu"
+            env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                                "--xla_cpu_max_isa=SSE4_2")
+            res = subprocess.run(
+                [sys.executable, str(REPO / "tests" / "jax_fused_reference.py"),
+                 str(out), FUSED_SHAPE, str(FUSED_SWEEPS), "4x1,1x4",
+                 FUSED_K], env=env, capture_output=True, text=True,
+                timeout=300)
+            assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(out))
 
 
 @pytest.fixture(scope="module")
@@ -175,9 +215,75 @@ def test_gang_exchange_legs_bitwise(np6):
 
 def test_gang_guards_raise(np2):
     """Every path not ported across ranks raises NotImplementedError
-    naming ROADMAP.md with 2 ranks, instead of a per-rank answer."""
-    assert list(np2["guards_raised"]) == list(np2["guards_all"])
+    naming ROADMAP.md with 2 ranks, instead of a per-rank answer; the
+    flagship's fused transport (ported) runs with one tile per rank and
+    refuses several with a ValueError naming the rule."""
+    ported = {"fused_transport"}
+    assert list(np2["guards_raised"]) == sorted(
+        set(np2["guards_all"]) - ported)
+    assert list(np2["guards_ran"]) == sorted(ported)
     assert len(np2["guards_all"]) == 15
+    assert bool(np2["fused_multi_tile_refused"])
+
+
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("layout", ["4x1", "1x4"])
+def test_gang_fused_transport_matches_jax(np4, jax_fused, layout, K):
+    """transport="fused" across 4 ranks, one tile each (the protocol's
+    plain version between the ranks' blocks, collective id 2), equals the
+    JAX fused-transport kernel bitwise at float64 on internal points after
+    3 sweeps; the rdma sweep's wrapper is not reached on CPU ranks."""
+    tag = f"{layout}_k{K}"
+    for k in ("sshn", "un", "vn"):
+        got = np4[f"ff_{tag}_{k}"]
+        assert np.all(np.isfinite(got)), k
+        np.testing.assert_array_equal(got, jax_fused[f"{tag}_{k}"],
+                                      err_msg=k)
+    assert int(np4[f"ff_launches_{tag}"]) == 0
+
+
+def _one_process_fused_start(px, py, K, transport, variable_depth=False):
+    """The fused legs' model (parallel/mp_check.py) in this process."""
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu_torch.parallel import mp_check
+    return mp_check.fused_model(SimpleNamespace(
+        fused_shape=FUSED_SHAPE, device="cpu"), px, py, K, transport,
+        variable_depth)
+
+
+@pytest.mark.parametrize("K,depth", [(2, "flat"), (4, "flat"),
+                                     (4, "variable")])
+def test_gang_fused_transport_2x2_matches_one_process(np4, K, depth):
+    """transport="fused" on a 2x2 rank grid equals the port's
+    single-process run of the same 4 tiles on the ppermute transport,
+    bitwise, with flat depth and over a seeded depth plane (the JAX
+    kernel's interpret mode drives remote DMA on 1D meshes only)."""
+    variable = depth == "variable"
+    m = _one_process_fused_start(2, 2, K, "ppermute", variable)
+    m.run(FUSED_SWEEPS * K)
+    want = m.gather()
+    key = "ffht_{}" if variable else f"ff_2x2_k{K}_{{}}"
+    if variable:
+        assert str(np4["ffht_tag"]) == "2x2_k4"
+    for k in want:
+        np.testing.assert_array_equal(np4[key.format(k)], want[k],
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("leg", ["falt", "fskew"])
+def test_gang_fused_transport_alternating_and_skewed(np4, leg):
+    """Sweeps alternating with standalone remote_dma exchanges on the
+    same spec (their own collective id and window), and a rank 50 ms
+    late before a sweep: the fields equal the uninterrupted run bitwise,
+    and every alternating exchange equals the plain exchange."""
+    tag = str(np4[f"{leg}_tag"])
+    assert tag == "2x2_k4"
+    for k in ("sshn", "un", "vn"):
+        np.testing.assert_array_equal(np4[f"{leg}_{k}"],
+                                      np4[f"ff_{tag}_{k}"], err_msg=k)
+    if leg == "falt":
+        assert bool(np4["falt_exch_equal"])
 
 
 # --- the launcher ---------------------------------------------------------------

@@ -69,7 +69,7 @@ def _block(layers, ly, lx, seed):
     return state, code
 
 
-@pytest.mark.parametrize("layers", [1, 2, 4])
+@pytest.mark.parametrize("layers", [1, 2, 4, 5, 8])
 def test_step_math_and_layer_step_match_jax(layers):
     """The level-axis step (cumsums) and the per-layer step against the
     JAX model's, on one seeded block; the two port steps agree."""
@@ -267,6 +267,42 @@ def test_state_carried_from_jax():
         load_reference_state(mt, dict(state, eta=state["eta"][0]))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_tile_chooser(dtype):
+    """The N-layer kernel's tile per (L, dtype, K): 32 for the compiled
+    L <= 4 at every K; beyond, the largest of 32, 16, 8 whose window (3L
+    planes of (tile + 2K)^2 points and the code) fits 227 KiB less the
+    run-time variants' 2 KiB of static shared memory; a ValueError naming
+    the budget above what the 8-cell tile holds, and the parameter
+    block's 32 layers."""
+    item = 8 if dtype == torch.float64 else 4
+    assert tnl.window_bytes(9, dtype, 8, 16) == 9 * 3 * 32 * 32 * item + 1024
+    assert tnl.window_bytes(4, dtype, 8, 32) == 4 * 3 * 48 * 48 * item + 2304
+    for K in range(1, 9):
+        for L in range(1, 5):
+            assert tnl.kernel_tile(L, dtype, K) == 32
+            assert tnl.kernel_variant(L, dtype, K) == L - 1
+    # K=8 boundaries: f64 16-cell tiles to 9 layers, 8-cell to 16;
+    # f32 32-cell to 8, 16-cell to 18, 8-cell to the 32-layer cap
+    last = ({32: 4, 16: 9, 8: 16} if dtype == torch.float64
+            else {32: 8, 16: 18, 8: 32})
+    lo = 5
+    for tile, hi in last.items():
+        for L in range(lo, hi + 1):
+            assert tnl.kernel_tile(L, dtype, 8) == tile, L
+            assert tnl.kernel_variant(L, dtype, 8) == \
+                4 + tnl.MANY_TILES.index(tile)
+            assert tnl.window_bytes(L, dtype, 8, tile) <= 232448 - 2048
+        lo = max(lo, hi + 1)
+    if dtype == torch.float64:
+        assert tnl.window_bytes(17, dtype, 8, 8) > 232448 - 2048
+        with pytest.raises(ValueError, match=r"227 KiB.*at most 16 layers"):
+            tnl.kernel_tile(17, dtype, 8)
+        assert tnl.kernel_tile(17, dtype, 4) == 8
+    with pytest.raises(ValueError, match="at most 32 layers"):
+        tnl.kernel_tile(33, dtype, 1)
+
+
 def test_guards_and_no_fallback():
     """Outside the kernel's (L, K) set the wrapper raises; a tensor that
     is not on the CPU goes to the kernel or raises, and the plain version
@@ -285,7 +321,8 @@ def test_guards_and_no_fallback():
     with pytest.raises(ValueError, match="shape"):
         m.set_initial(np.zeros((3, 32, 32)))
     kern = tnl.nlayer_sweep
-    assert len(m.kernel_constants()) == 3 + 2 * tnl.KERNEL_MAX_LAYERS
+    assert len(m.kernel_constants()) == 4 + 2 * tnl.KERNEL_MAX_LAYERS
+    assert m.kernel_constants()[3] == 2.0          # the layer count
 
     def meta(n, dtype=torch.float64):
         return [torch.empty((8, 8), dtype=dtype, device="meta")
@@ -295,19 +332,29 @@ def test_guards_and_no_fallback():
     before = kern.launches
     with pytest.raises(ValueError, match="CUDA"):
         m._make_sweep(1)(meta(6), (code,))
-    # five layers: no variant of the kernel takes them
-    with pytest.raises(ValueError, match="no variant 4"):
-        kern(meta(15), (), code, variant=4, **call)
+    # the run-time layer variants take 5..32 layers, nothing beyond
+    with pytest.raises(ValueError, match="no variant 7"):
+        kern(meta(15), (), code, variant=7, **call)
+    with pytest.raises(ValueError, match=r"expected 15\.\.96 \(step 3\)"):
+        kern(meta(99), (), code, variant=4, **call)
+    with pytest.raises(ValueError, match=r"expected 15\.\.96"):
+        kern(meta(12), (), code, variant=6, **call)
     with pytest.raises(ValueError, match="expected 6 state"):
         kern(meta(9), (), code, variant=1, **call)
     with pytest.raises(ValueError, match="sub-steps"):
         kern(meta(6), (), code, variant=1, **dict(call, K=9))
     assert kern.launches == before
-    # a grid that is not on the CPU refuses five layers up front
-    m5 = tnl.build(16, 16, layers=5, **CPU)
-    m5.grid.device = torch.device("meta")
-    with pytest.raises(ValueError, match="1..4 layers"):
-        m5.enable_fast_path(1)
+    # a grid that is not on the CPU refuses up front the layers the
+    # kernel's shared memory or parameter block cannot hold
+    m17 = tnl.build(16, 16, layers=17, halo_width=8, **CPU)
+    m17.grid.device = torch.device("meta")
+    with pytest.raises(ValueError, match="shared memory budget"):
+        m17.enable_fast_path(8)
+    m17.enable_fast_path(4)                  # fits with K=4
+    m33 = tnl.build(16, 16, layers=33, **CPU)
+    m33.grid.device = torch.device("meta")
+    with pytest.raises(ValueError, match="at most 32 layers"):
+        m33.enable_fast_path(1)
     # on the CPU five layers run the plain version, as documented
     m5 = tnl.build(GNX, GNY, layers=5, fused=True, steps_per_sweep=2, **CPU)
     m5.set_initial(np.concatenate([init_eta(3), init_eta(2)]))
