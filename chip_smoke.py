@@ -66,20 +66,36 @@ Phases (each prints a line; any failure raises and exits non-zero):
    tile the shared-memory budget gives) against its plain version, with
    its time;
 10. the fused schedule sweep (a CUDA kernel generated from a kernel
-   schedule): the generated kernel against the plain fused tier at
-   float64 and float32 on the PSy-built flagship (256^2, repeats 1-3 at
-   halo 8, 1 and 4 tiles, 30 steps, through fused_program and fused),
-   on seeded generic schedules (shifts E/W/N/S/EE plus a scalar,
-   internal or all points, walled and periodic, 1-16 tiles), a
-   nine-mask schedule (two code planes), a schedule whose slot is
-   written under two masks, and a scratch chain at 3 repeats; the PSy
+   schedule, each point body hand-written or derived from the torch
+   body by ops/point_trace.py), the plain fused tier replaced by a
+   raising function on every kernel run: the generated kernel against
+   the plain fused tier at float64 and float32 on the PSy-built flagship
+   (256^2, repeats 1-3 at halo 8, 1 and 4 tiles, 30 steps, through
+   fused_program and fused), with its hand-written bodies and with all
+   13 derived (bitwise against the plain tier and against the
+   hand-written bodies), on seeded generic schedules (shifts E/W/N/S/EE
+   plus a scalar, internal or all points, walled and periodic, 1-16
+   tiles), a nine-mask schedule (two code planes), a schedule whose slot
+   is written under two masks, and a scratch chain at 3 repeats (each
+   hand-written and derived), and on levels=N schedules
+   (dl_esm_inf_tpu_torch/level_schedules.py: the nlayer-style chain
+   mom3, cont3, mom3, cont3, vsum and the broadcast pair
+   set_all_levels, relax; derived and with hand-written level bodies;
+   levels 3 and 8, 1 and 4 tiles;
+   bitwise but for the vertical sum, within TOL_LEVEL_SUM); the PSy
    model on the kernel against the production model at float64 (34x30,
-   4 tiles, 30 steps, 1e-10); and the main path NemoLite2DPsy(1024,
-   1024, halo_width=8) at float32, run(n, fused=True): launches = n,
-   finite, kernel vs plain, and us/step on the kernel path (repeats 1,
-   2, 3), the plain fused tier, the plain schedule, and the production
-   flagship kernel at K = 4 beside them, with the copy bandwidth of the
-   card measured in the same run;
+   4 tiles, 30 steps, 1e-10); the main path NemoLite2DPsy(1024,
+   1024, halo_width=8) at float32, run(n, fused=True), with hand-written
+   and with derived bodies: launches = n, finite, derived equal to
+   hand-written, kernel vs plain, and us/step on the kernel path
+   (repeats 1, 2, 3), the plain fused tier, the plain schedule, and the
+   production flagship kernel at K = 4 beside them, with the copy
+   bandwidth of the card measured in the same run; and the levels=N
+   main path: the nlayer-style chain at 1024^2, halo 4, through
+   fused_program(20) (levels 3 and 8 at float32 on 1 and 2x2 tiles,
+   levels 8 at float64 on 16-cell tiles): launches = 20, vs the plain
+   fused tier, one light sweep timed against its plain version and its
+   bound, us/step of both;
 11. the exchange kernel against the plain exchange, bitwise on every
    cell: 1, 2x1, 1x2, 2x2, 3x2 and 4x4 tiles, walled, x-, y- and doubly
    periodic, halo 1, 2 and 8 at every depth, float32, float64 and int32,
@@ -197,7 +213,9 @@ from dl_esm_inf_tpu_torch.models import twolayer as tl  # noqa: E402
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta  # noqa: E402
 from dl_esm_inf_tpu_torch.models.nemolite2d_psy import (  # noqa: E402
     NemoLite2DPsy)
+from dl_esm_inf_tpu_torch import level_schedules as sc  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import fused_step as fs  # noqa: E402
+from dl_esm_inf_tpu_torch.ops import point_trace as pt  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import solvers as so  # noqa: E402
 from dl_esm_inf_tpu_torch.ops import stencils as st  # noqa: E402
@@ -298,13 +316,17 @@ KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            fs.nemolite2d_sweep_rdma)
 
 
+#: nvcc processes at once in phase 2 (the twelve libraries start first)
+BUILD_WORKERS = 24
+
+
 def phase_build() -> None:
     """The twelve libraries and every generated schedule sweep phase 10
-    needs, built at once (one nvcc per source)."""
+    needs, built in parallel (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     tasks = [k.build for k in KERNELS] + _schedule_builds()
-    with ThreadPoolExecutor(len(tasks)) as pool:
+    with ThreadPoolExecutor(min(len(tasks), BUILD_WORKERS)) as pool:
         list(pool.map(lambda task: task(), tasks))
     wall = time.perf_counter() - t0
     built = list(cuda_build._loaded.values())
@@ -1146,8 +1168,19 @@ def _nlayer_many_main(N: int, K: int) -> list:
 #: fields' max |value|.  Both evaluate the same operations in the same
 #: order (bodies written op for op, --fmad=false): 0 expected.
 TOL_SCHED = {torch.float64: 1e-12, torch.float32: 1e-5}
+#: the generated sweep vs the plain fused tier on a field computed through
+#: a level sum (the nlayer-style chain's vsum), relative to its max
+#: |value|: the kernel adds the levels in order, PyTorch's CUDA reduction
+#: may group them.  Every other field of those cases must be bitwise.
+TOL_LEVEL_SUM = {torch.float64: 1e-14, torch.float32: 1e-6}
 PSY_N, PSY_STEPS = 256, 30
 PSY_MAIN_N = 100
+#: the nlayer-style chain (dl_esm_inf_tpu_torch/level_schedules.py):
+#: levels, grid edge, halo, steps of the parity cases; steps of the main
+#: path at 1024^2
+LEVELS = (3, 8)
+LEVEL_N, LEVEL_HALO, LEVEL_STEPS = 96, 4, 6
+LEVEL_MAIN_N = 20
 
 #: (stencil rows, torch shift, CUDA read) of the generic schedules
 _SHIFTS = {
@@ -1236,17 +1269,20 @@ def _ramp(n, seed):
     return np.random.default_rng(seed).standard_normal((n, n))
 
 
-def _generic_case(kind, dtype, plain, spec=None):
+def _generic_case(kind, dtype, plain, spec=None, derived=False):
     """(run, fields to compare, expected launches) of one generic
-    schedule on fresh fields; building it builds its kernels."""
+    schedule on fresh fields; building it builds its kernels.
+    ``derived``: every kernel without its CUDA body (derived on the
+    card from the torch body)."""
+    kern = pt.derived if derived else (lambda k: k)
     if kind == "fuzz":
         label, names, scal, spaces, wrap, n, ndom, halo = spec
         g = _sched_grid(n, ndom, halo, dtype, wrap)
         a = tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(n, n + ndom))
         b = tdl.Field(g, tdl.T_POINTS)
         calls, cur = [], a
-        for nm, sc, sp in zip(names, scal, spaces):
-            calls.append((_shift_kernel(nm, sp), b, cur, sc))
+        for nm, sv, sp in zip(names, scal, spaces):
+            calls.append((kern(_shift_kernel(nm, sp)), b, cur, sv))
             cur = b
         prog = km.Schedule(*calls).fused_program(1, plain=plain)
         return prog, (a, b), 1
@@ -1254,7 +1290,7 @@ def _generic_case(kind, dtype, plain, spec=None):
         g = _sched_grid(96, 4, 1, dtype)
         src = tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 9))
         outs = [tdl.Field(g, tdl.T_POINTS) for _ in range(9)]
-        sched = km.Schedule(*[(_scale_kernel(k + 1.0), o, src)
+        sched = km.Schedule(*[(kern(_scale_kernel(k + 1.0)), o, src)
                               for k, o in enumerate(outs)])
         if len(sched._fused_masks()) != 2:
             raise AssertionError("nine masks should pack into 2 planes")
@@ -1264,17 +1300,18 @@ def _generic_case(kind, dtype, plain, spec=None):
         g = _sched_grid(96, 4, 8, dtype)
         a, b, c = (tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 3)),
                    tdl.Field(g, tdl.T_POINTS), tdl.Field(g, tdl.T_POINTS))
-        east = _shift_kernel("E", km.GO_INTERNAL_PTS)
+        east = kern(_shift_kernel("E", km.GO_INTERNAL_PTS))
         sched = km.Schedule((east, b, a, 0.0), (east, c, b, 0.0),
-                            (_fill_all, b), (_incr, a))
+                            (kern(_fill_all), b), (kern(_incr), a))
         prog = sched.fused_program(3, plain=plain)
         return prog, (a, b, c), 3
     assert kind == "scratch_chain"
     g = _sched_grid(96, 4, 8, dtype)
     a, b = (tdl.Field(g, tdl.T_POINTS, init_global_data=_ramp(96, 5)),
             tdl.Field(g, tdl.T_POINTS))
-    sched = km.Schedule((_shift_kernel("E", km.GO_INTERNAL_PTS), b, a, 1.5),
-                        (_scale_kernel(0.5), a, b))
+    sched = km.Schedule(
+        (kern(_shift_kernel("E", km.GO_INTERNAL_PTS)), b, a, 1.5),
+        (kern(_scale_kernel(0.5)), a, b))
     prog3 = sched.fused_program(4, repeats=3, plain=plain)
     rows = [[[0.25 * i + j] for j in range(3)] for i in range(4)]
     return (lambda: prog3(scalars=rows)), (a, b), 4
@@ -1286,13 +1323,25 @@ def _generic_cases():
                ("scratch_chain", None)])
 
 
-def _psy_case(dtype, ndom, r, variant, plain, n=PSY_N, steps=PSY_STEPS):
+def _derive(m):
+    """Rebind a PSy model's schedule to clones of its 13 kernels without
+    their CUDA bodies: on the card every point body is derived."""
+    m._sched = km.Schedule(*[(pt.derived(k), *rest)
+                             for k, *rest in m._calls()])
+    return m
+
+
+def _psy_case(dtype, ndom, r, variant, plain, n=PSY_N, steps=PSY_STEPS,
+              derived=False):
     """(run, fields, expected launches) of the PSy flagship at halo 8:
     ``steps`` steps through fused_program (light variant) or through
-    repeated fused calls (full variant) at ``r`` repeats per sweep."""
+    repeated fused calls (full variant) at ``r`` repeats per sweep;
+    ``derived``: with every body derived."""
     m = NemoLite2DPsy(n, n, ndomains=ndom, halo_width=8, dtype=dtype,
                       device=DEV)
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    if derived:
+        _derive(m)
     rows = [[m._scalars_at(i * r + j) for j in range(r)]
             for i in range(steps // r)]
     if variant == "light":
@@ -1307,17 +1356,50 @@ def _psy_case(dtype, ndom, r, variant, plain, n=PSY_N, steps=PSY_STEPS):
     return run, (m.sshn_t, m.un, m.vn), steps // r
 
 
+_LEVEL_KINDS = {
+    # (calls, fields, mom3 / set+relax kernels): derived bodies, or the
+    # hand-written level bodies (the accessor e(k, dj, di), e[k] = ...)
+    "chain": (sc.ml_calls, sc.ml_fields, {}),
+    "chain hand-written": (sc.ml_calls, sc.ml_fields, {"mom": sc.mom3_hw}),
+    "broadcast": (sc.bc_calls, sc.bc_fields, {}),
+    "broadcast hand-written": (sc.bc_calls, sc.bc_fields,
+                               {"set_": sc.set_all_levels_hw,
+                                "rel": sc.relax_hw}),
+}
+
+
+def _level_case(kind, dtype, levels, plain, n=LEVEL_N, ndom=4,
+                steps=LEVEL_STEPS, halo=LEVEL_HALO):
+    """(run, fields, expected launches, index of the level-sum field or
+    None) of a levels=N schedule through fused_program(steps).  The
+    broadcast pair writes its one slot before reading it: nothing feeds
+    forward between steps, so the program launches the last step only."""
+    calls, fields, kw = _LEVEL_KINDS[kind]
+    g = _sched_grid(n, ndom, halo, dtype)
+    fs_ = fields(g, levels)
+    prog = km.Schedule(*calls(*fs_, **kw)).fused_program(steps, plain=plain)
+    chain = calls is sc.ml_calls
+    return prog, fs_, (steps if chain else 1), (4 if chain else None)
+
+
 def _schedule_builds():
     """One task per generated source phase 10 needs: each builds its
     case's kernel side, which generates and compiles the sources."""
     tasks = []
     for dtype in (torch.float64, torch.float32):
         for r in (1, 2, 3):
-            tasks.append(functools.partial(_psy_case, dtype, 1, r, "light",
-                                           False, n=64, steps=2 * r))
+            for derived in (False, True):
+                tasks.append(functools.partial(
+                    _psy_case, dtype, 1, r, "light", False, n=64,
+                    steps=2 * r, derived=derived))
         for kind, spec in _generic_cases():
-            tasks.append(functools.partial(_generic_case, kind, dtype, False,
-                                           spec))
+            for derived in (False, True):
+                tasks.append(functools.partial(
+                    _generic_case, kind, dtype, False, spec, derived))
+        for kind in _LEVEL_KINDS:
+            for levels in LEVELS:
+                tasks.append(functools.partial(
+                    _level_case, kind, dtype, levels, False, n=64, ndom=1))
     return tasks
 
 
@@ -1333,53 +1415,132 @@ def _inner_diff(fa, fb) -> tuple[float, float]:
     return worst_abs, worst_rel
 
 
-def _check_case(label, make, dtype):
-    run_k, fk, n_launch = make(False)
-    run_p, fp, _ = make(True)
+def _plain_tier_refused(fn):
+    """Run ``fn`` with the plain fused tier (the torch bodies through
+    stencil_sweep_reference) replaced by a function that raises."""
+    saved = km.stencil_sweep_reference
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain fused tier ran on the kernel path")
+    km.stencil_sweep_reference = refuse
+    try:
+        return fn()
+    finally:
+        km.stencil_sweep_reference = saved
+
+
+def _run_kernel(label, dtype, run, n_launch):
+    """``run`` with the plain tier refused; checks the launches."""
     before = ss.schedule_sweep.launches
-    run_k()
+    _plain_tier_refused(run)
     torch.cuda.synchronize()
     got = ss.schedule_sweep.launches - before
     if got != n_launch:
         raise AssertionError(f"schedule sweep {label} {dtype}: {got} "
                              f"launches, expected {n_launch}")
+
+
+def _check_case(label, make, dtype, exact=False, sum_field=None):
+    """Kernel vs plain fused tier of one case: within TOL_SCHED, or with
+    ``exact`` bitwise on internal points but for ``sum_field`` (within
+    TOL_LEVEL_SUM); returns (max abs diff, max abs diff of the sum
+    field)."""
+    run_k, fk, n_launch = make(False)[:3]
+    run_p, fp, _ = make(True)[:3]
+    _run_kernel(label, dtype, run_k, n_launch)
+    before = ss.schedule_sweep.launches
     run_p()
-    if ss.schedule_sweep.launches - before != n_launch:
+    if ss.schedule_sweep.launches != before:
         raise AssertionError(f"{label}: the plain route launched a kernel")
-    d_abs, d = _inner_diff(fk, fp)
     for f in fk:
         if not torch.isfinite(f.data).all():
             raise AssertionError(f"schedule sweep {label}: not finite")
-    if not d <= TOL_SCHED[dtype]:
+    rest = [i for i in range(len(fk)) if i != sum_field]
+    d_abs, d = _inner_diff([fk[i] for i in rest], [fp[i] for i in rest])
+    if not d <= (0.0 if exact else TOL_SCHED[dtype]):
         raise AssertionError(f"schedule sweep {label} {dtype}: kernel vs "
-                             f"plain {d:.3e} > {TOL_SCHED[dtype]}")
-    return d_abs
+                             f"plain {d:.3e} > "
+                             f"{0.0 if exact else TOL_SCHED[dtype]}")
+    s_abs = 0.0
+    if sum_field is not None:
+        s_abs, s_rel = _inner_diff([fk[sum_field]], [fp[sum_field]])
+        if not s_rel <= TOL_LEVEL_SUM[dtype]:
+            raise AssertionError(f"schedule sweep {label} {dtype}: level "
+                                 f"sum {s_rel:.3e} > {TOL_LEVEL_SUM[dtype]}")
+    return d_abs, s_abs
+
+
+def _check_derived_psy(label, dtype, ndom, r, variant):
+    """The PSy flagship with every body derived against the hand-written
+    bodies, both on the kernel: bitwise on internal points."""
+    out = []
+    for derived in (False, True):
+        run, f, n_launch = _psy_case(dtype, ndom, r, variant, False,
+                                     derived=derived)
+        _run_kernel(label, dtype, run, n_launch)
+        out.append(f)
+    d_abs = _inner_diff(*out)[0]
+    if d_abs != 0.0:
+        raise AssertionError(f"{label} {dtype}: derived vs hand-written "
+                             f"bodies {d_abs:.3e}, expected bitwise")
 
 
 def phase_schedule_parity() -> None:
     for dtype in (torch.float64, torch.float32):
-        worst, cases = 0.0, 0
+        worst, worst_d, cases = 0.0, 0.0, 0
         for r in (1, 2, 3):
             for ndom in (1, 4):
                 for variant in ("light", "full"):
+                    label = f"PSy r={r} ndomains={ndom} {variant}"
                     d = _check_case(
-                        f"PSy r={r} ndomains={ndom} {variant}",
-                        lambda p, r=r, ndom=ndom, v=variant:
-                        _psy_case(dtype, ndom, r, v, p), dtype)
-                    worst, cases = max(worst, d), cases + 1
+                        label, lambda p, r=r, ndom=ndom, v=variant:
+                        _psy_case(dtype, ndom, r, v, p), dtype)[0]
+                    dd = _check_case(
+                        label + " derived", lambda p, r=r, ndom=ndom,
+                        v=variant: _psy_case(dtype, ndom, r, v, p,
+                                             derived=True),
+                        dtype, exact=True)[0]
+                    _check_derived_psy(label, dtype, ndom, r, variant)
+                    worst, worst_d = max(worst, d), max(worst_d, dd)
+                    cases += 1
         print(f"schedule_sweep parity {dtype}: PSy flagship {PSY_N}^2, "
               f"{PSY_STEPS} steps, repeats 1-3 at halo 8, 1 and 4 tiles, "
               f"fused_program and fused: {cases} cases, max abs diff "
               f"{worst:.3e} on internal points (tol {TOL_SCHED[dtype]} x "
-              "max|field|)", flush=True)
+              f"max|field|); with all 13 bodies derived: vs plain "
+              f"{worst_d:.3e} (bitwise required), vs the hand-written "
+              f"bodies bitwise in all {cases}", flush=True)
+        for derived in (False, True):
+            report = []
+            for kind, spec in _generic_cases():
+                label = (spec[0] if spec else kind) + (
+                    " derived" if derived else "")
+                d = _check_case(label, lambda p, k=kind, s=spec:
+                                _generic_case(k, dtype, p, s, derived),
+                                dtype, exact=derived)[0]
+                report.append(f"{label}: {d:.1e}")
+            how = ", bodies derived" if derived else ""
+            print(f"schedule_sweep parity {dtype} (kernel vs plain, max "
+                  f"abs diff on internal points{how}): " + "; ".join(report),
+                  flush=True)
         report = []
-        for kind, spec in _generic_cases():
-            label = spec[0] if spec else kind
-            d = _check_case(label, lambda p, k=kind, s=spec:
-                            _generic_case(k, dtype, p, s), dtype)
-            report.append(f"{label}: {d:.1e}")
-        print(f"schedule_sweep parity {dtype} (kernel vs plain, max abs "
-              "diff on internal points): " + "; ".join(report), flush=True)
+        for kind in _LEVEL_KINDS:
+            for levels in LEVELS:
+                for ndom in (1, 4):
+                    label = f"{kind} levels={levels} ndomains={ndom}"
+                    sf = 4 if _LEVEL_KINDS[kind][0] is sc.ml_calls else None
+                    d, ds = _check_case(
+                        label, lambda p, k=kind, lv=levels, nd=ndom:
+                        _level_case(k, dtype, lv, p, ndom=nd), dtype,
+                        exact=True, sum_field=sf)
+                    report.append(f"{label}: {d:.1e}" + (
+                        f" (level sum {ds:.1e})" if sf is not None else ""))
+        print(f"schedule_sweep parity {dtype}, levels=N schedules "
+              f"({LEVEL_N}^2, halo {LEVEL_HALO}, {LEVEL_STEPS} steps through "
+              "fused_program; kernel vs plain, max abs diff on internal "
+              "points, bitwise required but for the level sum, tol "
+              f"{TOL_LEVEL_SUM[dtype]} x max|sum|): " + "; ".join(report),
+              flush=True)
 
 
 def phase_psy_vs_production() -> None:
@@ -1443,20 +1604,28 @@ def phase_psy_main() -> dict:
     m.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
     mp = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
     mp.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
-    m._sched.fused_program(n)                 # build before the count
-    torch.cuda.synchronize()
-    ss.schedule_sweep.launches = 0
-    m.run(n, fused=True)
-    torch.cuda.synchronize()
-    launches = ss.schedule_sweep.launches
-    if launches != n:
-        raise AssertionError(f"PSy main path launched the schedule sweep "
-                             f"{launches} times, expected {n}")
+    md = _derive(NemoLite2DPsy(N, N, halo_width=8, device=DEV))
+    md.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    launches = {}
+    for key, model in (("hand", m), ("derived", md)):
+        model._sched.fused_program(n)         # build before the count
+        torch.cuda.synchronize()
+        ss.schedule_sweep.launches = 0
+        _plain_tier_refused(lambda: model.run(n, fused=True))
+        torch.cuda.synchronize()
+        launches[key] = ss.schedule_sweep.launches
+        if launches[key] != n:
+            raise AssertionError(f"PSy main path ({key} bodies) launched "
+                                 f"the schedule sweep {launches[key]} "
+                                 f"times, expected {n}")
     fields = (m.sshn_t, m.un, m.vn)
     for f in fields:
         if (tuple(f.data.shape) != m.grid.array_shape
                 or not torch.isfinite(f.data).all()):
             raise AssertionError("PSy main path state is not finite")
+    if _inner_diff(fields, (md.sshn_t, md.un, md.vn))[0] != 0.0:
+        raise AssertionError("PSy main path: derived bodies != hand-written "
+                             "bodies")
     _psy_run(mp, n, plain=True)
     d_run = _inner_diff(fields, (mp.sshn_t, mp.un, mp.vn))[1]
     if not d_run <= TOL_F32:
@@ -1475,14 +1644,20 @@ def phase_psy_main() -> dict:
     extra = tuple(slot(i) for i in x_slots)
     rows = [tuple(float(v) for v in sched._user_scalar_vector(
         m._scalars_at(m._step)))]
+    dsweep = md._sched._fused_prog(n, 1)[3]["light"][0]
     ker = sweep(state, ros, extra, rows)
+    ker_d = dsweep(state, ros, extra, rows)
     ref = psweep(state, ros, extra, rows)
     inner = m.sshn_t.internal_mask.bool()
     max_abs = max(float((a - b).abs()[inner].max()) for a, b in zip(ker, ref))
+    max_abs_d = max(float((a - b).abs()[inner].max())
+                    for a, b in zip(ker_d, ref))
     scale = max(float(b.abs()[inner].max()) for b in ref)
-    if not max_abs <= TOL_F32 * scale:
-        raise AssertionError(f"PSy one sweep kernel vs plain: {max_abs:.3e}")
+    if not max(max_abs, max_abs_d) <= TOL_F32 * scale:
+        raise AssertionError(f"PSy one sweep kernel vs plain: {max_abs:.3e}"
+                             f" (derived {max_abs_d:.3e})")
     ms = _time_ms(lambda: sweep(state, ros, extra, rows), 200)
+    ms_d = _time_ms(lambda: dsweep(state, ros, extra, rows), 200)
     plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 20)
     ops = _count_ops(lambda: psweep(state, ros, extra, rows))
     code = torch.stack(sched._fused_masks())
@@ -1492,12 +1667,16 @@ def phase_psy_main() -> dict:
     def us(run, steps, reps):
         return 1e3 * _time_ms(lambda: run(steps), reps) / steps
     us_k = us(lambda k: m.run(k, fused=True), n, 5)
-    us_rep = {}
+    us_kd = us(lambda k: md.run(k, fused=True), n, 5)
+    us_rep, us_rep_d = {}, {}
     for r in (2, 3):
-        mr = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
-        mr.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
-        _psy_run(mr, n - n % r, r)
-        us_rep[r] = us(lambda k, mr=mr, r=r: _psy_run(mr, k, r), 60, 5)
+        for derived, out in ((False, us_rep), (True, us_rep_d)):
+            mr = NemoLite2DPsy(N, N, halo_width=8, device=DEV)
+            mr.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+            if derived:
+                _derive(mr)
+            _psy_run(mr, n - n % r, r)
+            out[r] = us(lambda k, mr=mr, r=r: _psy_run(mr, k, r), 60, 5)
     us_plain_fused = us(lambda k: _psy_run(mp, k, plain=True), 10, 3)
     us_sched = us(mp.run, 5, 3)
     prod = nl.build(N, N, fused=True, steps_per_sweep=4, device=DEV)
@@ -1505,8 +1684,16 @@ def phase_psy_main() -> dict:
     prod.run(400)
     us_prod = 1e3 * _time_ms(lambda: prod.run(400), 3) / 400
     print(f"PSy main f32 {N}^2 halo 8: run({n}, fused=True) launches="
-          f"{launches} (= n); finite; kernel vs plain after {n} steps rel "
-          f"{d_run:.3e}, one light sweep max abs {max_abs:.3e}", flush=True)
+          f"{launches['hand']} (hand-written bodies), {launches['derived']} "
+          f"(derived) (= n); finite; derived == hand-written bitwise; "
+          f"kernel vs plain after {n} steps rel {d_run:.3e}, one light "
+          f"sweep max abs {max_abs:.3e} (derived {max_abs_d:.3e})",
+          flush=True)
+    print(f"PSy timing f32 {N}^2, derived bodies: kernel path {us_kd:.2f} "
+          f"us/step (repeats 1), {us_rep_d[2]:.2f} (repeats 2), "
+          f"{us_rep_d[3]:.2f} (repeats 3); one light sweep {ms_d * 1e3:.2f} "
+          f"us; hand-written {us_k:.2f} / {us_rep[2]:.2f} / {us_rep[3]:.2f} "
+          f"us/step, {ms * 1e3:.2f} us", flush=True)
     print(f"PSy timing f32 {N}^2 (state: Gaussian bump after {n}+ steps): "
           f"kernel path {us_k:.2f} us/step (repeats 1), "
           f"{us_rep[2]:.2f} (repeats 2), {us_rep[3]:.2f} (repeats 3); plain "
@@ -1517,11 +1704,113 @@ def phase_psy_main() -> dict:
           f"{nbytes / state[0].numel():.1f} B/pt per sweep, bound "
           f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}; copy "
           f"{gbs:.0f} GB/s gives {nbytes / gbs / 1e3:.2f} us)", flush=True)
-    return {"name": "schedule_sweep", "route": "cuda",
-            "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
-            "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
-            "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, **bound}
+    entry = {"route": "cuda",
+             "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
+             "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
+             "plain_ms": plain_ms, **bound}
+    return [{"name": "schedule_sweep", "launches": launches["hand"],
+             "max_abs_err": max_abs, "ms": ms, **entry},
+            {"name": "schedule_sweep (PSy, derived bodies)",
+             "launches": launches["derived"], "max_abs_err": max_abs_d,
+             "ms": ms_d, **entry}]
+
+
+#: (levels, dtype, (ndomainx, ndomainy)) of the levels=N main paths
+LEVEL_MAIN = ((3, torch.float32, (1, 1)), (3, torch.float32, (2, 2)),
+              (8, torch.float32, (1, 1)), (8, torch.float32, (2, 2)),
+              (8, torch.float64, (1, 1)))
+
+
+def _level_main(levels, dtype, tiles):
+    """(schedule, fields) of the nlayer-style chain at 1024^2, halo
+    LEVEL_HALO, on ``tiles`` (ndomainx, ndomainy)."""
+    bc = tdl.BC_EXTERNAL
+    g = tdl.Grid(tdl.ARAKAWA_C, (bc, bc, tdl.BC_NONE), tdl.OFFSET_NE,
+                 dtype=dtype, device=DEV)
+    g.decompose(MAIN_SIZE, MAIN_SIZE, ndomainx=tiles[0], ndomainy=tiles[1],
+                halo_width=LEVEL_HALO)
+    tdl.grid_init(g, 1.0, 1.0)
+    f = sc.ml_fields(g, levels)
+    sched = km.Schedule(*sc.ml_calls(*f))
+    return sched, f
+
+
+def phase_levels_main() -> list:
+    """The levels=N path at full width: the nlayer-style chain (mom3,
+    cont3, mom3, cont3, vsum; every body derived) at 1024^2 on 1 and 2x2
+    tiles, LEVEL_MAIN_N steps through fused_program with the launch count
+    reset just before and the plain tier refused; against the plain fused
+    tier after the run; one light sweep timed beside its plain version
+    and its bound; us/step of the kernel path and the plain fused tier."""
+    entries, n = [], LEVEL_MAIN_N
+    for levels, dtype, tiles in LEVEL_MAIN:
+        label = (f"levels={levels} {str(dtype)[6:]} {tiles[0]}x{tiles[1]} "
+                 f"tiles")
+        sched, f = _level_main(levels, dtype, tiles)
+        prog = sched.fused_program(n)            # builds the kernels
+        psched, pf = _level_main(levels, dtype, tiles)
+        pprog = psched.fused_program(n, plain=True)
+        torch.cuda.synchronize()
+        ss.schedule_sweep.launches = 0
+        _plain_tier_refused(prog)
+        torch.cuda.synchronize()
+        launches = ss.schedule_sweep.launches
+        if launches != n:
+            raise AssertionError(f"{label}: {launches} launches, expected "
+                                 f"{n}")
+        for x in f:
+            if not torch.isfinite(x.data).all():
+                raise AssertionError(f"{label}: not finite")
+        pprog()
+        d_run = _inner_diff(f[:4], pf[:4])[0]
+        d_sum = _inner_diff(f[4:], pf[4:])[1]
+        if d_run != 0.0 or not d_sum <= TOL_LEVEL_SUM[dtype]:
+            raise AssertionError(f"{label}: kernel vs plain after {n} "
+                                 f"steps {d_run:.3e}, level sum {d_sum:.3e}")
+        sweep, st_slots, x_slots = sched._fused_prog(n, 1)[3]["light"]
+        psweep = sched._fused_prog(n, 1, True)[3]["light"][0]
+        ro_slots = sched._fused_prog(n, 1)[2]
+        slot = lambda i: sched._slots[i].data  # noqa: E731
+        planes = lambda idx: tuple(  # noqa: E731
+            p for i in idx for p in ((slot(i),) if slot(i).dim() == 2
+                                     else slot(i).unbind(0)))
+        state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
+        rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
+        ker = sweep(state, ros, extra, rows)
+        ref = psweep(state, ros, extra, rows)
+        inner = f[0].internal_mask.bool()
+        max_abs = max(float((a - b).abs()[inner].max())
+                      for a, b in zip(ker, ref))
+        if max_abs != 0.0:
+            raise AssertionError(f"{label}: one light sweep kernel vs plain "
+                                 f"{max_abs:.3e}")
+        ms = _time_ms(lambda: sweep(state, ros, extra, rows), 100)
+        plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 5)
+        ops = _count_ops(lambda: psweep(state, ros, extra, rows))
+        nbytes = _nbytes(*state, *ker, *ros, *extra,
+                         torch.stack(sched._fused_masks()))
+        bound = _bound(nbytes, ops, dtype)
+        us_k = 1e3 * _time_ms(prog, 5) / n
+        us_p = 1e3 * _time_ms(pprog, 2) / n
+        print(f"levels main {label} {MAIN_SIZE}^2 halo {LEVEL_HALO}: "
+              f"fused_program({n}) launches={launches} (= n), finite, plain "
+              f"tier refused; vs plain fused tier after {n} steps: bitwise "
+              f"(level sum rel {d_sum:.3e}, tol {TOL_LEVEL_SUM[dtype]}); "
+              f"{us_k:.2f} us/step vs plain fused {us_p:.2f}; one light "
+              f"sweep {ms * 1e3:.2f} us vs plain {plain_ms * 1e3:.2f} us, "
+              f"{len(state)} state + {len(ros) + len(extra)} read-only "
+              f"planes, {nbytes / state[0].numel():.1f} B/pt, bound "
+              f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})",
+              flush=True)
+        if tiles == (1, 1):
+            entries.append({
+                "name": f"schedule_sweep (levels={levels}, "
+                        f"{str(dtype)[6:]})", "route": "cuda",
+                "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
+                "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
+                "launches": launches, "max_abs_err": max_abs, "ms": ms,
+                "plain_ms": plain_ms, **bound})
+    return entries
 
 
 # --- the halo-exchange transports and variable bathymetry -----------------
@@ -2614,7 +2903,8 @@ def main() -> None:
     kernels.append(phase_nlayer_main())
     phase_schedule_parity()
     phase_psy_vs_production()
-    kernels.append(phase_psy_main())
+    kernels.extend(phase_psy_main())
+    kernels.extend(phase_levels_main())
     phase_exchange_parity()
     phase_ht_parity()
     phase_fused_transport()

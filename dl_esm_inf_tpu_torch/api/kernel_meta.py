@@ -16,8 +16,9 @@ the middle layer; here they are live:
   as ONE sweep per application after ONE exchange (``fused``,
   ``fused_program``).  On a CPU grid the sweep is its plain PyTorch
   version; on a CUDA grid it is a CUDA kernel generated from the
-  schedule out of each kernel's ``cuda=`` body
-  (:mod:`..ops.schedule_sweep`), the PSyclone way.
+  schedule (:mod:`..ops.schedule_sweep`), the PSyclone way, out of each
+  kernel's point body: its ``cuda=`` body, or the one derived from its
+  torch body (:mod:`..ops.point_trace`).
 
 Differences from the JAX package: every tile of a grid lies in one
 stacked tensor on one device, so a kernel body runs ONCE on the whole
@@ -41,8 +42,6 @@ from ..ops.stencil_sweep import RING, stencil_sweep_reference
 from ..ops.stencils import pack_mask_bits, unpack_mask_bits
 from ..parallel import environment as env
 from ..parallel.halo import _exchange_blocks, exchange, exchange_multi
-
-_ROADMAP = "ROADMAP.md queue B9"
 
 
 class Access(IntEnum):
@@ -212,11 +211,17 @@ def kernel(args, iterates_over=GO_INTERNAL_PTS, index_offset=3,
     reads as ``a(dj, di)`` (dj rows north, di columns east, within its
     declared stencil) and ``a()`` (the point itself); a scalar ``s`` is
     a ``const double``; a written argument ``w`` is assigned
-    (``w = value;``, of the field type ``T``).  Scalars are doubles so
-    that a body can fold them as the torch body does on the host, and
-    must be cast (``T(s)``) where the torch body meets a tensor.
-    Following the torch body operation for operation makes the kernel
-    equal its plain version bitwise on the card."""
+    (``w = value;``, of the field type ``T``).  A ``levels=N`` field
+    argument ``e`` reads level by level, ``e(k, dj, di)`` and ``e(k)``
+    (``e.levels`` is N); written, ``e[k] = value;`` sets level k and
+    ``e = value;`` every level.  Scalars are doubles so that a body can
+    fold them as the torch body does on the host, and must be cast
+    (``T(s)``) where the torch body meets a tensor.  Following the torch
+    body operation for operation makes the kernel equal its plain
+    version bitwise on the card.  Without ``cuda``, the fused tier
+    derives the point body from the torch body (:mod:`..ops.point_trace`,
+    which lists the operations it takes); a hand-written body wins where
+    given."""
     def deco(fn):
         fn._meta = KernelMeta(name=name or fn.__name__, args=tuple(args),
                               iterates_over=iterates_over,
@@ -694,7 +699,7 @@ class Schedule:
         its plain PyTorch version.
 
         Requirements (checked): no reduction arguments, one field dtype
-        (``levels=N`` fields fuse as N planes on the plain path only),
+        (``levels=N`` fields fuse as N planes),
         ``halo_width >=`` :meth:`fused_erosion` ``(repeats)`` (<= the
         8-cell window ring; :meth:`max_fused_repeats` picks the deepest
         legal blocking).  Semantics match calling the schedule
@@ -815,22 +820,8 @@ class Schedule:
                 f"fused schedule: {K} repeat(s) erode {depth_needed} "
                 f"cells > the {RING}-cell window ring")
         on_card = grid.device.type == "cuda" and not plain
-        if on_card:
-            for s in self._steps:
-                if s["meta"].cuda is None:
-                    raise NotImplementedError(
-                        f"kernel {s['meta'].name} has no CUDA body "
-                        "(@kernel(..., cuda=...)): the fused tier on a "
-                        "CUDA grid generates its sweep kernel from every "
-                        f"kernel's CUDA body ({_ROADMAP}); run the plain "
-                        "schedule")
-            multi = [f for f, ld in zip(self._slots, leads) if ld]
-            if multi:
-                raise NotImplementedError(
-                    f"fused schedule on a CUDA grid: {len(multi)} "
-                    "levels=N field(s); the generated sweep kernel takes "
-                    f"2D fields only ({_ROADMAP}: levels=N in the CUDA "
-                    "fused tier); run the plain schedule")
+        # per slot: 0 for a 2D field, else its level count
+        levels = [n if ld else 0 for n, ld in zip(nlev, leads)]
 
         # Slots a kernel writes are sweep STATE (stream in and out);
         # never-written slots (e.g. bathymetry) are time-invariant and
@@ -896,7 +887,8 @@ class Schedule:
                                   ro_slots=ro_slots, consts=consts,
                                   n_masks=n_masks, n_scalars=len(
                                       self._scalar_src),
-                                  K=K, ring=depth_needed, dtype=dtype)
+                                  K=K, ring=depth_needed, dtype=dtype,
+                                  levels=levels)
                 ss.schedule_sweep.build(gen)
                 code_stack = torch.stack(mask_codes).contiguous()
                 float_c = tuple(c for c in consts if c.dtype == dtype)

@@ -166,6 +166,34 @@ struct Put : At<V, WX> {
   }
 };
 
+// Reads of a levels=N argument, its N staged planes WC apart: a(k, dj, di)
+// is level k's value dj rows north and di columns east, a(k) level k's at
+// the point; a.levels is N.
+template <typename V, int WX, int WC, int N>
+struct Lev {
+  static constexpr int levels = N;
+  const V* p;
+  __device__ __forceinline__ V operator()(int k, int dj, int di) const {
+    return p[k * WC + dj * WX + di];
+  }
+  __device__ __forceinline__ V operator()(int k) const { return p[k * WC]; }
+};
+
+// A levels=N argument a call writes: reads as Lev does (the values before
+// the call); `w[k] = value` sets level k's new value and `w = value` every
+// level's (a 2D result broadcasts), held in v (the old values until
+// assigned).
+template <typename V, int WX, int WC, int N>
+struct LevPut : Lev<V, WX, WC, N> {
+  V v[N];
+  __device__ __forceinline__ V& operator[](int k) { return v[k]; }
+  __device__ __forceinline__ LevPut& operator=(V x) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = x;
+    return *this;
+  }
+};
+
 // f(i, wy, wx) for every window point of `b`, spread over the threads.
 template <class G, class F>
 __device__ __forceinline__ void for_box(const Box& b, F f) {

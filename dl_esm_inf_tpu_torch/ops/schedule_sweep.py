@@ -4,15 +4,21 @@ Replaces the TPU kernel ``dl_esm_inf_tpu/api/kernel_meta.py::
 Schedule._build_fused`` (its ``build_sweep`` and the generic sweep
 ``ops/sweep.py::make_stencil_sweep`` it instantiates): a whole sequence
 of metadata kernels, ``repeats`` times, in one pass over device memory.
-The TPU kernel traced the kernels' Python bodies; a Python body cannot
-be traced into CUDA, so on the card the sweep is generated as CUDA C++
-source from the schedule, the PSyclone way: :func:`generate` emits one
-``.cu`` per schedule STRUCTURE (the kernels' ``cuda=`` point bodies, the
-slot bindings, the mask indices, the plane counts, K, the ring and the
-dtype) on the shared skeleton ``csrc/stencil_sweep.cuh``.  Nothing in it
-depends on the number of steps or on scalar values: those ride each
-launch as per-repeat constants (doubles, as the bodies' torch twins see
+The TPU kernel traced the kernels' Python bodies with Pallas; here the
+sweep is generated as CUDA C++ source from the schedule, the PSyclone
+way: :func:`generate` emits one ``.cu`` per schedule STRUCTURE (the
+kernels' point bodies, the slot bindings, the mask indices, the plane
+counts, K, the ring, the tile edge and the dtype) on the shared skeleton
+``csrc/stencil_sweep.cuh``.  A kernel's point body is its hand-written
+``cuda=`` body where it has one, else the one :mod:`.point_trace`
+derives from its torch body by tracing it.  A ``levels=N`` field takes
+N consecutive planes among the state, scratch or read-only planes, and
+its body reads it level by level (``a(k, dj, di)``).  Nothing in the
+source depends on the number of steps or on scalar values: those ride
+each launch as per-repeat constants (doubles, as the torch bodies see
 Python floats), so new forcing or another ``run(n)`` reuses the library.
+The output tile edge is the largest of 32, 16 and 8 cells whose staged
+window fits the shared memory a CTA may use.
 
 Inside the kernel, per repeat and per call: the call's outputs are
 computed into registers over the window inset by the call's own stencil
@@ -47,10 +53,13 @@ from dataclasses import dataclass
 
 import torch
 
+from . import point_trace
 from .stencil_sweep import RING
 
-#: the skeleton's output tile (csrc/stencil_sweep.cuh: TX, TY)
-TILE = 32
+#: the output tile edges a sweep may take, largest first (the skeleton's
+#: Geom takes the edge; 32 is csrc/stencil_sweep.cuh's TX, TY): the
+#: largest whose window fits SMEM_LIMIT, as models/nlayer.py::kernel_tile
+EDGES = (32, 16, 8)
 #: shared memory a CTA may use on an H100 (sm_90)
 SMEM_LIMIT = 232448
 
@@ -72,6 +81,7 @@ class GeneratedSweep:
     n_codes: int          # int8 mask-code planes
     n_scalars: int        # scalars per repeat
     smem_bytes: int       # dynamic shared memory per CTA
+    edge: int             # output tile edge (cells)
 
     @property
     def n_consts(self) -> int:
@@ -96,75 +106,112 @@ def _check_name(kname: str, pname: str) -> None:
             f"{sorted(_RESERVED)} are the generator's)")
 
 
+def tile_edge(n_float: int, n_int: int, n_codes: int, ring: int,
+              dtype) -> tuple[int, int]:
+    """``(edge, bytes)``: the largest output tile edge of :data:`EDGES`
+    whose staged window (``n_float`` planes of ``dtype``, ``n_int``
+    int32 planes and ``n_codes`` int8 code planes, ``ring`` cells on
+    every side) fits :data:`SMEM_LIMIT`, and the window's bytes.  Raises
+    ``ValueError`` when even the smallest does not fit."""
+    per_cell = n_float * dtype.itemsize + 4 * n_int + n_codes
+    for edge in EDGES:
+        smem = per_cell * (edge + 2 * ring) ** 2
+        if smem <= SMEM_LIMIT:
+            return edge, smem
+    raise ValueError(
+        f"schedule sweep needs {smem} B of shared memory per CTA even on "
+        f"{EDGES[-1]}-cell tiles (ring {ring}, {n_float} float + {n_int} "
+        f"int32 planes, {dtype}) > {SMEM_LIMIT}; use fewer repeats or "
+        "fewer levels")
+
+
+def _specs(s, levels, consts, dtype):
+    """The point tracer's argument specs and stencils of one call."""
+    specs, stencils = [], []
+    for (kind, idx), a in zip(s["binding"], s["meta"].args):
+        if kind == "r":
+            continue
+        if kind == "s":
+            specs.append(point_trace.ArgSpec(True))
+            stencils.append(None)
+        else:
+            lev = levels[idx] if kind == "f" else 0
+            dt = dtype if kind == "f" else consts[idx].dtype
+            specs.append(point_trace.ArgSpec(False, dt, lev))
+            stencils.append(a.stencil)
+    return specs, stencils
+
+
 def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
              n_masks: int, n_scalars: int, K: int, ring: int,
-             dtype) -> GeneratedSweep:
+             dtype, levels=None) -> GeneratedSweep:
     """The CUDA source of one sweep variant of a schedule.
 
     ``steps`` is the schedule's call plan (``Schedule._steps``);
     ``state_slots`` stream in and out, ``extra_slots`` (scratch) come in
     as float aux planes that the kernel rewrites in shared memory,
     ``ro_slots`` come in read-only, then the float grid-property
-    ``consts`` (int32 ones as int planes).  The aux order is the one
-    ``Schedule._build_fused`` passes.  Raises ``NotImplementedError``
-    for a kernel without a CUDA body."""
+    ``consts`` (int32 ones as int planes).  ``levels[si]`` is slot si's
+    level count (0: a 2D field); a ``levels=N`` slot takes N consecutive
+    planes wherever it lies.  The aux order is the one
+    ``Schedule._build_fused`` passes.  A kernel without a hand-written
+    CUDA body gets the one :mod:`.point_trace` derives from its torch
+    body; what the tracer refuses raises here, before anything is
+    built or launched."""
     from ..api.kernel_meta import _is_written, _reads
     if dtype not in _CTYPES:
         raise TypeError(f"the schedule sweep takes float32/float64 "
                         f"fields, got {dtype}")
     if not 0 <= ring <= RING:
         raise ValueError(f"ring {ring} outside [0, {RING}]")
+    if levels is None:
+        levels = {si: 0 for si in (*state_slots, *extra_slots, *ro_slots)}
     T = _CTYPES[dtype]
-    plane = {}
-    for i, si in enumerate(state_slots):
-        plane[("f", si)] = ("T", f"sw_t.s[{i}]")
+    plane = {}       # (kind, index) -> (value type, [plane pointer per level])
+
+    def place(key, vt, arr, start, n):
+        plane[key] = (vt, [f"sw_t.{arr}[{start + k}]" for k in range(n)])
+        return start + n
+    n_state = 0
+    for si in state_slots:
+        n_state = place(("f", si), "T", "s", n_state, max(levels[si], 1))
     n_aux = 0
     for si in list(extra_slots) + list(ro_slots):
-        plane[("f", si)] = ("T", f"sw_t.a[{n_aux}]")
-        n_aux += 1
+        n_aux = place(("f", si), "T", "a", n_aux, max(levels[si], 1))
     n_int = 0
     for ci, c in enumerate(consts):
         if c.dtype == dtype:
-            plane[("c", ci)] = ("T", f"sw_t.a[{n_aux}]")
-            n_aux += 1
+            n_aux = place(("c", ci), "T", "a", n_aux, 1)
         elif c.dtype == torch.int32:
-            plane[("c", ci)] = ("int32_t", f"sw_t.ai[{n_int}]")
-            n_int += 1
+            n_int = place(("c", ci), "int32_t", "ai", n_int, 1)
         else:
             raise NotImplementedError(
                 f"grid-property plane of dtype {c.dtype} in a {dtype} "
                 "schedule sweep (it takes the fields' dtype and int32)")
     n_codes = -(-n_masks // 8)
-    wx = TILE + 2 * ring
+    edge, smem = tile_edge(n_state + n_aux, n_int, n_codes, ring, dtype)
+    wx = edge + 2 * ring
+    wc = wx * wx
     reach = max(-(-ring // K), 1)
-    smem = ((len(state_slots) + n_aux) * wx * wx * (dtype.itemsize)
-            + n_int * wx * wx * 4 + n_codes * wx * wx)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"schedule sweep needs {smem} B of shared memory per CTA "
-            f"(ring {ring}, {len(state_slots)} state + {n_aux} float + "
-            f"{n_int} int32 planes, {dtype}) > {SMEM_LIMIT}; use fewer "
-            "repeats")
 
     calls = []
     for ci, s in enumerate(steps):
         meta = s["meta"]
-        if meta.cuda is None:
-            raise NotImplementedError(
-                f"kernel {meta.name} has no CUDA body (@kernel(..., "
-                "cuda=...)): the schedule sweep is generated from every "
-                "kernel's CUDA body (ROADMAP.md queue B9)")
-        names = list(inspect.signature(s["fn"]).parameters)
         pairs = [(b, a) for b, a in zip(s["binding"], meta.args)
                  if b[0] != "r"]
-        if len(names) != len(pairs):
-            raise ValueError(
-                f"kernel {meta.name}: {len(names)} parameters for "
-                f"{len(pairs)} non-reduction arguments")
+        if meta.cuda is not None:
+            names = list(inspect.signature(s["fn"]).parameters)
+            if len(names) != len(pairs):
+                raise ValueError(
+                    f"kernel {meta.name}: {len(names)} parameters for "
+                    f"{len(pairs)} non-reduction arguments")
+            for pname in names:
+                _check_name(meta.name, pname)
+        else:
+            names = [f"sw_a{i}" for i in range(len(pairs))]
         written_names = {}
         lines = []
         for pname, ((kind, idx), a) in zip(names, pairs):
-            _check_name(meta.name, pname)
             if kind == "s":
                 lines.append(f"const double {pname} = sw_sc[{idx}];")
         d = _depth(s, _reads)
@@ -172,40 +219,62 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
         for si, _ in s["written"]:
             if si not in uniq:
                 uniq.append(si)
-        nw = len(uniq)
-        dst = ", ".join(plane[("f", si)][1] for si in uniq)
-        lines.append(f"{T}* const sw_dst[{nw}] = {{{dst}}};")
+        dst = [p for si in uniq for p in plane[("f", si)][1]]
+        nw = len(dst)
+        lines.append(f"{T}* const sw_dst[{nw}] = {{{', '.join(dst)}}};")
         lines.append(
             f"sweep::staged_update<G, {T}, {nw}>(sweep::inset<G>({d}, "
             f"{d}), sw_dst, [&](int sw_i, int, int, {T} (&sw_o)[{nw}]) {{")
         inner = []
         wit = iter(s["written"])
+        written_args = []
         for pname, ((kind, idx), a) in zip(names, pairs):
             if kind == "s":
                 continue
-            vt, ptr = plane[(kind, idx)]
+            vt, ptrs = plane[(kind, idx)]
+            nlev = levels[idx] if kind == "f" else 0
             if kind == "f" and _is_written(a):
                 si, mi = next(wit)
                 written_names.setdefault(si, []).append((pname, mi))
-                inner.append(f"sweep::Put<{vt}, {wx}> {pname}{{{{{ptr} + "
-                             f"sw_i}}, {ptr}[sw_i]}};")
+                written_args.append((pname, nlev, dtype))
+                if nlev:
+                    olds = ", ".join(f"{p}[sw_i]" for p in ptrs)
+                    inner.append(f"sweep::LevPut<{vt}, {wx}, {wc}, {nlev}> "
+                                 f"{pname}{{{{{ptrs[0]} + sw_i}}, "
+                                 f"{{{olds}}}}};")
+                else:
+                    inner.append(f"sweep::Put<{vt}, {wx}> {pname}{{{{"
+                                 f"{ptrs[0]} + sw_i}}, {ptrs[0]}[sw_i]}};")
+            elif nlev:
+                inner.append(f"const sweep::Lev<{vt}, {wx}, {wc}, {nlev}> "
+                             f"{pname}{{{ptrs[0]} + sw_i}};")
             else:
-                inner.append(f"const sweep::At<{vt}, {wx}> {pname}{{{ptr} "
-                             f"+ sw_i}};")
+                inner.append(f"const sweep::At<{vt}, {wx}> {pname}"
+                             f"{{{ptrs[0]} + sw_i}};")
+        if meta.cuda is not None:
+            text, how = meta.cuda.strip(), "hand-written"
+        else:
+            specs, stencils = _specs(s, levels, consts, dtype)
+            rec = point_trace.trace(s["fn"], meta.name, specs, stencils)
+            text, how = point_trace.cuda_body(rec, names, written_args), \
+                "derived"
         inner.append("{")
-        inner.extend("  " + ln for ln in meta.cuda.strip().splitlines())
+        inner.extend("  " + ln for ln in text.splitlines())
         inner.append("}")
-        for k, si in enumerate(uniq):
-            ptr = plane[("f", si)][1]
-            inner.append(f"{T} sw_v{k} = {ptr}[sw_i];")
-            for pname, mi in written_names[si]:
-                inner.append(f"sw_v{k} = sw_t.bit_set(sw_i, {mi // 8}, "
-                             f"{mi % 8}) ? {pname}.v : sw_v{k};")
-            inner.append(f"sw_o[{k}] = sw_v{k};")
+        k = 0
+        for si in uniq:
+            for lv, ptr in enumerate(plane[("f", si)][1]):
+                inner.append(f"{T} sw_v{k} = {ptr}[sw_i];")
+                for pname, mi in written_names[si]:
+                    val = f"{pname}.v[{lv}]" if levels[si] else f"{pname}.v"
+                    inner.append(f"sw_v{k} = sw_t.bit_set(sw_i, {mi // 8}, "
+                                 f"{mi % 8}) ? {val} : sw_v{k};")
+                inner.append(f"sw_o[{k}] = sw_v{k};")
+                k += 1
         lines.extend("  " + ln for ln in inner)
         lines.append("});")
         lines.append("__syncthreads();")
-        calls.append((ci, meta.name, d, lines))
+        calls.append((ci, f"{meta.name} ({how})", d, lines))
 
     body = []
     for ci, kname, d, lines in calls:
@@ -214,15 +283,15 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
         body.extend("      " + ln for ln in lines)
         body.append("    }")
     nsc = max(n_scalars, 1)
-    n_state = len(state_slots)
     summary = ", ".join(k for _, k, _, _ in calls)
     text = f"""\
 // Generated by dl_esm_inf_tpu_torch/ops/schedule_sweep.py from a kernel
 // schedule; do not edit.  The fused schedule sweep of:
 //   {summary}
-// {T}, K = {K} repeats, ring {ring}; {n_state} state planes, {n_aux} float
-// and {n_int} int32 aux planes, {n_codes} mask-code plane(s); {n_scalars}
-// scalars per repeat.
+// {T}, K = {K} repeats, ring {ring}, {edge}-cell tiles; {n_state} state
+// planes, {n_aux} float and {n_int} int32 aux planes, {n_codes} mask-code
+// plane(s); {n_scalars} scalars per repeat.
+#include "point_ops.cuh"
 #include "stencil_sweep.cuh"
 
 namespace {{
@@ -234,7 +303,7 @@ struct Consts {{
 struct Step {{
   using T = {T};
   static constexpr int K = {K};
-  using G = sweep::Geom<K, {reach}, {ring}>;
+  using G = sweep::Geom<K, {reach}, {ring}, {edge}>;
   static constexpr int N = {n_state}, M = {n_aux};
   static constexpr bool CODE = true;
   using Tile = sweep::Tile<T, N, M, CODE, G, {n_int}, {n_codes}>;
@@ -295,7 +364,7 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
     return GeneratedSweep(
         name=f"schedule_sweep_{digest}", text=text, dtype=dtype, K=K,
         ring=ring, n_state=n_state, n_aux=n_aux, n_int=n_int,
-        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem)
+        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, edge=edge)
 
 
 class ScheduleSweepKernel:

@@ -445,40 +445,102 @@ def test_psy_schedule_kernel_matches_production(cuda_device):
                                    err_msg=k)
 
 
+#: the generated sweep vs the plain fused tier where a level sum is the
+#: only difference (relative to max |field|): the kernel adds levels in
+#: order, PyTorch's CUDA reduction may group them
+TOL_LEVEL_SUM = {torch.float64: 1e-14, torch.float32: 1e-6}
+
+
+def _level_grid(device, dtype, ndom):
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
+                 device=device)
+    g.decompose(GNX, GNY, ndomains=ndom, halo_width=4)
+    tdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
 @pytest.mark.gpu
 def test_schedule_sweep_refuses_what_it_cannot_generate(cuda_device):
-    """On a CUDA grid: a kernel without a CUDA body and a levels=N field
-    raise NotImplementedError; nothing is launched, nothing runs the
-    plain version instead."""
+    """On a CUDA grid every schedule the JAX fused tier takes runs
+    through the generated kernel.  A kernel without a CUDA body gets one
+    derived from its torch body: the PSy flagship with all 13 bodies
+    derived equals the hand-written one and the plain fused tier
+    bitwise.  levels=N fields take level planes: the nlayer-style chain
+    at levels 3 and 8 (derived, and with hand-written level bodies)
+    equals the plain fused tier bitwise but for the level sum.  What the
+    tracer cannot derive raises with nothing launched."""
+    from dl_esm_inf_tpu_torch import level_schedules as sc
     from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import point_trace as pt
     from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    for dtype in (torch.float64, torch.float32):
+        got = {}
+        for kind in ("hand", "derived", "plain"):
+            m = _psy(cuda_device, 4, dtype)
+            if kind == "derived":
+                m._sched = km.Schedule(*[(pt.derived(k), *rest)
+                                         for k, *rest in m._calls()])
+            before = ss.schedule_sweep.launches
+            m._sched.fused_program(3, repeats=2, plain=kind == "plain")(
+                scalars=[[m._scalars_at(2 * i + j) for j in range(2)]
+                         for i in range(3)])
+            torch.cuda.synchronize()
+            assert ss.schedule_sweep.launches - before == (
+                0 if kind == "plain" else 3)
+            got[kind] = m.gather()
+        for k in got["plain"]:
+            assert np.all(np.isfinite(got["derived"][k]))
+            np.testing.assert_array_equal(got["derived"][k], got["hand"][k])
+            np.testing.assert_array_equal(got["derived"][k],
+                                          got["plain"][k])
+        for levels in (3, 8):
+            out = {}
+            for kind in ("derived", "hand", "plain"):
+                f = sc.ml_fields(_level_grid(cuda_device, dtype, 4), levels)
+                mom = sc.mom3_hw if kind == "hand" else sc.mom3
+                before = ss.schedule_sweep.launches
+                km.Schedule(*sc.ml_calls(*f, mom=mom)).fused_program(3, plain=(
+                    kind == "plain"))()
+                torch.cuda.synchronize()
+                assert ss.schedule_sweep.launches - before == (
+                    0 if kind == "plain" else 3)
+                out[kind] = [x.gather_inner_data() for x in f]
+            for i, (d, h, p) in enumerate(zip(*out.values())):
+                np.testing.assert_array_equal(d, h)
+                if i < 4:
+                    np.testing.assert_array_equal(d, p)
+                else:        # the vertical sum
+                    assert np.abs(d - p).max() <= TOL_LEVEL_SUM[dtype] * \
+                        np.abs(p).max()
+            bc = {}
+            for kind in ("derived", "hand", "plain"):
+                e, c = sc.bc_fields(_level_grid(cuda_device, dtype, 4),
+                                    levels)
+                ks = ((sc.set_all_levels_hw, sc.relax_hw) if kind == "hand"
+                      else (sc.set_all_levels, sc.relax))
+                km.Schedule(*sc.bc_calls(e, c, *ks)).fused_program(
+                    2, plain=kind == "plain")()
+                bc[kind] = e.gather_inner_data()
+            np.testing.assert_array_equal(bc["derived"], bc["plain"])
+            np.testing.assert_array_equal(bc["hand"], bc["plain"])
 
     @km.kernel(args=[km.Arg(km.GO_WRITE, km.GO_CT),
-                     km.Arg(km.GO_READ, km.GO_CT)], name="torch_only")
-    def torch_only(out, x):
-        return 2.0 * x
-
-    @km.kernel(args=[km.Arg(km.GO_WRITE, km.GO_CT),
-                     km.Arg(km.GO_READ, km.GO_CT)], name="doubled",
-               cuda="out = T(2.0) * x();")
-    def doubled(out, x):
-        return 2.0 * x
-    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
-                                 tdl.BC_NONE), tdl.OFFSET_NE,
-                 device=cuda_device)
-    g.decompose(GNX, GNY, ndomains=4, halo_width=2)
-    tdl.grid_init(g, 1.0, 1.0)
+                     km.Arg(km.GO_READ, km.GO_CT)], name="sine")
+    def sine(out, x):
+        return torch.sin(x)
+    g = _level_grid(cuda_device, torch.float32, 4)
     a, b = tdl.Field(g, tdl.T_POINTS), tdl.Field(g, tdl.T_POINTS)
     w3 = tdl.Field(g, tdl.T_POINTS, levels=3)
     before = ss.schedule_sweep.launches
-    with pytest.raises(NotImplementedError, match="torch_only"):
-        km.Schedule((torch_only, b, a)).fused()
-    with pytest.raises(NotImplementedError, match="levels=N"):
-        km.Schedule((doubled, w3, a)).fused()
+    with pytest.raises(NotImplementedError, match="sine: torch.sin"):
+        km.Schedule((sine, b, a)).fused()
+    with pytest.raises(ValueError, match="level planes"):
+        km.Schedule((sc.wrong_levels, w3, a)).fused()
     assert ss.schedule_sweep.launches == before
     # the plain tiers run on the card as torch operations
-    km.Schedule((torch_only, b, a))()
-    km.invoke(torch_only, b, a)
+    km.Schedule((sine, b, a))()
+    km.invoke(sine, b, a)
 
 
 # --- the halo-exchange transports and variable bathymetry ---------------

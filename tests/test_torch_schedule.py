@@ -11,11 +11,17 @@ seeded fields, at float64:
   the sweep's plain PyTorch version, equals the JAX jnp tier and the
   JAX fused tier in interpret mode, on internal points (rtol/atol
   1e-12; halo cells hold values of no meaning in both);
-* the CUDA generator emits a source for these schedules and refuses a
-  kernel without a CUDA body; on a CUDA grid the fused tier raises
-  ``NotImplementedError`` for such a kernel or a ``levels=N`` field.
-  The generated kernels themselves run in tests/test_torch_gpu.py and
-  ``chip_smoke.py``.
+* a kernel without a hand-written CUDA body gets one derived from its
+  torch body (``ops/point_trace.py``): each record's replay equals its
+  body bitwise (the fuzz, twin and multi-level kernels at levels 3 and
+  8, float64 and float32), and the multi-level schedules run through
+  the replayed records equal the JAX fused tier (interpret) at 1e-12
+  and the port's plain fused tier bitwise;
+* the CUDA generator emits a source for these schedules, hand-written,
+  derived and levels=N alike (plane counts, shared memory, the tile
+  edge it picks), and refuses, before anything is built or launched,
+  what the tracer cannot derive.  The generated kernels themselves run
+  in tests/test_torch_gpu.py and ``chip_smoke.py``.
 """
 import functools
 import types
@@ -32,8 +38,11 @@ from dl_esm_inf_tpu.ops import stencils as jst
 
 import dl_esm_inf_tpu_torch as tdl
 from dl_esm_inf_tpu_torch.api import kernel_meta as tkm
+from dl_esm_inf_tpu_torch.ops import point_trace as tpt
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as tss
 from dl_esm_inf_tpu_torch.ops import stencils as tst
+
+from dl_esm_inf_tpu_torch import level_schedules as sc
 
 torch.set_num_threads(2)
 
@@ -518,94 +527,160 @@ def test_fused_program_multilevel_scratch():
     same(wj, wt)
 
 
+def _jmom(u, v, eta, dt):
+    p = jnp.cumsum(0.6 * eta, axis=0)
+    return u - dt * (jst.xp(p) - p), v - dt * (jst.yp(p) - p)
+
+
+def _jcont(eta, u, v, frc, dt):
+    div = (u - jst.xm(u)) + (v - jst.ym(v))
+    flux = jnp.flip(jnp.cumsum(jnp.flip(0.8 * div, 0), axis=0), 0)
+    return eta - dt * flux + dt * frc
+
+
+def _jtwin(spec, jfn, tkern):
+    """The JAX twin of one of the port's level_schedules kernels."""
+    jw = functools.wraps(jfn)(lambda *a: jfn(*a))
+    return jkm.kernel(args=sc.args(jkm, spec), name=tkern._meta.name)(jw), \
+        tkern
+
+
+#: the JAX package's nlayer-style kernels (tests/test_schedule.py:609-709)
+#: beside the port's (dl_esm_inf_tpu_torch/level_schedules.py), at any
+#: level count
+KMOM = _jtwin(sc.MOM_SPEC, _jmom, sc.mom3)
+KCONT = _jtwin(sc.CONT_SPEC, _jcont, sc.cont3)
+KSUM = _jtwin(sc.PAIR_SPEC, lambda out, x: x.sum(axis=0), sc.vsum)
+KSET = _jtwin(sc.PAIR_SPEC, lambda out3, c2: 2.0 * c2, sc.set_all_levels)
+KREL = _jtwin(sc.RELAX_SPEC, lambda e: 0.5 * (e + jnp.stack(
+    [jst.xp(e[k]) for k in range(e.shape[0])])), sc.relax)
+KWRONG = (None, sc.wrong_levels)
+
+
+def _ml_fields(g, levels=3):
+    """eta, u, v (levels), a read-only levels forcing, a 2D sum."""
+    if isinstance(g, tdl.Grid):
+        return sc.ml_fields(g, levels)
+    g3 = 0.1 * np.random.default_rng(7).standard_normal(
+        (levels, g.global_ny, g.global_nx))
+    return (jdl.Field(g, jdl.T_POINTS, init_global_data=g3, levels=levels),
+            jdl.Field(g, jdl.U_POINTS, levels=levels),
+            jdl.Field(g, jdl.V_POINTS, levels=levels),
+            jdl.Field(g, jdl.T_POINTS, init_global_data=0.01 * g3,
+                      levels=levels),
+            jdl.Field(g, jdl.T_POINTS))
+
+
+def _ml_calls(i, e, u, v, f, c, wrap=lambda k: k):
+    mom, cont, sum_ = (wrap(k[i]) for k in (KMOM, KCONT, KSUM))
+    return sc.ml_calls(e, u, v, f, c, mom, cont, sum_)
+
+
+def _bc_fields(g, levels=3):
+    if isinstance(g, tdl.Grid):
+        return sc.bc_fields(g, levels)
+    c = jdl.Field(g, jdl.T_POINTS, init_global_data=np.random.default_rng(
+        3).standard_normal((g.global_ny, g.global_nx)))
+    return jdl.Field(g, jdl.T_POINTS, levels=levels), c
+
+
+def _bc_calls(i, e, c, wrap=lambda k: k):
+    return sc.bc_calls(e, c, wrap(KSET[i]), wrap(KREL[i]))
+
+
 def test_fused_schedule_multilevel_matches_jax():
-    """levels=3 fields fuse as 3 planes each on the plain path: an
-    nlayer-style sequence (cumsum pressure, reverse-cumsum flux, a
-    read-only 3-level forcing, a 2D vertical sum), twice per schedule."""
-    mspec = [("GO_READWRITE", "GO_CU"), ("GO_READWRITE", "GO_CV"),
-             ("GO_READ", "GO_CT", (10, 11, 0)), ("GO_READ", "GO_R_SCALAR")]
-
-    def jmom(u, v, eta, dt):
-        p = jnp.cumsum(0.6 * eta, axis=0)
-        return u - dt * (jst.xp(p) - p), v - dt * (jst.yp(p) - p)
-
-    def tmom(u, v, eta, dt):
-        p = torch.cumsum(0.6 * eta, dim=0)
-        return u - dt * (tst.xp(p) - p), v - dt * (tst.yp(p) - p)
-    cspec = [("GO_READWRITE", "GO_CT"), ("GO_READ", "GO_CU", (0, 110, 0)),
-             ("GO_READ", "GO_CV", (0, 10, 10)), ("GO_READ", "GO_CT"),
-             ("GO_READ", "GO_R_SCALAR")]
-
-    def jcont(eta, u, v, frc, dt):
-        div = (u - jst.xm(u)) + (v - jst.ym(v))
-        flux = jnp.flip(jnp.cumsum(jnp.flip(0.8 * div, 0), axis=0), 0)
-        return eta - dt * flux + dt * frc
-
-    def tcont(eta, u, v, frc, dt):
-        div = (u - tst.xm(u)) + (v - tst.ym(v))
-        flux = torch.flip(torch.cumsum(torch.flip(0.8 * div, (0,)), dim=0),
-                          (0,))
-        return eta - dt * flux + dt * frc
-    kmom = twin(mspec, jmom, tmom, name="mom3")
-    kcont = twin(cspec, jcont, tcont, name="cont3")
-    ksum = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
-                lambda out, x: x.sum(axis=0), lambda out, x: x.sum(dim=0),
-                name="vsum")
-
-    def fields(g):
-        dl = jdl if isinstance(g, jdl.Grid) else tdl
-        g3 = 0.1 * np.random.default_rng(7).standard_normal(
-            (3, g.global_ny, g.global_nx))
-        return (dl.Field(g, dl.T_POINTS, init_global_data=g3, levels=3),
-                dl.Field(g, dl.U_POINTS, levels=3),
-                dl.Field(g, dl.V_POINTS, levels=3),
-                dl.Field(g, dl.T_POINTS, init_global_data=0.01 * g3,
-                         levels=3),
-                dl.Field(g, dl.T_POINTS))
-    dt = 0.05
-
-    def calls(i, e, u, v, f, c):
-        return ((kmom[i], u, v, e, dt), (kcont[i], e, u, v, f, dt),
-                (kmom[i], u, v, e, dt), (kcont[i], e, u, v, f, dt),
-                (ksum[i], c, e))
+    """levels=3 fields fuse as 3 planes each: an nlayer-style sequence
+    (cumsum pressure, reverse-cumsum flux, a read-only 3-level forcing,
+    a 2D vertical sum), twice per schedule."""
     gj, gt = grids(32, 32, 4, halo=4)
     gjj = grids(32, 32, 4, halo=4)[0]
-    fj, ft, fjj = fields(gj), fields(gt), fields(gjj)
-    jkm.Schedule(*calls(0, *fj)).fused(interpret=True)
-    jkm.Schedule(*calls(0, *fjj))()
-    tkm.Schedule(*calls(1, *ft)).fused()
+    fj, ft, fjj = _ml_fields(gj), _ml_fields(gt), _ml_fields(gjj)
+    jkm.Schedule(*_ml_calls(0, *fj)).fused(interpret=True)
+    jkm.Schedule(*_ml_calls(0, *fjj))()
+    tkm.Schedule(*_ml_calls(1, *ft)).fused()
     for x_j, x_t, x_jj in zip(fj, ft, fjj):
         same(x_j, x_t)
         same(x_jj, x_t)
 
 
 def test_fused_schedule_multilevel_2d_result_broadcasts():
-    jset, tset = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
-                      lambda out3, c2: 2.0 * c2, lambda out3, c2: 2.0 * c2,
-                      name="set_all_levels")
-    jrel, trel = twin(
-        [("GO_READWRITE", "GO_CT", (0, 11, 0))],
-        lambda e: 0.5 * (e + jnp.stack([jst.xp(e[k]) for k in range(3)])),
-        lambda e: 0.5 * (e + torch.stack([tst.xp(e[k]) for k in range(3)])),
-        name="relax")
-
-    def fields(g):
-        dl = jdl if isinstance(g, jdl.Grid) else tdl
-        c = dl.Field(g, dl.T_POINTS, init_global_data=np.random.default_rng(
-            3).standard_normal((g.global_ny, g.global_nx)))
-        return dl.Field(g, dl.T_POINTS, levels=3), c
     gj, gt = grids(32, 32, 4, halo=4)
-    (ej, cj), (et, ct) = fields(gj), fields(gt)
-    jkm.Schedule((jset, ej, cj), (jrel, ej)).fused(interpret=True)
-    tkm.Schedule((tset, et, ct), (trel, et)).fused()
+    (ej, cj), (et, ct) = _bc_fields(gj), _bc_fields(gt)
+    jkm.Schedule(*_bc_calls(0, ej, cj)).fused(interpret=True)
+    tkm.Schedule(*_bc_calls(1, et, ct)).fused()
     same(ej, et)
-    _, twrong = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
-                     lambda out3, c2: c2,
-                     lambda out3, c2: torch.stack([c2, c2]),
-                     name="wrong_levels")
-    e3, c3 = fields(grids(32, 32, 4, halo=4)[1])
+    e3, c3 = _bc_fields(grids(32, 32, 4, halo=4)[1])
     with pytest.raises(ValueError, match="level planes"):
-        tkm.Schedule((twrong, e3, c3)).fused()
+        tkm.Schedule((KWRONG[1], e3, c3)).fused()
+
+
+# --- the derived point bodies, held through their replay ---------------------
+
+def _replay_cases():
+    """(label, kernel, levels per parameter: an int for a plane (0: 2D),
+    "s" for a scalar) of every torch body a test schedule here uses."""
+    out = []
+    for nm in SHIFTS:
+        for sp in (tkm.GO_INTERNAL_PTS, tkm.GO_ALL_PTS):
+            out.append((f"fuzz {nm}", fuzz_kernel(nm, sp, "r")[1],
+                        (0, 0, "s")))
+    out += [("east_plus", T_EAST_PLUS, (0, 0, "s")),
+            ("double", T_DOUBLE, (0, 0)), ("incr", T_INCR, (0,)),
+            ("bc_fill_all", _multi_mask(tkm, T, None, None, None)[2][0],
+             (0,))]
+    for L in (3, 8):
+        out += [(f"mom3 L={L}", KMOM[1], (L, L, L, "s")),
+                (f"cont3 L={L}", KCONT[1], (L, L, L, L, "s")),
+                (f"vsum L={L}", KSUM[1], (0, L)),
+                (f"set_all_levels L={L}", KSET[1], (L, 0)),
+                (f"relax L={L}", KREL[1], (L,))]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_replay_equals_body_schedule_kernels(dtype):
+    """Every kernel above: the replay of its record (shifts pushed down
+    to the reads) equals its torch body bitwise on seeded planes."""
+    rng = np.random.default_rng(23)
+    for label, kern, levels in _replay_cases():
+        blocks = [0.37 if lv == "s" else torch.tensor(
+            rng.standard_normal(((lv,) if lv else ()) + (18, 22)),
+            dtype=dtype) for lv in levels]
+        got = tpt.replaying(kern)(*blocks)
+        want = kern(*blocks)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+
+
+@pytest.mark.parametrize("levels", [3, 8])
+def test_fused_multilevel_replayed_matches_jax(levels):
+    """The nlayer-style chain and the 2D-broadcast chain at ``levels``
+    levels, their bodies run as the replay of their records inside the
+    plain fused tier: equal to the JAX fused tier (interpret) at 1e-12
+    and to the port's plain fused tier bitwise."""
+    gj, gt = grids(32, 32, 4, halo=4)
+    gp = grids(32, 32, 4, halo=4)[1]
+    fj, ft, fp = (_ml_fields(g, levels) for g in (gj, gt, gp))
+    jkm.Schedule(*_ml_calls(0, *fj)).fused(interpret=True)
+    tkm.Schedule(*_ml_calls(1, *ft, wrap=tpt.replaying)).fused()
+    tkm.Schedule(*_ml_calls(1, *fp)).fused()
+    for x_j, x_t, x_p in zip(fj, ft, fp):
+        same(x_j, x_t)
+        np.testing.assert_array_equal(x_t.gather_inner_data(),
+                                      x_p.gather_inner_data())
+    gj, gt = grids(32, 32, 4, halo=4)
+    gp = grids(32, 32, 4, halo=4)[1]
+    (ej, cj), (et, ct), (ep, cp) = (_bc_fields(g, levels)
+                                    for g in (gj, gt, gp))
+    jkm.Schedule(*_bc_calls(0, ej, cj)).fused_program(
+        2, interpret=True)()
+    tkm.Schedule(*_bc_calls(1, et, ct, tpt.replaying)).fused_program(2)()
+    tkm.Schedule(*_bc_calls(1, ep, cp)).fused_program(2)()
+    same(ej, et)
+    np.testing.assert_array_equal(et.gather_inner_data(),
+                                  ep.gather_inner_data())
 
 
 # --- the CUDA generator and the CUDA-grid guards -----------------------------
@@ -672,24 +747,99 @@ def test_generator_emits_the_psy_and_fuzz_schedules():
 
 
 def test_fused_tier_on_a_cuda_grid_refuses_what_it_cannot_generate():
-    """On a CUDA grid a kernel without a CUDA body, or a levels=N field,
-    raises NotImplementedError naming the kernel / ROADMAP item; nothing
-    runs the plain version instead and nothing is launched."""
+    """On a CUDA grid a kernel without a CUDA body and a levels=N field
+    are generated (a derived body, level planes); what the tracer cannot
+    derive raises while the schedule's sweep is built, before anything
+    is compiled or launched: an operation outside its table names it, a
+    read beyond the declared stencil is a ValueError, a wrong level
+    count raises "level planes", a reduction argument
+    NotImplementedError.  Nothing runs the plain version instead."""
     _, gt = grids(32, 32, 4, halo=4)
     a, b, _ = chain_fields(gt)
     _, no_cuda = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
                       lambda out, x: x, lambda out, x: x, name="no_cuda_body")
     before = tss.schedule_sweep.launches
-    with pytest.raises(NotImplementedError, match="no_cuda_body"):
-        _generated(tkm.Schedule((no_cuda, b, a)))
+    gen = _generated(tkm.Schedule((no_cuda, b, a)))[0]
+    assert "no_cuda_body (derived)" in gen.text
+    assert "sw_a0 = static_cast<T>" not in gen.text
     w3 = tdl.Field(gt, tdl.T_POINTS, levels=3)
-    with pytest.raises(NotImplementedError, match="levels=N"):
-        _generated(tkm.Schedule((T_DOUBLE, w3, a)))
-    with pytest.raises(NotImplementedError, match="no CUDA body"):
-        tss.generate(tkm.Schedule((no_cuda, b, a))._steps, state_slots=[0],
-                     extra_slots=(), ro_slots=[1], consts=(), n_masks=1,
-                     n_scalars=0, K=1, ring=0, dtype=torch.float64)
+    gen = _generated(tkm.Schedule((T_DOUBLE, w3, a)))[0]
+    assert (gen.n_state, gen.n_aux) == (3, 1)
+    assert "sweep::LevPut<T, 32, 1024, 3> out" in gen.text
+    gen = tss.generate(tkm.Schedule((no_cuda, b, a))._steps,
+                       state_slots=[0], extra_slots=(), ro_slots=[1],
+                       consts=(), n_masks=1, n_scalars=0, K=1, ring=0,
+                       dtype=torch.float64)
+    assert "(derived)" in gen.text and gen.edge == 32
+    _, sine = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
+                   lambda out, x: jnp.sin(x), lambda out, x: torch.sin(x),
+                   name="sine")
+    with pytest.raises(NotImplementedError, match="sine: torch.sin"):
+        _generated(tkm.Schedule((sine, b, a)))
+    _, reach = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT", (0, 11, 0))],
+                    lambda out, x: jst.xp(jst.xp(x)),
+                    lambda out, x: tst.xp(tst.xp(x)), name="reach")
+    with pytest.raises(ValueError, match="reach: argument 1 .x. is read at "
+                                         "offset .dj=0, di=2."):
+        _generated(tkm.Schedule((reach, b, a)))
+    with pytest.raises(ValueError, match="level planes"):
+        _generated(tkm.Schedule((KWRONG[1], w3, a)))
+    with pytest.raises(NotImplementedError, match="reduction"):
+        _generated(tkm.Schedule((T_TOTAL, a)))
     assert tss.schedule_sweep.launches == before
+
+
+def test_generator_emits_derived_and_level_sources():
+    """The PSy schedule with every body derived has the hand-written
+    schedule's planes; the nlayer-style schedule's levels take
+    consecutive planes (state u, v, eta, the sum; the forcing read-only),
+    on the tile edge the shared memory gives: 32 cells at levels 3, and
+    at f64 levels 8 a smaller one."""
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    m = NemoLite2DPsy(34, 30, ndomains=4, halo_width=8, **CPU)
+    hand = _generated(m._sched, repeats=2)
+    m._sched = tkm.Schedule(*[(tpt.derived(k), *rest)
+                              for k, *rest in m._calls()])
+    derived = _generated(m._sched, repeats=2)
+    for h, d in zip(hand, derived):
+        assert (d.n_state, d.n_aux, d.n_int, d.n_codes, d.smem_bytes,
+                d.edge) == (h.n_state, h.n_aux, h.n_int, h.n_codes,
+                            h.smem_bytes, h.edge)
+        assert d.text.count("(derived) (read depth") == 13
+        assert h.text.count("(hand-written) (read depth") == 13
+        assert d.name != h.name
+    for levels, dtype, edge in ((3, torch.float32, 32),
+                                (3, torch.float64, 32),
+                                (8, torch.float32, 32),
+                                (8, torch.float64, 16)):
+        g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                     tdl.BC_NONE), tdl.OFFSET_NE,
+                     dtype=dtype, **CPU)
+        g.decompose(32, 32, ndomains=4, halo_width=4)
+        tdl.grid_init(g, 1.0, 1.0)
+        sched = tkm.Schedule(*_ml_calls(1, *_ml_fields(g, levels)))
+        ring = sched.fused_erosion(1)
+        full, light = _generated(sched, nsteps=2)[:2]
+        # full: u, v, eta and the 2D sum stream; light: the sum is scratch
+        assert (full.n_state, full.n_aux) == (3 * levels + 1, levels)
+        assert (light.n_state, light.n_aux) == (3 * levels, levels + 1)
+        for gen in (full, light):
+            assert gen.ring == ring == 4 and gen.edge == edge
+            assert gen.smem_bytes == ((gen.n_state + gen.n_aux)
+                                      * dtype.itemsize + 1) \
+                * (edge + 2 * ring) ** 2 <= tss.SMEM_LIMIT
+            assert gen.text.count("(derived) (read depth") == 5
+            assert f"sweep::Geom<K, 4, 4, {edge}>" in gen.text
+        assert f"sweep::LevPut<T, {edge + 8}, {(edge + 8) ** 2}, {levels}>" \
+            in full.text
+
+
+def test_tile_edge_follows_shared_memory():
+    assert tss.tile_edge(10, 1, 1, 4, torch.float32) == (32, 1600 * 45)
+    assert tss.tile_edge(33, 0, 1, 4, torch.float64)[0] == 16
+    assert tss.tile_edge(33, 0, 1, 8, torch.float64)[0] == 8
+    with pytest.raises(ValueError, match="8-cell tiles"):
+        tss.tile_edge(120, 0, 1, 8, torch.float64)
 
 
 def test_generator_checks_shared_memory_and_names():
