@@ -148,7 +148,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
    under both transports, each bitwise against the single-process plain
    exchange, with the rdma kernel's launches equal to the remote_dma
    calls; two back-to-back remote_dma calls with the last rank 50 ms
-   late, bitwise; the fence round trip between 2 ranks; the flagship at
+   late, bitwise; the exchange's hand-offs and waits per call (its plain
+   version's count: one hand-off, one wait per neighbour), its us per
+   call also with each call's wait checked before it returns, and a
+   rank's kernel time per call (torch.profiler); the fence
+   round trip between 2 ranks, spinning in a kernel and with the wait
+   off the SMs (stream memory operations); whether the box has the MPS
+   control binary (probed, never started); the flagship at
    1024^2 f32, K=4, halo 8, 2 ranks x 1 tile, 40 steps, bitwise against
    one process with 2 tiles, with us/step of both (CUDA events); the
    flagship with transport="fused" (csrc/nemolite2d_sweep_rdma.cu: the
@@ -186,6 +192,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2691,12 +2698,22 @@ def _check_exchange_legs(r: dict, nproc: int) -> None:
         raise AssertionError(f"{nproc} ranks: {int(r['exch_rdma_launches'])} "
                              f"rdma launches for {int(r['exch_rdma_calls'])} "
                              "remote_dma calls")
+    if int(r["rdma_handoffs_per_call"]) != 1:
+        raise AssertionError(f"{nproc} ranks: the plain protocol made "
+                             f"{int(r['rdma_handoffs_per_call'])} hand-offs "
+                             "per call, expected 1")
     us = {k.removeprefix("exch_us_walled_2d_"): float(r[k]) for k in r
-          if k.startswith("exch_us_")}
+          if k.startswith("exch_us_walled_2d_")}
+    us["d8_remote_dma_settled"] = float(
+        r["exch_us_settled_walled_2d_d8_remote_dma"])
+    us["d8_remote_dma_kernels"] = float(
+        r["exch_kernel_us_walled_2d_d8_remote_dma"])
     print(f"{nproc} ranks, Field.halo_exchange f32 {MAIN_SIZE}^2 halo 8: 16 "
           f"exchanges (walled/periodic, depth 1/8, 2D/3 levels, both "
           f"transports) bitwise equal to one process; skewed remote_dma pair "
           f"bitwise; rdma launches {int(r['exch_rdma_launches'])} = calls; "
+          f"hand-offs per call {int(r['rdma_handoffs_per_call'])} (waits "
+          f"{int(r['rdma_waits_per_call'])}, one per neighbour); "
           f"us per call (walled 2D): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items())),
           flush=True)
@@ -2755,7 +2772,8 @@ def _check_fused_legs(r: dict, nproc: int) -> tuple[dict, object]:
                              f"rdma sweep {launches} times for {sweeps} "
                              "sweeps")
     us = {k: float(r[f"ff_{k}_{tag}"]) for k in (
-        "sweep_us", "pp_sweep_us", "run_us", "pp_run_us", "plain_us")}
+        "sweep_us", "kernel_us", "pp_sweep_us", "run_us", "pp_run_us",
+        "plain_us")}
     print(f"fused transport f32 {MAIN_SIZE}^2 K={K} halo 8, {nproc} ranks "
           f"({px}x{py} tiles, one each), {sweeps * K} steps: bitwise equal "
           f"to one process with the same tiles, and so is the same run at "
@@ -2763,7 +2781,8 @@ def _check_fused_legs(r: dict, nproc: int) -> tuple[dict, object]:
           f"with remote_dma exchanges of a 3-level field (each equal to the "
           f"plain exchange) and with the last rank 50 ms late: bitwise; rdma"
           f" sweep launches per rank {launches}; kernel vs plain one sweep "
-          f"{err}; per sweep: kernel {us['sweep_us']:.1f} us, gloo ppermute "
+          f"{err}; per sweep: kernel {us['sweep_us']:.1f} us (a rank's "
+          f"kernels {us['kernel_us']:.1f} us of it), gloo ppermute "
           f"exchange + sweep {us['pp_sweep_us']:.1f} us, plain "
           f"{us['plain_us']:.1f} us; run: fused {us['run_us']:.2f} us/step, "
           f"ppermute {us['pp_run_us']:.2f} us/step", flush=True)
@@ -2790,8 +2809,15 @@ def phase_ranks() -> list:
         _check_exchange_legs(r, nproc)
     (f2, m2), (f4, _) = _check_fused_legs(r2, 2), _check_fused_legs(r4, 4)
     rt_us = float(r2["fence_round_trip_us"])
-    print(f"fence round trip between 2 ranks on one card: {rt_us:.1f} us "
-          f"(ping-pong, 200 rounds)", flush=True)
+    stream_us = float(r2["fence_stream_round_trip_us"])
+    print(f"fence round trip between 2 ranks on one card (ping-pong, 200 "
+          f"rounds): {rt_us:.1f} us spinning in a kernel, {stream_us:.2f} us "
+          f"with the wait off the SMs (stream memory operations; "
+          f"CAN_USE_STREAM_MEM_OPS_V1 reads "
+          f"{int(r2['stream_memops_attribute'])})", flush=True)
+    mps = shutil.which("nvidia-cuda-mps-control")
+    print(f"MPS control binary: {mps or 'absent'} (not started here: the "
+          f"gangs above ran without MPS, time-sliced)", flush=True)
 
     # the flagship: 2 ranks x 1 tile against one process with 2 tiles
     N, K = MAIN_SIZE, 4
@@ -2829,7 +2855,19 @@ def phase_ranks() -> list:
              "library_ms_4_ranks":
                  float(r4["exch_us_walled_2d_d8_ppermute"]) / 1e3,
              "launches_4_ranks": int(r4["exch_rdma_launches"]),
+             "handoffs_per_call": int(r2["rdma_handoffs_per_call"]),
+             "waits_per_call": int(r2["rdma_waits_per_call"]),
+             "waits_per_call_4_ranks": int(r4["rdma_waits_per_call"]),
+             "ms_each_call_settled":
+                 float(r2["exch_us_settled_walled_2d_d8_remote_dma"]) / 1e3,
+             "ms_4_ranks_each_call_settled":
+                 float(r4["exch_us_settled_walled_2d_d8_remote_dma"]) / 1e3,
+             "kernel_ms": float(r2["exch_kernel_us_walled_2d_d8_remote_dma"])
+                 / 1e3,
+             "kernel_ms_4_ranks":
+                 float(r4["exch_kernel_us_walled_2d_d8_remote_dma"]) / 1e3,
              "fence_round_trip_us": rt_us,
+             "fence_stream_round_trip_us": stream_us,
              "flagship_2_ranks_us_per_step": us_2,
              "flagship_1_process_us_per_step": us_1}
     print(f"halo_exchange_rdma f32 {N}^2 halo 8 depth 8 2D: 2 ranks "
@@ -2840,7 +2878,9 @@ def phase_ranks() -> list:
           f"(protocol simulated over 2 blocks) "
           f"{entry['plain_ms'] * 1e3:.1f} us; bound "
           f"{entry['bound_ms'] * 1e3:.2f} us", flush=True)
-    return [entry, _fused_entry(f2, f4, m2)]
+    fused = _fused_entry(f2, f4, m2)
+    fused["handoffs_per_call"] = entry["handoffs_per_call"]
+    return [entry, fused]
 
 
 def _fused_entry(f2: dict, f4: dict, m) -> dict:
@@ -2863,6 +2903,8 @@ def _fused_entry(f2: dict, f4: dict, m) -> dict:
              "replaces": "dl_esm_inf_tpu/ops/sweep.py:383",
              "launches": f2["launches"], "max_abs_err": f2["max_abs_err"],
              "ms": u2["sweep_us"] / 1e3, "plain_ms": u2["plain_us"] / 1e3,
+             "kernel_ms": u2["kernel_us"] / 1e3,
+             "kernel_ms_4_ranks": u4["kernel_us"] / 1e3,
              **_bound(f2["bytes"], ops, m.grid.dtype),
              "library_ms": u2["pp_sweep_us"] / 1e3,
              "ranks": 2, "K": FUSED_K,

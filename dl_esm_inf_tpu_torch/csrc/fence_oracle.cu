@@ -1,5 +1,6 @@
-// Adversarial oracles of the readiness fence (rdma_fence.cuh) on one card,
-// and the fence's round trip between two ranks.
+// Adversarial oracles of the counting fence (rdma_fence.cuh) on one card,
+// and the fence's round trip between two ranks, spinning in a kernel and
+// with the wait off the SMs (the exchange's hand-off).
 //
 // Replaces the TPU kernel scripts/fence_oracle.py::_build (its
 // pallas_call over an (8, 128) float32 tile and a REGULAR((2, 2))
@@ -22,6 +23,10 @@
 //   leader signals and then waits, the follower waits and then signals;
 //   the leader's globaltimer after the first and after the last round
 //   give the time of one round trip.
+// * stream pingpong: the same round trips with the wait off the SMs:
+//   stream_signal / stream_wait (rdma_fence.cuh) on the monotonic slot
+//   kSlotPingValue, enqueued on the caller's stream; no kernel runs.  The
+//   wrapper times it with CUDA events on the leader's stream.
 //
 // What bounds it: latency (a fenced system-scope atomic, and a spin on a
 // counter); the oracle tile's 8 KiB of bytes take nanoseconds.
@@ -140,6 +145,40 @@ int fence_pingpong_launch(void* mine, void* peer, int rounds, int leader,
       static_cast<unsigned*>(mine), static_cast<unsigned*>(peer), rounds,
       leader, status, times, budget_ns);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rounds first+1 .. first+rounds of the stream ping-pong on `stream`:
+// the leader signals the peer's kPingValue slot with the round's number
+// and waits for its own to reach it; the follower waits, then signals.
+// Returns the first CUresult that is not CUDA_SUCCESS (0).
+int fence_stream_pingpong_launch(void* mine, void* peer, unsigned first,
+                                 int rounds, int leader, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* m = static_cast<unsigned*>(mine) + kSlotPingValue;
+  unsigned* p = static_cast<unsigned*>(peer) + kSlotPingValue;
+  for (int r = 0; r < rounds; ++r) {
+    const unsigned v = first + static_cast<unsigned>(r) + 1u;
+    CUresult e = CUDA_SUCCESS;
+    if (leader) e = stream_signal(s, p, v);
+    if (e == CUDA_SUCCESS) e = stream_wait(s, m, v);
+    if (e == CUDA_SUCCESS && !leader) e = stream_signal(s, p, v);
+    if (e != CUDA_SUCCESS) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// *value = the card's CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_MEM_OPS_V1
+// (attribute 92 of cuda.h; asked by number, since later toolkits rename
+// the v1 attributes).  Returns the CUresult.
+int fence_stream_memops_attribute(int device, int* value) {
+  CUdevice dev;
+  CUresult e = cuInit(0);
+  if (e == CUDA_SUCCESS) e = cuDeviceGet(&dev, device);
+  if (e == CUDA_SUCCESS) {
+    e = cuDeviceGetAttribute(value, static_cast<CUdevice_attribute>(92),
+                             dev);
+  }
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

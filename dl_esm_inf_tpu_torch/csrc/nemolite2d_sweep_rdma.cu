@@ -1,4 +1,4 @@
-// The NEMOLite2D sweep with the halo exchange between ranks inside it:
+// The NEMOLite2D sweep with the halo exchange between ranks before it:
 // the flagship's fused transport across processes, one tile per rank.
 //
 // Replaces the multi-device branch of the TPU kernel
@@ -8,46 +8,36 @@
 // three state planes at the full halo depth between devices, then K
 // steps.  One call, in stream order on the caller's stream:
 //
-//   1. copy: the three state planes into a (3, ny, nx) staging block
-//      (the caller's arrays are left as the ppermute transport leaves
-//      them; the JAX kernel merged into its inputs through
-//      input_output_aliases);
-//   2. protocol (rdma_protocol.cuh, one CTA): the entry barrier on
-//      collective id 2 (rdma.py: COLLECTIVE_ID_SWEEP), then the x phase
-//      (fence, the east and west column strips into the peers' landing
-//      buffers, deliver, wait, merge where has_w / has_e) and the y phase
-//      (fence, the full-width rows after the x merge, so corners arrive
-//      by sequencing; merge where has_s / has_n), on the staging block in
-//      place, in a window of the sweep's own;
-//   3. sweep: the K sub-steps of nemolite2d_step.cuh on tiles staged from
+//   1. the exchange of rdma_protocol.cuh on a window of collective id 2
+//      (rdma.py: COLLECTIVE_ID_SWEEP): the send kernel copies the three
+//      state planes into a (3, ny, nx) staging block and writes the x
+//      strips, the full-width y rows and the corner blocks straight from
+//      the planes into the 8 neighbours' landing buffers of this call's
+//      parity; one stream_signal per neighbour, one stream_wait per
+//      neighbour (the call's one hand-off, off the SMs); the merge into
+//      the staging block's halo (the caller's arrays are left as the
+//      ppermute transport leaves them; the JAX kernel merged into its
+//      inputs through input_output_aliases);
+//   2. sweep: the K sub-steps of nemolite2d_step.cuh on tiles staged from
 //      the merged block (flat or variable depth), written to new planes.
 //
 // The output equals the ppermute exchange at the full halo depth followed
 // by the sweep, bitwise at internal points.
 //
-// Why it cannot deadlock.  No CTA ever waits on another CTA of its own
-// grid: the copy and the sweep never wait (about 1000 CTAs each at
-// 1024^2, more than can be resident at once, so a grid-wide wait there
-// could hang), and the protocol that waits is a grid of one CTA, whose
-// phases __syncthreads orders.  Stream order puts the copy before the
-// protocol and the protocol before the sweep, so no cooperative launch
-// or grid sync is needed.  Between ranks, every wait is for a signal
-// that a peer's protocol of the same call sends before any wait of its
-// own phase that could depend on this rank; the entry barrier pairs the
-// calls, the counting slots (rdma_fence.cuh) buffer a peer one or two
-// calls ahead, and the window of collective id 2 is not the standalone
-// exchange's, so a sweep and an exchange between two sweeps never consume
-// each other's signals.  A wait that outlasts its %globaltimer budget
-// gives up and writes the status word, which the wrapper reads after the
-// call and raises on.
+// Why it cannot deadlock.  No kernel waits at all: the wait is a stream
+// memory operation between the send and the merge, for signals that
+// every neighbour's call of the same number sends right after its own
+// send, before its own wait.  The window of collective id 2 is not the
+// standalone exchange's, so a sweep and an exchange between two sweeps
+// never satisfy each other's waits.  The host bounds each call's wait
+// (rdma.py: BUDGET_S) and raises, naming the slot, on one still pending.
 //
 // What bounds it.  Bytes: the copy reads and writes the three planes
 // once and the sweep moves them once more with the code (and ht), about
 // 25 B per point per sweep at float32 plus the copy's 24; the strips are
-// ~1% of that.  Latency: the entry barrier and two fence round trips
-// between processes, which on one card without MPS wait for the context
-// scheduler (milliseconds); between cards, microseconds.  Streaming the
-// interior tiles under the in-flight y rows, as the TPU kernel does, is
+// ~1% of that.  Latency: one hand-off between processes, which the
+// stream wait makes a context switch on one card.  Streaming the
+// interior tiles under the in-flight strips, as the TPU kernel does, is
 // later work.
 #include "nemolite2d_step.cuh"
 #include "rdma_protocol.cuh"
@@ -108,22 +98,18 @@ cudaError_t sweep_k(int K, bool ht, const Args& a, const Consts& c,
   }
 }
 
-// Copy, protocol, sweep; E is T's raw word.
+// Exchange, then sweep; E is T's raw word.  Returns 0, a cudaError_t,
+// or minus a CUresult.
 template <typename T, typename E>
-cudaError_t run(int K, const Args& a, const Consts& c, char* const* wins,
-                const rdma::RdmaGeo& g, unsigned long long budget_ns,
-                cudaStream_t s) {
-  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
-  const void* in[3] = {a.sshn, a.un, a.vn};
-  for (int f = 0; f < 3; ++f) {
-    cudaError_t err = rdma::launch_copy<E>(
-        in[f], static_cast<T*>(a.xs) + f * plane,
-        static_cast<long long>(plane), s);
-    if (err != cudaSuccess) return err;
-  }
-  cudaError_t err = rdma::launch_protocol<E>(a.xs, wins, g, budget_ns, s);
-  if (err != cudaSuccess) return err;
-  return sweep_k<T>(K, a.ht != nullptr, a, c, s);
+int run(int K, const Args& a, const Consts& c, const rdma::Wins& wins,
+        const rdma::RdmaGeo& g, cudaEvent_t waited, cudaStream_t s) {
+  const rdma::ThreePlanes<E> src{{static_cast<const E*>(a.sshn),
+                                  static_cast<const E*>(a.un),
+                                  static_cast<const E*>(a.vn)}};
+  const int rc = rdma::run_exchange<E>(src, static_cast<E*>(a.xs), wins, g,
+                                       waited, s);
+  if (rc != 0) return rc;
+  return static_cast<int>(sweep_k<T>(K, a.ht != nullptr, a, c, s));
 }
 
 }  // namespace
@@ -139,18 +125,19 @@ int nemo_sweep_rdma_num_geo_ints() { return rdma::kGeoInts; }
 // (null for flat bathymetry), ssha, ua, va: contiguous (ny, nx) planes of
 // this rank's one-tile block on the card; xs: a (3, ny, nx) staging block.
 // `consts`: the sweep's constants (nemolite2d_sweep.cu's); `wins`: my
-// window of collective id 2, then the east, west, north and south peers'
-// (opened) windows; `geo`: RdmaGeo's fields (lead 3, depth = halo).
-// Launches the copies, the protocol and the sweep on `stream` without
-// synchronising; returns the first launch error.  Everything is checked
-// before the first launch: a refused call signals no peer.
+// window of collective id 2, then the neighbours' (opened) windows by
+// direction (W, E, S, N, SW, SE, NW, NE); `geo`: RdmaGeo's fields (lead
+// 3, depth = halo); `event`: recorded after the waits.  Enqueues the
+// exchange and the sweep on `stream` without synchronising; returns 0, a
+// cudaError_t, or minus a CUresult.  Everything is checked before the
+// first launch: a refused call signals no peer.
 int nemo_sweep_rdma_launch(int dtype_code, int K, const void* sshn,
                            const void* un, const void* vn, const void* code,
                            const void* ht, void* xs, void* ssha, void* ua,
                            void* va, int ny, int nx, const double* consts,
                            int n_consts, void* const* wins,
-                           const long long* geo, int n_geo,
-                           unsigned long long budget_ns, void* stream) {
+                           const long long* geo, int n_geo, void* event,
+                           void* stream) {
   Consts c;
   rdma::RdmaGeo g;
   if (!nemo::read_consts(consts, n_consts, &c) ||
@@ -158,19 +145,17 @@ int nemo_sweep_rdma_launch(int dtype_code, int K, const void* sshn,
       g.lx != nx || g.d != g.h || K < 1 || K > 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  char* w[5];
-  for (int i = 0; i < 5; ++i) w[i] = static_cast<char*>(wins[i]);
+  rdma::Wins w;
+  w.mine = static_cast<char*>(wins[0]);
+  for (int d = 0; d < rdma::kDirs; ++d) w.peer[d] = static_cast<char*>(wins[1 + d]);
   const Args a{sshn, un, vn, code, ht, xs, ssha, ua, va, ny, nx};
+  cudaEvent_t ev = static_cast<cudaEvent_t>(event);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype_code == 0) {
-    err = run<float, uint32_t>(K, a, c, w, g, budget_ns, s);
-  } else if (dtype_code == 1) {
-    err = run<double, unsigned long long>(K, a, c, w, g, budget_ns, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  if (dtype_code == 0) return run<float, uint32_t>(K, a, c, w, g, ev, s);
+  if (dtype_code == 1) {
+    return run<double, unsigned long long>(K, a, c, w, g, ev, s);
   }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,51 +1,49 @@
-// The readiness fence and the entry barrier between ranks: counting
-// semaphores in device memory that peers signal through CUDA IPC.
+// The fence between ranks: slots in device memory that peers write
+// through CUDA IPC, in two kinds.
 //
 // Replaces the semaphore half of the TPU transports,
-// dl_esm_inf_tpu/parallel/rdma.py::entry_barrier and make_fence (the
-// pieces scripts/fence_oracle.py attacks).  A rank's window (allocated by
+// dl_esm_inf_tpu/parallel/rdma.py::make_fence (the piece
+// scripts/fence_oracle.py attacks).  A rank's window (allocated by
 // halo_exchange_rdma.cu with cudaMalloc, exported with
 // cudaIpcGetMemHandle and opened by its neighbours) starts with
-// kNumSlots unsigned counters:
+// kNumSlots unsigned slots:
 //
-//   ready[phase][dir]      kSlotReady + 2*phase + dir
-//   delivered[phase][dir]  kSlotDelivered + 2*phase + dir
-//   barrier[cid]           kSlotBarrier + cid   (one per collective id)
-//   ping                   kSlotPing            (the round-trip probe)
+//   ready[phase][dir]  kSlotReady + 2*phase + dir  (the oracles' semaphores)
+//   ping               kSlotPing        (the spin round-trip probe)
+//   ping_value         kSlotPingValue   (the stream round-trip probe)
+//   delivered[dir]     kSlotDelivered + dir, dir one of the 8 directions
+//                      of rdma_protocol.cuh (the exchange's hand-off)
 //
-// followed by a status word pair.  dir 0 is signalled by my plus-side
-// peer (east, north), dir 1 by my minus-side peer (west, south): a
-// wait can only ever be satisfied by a signal of its own phase and
-// direction, so a skewed neighbour's y-phase (or next-call x-phase)
-// signal cannot release an x-phase wait early.
-//
-// * signal: __threadfence_system() (this thread's earlier stores
-//   become visible to every other process first), then a system-scope
-//   atomic add on the peer's slot.
-// * wait: consumes exactly one signal: a system-scope compare-and-swap
-//   that decrements only a positive count.  Counts persist across calls
-//   and are never reset: counting is what buffers a fast peer one or
-//   two calls ahead.
-// * Every wait is bounded by a %globaltimer deadline (the card has no
-//   watchdog for a spinning kernel).  A wait that runs out returns false;
-//   the caller writes the status word and stops, and the host wrapper
-//   raises.
-//
-// What bounds it: latency, not bytes.  A signal is one fenced atomic to
-// another process's memory; a wait spins on it.  Two ranks on one card
-// without MPS are time-sliced, so a wait for a peer that is not resident
-// lasts until the scheduler switches contexts.
+// * The exchange (rdma_protocol.cuh) waits off the SMs, with stream
+//   memory operations on monotonic slots (stream_signal / stream_wait
+//   below): a delivered slot holds the number of the last call whose
+//   strip its one writer, the peer in that direction, has delivered.  On
+//   a card time-sliced between processes, a stream blocked on a wait
+//   lets the scheduler switch to the peer's context at once; a kernel
+//   spinning on a counter keeps the card to the end of its slice.
+// * The counting semaphore (fence_signal / fence_wait), which the
+//   exchange no longer uses, stays for the fence oracles
+//   (fence_oracle.cu) and the spin round-trip probe:
+//   - signal: __threadfence_system() (this thread's earlier stores
+//     become visible to every other process first), then a system-scope
+//     atomic add on the peer's slot;
+//   - wait: consumes exactly one signal, by a system-scope compare-and-
+//     swap that decrements only a positive count; counts persist, so a
+//     fast signaller is buffered;
+//   - every wait is bounded by a %globaltimer deadline (the card has no
+//     watchdog for a spinning kernel); one that runs out returns false
+//     and the caller writes its status pair {kStatusTimeout, slot}.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 constexpr int kSlotReady = 0;
-constexpr int kSlotDelivered = 4;
-constexpr int kSlotBarrier = 8;
-constexpr int kSlotPing = 12;
+constexpr int kSlotPing = 4;
+constexpr int kSlotPingValue = 5;
+constexpr int kSlotDelivered = 8;
 constexpr int kNumSlots = 16;
-// the status pair after the slots: {code, slot}; 0 = ok, 1 = a wait ran
-// out of budget on `slot`
+// a status pair {code, slot}: 0 = ok, 1 = a wait ran out of budget on `slot`
 constexpr int kStatusTimeout = 1;
 
 __device__ inline unsigned long long fence_clock() {
@@ -83,40 +81,22 @@ __device__ inline void fence_fail(int* status, int slot) {
   __threadfence_system();
 }
 
-// Entry barrier (rdma.py: entry_barrier): signal every peer's barrier
-// slot of this collective id, then wait for one signal per peer.  The
-// peer list is wrap-indexed and may repeat a rank.
-__device__ inline bool fence_entry_barrier(unsigned* mine,
-                                           unsigned* const* peers,
-                                           int npeers, int cid,
-                                           unsigned long long deadline,
-                                           int* status) {
-  const int slot = kSlotBarrier + cid;
-  for (int i = 0; i < npeers; ++i) fence_signal(peers[i], slot);
-  for (int i = 0; i < npeers; ++i) {
-    if (!fence_wait(mine, slot, deadline)) {
-      fence_fail(status, slot);
-      return false;
-    }
-  }
-  return true;
+// The wait off the SMs: stream memory operations of the CUDA driver API
+// (the library links -lcuda).  A signal writes `value` into a slot after
+// the stream's earlier work (the default flag fences that work's writes
+// first, as __threadfence_system does); a wait blocks the stream in the
+// card's front end, not in a kernel, until the slot holds at least
+// `value` (CU_STREAM_WAIT_VALUE_GEQ compares modulo 2^32).  A slot that
+// is waited on this way holds a monotonic count and has one writer.  The
+// wait has no deadline of its own: the host bounds it (rdma.py).
+inline CUresult stream_signal(cudaStream_t s, unsigned* slot,
+                              unsigned value) {
+  return cuStreamWriteValue32(s, reinterpret_cast<CUdeviceptr>(slot), value,
+                              CU_STREAM_WRITE_VALUE_DEFAULT);
 }
 
-// The per-(phase, direction) readiness fence (rdma.py: make_fence): I
-// will write into both neighbours' landing buffers, so each must tell me
-// it is ready.  I signal plus's [phase, 1] and minus's [phase, 0], then
-// consume one signal from each of my own [phase, 0] and [phase, 1].
-__device__ inline bool fence_phase(unsigned* mine, unsigned* plus,
-                                   unsigned* minus, int phase,
-                                   unsigned long long deadline,
-                                   int* status) {
-  fence_signal(plus, kSlotReady + 2 * phase + 1);
-  fence_signal(minus, kSlotReady + 2 * phase + 0);
-  for (int dir = 0; dir < 2; ++dir) {
-    if (!fence_wait(mine, kSlotReady + 2 * phase + dir, deadline)) {
-      fence_fail(status, kSlotReady + 2 * phase + dir);
-      return false;
-    }
-  }
-  return true;
+inline CUresult stream_wait(cudaStream_t s, unsigned* slot,
+                            unsigned value) {
+  return cuStreamWaitValue32(s, reinterpret_cast<CUdeviceptr>(slot), value,
+                             CU_STREAM_WAIT_VALUE_GEQ);
 }

@@ -8,8 +8,10 @@ Libraries are built at first use into ``build/torch_kernels/`` at the
 root of the checkout, under a name keyed by a hash of the sources, the
 shared headers and the flags, so a changed source rebuilds and an
 unchanged one loads in milliseconds.  A generated source is written
-there too, beside its library.  A failed build raises: nothing falls
-back to another path.
+there too, beside its library.  A library that calls the CUDA driver
+API (the stream memory operations of the exchange between ranks) links
+``libcuda`` through the toolkit's stub.  A failed build raises: nothing
+falls back to another path.
 """
 from __future__ import annotations
 
@@ -63,21 +65,34 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str, sources: tuple[str, ...] = (), *,
-                 generated: str | None = None) -> BuiltLibrary:
+                 generated: str | None = None,
+                 driver: bool = False) -> BuiltLibrary:
     """Build (if needed) and load ``lib<name>`` from ``csrc/<sources>``,
     or from the source text ``generated`` (which may include the headers
-    under ``csrc/`` only).  Safe to call from several threads."""
+    under ``csrc/`` only); ``driver``: link the CUDA driver API
+    (``-lcuda``).  Safe to call from several threads."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name not in _loaded:
-            _loaded[name] = _build(name, sources, generated)
+            _loaded[name] = _build(name, sources, generated, driver)
     return _loaded[name]
 
 
-def _build(name: str, sources, generated) -> BuiltLibrary:
+def _driver_link(nvcc: str) -> list[str]:
+    """``-lcuda``, with the toolkit's stub directories on the link path
+    (the driver's own ``libcuda.so.1`` is loaded at run time)."""
+    root = Path(nvcc).resolve().parent.parent
+    stubs = [d for d in (root / "lib64" / "stubs",
+                         root / "targets" / "x86_64-linux" / "lib" / "stubs")
+             if d.is_dir()]
+    return [f"-L{d}" for d in stubs] + ["-lcuda"]
+
+
+def _build(name: str, sources, generated, driver) -> BuiltLibrary:
     paths = [CSRC / s for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + (b" -lcuda" if driver else b""))
     if generated is not None:
         h.update(b"generated:" + generated.encode())
     for p in sorted(paths) + sorted(CSRC.glob("*.cuh")):
@@ -96,8 +111,10 @@ def _build(name: str, sources, generated) -> BuiltLibrary:
             tmp_src.write_text(generated)
             os.replace(tmp_src, src)
             paths, include = [src], ["-I", str(CSRC)]
-        cmd = [find_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp),
-               *(str(p) for p in paths)]
+        nvcc = find_nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, *include, "-o", str(tmp),
+               *(str(p) for p in paths),
+               *(_driver_link(nvcc) if driver else [])]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -7,8 +7,8 @@ block, advancing ``K = len(forcing)`` steps after one depth-2K halo
 exchange, with flat bathymetry or the T-point depth plane ``ht``.  With
 an ``exchange_spec`` the sweep does that exchange itself, at the full
 halo depth (the JAX package's fused transport); across ranks, one tile
-per rank, that exchange is the fenced protocol of :mod:`..parallel.rdma`
-between the ranks' blocks.  What runs depends only on where the tensors
+per rank, that exchange is the remote-DMA protocol of
+:mod:`..parallel.rdma` between the ranks' blocks.  What runs depends only on where the tensors
 lie:
 
 * a CUDA tensor launches the hand-written kernel
@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from . import stencils as st
+from ..parallel import environment as env
 from ..parallel import rdma
 from ..parallel.halo import HaloSpec, _check_rank_layout, exchange_multi
 from ..parallel.halo_kernel import remap_args
@@ -211,14 +212,15 @@ nemolite2d_sweep = SweepKernel()
 
 class SweepRdmaKernel:
     """ctypes wrapper of ``csrc/nemolite2d_sweep_rdma.cu``: the sweep
-    with the exchange between ranks inside it (one tile per rank).
+    with the exchange between ranks before it (one tile per rank).
 
-    Each call stages the state, exchanges it with the neighbouring ranks
-    through their windows of collective id 2 (the windows are kept by
-    :data:`..parallel.rdma.halo_exchange_rdma`), advances K steps, then
-    waits for the stream and raises if a wait ran out of its budget.
-    ``launches`` counts the calls that launched (copies, protocol and
-    sweep are one call, nothing else); callers may reset it."""
+    Each call exchanges the state with the neighbouring ranks through
+    their windows of collective id 2 (the windows, and the host-side
+    check of each call's one hand-off within the exchange's budget, are
+    :data:`..parallel.rdma.halo_exchange_rdma`'s) into a staging block,
+    then advances K steps.  ``launches`` counts the calls that launched
+    (send, signals, waits, merge and sweep are one call, nothing else);
+    callers may reset it."""
 
     def __init__(self):
         self.launches = 0
@@ -228,7 +230,7 @@ class SweepRdmaKernel:
         """Build (once) and bind the library; returns its BuiltLibrary."""
         from .cuda_build import load_library
         built = load_library("nemolite2d_sweep_rdma",
-                             ("nemolite2d_sweep_rdma.cu",))
+                             ("nemolite2d_sweep_rdma.cu",), driver=True)
         if self._fn is None:
             lib = built.lib
             vp, i = ctypes.c_void_p, ctypes.c_int
@@ -236,8 +238,7 @@ class SweepRdmaKernel:
             fn.argtypes = ([i, i] + [vp] * 9 + [i, i,
                            ctypes.POINTER(ctypes.c_double), i,
                            ctypes.POINTER(vp),
-                           ctypes.POINTER(ctypes.c_longlong), i,
-                           ctypes.c_ulonglong, vp])
+                           ctypes.POINTER(ctypes.c_longlong), i, vp, vp])
             fn.restype = i
             for name in ("nemo_sweep_rdma_num_consts",
                          "nemo_sweep_rdma_num_geo_ints"):
@@ -266,11 +267,7 @@ class SweepRdmaKernel:
         ex = rdma.halo_exchange_rdma
         win = ex.window(spec, sshn.dtype, (3,), sshn.device,
                         rdma.COLLECTIVE_ID_SWEEP)
-        if win.broken:
-            raise RuntimeError(f"this sweep's exchange window is unusable: "
-                               f"{win.broken}")
-        geo, wins = ex.protocol_args(win, spec, spec.halo, 3,
-                                     rdma.COLLECTIVE_ID_SWEEP)
+        geo, wins, event = ex.protocol_args(win, spec.halo, 3)
         vals = _launch_consts(consts, forcing, self._nconsts)
         xs = torch.empty((3,) + tuple(sshn.shape), dtype=sshn.dtype,
                          device=sshn.device)
@@ -284,12 +281,10 @@ class SweepRdmaKernel:
                        None if ht is None else ht.data_ptr(), xs.data_ptr(),
                        ssha.data_ptr(), ua.data_ptr(), va.data_ptr(), ny, nx,
                        (ctypes.c_double * len(vals))(*vals), len(vals), wins,
-                       geo, len(geo), int(rdma.BUDGET_S * 1e9), stream)
-        if err != 0:
-            raise RuntimeError(f"nemolite2d rdma sweep kernel launch failed: "
-                               f"CUDA error {err}")
+                       geo, len(geo), event, stream)
+        ex.launched(win, err, "the rdma sweep")
         self.launches += 1
-        ex.check_status(win, stream, "the rdma sweep")
+        ex.finish(win, f"the rdma sweep on rank {env.get_rank()}")
         return ssha, ua, va
 
 

@@ -20,7 +20,8 @@ that signal a peer):
 On the card the kernels are ``csrc/fence_oracle.cu`` (:data:`fence_oracle`);
 on the CPU the oracles run on :class:`.rdma.FenceModel`, the fence's
 plain version.  :func:`pingpong_us` times one fence round trip between
-two ranks.
+two ranks, :func:`stream_pingpong_us` one with the wait off the SMs
+(stream memory operations: the stream blocks in the card's front end).
 
     python -m dl_esm_inf_tpu_torch.parallel.fence_oracle [cuda|cpu]
 """
@@ -98,7 +99,7 @@ class FenceOracleKernel:
 
     def build(self):
         from ..ops.cuda_build import load_library
-        built = load_library("fence_oracle", (self.source,))
+        built = load_library("fence_oracle", (self.source,), driver=True)
         if self._lib is None:
             vp, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
             lib = built.lib
@@ -106,7 +107,11 @@ class FenceOracleKernel:
                     ("fence_positive_launch", [vp, vp, vp, vp, u64, vp]),
                     ("fence_wait00_launch", [vp, vp, vp, vp, i, u64, vp]),
                     ("fence_pingpong_launch",
-                     [vp, vp, i, i, vp, vp, u64, vp])):
+                     [vp, vp, i, i, vp, vp, u64, vp]),
+                    ("fence_stream_pingpong_launch",
+                     [vp, vp, ctypes.c_uint, i, i, vp]),
+                    ("fence_stream_memops_attribute",
+                     [i, ctypes.POINTER(i)])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = i
@@ -168,6 +173,26 @@ class FenceOracleKernel:
                      torch.cuda.current_stream(device).cuda_stream)
         return status.tolist(), times.tolist()
 
+    def stream_pingpong(self, mine: int, peer: int, first: int, rounds: int,
+                        leader: bool, stream: int) -> None:
+        """Enqueue rounds ``first + 1 .. first + rounds`` of the stream
+        ping-pong on ``stream`` (no kernel: not counted as a launch)."""
+        self.build()
+        err = self._lib.fence_stream_pingpong_launch(
+            mine, peer, first & 0xFFFFFFFF, rounds, int(leader), stream)
+        if err != 0:
+            raise RuntimeError(f"the stream ping-pong failed: CUDA driver "
+                               f"error {err}")
+
+    def stream_memops(self, device: torch.device) -> int:
+        """The card's CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_MEM_OPS_V1, or
+        -CUresult where the driver does not answer it."""
+        self.build()
+        value = ctypes.c_int(-1)
+        err = self._lib.fence_stream_memops_attribute(
+            device.index or 0, ctypes.byref(value))
+        return value.value if err == 0 else -err
+
 
 #: the process's one wrapper of the oracle kernels
 fence_oracle = FenceOracleKernel()
@@ -227,6 +252,36 @@ def pingpong_us(win, peer_rank: int, rounds: int, device) -> float:
     if status != [0, 0]:
         raise RuntimeError(f"fence ping-pong: slot {status[1]} timed out")
     return (times[1] - times[0]) / (rounds - 1) / 1e3
+
+
+def stream_pingpong_us(win, peer_rank: int, rounds: int, device) -> float:
+    """µs per round trip of :func:`pingpong_us`'s exchange with the wait
+    off the SMs: stream memory operations on the monotonic slot
+    ``SLOT_PING_VALUE`` of the same windows, timed by CUDA events on the
+    leader's stream after its first round.  Every wait is bounded by
+    :data:`PINGPONG_BUDGET_S` on the host: one still pending then is
+    released and raises."""
+    from . import environment as env
+    from .rdma import SLOT_PING_VALUE, await_done, halo_exchange_rdma
+    dev = torch.device(device)
+    leader = env.get_rank() < peer_rank
+    stream = torch.cuda.current_stream(dev)
+    first = win.stream_pings
+    win.stream_pings += rounds
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    args = (win.ptr, win.peers[peer_rank])
+    fence_oracle.stream_pingpong(*args, first, 1, leader, stream.cuda_stream)
+    start.record(stream)
+    fence_oracle.stream_pingpong(*args, first + 1, rounds - 1, leader,
+                                 stream.cuda_stream)
+    end.record(stream)
+    if not await_done(end.query, PINGPONG_BUDGET_S):
+        halo_exchange_rdma.release(win, SLOT_PING_VALUE, first + rounds)
+        torch.cuda.synchronize(dev)
+        raise RuntimeError(f"stream ping-pong: slot {SLOT_PING_VALUE} "
+                           f"still pending after {PINGPONG_BUDGET_S} s")
+    return start.elapsed_time(end) * 1e3 / (rounds - 1)
 
 
 def main(argv=None) -> dict:

@@ -26,23 +26,29 @@ Legs (``--legs``, comma separated):
 * ``exchange``: ``Field.halo_exchange`` at ``--n``^2 (halo 8, depth 1
   and 8, 2D and 3 levels, walled and doubly periodic) under both
   transports, each held bitwise against the plain single-rank exchange
-  of the whole stacked array on rank 0's device, with µs per call; the
+  of the whole stacked array on rank 0's device, with µs per call (on
+  the card the depth-8 ``remote_dma`` call also checked before it
+  returns, ``settle``, and its kernel time from torch.profiler); the
   rdma kernel's entry (one exchange against its plain version, the
-  protocol simulated over the gathered blocks);
+  protocol simulated over the gathered blocks, and that simulation's
+  hand-offs and waits per call);
 * ``skew``: two back-to-back ``remote_dma`` exchanges with the last rank
-  delayed 50 ms before the second (counting skew), each held bitwise;
+  delayed 50 ms before the second (a fast rank a call ahead), each held
+  bitwise;
 * ``flagship``: the flagship at ``--n``^2, K=4, halo 8, one tile per rank,
   ``--steps`` steps; its gathered fields and µs/step (CUDA events);
-* ``fence``: the fence round trip between ranks 0 and 1 (µs);
+* ``fence``: the fence round trip between ranks 0 and 1 (µs), spinning
+  in a kernel and with the wait off the SMs (stream memory operations),
+  and the card's stream memory operations attribute;
 * ``flagship_fused``: the flagship with ``transport="fused"`` (the
   exchange between ranks inside the sweep) on each rank layout of
   ``--fused-layouts`` that has one tile per rank (``PXxPY`` tiles, e.g.
   ``4x1,1x4,2x2``) at each K of ``--fused-k``, ``--fused-shape``, halo
   8, ``--fused-sweeps`` sweeps from a seeded start; its gathered fields
-  and the rdma sweep's launches; on the card also µs per sweep and per
-  step of both transports, and the kernel against its plain version on
-  one sweep; then the last of them over a seeded depth plane at
-  float64;
+  and the rdma sweep's launches; on the card also µs per sweep (and its
+  kernel time from torch.profiler) and per step of both transports,
+  and the kernel against its plain version on one sweep; then the last
+  of them over a seeded depth plane at float64;
 * ``fused_alternate``: on the last layout at the largest K, sweeps
   alternating with standalone ``remote_dma`` exchanges of a 3-level
   field on the same spec; the model's fields and each exchange held
@@ -268,6 +274,17 @@ def leg_exchange(res, a):
               if transport == "ppermute" else
               (lambda: rdma.exchange(blk, spec, depth)))
         res[f"exch_us_{tag}"] = np.asarray(_us_per_call(fn, dev, a.reps))
+        if transport == "remote_dma" and depth == HALO and (
+                dev.type == "cuda"):
+            # the same calls, each checked before it returns (the wait
+            # check not deferred to the next call)
+            def settled(blk=blk, spec=spec):
+                rdma.exchange(blk, spec, HALO)
+                rdma.halo_exchange_rdma.settle()
+            res[f"exch_us_settled_{tag}"] = np.asarray(
+                _us_per_call(settled, dev, a.reps))
+            res[f"exch_kernel_us_{tag}"] = np.asarray(
+                _kernel_us_per_call(fn, a.reps))
     # the kernel entry: one 2D walled depth-8 exchange against the plain
     # version, the protocol simulated over every rank's block
     grid = _grid(WALLED, a.n, a.n, nranks, a.device, halo=HALO)
@@ -277,7 +294,12 @@ def leg_exchange(res, a):
     got = rdma.exchange(f.data, spec, HALO)
     blocks = [torch.empty_like(f.data) for _ in range(nranks)]
     dist.all_gather(blocks, f.data)
-    plain = rdma.exchange_reference(blocks, spec, HALO)
+    fence = rdma.FenceModel()
+    plain = rdma.exchange_reference(blocks, spec, HALO, fence=fence)
+    res["rdma_handoffs_per_call"] = np.asarray(max(
+        fence.handoffs(r) for r in range(nranks)))
+    res["rdma_waits_per_call"] = np.asarray(
+        sum(1 for r, k, _ in fence.trace if k == "wait") // nranks)
     err = torch.tensor([float((got - plain[rank]).abs().max())],
                        dtype=torch.float64)
     dist.all_reduce(err, op=dist.ReduceOp.MAX)
@@ -288,6 +310,18 @@ def leg_exchange(res, a):
             a.reps))
     res["rdma_block_bytes"] = np.asarray(f.data.numel()
                                          * f.data.element_size())
+
+
+def _kernel_us_per_call(fn, reps):
+    """µs of kernel time on the card per call of ``fn`` (torch.profiler's
+    device time over ``reps`` calls): what the card is busy with, against
+    the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / reps
 
 
 def _local_us(fn, device, reps):
@@ -354,14 +388,19 @@ def leg_fence(res, a):
     grid = _grid(WALLED, a.n, a.n, env.get_num_ranks(), a.device, halo=HALO)
     dev = grid.device
     win = rdma.halo_exchange_rdma.window(grid.halo_spec, grid.dtype, (), dev)
-    from dl_esm_inf_tpu_torch.parallel.fence_oracle import pingpong_us
+    from dl_esm_inf_tpu_torch.parallel import fence_oracle as fo
     dist.barrier()
     if rank < 2:
         peer = 1 - rank
-        pingpong_us(win, peer, 2, dev)          # warm up
-        us = pingpong_us(win, peer, a.rounds, dev)
+        fo.pingpong_us(win, peer, 2, dev)          # warm up
+        us = fo.pingpong_us(win, peer, a.rounds, dev)
+        fo.stream_pingpong_us(win, peer, 2, dev)
+        stream_us = fo.stream_pingpong_us(win, peer, a.rounds, dev)
         if rank == 0:
             res["fence_round_trip_us"] = np.asarray(us)
+            res["fence_stream_round_trip_us"] = np.asarray(stream_us)
+            res["stream_memops_attribute"] = np.asarray(
+                fo.fence_oracle.stream_memops(dev))
 
 
 def _layouts(a):
@@ -449,6 +488,8 @@ def _fused_timing(res, a, m, px, py, K, tag):
         lambda: fused(*state, m._mask_codes, forcing), dev, a.reps))
     res[f"ff_pp_sweep_us_{tag}"] = np.asarray(_us_per_call(
         lambda: sweep(*exch(state), m._mask_codes, forcing), dev, a.reps))
+    res[f"ff_kernel_us_{tag}"] = np.asarray(_kernel_us_per_call(
+        lambda: fused(*state, m._mask_codes, forcing), a.reps))
     res[f"ff_run_us_{tag}"] = np.asarray(_us_per_call(
         lambda: m.run(steps), dev, 2) / steps)
     res[f"ff_pp_run_us_{tag}"] = np.asarray(_us_per_call(
@@ -459,8 +500,7 @@ def _fused_timing(res, a, m, px, py, K, tag):
     dist.all_gather(blocks, stacked)
 
     def plain():
-        ex = rdma.exchange_reference(blocks, spec, spec.halo,
-                                     cid=rdma.COLLECTIVE_ID_SWEEP)[rank]
+        ex = rdma.exchange_reference(blocks, spec, spec.halo)[rank]
         return fs.fused_step_reference(
             *ex.unbind(0), m._mask_codes, forcing, p=m.p, dx=m.grid.dx,
             dy=m.grid.dy, fcor=m._fcor, depth=m.depth)

@@ -476,59 +476,188 @@ def test_simulated_rdma_matches_jax_exchange(layout, wrap):
                                       err_msg=str((depth, dtype, lead)))
 
 
+def _calls(spec, blocks_per_call, fence, land, done, buffers=2):
+    """Each rank's protocol over the calls, one after another, on one
+    persistent fence and set of landing buffers; ``done[r]`` counts the
+    calls rank r has finished."""
+    def rank_calls(r):
+        for c, blocks in enumerate(blocks_per_call):
+            yield from trdma._rank_protocol(r, blocks[r], spec, 2, fence,
+                                            land, c + 1, buffers=buffers)
+            done[r] = c + 1
+    return {r: rank_calls(r) for r in range(spec.num_ranks)}
+
+
+def _step(live, r) -> None:
+    try:
+        next(live[r])
+    except StopIteration:
+        del live[r]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("layout", LAYOUTS, ids=str)
-def test_simulated_rdma_counting_skew(layout):
-    """Two calls per rank over one persistent fence, with the last rank
-    run far behind (every other rank takes many steps per step of it):
-    counting buffers the skew, and both calls equal two plain exchanges."""
+def test_simulated_rdma_counting_skew(layout, seed):
+    """Five calls per rank over one persistent fence and set of landing
+    buffers, under a seeded random turn order in which one rank runs as
+    far ahead as the protocol lets it (until its wait blocks) before each
+    step of another: no landing buffer is overwritten unread, the fast
+    rank gets a call ahead, and every call equals the plain exchange of
+    its input."""
     spec, _ = _spec_and_jax(layout, True, 2)
+    rng = np.random.default_rng(seed)
+    ncalls = 5
+    inputs = [torch.from_numpy(_unique(spec.global_array_shape, np.float64,
+                                       10 * seed + c)) for c in range(ncalls)]
+    outs = [[b.clone() for b in _split(a, spec)] for a in inputs]
     fence, land = trdma.FenceModel(), trdma._Landing()
-    firsts = [torch.from_numpy(_unique(spec.global_array_shape, np.float64,
-                                       s)) for s in (1, 2)]
-    outs = [[b.clone() for b in _split(a, spec)] for a in firsts]
-    last = spec.num_ranks - 1
-    live = {r: itertools.chain(*(trdma._rank_protocol(
-        r, outs[c][r], spec, 2, fence, land, trdma.COLLECTIVE_ID_EXCHANGE)
-        for c in (0, 1))) for r in range(spec.num_ranks)}
-    order = [r for r in range(last) for _ in range(5)] + [last]
+    done = [0] * spec.num_ranks
+    live = _calls(spec, outs, fence, land, done)
+    fast = int(rng.integers(spec.num_ranks))
+    lead = 0
     while live:
         before = fence.events
-        for r in order:
-            if r in live:
-                try:
-                    next(live[r])
-                except StopIteration:
-                    del live[r]
-        assert not live or fence.events != before, "stuck"
-    for c in (0, 1):
-        want = _join(trdma.exchange_reference(_split(firsts[c], spec), spec,
+        while fast in live:             # as far ahead as it may go
+            was = fence.events
+            _step(live, fast)
+            if fence.events == was:
+                break
+        lead = max(lead, done[fast] - min(done))
+        others = [r for r in live if r != fast]
+        if others:
+            _step(live, int(rng.choice(others)))
+        if live and fence.events == before:     # all blocked but these?
+            for r in list(live):
+                _step(live, r)
+            assert fence.events != before, "stuck"
+    assert lead == 1
+    for c in range(ncalls):
+        want = _join(trdma.exchange_reference(_split(inputs[c], spec), spec,
                                               2), spec)
-        assert torch.equal(_join(outs[c], spec), want)
+        assert torch.equal(_join(outs[c], spec), want), c
 
 
 def test_simulated_rdma_without_fence_is_caught():
-    """With the readiness fence made vacuous (every ready and barrier
-    slot signalled ahead), a fast rank overwrites a landing buffer its
-    neighbour has not read yet: the simulation raises."""
+    """With one landing buffer per direction instead of two (the call
+    parity dropped), a fast rank's next call overwrites a strip its
+    neighbour has not read yet: the simulation raises.  The same turns
+    with two buffers run through."""
     spec, _ = _spec_and_jax((2, 1), True, 2)
-    fence, land = trdma.FenceModel(), trdma._Landing()
-    for r in range(2):
-        fence.signal(r, trdma.barrier_slot(trdma.COLLECTIVE_ID_EXCHANGE), 8)
-        for phase, direction in itertools.product((0, 1), (0, 1)):
-            fence.signal(r, trdma.ready_slot(phase, direction), 8)
+    blocks = [_split(torch.zeros(spec.global_array_shape), spec)
+              for _ in range(3)]
+    for buffers in (2, 1):
+        fence, land = trdma.FenceModel(), trdma._Landing()
+        live = _calls(spec, [[b.clone() for b in bl] for bl in blocks],
+                      fence, land, [0, 0], buffers=buffers)
+
+        def run():
+            for r in itertools.cycle([0] * 5 + [1]):
+                if r in live:
+                    _step(live, r)
+                if not live:
+                    break
+        if buffers == 2:
+            run()
+        else:
+            with pytest.raises(RuntimeError, match="overwritten"):
+                run()
+
+
+@pytest.mark.parametrize("wrap", [False, True], ids=["walled", "periodic"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=str)
+def test_simulated_rdma_one_handoff_per_call(layout, wrap):
+    """Each rank makes one hand-off per call (the entry barrier and the
+    two fenced phases made five): one signal to and one wait for each
+    neighbour direction that exchanges, every wait after every signal."""
+    spec, _ = _spec_and_jax(layout, wrap, 2)
+    fence = trdma.FenceModel()
     blocks = _split(torch.zeros(spec.global_array_shape), spec)
-    live = {r: itertools.chain(*(trdma._rank_protocol(
-        r, blocks[r].clone(), spec, 1, fence, land,
-        trdma.COLLECTIVE_ID_EXCHANGE) for _ in range(2))) for r in range(2)}
-    with pytest.raises(RuntimeError, match="overwritten"):
-        for r in itertools.cycle([0] * 5 + [1]):
-            if r in live:
-                try:
-                    next(live[r])
-                except StopIteration:
-                    del live[r]
-            if not live:
-                break
+    trdma.exchange_reference(blocks, spec, 2, fence=fence)
+    dirs = trdma.active_directions(spec)
+    both = wrap or min(layout) > 1
+    assert len(dirs) == (8 if both else 2)
+    for r in range(spec.num_ranks):
+        mine = [(k, slot) for rr, k, slot in fence.trace if rr == r]
+        assert fence.handoffs(r) == 1
+        assert sorted(slot for k, slot in mine if k == "wait") == sorted(
+            trdma.delivered_slot(d) for d in dirs)
+        assert [k for k, _ in mine] == ["signal"] * len(dirs) + [
+            "wait"] * len(dirs)
+
+
+def test_fence_model_monotonic_slots():
+    f = trdma.FenceModel()
+    slot = trdma.delivered_slot(3)
+    assert not f.reached(0, slot, 1)
+    f.write(0, slot, 2, by=1)
+    assert f.reached(0, slot, 1) and f.reached(0, slot, 2)
+    assert not f.reached(0, slot, 3)
+    with pytest.raises(RuntimeError, match="wrote 1 over 2"):
+        f.write(0, slot, 1, by=1)
+    assert f.handoffs(0) == 1 and f.handoffs(1) == 0
+
+
+def test_rdma_wait_budget_raises_naming_the_slot(monkeypatch):
+    """The wrapper's host-side bound on the stream waits, with a clock
+    that jumps and a library whose events never complete: a call whose
+    wait on the north neighbour is still pending past BUDGET_S (checked
+    by the next call, by settle, or by the watchdog) releases every slot
+    the enqueued calls wait on, marks the window unusable and raises
+    naming the slot and the rank; calls that passed return."""
+    spec, _ = _spec_and_jax((2, 2), False, 2)
+    north = trdma.delivered_slot(3)
+
+    class Lib:
+        released = []
+        done = True
+
+        def rdma_event_query(self, event):
+            return 0 if self.done else 600
+
+        def rdma_read_slots(self, device, ptr, out):
+            for d in trdma.active_directions(spec):
+                out[trdma.delivered_slot(d)] = 3
+            out[north] = 2
+            return 0
+
+        def rdma_release(self, device, ptr, slot, value):
+            self.released.append((slot, value))
+            return 0
+
+    def window():
+        return trdma.Window(ptr=1, land=(0,) * 8, land_bytes=(0,) * 8,
+                            spec=spec, device=0, events=(5, 6), calls=4,
+                            checked=2)
+
+    kern = trdma.RdmaExchangeKernel()
+    kern._lib = lib = Lib()
+    clock = iter(np.arange(0.0, 1e5, 50.0))
+    monkeypatch.setattr(trdma, "_clock", lambda: next(clock))
+    monkeypatch.setattr(tenv, "get_rank", lambda: 0)
+    win = window()
+    kern.finish(win, "rdma exchange")          # call 3 passed; 4 is newest
+    assert (win.checked, win.broken, lib.released) == (3, "", [])
+    lib.done = False
+    for check in ("finish", "settle", "watchdog"):
+        win, lib.released = window(), []
+        kern._windows = {"key": win}
+        if check == "finish":
+            with pytest.raises(RuntimeError, match=r"call 3's wait on slot "
+                               r"11 \(the north neighbour, rank 2\)"):
+                kern.finish(win, "rdma exchange")
+        elif check == "settle":
+            with pytest.raises(RuntimeError, match="slot 11"):
+                kern.settle()
+        else:
+            win.issued_at = -1e4                 # enqueued long ago
+            kern.watch_once()
+            assert "slot 11" in win.broken
+        # every slot call 4 waits on is released to 4, so the stream drains
+        assert sorted(lib.released) == sorted(
+            (trdma.delivered_slot(d), 4)
+            for d in trdma.active_directions(spec))
+        with pytest.raises(RuntimeError, match="unusable"):
+            kern.protocol_args(win, 1, 1)
 
 
 def test_simulated_rdma_stuck_raises():
