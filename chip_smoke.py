@@ -122,8 +122,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
    dma and compute kernel vs plain bitwise on every cell (f64 and f32,
    K = 1..4, 1 and 4 tiles, compute at reps 1 and 3), compute(reps=1) vs
    the production kernel bitwise on every cell, compute_fast within
-   TOL_FAST per pass on internal points; the byte loads of the code plane
-   in each dma kernel's SASS (cuobjdump);
+   TOL_FAST per pass on internal points; in each dma kernel's SASS
+   (cuobjdump) the staging's 16-byte copies (interior CTAs) and byte loads
+   of the code plane (edge CTAs);
 16. rectangular cells: the flagship kernel vs the plain path bitwise on
    internal points at dx/dy = 1000/1500 and 1500/1000 (f64 and f32,
    K = 1..4, 1 and 2x2 tiles, flat, variable depth and the fused
@@ -135,6 +136,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
    variants' kernel entries; the flagship CLI on the card writing a
    history file read back by load_netcdf; save_model / load_model on the
    card, bitwise, and the resumed run equal to the uninterrupted one;
+   then one flagship sweep (K = 4) and one dma launch (K = 1) at 4096^2,
+   where the block does not fit the L2, each bitwise with its plain
+   version and timed beside its bound (and dma beside three torch.add);
 18. the fence (csrc/fence_oracle.cu on csrc/rdma_fence.cuh) through
    python -m dl_esm_inf_tpu_torch.parallel.fence_oracle's entry point:
    the positive oracle bitwise (and against its plain version,
@@ -2305,9 +2309,11 @@ def _max_abs(a, b, where=None) -> float:
                      else (x - y).abs()[where].max()) for x, y in zip(a, b))
 
 
-def _sass_byte_loads(lib: Path) -> dict:
-    """Byte loads from global memory (LDG .U8/.S8) per kernel in the
-    library's SASS, by cuobjdump."""
+def _sass_loads(lib: Path) -> dict:
+    """Per kernel in the library's SASS (cuobjdump): the byte loads from
+    global memory (LDG .U8/.S8, the clamped scalar staging of the code
+    plane) and the 16-byte asynchronous copies global -> shared (LDGSTS
+    .128, the cp.async staging of interior CTAs)."""
     from dl_esm_inf_tpu_torch.ops.cuda_build import find_nvcc
     tool = Path(find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -2315,7 +2321,8 @@ def _sass_byte_loads(lib: Path) -> dict:
     out = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        out[name] = len(re.findall(r"LDG\.E\.(?:U|S)8", part))
+        out[name] = (len(re.findall(r"LDG\.E\.(?:U|S)8", part)),
+                     len(re.findall(r"LDGSTS[.\w]*\.128", part)))
     return out
 
 
@@ -2375,20 +2382,26 @@ def phase_variants_parity() -> None:
     torch.cuda.synchronize()
     if sum(k.launches for k in kerns) - before < cases:
         raise AssertionError("variant parity did not go through the kernels")
-    loads = _sass_byte_loads(fs.variant_dma.build().path)
+    loads = _sass_loads(fs.variant_dma.build().path)
     dma = {k: v for k, v in loads.items() if "nemo_dma_kernel" in k}
-    prod_loads = [v for k, v in _sass_byte_loads(
-        fs.nemolite2d_sweep.build().path).items() if "nemo_sweep_kernel" in k]
-    if len(dma) != 8 or min(dma.values()) < 1:
-        raise AssertionError(f"dma kernels without byte loads: {dma}")
+    prod = [v for k, v in _sass_loads(fs.nemolite2d_sweep.build().path)
+            .items() if "nemo_sweep_kernel" in k]
+    if len(dma) != 8 or min(b for b, _ in dma.values()) < 1 or min(
+            c for _, c in dma.values()) < 1:
+        raise AssertionError(f"dma kernels without the staging's byte loads "
+                             f"or 16-byte copies: {dma}")
     print(f"variants parity: {cases} cases (dma; compute at reps 1 and 3; "
           f"f64 and f32, K=1..4, ndomains 1 and 4, {n}^2): kernel vs plain "
           f"bitwise on every cell, compute(reps=1) = production bitwise on "
           f"every cell; compute_fast vs plain max rel {worst_fast:.3e} per "
-          f"pass on internal points (tol {TOL_FAST}); SASS: "
-          f"{min(dma.values())}-{max(dma.values())} byte loads (LDG .U8/.S8)"
-          f" in each of the 8 dma kernels, {min(prod_loads)}-"
-          f"{max(prod_loads)} in the production kernels", flush=True)
+          f"pass on internal points (tol {TOL_FAST}); SASS: each of the 8 dma"
+          f" kernels has {min(c for _, c in dma.values())}-"
+          f"{max(c for _, c in dma.values())} 16-byte copies (LDGSTS .128, "
+          f"interior CTAs) and {min(b for b, _ in dma.values())}-"
+          f"{max(b for b, _ in dma.values())} byte loads (LDG .U8/.S8, edge "
+          f"CTAs) of its staging; the production kernels "
+          f"{min(c for _, c in prod)}-{max(c for _, c in prod)} and "
+          f"{min(b for b, _ in prod)}-{max(b for b, _ in prod)}", flush=True)
 
 
 #: rectangular cells of phase 16 (dx, dy), m
@@ -2436,10 +2449,14 @@ def phase_rect_parity() -> None:
 def _ring_work(K: int) -> tuple[float, float]:
     """Points updated per sweep by continuity and by momentum over the
     tile's K sub-steps of points (the regions 2k+1 and 2k+2 inside the
-    32 + 4K window)."""
-    w, t = fs.TILE + 4 * K, fs.TILE
-    cont = sum((w - 2 * (2 * k + 1)) ** 2 for k in range(K)) / (K * t * t)
-    mom = sum((w - 2 * (2 * k + 2)) ** 2 for k in range(K)) / (K * t * t)
+    float32 tile's window, ty + 4K by tx + 4K)."""
+    t = fs.tile(torch.float32, K)
+    wy, wx = t.ty + 4 * K, t.tx + 4 * K
+
+    def area(r):
+        return (wy - 2 * r) * (wx - 2 * r)
+    cont = sum(area(2 * k + 1) for k in range(K)) / (K * t.ty * t.tx)
+    mom = sum(area(2 * k + 2) for k in range(K)) / (K * t.ty * t.tx)
     return cont, mom
 
 
@@ -2583,6 +2600,67 @@ def phase_kbench() -> list:
           f"resumed run equals the uninterrupted one bitwise after 21 more "
           f"steps", flush=True)
     return entries
+
+
+#: the large flagship block of phase 17's last step: its sweep traffic
+#: (~420 MB at float32, K = 4) does not fit the card's 50 MB L2
+LARGE_SIZE = 4096
+
+
+def phase_large(entries: list) -> None:
+    """One sweep of the flagship kernel (K = 4) and one launch of the dma
+    variant (K = 1) at 4096^2 float32, where the bytes, not the L2, set
+    the bound: each against its plain version, its time beside its bound
+    (and for dma three torch.add), added to the 1024^2 entries as *_4096
+    keys."""
+    N = LARGE_SIZE
+    m = nl.build(N, N, fused=True, steps_per_sweep=4, device=DEV)
+    m.set_initial_ssh(gaussian_eta(N, N, amp=0.2))
+    m.run(4)
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    codes, inner = m._mask_codes, m.sshn_t.internal_mask.bool()
+    args = (*m.grid.array_shape, m.grid.dtype, m.p, m.grid.dx, m.grid.dy,
+            m._fcor, m.depth)
+    plain = dict(p=m.p, dx=m.grid.dx, dy=m.grid.dy, fcor=m._fcor,
+                 depth=m.depth)
+    by_name = {e["name"]: e for e in entries}
+    f4 = m.forcing_series(0, 4)
+    fused = fs.make_fused_step(*args, steps_per_sweep=4)
+    ker = fused(*state, codes, f4)
+    err = _max_abs(ker, fs.fused_step_reference(*state, codes, f4, **plain),
+                   inner)
+    if err != 0.0:
+        raise AssertionError(f"sweep {N}^2: kernel vs plain {err:.3e}")
+    b = _bound(_nbytes(*state, codes, *ker), _count_ops(
+        lambda: fs.fused_step_reference(*state, codes, f4, **plain)),
+        torch.float32)
+    sweep = by_name["nemolite2d_sweep"]
+    sweep.update(ms_4096=_time_ms(lambda: fused(*state, codes, f4), 50),
+                 bound_ms_4096=b["bound_ms"], bound_by_4096=b["bound_by"],
+                 max_abs_err_4096=err)
+    del ker
+    f1 = m.forcing_series(0, 1)
+    var = fs.make_variant(*args, 1, "dma")
+    ker = var(*state, codes, f1)
+    err = _max_abs(ker, fs.variant_dma_reference(*state, codes, f1))
+    if err != 0.0:
+        raise AssertionError(f"dma {N}^2: kernel vs plain {err:.3e}")
+    b = _bound(_nbytes(*state, codes, *ker), _count_ops(
+        lambda: fs.variant_dma_reference(*state, codes, f1)), torch.float32)
+    dma = by_name["nemolite2d_variant_dma"]
+    dma.update(ms_4096=_graph_ms(lambda: var(*state, codes, f1), 20),
+               bound_ms_4096=b["bound_ms"], bound_by_4096=b["bound_by"],
+               library_ms_4096=_graph_ms(
+                   lambda: [torch.add(x, f1[0]) for x in state], 20),
+               max_abs_err_4096=err)
+    print(f"large f32 {N}^2 (block {m.grid.array_shape[0]}^2): flagship "
+          f"sweep K=4 {sweep['ms_4096'] * 1e3:.2f} us, bound "
+          f"{sweep['bound_ms_4096'] * 1e3:.2f} us by "
+          f"{sweep['bound_by_4096']}; dma K=1 {dma['ms_4096'] * 1e3:.2f} us "
+          f"(CUDA graph), 3 x torch.add {dma['library_ms_4096'] * 1e3:.2f} "
+          f"us, bound {dma['bound_ms_4096'] * 1e3:.2f} us by "
+          f"{dma['bound_by_4096']}; both bitwise with their plain versions",
+          flush=True)
 
 
 # --- ranks: the fence and the exchange between processes -------------------
@@ -2954,6 +3032,7 @@ def main() -> None:
     phase_variants_parity()
     phase_rect_parity()
     kernels.extend(phase_kbench())
+    phase_large(kernels)
     kernels.append(phase_fence())
     kernels.extend(phase_ranks())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,25 +38,35 @@
 //    inputs, so the fence and barrier of the TPU transport have nothing to
 //    order.
 //
-// Design.  Each CTA owns a 32 x 32 output tile and stages it with a ring
-// of 2K cells in shared memory, then advances K sub-steps there (the
-// valid region shrinks by 2 per sub-step) and writes the tile back.
-// Window reads outside the block are clamped to its edge: the kernel
-// never reads outside the (ny, nx) block.  Cells within 2K of the block
-// edge hold finite but meaningless values, like the halo cells of the
-// plain version; callers compare internal points.
+// Design (nemolite2d_step.cuh).  Each CTA owns a tile from the tile rule
+// (64 columns at float32, 32 at float64; as many rows, up to 64, as let
+// 4 CTAs share an SM at K <= 2 and 3 at K >= 3; 64 x 20 at float32 K=4)
+// and stages it with a ring of 2K cells: 16-byte cp.async copies for the
+// chunks inside the block, clamped scalar reads for those across its edge
+// and for EXCH, so the kernel never reads outside the (ny, nx) block.  It
+// then advances K sub-steps there (the valid region shrinks by 2 per
+// sub-step): warps march up columns, 29 owned columns per warp, each face
+// quantity computed once per point and sub-step and passed on by register
+// or shuffle, the next state written to a second set of planes, one
+// __syncthreads() per sub-step.  The last sub-step writes the tile to the
+// output planes from the march.  Cells within 2K of the block edge hold
+// finite but meaningless values, like the halo cells of the plain
+// version; callers compare internal points.
 //
 // What bounds it.  At K = 4 the sweep moves 3 state planes in and out
 // plus the code byte per point, about 25/4 B per point and step, so on
 // an H100 (3.35 TB/s) the memory bound is well under a microsecond per
-// step at 1024^2: the kernel is bound by its arithmetic, the
-// redundant ring compute (a 32x32 tile with an 8-cell ring computes up
-// to 2.25x its own area) and shared-memory latency.  This first version
-// buys simplicity with that redundancy; larger tiles, register blocking
-// and staged intermediates are later work.  HT adds one read of the ht
-// plane per sweep (4 B/pt at float32), one more shared-memory plane and
-// the per-point face depths; EXCH adds no bytes, only the integer map of
-// every staged state point.
+// step at 1024^2 (and there the block sits in the 50 MB L2): the kernel
+// is bound by its instruction throughput, about 180 instructions per
+// lane and row (the plain step's ~92 element operations, 9 shuffles, 4
+// shared loads, 3 stores, the selects of the masks, the division's
+// checks and the addressing), times the ring's redundant work (at f32
+// K=4 a 64 x 20 tile's window is 80 x 36; the march covers the regions
+// ~1.6 times over) and the 3 of 32 lanes that only feed their
+// neighbours.  HT adds one read of the ht plane per sweep
+// (4 B/pt at float32), one more shared plane (so a smaller tile) and the
+// per-point face depths; EXCH adds no bytes, only the integer map of
+// every staged state point and the scalar staging.
 #include "nemolite2d_step.cuh"
 
 namespace {
@@ -64,20 +74,23 @@ namespace {
 using nemo::Consts;
 
 template <typename T, int K, bool HT, bool EXCH>
-__global__ void __launch_bounds__(nemo::NT)
+__global__ void __launch_bounds__(nemo::Geo<T, K, HT>::NT,
+                                  nemo::Geo<T, K, HT>::CTAS)
 nemo_sweep_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
                   const T* __restrict__ vn_g,
                   const int8_t* __restrict__ code_g,
                   const T* __restrict__ ht_g, T* __restrict__ ssha_g,
                   T* __restrict__ ua_g, T* __restrict__ va_g, int ny,
-                  int nx, Consts c, HaloRemap m) {
+                  int nx, const __grid_constant__ nemo::StepConsts<T> c,
+                  HaloRemap m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   nemo::Planes<T> s = nemo::carve<T, K, HT>(smem_raw);
-  nemo::stage<T, K, HT, EXCH>(s, sshn_g, un_g, vn_g, code_g, ht_g, ny, nx,
-                              m);
+  // with one sub-step the next-state planes are never read
+  nemo::stage<T, K, HT, EXCH, (K > 1)>(s, sshn_g, un_g, vn_g, code_g, ht_g,
+                                       ny, nx, m);
   __syncthreads();
-  nemo::substeps<T, K, HT, false>(s, c);
-  nemo::write_back<T, K, HT>(s, ssha_g, ua_g, va_g, ny, nx);
+  const nemo::Out<T> out{ssha_g, ua_g, va_g, ny, nx};
+  nemo::substeps<T, K, HT, false, true>(s, c, out);
 }
 
 // The launch's pointers and extents.
@@ -90,12 +103,14 @@ struct Args {
 template <typename T, int K, bool HT, bool EXCH>
 cudaError_t launch(const Args& a, const Consts& c, const HaloRemap& m,
                    cudaStream_t stream) {
+  using G = nemo::Geo<T, K, HT>;
   return nemo::launch<nemo_sweep_kernel<T, K, HT, EXCH>>(
-      nemo::Window<T, K, HT>::smem_bytes, nemo::tile_grid(a.ny, a.nx),
-      stream, static_cast<const T*>(a.sshn), static_cast<const T*>(a.un),
+      G::smem_bytes, nemo::tile_grid<G>(a.ny, a.nx), G::NT, stream,
+      static_cast<const T*>(a.sshn), static_cast<const T*>(a.un),
       static_cast<const T*>(a.vn), static_cast<const int8_t*>(a.code),
       static_cast<const T*>(a.ht), static_cast<T*>(a.ssha),
-      static_cast<T*>(a.ua), static_cast<T*>(a.va), a.ny, a.nx, c, m);
+      static_cast<T*>(a.ua), static_cast<T*>(a.va), a.ny, a.nx,
+      nemo::working<T>(c), m);
 }
 
 template <typename T, int K>

@@ -19,7 +19,8 @@
 //      ppermute transport leaves them; the JAX kernel merged into its
 //      inputs through input_output_aliases);
 //   2. sweep: the K sub-steps of nemolite2d_step.cuh on tiles staged from
-//      the merged block (flat or variable depth), written to new planes.
+//      the merged block (flat or variable depth; 16-byte copies where a
+//      chunk lies inside the block), the last one written to new planes.
 //
 // The output equals the ppermute exchange at the full halo depth followed
 // by the sweep, bitwise at internal points.
@@ -47,20 +48,23 @@ namespace {
 using nemo::Consts;
 
 template <typename T, int K, bool HT>
-__global__ void __launch_bounds__(nemo::NT)
+__global__ void __launch_bounds__(nemo::Geo<T, K, HT>::NT,
+                                  nemo::Geo<T, K, HT>::CTAS)
 nemo_sweep_merged_kernel(const T* __restrict__ xs_g,
                          const int8_t* __restrict__ code_g,
                          const T* __restrict__ ht_g, T* __restrict__ ssha_g,
                          T* __restrict__ ua_g, T* __restrict__ va_g, int ny,
-                         int nx, Consts c) {
+                         int nx,
+                         const __grid_constant__ nemo::StepConsts<T> c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t plane = static_cast<size_t>(ny) * nx;
   nemo::Planes<T> s = nemo::carve<T, K, HT>(smem_raw);
-  nemo::stage<T, K, HT, false>(s, xs_g, xs_g + plane, xs_g + 2 * plane,
-                               code_g, ht_g, ny, nx, HaloRemap{});
+  nemo::stage<T, K, HT, false, (K > 1)>(s, xs_g, xs_g + plane,
+                                        xs_g + 2 * plane, code_g, ht_g, ny,
+                                        nx, HaloRemap{});
   __syncthreads();
-  nemo::substeps<T, K, HT, false>(s, c);
-  nemo::write_back<T, K, HT>(s, ssha_g, ua_g, va_g, ny, nx);
+  const nemo::Out<T> out{ssha_g, ua_g, va_g, ny, nx};
+  nemo::substeps<T, K, HT, false, true>(s, c, out);
 }
 
 // The launch's pointers and extents.
@@ -72,11 +76,13 @@ struct Args {
 
 template <typename T, int K, bool HT>
 cudaError_t launch_sweep(const Args& a, const Consts& c, cudaStream_t s) {
+  using G = nemo::Geo<T, K, HT>;
   return nemo::launch<nemo_sweep_merged_kernel<T, K, HT>>(
-      nemo::Window<T, K, HT>::smem_bytes, nemo::tile_grid(a.ny, a.nx), s,
+      G::smem_bytes, nemo::tile_grid<G>(a.ny, a.nx), G::NT, s,
       static_cast<const T*>(a.xs), static_cast<const int8_t*>(a.code),
       static_cast<const T*>(a.ht), static_cast<T*>(a.ssha),
-      static_cast<T*>(a.ua), static_cast<T*>(a.va), a.ny, a.nx, c);
+      static_cast<T*>(a.ua), static_cast<T*>(a.va), a.ny, a.nx,
+      nemo::working<T>(c));
 }
 
 template <typename T, int K>

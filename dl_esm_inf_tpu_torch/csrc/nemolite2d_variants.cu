@@ -11,27 +11,31 @@
 // Its modes full and unroll are the production step in two TPU pipeline
 // schedules: on the card that is the production kernel itself.
 //
-// Both variants use the production geometry, staging and write-back
-// (nemolite2d_step.cuh: a 32 x 32 tile, a ring of 2K cells, reads clamped
-// to the block), flat depth, no exchange, so what they leave out is all
-// they differ by.
+// Both variants use the production tile rule and staging
+// (nemolite2d_step.cuh: the tile from the shared-memory budget, a ring of
+// 2K cells, 16-byte cp.async copies for the chunks inside the block and
+// clamped scalar reads for those across its edge), flat depth, no
+// exchange, so what they leave out is all they differ by.
 //
 //  * dma stages the windows of sshn, un, vn and the int8 code, runs the
-//    production sub-step structure K times (three __syncthreads() per
-//    sub-step, the ssha scratch plane swapped with the surface) with
-//    x = x + f_k on the three state planes over the whole window as the
-//    body, and writes the tile back: sshn + f_0 + ... + f_{K-1}, summed in
-//    that order, and the same for un and vn.  Each point's code is read
-//    and compared with 127, a value the 6-bit codes never take, so the
-//    compiler keeps the code plane's loads and the variant moves the bytes
-//    production moves (25 B per point and sweep at float32).
+//    production sub-step structure (one __syncthreads() per sub-step, the
+//    state and next-state planes swapped) with x = x + f_k on the three
+//    state planes over the whole window as the body, the last sub-step on
+//    the tile alone and written out, as production's last sub-step is
+//    (16 bytes per thread where the rows allow): sshn + f_0 + ... +
+//    f_{K-1}, summed in that order, and the same for un and vn.  Each
+//    point's code is read and compared with 127, a value the 6-bit codes
+//    never take, so the code plane's bytes are used as production uses
+//    them; the variant moves the bytes production moves (25 B per point
+//    and sweep at float32 and the ring's), through the same copies.
 //  * compute stages once, then runs the production K sub-steps (the
-//    shrinking update regions included) `reps` times on the resident
-//    window, each pass feeding its output back into the window, and
-//    writes the tile back once.  The scratch plane starts as a copy of the
-//    surface, so every later pass reads defined values in the ring.  The
-//    time per step is the slope over two `reps` divided by K, which
-//    cancels the one staging and write-back.  The reps loop is not
+//    shrinking update regions and the swap of state and next-state planes
+//    included) `reps` times on the resident window, each pass feeding its
+//    output back into the window, and writes the tile back once from
+//    shared memory (16 bytes per store).  The next-state planes start as
+//    copies of the state, so every later pass reads defined values in the
+//    ring.  The time per step is the slope over two `reps` divided by K,
+//    which cancels the one staging and write-back.  The reps loop is not
 //    unrolled and its body is not loop-invariant: the TPU microbench
 //    measured an impossible floor when it was (scripts/kbench.py:100-105).
 //    With reps = 1 the output equals production bitwise on every cell.
@@ -41,10 +45,14 @@
 //
 // What bounds them.  dma moves the production sweep's bytes and does one
 // add per plane and point per sub-step: it is bound by memory, 25 B per
-// point and sweep at float32 over 3.35 TB/s.  compute moves no bytes per
-// pass; it is bound by the step's arithmetic (about 92 element
-// operations per point and step) and, as production, by the ring's
-// redundant work and shared-memory latency.
+// point and sweep at float32 over 3.35 TB/s (at 1024^2 the block sits in
+// the 50 MB L2, so the bound is no floor there; and the staging, the
+// body and the stores of the CTAs sharing an SM run mostly in step, so
+// they overlap little).  compute moves no bytes per pass; it is bound by
+// the throughput of the step's instructions (about 92 element operations
+// per point and step, ~180 instructions per lane and row with the
+// shuffles, shared accesses and addressing of the march) and, as
+// production, by the ring's redundant work.
 #include "nemolite2d_step.cuh"
 
 namespace {
@@ -52,73 +60,97 @@ namespace {
 using nemo::Consts;
 
 template <typename T, int K>
-__global__ void __launch_bounds__(nemo::NT)
+__global__ void __launch_bounds__(nemo::Geo<T, K, false>::NT,
+                                  nemo::Geo<T, K, false>::CTAS)
 nemo_dma_kernel(const T* __restrict__ sshn_g, const T* __restrict__ un_g,
                 const T* __restrict__ vn_g,
                 const int8_t* __restrict__ code_g, T* __restrict__ ssha_g,
                 T* __restrict__ ua_g, T* __restrict__ va_g, int ny, int nx,
-                Consts c) {
-  using W = nemo::Window<T, K, false>;
-  constexpr int WC = W::WC;
+                const __grid_constant__ nemo::StepConsts<T> c) {
+  using G = nemo::Geo<T, K, false>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   nemo::Planes<T> s = nemo::carve<T, K, false>(smem_raw);
-  nemo::stage<T, K, false, false>(s, sshn_g, un_g, vn_g, code_g, nullptr,
-                                  ny, nx, HaloRemap{});
+  // the body writes every window point, so the scratch planes need no copy
+  nemo::stage<T, K, false, false, false>(s, sshn_g, un_g, vn_g, code_g,
+                                         nullptr, ny, nx, HaloRemap{});
   __syncthreads();
-  const int tid = threadIdx.x;
   const T zero = static_cast<T>(0);
+  constexpr int P = G::P;
 #pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    const T f = static_cast<T>(c.forcing[k]);
-    for (int idx = tid; idx < WC; idx += nemo::NT) {
-      s.a[idx] = s.code[idx] == 127 ? zero : s.ssh[idx] + f;
+  for (int k = 0; k < K - 1; ++k) {
+    const T f = c.forcing[k];
+    for (int idx = threadIdx.x; idx < G::WY * G::WX; idx += G::NT) {
+      const int w = idx / G::WX, x = idx - w * G::WX;
+      const int i = w * G::PX + G::OFF + x;
+      const bool never = s.code[w * G::PC + G::OFFC + x] == 127;
+      for (int p = 0; p < 3; ++p) {
+        s.nxt[p * P + i] = never ? zero : s.cur[p * P + i] + f;
+      }
     }
     __syncthreads();
-    T ua[W::CPT], va[W::CPT];
-#pragma unroll
-    for (int q = 0; q < W::CPT; ++q) {
-      const int idx = tid + q * nemo::NT;
-      ua[q] = zero;
-      va[q] = zero;
-      if (idx >= WC) continue;
-      const bool never = s.code[idx] == 127;
-      ua[q] = never ? zero : s.u[idx] + f;
-      va[q] = never ? zero : s.v[idx] + f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < W::CPT; ++q) {
-      const int idx = tid + q * nemo::NT;
-      if (idx >= WC) continue;
-      s.u[idx] = ua[q];
-      s.v[idx] = va[q];
-    }
-    T* t = s.ssh;
-    s.ssh = s.a;
-    s.a = t;
-    __syncthreads();
+    T* t = s.cur;
+    s.cur = s.nxt;
+    s.nxt = t;
   }
-  nemo::write_back<T, K, false>(s, ssha_g, ua_g, va_g, ny, nx);
+  // the last sub-step on the tile alone, written out as production's last
+  // sub-step is: 16 bytes per thread where the block's rows allow
+  const T f = c.forcing[K - 1];
+  T* const outs[3] = {ssha_g, ua_g, va_g};
+  const int gy0 = blockIdx.y * G::TY, gx0 = blockIdx.x * G::TX;
+  constexpr int C0 = G::OFF + G::R, CC0 = G::OFFC + G::R, V = G::V;
+  if ((nx % V) == 0 && nemo::aligned16(ssha_g) && nemo::aligned16(ua_g) &&
+      nemo::aligned16(va_g)) {
+    constexpr int CH = G::TX / V;
+    for (int idx = threadIdx.x; idx < G::TY * CH; idx += G::NT) {
+      const int ty = idx / CH, j = idx - ty * CH;
+      const int gy = gy0 + ty, gx = gx0 + j * V;
+      if (gy >= ny || gx >= nx) continue;
+      const int i = (ty + G::R) * G::PX + C0 + j * V;
+      const int8_t* cd = s.code + (ty + G::R) * G::PC + CC0 + j * V;
+      const size_t g = static_cast<size_t>(gy) * nx + gx;
+      for (int p = 0; p < 3; ++p) {
+        alignas(16) T x[V];
+        *reinterpret_cast<uint4*>(x) =
+            *reinterpret_cast<const uint4*>(s.cur + p * P + i);
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[e] = cd[e] == 127 ? zero : x[e] + f;
+        *reinterpret_cast<uint4*>(outs[p] + g) =
+            *reinterpret_cast<const uint4*>(x);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < G::TY * G::TX; idx += G::NT) {
+      const int ty = idx / G::TX, tx = idx - ty * G::TX;
+      const int gy = gy0 + ty, gx = gx0 + tx;
+      if (gy >= ny || gx >= nx) continue;
+      const int i = (ty + G::R) * G::PX + C0 + tx;
+      const bool never = s.code[(ty + G::R) * G::PC + CC0 + tx] == 127;
+      const size_t g = static_cast<size_t>(gy) * nx + gx;
+      for (int p = 0; p < 3; ++p) {
+        outs[p][g] = never ? zero : s.cur[p * P + i] + f;
+      }
+    }
+  }
 }
 
 template <typename T, int K, bool FAST>
-__global__ void __launch_bounds__(nemo::NT)
+__global__ void __launch_bounds__(nemo::Geo<T, K, false>::NT,
+                                  nemo::Geo<T, K, false>::CTAS)
 nemo_compute_kernel(const T* __restrict__ sshn_g,
                     const T* __restrict__ un_g, const T* __restrict__ vn_g,
                     const int8_t* __restrict__ code_g,
                     T* __restrict__ ssha_g, T* __restrict__ ua_g,
-                    T* __restrict__ va_g, int ny, int nx, Consts c,
-                    int reps) {
-  constexpr int WC = nemo::Window<T, K, false>::WC;
+                    T* __restrict__ va_g, int ny, int nx,
+                    const __grid_constant__ nemo::StepConsts<T> c, int reps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   nemo::Planes<T> s = nemo::carve<T, K, false>(smem_raw);
-  nemo::stage<T, K, false, false>(s, sshn_g, un_g, vn_g, code_g, nullptr,
-                                  ny, nx, HaloRemap{});
-  // each thread copies the points it staged itself
-  for (int idx = threadIdx.x; idx < WC; idx += nemo::NT) s.a[idx] = s.ssh[idx];
+  nemo::stage<T, K, false, false, true>(s, sshn_g, un_g, vn_g, code_g,
+                                        nullptr, ny, nx, HaloRemap{});
   __syncthreads();
 #pragma unroll 1
-  for (int r = 0; r < reps; ++r) nemo::substeps<T, K, false, FAST>(s, c);
+  for (int r = 0; r < reps; ++r) {
+    nemo::substeps<T, K, false, FAST, false>(s, c, nemo::Out<T>{});
+  }
   nemo::write_back<T, K, false>(s, ssha_g, ua_g, va_g, ny, nx);
 }
 
@@ -133,30 +165,32 @@ struct Args {
 template <typename T, int K>
 cudaError_t launch_mode(int mode, const Args& a, const Consts& c,
                         cudaStream_t s) {
-  constexpr size_t smem = nemo::Window<T, K, false>::smem_bytes;
-  const dim3 grid = nemo::tile_grid(a.ny, a.nx);
+  using G = nemo::Geo<T, K, false>;
+  constexpr size_t smem = G::smem_bytes;
+  const dim3 grid = nemo::tile_grid<G>(a.ny, a.nx);
   const T* sshn = static_cast<const T*>(a.sshn);
   const T* un = static_cast<const T*>(a.un);
   const T* vn = static_cast<const T*>(a.vn);
   const int8_t* code = static_cast<const int8_t*>(a.code);
+  const nemo::StepConsts<T> ct = nemo::working<T>(c);
   T* ssha = static_cast<T*>(a.ssha);
   T* ua = static_cast<T*>(a.ua);
   T* va = static_cast<T*>(a.va);
   if (mode == kDma) {
-    return nemo::launch<nemo_dma_kernel<T, K>>(smem, grid, s, sshn, un, vn,
-                                               code, ssha, ua, va, a.ny,
-                                               a.nx, c);
+    return nemo::launch<nemo_dma_kernel<T, K>>(smem, grid, G::NT, s, sshn,
+                                               un, vn, code, ssha, ua, va,
+                                               a.ny, a.nx, ct);
   }
   if (mode == kCompute) {
     return nemo::launch<nemo_compute_kernel<T, K, false>>(
-        smem, grid, s, sshn, un, vn, code, ssha, ua, va, a.ny, a.nx, c,
-        a.reps);
+        smem, grid, G::NT, s, sshn, un, vn, code, ssha, ua, va, a.ny, a.nx,
+        ct, a.reps);
   }
   if constexpr (sizeof(T) == 4) {
     if (mode == kComputeFast) {
       return nemo::launch<nemo_compute_kernel<T, K, true>>(
-          smem, grid, s, sshn, un, vn, code, ssha, ua, va, a.ny, a.nx, c,
-          a.reps);
+          smem, grid, G::NT, s, sshn, un, vn, code, ssha, ua, va, a.ny,
+          a.nx, ct, a.reps);
     }
   }
   return cudaErrorInvalidValue;

@@ -17,7 +17,8 @@ Modes (:func:`~.ops.fused_step.make_variant`):
 * ``compute_fast`` — the same with the approximate reciprocal (float32).
 
 The TPU microbench's tile-row knob (``--tys``) has no counterpart: the
-CUDA tile is a fixed 32 x 32.  The sweep depth K takes its place.  Each
+CUDA tile follows from the shared-memory budget for each dtype and K
+(:func:`~.ops.fused_step.tile`).  The sweep depth K takes its place.  Each
 (K, mode) prints its time per model step; each K then prints the split
 of one production step into the memory floor, the compute floor and the
 remainder.  Times come from :func:`~.utils.profiling.slope_time`: on the

@@ -40,6 +40,7 @@ plain versions (:func:`variant_dma_reference`,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -372,8 +373,68 @@ def make_fused_step(ly: int, lx: int, dtype, p, dx: float, dy: float,
 # The kernel-variant microbench (scripts/kbench.py make_variant)
 # ---------------------------------------------------------------------------
 
-#: the kernels' tile (csrc/nemolite2d_step.cuh: TY x TX)
-TILE = 32
+#: an H100 SM's shared memory, the runtime's reserve per CTA, the largest
+#: tile edge in y, the row strips of a CTA and, by K (index K - 1), the
+#: CTAs that must share an SM: the tile rule's inputs
+#: (csrc/nemolite2d_step.cuh: kSmemPerSM, kSmemReserve, kTileYMax,
+#: kRowStrips, kCtasPerSM)
+SMEM_PER_SM = 233472
+SMEM_RESERVE = 1024
+TILE_Y_MAX = 64
+ROW_STRIPS = 2
+CTAS_PER_SM = (4, 4, 3, 3)
+#: columns a warp owns (kOwned)
+OWNED_COLUMNS = 29
+
+
+def smem_budget(K: int) -> int:
+    """Shared memory one CTA may take at K sub-steps so that
+    ``CTAS_PER_SM[K - 1]`` CTAs share an SM."""
+    return SMEM_PER_SM // CTAS_PER_SM[K - 1] - SMEM_RESERVE
+
+
+class Tile(NamedTuple):
+    """A flagship kernel's tile: ``ty x tx`` output points per CTA, the
+    CTA's dynamic shared memory and threads."""
+    ty: int
+    tx: int
+    smem_bytes: int
+    threads: int
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def tile(dtype, K: int, ht: bool = False) -> Tile:
+    """The tile of the flagship kernels (the sweep, across ranks, the
+    variants) at ``dtype`` with K sub-steps, flat (``ht`` False) or
+    variable depth: the mirror of csrc/nemolite2d_step.cuh ``Tile``.
+
+    64 columns at float32, 32 at float64; the window (the tile and a ring
+    of 2K) is staged as 6 planes of the state and the next state (7 with
+    the depth), rows padded to 16-byte copies, and the code plane; ``ty``
+    is the largest multiple of 4 up to TILE_Y_MAX whose window fits
+    :func:`smem_budget`, so that ``CTAS_PER_SM[K - 1]`` CTAs share an SM.
+    The CTA has ROW_STRIPS rows of warps, each warp owning OWNED_COLUMNS
+    columns."""
+    es = torch.empty((), dtype=dtype).element_size()
+    R = 2 * K
+    tx = 64 if es == 4 else 32
+    wx = tx + 2 * R
+    v = 16 // es
+    off = (v - R % v) % v
+    px = _round_up(off + wx, v)
+    offc = (16 - R % 16) % 16
+    pc = _round_up(offc + wx, 16)
+    row = (7 if ht else 6) * px * es + pc
+    ty = TILE_Y_MAX
+    while ty > 4 and (ty + 2 * R) * row > smem_budget(K):
+        ty -= 4
+    col_strips = -(-(wx - 2) // OWNED_COLUMNS)
+    return Tile(ty, tx, (ty + 2 * R) * row, 32 * col_strips * ROW_STRIPS)
+
+
 #: what make_variant's modes run: the production sweep, a variant of
 #: csrc/nemolite2d_variants.cu, or nothing (``tight`` only records a TPU
 #: rule)
@@ -393,70 +454,77 @@ def variant_dma_reference(sshn, un, vn, mask_codes, forcing):
     return s
 
 
-def _tile_windows(a, K: int):
-    """Every tile's staged window, ``(ntiles, 32 + 4K, 32 + 4K)``: the
-    tile with its ring of 2K cells, reads clamped to the block edge (the
-    kernels' staging); and the tile counts ``(nty, ntx)``."""
+def _tile_windows(a, K: int, t: Tile):
+    """Every tile's staged window, ``(ntiles, ty + 4K, tx + 4K)``: the
+    tile ``t`` with its ring of 2K cells, reads clamped to the block edge
+    (the kernels' staging); and the tile counts ``(nty, ntx)``."""
     ly, lx = a.shape
-    R, w = 2 * K, TILE + 4 * K
-    nty, ntx = -(-ly // TILE), -(-lx // TILE)
-    ar = torch.arange(w, device=a.device)
-    ry = (torch.arange(nty, device=a.device)[:, None] * TILE - R
-          + ar).clamp_(0, ly - 1)
-    rx = (torch.arange(ntx, device=a.device)[:, None] * TILE - R
-          + ar).clamp_(0, lx - 1)
+    R = 2 * K
+    nty, ntx = -(-ly // t.ty), -(-lx // t.tx)
+    ry = (torch.arange(nty, device=a.device)[:, None] * t.ty - R
+          + torch.arange(t.ty + 2 * R, device=a.device)).clamp_(0, ly - 1)
+    rx = (torch.arange(ntx, device=a.device)[:, None] * t.tx - R
+          + torch.arange(t.tx + 2 * R, device=a.device)).clamp_(0, lx - 1)
     win = a[ry[:, None, :, None], rx[None, :, None, :]]
-    return win.reshape(nty * ntx, w, w), (nty, ntx)
+    return (win.reshape(nty * ntx, t.ty + 2 * R, t.tx + 2 * R),
+            (nty, ntx))
 
 
-def _untile(win, K: int, nty: int, ntx: int, ly: int, lx: int):
+def _untile(win, K: int, t: Tile, nty: int, ntx: int, ly: int, lx: int):
     """The tiles (window centres) put back into the ``(ly, lx)`` block."""
     R = 2 * K
-    t = win[:, R:R + TILE, R:R + TILE].reshape(nty, ntx, TILE, TILE)
-    return (t.permute(0, 2, 1, 3).reshape(nty * TILE, ntx * TILE)
+    c = (win[:, R:R + t.ty, R:R + t.tx]
+         .reshape(nty, ntx, t.ty, t.tx))
+    return (c.permute(0, 2, 1, 3).reshape(nty * t.ty, ntx * t.tx)
             [:ly, :lx].contiguous())
 
 
-def _inset(w: int, r: int, device):
-    """The window points at least ``r`` cells inside a ``w x w`` window."""
-    i = torch.arange(w, device=device)
-    inside = (i >= r) & (i < w - r)
-    return inside[:, None] & inside[None, :]
+def _inset(wy: int, wx: int, r: int, device):
+    """The points at least ``r`` cells inside a ``wy x wx`` window."""
+    iy = torch.arange(wy, device=device)
+    ix = torch.arange(wx, device=device)
+    return (((iy >= r) & (iy < wy - r))[:, None]
+            & ((ix >= r) & (ix < wx - r))[None, :])
 
 
 def variant_compute_reference(sshn, un, vn, mask_codes, forcing, reps=1, *,
                               p, dx, dy, fcor, depth, fast=False):
     """Plain version of the ``compute``/``compute_fast`` variants: every
-    tile's window staged as the kernel stages it, then ``reps`` passes of
-    the K sub-steps (:func:`step_math` on the window, kept on the
-    kernel's shrinking regions: continuity 2k+1 and momentum 2k+2 cells
-    inside), each feeding its output back, the new surface and the
-    scratch plane swapped every sub-step as the kernel swaps them (the
-    scratch starts as a copy of the surface).  ``fast`` takes
-    :func:`_recip_fast` for the two ``1/dep`` divisions: an exact
-    reciprocal and one Newton step, where the kernel starts the step from
-    the hardware's approximate reciprocal."""
+    tile's window (:func:`tile` at the state's dtype, flat depth) staged
+    as the kernel stages it, then ``reps`` passes of the K sub-steps
+    (:func:`step_math` on the window, kept on the kernel's shrinking
+    regions: continuity 2k+1 and momentum 2k+2 cells inside), each
+    feeding its output back.  As in the kernel, each sub-step writes the
+    new state into scratch planes, which start as copies of the staged
+    state and keep their values outside the regions, and then the state
+    and the scratch planes swap.  ``fast`` takes :func:`_recip_fast` for
+    the two ``1/dep`` divisions: an exact reciprocal and one Newton step,
+    where the kernel starts the step from the hardware's approximate
+    reciprocal."""
     from ..models.nemolite2d import (_recip_exact, _recip_fast, make_prep,
                                      step_math)
     K = len(forcing)
     ly, lx = sshn.shape
-    codes, (nty, ntx) = _tile_windows(mask_codes, K)
-    ssh, u, v = (_tile_windows(a, K)[0] for a in (sshn, un, vn))
-    scratch = ssh.clone()
+    t = tile(sshn.dtype, K)
+    codes, (nty, ntx) = _tile_windows(mask_codes, K, t)
+    ssh, u, v = (_tile_windows(a, K, t)[0] for a in (sshn, un, vn))
+    s_ssh, s_u, s_v = ssh.clone(), u.clone(), v.clone()
     prep = make_prep(codes, depth, p, sshn.dtype, dx=dx, dy=dy)
     recip = _recip_fast if fast else _recip_exact
-    w, dev = TILE + 4 * K, sshn.device
-    regions = [(_inset(w, 2 * k + 1, dev), _inset(w, 2 * k + 2, dev))
-               for k in range(K)]
+    wy, wx, dev = t.ty + 4 * K, t.tx + 4 * K, sshn.device
+    regions = [(_inset(wy, wx, 2 * k + 1, dev),
+                _inset(wy, wx, 2 * k + 2, dev)) for k in range(K)]
     for _ in range(reps):
         for (ra, rb), f in zip(regions, forcing):
             a, ua, va = step_math(ssh, u, v, codes, p, dx, dy, fcor, depth,
                                   f, recip=recip, prep=prep)
-            scratch = torch.where(ra, a, scratch)
-            u = torch.where(rb, ua, u)
-            v = torch.where(rb, va, v)
-            ssh, scratch = scratch, ssh
-    return tuple(_untile(t, K, nty, ntx, ly, lx) for t in (ssh, u, v))
+            s_ssh = torch.where(ra, a, s_ssh)
+            s_u = torch.where(rb, ua, s_u)
+            s_v = torch.where(rb, va, s_v)
+            ssh, s_ssh = s_ssh, ssh
+            u, s_u = s_u, u
+            v, s_v = s_v, v
+    return tuple(_untile(w, K, t, nty, ntx, ly, lx) for w in (ssh, u, v))
 
 
 class VariantKernel:

@@ -790,3 +790,99 @@ def test_rect_kernel_matches_plain(cuda_device, K, dxdy, dtype, tiles,
     for k in want:
         assert np.all(np.isfinite(got[k])), k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# --- both staging paths of the flagship kernels ---------------------------
+
+#: blocks whose tiles include interior CTAs (16-byte cp.async staging)
+#: and edge CTAs (clamped scalar reads) at every K and dtype, and a block
+#: whose float32 rows are not 16-byte aligned (scalar staging throughout)
+STAGING_BLOCKS = ((170, 272), (97, 206))
+
+
+def _staging_block(device, ly, lx, dtype, seed, ht=False):
+    rng = np.random.default_rng(seed)
+    state = [torch.from_numpy(a * rng.standard_normal((ly, lx))).to(
+        device=device, dtype=dtype) for a in (0.2, 0.05, 0.05)]
+    tm = np.zeros((ly, lx), np.int8)
+    tm[2:-2, 2:-2] = nl.default_tmask(lx - 4, ly - 4)
+    codes = nl.encode_masks(torch.from_numpy(tm)).to(device)
+    depth = (torch.from_numpy(50.0 + 100.0 * rng.random((ly, lx))).to(
+        device=device, dtype=dtype) if ht else None)
+    return state, codes, depth
+
+
+def _has_interior_cta(ly, lx, dtype, K, ht):
+    """Whether some CTA's window (with 16 columns of alignment slack) lies
+    inside the block."""
+    t = fs.tile(dtype, K, ht)
+    R = 2 * K
+    ys = [by for by in range(-(-ly // t.ty))
+          if by * t.ty - R >= 0 and (by + 1) * t.ty + R <= ly]
+    xs = [bx for bx in range(-(-lx // t.tx))
+          if bx * t.tx - R - 16 >= 0 and (bx + 1) * t.tx + R + 16 <= lx]
+    return bool(ys and xs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells", ["square", "rect"])
+@pytest.mark.parametrize("ht", [False, True])
+@pytest.mark.parametrize("block", STAGING_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_kernel_staging_paths_match_plain(cuda_device, K, dtype, block, ht,
+                                          cells):
+    """The sweep kernel on blocks with interior and edge CTAs, and with
+    rows that are not 16-byte aligned: bitwise with its plain version on
+    every point 2K or more inside the block."""
+    ly, lx = block
+    if block == STAGING_BLOCKS[0]:
+        assert _has_interior_cta(ly, lx, dtype, K, ht)
+    dx, dy = (1000.0, 1000.0) if cells == "square" else (1000.0, 1500.0)
+    state, codes, depth = _staging_block(cuda_device, ly, lx, dtype, K, ht)
+    p = nl.Params()
+    fcor = float(2.0 * p.omega * np.sin(50.0 * p.d2r))
+    forcing = [0.01 * (k + 1) for k in range(K)]
+    fused = fs.make_fused_step(ly, lx, dtype, p, dx, dy, fcor, 100.0, K,
+                               variable_bathy=ht)
+    before = fs.nemolite2d_sweep.launches
+    got = fused(*state, codes, forcing, ht=depth)
+    assert fs.nemolite2d_sweep.launches - before == 1
+    want = fs.fused_step_reference(*state, codes, forcing, p=p, dx=dx, dy=dy,
+                                   fcor=fcor, depth=100.0, ht=depth)
+    r = 2 * K
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g[r:-r, r:-r], w[r:-r, r:-r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", STAGING_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_variant_staging_paths_match_plain(cuda_device, K, dtype, block):
+    """dma and compute (reps 1 and 3) bitwise with their plain versions on
+    every cell of blocks with interior and edge CTAs and with rows that
+    are not 16-byte aligned; compute(reps=1) bitwise with production."""
+    ly, lx = block
+    state, codes, _ = _staging_block(cuda_device, ly, lx, dtype, 10 + K)
+    p = nl.Params()
+    fcor = float(2.0 * p.omega * np.sin(50.0 * p.d2r))
+    args = (ly, lx, dtype, p, 1000.0, 1000.0, fcor, 100.0)
+    plain = dict(p=p, dx=1000.0, dy=1000.0, fcor=fcor, depth=100.0)
+    forcing = [0.01 * (k + 1) for k in range(K)]
+    got = fs.make_variant(*args, K, "dma")(*state, codes, forcing)
+    for g, w in zip(got, fs.variant_dma_reference(*state, codes, forcing)):
+        assert torch.equal(g, w)
+    prod = fs.make_fused_step(*args, steps_per_sweep=K)(*state, codes,
+                                                        forcing)
+    for reps in (1, 3):
+        got = fs.make_variant(*args, K, "compute")(*state, codes, forcing,
+                                                   reps=reps)
+        want = fs.variant_compute_reference(*state, codes, forcing, reps,
+                                            **plain)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if reps == 1:
+            for g, w in zip(got, prod):
+                assert torch.equal(g, w)

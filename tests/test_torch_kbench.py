@@ -115,43 +115,50 @@ def test_prod_matches_jax_full(jax_kbench, n):
 
 def _jax_compute(state, codes, forcing, reps):
     """The compute variant from the JAX package's step_math and
-    make_prep, applied per window (vmap) with the kernel's staging (tile
-    + 2K ring, reads clamped to the block), update regions (continuity
-    2k+1, momentum 2k+2 cells inside) and ssha scratch swap."""
+    make_prep, applied per window (vmap) with the kernel's staging (the
+    port's tile at float64 + 2K ring, reads clamped to the block), update
+    regions (continuity 2k+1, momentum 2k+2 cells inside) and scratch
+    planes (copies of the staged state, swapped with the state every
+    sub-step)."""
     K = len(forcing)
     ly, lx = state[0].shape
-    R, w, t = 2 * K, 32 + 4 * K, 32
-    nty, ntx = -(-ly // t), -(-lx // t)
-    ry = np.clip(np.arange(nty)[:, None] * t - R + np.arange(w), 0, ly - 1)
-    rx = np.clip(np.arange(ntx)[:, None] * t - R + np.arange(w), 0, lx - 1)
+    t = tfs.tile(torch.float64, K)
+    R, wy, wx = 2 * K, t.ty + 4 * K, t.tx + 4 * K
+    nty, ntx = -(-ly // t.ty), -(-lx // t.tx)
+    ry = np.clip(np.arange(nty)[:, None] * t.ty - R + np.arange(wy), 0,
+                 ly - 1)
+    rx = np.clip(np.arange(ntx)[:, None] * t.tx - R + np.arange(wx), 0,
+                 lx - 1)
 
     def windows(a):
         return jnp.asarray(a[ry[:, None, :, None], rx[None, :, None, :]]
-                           .reshape(nty * ntx, w, w))
-    i = np.arange(w)
-    inset = [jnp.asarray(((i >= r) & (i < w - r))[:, None]
-                         & ((i >= r) & (i < w - r))[None, :])
+                           .reshape(nty * ntx, wy, wx))
+    iy, ix = np.arange(wy), np.arange(wx)
+    inset = [jnp.asarray(((iy >= r) & (iy < wy - r))[:, None]
+                         & ((ix >= r) & (ix < wx - r))[None, :])
              for r in range(2 * K + 1)]
     p = jnl.Params()
 
     def one(ssh, u, v, c):
         prep = jnl.make_prep(c, 100.0, p, jnp.float64, dx=DX, dy=DX)
-        scratch = ssh
+        s_ssh, s_u, s_v = ssh, u, v
         for _ in range(reps):
             for k, f in enumerate(forcing):
                 a, ua, va = jnl.step_math(ssh, u, v, c, p, DX, DX, _fcor(p),
                                           100.0, f, prep=prep)
-                scratch = jnp.where(inset[2 * k + 1], a, scratch)
-                u = jnp.where(inset[2 * k + 2], ua, u)
-                v = jnp.where(inset[2 * k + 2], va, v)
-                ssh, scratch = scratch, ssh
+                s_ssh = jnp.where(inset[2 * k + 1], a, s_ssh)
+                s_u = jnp.where(inset[2 * k + 2], ua, s_u)
+                s_v = jnp.where(inset[2 * k + 2], va, s_v)
+                ssh, s_ssh = s_ssh, ssh
+                u, s_u = s_u, u
+                v, s_v = s_v, v
         return ssh, u, v
 
     out = jax.vmap(one)(*(windows(a) for a in state),
                         windows(codes.numpy()))
-    return [np.asarray(o)[:, R:R + t, R:R + t].reshape(nty, ntx, t, t)
-            .transpose(0, 2, 1, 3).reshape(nty * t, ntx * t)[:ly, :lx]
-            for o in out]
+    return [np.asarray(o)[:, R:R + t.ty, R:R + t.tx]
+            .reshape(nty, ntx, t.ty, t.tx).transpose(0, 2, 1, 3)
+            .reshape(nty * t.ty, ntx * t.tx)[:ly, :lx] for o in out]
 
 
 @pytest.mark.parametrize("K,reps", [(1, 1), (2, 3), (3, 1), (4, 2)])
@@ -243,3 +250,14 @@ def test_variant_wrapper_never_falls_back():
         with pytest.raises(ValueError, match="CUDA"):
             var(*meta, codes, [0.0])
         assert kern.launches == before
+
+
+def test_sweep_probe_needs_the_card(monkeypatch):
+    """The flagship probe times the card only: without one it exits
+    before it builds or times anything."""
+    import sys
+    from dl_esm_inf_tpu_torch import sweep_probe
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA GPU"):
+        sweep_probe.main(["--n", "32"])
