@@ -27,7 +27,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
    dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
    the schedule sweeps that phase 10 generates (one source per schedule
    structure, dtype and K), all at once (build/torch_kernels/); prints
-   each library's registers and spills;
+   each library's registers and spills, and requires that no
+   instantiation of the skeleton's kernel (csrc/stencil_sweep.cuh)
+   spills and that the Chebyshev sweep's SASS holds no WARPSYNC;
 3. flagship kernel vs plain, float64: the fused model on the kernel
    against the same model on the plain PyTorch path, 256^2 and 1024^2,
    K = 1..4, 1 and 4 tiles, 101 steps from a Gaussian bump;
@@ -46,14 +48,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
       benchmark configures it (bench.py measure_client_models): run(n)
       with the model's launch counter reset just before, finiteness,
       kernel vs plain after the run and for one sweep, and times on the
-      card;
+      card (one sweep as a CUDA graph of its launches, the card's time,
+      beside one wrapper call's);
 7. the fused Chebyshev sweep: kernel vs plain bitwise at float64 and
    float32 (K = 1..8, 1 and 4 tiles, a land ring with an island, four
    chained sweeps with scalars that change per sweep), and a fused
    solve against the plain Chebyshev solve at an equal iteration
    count; then the main path as bench.py measure_solver configures it
    (1024^2, lam 50, K = 4, float32): converged, launches = niters / K,
-   solve times on the kernel and the plain path;
+   solve times on the kernel and the plain path, one sweep's time on the
+   card (CUDA graph) beside the wrapper call's;
 8. the semi-implicit model (scripts/solverbench.py's configuration:
    1024^2, dt 0.5, depth 10, CG, float32): ms/step, CG iterations per
    step, mass drift, one Chebyshev step; and a small float64 run on
@@ -64,7 +68,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
    path (1024^2, 3 layers, K = 8, float32) with its launch count and
    times, and one sweep of 5 and 8 layers (float32 and float64, on the
    tile the shared-memory budget gives) against its plain version, with
-   its time;
+   its time (sweeps as CUDA graphs, beside the wrapper call's time);
 10. the fused schedule sweep (a CUDA kernel generated from a kernel
    schedule, each point body hand-written or derived from the torch
    body by ops/point_trace.py), the plain fused tier replaced by a
@@ -93,9 +97,16 @@ Phases (each prints a line; any failure raises and exits non-zero):
    bandwidth of the card measured in the same run; and the levels=N
    main path: the nlayer-style chain at 1024^2, halo 4, through
    fused_program(20) (levels 3 and 8 at float32 on 1 and 2x2 tiles,
-   levels 8 at float64 on 16-cell tiles): launches = 20, vs the plain
-   fused tier, one light sweep timed against its plain version and its
-   bound, us/step of both;
+   levels 8 at float64): launches = 20, vs the plain fused tier, one
+   light sweep timed (CUDA graph, and the wrapper call) against its
+   plain version and its bound, us/step of both; then the skeleton's
+   edge shapes: every kernel on csrc/stencil_sweep.cuh (gravity wave,
+   shallow, two-layer, tracer upwind and van Leer, N-layer 3 and 5
+   layers, Chebyshev, the PSy and levels=3 schedule sweeps) against its
+   plain version, one sweep, bitwise on internal points, on a 1000x1030
+   grid (rows no multiple of 4 points, sides no multiple of any tile)
+   and a 37x45 grid (smaller than one tile) at float32 and each main
+   path's K, and on the 1000x1030 grid at float64 and K = 4;
 11. the exchange kernel against the plain exchange, bitwise on every
    cell: 1, 2x1, 1x2, 2x2, 3x2 and 4x4 tiles, walled, x-, y- and doubly
    periodic, halo 1, 2 and 8 at every depth, float32, float64 and int32,
@@ -239,6 +250,8 @@ from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
     exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
     stencil_sweep_reference)
+from dl_esm_inf_tpu_torch.sweep_probe import (  # noqa: E402
+    _graph_ms as _device_ms)
 from dl_esm_inf_tpu_torch.testing import init_field_hill  # noqa: E402
 from nemolite2d_golden import golden_run  # noqa: E402
 
@@ -354,6 +367,38 @@ def phase_build() -> None:
     n_gen = sum(1 for b in built if b.source is not None)
     print(f"build: {len(built)} libraries ({n_gen} generated schedule "
           f"sweeps) in {wall:.1f}s (in parallel)", flush=True)
+    # every instantiation of the skeleton's kernel spills nothing, and the
+    # Chebyshev march synchronises no warp (its trip count is uniform)
+    skel = {name: spill for b in built
+            for name, spill in _ptxas_spills(b.log).items()
+            if "sweep_kernel" in name}
+    spilled = {n: v for n, v in skel.items() if v}
+    if not skel or spilled:
+        raise AssertionError(f"skeleton kernels spill: {spilled}")
+    cheb = _sass_counts(so.helmholtz_cheb_sweep.build().path, "WARPSYNC")
+    if not cheb or any(cheb.values()):
+        raise AssertionError(f"WARPSYNC in the Chebyshev sweep: {cheb}")
+    print(f"build: {len(skel)} instantiations of the skeleton's kernel, 0 "
+          f"bytes spilled; {len(cheb)} Chebyshev kernels, no WARPSYNC in "
+          f"their SASS", flush=True)
+
+
+def _ptxas_spills(log: str) -> dict:
+    """Spilled bytes (stores + loads) per kernel of a ptxas report."""
+    return {name: int(a) + int(b) for name, a, b in re.findall(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) "
+        r"bytes spill stores, (\d+) bytes spill loads", log)}
+
+
+def _sass_counts(lib: Path, pattern: str) -> dict:
+    """Per kernel in the library's SASS (cuobjdump): the instructions
+    matching ``pattern``."""
+    from dl_esm_inf_tpu_torch.ops.cuda_build import find_nvcc
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {part.split(None, 1)[0]: len(re.findall(pattern, part))
+            for part in sass.split("Function : ")[1:]}
 
 
 def _rel_diff(ga: dict, gb: dict) -> float:
@@ -741,6 +786,7 @@ def phase_client_main(c: Client) -> dict:
         raise AssertionError(f"{c.name} one sweep kernel vs plain f32: "
                              f"{max_abs:.3e}")
     ms = _time_ms(lambda: sweep(state, aux), 200)
+    device_ms = _device_ms(lambda: sweep(state, aux), 20)
     plain_ms = _time_ms(lambda: stencil_sweep_reference(
         m._step_math, K, state, prep), 20)
     us_k = _run_step_us(m, 50 * K, 5)
@@ -752,15 +798,17 @@ def phase_client_main(c: Client) -> dict:
     print(f"{c.name} timing f32 {N}^2 K={K}: run on the kernel path "
           f"{us_k:.2f} us/step ({N * N / us_k:.0f} Mpt/s), on the plain "
           f"path {us_p:.2f} us/step ({N * N / us_p:.0f} Mpt/s); one sweep: "
-          f"kernel {ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/step), plain "
-          f"{plain_ms * 1e3:.2f} us", flush=True)
+          f"kernel {device_ms * 1e3:.2f} us on the card (CUDA graph; "
+          f"{device_ms * 1e3 / K:.2f} us/step; wrapper call {ms * 1e3:.2f} "
+          f"us), plain {plain_ms * 1e3:.2f} us", flush=True)
     ops = _count_ops(lambda: stencil_sweep_reference(m._step_math, K, state,
                                                      prep))
     return {"name": c.name, "route": "cuda",
             "source": f"dl_esm_inf_tpu_torch/csrc/{kern.source}",
             "replaces": c.replaces, "launches": launches,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            **_bound(_nbytes(*state, *aux, *ker), ops, state[0].dtype)}
+            **_bound(_nbytes(*state, *aux, *ker), ops, state[0].dtype),
+            "device_ms": device_ms}
 
 
 # --- the elliptic-solver path ---------------------------------------------
@@ -898,6 +946,7 @@ def phase_cheb_main() -> dict:
         raise AssertionError(f"cheb one sweep kernel vs plain f32: "
                              f"{max_abs:.3e}, expected bitwise")
     ms = _time_ms(lambda: sweep(*state, sc), 200)
+    device_ms = _device_ms(lambda: sweep(*state, sc), 20)
     plain_ms = _time_ms(lambda: stencil_sweep_reference(
         so.cheb_step, K, state, prep, scalars=[tuple(r) for r in sc]), 20)
     reps = [0]
@@ -914,7 +963,9 @@ def phase_cheb_main() -> dict:
     print(f"helmholtz_cheb_sweep timing f32 {N}^2 K={K}: solve on the "
           f"kernel path {solve_ms:.3f} ms, on the plain path "
           f"{solve_plain_ms:.3f} ms (varied rhs); one sweep: kernel "
-          f"{ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/iteration), plain "
+          f"{device_ms * 1e3:.2f} us on the card (CUDA graph; "
+          f"{device_ms * 1e3 / K:.2f} us/iteration; wrapper call "
+          f"{ms * 1e3:.2f} us), plain "
           f"{plain_ms * 1e3:.2f} us", flush=True)
     ops = _count_ops(lambda: stencil_sweep_reference(
         so.cheb_step, K, state, prep, scalars=[tuple(r) for r in sc]))
@@ -923,7 +974,10 @@ def phase_cheb_main() -> dict:
             "replaces": "dl_esm_inf_tpu/ops/solvers.py:553",
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms,
-            **_bound(_nbytes(*state, s._codes, *ker), ops, g.dtype)}
+            **_bound(_nbytes(*state, s._codes, *ker), ops, g.dtype),
+            "device_ms": device_ms, "solve_ms": solve_ms,
+            "solve_plain_ms": solve_plain_ms,
+            "solve_iterations": info["iterations"]}
 
 
 def _semi_step_ms(m, nsteps: int) -> tuple[float, dict]:
@@ -1105,6 +1159,7 @@ def phase_nlayer_main() -> dict:
         raise AssertionError(f"nlayer one sweep kernel vs plain f32: "
                              f"{max_abs:.3e}, expected bitwise")
     ms = _time_ms(lambda: sweep(flat, m._sweep_aux), 200)
+    device_ms = _device_ms(lambda: sweep(flat, m._sweep_aux), 20)
     plain_ms = _time_ms(lambda: stencil_sweep_reference(
         m._sweep_step, K, flat, prep), 20)
     us_k = _run_step_us(m, 50 * K, 5)
@@ -1115,8 +1170,10 @@ def phase_nlayer_main() -> dict:
           flush=True)
     print(f"nlayer_sweep timing f32 {N}^2 L={L} K={K}: run on the kernel "
           f"path {us_k:.2f} us/step ({N * N / us_k:.0f} Mpt/s), on the plain "
-          f"path {us_p:.2f} us/step; one sweep: kernel {ms * 1e3:.2f} us "
-          f"({ms * 1e3 / K:.2f} us/step), plain {plain_ms * 1e3:.2f} us",
+          f"path {us_p:.2f} us/step; one sweep: kernel "
+          f"{device_ms * 1e3:.2f} us on the card (CUDA graph; "
+          f"{device_ms * 1e3 / K:.2f} us/step; wrapper call "
+          f"{ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us",
           flush=True)
     ops = _count_ops(lambda: stencil_sweep_reference(m._sweep_step, K, flat,
                                                      prep))
@@ -1127,6 +1184,7 @@ def phase_nlayer_main() -> dict:
             "plain_ms": plain_ms,
             **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops,
                      m.grid.dtype),
+            "device_ms": device_ms,
             "us_per_step": us_k, "many_layers": _nlayer_many_main(N, K)}
 
 
@@ -1152,6 +1210,7 @@ def _nlayer_many_main(N: int, K: int) -> list:
             raise AssertionError(f"nlayer L={L} {dtype} one sweep kernel vs "
                                  f"plain: {max_abs:.3e}, expected bitwise")
         ms = _time_ms(lambda: sweep(flat, m._sweep_aux), 50)
+        device_ms = _device_ms(lambda: sweep(flat, m._sweep_aux), 10)
         plain_ms = _time_ms(lambda: stencil_sweep_reference(
             m._sweep_step, K, flat, prep), 3)
         ops = _count_ops(lambda: stencil_sweep_reference(
@@ -1159,14 +1218,17 @@ def _nlayer_many_main(N: int, K: int) -> list:
         row = {"layers": L, "dtype": str(dtype).removeprefix("torch."),
                "tile": nlm.kernel_tile(L, dtype, K), "max_abs_err": max_abs,
                "ms": ms, "plain_ms": plain_ms,
-               **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops, dtype)}
+               **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops, dtype),
+               "device_ms": device_ms}
         row["us_per_step"] = (_run_step_us(m, 20 * K, 3)
                               if dtype == torch.float32 else None)
         del row["library_ms"]
         out.append(row)
         print(f"nlayer_sweep {N}^2 L={L} {row['dtype']} K={K}: tile "
               f"{row['tile']}; one sweep kernel vs plain bitwise; kernel "
-              f"{ms * 1e3:.2f} us ({ms * 1e3 / K:.2f} us/step), plain "
+              f"{device_ms * 1e3:.2f} us on the card (CUDA graph; "
+              f"{device_ms * 1e3 / K:.2f} us/step; wrapper call "
+              f"{ms * 1e3:.2f} us), plain "
               f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} "
               f"us ({row['bound_by']})"
               + (f"; run {row['us_per_step']:.2f} us/step"
@@ -1668,7 +1730,9 @@ def phase_psy_main() -> dict:
         raise AssertionError(f"PSy one sweep kernel vs plain: {max_abs:.3e}"
                              f" (derived {max_abs_d:.3e})")
     ms = _time_ms(lambda: sweep(state, ros, extra, rows), 200)
+    device_ms = _device_ms(lambda: sweep(state, ros, extra, rows), 20)
     ms_d = _time_ms(lambda: dsweep(state, ros, extra, rows), 200)
+    device_ms_d = _device_ms(lambda: dsweep(state, ros, extra, rows), 20)
     plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 20)
     ops = _count_ops(lambda: psweep(state, ros, extra, rows))
     code = torch.stack(sched._fused_masks())
@@ -1702,16 +1766,20 @@ def phase_psy_main() -> dict:
           flush=True)
     print(f"PSy timing f32 {N}^2, derived bodies: kernel path {us_kd:.2f} "
           f"us/step (repeats 1), {us_rep_d[2]:.2f} (repeats 2), "
-          f"{us_rep_d[3]:.2f} (repeats 3); one light sweep {ms_d * 1e3:.2f} "
-          f"us; hand-written {us_k:.2f} / {us_rep[2]:.2f} / {us_rep[3]:.2f} "
-          f"us/step, {ms * 1e3:.2f} us", flush=True)
+          f"{us_rep_d[3]:.2f} (repeats 3); one light sweep "
+          f"{device_ms_d * 1e3:.2f} us on the card (wrapper call "
+          f"{ms_d * 1e3:.2f} us); hand-written {us_k:.2f} / "
+          f"{us_rep[2]:.2f} / {us_rep[3]:.2f} us/step, "
+          f"{device_ms * 1e3:.2f} us", flush=True)
     print(f"PSy timing f32 {N}^2 (state: Gaussian bump after {n}+ steps): "
           f"kernel path {us_k:.2f} us/step (repeats 1), "
           f"{us_rep[2]:.2f} (repeats 2), {us_rep[3]:.2f} (repeats 3); plain "
           f"fused tier {us_plain_fused:.2f} us/step; plain schedule "
           f"{us_sched:.2f} us/step; production flagship kernel K=4 "
-          f"{us_prod:.2f} us/step; one light sweep: kernel {ms * 1e3:.2f} "
-          f"us, plain {plain_ms * 1e3:.2f} us; "
+          f"{us_prod:.2f} us/step; one light sweep: kernel "
+          f"{device_ms * 1e3:.2f} "
+          f"us on the card (CUDA graph; wrapper call "
+          f"{ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us; "
           f"{nbytes / state[0].numel():.1f} B/pt per sweep, bound "
           f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}; copy "
           f"{gbs:.0f} GB/s gives {nbytes / gbs / 1e3:.2f} us)", flush=True)
@@ -1720,10 +1788,11 @@ def phase_psy_main() -> dict:
              "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
              "plain_ms": plain_ms, **bound}
     return [{"name": "schedule_sweep", "launches": launches["hand"],
-             "max_abs_err": max_abs, "ms": ms, **entry},
+             "max_abs_err": max_abs, "ms": ms, **entry,
+             "device_ms": device_ms},
             {"name": "schedule_sweep (PSy, derived bodies)",
              "launches": launches["derived"], "max_abs_err": max_abs_d,
-             "ms": ms_d, **entry}]
+             "ms": ms_d, **entry, "device_ms": device_ms_d}]
 
 
 #: (levels, dtype, (ndomainx, ndomainy)) of the levels=N main paths
@@ -1796,6 +1865,7 @@ def phase_levels_main() -> list:
             raise AssertionError(f"{label}: one light sweep kernel vs plain "
                                  f"{max_abs:.3e}")
         ms = _time_ms(lambda: sweep(state, ros, extra, rows), 100)
+        device_ms = _device_ms(lambda: sweep(state, ros, extra, rows), 20)
         plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 5)
         ops = _count_ops(lambda: psweep(state, ros, extra, rows))
         nbytes = _nbytes(*state, *ker, *ros, *extra,
@@ -1808,7 +1878,9 @@ def phase_levels_main() -> list:
               f"tier refused; vs plain fused tier after {n} steps: bitwise "
               f"(level sum rel {d_sum:.3e}, tol {TOL_LEVEL_SUM[dtype]}); "
               f"{us_k:.2f} us/step vs plain fused {us_p:.2f}; one light "
-              f"sweep {ms * 1e3:.2f} us vs plain {plain_ms * 1e3:.2f} us, "
+              f"sweep {device_ms * 1e3:.2f} us on the card (CUDA graph; "
+              f"wrapper call {ms * 1e3:.2f} us) vs plain "
+              f"{plain_ms * 1e3:.2f} us, "
               f"{len(state)} state + {len(ros) + len(extra)} read-only "
               f"planes, {nbytes / state[0].numel():.1f} B/pt, bound "
               f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})",
@@ -1820,8 +1892,151 @@ def phase_levels_main() -> list:
                 "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
                 "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
                 "launches": launches, "max_abs_err": max_abs, "ms": ms,
-                "plain_ms": plain_ms, **bound})
+                "plain_ms": plain_ms, **bound, "device_ms": device_ms})
     return entries
+
+
+# --- the skeleton's sweeps on edge shapes -----------------------------------
+
+#: (ny, nx, dtype, K) of the edge-shape phase (K None: each path's main
+#: K): a block whose sides are no multiple of any tile and whose rows
+#: (nx plus the halos) are no multiple of 4 points, so that its windows
+#: are staged by clamped scalar reads; a block smaller than one tile; and
+#: float64 at K=4
+EDGE_SHAPES = ((1000, 1030, torch.float32, None), (37, 45, torch.float32, None),
+               (1000, 1030, torch.float64, 4))
+
+
+def _edge_client(name, nx, ny, K, dtype):
+    """A client model on an (ny, nx) grid at K, a few steps in."""
+    kw = dict(fused=True, steps_per_sweep=K, dtype=dtype, device=DEV)
+    if name == "gravity_wave_sweep":
+        m = gw.build(nx, ny, dt=0.005, **kw)
+        m.set_initial_eta(gaussian_eta(nx, ny, amp=0.1))
+    elif name == "shallow_sweep":
+        m = sh.build(nx, ny, **kw)
+        m.set_initial_eta(gaussian_eta(nx, ny, amp=0.3))
+    elif name == "twolayer_sweep":
+        m = tl.build(nx, ny, **kw)
+        m.set_initial(gaussian_eta(nx, ny, amp=0.5),
+                      -gaussian_eta(nx, ny, amp=2.0))
+    elif name.startswith("tracer_sweep"):
+        u, v = tr.streamfunction_velocities(gaussian_eta(nx, ny, amp=20.0,
+                                                         width=0.2))
+        m = tr.build(nx, ny, dt=0.2, u=u, v=v, kappa=0.02,
+                     scheme=name.split()[1], **kw)
+        m.set_initial_tracer(gaussian_eta(nx, ny, amp=1.0))
+    else:
+        m = nlm.build(nx, ny, layers=int(name.split("L=")[1]), **kw)
+        m.set_initial(np.stack([gaussian_eta(nx, ny, amp=0.5 * (k + 1))
+                                * (-1) ** k for k in range(m.layers)]))
+    m.run(K + 1)
+    return m
+
+
+def _edge_schedule(kind, nx, ny, dtype):
+    """(light sweep, its plain version, its planes, inner mask) of the
+    PSy flagship (halo 8) or the levels=3 chain (halo 4) on an (ny, nx)
+    grid, after the 4-step program's first run."""
+    if kind == "psy":
+        m = NemoLite2DPsy(nx, ny, halo_width=8, dtype=dtype, device=DEV)
+        m.set_initial_ssh(gaussian_eta(nx, ny, amp=0.2))
+        m.run(4, fused=True)
+        sched, inner = m._sched, m.sshn_t.internal_mask.bool()
+        rows = [tuple(float(v) for v in sched._user_scalar_vector(
+            m._scalars_at(m._step)))]
+    else:
+        g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                     tdl.BC_NONE), tdl.OFFSET_NE,
+                     dtype=dtype, device=DEV)
+        g.decompose(nx, ny, ndomains=1, halo_width=LEVEL_HALO)
+        tdl.grid_init(g, 1.0, 1.0)
+        f = sc.ml_fields(g, 3)
+        sched = km.Schedule(*sc.ml_calls(*f))
+        sched.fused_program(4)()
+        inner = f[0].internal_mask.bool()
+        rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
+    sweep, st_slots, x_slots = sched._fused_prog(4, 1)[3]["light"]
+    psweep = sched._fused_prog(4, 1, True)[3]["light"][0]
+    ro_slots = sched._fused_prog(4, 1)[2]
+    slot = lambda i: sched._slots[i].data  # noqa: E731
+    planes = lambda idx: tuple(  # noqa: E731
+        p for i in idx for p in ((slot(i),) if slot(i).dim() == 2
+                                 else slot(i).unbind(0)))
+    args = (planes(st_slots), planes(ro_slots), planes(x_slots), rows)
+    return sweep, psweep, args, inner
+
+
+def phase_skeleton_edges() -> None:
+    """Every kernel on the skeleton (csrc/stencil_sweep.cuh) against its
+    plain version, one sweep, bitwise on internal points, on the blocks of
+    EDGE_SHAPES: the four client models (the tracer with both schemes),
+    the N-layer model (3 layers, compiled; 5, run-time), the Chebyshev
+    sweep, and the generated schedule sweeps of the PSy flagship and the
+    levels=3 chain."""
+    clients = ("gravity_wave_sweep", "shallow_sweep", "twolayer_sweep",
+               "tracer_sweep upwind", "tracer_sweep vanleer",
+               "nlayer_sweep L=3", "nlayer_sweep L=5")
+    main_k = {"tracer_sweep vanleer": 4}
+    report = []
+    for ny, nx, dtype, K_edge in EDGE_SHAPES:
+        n = 0
+        for name in clients:
+            K = K_edge or main_k.get(name, 8)
+            m = _edge_client(name, nx, ny, K, dtype)
+            kern = m.sweep_kernel
+            flat = m._to_planes(tuple(getattr(m, f).data for f in m._fields))
+            before = kern.launches
+            ker = m._make_sweep(K)(flat, m._sweep_aux)
+            ref = stencil_sweep_reference(m._sweep_step, K, flat,
+                                          m._prepare(m._sweep_aux))
+            d = _internal_max_abs(m.grid, ker, ref)
+            if kern.launches - before != 1 or d != 0.0:
+                raise AssertionError(f"{name} {ny}x{nx} {dtype} K={K}: one "
+                                     f"sweep kernel vs plain {d:.3e}, "
+                                     "expected bitwise")
+            n += 1
+        K = K_edge or 4
+        g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                     tdl.BC_NONE), tdl.OFFSET_NE, dtype=dtype,
+                     device=DEV)
+        tmask = gw.default_tmask(nx, ny)
+        tmask[ny * 5 // 16: ny * 15 // 32, nx * 25 // 64: nx * 5 // 8] = 0
+        g.decompose(nx, ny, ndomains=1, halo_width=K)
+        tdl.grid_init(g, 1.0, 1.0, tmask)
+        s = so.HelmholtzSolver(g, 6.0, 4.0, method="chebyshev",
+                               steps_per_exchange=K, fused=True)
+        sc_ = so.chebyshev_scalars(*s._lam_bounds, 4 * K)[:K]
+        rng = np.random.default_rng(K)
+        state = tuple(torch.from_numpy(rng.standard_normal(
+            g.array_shape)).to(DEV, dtype) for _ in range(3))
+        before = so.helmholtz_cheb_sweep.launches
+        ker = s._make_cheb_sweep(K)(*state, sc_)
+        ref = stencil_sweep_reference(
+            so.cheb_step, K, state, so.cheb_prepare(s._codes, 6.0, 4.0, dtype),
+            scalars=[tuple(r) for r in sc_])
+        d = _internal_max_abs(g, ker, ref)
+        if so.helmholtz_cheb_sweep.launches - before != 1 or d != 0.0:
+            raise AssertionError(f"helmholtz_cheb_sweep {ny}x{nx} {dtype} "
+                                 f"K={K}: {d:.3e}, expected bitwise")
+        n += 1
+        for kind in ("psy", "levels"):
+            sweep, psweep, args, inner = _edge_schedule(kind, nx, ny, dtype)
+            before = ss.schedule_sweep.launches
+            ker, ref = sweep(*args), psweep(*args)
+            d = max(float((a - b).abs()[inner].max()) for a, b in zip(ker,
+                                                                      ref))
+            if ss.schedule_sweep.launches - before != 1 or d != 0.0:
+                raise AssertionError(f"schedule sweep ({kind}) {ny}x{nx} "
+                                     f"{dtype}: {d:.3e}, expected bitwise")
+            n += 1
+        report.append(f"{ny}x{nx} {str(dtype)[6:]} "
+                      f"{'K=' + str(K_edge) if K_edge else 'main K'}: {n}")
+    print("skeleton edge shapes: one sweep kernel vs plain bitwise on "
+          "internal points (gravity wave, shallow, two-layer, tracer "
+          "upwind and van Leer, N-layer 3 and 5 layers, Chebyshev, PSy and "
+          "levels=3 schedule sweeps), cases per grid: " + "; ".join(report),
+          flush=True)
 
 
 # --- the halo-exchange transports and variable bathymetry -----------------
@@ -3025,6 +3240,7 @@ def main() -> None:
     phase_psy_vs_production()
     kernels.extend(phase_psy_main())
     kernels.extend(phase_levels_main())
+    phase_skeleton_edges()
     phase_exchange_parity()
     phase_ht_parity()
     phase_fused_transport()

@@ -34,10 +34,11 @@ template <typename TT, int KK>
 struct GravityWaveStep {
   using T = TT;
   static constexpr int K = KK;
-  using G = sweep::Geom<K, 1>;
   static constexpr int N = 3, M = 0;
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, G>;
+  // 256 threads: with 512 some float64 instantiations spill
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, 1, K, 0, 256>>;
+  using G = typename Tile::G;
   using Consts = ::Consts;
 
   T gdt, hdt, dx, dy;

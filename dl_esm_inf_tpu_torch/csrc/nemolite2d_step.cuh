@@ -69,6 +69,7 @@
 #include <cstdint>
 
 #include "halo_remap.cuh"
+#include "staging.cuh"
 
 namespace nemo {
 
@@ -84,7 +85,7 @@ constexpr int kTileYMax = 64;
 constexpr int kRowStrips = 2;
 constexpr int kCtasPerSM[4] = {4, 4, 3, 3};
 
-constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+using staging::round_up;
 
 // The tile and window of a sweep on ES-byte elements with K sub-steps
 // (HT: one more plane, the depth).  Shared planes are WY rows of PX
@@ -207,22 +208,9 @@ __device__ __forceinline__ Planes<T> carve(unsigned char* smem) {
   return s;
 }
 
-// 16-byte asynchronous copy global -> shared (bypassing L1), and the wait
-// for all of this thread's copies.
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using staging::aligned16;
+using staging::copy16_async;
+using staging::copy_async_wait;
 
 // Stage the window of this CTA's tile and (SCRATCH) copy the state into
 // the scratch planes.  On a block with 16-byte rows and no remap, the
@@ -694,26 +682,7 @@ __device__ __forceinline__ void write_back(const Planes<T>& s,
   }
 }
 
-// Set a kernel's dynamic shared-memory ceiling once per device and
-// instantiation, then launch it with `nt` threads per CTA on `stream`;
-// returns cudaGetLastError() of the launch.
-template <auto Kern, typename... Args>
-cudaError_t launch(size_t smem, dim3 grid, int nt, cudaStream_t stream,
-                   Args... args) {
-  static int attr_device = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (attr_device != dev) {
-    err = cudaFuncSetAttribute(Kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    attr_device = dev;
-  }
-  Kern<<<grid, nt, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
+using staging::launch;
 
 // The launch grid of a (ny, nx) block: one CTA per tile.
 template <typename G>

@@ -9,10 +9,11 @@
 // reach 1, K <= 8, float32 and float64.
 //
 // Variants.  L = 1..4 (variants 0..3) take the layer count as a template
-// parameter and 32 x 32 tiles, at every K (at f64, K=8, L=4 the 12
-// staged 48x48 planes and the code take 218 KiB of the 227 KiB a block
-// may use).  More layers (variants 4, 5, 6: 32, 16 and 8 cell tiles, up
-// to LMAX layers) take the layer count at run time, from the constants:
+// parameter and the skeleton's tiles, at every K (at f64, K=8, L=4 a
+// 48 x 20 tile whose 64 x 36 window of 12 planes and the code takes 218
+// KiB of the 227 KiB a block may use).  More layers (variants 4, 5, 6:
+// 32, 16 and 8 cell tiles, up to LMAX layers) take the layer count at
+// run time, from the constants:
 // 3L planes of (tile + 2K)^2 points each must fit the block's shared
 // memory, so the wrapper (models/nlayer.py: kernel_tile) picks the
 // largest tile that holds them; at f64, K=8 a 16-cell tile stages
@@ -56,10 +57,10 @@ template <typename TT, int KK, int L>
 struct NLayerStep {
   using T = TT;
   static constexpr int K = KK;
-  using G = sweep::Geom<K, 1>;
   static constexpr int N = 3 * L, M = 0;
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, G>;
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, 1>>;
+  using G = typename Tile::G;
   using Consts = ::Consts;
 
   T dt, dx, dy;
@@ -132,6 +133,20 @@ struct ManyPlanes {
   int ny, nx, layers;
 };
 
+// f(i) for every window point of `b`, spread linearly over the threads.
+// The run-time variants' windows are 24 to 48 columns wide, where the
+// skeleton's passes (lanes over columns) would leave up to a quarter of
+// the lanes idle; here each point's layer loop outweighs the division.
+template <class G, class F>
+__device__ __forceinline__ void for_box_linear(const sweep::Box& b, F f) {
+  const int w = b.x1 - b.x0;
+  const int n = (b.y1 - b.y0) * w;
+  for (int j = threadIdx.x; j < n; j += sweep::NT) {
+    const int dy = j / w;
+    f((b.y0 + dy) * G::WX + b.x0 + (j - dy * w));
+  }
+}
+
 // The same step as NLayerStep, on 3L planes carved from dynamic shared
 // memory by the run-time layer count; the plane pointers and the
 // weights (cast once to T) sit in static shared memory, so that the
@@ -139,7 +154,7 @@ struct ManyPlanes {
 template <typename T, int K, int EDGE>
 __global__ void __launch_bounds__(sweep::NT)
 nlayer_many_kernel(ManyPlanes p, Consts c) {
-  using G = sweep::Geom<K, 1, K, EDGE>;
+  using G = sweep::Geom<K, 1, K, EDGE, EDGE, K, EDGE + 2 * K>;
   constexpr int R = G::R, WX = G::WX, WC = G::WC;
   extern __shared__ __align__(16) unsigned char nlayer_smem[];
   __shared__ const T* s_in[3 * LMAX];
@@ -177,7 +192,7 @@ nlayer_many_kernel(ManyPlanes p, Consts c) {
   T* const v = s + 2 * L * WC;
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
-    sweep::for_box<G>(sweep::inset<G>(k, k + 1), [&](int i, int, int) {
+    for_box_linear<G>(sweep::inset<G>(k, k + 1), [&](int i) {
       const T uw = static_cast<T>((static_cast<int>(code[i]) >> 1) & 1);
       const T vw = static_cast<T>((static_cast<int>(code[i]) >> 2) & 1);
       T pk = s_pw[0] * eta[i];
@@ -195,7 +210,7 @@ nlayer_many_kernel(ManyPlanes p, Consts c) {
       }
     });
     __syncthreads();
-    sweep::for_box<G>(sweep::inset<G>(k + 1, k + 1), [&](int i, int, int) {
+    for_box_linear<G>(sweep::inset<G>(k + 1, k + 1), [&](int i) {
       if (code[i] & 1) {
         T acc = static_cast<T>(0);
         for (int l = L - 1; l >= 0; --l) {
@@ -223,7 +238,7 @@ nlayer_many_kernel(ManyPlanes p, Consts c) {
 template <typename T, int K, int EDGE>
 cudaError_t launch_many(const ManyPlanes& p, const Consts& c,
                         cudaStream_t stream) {
-  using G = sweep::Geom<K, 1, K, EDGE>;
+  using G = sweep::Geom<K, 1, K, EDGE, EDGE, K, EDGE + 2 * K>;
   const size_t smem = static_cast<size_t>(3 * p.layers) * G::WC * sizeof(T) +
                       G::WC;
   // the ceiling is per device; raise it when a launch needs more
@@ -240,7 +255,7 @@ cudaError_t launch_many(const ManyPlanes& p, const Consts& c,
     attr_device = dev;
     attr_bytes = smem;
   }
-  const dim3 grid = sweep::tile_grid<EDGE>(p.ny, p.nx);
+  const dim3 grid = sweep::tile_grid<G>(p.ny, p.nx);
   nlayer_many_kernel<T, K, EDGE><<<grid, sweep::NT, smem, stream>>>(p, c);
   return cudaGetLastError();
 }
@@ -301,9 +316,9 @@ extern "C" {
 int nlayer_sweep_num_consts() { return sweep::num_consts<Consts>(); }
 
 // See sweep::launch_entry; `variant` L-1 takes L = 1..4 layers (3L state
-// planes) on 32-cell tiles; variants 4, 5 and 6 take the layer count of
-// the constants, 4 < L <= 32, on 32-, 16- and 8-cell tiles.  `aux` is not
-// read.
+// planes) on the skeleton's tiles; variants 4, 5 and 6 take the layer
+// count of the constants, 4 < L <= 32, on 32-, 16- and 8-cell tiles.
+// `aux` is not read.
 int nlayer_sweep_launch(int dtype_code, int K, int variant,
                         const void* const* in, void* const* out,
                         const void* const* aux, const void* code, int ny,

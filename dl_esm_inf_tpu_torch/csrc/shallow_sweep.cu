@@ -37,10 +37,10 @@ template <typename TT, int KK>
 struct ShallowStep {
   using T = TT;
   static constexpr int K = KK;
-  using G = sweep::Geom<K, 1>;
   static constexpr int N = 3, M = 0;
   static constexpr bool CODE = false;
-  using Tile = sweep::Tile<T, N, M, CODE, G>;
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, 1>>;
+  using G = typename Tile::G;
   using Consts = ::Consts;
 
   T fdt, gdt, hdt, dx, dy;

@@ -11,61 +11,213 @@
 // the TPU kernel traced from Python, is a device functor here.
 //
 // Design.  Each CTA owns a TY x TX output tile and stages a window of
-// the tile plus a ring of R cells on every side (K * REACH unless the
-// client names another ring) in dynamic shared memory: the state
-// planes, the aux planes and the code bytes.
-// Window reads outside the block are clamped to its edge, so the kernel
-// never reads outside the (ny, nx) block.  The CTA then applies the
-// client's step K times in shared memory; the inputs of sub-step k are
-// valid on the window inset by k * REACH, its outputs on the window
-// inset by (k + 1) * REACH, so after K sub-steps exactly the output
+// WY = TY + 2R rows and WX columns in dynamic shared memory: the state
+// planes, the aux planes, the code bytes (and, for clients that keep a
+// next state, NS scratch planes that are not staged).  The ring R is
+// K * REACH unless the client names another; the window has R rows
+// above and below the tile, RL >= R columns left of it and at least R
+// right of it.  Window reads outside the block are clamped to its edge,
+// so the kernel never reads outside the (ny, nx) block.  The CTA then
+// applies the client's step K times in shared memory; the inputs of
+// sub-step k are valid on the window inset by k * REACH, its outputs on
+// the window inset by (k + 1) * REACH, so after K sub-steps the output
 // tile is valid and is written back.  Cells within R of the block edge
 // hold finite values of no meaning, like the halo cells of the plain
 // version; callers compare internal points.
 //
+// The tile rule (pick_shape; ops/stencil_sweep.py::tile mirrors it).
+// A window is WX = 96, 64 or 32 columns wide (3, 2 or 1 warps of lanes
+// over its columns) with RL = R rounded up to 4, so that every window
+// row starts at a 16-byte aligned column of a block whose rows are; the
+// tile takes the columns that leave at least R on the right, rounded
+// down to 4.  TY is the largest multiple of 4 up to kTileYMax (and at
+// least kTileYMin) whose window fits the share of an SM's shared memory
+// that kCtasPerSM CTAs leave each; among the widths the one with the
+// least ring overhead (window area over tile area) wins.  Where no width
+// fits, the square tiles of 32, 16 and 8 cells with a ring of R on every
+// side (what the skeleton used before) are tried the same way.  Where
+// the best overhead is above kMaxOverhead, fewer CTAs per SM are tried,
+// down to one, where the best shape is taken whatever its overhead:
+// every window that fitted a CTA before fits now.  A CTA has 256
+// threads, 512 for a window of 32 rows or more (fewer rows and values a
+// thread, more warps an SM).  A client may fix its window
+// width (the Chebyshev march does), its thread count and its tile's
+// most rows.
+//
+// Staging.  On a block whose rows are 16-byte aligned (nx % 4 == 0 and
+// aligned planes), a window row goes in chunks of 4 points: a chunk
+// inside the block by cp.async (16 bytes per float32 or int32 plane,
+// 2 x 16 per float64 plane, 4 bytes per code plane), a chunk across its
+// edge by clamped scalar reads.  Otherwise every window point is a
+// clamped scalar read.  The copy primitives are staging.cuh's, shared
+// with the flagship's step (nemolite2d_step.cuh).
+//
+// Sub-steps.  The K loop is unrolled (K <= 8), so each sub-step's box
+// is a compile-time constant.  for_box, staged_update and next_update
+// put warps over rows and lanes over columns: thread (warp, lane) takes
+// rows warp, warp + NW, ... and columns lane, lane + 32, ... of the box,
+// a fixed number of each (QY x QX, from the window), with no division
+// per point; the row test is uniform over a warp.  staged_update holds
+// its new values in registers across a barrier (QY x QX x NV of them,
+// unrolled) and keeps every plane's old values outside its box;
+// next_update writes them to scratch planes that become the state after
+// one barrier (rows in a loop, the code of one point per column).
+//
+// The output tile goes back with 16-byte stores where the block's rows
+// are 16-byte aligned, scalar stores otherwise.  A client that writes
+// the tile itself from its last sub-step (WRITES_OUT) skips that pass.
+//
 // A client step is a struct with
-//   using G = Geom<K, REACH>;  static constexpr int N, M;  CODE (bool);
-//   using Tile = sweep::Tile<T, N, M, CODE, G>;  Consts (POD of doubles);
-// (Tile<T, N, M, CODE, G, MI, NC> adds MI int32 planes and NC code
-// planes);
+//   static constexpr int N, M;  CODE (bool);
+//   using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, REACH>>;
+//   using G = typename Tile::G;  Consts (POD of doubles);
+// (Tile<T, N, M, CODE, Ring, MI, NC, NS> adds MI int32 planes, NC code
+// planes and NS unstaged scratch planes; Ring<K, REACH, RING, WX, NT>
+// names another ring, a window width and a thread count);
 //   __device__ explicit Step(const Consts&);      // casts to T, once
 //   __device__ void substep(Tile&, int k) const;
-// `substep` runs its own phases and barriers, and returns only after a
-// __syncthreads() that follows its last shared-memory write.  Scalars
-// are folded on the host in double, in the grouping of the plain
-// PyTorch step, and cast once to T; with --fmad=false the kernel then
-// rounds where the plain version rounds.
+// and optionally static constexpr bool WRITES_OUT = true (the last
+// sub-step stores the tile through Tile::out).  `substep` runs its own
+// phases and barriers, and returns only after a __syncthreads() that
+// follows its last shared-memory write.  Window point (wy, wx) is index
+// wy * G::WX + wx of every plane.  Scalars are folded on the host in
+// double, in the grouping of the plain PyTorch step, and cast once to
+// T; with --fmad=false the kernel then rounds where the plain version
+// rounds.
 //
 // What bounds it.  A sweep moves N state planes in and out plus the
 // aux planes and the code once per K steps, a few bytes per point and
 // step, so at 1024^2 the HBM bound is around a microsecond per step on
-// an H100: the kernels are bound by shared-memory traffic, the
-// barriers between phases and the redundant ring work of temporal
-// blocking (a 32 x 32 tile with an 8-cell ring stages 2.25x its area).
+// an H100: the kernels are bound by the instructions and shared-memory
+// traffic per point and sub-step, the barriers between phases and the
+// redundant ring work of temporal blocking.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "staging.cuh"
+
 namespace sweep {
 
-constexpr int TX = 32;
-constexpr int TY = 32;
-constexpr int NT = 256;
+using staging::round_up;
 
-// A window's geometry: an EDGE x EDGE output tile (TY x TX unless a client
-// names a smaller one, as the N-layer sweep does for many layers) and its
-// ring of R cells.
-template <int K, int REACH, int RING = K * REACH, int EDGE = TX>
+// The tile rule's inputs: an H100 SM's shared memory and the runtime's
+// reserve per CTA (the difference is the most one CTA may take), the
+// CTAs that should share an SM, the tile's most and least rows, the
+// ring overhead above which fewer CTAs per SM are tried (in 1/1024ths),
+// the window widths and the square tiles.
+constexpr int kSmemPerSM = 233472;
+constexpr int kSmemReserve = 1024;
+constexpr int kCtasPerSM = 3;
+constexpr int kTileYMax = 40;
+constexpr int kTileYMin = 8;
+constexpr int kMaxOverhead = 2560;
+constexpr int kWindowX[3] = {96, 64, 32};
+constexpr int kSquares[3] = {32, 16, 8};
+// threads of a CTA: NT, or kThreadsTall for a window of at least
+// kTallRows rows (two rows a warp or more), unless a client names a count
+constexpr int NT = 256;
+constexpr int kThreadsTall = 512;
+constexpr int kTallRows = 32;
+
+// A tile and its window: TY x TX output points, RL window columns left
+// of the tile, WX window columns, CTAS per SM that the rule aimed at.
+struct Shape {
+  int ty, tx, rl, wx, ctas;
+};
+
+// window area over tile area, in 1/1024ths
+constexpr long long overhead(const Shape& s, int R) {
+  return static_cast<long long>(s.ty + 2 * R) * s.wx * 1024 /
+         (static_cast<long long>(s.ty) * s.tx);
+}
+
+constexpr Shape better(const Shape& a, const Shape& b, int R) {
+  if (a.ty == 0) return b;
+  return overhead(b, R) < overhead(a, R) ? b : a;
+}
+
+// The rows of the tallest tile (a multiple of 4 in [kTileYMin, tymax])
+// whose window, `w` columns of `bpp` bytes per point, fits `budget`; 0
+// if none.
+constexpr int fit_rows(int w, int R, int bpp, long long budget, int tymax) {
+  int ty = tymax;
+  while (ty >= kTileYMin &&
+         static_cast<long long>(ty + 2 * R) * w * bpp > budget) {
+    ty -= 4;
+  }
+  return ty >= kTileYMin ? ty : 0;
+}
+
+// The tile rule: ring R, `bpp` shared bytes per window point, a window
+// width fixed by the client (0: the rule's choice), the tile's most
+// rows.  ty == 0: nothing fits one CTA.
+constexpr Shape pick_shape(int R, int bpp, int wfix, int tymax) {
+  const int rl = round_up(R, 4);
+  for (int c = kCtasPerSM; c >= 1; --c) {
+    const long long budget = kSmemPerSM / c - kSmemReserve;
+    Shape best{0, 0, 0, 0, 0};
+    for (int n = 0; n < 3; ++n) {
+      const int w = wfix ? wfix : kWindowX[n];
+      const int tx = (w - rl - R) / 4 * 4;
+      const int ty = tx >= 8 ? fit_rows(w, R, bpp, budget, tymax) : 0;
+      if (ty) best = better(best, Shape{ty, tx, rl, w, c}, R);
+      if (wfix) break;
+    }
+    for (int n = 0; n < 3 && !wfix && !best.ty; ++n) {
+      const int e = kSquares[n], w = e + 2 * R;
+      if (static_cast<long long>(w) * w * bpp <= budget) {
+        best = better(best, Shape{e, e, R, w, c}, R);
+      }
+    }
+    if (best.ty && (c == 1 || overhead(best, R) <= kMaxOverhead)) {
+      return best;
+    }
+  }
+  return Shape{0, 0, 0, 0, 0};
+}
+
+// A window's geometry: a TY x TX output tile, R rows above and below
+// it, RL columns left of it and WX - RL - TX right of it, NT threads.
+template <int K_, int REACH_, int R_, int TY_, int TX_, int RL_, int WX_,
+          int NT_ = NT>
 struct Geom {
-  static_assert(TY == TX, "square tiles");
-  static constexpr int R = RING;
-  static constexpr int TILE = EDGE;
-  static constexpr int WY = EDGE + 2 * R;
-  static constexpr int WX = EDGE + 2 * R;
-  static constexpr int WC = WY * WX;
-  static constexpr int CPT = (WC + NT - 1) / NT;   // window points a thread
+  static constexpr int K = K_, REACH = REACH_, R = R_;
+  static constexpr int TY = TY_, TX = TX_, RL = RL_, WX = WX_;
+  static constexpr int WY = TY + 2 * R;
+  static constexpr int WC = WY * WX;                  // points per plane
+  static constexpr int NT = NT_, NW = NT / 32;        // threads, warps
+  // the rows and columns of a thread in a pass over the window
+  static constexpr int QY = (WY + NW - 1) / NW;
+  static constexpr int QX = (WX + 31) / 32;
+  // window rows start at 16-byte aligned block columns
+  static constexpr bool CHUNKS = WX % 4 == 0 && RL % 4 == 0 && TX % 4 == 0;
+  static_assert(RL >= R && WX - RL - TX >= R, "the ring");
+  static_assert(NT % 32 == 0, "whole warps");
+};
+
+// What a client names: K sub-steps of a step of reach REACH, a ring
+// (K * REACH unless given), a window width (0: the tile rule's), the
+// CTA's threads (0: by the window's size) and the tile's most rows.
+template <int K_, int REACH_, int RING_ = K_ * REACH_, int WX_ = 0,
+          int NT_ = 0, int TYMAX_ = kTileYMax>
+struct Ring {
+  static constexpr int K = K_, REACH = REACH_, RING = RING_, WX = WX_;
+  static constexpr int THREADS = NT_, TYMAX = TYMAX_;
+};
+
+// The geometry the tile rule gives a ring with `bpp` bytes per point.
+template <class RG, int BPP>
+struct RuleGeom {
+  static constexpr Shape S = pick_shape(RG::RING, BPP, RG::WX, RG::TYMAX);
+  static_assert(S.ty > 0, "the window does not fit a CTA's shared memory");
+  static constexpr int THREADS =
+      RG::THREADS ? RG::THREADS
+                  : (S.ty + 2 * RG::RING >= kTallRows ? kThreadsTall : NT);
+  using type = Geom<RG::K, RG::REACH, RG::RING, S.ty, S.tx, S.rl, S.wx,
+                    THREADS>;
 };
 
 // Window points, half-open: rows [y0, y1), columns [x0, x1).
@@ -100,20 +252,34 @@ struct Planes : IntAux<MI> {
   int ny, nx;
 };
 
-// The shared-memory window: N state planes, M aux planes, MI int32 aux
-// planes, NC code planes (one when CODE, by default).
-template <typename T, int N, int M, bool CODE, class G, int MI = 0,
-          int NC = (CODE ? 1 : 0)>
+// Where a client that writes its own output (WRITES_OUT) puts the tile:
+// the output planes, the block's extent and the block point of window
+// point (0, 0).
+template <typename T, int N>
+struct Out {
+  T* p[N];
+  int ny, nx, oy, ox;
+};
+
+// The shared-memory window: N state planes, M aux planes, NS scratch
+// planes (not staged), MI int32 aux planes, NC code planes (one when
+// CODE, by default).  G is the geometry the tile rule gives the ring RG
+// for these planes.
+template <typename T, int N, int M, bool CODE, class RG, int MI = 0,
+          int NC = (CODE ? 1 : 0), int NS = 0>
 struct Tile {
-  static constexpr int NINT = MI, NCODE = NC;
-  static constexpr size_t bytes =
-      static_cast<size_t>(N + M) * G::WC * sizeof(T) +
-      static_cast<size_t>(MI) * G::WC * sizeof(int32_t) +
-      static_cast<size_t>(NC) * G::WC;
+  using Value = T;
+  static constexpr int NINT = MI, NCODE = NC, NSCRATCH = NS;
+  static constexpr int BPP = (N + M + NS) * static_cast<int>(sizeof(T)) +
+                             4 * MI + NC;
+  using G = typename RuleGeom<RG, BPP>::type;
+  static constexpr size_t bytes = static_cast<size_t>(BPP) * G::WC;
   T* s[N];
   T* a[M > 0 ? M : 1];
+  T* x[NS > 0 ? NS : 1];
   int32_t* ai[MI > 0 ? MI : 1];
   int8_t* code;
+  Out<T, N> out;
 
   __device__ explicit Tile(unsigned char* raw) {
     T* base = reinterpret_cast<T*>(raw);
@@ -121,7 +287,11 @@ struct Tile {
     for (int f = 0; f < N; ++f) s[f] = base + f * G::WC;
 #pragma unroll
     for (int f = 0; f < (M > 0 ? M : 1); ++f) a[f] = base + (N + f) * G::WC;
-    int32_t* ibase = reinterpret_cast<int32_t*>(base + (N + M) * G::WC);
+#pragma unroll
+    for (int f = 0; f < (NS > 0 ? NS : 1); ++f) {
+      x[f] = base + (N + M + f) * G::WC;
+    }
+    int32_t* ibase = reinterpret_cast<int32_t*>(base + (N + M + NS) * G::WC);
 #pragma unroll
     for (int f = 0; f < (MI > 0 ? MI : 1); ++f) ai[f] = ibase + f * G::WC;
     code = reinterpret_cast<int8_t*>(ibase + MI * G::WC);
@@ -194,15 +364,22 @@ struct LevPut : Lev<V, WX, WC, N> {
   }
 };
 
-// f(i, wy, wx) for every window point of `b`, spread over the threads.
+// f(i, wy, wx) for every window point of `b`: warps over rows, lanes
+// over columns, QY x QX points a thread (the rows in a loop, so that K
+// unrolled sub-steps keep the code small).
 template <class G, class F>
 __device__ __forceinline__ void for_box(const Box& b, F f) {
-  const int w = b.x1 - b.x0;
-  const int n = (b.y1 - b.y0) * w;
-  for (int j = threadIdx.x; j < n; j += NT) {
-    const int dy = j / w;
-    const int wy = b.y0 + dy, wx = b.x0 + (j - dy * w);
-    f(wy * G::WX + wx, wy, wx);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = b.y0 + warp + p * G::NW;
+    if (wy < b.y1) {
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = b.x0 + lane + 32 * q;
+        if (wx < b.x1) f(wy * G::WX + wx, wy, wx);
+      }
+    }
   }
 }
 
@@ -213,56 +390,171 @@ __device__ __forceinline__ void for_box(const Box& b, F f) {
 template <class G, typename T, int NV, class F>
 __device__ __forceinline__ void staged_update(const Box& b, T* const (&dst)[NV],
                                               F f) {
-  const int w = b.x1 - b.x0;
-  const int n = (b.y1 - b.y0) * w;
-  T v[G::CPT][NV];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T v[G::QY][G::QX][NV];
 #pragma unroll
-  for (int q = 0; q < G::CPT; ++q) {
-    const int j = threadIdx.x + q * NT;
-    if (j < n) {
-      const int dy = j / w;
-      const int wy = b.y0 + dy, wx = b.x0 + (j - dy * w);
-      f(wy * G::WX + wx, wy, wx, v[q]);
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = b.y0 + warp + p * G::NW;
+    if (wy < b.y1) {
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = b.x0 + lane + 32 * q;
+        if (wx < b.x1) f(wy * G::WX + wx, wy, wx, v[p][q]);
+      }
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < G::CPT; ++q) {
-    const int j = threadIdx.x + q * NT;
-    if (j < n) {
-      const int dy = j / w;
-      const int i = (b.y0 + dy) * G::WX + b.x0 + (j - dy * w);
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = b.y0 + warp + p * G::NW;
+    if (wy < b.y1) {
 #pragma unroll
-      for (int c = 0; c < NV; ++c) dst[c][i] = v[q][c];
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = b.x0 + lane + 32 * q;
+        if (wx < b.x1) {
+#pragma unroll
+          for (int c = 0; c < NV; ++c) dst[c][wy * G::WX + wx] = v[p][q][c];
+        }
+      }
     }
+  }
+}
+
+// Compute NV new values per point of `b` with f(i, wy, wx, out) into
+// the scratch planes t.x[0..NV), then, after one barrier, make them the
+// state planes: state plane planes[c] swaps with t.x[c].  Outside `b`
+// the new state planes hold what the scratch planes held, values of no
+// meaning, so this is for steps whose box is the region still valid
+// after the sub-step.  No barrier is needed after it: the next phase
+// reads the new planes, which nobody writes.
+template <class G, class Tl, int NV, class F>
+__device__ __forceinline__ void next_update(Tl& t, const Box& b,
+                                            const int (&planes)[NV], F f) {
+  using T = typename Tl::Value;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = b.y0 + warp + p * G::NW;
+    if (wy < b.y1) {
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = b.x0 + lane + 32 * q;
+        if (wx < b.x1) {
+          const int i = wy * G::WX + wx;
+          T o[NV];
+          f(i, wy, wx, o);
+#pragma unroll
+          for (int c = 0; c < NV; ++c) t.x[c][i] = o[c];
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    T* const old = t.s[planes[c]];
+    t.s[planes[c]] = t.x[c];
+    t.x[c] = old;
   }
 }
 
 template <class S>
 using PlanesOf = Planes<typename S::T, S::N, S::M, S::Tile::NINT>;
 
+// S::WRITES_OUT, false where a client does not declare it.
+template <class S, class = void>
+struct WritesOut {
+  static constexpr bool value = false;
+};
 template <class S>
-__global__ void __launch_bounds__(NT)
-sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
-  using G = typename S::G;
-  constexpr int R = G::R, WX = G::WX, WC = G::WC;
-  constexpr int MI = S::Tile::NINT, NC = S::Tile::NCODE;
-  extern __shared__ __align__(16) unsigned char sweep_smem[];
-  typename S::Tile t(sweep_smem);
+struct WritesOut<S, decltype(void(S::WRITES_OUT))> {
+  static constexpr bool value = S::WRITES_OUT;
+};
 
-  // stage the window, clamped to the block
-  const int x0 = blockIdx.x * G::TILE - R;
-  const int y0 = blockIdx.y * G::TILE - R;
+// 4 consecutive points of a T plane, global -> shared, asynchronously
+template <typename T>
+__device__ __forceinline__ void copy4_points(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "float32/64, int32");
+  staging::copy16_async(dst, src);
+  if constexpr (sizeof(T) == 8) staging::copy16_async(dst + 2, src + 2);
+}
+
+// Stage the CTA's window (oy, ox: the block point of window point
+// (0, 0)) into the tile's state, aux, int32 and code planes.
+template <class S>
+__device__ __forceinline__ void stage(typename S::Tile& t,
+                                      const PlanesOf<S>& p, int oy, int ox) {
+  using G = typename S::G;
+  constexpr int N = S::N, M = S::M;
+  constexpr int MI = S::Tile::NINT, NC = S::Tile::NCODE;
+  constexpr int WX = G::WX, WC = G::WC;
   const size_t plane = static_cast<size_t>(p.ny) * p.nx;
-  for (int i = threadIdx.x; i < WC; i += NT) {
+  bool chunks = G::CHUNKS && (p.nx % 4) == 0 &&
+                (NC == 0 || staging::aligned4(p.code));
+#pragma unroll
+  for (int f = 0; f < N; ++f) chunks = chunks && staging::aligned16(p.in[f]);
+#pragma unroll
+  for (int f = 0; f < M; ++f) chunks = chunks && staging::aligned16(p.aux[f]);
+  if constexpr (MI > 0) {
+#pragma unroll
+    for (int f = 0; f < MI; ++f) {
+      chunks = chunks && staging::aligned16(p.auxi[f]);
+    }
+  }
+  if (chunks) {
+    constexpr int CH = WX / 4;                        // chunks per row
+    for (int idx = threadIdx.x; idx < G::WY * CH; idx += G::NT) {
+      const int w = idx / CH, j = idx - w * CH;
+      const int gy = oy + w, gx = ox + 4 * j;
+      const int i = w * WX + 4 * j;
+      if (gy >= 0 && gy < p.ny && gx >= 0 && gx + 4 <= p.nx) {
+        const size_t g = static_cast<size_t>(gy) * p.nx + gx;
+#pragma unroll
+        for (int f = 0; f < N; ++f) copy4_points(t.s[f] + i, p.in[f] + g);
+#pragma unroll
+        for (int f = 0; f < M; ++f) copy4_points(t.a[f] + i, p.aux[f] + g);
+        if constexpr (MI > 0) {
+#pragma unroll
+          for (int f = 0; f < MI; ++f) {
+            copy4_points(t.ai[f] + i, p.auxi[f] + g);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < NC; ++f) {
+          staging::copy4_async(t.code + f * WC + i, p.code + f * plane + g);
+        }
+        continue;
+      }
+      const size_t row = static_cast<size_t>(min(max(gy, 0), p.ny - 1)) * p.nx;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const size_t g = row + min(max(gx + e, 0), p.nx - 1);
+#pragma unroll
+        for (int f = 0; f < N; ++f) t.s[f][i + e] = p.in[f][g];
+#pragma unroll
+        for (int f = 0; f < M; ++f) t.a[f][i + e] = p.aux[f][g];
+        if constexpr (MI > 0) {
+#pragma unroll
+          for (int f = 0; f < MI; ++f) t.ai[f][i + e] = p.auxi[f][g];
+        }
+#pragma unroll
+        for (int f = 0; f < NC; ++f) {
+          t.code[f * WC + i + e] = p.code[f * plane + g];
+        }
+      }
+    }
+    staging::copy_async_wait();
+    return;
+  }
+  for (int i = threadIdx.x; i < WC; i += G::NT) {
     const int wy = i / WX, wx = i - wy * WX;
-    const int gy = min(max(y0 + wy, 0), p.ny - 1);
-    const int gx = min(max(x0 + wx, 0), p.nx - 1);
+    const int gy = min(max(oy + wy, 0), p.ny - 1);
+    const int gx = min(max(ox + wx, 0), p.nx - 1);
     const size_t g = static_cast<size_t>(gy) * p.nx + gx;
 #pragma unroll
-    for (int f = 0; f < S::N; ++f) t.s[f][i] = p.in[f][g];
+    for (int f = 0; f < N; ++f) t.s[f][i] = p.in[f][g];
 #pragma unroll
-    for (int f = 0; f < S::M; ++f) t.a[f][i] = p.aux[f][g];
+    for (int f = 0; f < M; ++f) t.a[f][i] = p.aux[f][g];
     if constexpr (MI > 0) {
 #pragma unroll
       for (int f = 0; f < MI; ++f) t.ai[f][i] = p.auxi[f][g];
@@ -270,49 +562,86 @@ sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
 #pragma unroll
     for (int f = 0; f < NC; ++f) t.code[f * WC + i] = p.code[f * plane + g];
   }
-  const S step(c);
-  __syncthreads();
+}
 
-#pragma unroll 1
-  for (int k = 0; k < S::K; ++k) step.substep(t, k);
-
-  // write back the output tile
-  for (int i = threadIdx.x; i < G::TILE * G::TILE; i += NT) {
-    const int ty = i / G::TILE, tx = i - ty * G::TILE;
-    const int gy = blockIdx.y * G::TILE + ty, gx = blockIdx.x * G::TILE + tx;
+// Write the output tile from the state planes to the block: 16 bytes per
+// store where the block's rows are 16-byte aligned.
+template <class S>
+__device__ __forceinline__ void write_back(const typename S::Tile& t,
+                                           const PlanesOf<S>& p) {
+  using G = typename S::G;
+  using T = typename S::T;
+  constexpr int N = S::N, V = 16 / static_cast<int>(sizeof(T));
+  const int gy0 = blockIdx.y * G::TY, gx0 = blockIdx.x * G::TX;
+  bool vec = G::CHUNKS && (p.nx % 4) == 0;
+#pragma unroll
+  for (int f = 0; f < N; ++f) vec = vec && staging::aligned16(p.out[f]);
+  if (vec) {
+    constexpr int CH = G::TX / V;
+    for (int idx = threadIdx.x; idx < G::TY * CH; idx += G::NT) {
+      const int ty = idx / CH, j = idx - ty * CH;
+      const int gy = gy0 + ty, gx = gx0 + j * V;
+      if (gy >= p.ny || gx >= p.nx) continue;
+      const int w = (ty + G::R) * G::WX + G::RL + j * V;
+      const size_t g = static_cast<size_t>(gy) * p.nx + gx;
+#pragma unroll
+      for (int f = 0; f < N; ++f) {
+        *reinterpret_cast<uint4*>(p.out[f] + g) =
+            *reinterpret_cast<const uint4*>(t.s[f] + w);
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < G::TY * G::TX; idx += G::NT) {
+    const int ty = idx / G::TX, tx = idx - ty * G::TX;
+    const int gy = gy0 + ty, gx = gx0 + tx;
     if (gy >= p.ny || gx >= p.nx) continue;
-    const int w = (ty + R) * WX + tx + R;
+    const int w = (ty + G::R) * G::WX + G::RL + tx;
     const size_t g = static_cast<size_t>(gy) * p.nx + gx;
 #pragma unroll
-    for (int f = 0; f < S::N; ++f) p.out[f][g] = t.s[f][w];
+    for (int f = 0; f < N; ++f) p.out[f][g] = t.s[f][w];
   }
 }
 
-// The launch grid of a (ny, nx) block: one CTA per EDGE x EDGE tile.
-template <int EDGE>
+template <class S>
+__global__ void __launch_bounds__(S::G::NT)
+sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
+  using G = typename S::G;
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  typename S::Tile t(sweep_smem);
+  const int oy = blockIdx.y * G::TY - G::R;
+  const int ox = blockIdx.x * G::TX - G::RL;
+  stage<S>(t, p, oy, ox);
+  if constexpr (WritesOut<S>::value) {
+#pragma unroll
+    for (int f = 0; f < S::N; ++f) t.out.p[f] = p.out[f];
+    t.out.ny = p.ny;
+    t.out.nx = p.nx;
+    t.out.oy = oy;
+    t.out.ox = ox;
+  }
+  const S step(c);
+  __syncthreads();
+
+#pragma unroll
+  for (int k = 0; k < S::K; ++k) step.substep(t, k);
+
+  if constexpr (!WritesOut<S>::value) write_back<S>(t, p);
+}
+
+// The launch grid of a (ny, nx) block: one CTA per tile of G.
+template <class G>
 inline dim3 tile_grid(int ny, int nx) {
-  return dim3((nx + EDGE - 1) / EDGE, (ny + EDGE - 1) / EDGE);
+  return dim3((nx + G::TX - 1) / G::TX, (ny + G::TY - 1) / G::TY);
 }
 
 template <class S>
 cudaError_t launch(const PlanesOf<S>& p, const typename S::Consts& c,
                    cudaStream_t stream) {
-  constexpr size_t smem = S::Tile::bytes;
-  // the attribute is per device: set it once for each device used
-  static int attr_device = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (attr_device != dev) {
-    err = cudaFuncSetAttribute(sweep_kernel<S>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    attr_device = dev;
-  }
-  const dim3 grid = tile_grid<S::G::TILE>(p.ny, p.nx);
-  sweep_kernel<S><<<grid, NT, smem, stream>>>(p, c);
-  return cudaGetLastError();
+  using G = typename S::G;
+  return staging::launch<sweep_kernel<S>>(S::Tile::bytes, tile_grid<G>(p.ny,
+                                                                      p.nx),
+                                          G::NT, stream, p, c);
 }
 
 // Launch S<T, K> for the runtime K in [KC, KMAX].
@@ -333,7 +662,8 @@ constexpr int num_consts() {
   return static_cast<int>(sizeof(C) / sizeof(double));
 }
 
-template <template <typename, int> class S, typename T, int KMAX>
+template <template <typename, int> class S, typename T, int KMAX,
+          int KMIN = 1>
 cudaError_t launch_typed(int K, const void* const* in, void* const* out,
                          const void* const* aux, const void* code, int ny,
                          int nx, const typename S<T, 1>::Consts& c,
@@ -349,22 +679,19 @@ cudaError_t launch_typed(int K, const void* const* in, void* const* out,
   p.code = static_cast<const int8_t*>(code);
   p.ny = ny;
   p.nx = nx;
-  return launch_k<S, T, KMAX>(K, p, c, stream);
+  return launch_k<S, T, KMAX, KMIN>(K, p, c, stream);
 }
 
-// The body of a client's C entry point.  dtype_code: 0 = float32,
-// 1 = float64.  in/out/aux are arrays of device pointers of contiguous
-// (ny, nx) planes; `consts` is host memory, read before the launch
-// returns.  Launches on `stream` without synchronising and returns
-// cudaGetLastError() of the launch.
-template <template <typename, int> class S, int KMAX>
-int launch_entry(int dtype_code, int K, const void* const* in,
-                 void* const* out, const void* const* aux, const void* code,
-                 int ny, int nx, const double* consts, int n_consts,
-                 void* stream) {
-  using C = typename S<float, 1>::Consts;
-  if (n_consts != num_consts<C>() || ny < 1 || nx < 1 || K < 1 ||
-      K > KMAX) {
+// The checks and dispatch of a C entry point: the constants' count and
+// the block's sides are checked (and `k_ok`, the caller's check of K),
+// `consts` (host memory, read before the launch returns) is copied into
+// a C, and `launch(T{}, c, stream)` is called for the T of dtype_code
+// (0 = float32, 1 = float64).  Returns its cudaError_t as an int.
+template <typename C, typename F>
+int dispatch_entry(int dtype_code, bool k_ok, int ny, int nx,
+                   const double* consts, int n_consts, void* stream,
+                   F&& launch) {
+  if (!k_ok || n_consts != num_consts<C>() || ny < 1 || nx < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   C c;
@@ -373,13 +700,31 @@ int launch_entry(int dtype_code, int K, const void* const* in,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_code == 0) {
-    err = launch_typed<S, float, KMAX>(K, in, out, aux, code, ny, nx, c, s);
+    err = launch(float{}, c, s);
   } else if (dtype_code == 1) {
-    err = launch_typed<S, double, KMAX>(K, in, out, aux, code, ny, nx, c, s);
+    err = launch(double{}, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The body of a client's C entry point.  in/out/aux are arrays of
+// device pointers of contiguous (ny, nx) planes.  Launches on `stream`
+// without synchronising and returns cudaGetLastError() of the launch.
+// K lies in [KMIN, KMAX]; see dispatch_entry for the rest.
+template <template <typename, int> class S, int KMAX, int KMIN = 1>
+int launch_entry(int dtype_code, int K, const void* const* in,
+                 void* const* out, const void* const* aux, const void* code,
+                 int ny, int nx, const double* consts, int n_consts,
+                 void* stream) {
+  using C = typename S<float, 1>::Consts;
+  return dispatch_entry<C>(
+      dtype_code, K >= KMIN && K <= KMAX, ny, nx, consts, n_consts, stream,
+      [&](auto zero, const C& c, cudaStream_t s) {
+        return launch_typed<S, decltype(zero), KMAX, KMIN>(
+            K, in, out, aux, code, ny, nx, c, s);
+      });
 }
 
 }  // namespace sweep

@@ -25,12 +25,14 @@
 //                                     + (gy[j] - gy[j-1]) / dy)
 //   c' = t_upd ? c + dt * tend : c
 //
-// Phases.  c' reads c up to REACH cells away, so the new values wait in
-// registers until every thread has read the old ones
-// (sweep::staged_update), then are stored; a barrier closes the
-// sub-step.  Each face flux is recomputed by the two cells that share
-// it instead of being staged as a plane: four flux planes would take
-// more shared memory than the state.  Bound by the flux arithmetic
+// Phases.  c' reads c up to REACH cells away, so the new values go to a
+// scratch plane that becomes the tracer after one barrier
+// (sweep::next_update; the box is the region still valid after the
+// sub-step, so what the scratch plane holds outside it does not
+// matter).  One barrier per sub-step.  Each face flux is recomputed by
+// the two cells that share it instead of being staged as a plane: four
+// flux planes would take more shared memory than the state.  Bound by
+// the flux arithmetic
 // (a division and the limiter per face) and shared-memory traffic, not
 // by HBM (17 B per point per sweep at float32).
 #include "stencil_sweep.cuh"
@@ -50,10 +52,11 @@ template <typename TT, int KK, int REACH>
 struct TracerStep {
   using T = TT;
   static constexpr int K = KK;
-  using G = sweep::Geom<K, REACH>;
   static constexpr int N = 1, M = 2;
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, G>;
+  // one scratch plane: the next tracer
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, REACH>, 0, 1, 1>;
+  using G = typename Tile::G;
   using Consts = ::Consts;
 
   T dx, dy, dt, kappa;
@@ -91,9 +94,8 @@ struct TracerStep {
     const T* u = t.a[0];
     const T* v = t.a[1];
     constexpr int WX = G::WX;
-    T* const cs[1] = {c};
-    sweep::staged_update<G, T, 1>(
-        sweep::inset<G>((k + 1) * REACH, (k + 1) * REACH), cs,
+    sweep::next_update<G>(
+        t, sweep::inset<G>((k + 1) * REACH, (k + 1) * REACH), {0},
         [&](int i, int, int, T(&o)[1]) {
           const T fx = u[i] * face(t, i, 1, u[i]);
           const T fxw = u[i - 1] * face(t, i - 1, 1, u[i - 1]);
@@ -109,7 +111,6 @@ struct TracerStep {
           }
           o[0] = (t.code[i] & 1) ? c[i] + dt * tend : c[i];
         });
-    __syncthreads();
   }
 };
 

@@ -38,10 +38,10 @@ template <typename TT, int KK>
 struct TwoLayerStep {
   using T = TT;
   static constexpr int K = KK;
-  using G = sweep::Geom<K, 1>;
   static constexpr int N = 6, M = 0;
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, G>;
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, 1>>;
+  using G = typename Tile::G;
   using Consts = ::Consts;
 
   T g, gp, dt, h1, h2, dth2, dx, dy;

@@ -22,10 +22,12 @@ version (:meth:`NLayerModel._layer_step` K times) on the CPU.
 
 On the card a CTA stages its tile's window of all 3L planes in shared
 memory, so the layer count is bounded by the 227 KiB a block may use:
-:func:`kernel_tile` picks the tile edge per (L, dtype, K), 32 cells for
-L <= 4 (the compiled variants) and the largest of 32, 16 and 8 that
-holds the window beyond, and raises above what the 8-cell tile holds
-(at float64, K=8: 16 layers) or above :data:`KERNEL_MAX_LAYERS`.
+:func:`kernel_tile` gives the tile per (L, dtype, K): for L <= 4 (the
+compiled variants) the skeleton's tile rule
+(:func:`..ops.stencil_sweep.tile`), beyond the largest square of 32, 16
+and 8 cells that holds the window; it raises above what the 8-cell tile
+holds (at float64, K=8: 16 layers) or above
+:data:`KERNEL_MAX_LAYERS`.
 """
 from __future__ import annotations
 
@@ -38,13 +40,13 @@ from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
 from ..ops.fastpath import SweepClient, fast_path_grid_args
-from ..ops.stencil_sweep import RING, StencilSweepKernel
+from ..ops.stencil_sweep import RING, StencilSweepKernel, tile
 from .gravity_wave import (default_tmask, gaussian_eta,  # noqa: F401
                            wet_update_masks)
 
-#: the layer counts compiled into the CUDA kernel, on 32-cell tiles
-#: (f64, K=8, 4 layers stage 12 planes of 48x48 + the code: 218 KiB of
-#: the 227 KiB a block may use)
+#: the layer counts compiled into the CUDA kernel, on the skeleton's
+#: tiles (f64, K=8, 4 layers: 48x20 tiles in a 64x36 window of 12 planes
+#: and the code, 218 KiB of the 227 KiB a block may use)
 COMPILED_LAYERS = 4
 #: the most layers the kernel takes (its launch's parameter block holds
 #: 3L plane pointers each way and the weights); the shared memory may
@@ -69,15 +71,16 @@ nlayer_sweep = StencilSweepKernel(
 
 
 def window_bytes(layers: int, dtype, K: int, tile: int) -> int:
-    """Shared memory of one CTA's window: 3L planes of ``(tile + 2K)^2``
-    points and the code byte per point."""
+    """Shared memory of one CTA's window in the run-time layer variants:
+    3L planes of ``(tile + 2K)^2`` points and the code byte per point."""
     w = (tile + 2 * K) ** 2
     return 3 * layers * w * dtype.itemsize + w
 
 
-def kernel_tile(layers: int, dtype, K: int) -> int:
-    """The kernel's tile edge for ``layers`` at ``dtype`` and K: 32 for
-    the compiled L <= 4, else the largest of :data:`MANY_TILES` whose
+def kernel_tile(layers: int, dtype, K: int) -> tuple[int, int]:
+    """The kernel's tile ``(rows, columns)`` for ``layers`` at ``dtype``
+    and K: the skeleton's tile rule for the compiled L <= 4 (3L planes and
+    the code, ring K), else the largest square of :data:`MANY_TILES` whose
     window fits the shared memory a block may use.  Raises ValueError
     where none does, or above :data:`KERNEL_MAX_LAYERS`."""
     if layers > KERNEL_MAX_LAYERS:
@@ -85,11 +88,12 @@ def kernel_tile(layers: int, dtype, K: int) -> int:
             f"the CUDA N-layer sweep takes at most {KERNEL_MAX_LAYERS} "
             f"layers (its launch's parameter block), got {layers}")
     if layers <= COMPILED_LAYERS:
-        return 32
+        shape = tile(K, 3 * layers * dtype.itemsize + 1)
+        return shape.ty, shape.tx
     budget = SMEM_LIMIT - _MANY_STATIC
-    for tile in MANY_TILES:
-        if window_bytes(layers, dtype, K, tile) <= budget:
-            return tile
+    for edge in MANY_TILES:
+        if window_bytes(layers, dtype, K, edge) <= budget:
+            return edge, edge
     fits = max((n for n in range(1, layers)
                 if window_bytes(n, dtype, K, MANY_TILES[-1]) <= budget),
                default=0)
@@ -103,10 +107,10 @@ def kernel_tile(layers: int, dtype, K: int) -> int:
 
 def kernel_variant(layers: int, dtype, K: int) -> int:
     """The kernel variant that takes ``layers`` at ``dtype`` and K."""
-    tile = kernel_tile(layers, dtype, K)
+    edge = kernel_tile(layers, dtype, K)[0]
     if layers <= COMPILED_LAYERS:
         return layers - 1
-    return COMPILED_LAYERS + MANY_TILES.index(tile)
+    return COMPILED_LAYERS + MANY_TILES.index(edge)
 
 
 class NLayerModel(SweepClient):

@@ -7,8 +7,10 @@ shared object with a plain C interface, loaded with ``ctypes``.
 Libraries are built at first use into ``build/torch_kernels/`` at the
 root of the checkout, under a name keyed by a hash of the sources, the
 shared headers and the flags, so a changed source rebuilds and an
-unchanged one loads in milliseconds.  A generated source is written
-there too, beside its library.  A library that calls the CUDA driver
+unchanged one loads in milliseconds.  nvcc's log (the ptxas report of
+registers and spills) is kept beside the library and read back with it,
+so a library loaded from the cache reports what its build did.  A
+generated source is written there too, beside its library.  A library that calls the CUDA driver
 API (the stream memory operations of the exchange between ranks) links
 ``libcuda`` through the toolkit's stub.  A failed build raises: nothing
 falls back to another path.
@@ -41,7 +43,8 @@ class BuiltLibrary:
     lib: ctypes.CDLL
     path: Path
     seconds: float        # compile time; 0.0 when loaded from the cache
-    log: str              # nvcc's diagnostics (the ptxas report)
+    log: str              # nvcc's diagnostics (the ptxas report), kept
+                          # beside the library
     source: Path | None = None   # the generated source, if any
 
 
@@ -100,9 +103,12 @@ def _build(name: str, sources, generated, driver) -> BuiltLibrary:
         h.update(p.read_bytes())
     digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_path = out.with_suffix(".log")
     src = BUILD_DIR / f"{name}-{digest}.cu" if generated is not None else None
-    seconds, log = 0.0, ""
-    if not out.exists():
+    seconds = 0.0
+    if out.exists() and log_path.exists():
+        log = log_path.read_text()
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         include = []
@@ -124,5 +130,8 @@ def _build(name: str, sources, generated, driver) -> BuiltLibrary:
             raise RuntimeError(
                 f"building lib{name} failed (nvcc exit {res.returncode}):\n"
                 f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+        tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)   # the log first: a cached library
+        os.replace(tmp, out)            # always has its report
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log, src)

@@ -8,7 +8,7 @@ The TPU kernel traced the kernels' Python bodies with Pallas; here the
 sweep is generated as CUDA C++ source from the schedule, the PSyclone
 way: :func:`generate` emits one ``.cu`` per schedule STRUCTURE (the
 kernels' point bodies, the slot bindings, the mask indices, the plane
-counts, K, the ring, the tile edge and the dtype) on the shared skeleton
+counts, K, the ring and the dtype) on the shared skeleton
 ``csrc/stencil_sweep.cuh``.  A kernel's point body is its hand-written
 ``cuda=`` body where it has one, else the one :mod:`.point_trace`
 derives from its torch body by tracing it.  A ``levels=N`` field takes
@@ -17,8 +17,8 @@ its body reads it level by level (``a(k, dj, di)``).  Nothing in the
 source depends on the number of steps or on scalar values: those ride
 each launch as per-repeat constants (doubles, as the torch bodies see
 Python floats), so new forcing or another ``run(n)`` reuses the library.
-The output tile edge is the largest of 32, 16 and 8 cells whose staged
-window fits the shared memory a CTA may use.
+The tile and its window follow the skeleton's tile rule
+(:func:`.stencil_sweep.tile`) for the planes a sweep stages.
 
 Inside the kernel, per repeat and per call: the call's outputs are
 computed into registers over the window inset by the call's own stencil
@@ -54,14 +54,7 @@ from dataclasses import dataclass
 import torch
 
 from . import point_trace
-from .stencil_sweep import RING
-
-#: the output tile edges a sweep may take, largest first (the skeleton's
-#: Geom takes the edge; 32 is csrc/stencil_sweep.cuh's TX, TY): the
-#: largest whose window fits SMEM_LIMIT, as models/nlayer.py::kernel_tile
-EDGES = (32, 16, 8)
-#: shared memory a CTA may use on an H100 (sm_90)
-SMEM_LIMIT = 232448
+from .stencil_sweep import RING, Shape, tile
 
 _CTYPES = {torch.float32: "float", torch.float64: "double"}
 _RESERVED = {"T", "sweep", "int32_t", "int8_t", "size_t"}
@@ -81,7 +74,7 @@ class GeneratedSweep:
     n_codes: int          # int8 mask-code planes
     n_scalars: int        # scalars per repeat
     smem_bytes: int       # dynamic shared memory per CTA
-    edge: int             # output tile edge (cells)
+    tile: Shape           # the skeleton's tile and window
 
     @property
     def n_consts(self) -> int:
@@ -106,23 +99,22 @@ def _check_name(kname: str, pname: str) -> None:
             f"{sorted(_RESERVED)} are the generator's)")
 
 
-def tile_edge(n_float: int, n_int: int, n_codes: int, ring: int,
-              dtype) -> tuple[int, int]:
-    """``(edge, bytes)``: the largest output tile edge of :data:`EDGES`
-    whose staged window (``n_float`` planes of ``dtype``, ``n_int``
-    int32 planes and ``n_codes`` int8 code planes, ``ring`` cells on
-    every side) fits :data:`SMEM_LIMIT`, and the window's bytes.  Raises
-    ``ValueError`` when even the smallest does not fit."""
-    per_cell = n_float * dtype.itemsize + 4 * n_int + n_codes
-    for edge in EDGES:
-        smem = per_cell * (edge + 2 * ring) ** 2
-        if smem <= SMEM_LIMIT:
-            return edge, smem
-    raise ValueError(
-        f"schedule sweep needs {smem} B of shared memory per CTA even on "
-        f"{EDGES[-1]}-cell tiles (ring {ring}, {n_float} float + {n_int} "
-        f"int32 planes, {dtype}) > {SMEM_LIMIT}; use fewer repeats or "
-        "fewer levels")
+def window_tile(n_float: int, n_int: int, n_codes: int, ring: int,
+                dtype) -> tuple[Shape, int]:
+    """``(shape, bytes)``: the skeleton's tile (:func:`.stencil_sweep.tile`)
+    for a window of ``n_float`` planes of ``dtype``, ``n_int`` int32
+    planes and ``n_codes`` int8 code planes with ``ring`` cells on every
+    side, and the window's bytes.  Raises ``ValueError`` where even the
+    smallest tile's window does not fit a CTA."""
+    bpp = n_float * dtype.itemsize + 4 * n_int + n_codes
+    shape = tile(ring, bpp)
+    if shape is None:
+        raise ValueError(
+            f"schedule sweep needs {(8 + 2 * ring) ** 2 * bpp} B of shared "
+            f"memory per CTA even on 8-cell tiles (ring {ring}, {n_float} "
+            f"float + {n_int} int32 planes, {dtype}), more than a CTA may "
+            "take; use fewer repeats or fewer levels")
+    return shape, shape.window_bytes(ring, bpp)
 
 
 def _specs(s, levels, consts, dtype):
@@ -189,9 +181,7 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 f"grid-property plane of dtype {c.dtype} in a {dtype} "
                 "schedule sweep (it takes the fields' dtype and int32)")
     n_codes = -(-n_masks // 8)
-    edge, smem = tile_edge(n_state + n_aux, n_int, n_codes, ring, dtype)
-    wx = edge + 2 * ring
-    wc = wx * wx
+    shape, smem = window_tile(n_state + n_aux, n_int, n_codes, ring, dtype)
     reach = max(-(-ring // K), 1)
 
     calls = []
@@ -239,17 +229,17 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 written_args.append((pname, nlev, dtype))
                 if nlev:
                     olds = ", ".join(f"{p}[sw_i]" for p in ptrs)
-                    inner.append(f"sweep::LevPut<{vt}, {wx}, {wc}, {nlev}> "
+                    inner.append(f"sweep::LevPut<{vt}, G::WX, G::WC, {nlev}> "
                                  f"{pname}{{{{{ptrs[0]} + sw_i}}, "
                                  f"{{{olds}}}}};")
                 else:
-                    inner.append(f"sweep::Put<{vt}, {wx}> {pname}{{{{"
+                    inner.append(f"sweep::Put<{vt}, G::WX> {pname}{{{{"
                                  f"{ptrs[0]} + sw_i}}, {ptrs[0]}[sw_i]}};")
             elif nlev:
-                inner.append(f"const sweep::Lev<{vt}, {wx}, {wc}, {nlev}> "
+                inner.append(f"const sweep::Lev<{vt}, G::WX, G::WC, {nlev}> "
                              f"{pname}{{{ptrs[0]} + sw_i}};")
             else:
-                inner.append(f"const sweep::At<{vt}, {wx}> {pname}"
+                inner.append(f"const sweep::At<{vt}, G::WX> {pname}"
                              f"{{{ptrs[0]} + sw_i}};")
         if meta.cuda is not None:
             text, how = meta.cuda.strip(), "hand-written"
@@ -288,7 +278,8 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
 // Generated by dl_esm_inf_tpu_torch/ops/schedule_sweep.py from a kernel
 // schedule; do not edit.  The fused schedule sweep of:
 //   {summary}
-// {T}, K = {K} repeats, ring {ring}, {edge}-cell tiles; {n_state} state
+// {T}, K = {K} repeats, ring {ring}, {shape.ty}x{shape.tx} tiles in a
+// {shape.wx}-column window; {n_state} state
 // planes, {n_aux} float and {n_int} int32 aux planes, {n_codes} mask-code
 // plane(s); {n_scalars} scalars per repeat.
 #include "point_ops.cuh"
@@ -303,10 +294,11 @@ struct Consts {{
 struct Step {{
   using T = {T};
   static constexpr int K = {K};
-  using G = sweep::Geom<K, {reach}, {ring}, {edge}>;
   static constexpr int N = {n_state}, M = {n_aux};
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, G, {n_int}, {n_codes}>;
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, {reach}, {ring}>,
+                           {n_int}, {n_codes}>;
+  using G = Tile::G;
   using Consts = ::Consts;
 
   const Consts* sw_c;
@@ -364,7 +356,7 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
     return GeneratedSweep(
         name=f"schedule_sweep_{digest}", text=text, dtype=dtype, K=K,
         ring=ring, n_state=n_state, n_aux=n_aux, n_int=n_int,
-        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, edge=edge)
+        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, tile=shape)
 
 
 class ScheduleSweepKernel:

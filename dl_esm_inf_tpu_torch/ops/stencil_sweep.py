@@ -24,12 +24,89 @@ inert.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 #: the kernels' ceiling on ring cells per side, K * reach (as the JAX
 #: package's window ring)
 RING = 8
+
+#: the skeleton's tile rule (csrc/stencil_sweep.cuh: kSmemPerSM,
+#: kSmemReserve, kCtasPerSM, kTileYMax, kTileYMin, kMaxOverhead,
+#: kWindowX, kSquares): an H100 SM's shared memory and the runtime's
+#: reserve per CTA, the CTAs that should share an SM, the tile's most and
+#: least rows, the ring overhead (window area over tile area, in
+#: 1/1024ths) above which fewer CTAs per SM are tried, the window widths
+#: and the square tiles
+SMEM_PER_SM = 233472
+SMEM_RESERVE = 1024
+CTAS_PER_SM = 3
+TILE_Y_MAX = 40
+TILE_Y_MIN = 8
+MAX_OVERHEAD = 2560
+WINDOW_X = (96, 64, 32)
+SQUARES = (32, 16, 8)
+
+
+class Shape(NamedTuple):
+    """A skeleton sweep's tile and window: ``ty x tx`` output points,
+    ``rl`` window columns left of the tile, ``wx`` window columns, and
+    the CTAs per SM the rule aimed at."""
+    ty: int
+    tx: int
+    rl: int
+    wx: int
+    ctas: int
+
+    def window_bytes(self, ring: int, bpp: int) -> int:
+        """Shared memory of the window: ``ty + 2 ring`` rows of ``wx``
+        points of ``bpp`` bytes."""
+        return (self.ty + 2 * ring) * self.wx * bpp
+
+
+def _overhead(s: Shape, ring: int) -> int:
+    return (s.ty + 2 * ring) * s.wx * 1024 // (s.ty * s.tx)
+
+
+def tile(ring: int, bpp: int, wx: int = 0,
+         ty_max: int = TILE_Y_MAX) -> Shape | None:
+    """The skeleton's tile for a ring of ``ring`` cells and ``bpp``
+    shared bytes per window point (every staged and scratch plane), a
+    window width fixed by the kernel (``wx``; 0: the rule's) and a most
+    rows: the mirror of csrc/stencil_sweep.cuh ``pick_shape``.  None
+    where no window fits a CTA.
+
+    For ``CTAS_PER_SM`` CTAs per SM down to one: each width of
+    WINDOW_X (or ``wx``) with ``rl`` = the ring rounded up to 4 and the
+    tile's columns what leaves at least the ring on the right, rounded
+    down to 4, gets the tallest tile (a multiple of 4 from TILE_Y_MIN
+    to ``ty_max``) whose window fits the CTA's share of the SM, and the
+    least ring overhead wins (where no width fits, among the SQUARES
+    with the ring on every side); it is taken if its overhead is at most
+    MAX_OVERHEAD or at one CTA per SM."""
+    rl = -(-ring // 4) * 4
+    for c in range(CTAS_PER_SM, 0, -1):
+        budget = SMEM_PER_SM // c - SMEM_RESERVE
+        cands = []
+        for w in ((wx,) if wx else WINDOW_X):
+            tx = (w - rl - ring) // 4 * 4
+            ty = ty_max
+            while ty >= TILE_Y_MIN and (ty + 2 * ring) * w * bpp > budget:
+                ty -= 4
+            if tx >= 8 and ty >= TILE_Y_MIN:
+                cands.append(Shape(ty, tx, rl, w, c))
+        for e in (() if wx or cands else SQUARES):
+            if (e + 2 * ring) ** 2 * bpp <= budget:
+                cands.append(Shape(e, e, ring, e + 2 * ring, c))
+        best = None
+        for s in cands:          # the first of equal overheads, as the header
+            if best is None or _overhead(s, ring) < _overhead(best, ring):
+                best = s
+        if best is not None and (c == 1 or _overhead(best, ring)
+                                 <= MAX_OVERHEAD):
+            return best
+    return None
 
 
 def stencil_sweep_reference(step_fn, K: int, state, aux=(), scalars=None):

@@ -1,7 +1,8 @@
-"""Times the flagship kernels' paths on the card and prints one JSON line.
+"""Times the flagship kernels' paths on the card and prints one JSON line
+(a second one with ``--skeleton``: the sweeps on the shared skeleton).
 
     python dl_esm_inf_tpu_torch/sweep_probe.py [--root DIR] [--n 1024]
-        [--ranks]
+        [--ranks] [--skeleton]
 
 Run as a file, it imports the port from the checkout at ``--root``
 (default: this file's checkout), so one command can time two trees in
@@ -19,6 +20,18 @@ launches timed with CUDA events (the best of 5 replays):
   (its library yardstick), and the microbench split at K = 1, 2, 4:
   ``prod``, ``dma`` and the ``compute`` slope over 2 and 8 passes, per
   step.
+
+``--skeleton`` also times every sweep on the shared skeleton
+(``csrc/stencil_sweep.cuh``) at ``chip_smoke.py``'s configurations of
+that checkout, each a CUDA graph of its launches (best of 5 replays),
+and prints them as a second JSON line (``skeleton_*`` keys, µs per
+sweep): gravity wave, shallow and two-layer at K=8, tracer van Leer at
+K=4, the Chebyshev sweep at K = 1, 2, 4, 8 (float32) and K=4 (float64),
+lam 50, the N-layer sweep at L=3, K=8, the PSy light sweep and the
+levels=N chain's light sweep at L=3 and L=8 (float32) and L=8
+(float64); beside them the Helmholtz solve (K=4, float32) in ms on the
+kernel and the plain path with its iterations, and each library's
+registers and spilled bytes from its build log.
 
 ``--ranks`` also runs ``chip_smoke.phase_ranks()`` of that checkout (the
 rdma exchange and the fused transport across 2 and 4 ranks) and prints
@@ -133,12 +146,134 @@ def probe(n: int) -> dict:
     return out
 
 
+def _build_report(names) -> dict:
+    """Registers (min-max over the library's kernels) and spilled bytes
+    of each loaded library whose name starts with one of ``names``,
+    from its ptxas report."""
+    import re
+
+    from dl_esm_inf_tpu_torch.ops import cuda_build
+    out = {}
+    for key, b in cuda_build._loaded.items():
+        if not key.startswith(names):
+            continue
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", b.log)]
+        spill = sum(int(a) + int(c) for a, c in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", b.log))
+        out[key] = {"registers": [min(regs), max(regs)] if regs else None,
+                    "spill_bytes": spill, "nvcc_s": round(b.seconds, 1)}
+    return out
+
+
+def probe_skeleton(n: int) -> dict:
+    """The skeleton sweeps' device times of the module docstring, in µs,
+    at ``chip_smoke.py``'s configurations (its helpers, of the same
+    checkout)."""
+    import functools
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs
+    from dl_esm_inf_tpu_torch.models import nlayer as nlm
+    from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    from dl_esm_inf_tpu_torch.ops import solvers as so
+
+    # the libraries first, in parallel (one nvcc each)
+    tasks = [k.build for k in (
+        cs.gw.gravity_wave_sweep, cs.sh.shallow_sweep, cs.tl.twolayer_sweep,
+        cs.tr.tracer_sweep, so.helmholtz_cheb_sweep, nlm.nlayer_sweep)]
+    tasks += [functools.partial(cs._psy_case, torch.float32, 1, 1, "light",
+                                False, n=64, steps=2)]
+    tasks += [functools.partial(cs._level_case, "chain", dt, lv, False,
+                                n=64, ndom=1)
+              for lv, dt in ((3, torch.float32), (8, torch.float32),
+                             (8, torch.float64))]
+    with ThreadPoolExecutor(len(tasks)) as pool:
+        list(pool.map(lambda t: t(), tasks))
+
+    def us(fn, launches=20):
+        return 1e3 * _graph_ms(fn, launches)
+
+    out = {}
+    for c in cs.CLIENTS:
+        m = c.mod.build(n, n, fused=True, steps_per_sweep=c.K,
+                        device=cs.DEV, **c.main_kw(n))
+        c.init(m, n)
+        m.run(2 * c.K)
+        state = tuple(getattr(m, f).data for f in m._fields)
+        sweep, aux = m._make_sweep(c.K), m._sweep_aux
+        out[f"skeleton_{c.name}_K{c.K}_us"] = us(lambda: sweep(state, aux))
+    lam = 50.0
+    for K, dt in ((1, torch.float32), (2, torch.float32), (4, torch.float32),
+                  (8, torch.float32), (4, torch.float64)):
+        g, tmask = cs._solver_grid(n, 1, K, dt, island=False)
+        b = cs._rhs(g, tmask, 0)
+        s = so.HelmholtzSolver(g, lam, lam, method="chebyshev",
+                               steps_per_exchange=K, fused=True)
+        sweep = s._make_cheb_sweep(K)
+        sc = so.chebyshev_scalars(*s._lam_bounds, s.niters())[:K]
+        x = 0.5 * b
+        state = (x, b - x, 0.01 * b)
+        key = f"skeleton_cheb_K{K}_{str(dt)[6:]}_us"
+        out[key] = us(lambda: sweep(*state, sc))
+        if K == 4 and dt == torch.float32:
+            sp = so.HelmholtzSolver(g, lam, lam, method="chebyshev",
+                                    steps_per_exchange=K)
+            out["solve_iterations"] = s.solve(b)[1]["iterations"]
+            out["solve_plain_iterations"] = sp.solve(b)[1]["iterations"]
+            out["solve_ms"] = cs._time_ms(lambda: s.solve(b), 10)
+            out["solve_plain_ms"] = cs._time_ms(lambda: sp.solve(b), 3)
+    m = nlm.build(n, n, layers=3, fused=True, steps_per_sweep=8,
+                  device=cs.DEV)
+    m.set_initial(cs._nlayer_eta0(n, 3))
+    flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    sweep = m._make_sweep(8)
+    out["skeleton_nlayer_L3_K8_us"] = us(lambda: sweep(flat,
+                                                       m._sweep_aux))
+    m = NemoLite2DPsy(n, n, halo_width=8, device=cs.DEV)
+    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    m.run(4, fused=True)
+    out["skeleton_psy_light_us"] = us(_light_sweep(m._sched, [tuple(
+        float(v) for v in m._sched._user_scalar_vector(
+            m._scalars_at(m._step)))]))
+    for lv, dt in ((3, torch.float32), (8, torch.float32),
+                   (8, torch.float64)):
+        sched, _ = cs._level_main(lv, dt, (1, 1))
+        sched.fused_program(4)()
+        out[f"skeleton_levels{lv}_{str(dt)[6:]}_us"] = us(_light_sweep(
+            sched, [tuple(float(v) for v in sched._user_scalar_vector(
+                None))]))
+    out["build"] = _build_report((
+        "gravity_wave", "shallow", "twolayer", "tracer", "helmholtz",
+        "nlayer", "schedule_sweep"))
+    return out
+
+
+def _light_sweep(sched, rows):
+    """One launch of the light sweep of a schedule's 4-step program on
+    its current slots, as ``chip_smoke.py``'s PSy and levels phases time
+    it."""
+    sweep, st_slots, x_slots = sched._fused_prog(4, 1)[3]["light"]
+    ro_slots = sched._fused_prog(4, 1)[2]
+
+    def planes(idx):
+        return tuple(p for i in idx for p in (
+            (sched._slots[i].data,) if sched._slots[i].data.dim() == 2
+            else sched._slots[i].data.unbind(0)))
+    state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
+    return lambda: sweep(state, ros, extra, rows)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root",
                     default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose port is timed")
     ap.add_argument("--n", type=int, default=1024, help="global N x N")
+    ap.add_argument("--skeleton", action="store_true",
+                    help="also time the sweeps on the shared skeleton")
     ap.add_argument("--ranks", action="store_true",
                     help="also run that checkout's chip_smoke.phase_ranks()")
     args = ap.parse_args(argv)
@@ -151,8 +286,10 @@ def main(argv=None) -> None:
     if not Path(port.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"the port was imported from {port.__file__}, not "
                          f"from {root}: run this file as a script")
-    res = {"root": root, **probe(args.n)}
-    print(json.dumps(res), flush=True)
+    print(json.dumps({"root": root, **probe(args.n)}), flush=True)
+    if args.skeleton:
+        print(json.dumps({"root": root, **probe_skeleton(args.n)}),
+              flush=True)
     if args.ranks:
         from concurrent.futures import ThreadPoolExecutor
         os.chdir(root)

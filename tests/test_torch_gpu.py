@@ -359,7 +359,7 @@ def test_nlayer_kernel_many_layers_matches_plain(cuda_device, layers, dtype):
         for m in ms:
             m.set_initial(_nlayer_eta0(layers))
         assert ms[0]._kernel_variant(8) == 4 + nlm.MANY_TILES.index(
-            nlm.kernel_tile(layers, dtype, 8))
+            nlm.kernel_tile(layers, dtype, 8)[0])
         before = nlm.nlayer_sweep.launches
         ms[0].run(19)
         torch.cuda.synchronize()

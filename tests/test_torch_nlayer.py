@@ -28,6 +28,7 @@ import dl_esm_inf_tpu_torch as tdl
 from dl_esm_inf_tpu_torch.interop import load_reference_state
 from dl_esm_inf_tpu_torch.models import nlayer as tnl
 from dl_esm_inf_tpu_torch.models import twolayer as ttl
+from dl_esm_inf_tpu_torch.ops import stencil_sweep as tsst
 from dl_esm_inf_tpu_torch.ops import stencils as tst
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
 
@@ -269,18 +270,21 @@ def test_state_carried_from_jax():
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_tile_chooser(dtype):
-    """The N-layer kernel's tile per (L, dtype, K): 32 for the compiled
-    L <= 4 at every K; beyond, the largest of 32, 16, 8 whose window (3L
-    planes of (tile + 2K)^2 points and the code) fits 227 KiB less the
-    run-time variants' 2 KiB of static shared memory; a ValueError naming
-    the budget above what the 8-cell tile holds, and the parameter
-    block's 32 layers."""
+    """The N-layer kernel's tile per (L, dtype, K): the skeleton's tile
+    rule for the compiled L <= 4 at every K (3L planes and the code, ring
+    K), whose window fits a CTA; beyond, the largest square of 32, 16, 8
+    whose window (3L planes of (tile + 2K)^2 points and the code) fits
+    227 KiB less the run-time variants' 2 KiB of static shared memory; a
+    ValueError naming the budget above what the 8-cell tile holds, and
+    the parameter block's 32 layers."""
     item = 8 if dtype == torch.float64 else 4
     assert tnl.window_bytes(9, dtype, 8, 16) == 9 * 3 * 32 * 32 * item + 1024
     assert tnl.window_bytes(4, dtype, 8, 32) == 4 * 3 * 48 * 48 * item + 2304
     for K in range(1, 9):
         for L in range(1, 5):
-            assert tnl.kernel_tile(L, dtype, K) == 32
+            shape = tsst.tile(K, 3 * L * item + 1)
+            assert tnl.kernel_tile(L, dtype, K) == (shape.ty, shape.tx)
+            assert shape.window_bytes(K, 3 * L * item + 1) <= 232448
             assert tnl.kernel_variant(L, dtype, K) == L - 1
     # K=8 boundaries: f64 16-cell tiles to 9 layers, 8-cell to 16;
     # f32 32-cell to 8, 16-cell to 18, 8-cell to the 32-layer cap
@@ -289,7 +293,7 @@ def test_kernel_tile_chooser(dtype):
     lo = 5
     for tile, hi in last.items():
         for L in range(lo, hi + 1):
-            assert tnl.kernel_tile(L, dtype, 8) == tile, L
+            assert tnl.kernel_tile(L, dtype, 8) == (tile, tile), L
             assert tnl.kernel_variant(L, dtype, 8) == \
                 4 + tnl.MANY_TILES.index(tile)
             assert tnl.window_bytes(L, dtype, 8, tile) <= 232448 - 2048
@@ -298,7 +302,7 @@ def test_kernel_tile_chooser(dtype):
         assert tnl.window_bytes(17, dtype, 8, 8) > 232448 - 2048
         with pytest.raises(ValueError, match=r"227 KiB.*at most 16 layers"):
             tnl.kernel_tile(17, dtype, 8)
-        assert tnl.kernel_tile(17, dtype, 4) == 8
+        assert tnl.kernel_tile(17, dtype, 4) == (8, 8)
     with pytest.raises(ValueError, match="at most 32 layers"):
         tnl.kernel_tile(33, dtype, 1)
 

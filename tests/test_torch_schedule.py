@@ -19,7 +19,7 @@ seeded fields, at float64:
   and the port's plain fused tier bitwise;
 * the CUDA generator emits a source for these schedules, hand-written,
   derived and levels=N alike (plane counts, shared memory, the tile
-  edge it picks), and refuses, before anything is built or launched,
+  it picks), and refuses, before anything is built or launched,
   what the tracer cannot derive.  The generated kernels themselves run
   in tests/test_torch_gpu.py and ``chip_smoke.py``.
 """
@@ -40,6 +40,7 @@ import dl_esm_inf_tpu_torch as tdl
 from dl_esm_inf_tpu_torch.api import kernel_meta as tkm
 from dl_esm_inf_tpu_torch.ops import point_trace as tpt
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as tss
+from dl_esm_inf_tpu_torch.ops import stencil_sweep as tsst
 from dl_esm_inf_tpu_torch.ops import stencils as tst
 
 from dl_esm_inf_tpu_torch import level_schedules as sc
@@ -765,12 +766,13 @@ def test_fused_tier_on_a_cuda_grid_refuses_what_it_cannot_generate():
     w3 = tdl.Field(gt, tdl.T_POINTS, levels=3)
     gen = _generated(tkm.Schedule((T_DOUBLE, w3, a)))[0]
     assert (gen.n_state, gen.n_aux) == (3, 1)
-    assert "sweep::LevPut<T, 32, 1024, 3> out" in gen.text
+    assert "sweep::LevPut<T, G::WX, G::WC, 3> out" in gen.text
     gen = tss.generate(tkm.Schedule((no_cuda, b, a))._steps,
                        state_slots=[0], extra_slots=(), ro_slots=[1],
                        consts=(), n_masks=1, n_scalars=0, K=1, ring=0,
                        dtype=torch.float64)
-    assert "(derived)" in gen.text and gen.edge == 32
+    # ring 0, two float64 planes and the code: the widest window, whole
+    assert "(derived)" in gen.text and gen.tile == (40, 96, 0, 96, 3)
     _, sine = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
                    lambda out, x: jnp.sin(x), lambda out, x: torch.sin(x),
                    name="sine")
@@ -793,8 +795,8 @@ def test_generator_emits_derived_and_level_sources():
     """The PSy schedule with every body derived has the hand-written
     schedule's planes; the nlayer-style schedule's levels take
     consecutive planes (state u, v, eta, the sum; the forcing read-only),
-    on the tile edge the shared memory gives: 32 cells at levels 3, and
-    at f64 levels 8 a smaller one."""
+    on the tile the skeleton's rule gives for the planes, whose window
+    fits a CTA."""
     from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
     m = NemoLite2DPsy(34, 30, ndomains=4, halo_width=8, **CPU)
     hand = _generated(m._sched, repeats=2)
@@ -803,15 +805,13 @@ def test_generator_emits_derived_and_level_sources():
     derived = _generated(m._sched, repeats=2)
     for h, d in zip(hand, derived):
         assert (d.n_state, d.n_aux, d.n_int, d.n_codes, d.smem_bytes,
-                d.edge) == (h.n_state, h.n_aux, h.n_int, h.n_codes,
-                            h.smem_bytes, h.edge)
+                d.tile) == (h.n_state, h.n_aux, h.n_int, h.n_codes,
+                            h.smem_bytes, h.tile)
         assert d.text.count("(derived) (read depth") == 13
         assert h.text.count("(hand-written) (read depth") == 13
         assert d.name != h.name
-    for levels, dtype, edge in ((3, torch.float32, 32),
-                                (3, torch.float64, 32),
-                                (8, torch.float32, 32),
-                                (8, torch.float64, 16)):
+    for levels, dtype in ((3, torch.float32), (3, torch.float64),
+                          (8, torch.float32), (8, torch.float64)):
         g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
                                      tdl.BC_NONE), tdl.OFFSET_NE,
                      dtype=dtype, **CPU)
@@ -824,22 +824,27 @@ def test_generator_emits_derived_and_level_sources():
         assert (full.n_state, full.n_aux) == (3 * levels + 1, levels)
         assert (light.n_state, light.n_aux) == (3 * levels, levels + 1)
         for gen in (full, light):
-            assert gen.ring == ring == 4 and gen.edge == edge
-            assert gen.smem_bytes == ((gen.n_state + gen.n_aux)
-                                      * dtype.itemsize + 1) \
-                * (edge + 2 * ring) ** 2 <= tss.SMEM_LIMIT
+            bpp = (gen.n_state + gen.n_aux) * dtype.itemsize + 1
+            assert gen.ring == ring == 4 and gen.tile == tsst.tile(4, bpp)
+            assert gen.smem_bytes == bpp * gen.tile.wx * (
+                gen.tile.ty + 2 * ring) <= 232448
             assert gen.text.count("(derived) (read depth") == 5
-            assert f"sweep::Geom<K, 4, 4, {edge}>" in gen.text
-        assert f"sweep::LevPut<T, {edge + 8}, {(edge + 8) ** 2}, {levels}>" \
-            in full.text
+            assert "sweep::Ring<K, 4, 4>" in gen.text
+        assert f"sweep::LevPut<T, G::WX, G::WC, {levels}>" in full.text
 
 
 def test_tile_edge_follows_shared_memory():
-    assert tss.tile_edge(10, 1, 1, 4, torch.float32) == (32, 1600 * 45)
-    assert tss.tile_edge(33, 0, 1, 4, torch.float64)[0] == 16
-    assert tss.tile_edge(33, 0, 1, 8, torch.float64)[0] == 8
+    # 45 B per point (10 float32, 1 int32, 1 code plane), ring 4: a
+    # 32-column window, 3 CTAs per SM
+    shape, nbytes = tss.window_tile(10, 1, 1, 4, torch.float32)
+    assert shape == (40, 24, 4, 32, 3) and nbytes == 48 * 32 * 45
+    # 33 float64 planes: one CTA per SM, a 32-column window
+    assert tss.window_tile(33, 0, 1, 4, torch.float64)[0] == (16, 24, 4,
+                                                              32, 1)
+    assert tss.window_tile(33, 0, 1, 8, torch.float64)[0] == (8, 16, 8,
+                                                              32, 1)
     with pytest.raises(ValueError, match="8-cell tiles"):
-        tss.tile_edge(120, 0, 1, 8, torch.float64)
+        tss.window_tile(120, 0, 1, 8, torch.float64)
 
 
 def test_generator_checks_shared_memory_and_names():
@@ -847,8 +852,10 @@ def test_generator_checks_shared_memory_and_names():
     m = NemoLite2DPsy(34, 30, ndomains=1, halo_width=8, dtype=torch.float64,
                       **CPU)
     gens = _generated(m._sched, repeats=3)
-    # f64 at ring 7: 11 float planes, tmask and one code plane, 46^2 cells
-    assert gens[0].smem_bytes == 46 * 46 * (11 * 8 + 4 + 1) == 196788
+    # f64 at ring 7: 11 float planes, tmask and one code plane, 93 B per
+    # point: one CTA per SM, a 24 x 48 tile in a 38 x 64 window
+    assert gens[0].tile == (24, 48, 8, 64, 1)
+    assert gens[0].smem_bytes == 38 * 64 * (11 * 8 + 4 + 1) == 226176
     _, gt = grids(32, 32, 4, halo=4)
     a, b, _ = chain_fields(gt)
     _, bad = twin([("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")],
