@@ -63,12 +63,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
    step, mass drift, one Chebyshev step; and a small float64 run on
    the card against the same run on the CPU;
 9. the N-layer model: kernel vs plain bitwise at float64 and float32
-   (L = 1..5 and 8, K = 1..8, and at K = 8 the tiles' boundaries up to
-   32 layers; 1 and 4 tiles), the numpy golden at float64, and the main
-   path (1024^2, 3 layers, K = 8, float32) with its launch count and
-   times, and one sweep of 5 and 8 layers (float32 and float64, on the
-   tile the shared-memory budget gives) against its plain version, with
-   its time (sweeps as CUDA graphs, beside the wrapper call's time);
+   (the compiled march, L = 1..8 at K = 1..8; the run-time variant at
+   9, 16 and 33 layers (f32, K = 8), 48 and 64 (f32, K = 4), 9 and 16
+   (f64, K = 8); spacings that are no powers of two; 1 and 4 tiles), the
+   numpy golden at float64, and the main path (1024^2, 3 layers, K = 8,
+   float32) with its launch count and times, and one sweep of 5 and 8
+   layers (float32 and float64), 33 (float32, K = 8) and 48 (float32,
+   K = 4) against its plain version, with its time (sweeps as CUDA
+   graphs, beside the wrapper call's time);
 10. the fused schedule sweep (a CUDA kernel generated from a kernel
    schedule, each point body hand-written or derived from the torch
    body by ops/point_trace.py), the plain fused tier replaced by a
@@ -101,7 +103,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
    light sweep timed (CUDA graph, and the wrapper call) against its
    plain version and its bound, us/step of both; then the skeleton's
    edge shapes: every kernel on csrc/stencil_sweep.cuh (gravity wave,
-   shallow, two-layer, tracer upwind and van Leer, N-layer 3 and 5
+   shallow, two-layer, tracer upwind and van Leer, N-layer 3 and 9
    layers, Chebyshev, the PSy and levels=3 schedule sweeps) against its
    plain version, one sweep, bitwise on internal points, on a 1000x1030
    grid (rows no multiple of 4 points, sides no multiple of any tile)
@@ -203,6 +205,7 @@ the result as JSON.  Imports nothing of JAX.
 from __future__ import annotations
 
 import functools
+import gc
 import itertools
 import json
 import os
@@ -367,20 +370,21 @@ def phase_build() -> None:
     n_gen = sum(1 for b in built if b.source is not None)
     print(f"build: {len(built)} libraries ({n_gen} generated schedule "
           f"sweeps) in {wall:.1f}s (in parallel)", flush=True)
-    # every instantiation of the skeleton's kernel spills nothing, and the
-    # Chebyshev march synchronises no warp (its trip count is uniform)
+    # every instantiation of the skeleton's kernel and of the N-layer
+    # march spills nothing, and the Chebyshev march synchronises no warp
+    # (its trip count is uniform)
     skel = {name: spill for b in built
             for name, spill in _ptxas_spills(b.log).items()
-            if "sweep_kernel" in name}
+            if "sweep_kernel" in name or "nlayer_kernel" in name}
     spilled = {n: v for n, v in skel.items() if v}
     if not skel or spilled:
         raise AssertionError(f"skeleton kernels spill: {spilled}")
     cheb = _sass_counts(so.helmholtz_cheb_sweep.build().path, "WARPSYNC")
     if not cheb or any(cheb.values()):
         raise AssertionError(f"WARPSYNC in the Chebyshev sweep: {cheb}")
-    print(f"build: {len(skel)} instantiations of the skeleton's kernel, 0 "
-          f"bytes spilled; {len(cheb)} Chebyshev kernels, no WARPSYNC in "
-          f"their SASS", flush=True)
+    print(f"build: {len(skel)} instantiations of the skeleton's kernel and "
+          f"the N-layer march, 0 bytes spilled; {len(cheb)} Chebyshev "
+          f"kernels, no WARPSYNC in their SASS", flush=True)
 
 
 def _ptxas_spills(log: str) -> dict:
@@ -480,6 +484,59 @@ def _time_ms(fn, reps: int) -> float:
 
 def _run_step_us(m, nsteps: int, reps: int) -> float:
     return 1e3 * _time_ms(lambda: m.run(nsteps), reps) / nsteps
+
+
+def _run_step_watch(m, nsteps: int, reps: int) -> dict:
+    """``_run_step_us`` (one warm-up run, then all ``reps`` runs in one
+    CUDA-event window) with what could pause the host inside the window:
+    the ms Python's garbage collector took (``run_gc_ms``), the caching
+    allocator's retries, each a free of its cache and a cudaMalloc again
+    (``run_alloc_retries``), and the segments it took from cudaMalloc
+    (``run_cuda_mallocs``).  The allocator may still grow in that first
+    window, and a cudaMalloc there can stall the host by tens of ms: the
+    first window is kept as ``run_first_us`` and
+    ``run_first_cuda_mallocs``, and while a window takes new segments
+    the same window is timed again (at most 3 in all, ``run_windows``);
+    the other keys are the last window's."""
+    def counts():
+        st = torch.cuda.memory_stats()
+        return (st.get("num_alloc_retries", 0),
+                st.get("segment.all.allocated", 0))
+    gc_s, started = [0.0], [None]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        elif started[0] is not None:
+            gc_s[0] += time.perf_counter() - started[0]
+    m.run(nsteps)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    out = {}
+    for window in range(1, 4):
+        gc_s[0] = 0.0
+        before = counts()
+        gc.callbacks.append(on_gc)
+        try:
+            t0.record()
+            for _ in range(reps):
+                m.run(nsteps)
+            t1.record()
+            torch.cuda.synchronize()
+        finally:
+            gc.callbacks.remove(on_gc)
+        after = counts()
+        out.update(us_per_step=1e3 * t0.elapsed_time(t1) / reps / nsteps,
+                   run_gc_ms=1e3 * gc_s[0],
+                   run_alloc_retries=after[0] - before[0],
+                   run_cuda_mallocs=after[1] - before[1], run_windows=window)
+        if window == 1:
+            out.update(run_first_us=out["us_per_step"],
+                       run_first_cuda_mallocs=out["run_cuda_mallocs"])
+        if out["run_cuda_mallocs"] == 0:
+            break
+    return out
 
 
 def phase_main() -> dict:
@@ -835,7 +892,7 @@ def _rhs(g, tmask, seed):
 
 def _internal_max_abs(g, a, b) -> float:
     inner = g.region_mask(dtype=torch.float64).bool()
-    return max(float((x - y).abs()[inner].max()) for x, y in zip(a, b))
+    return max(float((x - y).abs()[..., inner].max()) for x, y in zip(a, b))
 
 
 def phase_cheb_parity() -> None:
@@ -1043,29 +1100,39 @@ def _nlayer_eta0(n, layers):
                      for k in range(layers)])
 
 
-#: the N-layer parity cases: these layer counts at every K, and beyond
-#: them (layers, dtype) at K=8 on the 16- and 8-cell tiles' boundaries
-NLAYER_LAYERS = (1, 2, 3, 4, 5, 8)
-NLAYER_EDGE = ((9, torch.float64), (10, torch.float64), (16, torch.float64),
-               (18, torch.float32), (19, torch.float32), (32, torch.float32))
+#: the N-layer parity cases: the compiled layer counts at every K, and
+#: beyond them (layers, dtype, K) on the run-time variant, up to what one
+#: window holds (float32: 33 at K=8, 75 at K=4; float64: 16 at K=8)
+NLAYER_LAYERS = tuple(range(1, 9))
+NLAYER_EDGE = ((9, torch.float32, 8), (16, torch.float32, 8),
+               (33, torch.float32, 8), (48, torch.float32, 4),
+               (64, torch.float32, 4), (9, torch.float64, 8),
+               (16, torch.float64, 8))
+#: spacings that are no powers of two: (layers, dtype) at K=4, dx 0.7,
+#: dy 1.3 (the plain path multiplies by the reciprocals, as the kernel)
+NLAYER_SPACINGS = ((3, torch.float64), (3, torch.float32),
+                   (9, torch.float32))
 
 
 def _nlayer_cases():
     for dtype in (torch.float64, torch.float32):
         for L in NLAYER_LAYERS:
             for K in range(1, 9):
-                yield dtype, L, K
-    for L, dtype in NLAYER_EDGE:
-        yield dtype, L, 8
+                yield dtype, L, K, {}
+    for L, dtype, K in NLAYER_EDGE:
+        yield dtype, L, K, {}
+    for L, dtype in NLAYER_SPACINGS:
+        yield dtype, L, 4, dict(dx=0.7, dy=1.3)
 
 
 def phase_nlayer_parity() -> None:
     n, steps = 64, 19
     worst, cases, tiles = 0.0, 0, set()
-    for (dtype, L, K), ndom in itertools.product(_nlayer_cases(), (1, 4)):
+    for (dtype, L, K, kw), ndom in itertools.product(_nlayer_cases(),
+                                                     (1, 4)):
         tiles.add(nlm.kernel_tile(L, dtype, K))
         ms = [nlm.build(n, n, ndomains=ndom, dt=0.01, layers=L, fused=f,
-                        steps_per_sweep=K, dtype=dtype, device=DEV)
+                        steps_per_sweep=K, dtype=dtype, device=DEV, **kw)
               for f in (True, False)]
         for m in ms:
             m.set_initial(_nlayer_eta0(n, L))
@@ -1077,15 +1144,16 @@ def phase_nlayer_parity() -> None:
         ms[1].run(steps)
         ga, gb = ms[0].gather(), ms[1].gather()
         d = max(float(np.abs(ga[k] - gb[k]).max()) for k in ga)
-        if d != 0.0:
+        if d != 0.0 or not all(np.isfinite(ga[k]).all() for k in ga):
             raise AssertionError(f"nlayer kernel vs plain {dtype} L={L} "
-                                 f"ndomains={ndom} K={K}: {d:.3e}, expected "
-                                 "bitwise")
+                                 f"ndomains={ndom} K={K} {kw}: {d:.3e}, "
+                                 "expected bitwise")
         worst, cases = max(worst, d), cases + 1
-    edge = ", ".join(f"{L} {str(d).removeprefix('torch.')}"
-                     for L, d in NLAYER_EDGE)
+    edge = ", ".join(f"{L} {str(d).removeprefix('torch.')} K={K}"
+                     for L, d, K in NLAYER_EDGE)
     print(f"nlayer_sweep parity: kernel vs plain {n}^2, {cases} cases (f64 "
-          f"and f32, L={NLAYER_LAYERS} at K=1..8, L={edge} at K=8; tiles "
+          f"and f32, L={NLAYER_LAYERS} at K=1..8, L={edge}; dx 0.7 dy 1.3 "
+          f"at K=4 for L={[L for L, _ in NLAYER_SPACINGS]}; tiles "
           f"{sorted(tiles)}; ndomains 1 and 4), {steps} steps: max abs "
           f"{worst:.3e} (bitwise required)", flush=True)
 
@@ -1149,7 +1217,7 @@ def phase_nlayer_main() -> dict:
     if not d_run <= TOL_F32:
         raise AssertionError(f"nlayer kernel vs plain f32 after {n} steps: "
                              f"{d_run:.3e} > {TOL_F32}")
-    flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    flat = (m.eta.data, m.u.data, m.v.data)
     sweep = m._make_sweep(K)
     prep = m._prepare(m._sweep_aux)
     ker = sweep(flat, m._sweep_aux)
@@ -1162,7 +1230,8 @@ def phase_nlayer_main() -> dict:
     device_ms = _device_ms(lambda: sweep(flat, m._sweep_aux), 20)
     plain_ms = _time_ms(lambda: stencil_sweep_reference(
         m._sweep_step, K, flat, prep), 20)
-    us_k = _run_step_us(m, 50 * K, 5)
+    watch = _run_step_watch(m, 50 * K, 5)
+    us_k = watch["us_per_step"]
     us_p = _run_step_us(mp, 5 * K, 3)
     print(f"nlayer_sweep main f32 {N}^2 L={L} K={K}: run({n}) launches="
           f"{launches} (= {n}//{K} + {n}%{K}); finite; kernel vs plain after "
@@ -1173,8 +1242,12 @@ def phase_nlayer_main() -> dict:
           f"path {us_p:.2f} us/step; one sweep: kernel "
           f"{device_ms * 1e3:.2f} us on the card (CUDA graph; "
           f"{device_ms * 1e3 / K:.2f} us/step; wrapper call "
-          f"{ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us",
-          flush=True)
+          f"{ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us; in run's "
+          f"window garbage collection {watch['run_gc_ms']:.2f} ms, "
+          f"allocator retries {watch['run_alloc_retries']}, cudaMalloc "
+          f"{watch['run_cuda_mallocs']} in window {watch['run_windows']}; "
+          f"the first window {watch['run_first_us']:.2f} us/step, cudaMalloc "
+          f"{watch['run_first_cuda_mallocs']}", flush=True)
     ops = _count_ops(lambda: stencil_sweep_reference(m._sweep_step, K, flat,
                                                      prep))
     return {"name": "nlayer_sweep", "route": "cuda",
@@ -1185,26 +1258,28 @@ def phase_nlayer_main() -> dict:
             **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops,
                      m.grid.dtype),
             "device_ms": device_ms,
-            "us_per_step": us_k, "many_layers": _nlayer_many_main(N, K)}
+            **watch, "many_layers": _nlayer_many_main(N, K)}
 
 
 def _nlayer_many_main(N: int, K: int) -> list:
-    """More than four layers at 1024^2, K=8 (the run-time layer variants
-    on the tile the shared-memory budget gives): one sweep kernel vs
-    plain bitwise and timed, its bound, and run's us/step at float32."""
+    """More layers at 1024^2: the compiled march at 5 and 8 layers (f32
+    and f64, K), the run-time variant at 33 (f32, K) and 48 (f32, K=4,
+    where one window holds up to 75): one sweep kernel vs plain bitwise
+    and timed, its bound, and run's us/step at float32."""
     out = []
-    for L, dtype in ((5, torch.float32), (8, torch.float32),
-                     (5, torch.float64), (8, torch.float64)):
-        m = nlm.build(N, N, layers=L, fused=True, steps_per_sweep=K,
+    for L, dtype, KL in ((5, torch.float32, K), (8, torch.float32, K),
+                         (5, torch.float64, K), (8, torch.float64, K),
+                         (33, torch.float32, K), (48, torch.float32, 4)):
+        m = nlm.build(N, N, layers=L, fused=True, steps_per_sweep=KL,
                       dtype=dtype, device=DEV)
         m.set_initial(_nlayer_eta0(N, L))
-        flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
-        sweep = m._make_sweep(K)
+        flat = (m.eta.data, m.u.data, m.v.data)
+        sweep = m._make_sweep(KL)
         prep = m._prepare(m._sweep_aux)
         nlm.nlayer_sweep.launches = 0
         ker = sweep(flat, m._sweep_aux)
         torch.cuda.synchronize()
-        ref = stencil_sweep_reference(m._sweep_step, K, flat, prep)
+        ref = stencil_sweep_reference(m._sweep_step, KL, flat, prep)
         max_abs = _internal_max_abs(m.grid, ker, ref)
         if max_abs != 0.0 or nlm.nlayer_sweep.launches != 1:
             raise AssertionError(f"nlayer L={L} {dtype} one sweep kernel vs "
@@ -1212,26 +1287,33 @@ def _nlayer_many_main(N: int, K: int) -> list:
         ms = _time_ms(lambda: sweep(flat, m._sweep_aux), 50)
         device_ms = _device_ms(lambda: sweep(flat, m._sweep_aux), 10)
         plain_ms = _time_ms(lambda: stencil_sweep_reference(
-            m._sweep_step, K, flat, prep), 3)
+            m._sweep_step, KL, flat, prep), 3)
         ops = _count_ops(lambda: stencil_sweep_reference(
-            m._sweep_step, K, flat, prep))
+            m._sweep_step, KL, flat, prep))
         row = {"layers": L, "dtype": str(dtype).removeprefix("torch."),
-               "tile": nlm.kernel_tile(L, dtype, K), "max_abs_err": max_abs,
-               "ms": ms, "plain_ms": plain_ms,
+               "K": KL, "tile": nlm.kernel_tile(L, dtype, KL),
+               "threads": nlm.nlayer_sweep.threads(dtype, L, KL),
+               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                **_bound(_nbytes(*flat, *m._sweep_aux, *ker), ops, dtype),
                "device_ms": device_ms}
-        row["us_per_step"] = (_run_step_us(m, 20 * K, 3)
-                              if dtype == torch.float32 else None)
+        row.update(_run_step_watch(m, 20 * KL, 3) if dtype == torch.float32
+                   else {"us_per_step": None})
         del row["library_ms"]
         out.append(row)
-        print(f"nlayer_sweep {N}^2 L={L} {row['dtype']} K={K}: tile "
-              f"{row['tile']}; one sweep kernel vs plain bitwise; kernel "
+        print(f"nlayer_sweep {N}^2 L={L} {row['dtype']} K={KL}: tile "
+              f"{row['tile']}, {row['threads']} threads; one sweep kernel vs "
+              f"plain bitwise; kernel "
               f"{device_ms * 1e3:.2f} us on the card (CUDA graph; "
-              f"{device_ms * 1e3 / K:.2f} us/step; wrapper call "
+              f"{device_ms * 1e3 / KL:.2f} us/step; wrapper call "
               f"{ms * 1e3:.2f} us), plain "
               f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} "
               f"us ({row['bound_by']})"
-              + (f"; run {row['us_per_step']:.2f} us/step"
+              + (f"; run {row['us_per_step']:.2f} us/step (garbage "
+                 f"collection {row['run_gc_ms']:.2f} ms, allocator retries "
+                 f"{row['run_alloc_retries']}, cudaMalloc "
+                 f"{row['run_cuda_mallocs']} in window {row['run_windows']}; "
+                 f"the first window {row['run_first_us']:.2f} us/step, "
+                 f"cudaMalloc {row['run_first_cuda_mallocs']})"
                  if row["us_per_step"] is not None else ""), flush=True)
     return out
 
@@ -1971,12 +2053,12 @@ def phase_skeleton_edges() -> None:
     """Every kernel on the skeleton (csrc/stencil_sweep.cuh) against its
     plain version, one sweep, bitwise on internal points, on the blocks of
     EDGE_SHAPES: the four client models (the tracer with both schemes),
-    the N-layer model (3 layers, compiled; 5, run-time), the Chebyshev
+    the N-layer model (3 layers, compiled; 9, run-time), the Chebyshev
     sweep, and the generated schedule sweeps of the PSy flagship and the
     levels=3 chain."""
     clients = ("gravity_wave_sweep", "shallow_sweep", "twolayer_sweep",
                "tracer_sweep upwind", "tracer_sweep vanleer",
-               "nlayer_sweep L=3", "nlayer_sweep L=5")
+               "nlayer_sweep L=3", "nlayer_sweep L=9")
     main_k = {"tracer_sweep vanleer": 4}
     report = []
     for ny, nx, dtype, K_edge in EDGE_SHAPES:
@@ -1985,7 +2067,7 @@ def phase_skeleton_edges() -> None:
             K = K_edge or main_k.get(name, 8)
             m = _edge_client(name, nx, ny, K, dtype)
             kern = m.sweep_kernel
-            flat = m._to_planes(tuple(getattr(m, f).data for f in m._fields))
+            flat = tuple(getattr(m, f).data for f in m._fields)
             before = kern.launches
             ker = m._make_sweep(K)(flat, m._sweep_aux)
             ref = stencil_sweep_reference(m._sweep_step, K, flat,
@@ -2034,7 +2116,7 @@ def phase_skeleton_edges() -> None:
                       f"{'K=' + str(K_edge) if K_edge else 'main K'}: {n}")
     print("skeleton edge shapes: one sweep kernel vs plain bitwise on "
           "internal points (gravity wave, shallow, two-layer, tracer "
-          "upwind and van Leer, N-layer 3 and 5 layers, Chebyshev, PSy and "
+          "upwind and van Leer, N-layer 3 and 9 layers, Chebyshev, PSy and "
           "levels=3 schedule sweeps), cases per grid: " + "; ".join(report),
           flush=True)
 

@@ -1,310 +1,499 @@
 // N-layer linear shallow-water sweep: K forward-backward steps of L
-// stacked layers per pass over device memory, on the shared skeleton
-// stencil_sweep.cuh.
+// stacked layers per pass over device memory, a column march on the
+// skeleton's tile rule (stencil_sweep.cuh: pick_shape with the march's
+// widths, march_threads) and staging primitives (staging.cuh).
 //
 // Replaces the TPU kernel dl_esm_inf_tpu/models/nlayer.py::
 // NLayerModel._make_sweep (make_stencil_sweep with the model's
 // per-layer _layer_step): 3L state planes eta_0..eta_{L-1},
 // u_0..u_{L-1}, v_0..v_{L-1}; the int8 code of (t_upd, u_wet, v_wet);
-// reach 1, K <= 8, float32 and float64.
+// reach 1, K <= 8, float32 and float64.  The planes come as the three
+// (L, ny, nx) level blocks eta, u, v, a base pointer each, and the
+// weights (pw[0..L), H[0..L) in T) as a small device array: the launch
+// carries nothing per layer, so the layer count is bounded only by the
+// shared memory of a window.
 //
-// Variants.  L = 1..4 (variants 0..3) take the layer count as a template
-// parameter and the skeleton's tiles, at every K (at f64, K=8, L=4 a
-// 48 x 20 tile whose 64 x 36 window of 12 planes and the code takes 218
-// KiB of the 227 KiB a block may use).  More layers (variants 4, 5, 6:
-// 32, 16 and 8 cell tiles, up to LMAX layers) take the layer count at
-// run time, from the constants:
-// 3L planes of (tile + 2K)^2 points each must fit the block's shared
-// memory, so the wrapper (models/nlayer.py: kernel_tile) picks the
-// largest tile that holds them; at f64, K=8 a 16-cell tile stages
-// 24 KiB per layer (L <= 9) and an 8-cell tile 13.5 KiB (L <= 16).  A
-// smaller tile recomputes more ring per output point ((tile + 2K)^2 /
-// tile^2: 2.25 at 32, 4 at 16, 9 at 8), which is the price of the
-// layers.  Per sub-step, in the grouping of the plain
-// PyTorch step (dl_esm_inf_tpu_torch/models/nlayer.py::
-// NLayerModel._layer_step), with the running pressure
-// pk = pw[0]*eta_0 + pw[1]*eta_1 + ... + pw[k]*eta_k:
-//   u_k' = (u_k - dt * ((pk[i+1] - pk) / dx)) * u_wet      (v_k' alike)
-//   div_k = (u_k'[i] - u_k'[i-1]) / dx + (v_k'[j] - v_k'[j-1]) / dy
-//   acc_k = H[L-1]*div_{L-1} + ... + H[k]*div_k          (from the bottom)
-//   eta_k' = t_upd ? eta_k - dt * acc_k : eta_k
+// Per sub-step, in the grouping of the plain PyTorch step (dl_esm_inf_
+// tpu_torch/models/nlayer.py::NLayerModel._layer_step) as PyTorch runs
+// it on the card, where a tensor divided by the Python scalar dx is a
+// product with its reciprocal in T (rdx = 1 / dx, rounded once), with
+// the running pressure P_l = pw[0]*eta_0 + pw[1]*eta_1 + ... + pw[l]*eta_l:
+//   u_l' = (u_l - dt * ((P_l[i+1] - P_l) * rdx)) * u_wet    (v_l' alike)
+//   div_l = (u_l'[i] - u_l'[i-1]) * rdx + (v_l'[j] - v_l'[j-1]) * rdy
+//   acc_l = H[L-1]*div_{L-1} + ... + H[l]*div_l          (from the bottom)
+//   eta_l' = t_upd ? eta_l - dt * acc_l : eta_l
+// Where dx is a power of two, rdx is exact and the product is also the
+// true division the CPU's plain version takes.
 //
-// Phases, as in twolayer_sweep.cu.  The velocities read only their own
-// old values and the etas, so they are written in place; after a
-// barrier the etas read the new velocities of their west and south
-// neighbours and only their own old values, so they are written in
-// place too.  Two barriers per sub-step, nothing held in registers
-// across them: a second set of planes would not fit at f64.  Bound by
-// shared-memory traffic and barriers rather than HBM (6L*4 + 1 B per
-// point per sweep at float32).
+// Design: a column march per phase.  A CTA stages its window (the tile
+// rule's shape for 3L planes and the code, ring K: widths that give
+// whole strips of 31 lanes) by 16-byte cp.async.  Warps take column
+// strips of 31 owned lanes (lane 31 in the velocity phase and lane 0 in
+// the eta phase only feed a neighbour by shuffle) and row strips.  A
+// sub-step updates only what the tile still needs after it (the tile and
+// K - 1 - k cells around, one more west and south for the velocities).
+// Velocity phase: u and v at a point read only their own old values and
+// the etas, so they are written in place; the lane builds the L running
+// pressures of row j + 1 once and keeps those of row j in registers, and
+// takes the east pressures by __shfl_down_sync.  One barrier; eta phase:
+// eta at a point reads the new u and v of itself, its west and its south
+// neighbour and only its own old eta, so it is written in place; the
+// lane takes the west u by __shfl_up_sync and keeps v of row j - 1 in
+// registers.  A second barrier ends the sub-step: one barrier per
+// sub-step would need a second set of planes (a neighbour warp may
+// overwrite in place a value a lane still reads), and the layers want
+// the shared memory.  The last sub-step writes the tile's 3L planes to
+// the outputs from the eta march.  Trip counts are uniform over a warp,
+// so every shuffle sits in converged code.
+//
+// Variants.  L = 1..LCOMPILED take the layer count as a template
+// parameter: the weights, the pressures of row j and v of row j - 1 sit
+// in registers.  More layers take it at run time: the weights go to
+// shared memory once per CTA (beside the window, in the rule's `extra`
+// bytes), and the rows a compiled march carries are recomputed (the
+// pressures of rows j and j + 1 run side by side) or read again (v of
+// row j - 1), so rows are independent and warps take (row, strip) items
+// in turn.  Geometry (tile, window, strips) is a launch argument: one
+// instantiation per (T, L).
+//
+// What bounds it: 6L planes' bytes per sweep (24L + 1 B per point at
+// float32) against ~20 operations and ~11 shared-memory operations per
+// layer, point and sub-step, times the ring's recomputation: the sweep is
+// bound by the shared-memory pipe and issue, not HBM.
 #include "stencil_sweep.cuh"
 
 namespace {
 
-// The layers a launch's parameter block holds (the run-time variants'
-// 3L plane pointers in and out, and the weights), and the compiled ones.
-constexpr int LMAX = 32;
-constexpr int LCOMPILED = 4;
+constexpr int KMAX = 8;
+// layer counts compiled into the march
+constexpr int LCOMPILED = 8;
+constexpr int kLanes = sweep::kMarchLanes;
 
 struct Consts {
   double dt, dx, dy;
-  double layers;     // L, read by the run-time variants
-  double pw[LMAX];   // pressure weights: g, then the reduced gravities
-  double h[LMAX];    // rest thicknesses
+  double layers;     // L
 };
 
-template <typename TT, int KK, int L>
-struct NLayerStep {
-  using T = TT;
-  static constexpr int K = KK;
-  static constexpr int N = 3 * L, M = 0;
-  static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, 1>>;
-  using G = typename Tile::G;
-  using Consts = ::Consts;
-
-  T dt, dx, dy;
-  T pw[L], h[L];
-
-  __device__ explicit NLayerStep(const Consts& c)
-      : dt(static_cast<T>(c.dt)), dx(static_cast<T>(c.dx)),
-        dy(static_cast<T>(c.dy)) {
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      pw[k] = static_cast<T>(c.pw[k]);
-      h[k] = static_cast<T>(c.h[k]);
-    }
-  }
-
-  __device__ void substep(Tile& t, int k) const {
-    constexpr int WX = G::WX;
-    T* const* eta = t.s;
-    T* const* u = t.s + L;
-    T* const* v = t.s + 2 * L;
-    sweep::for_box<G>(sweep::inset<G>(k, k + 1), [&](int i, int, int) {
-      const T uw = t.bit(i, 1), vw = t.bit(i, 2);
-      T pk = pw[0] * eta[0][i];
-      T pke = pw[0] * eta[0][i + 1];
-      T pkn = pw[0] * eta[0][i + WX];
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        if (l > 0) {
-          pk = pk + pw[l] * eta[l][i];
-          pke = pke + pw[l] * eta[l][i + 1];
-          pkn = pkn + pw[l] * eta[l][i + WX];
-        }
-        u[l][i] = (u[l][i] - dt * ((pke - pk) / dx)) * uw;
-        v[l][i] = (v[l][i] - dt * ((pkn - pk) / dy)) * vw;
-      }
-    });
-    __syncthreads();
-    sweep::for_box<G>(sweep::inset<G>(k + 1, k + 1), [&](int i, int, int) {
-      if (t.code[i] & 1) {
-        T acc = static_cast<T>(0);
-#pragma unroll
-        for (int l = L - 1; l >= 0; --l) {
-          const T div =
-              (u[l][i] - u[l][i - 1]) / dx + (v[l][i] - v[l][i - WX]) / dy;
-          acc = (l == L - 1) ? h[l] * div : acc + h[l] * div;
-          eta[l][i] = eta[l][i] - dt * acc;
-        }
-      }
-    });
-    __syncthreads();
-  }
-};
-
-template <typename T, int K>
-using Layers1 = NLayerStep<T, K, 1>;
-template <typename T, int K>
-using Layers2 = NLayerStep<T, K, 2>;
-template <typename T, int K>
-using Layers3 = NLayerStep<T, K, 3>;
-template <typename T, int K>
-using Layers4 = NLayerStep<T, K, 4>;
-
-// --- L > 4: the layer count at run time, tiles of EDGE cells -------------
-
-// The run-time variants' planes: 3L pointers in and out, eta, u, v.
-struct ManyPlanes {
-  const void* in[3 * LMAX];
-  void* out[3 * LMAX];
+// A launch's planes: the (L, ny, nx) level blocks eta, u, v in and out,
+// the weights pw[0..L), H[0..L) in T, the code.
+template <typename T>
+struct Blocks {
+  const T* in[3];
+  T* out[3];
+  const T* w;
   const int8_t* code;
   int ny, nx, layers;
 };
 
-// f(i) for every window point of `b`, spread linearly over the threads.
-// The run-time variants' windows are 24 to 48 columns wide, where the
-// skeleton's passes (lanes over columns) would leave up to a quarter of
-// the lanes idle; here each point's layer loop outweighs the division.
-template <class G, class F>
-__device__ __forceinline__ void for_box_linear(const sweep::Box& b, F f) {
-  const int w = b.x1 - b.x0;
-  const int n = (b.y1 - b.y0) * w;
-  for (int j = threadIdx.x; j < n; j += sweep::NT) {
-    const int dy = j / w;
-    f((b.y0 + dy) * G::WX + b.x0 + (j - dy * w));
-  }
+// A launch's window: the tile rule's shape for ring K, its rows and the
+// column strips of the march.
+struct Geo {
+  int K, ty, tx, rl, wx, wy, strips;
+};
+
+// The warps an SM may hold, so that they keep their registers (65536 an
+// SM over 32 a warp): by the march's values a lane carries, 2L of T (32
+// warps: 64 registers a thread; 24: 85; kMarchWarps = 16: 128); the
+// run-time variant carries nothing and takes 32.  Measured on an H100:
+// more warps are faster wherever the registers allow them.
+// L = 0: the run-time variant; `bytes` the size of T.
+__host__ __device__ constexpr int warps_per_sm(int L, int bytes) {
+  return (L == 0 || L * bytes <= 16) ? 32
+         : L * bytes <= 32           ? 24
+                                     : sweep::kMarchWarps;
 }
 
-// The same step as NLayerStep, on 3L planes carved from dynamic shared
-// memory by the run-time layer count; the plane pointers and the
-// weights (cast once to T) sit in static shared memory, so that the
-// run-time indices never index the parameter block.
-template <typename T, int K, int EDGE>
-__global__ void __launch_bounds__(sweep::NT)
-nlayer_many_kernel(ManyPlanes p, Consts c) {
-  using G = sweep::Geom<K, 1, K, EDGE, EDGE, K, EDGE + 2 * K>;
-  constexpr int R = G::R, WX = G::WX, WC = G::WC;
-  extern __shared__ __align__(16) unsigned char nlayer_smem[];
-  __shared__ const T* s_in[3 * LMAX];
-  __shared__ T* s_out[3 * LMAX];
-  __shared__ T s_pw[LMAX], s_h[LMAX];
-  const int L = p.layers, N = 3 * L;
-  for (int f = threadIdx.x; f < N; f += sweep::NT) {
-    s_in[f] = static_cast<const T*>(p.in[f]);
-    s_out[f] = static_cast<T*>(p.out[f]);
-  }
-  for (int l = threadIdx.x; l < L; l += sweep::NT) {
-    s_pw[l] = static_cast<T>(c.pw[l]);
-    s_h[l] = static_cast<T>(c.h[l]);
-  }
-  T* const s = reinterpret_cast<T*>(nlayer_smem);   // plane f: s + f*WC
-  int8_t* const code = reinterpret_cast<int8_t*>(s + N * WC);
-  __syncthreads();
+// the run-time variant's weights beside the window, 16-byte rounded
+__host__ __device__ constexpr int weight_bytes(int L, int bytes) {
+  return (2 * L * bytes + 15) / 16 * 16;
+}
 
-  // stage the window, clamped to the block
-  const int x0 = blockIdx.x * EDGE - R, y0 = blockIdx.y * EDGE - R;
-  for (int i = threadIdx.x; i < WC; i += sweep::NT) {
-    const int wy = i / WX, wx = i - wy * WX;
-    const int gy = min(max(y0 + wy, 0), p.ny - 1);
-    const int gx = min(max(x0 + wx, 0), p.nx - 1);
-    const size_t g = static_cast<size_t>(gy) * p.nx + gx;
-    for (int f = 0; f < N; ++f) s[f * WC + i] = s_in[f][g];
-    code[i] = p.code[g];
-  }
-  __syncthreads();
+template <typename T>
+__device__ __forceinline__ T from_right(T v) {      // v of lane + 1
+  return __shfl_down_sync(0xffffffffu, v, 1);
+}
 
-  const T dt = static_cast<T>(c.dt), dx = static_cast<T>(c.dx);
-  const T dy = static_cast<T>(c.dy);
-  T* const eta = s;
-  T* const u = s + L * WC;
-  T* const v = s + 2 * L * WC;
+template <typename T>
+__device__ __forceinline__ T from_left(T v) {       // v of lane - 1
+  return __shfl_up_sync(0xffffffffu, v, 1);
+}
+
+// A CTA's window in shared memory (level l of a field at + l * wc), its
+// geometry, the step's scalars and where the tile goes.
+template <typename T>
+struct Win {
+  T* eta;
+  T* u;
+  T* v;
+  const int8_t* code;
+  int wc, wx, wy, K, rl, tx;
+  T dt, rdx, rdy;
+  T* out[3];
+  size_t plane;
+  int ny, nx, oy, ox;
+
+  // u' (v') from the old value, the pressures east (north) and here, the
+  // reciprocal spacing and the wet mask
+  __device__ __forceinline__ T face(T u0, T pe, T p, T rd, T wet) const {
+    return (u0 - dt * ((pe - p) * rd)) * wet;
+  }
+  __device__ __forceinline__ T div(T u0, T uw, T v0, T vs) const {
+    return (u0 - uw) * rdx + (v0 - vs) * rdy;
+  }
+  // the last sub-step's store of a tile point (window row j, column c)
+  __device__ __forceinline__ void put(int l, int j, int c, T e, T u0,
+                                      T v0) const {
+    const int gy = oy + j, gx = ox + c;
+    if (gy < ny && gx < nx) {
+      const size_t g = static_cast<size_t>(gy) * nx + gx + l * plane;
+      out[0][g] = e;
+      out[1][g] = u0;
+      out[2][g] = v0;
+    }
+  }
+};
+
+// The column a lane marches in sub-step k: velocity columns are
+// [lo, hi), eta columns [lo + 1, hi); `raw` may lie beyond the window
+// (its reads are clamped and feed no owned lane).
+struct Col {
+  int raw, c, hi;
+  __device__ Col(int rl, int tx, int K, int wx, int k, int strip,
+                 int lane) {
+    const int lo = rl - K + k;
+    hi = rl + tx + K - 1 - k;
+    raw = lo + kLanes * strip + lane;
+    c = min(raw, wx - 1);
+  }
+};
+
+// --- L compiled: pressures and v of the row below in registers ---------
+
+template <typename T, int L>
+__device__ void velocities(const Win<T>& w, const T (&pw)[L], int k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nx = (w.tx + 2 * w.K - 1 + kLanes - 1) / kLanes;
+  const int ny = (blockDim.x >> 5) / nx;
+  const Col col(w.rl, w.tx, w.K, w.wx, k, warp % nx, lane);
+  const bool own = lane < kLanes && col.raw < col.hi;
+  // rows [k, wy - 1 - k), in row strips of H rows (H a function of k)
+  const int y1 = w.wy - 1 - k;
+  const int H = (y1 - k + ny - 1) / ny;
+  const int o = k + (warp / nx) * H, oe = min(o + H, y1);
+  T pj[L];
+  {
+    const int i = min(o, w.wy - 1) * w.wx + col.c;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const T e = pw[l] * w.eta[l * w.wc + i];
+      pj[l] = l ? pj[l - 1] + e : e;
+    }
+  }
 #pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    for_box_linear<G>(sweep::inset<G>(k, k + 1), [&](int i) {
-      const T uw = static_cast<T>((static_cast<int>(code[i]) >> 1) & 1);
-      const T vw = static_cast<T>((static_cast<int>(code[i]) >> 2) & 1);
-      T pk = s_pw[0] * eta[i];
-      T pke = s_pw[0] * eta[i + 1];
-      T pkn = s_pw[0] * eta[i + WX];
-      for (int l = 0; l < L; ++l) {
-        const int o = l * WC + i;
-        if (l > 0) {
-          pk = pk + s_pw[l] * eta[o];
-          pke = pke + s_pw[l] * eta[o + 1];
-          pkn = pkn + s_pw[l] * eta[o + WX];
-        }
-        u[o] = (u[o] - dt * ((pke - pk) / dx)) * uw;
-        v[o] = (v[o] - dt * ((pkn - pk) / dy)) * vw;
+  for (int n = 0; n < H; ++n) {
+    const int j = o + n;
+    const int i = min(j, w.wy - 1) * w.wx + col.c;
+    const int in = min(j + 1, w.wy - 1) * w.wx + col.c;
+    const int cd = w.code[i];
+    const T uw = static_cast<T>((cd >> 1) & 1);
+    const T vw = static_cast<T>((cd >> 2) & 1);
+    const bool act = own && j < oe;
+    T pn = static_cast<T>(0);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const T e = pw[l] * w.eta[l * w.wc + in];
+      pn = l ? pn + e : e;
+      const T pe = from_right(pj[l]);
+      if (act) {
+        T* const u = w.u + l * w.wc + i;
+        T* const v = w.v + l * w.wc + i;
+        *u = w.face(*u, pe, pj[l], w.rdx, uw);
+        *v = w.face(*v, pn, pj[l], w.rdy, vw);
       }
-    });
-    __syncthreads();
-    for_box_linear<G>(sweep::inset<G>(k + 1, k + 1), [&](int i) {
-      if (code[i] & 1) {
-        T acc = static_cast<T>(0);
-        for (int l = L - 1; l >= 0; --l) {
-          const int o = l * WC + i;
-          const T div = (u[o] - u[o - 1]) / dx + (v[o] - v[o - WX]) / dy;
-          acc = (l == L - 1) ? s_h[l] * div : acc + s_h[l] * div;
-          eta[o] = eta[o] - dt * acc;
-        }
-      }
-    });
-    __syncthreads();
-  }
-
-  // write back the output tile
-  for (int i = threadIdx.x; i < EDGE * EDGE; i += sweep::NT) {
-    const int ty = i / EDGE, tx = i - ty * EDGE;
-    const int gy = blockIdx.y * EDGE + ty, gx = blockIdx.x * EDGE + tx;
-    if (gy >= p.ny || gx >= p.nx) continue;
-    const int w = (ty + R) * WX + tx + R;
-    const size_t g = static_cast<size_t>(gy) * p.nx + gx;
-    for (int f = 0; f < N; ++f) s_out[f][g] = s[f * WC + w];
+      pj[l] = pn;
+    }
   }
 }
 
-template <typename T, int K, int EDGE>
-cudaError_t launch_many(const ManyPlanes& p, const Consts& c,
-                        cudaStream_t stream) {
-  using G = sweep::Geom<K, 1, K, EDGE, EDGE, K, EDGE + 2 * K>;
-  const size_t smem = static_cast<size_t>(3 * p.layers) * G::WC * sizeof(T) +
-                      G::WC;
-  // the ceiling is per device; raise it when a launch needs more
+template <typename T, int L>
+__device__ void etas(const Win<T>& w, const T (&h)[L], int k, bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nx = (w.tx + 2 * w.K - 1 + kLanes - 1) / kLanes;
+  const int ny = (blockDim.x >> 5) / nx;
+  const Col col(w.rl, w.tx, w.K, w.wx, k, warp % nx, lane);
+  const bool own = lane > 0 && col.raw < col.hi;
+  // rows [k + 1, wy - 1 - k)
+  const int y0 = k + 1, y1 = w.wy - 1 - k;
+  const int H = (y1 - y0 + ny - 1) / ny;
+  const int o = y0 + (warp / nx) * H, oe = min(o + H, y1);
+  T vs[L];
+  {
+    const int i = min(o - 1, w.wy - 1) * w.wx + col.c;
+#pragma unroll
+    for (int l = 0; l < L; ++l) vs[l] = w.v[l * w.wc + i];
+  }
+#pragma unroll 1
+  for (int n = 0; n < H; ++n) {
+    const int j = o + n;
+    const int i = min(j, w.wy - 1) * w.wx + col.c;
+    const bool upd = (w.code[i] & 1) != 0;
+    const bool act = own && j < oe;
+    T acc = static_cast<T>(0);
+#pragma unroll
+    for (int l = L - 1; l >= 0; --l) {
+      const T u0 = w.u[l * w.wc + i];
+      const T uw = from_left(u0);
+      const T v0 = w.v[l * w.wc + i];
+      const T hd = h[l] * w.div(u0, uw, v0, vs[l]);
+      acc = l == L - 1 ? hd : acc + hd;
+      vs[l] = v0;
+      if (act) {
+        T* const e = w.eta + l * w.wc + i;
+        const T en = upd ? *e - w.dt * acc : *e;
+        if (!last) {
+          *e = en;
+        } else {
+          w.put(l, j, col.c, en, u0, v0);
+        }
+      }
+    }
+  }
+}
+
+// --- L at run time: (row, strip) items, nothing carried between rows ---
+
+template <typename T>
+__device__ void velocities_rt(const Win<T>& w, const T* pw, int L, int nx,
+                              int k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int items = (w.wy - 1 - 2 * k) * nx;
+  for (int it = warp; it < items; it += blockDim.x >> 5) {
+    const int r = it / nx;
+    const Col col(w.rl, w.tx, w.K, w.wx, k, it - r * nx, lane);
+    const bool own = lane < kLanes && col.raw < col.hi;
+    const int j = k + r;
+    const int i = j * w.wx + col.c, in = i + w.wx;
+    const int cd = w.code[i];
+    const T uw = static_cast<T>((cd >> 1) & 1);
+    const T vw = static_cast<T>((cd >> 2) & 1);
+    T p = static_cast<T>(0), pn = static_cast<T>(0);
+    for (int l = 0; l < L; ++l) {
+      const T a = pw[l];
+      const T e = a * w.eta[l * w.wc + i], en = a * w.eta[l * w.wc + in];
+      p = l ? p + e : e;
+      pn = l ? pn + en : en;
+      const T pe = from_right(p);
+      if (own) {
+        T* const u = w.u + l * w.wc + i;
+        T* const v = w.v + l * w.wc + i;
+        *u = w.face(*u, pe, p, w.rdx, uw);
+        *v = w.face(*v, pn, p, w.rdy, vw);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ void etas_rt(const Win<T>& w, const T* h, int L, int nx, int k,
+                        bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int items = (w.wy - 2 - 2 * k) * nx;
+  for (int it = warp; it < items; it += blockDim.x >> 5) {
+    const int r = it / nx;
+    const Col col(w.rl, w.tx, w.K, w.wx, k, it - r * nx, lane);
+    const bool own = lane > 0 && col.raw < col.hi;
+    const int j = k + 1 + r;
+    const int i = j * w.wx + col.c;
+    const bool upd = (w.code[i] & 1) != 0;
+    T acc = static_cast<T>(0);
+    for (int l = L - 1; l >= 0; --l) {
+      const int o = l * w.wc + i;
+      const T u0 = w.u[o];
+      const T uw = from_left(u0);
+      const T v0 = w.v[o];
+      const T hd = h[l] * w.div(u0, uw, v0, w.v[o - w.wx]);
+      acc = l == L - 1 ? hd : acc + hd;
+      if (own) {
+        const T en = upd ? w.eta[o] - w.dt * acc : w.eta[o];
+        if (!last) {
+          w.eta[o] = en;
+        } else {
+          w.put(l, j, col.c, en, u0, v0);
+        }
+      }
+    }
+  }
+}
+
+// Stage the window (oy, ox: the block point of window point (0, 0)) of
+// the 3L planes, level l of block b into plane b * L + l, and the code:
+// chunks of 4 points inside the block by cp.async where the block's rows
+// and the window's are 16-byte aligned, clamped scalar reads otherwise.
+template <typename T>
+__device__ __forceinline__ void stage(T* s, int8_t* code, const Blocks<T>& p,
+                                      int L, const Geo& g, int oy, int ox) {
+  const int wc = g.wy * g.wx;
+  const size_t plane = static_cast<size_t>(p.ny) * p.nx;
+  bool chunks = g.wx % 4 == 0 && g.rl % 4 == 0 && g.tx % 4 == 0 &&
+                p.nx % 4 == 0 && staging::aligned4(p.code);
+  for (int b = 0; b < 3; ++b) chunks = chunks && staging::aligned16(p.in[b]);
+  if (chunks) {
+    const int ch = g.wx / 4;                          // chunks per row
+    for (int idx = threadIdx.x; idx < g.wy * ch; idx += blockDim.x) {
+      const int r = idx / ch, q = idx - r * ch;
+      const int gy = oy + r, gx = ox + 4 * q, i = r * g.wx + 4 * q;
+      if (gy >= 0 && gy < p.ny && gx >= 0 && gx + 4 <= p.nx) {
+        const size_t gi = static_cast<size_t>(gy) * p.nx + gx;
+        for (int b = 0; b < 3; ++b) {
+          for (int l = 0; l < L; ++l) {
+            sweep::copy4_points(s + (b * L + l) * wc + i,
+                                p.in[b] + l * plane + gi);
+          }
+        }
+        staging::copy4_async(code + i, p.code + gi);
+        continue;
+      }
+      const size_t row = static_cast<size_t>(min(max(gy, 0), p.ny - 1)) * p.nx;
+      for (int e = 0; e < 4; ++e) {
+        const size_t gi = row + min(max(gx + e, 0), p.nx - 1);
+        for (int b = 0; b < 3; ++b) {
+          for (int l = 0; l < L; ++l) {
+            s[(b * L + l) * wc + i + e] = p.in[b][l * plane + gi];
+          }
+        }
+        code[i + e] = p.code[gi];
+      }
+    }
+    staging::copy_async_wait();
+    return;
+  }
+  for (int i = threadIdx.x; i < wc; i += blockDim.x) {
+    const int r = i / g.wx, x = i - r * g.wx;
+    const int gy = min(max(oy + r, 0), p.ny - 1);
+    const int gx = min(max(ox + x, 0), p.nx - 1);
+    const size_t gi = static_cast<size_t>(gy) * p.nx + gx;
+    for (int b = 0; b < 3; ++b) {
+      for (int l = 0; l < L; ++l) {
+        s[(b * L + l) * wc + i] = p.in[b][l * plane + gi];
+      }
+    }
+    code[i] = p.code[gi];
+  }
+}
+
+// One CTA: stage, K sub-steps of two phases, the tile written by the
+// last.  L = 0: the layer count of the launch.
+template <typename T, int L>
+__global__ void __launch_bounds__(32 * warps_per_sm(L, sizeof(T)))
+nlayer_kernel(Blocks<T> p, Consts c, Geo g) {
+  extern __shared__ __align__(16) unsigned char nlayer_smem[];
+  const int nl = L ? L : p.layers;
+  const int wc = g.wy * g.wx;
+  T* const s = reinterpret_cast<T*>(nlayer_smem);
+  T* const sw = s + 3 * nl * wc;                      // run-time weights
+  int8_t* const code =
+      reinterpret_cast<int8_t*>(sw) + (L ? 0 : weight_bytes(nl, sizeof(T)));
+  const int oy = blockIdx.y * g.ty - g.K, ox = blockIdx.x * g.tx - g.rl;
+  stage(s, code, p, nl, g, oy, ox);
+  const size_t plane = static_cast<size_t>(p.ny) * p.nx;
+  const Win<T> w{s,
+                 s + nl * wc,
+                 s + 2 * nl * wc,
+                 code,
+                 wc, g.wx, g.wy, g.K, g.rl, g.tx,
+                 static_cast<T>(c.dt),
+                 static_cast<T>(1) / static_cast<T>(c.dx),
+                 static_cast<T>(1) / static_cast<T>(c.dy),
+                 {p.out[0], p.out[1], p.out[2]},
+                 plane, p.ny, p.nx, oy, ox};
+  if constexpr (L > 0) {
+    T pw[L], h[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      pw[l] = p.w[l];
+      h[l] = p.w[L + l];
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k < g.K; ++k) {
+      velocities<T, L>(w, pw, k);
+      __syncthreads();
+      etas<T, L>(w, h, k, k == g.K - 1);
+      if (k < g.K - 1) __syncthreads();
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * nl; i += blockDim.x) sw[i] = p.w[i];
+    __syncthreads();
+#pragma unroll 1
+    for (int k = 0; k < g.K; ++k) {
+      velocities_rt(w, sw, nl, g.strips, k);
+      __syncthreads();
+      etas_rt(w, sw + nl, nl, g.strips, k, k == g.K - 1);
+      if (k < g.K - 1) __syncthreads();
+    }
+  }
+}
+
+// A launch's window, threads a CTA and shared bytes for nl layers of
+// `bytes` each and K, by nlayer_kernel<T, L> (L = 0: the run-time
+// variant); g.ty = 0 where no window fits a CTA.
+struct Plan {
+  Geo g;
+  int threads;
+  size_t smem;
+};
+
+Plan plan(int L, int nl, int bytes, int K) {
+  const int bpp = 3 * nl * bytes + 1;
+  const int extra = L ? 0 : weight_bytes(nl, bytes);
+  const sweep::Shape s =
+      sweep::pick_shape(K, bpp, 0, sweep::kTileYMax, true, extra);
+  if (!s.ty) return Plan{};
+  const Geo g{K, s.ty, s.tx, s.rl, s.wx, s.ty + 2 * K,
+              sweep::march_strips(s, K)};
+  return Plan{g,
+              sweep::march_threads(s, K, warps_per_sm(L, bytes),
+                                   L ? sweep::kMarchRows : 1),
+              static_cast<size_t>(bpp) * g.wy * g.wx + extra};
+}
+
+// Launch nlayer_kernel<T, L> on its plan; the shared-memory ceiling is
+// raised when a launch needs more.
+template <typename T, int L>
+cudaError_t launch_layers(const Blocks<T>& p, const Consts& c, int K,
+                          cudaStream_t stream) {
+  const Plan pl = plan(L, L ? L : p.layers, sizeof(T), K);
+  if (!pl.g.ty) return cudaErrorInvalidValue;
+  const Geo& g = pl.g;
+  const size_t smem = pl.smem;
   static int attr_device = -1;
   static size_t attr_bytes = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (attr_device != dev || smem > attr_bytes) {
-    err = cudaFuncSetAttribute(nlayer_many_kernel<T, K, EDGE>,
+    err = cudaFuncSetAttribute(nlayer_kernel<T, L>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     attr_device = dev;
     attr_bytes = smem;
   }
-  const dim3 grid = sweep::tile_grid<G>(p.ny, p.nx);
-  nlayer_many_kernel<T, K, EDGE><<<grid, sweep::NT, smem, stream>>>(p, c);
+  const dim3 grid((p.nx + g.tx - 1) / g.tx, (p.ny + g.ty - 1) / g.ty);
+  nlayer_kernel<T, L><<<grid, pl.threads, smem, stream>>>(p, c, g);
   return cudaGetLastError();
 }
 
-template <typename T, int EDGE, int KC = 1>
-cudaError_t launch_many_k(int K, const ManyPlanes& p, const Consts& c,
-                          cudaStream_t stream) {
-  if constexpr (KC > 8) {
-    return cudaErrorInvalidValue;
+// The compiled march for L <= LCOMPILED, the run-time variant beyond.
+template <typename T, int LC = 1>
+cudaError_t launch_any(int L, const Blocks<T>& p, const Consts& c, int K,
+                       cudaStream_t stream) {
+  if constexpr (LC > LCOMPILED) {
+    return launch_layers<T, 0>(p, c, K, stream);
   } else {
-    if (K == KC) return launch_many<T, KC, EDGE>(p, c, stream);
-    return launch_many_k<T, EDGE, KC + 1>(K, p, c, stream);
+    if (L == LC) return launch_layers<T, LC>(p, c, K, stream);
+    return launch_any<T, LC + 1>(L, p, c, K, stream);
   }
-}
-
-// The run-time layer count's entry: EDGE-cell tiles, LCOMPILED < L <= LMAX.
-template <int EDGE>
-int launch_many_entry(int dtype_code, int K, const void* const* in,
-                      void* const* out, const void* code, int ny, int nx,
-                      const double* consts, int n_consts,
-                      cudaStream_t stream) {
-  Consts c;
-  if (n_consts != sweep::num_consts<Consts>() || ny < 1 || nx < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  double* dst = reinterpret_cast<double*>(&c);
-  for (int i = 0; i < n_consts; ++i) dst[i] = consts[i];
-  const int L = static_cast<int>(c.layers);
-  if (L <= LCOMPILED || L > LMAX || static_cast<double>(L) != c.layers) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ManyPlanes p{};
-  for (int f = 0; f < 3 * L; ++f) {
-    p.in[f] = in[f];
-    p.out[f] = out[f];
-  }
-  p.code = static_cast<const int8_t*>(code);
-  p.ny = ny;
-  p.nx = nx;
-  p.layers = L;
-  cudaError_t err;
-  if (dtype_code == 0) {
-    err = launch_many_k<float, EDGE>(K, p, c, stream);
-  } else if (dtype_code == 1) {
-    err = launch_many_k<double, EDGE>(K, p, c, stream);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -312,48 +501,48 @@ int launch_many_entry(int dtype_code, int K, const void* const* in,
 extern "C" {
 
 // Number of doubles nlayer_sweep_launch expects in `consts`: dt, dx,
-// dy, the layer count, pw[LMAX], h[LMAX] (zero beyond the layer count).
+// dy, the layer count.
 int nlayer_sweep_num_consts() { return sweep::num_consts<Consts>(); }
 
-// See sweep::launch_entry; `variant` L-1 takes L = 1..4 layers (3L state
-// planes) on the skeleton's tiles; variants 4, 5 and 6 take the layer
-// count of the constants, 4 < L <= 32, on 32-, 16- and 8-cell tiles.
-// `aux` is not read.
-int nlayer_sweep_launch(int dtype_code, int K, int variant,
-                        const void* const* in, void* const* out,
-                        const void* const* aux, const void* code, int ny,
-                        int nx, const double* consts, int n_consts,
-                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0:
-      return sweep::launch_entry<Layers1, 8>(dtype_code, K, in, out, aux,
-                                             code, ny, nx, consts, n_consts,
-                                             stream);
-    case 1:
-      return sweep::launch_entry<Layers2, 8>(dtype_code, K, in, out, aux,
-                                             code, ny, nx, consts, n_consts,
-                                             stream);
-    case 2:
-      return sweep::launch_entry<Layers3, 8>(dtype_code, K, in, out, aux,
-                                             code, ny, nx, consts, n_consts,
-                                             stream);
-    case 3:
-      return sweep::launch_entry<Layers4, 8>(dtype_code, K, in, out, aux,
-                                             code, ny, nx, consts, n_consts,
-                                             stream);
-    case 4:
-      return launch_many_entry<32>(dtype_code, K, in, out, code, ny, nx,
-                                   consts, n_consts, s);
-    case 5:
-      return launch_many_entry<16>(dtype_code, K, in, out, code, ny, nx,
-                                   consts, n_consts, s);
-    case 6:
-      return launch_many_entry<8>(dtype_code, K, in, out, code, ny, nx,
-                                  consts, n_consts, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Threads a CTA of the launch for `layers` layers and K (dtype_code 0 =
+// float32, 1 = float64); 0 where no window fits a CTA.
+int nlayer_sweep_threads(int dtype_code, int layers, int K) {
+  if (layers < 1 || K < 1 || K > KMAX) return 0;
+  return plan(layers <= LCOMPILED ? layers : 0, layers,
+              dtype_code ? 8 : 4, K).threads;
+}
+
+// K sub-steps of the layer count of `consts` on the level blocks in[3]
+// (eta, u, v: contiguous (L, ny, nx) device arrays) into out[3];
+// `weights` holds pw[0..L) then H[0..L) in the planes' type, `code` the
+// (ny, nx) int8 mask code.  dtype_code 0 = float32, 1 = float64.
+// Launches on `stream` without synchronising and returns the launch's
+// cudaError_t (cudaErrorInvalidValue where the window of L layers does
+// not fit a CTA, or K is outside 1..8).
+int nlayer_sweep_launch(int dtype_code, int K, const void* const* in,
+                        void* const* out, const void* weights,
+                        const void* code, int ny, int nx,
+                        const double* consts, int n_consts, void* stream) {
+  return sweep::dispatch_entry<Consts>(
+      dtype_code, K >= 1 && K <= KMAX, ny, nx, consts, n_consts, stream,
+      [&](auto zero, const Consts& c, cudaStream_t s) {
+        using T = decltype(zero);
+        const int L = static_cast<int>(c.layers);
+        if (L < 1 || static_cast<double>(L) != c.layers) {
+          return cudaErrorInvalidValue;
+        }
+        Blocks<T> p;
+        for (int b = 0; b < 3; ++b) {
+          p.in[b] = static_cast<const T*>(in[b]);
+          p.out[b] = static_cast<T*>(out[b]);
+        }
+        p.w = static_cast<const T*>(weights);
+        p.code = static_cast<const int8_t*>(code);
+        p.ny = ny;
+        p.nx = nx;
+        p.layers = L;
+        return launch_any<T>(L, p, c, K, s);
+      });
 }
 
 }  // extern "C"

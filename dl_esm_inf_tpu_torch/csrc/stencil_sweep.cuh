@@ -44,6 +44,17 @@
 // width (the Chebyshev march does), its thread count and its tile's
 // most rows.
 //
+// The march's rule (pick_shape(..., march, extra); the N-layer sweep).
+// A column march puts warps of kMarchLanes owned columns side by side
+// (march_width): its widths are those whose tile and ring, less one
+// column, fill n = 3, 2 or 1 such strips, and it may keep `extra` bytes
+// per CTA beside the window; the squares, whose narrow windows leave
+// lanes idle, are its last resort, at one CTA per SM.  march_threads
+// gives its CTA: the column strips the tile and ring need, times row
+// strips of about kMarchRows rows, at most kMarchWarps warps an SM over
+// the CTAs the rule aimed at (so that a kernel of up to 128 registers a
+// thread keeps them all).
+//
 // Staging.  On a block whose rows are 16-byte aligned (nx % 4 == 0 and
 // aligned planes), a window row goes in chunks of 4 points: a chunk
 // inside the block by cp.async (16 bytes per float32 or int32 plane,
@@ -121,6 +132,10 @@ constexpr int kSquares[3] = {32, 16, 8};
 constexpr int NT = 256;
 constexpr int kThreadsTall = 512;
 constexpr int kTallRows = 32;
+// the march: owned columns of a warp, rows of a row strip, warps an SM
+constexpr int kMarchLanes = 31;
+constexpr int kMarchRows = 2;
+constexpr int kMarchWarps = 16;
 
 // A tile and its window: TY x TX output points, RL window columns left
 // of the tile, WX window columns, CTAS per SM that the rule aimed at.
@@ -151,22 +166,32 @@ constexpr int fit_rows(int w, int R, int bpp, long long budget, int tymax) {
   return ty >= kTileYMin ? ty : 0;
 }
 
+// The march's window width for n column strips: the tile's columns
+// (a multiple of 4) and the ring on both sides, less one column, fill
+// n strips of kMarchLanes; the left ring is rounded up to 4.
+constexpr int march_width(int R, int n) {
+  const int tx = (kMarchLanes * n - 2 * R + 1) / 4 * 4;
+  return round_up(round_up(R, 4) + tx + R, 4);
+}
+
 // The tile rule: ring R, `bpp` shared bytes per window point, a window
 // width fixed by the client (0: the rule's choice), the tile's most
-// rows.  ty == 0: nothing fits one CTA.
-constexpr Shape pick_shape(int R, int bpp, int wfix, int tymax) {
+// rows; with `march`, the march's widths; `extra` bytes per CTA beside
+// the window.  ty == 0: nothing fits one CTA.
+constexpr Shape pick_shape(int R, int bpp, int wfix, int tymax,
+                           bool march = false, int extra = 0) {
   const int rl = round_up(R, 4);
   for (int c = kCtasPerSM; c >= 1; --c) {
-    const long long budget = kSmemPerSM / c - kSmemReserve;
+    const long long budget = kSmemPerSM / c - kSmemReserve - extra;
     Shape best{0, 0, 0, 0, 0};
     for (int n = 0; n < 3; ++n) {
-      const int w = wfix ? wfix : kWindowX[n];
+      const int w = wfix ? wfix : march ? march_width(R, 3 - n) : kWindowX[n];
       const int tx = (w - rl - R) / 4 * 4;
       const int ty = tx >= 8 ? fit_rows(w, R, bpp, budget, tymax) : 0;
       if (ty) best = better(best, Shape{ty, tx, rl, w, c}, R);
       if (wfix) break;
     }
-    for (int n = 0; n < 3 && !wfix && !best.ty; ++n) {
+    for (int n = 0; n < 3 && !wfix && !best.ty && (!march || c == 1); ++n) {
       const int e = kSquares[n], w = e + 2 * R;
       if (static_cast<long long>(w) * w * bpp <= budget) {
         best = better(best, Shape{e, e, R, w, c}, R);
@@ -177,6 +202,24 @@ constexpr Shape pick_shape(int R, int bpp, int wfix, int tymax) {
     }
   }
   return Shape{0, 0, 0, 0, 0};
+}
+
+// The march's column strips for a tile and ring: the velocity columns
+// (the tile's, R west and R - 1 east) over the owned columns a strip.
+constexpr int march_strips(const Shape& s, int R) {
+  return (s.tx + 2 * R - 1 + kMarchLanes - 1) / kMarchLanes;
+}
+
+// The march's threads a CTA: its column strips times row strips of about
+// `rows` window rows (a march that carries nothing from row to row may
+// name 1), at most `warps` warps (a client whose kernel takes at most 64
+// registers a thread may name 32) over the s.ctas CTAs of an SM.
+constexpr int march_threads(const Shape& s, int R, int warps = kMarchWarps,
+                            int rows = kMarchRows) {
+  const int nx = march_strips(s, R);
+  const int want = (s.ty + 2 * R + rows - 1) / rows;
+  const int most = warps / s.ctas / nx;
+  return 32 * nx * (want < most ? want : most > 1 ? most : 1);
 }
 
 // A window's geometry: a TY x TX output tile, R rows above and below

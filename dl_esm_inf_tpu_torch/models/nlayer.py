@@ -15,21 +15,23 @@ the free surface), ``H[k]`` the rest thicknesses, reduced gravities
     deta[k]/dt = -sum_{j=k..N-1} H[j]*div(u[j])        (reverse cumsum)
 
 For N=2 this is models/twolayer.py.  ``build(fused=True)`` advances K
-steps per depth-K exchange: the 3N level planes are flattened once
-around the sweep loop onto the sweep's state, through the hand-written
-kernel ``csrc/nlayer_sweep.cu`` on a CUDA grid and through its plain
-version (:meth:`NLayerModel._layer_step` K times) on the CPU.
+steps per depth-K exchange: the sweep's state is the three (N, ny, nx)
+level blocks as they are, advanced by the hand-written kernel
+``csrc/nlayer_sweep.cu`` on a CUDA grid and by its plain version
+(:meth:`NLayerModel._layer_step` K times) on the CPU.
 
 On the card a CTA stages its tile's window of all 3L planes in shared
-memory, so the layer count is bounded by the 227 KiB a block may use:
-:func:`kernel_tile` gives the tile per (L, dtype, K): for L <= 4 (the
-compiled variants) the skeleton's tile rule
-(:func:`..ops.stencil_sweep.tile`), beyond the largest square of 32, 16
-and 8 cells that holds the window; it raises above what the 8-cell tile
-holds (at float64, K=8: 16 layers) or above
-:data:`KERNEL_MAX_LAYERS`.
+memory, so the layer count is bounded only by the 227 KiB a block may
+use: :func:`kernel_tile` gives the tile per (L, dtype, K), the
+skeleton's tile rule with the column march's widths
+(:func:`..ops.stencil_sweep.tile` with ``march=True``) for 3L planes and
+the code, ring K, and beyond :data:`COMPILED_LAYERS` the weights beside
+the window; it raises where no window fits one CTA (float32, K=8: above
+33 layers; float64, K=8: above 16).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -40,77 +42,153 @@ from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
 from ..ops.fastpath import SweepClient, fast_path_grid_args
-from ..ops.stencil_sweep import RING, StencilSweepKernel, tile
+from ..ops.stencil_sweep import (RING, StencilSweepKernel,
+                                 stencil_sweep_reference, tile)
 from .gravity_wave import (default_tmask, gaussian_eta,  # noqa: F401
                            wet_update_masks)
 
-#: the layer counts compiled into the CUDA kernel, on the skeleton's
-#: tiles (f64, K=8, 4 layers: 48x20 tiles in a 64x36 window of 12 planes
-#: and the code, 218 KiB of the 227 KiB a block may use)
-COMPILED_LAYERS = 4
-#: the most layers the kernel takes (its launch's parameter block holds
-#: 3L plane pointers each way and the weights); the shared memory may
-#: allow fewer (:func:`kernel_tile`)
-KERNEL_MAX_LAYERS = 32
-#: the tile edges of the run-time layer variants 4, 5, 6
-MANY_TILES = (32, 16, 8)
-#: shared memory a block may use on an H100 (sm_90), and the static
-#: shared memory of the run-time layer variants (plane pointers, weights)
+#: the layer counts compiled into the CUDA kernel's march (the pressures
+#: and v of the row below in registers); more take the layer count at
+#: run time
+COMPILED_LAYERS = 8
+#: shared memory a block may use on an H100 (sm_90)
 SMEM_LIMIT = 232448
-_MANY_STATIC = 2048
-
-#: the process's one wrapper of the N-layer sweep kernel; variant
-#: ``L - 1`` takes L = 1..4 layers (3L state planes), variants 4, 5, 6
-#: any 4 < L <= KERNEL_MAX_LAYERS on 32-, 16- and 8-cell tiles
-nlayer_sweep = StencilSweepKernel(
-    "nlayer_sweep", has_code=True,
-    n_state=tuple(3 * L for L in range(1, COMPILED_LAYERS + 1))
-    + (range(3 * (COMPILED_LAYERS + 1), 3 * KERNEL_MAX_LAYERS + 1, 3),)
-    * len(MANY_TILES),
-    kmax=(RING,) * (COMPILED_LAYERS + len(MANY_TILES)))
 
 
-def window_bytes(layers: int, dtype, K: int, tile: int) -> int:
-    """Shared memory of one CTA's window in the run-time layer variants:
-    3L planes of ``(tile + 2K)^2`` points and the code byte per point."""
-    w = (tile + 2 * K) ** 2
-    return 3 * layers * w * dtype.itemsize + w
+def _bpp(layers: int, dtype) -> int:
+    """Shared bytes per window point: 3L planes and the code byte."""
+    return 3 * layers * dtype.itemsize + 1
 
 
-def kernel_tile(layers: int, dtype, K: int) -> tuple[int, int]:
-    """The kernel's tile ``(rows, columns)`` for ``layers`` at ``dtype``
-    and K: the skeleton's tile rule for the compiled L <= 4 (3L planes and
-    the code, ring K), else the largest square of :data:`MANY_TILES` whose
-    window fits the shared memory a block may use.  Raises ValueError
-    where none does, or above :data:`KERNEL_MAX_LAYERS`."""
-    if layers > KERNEL_MAX_LAYERS:
-        raise ValueError(
-            f"the CUDA N-layer sweep takes at most {KERNEL_MAX_LAYERS} "
-            f"layers (its launch's parameter block), got {layers}")
+def weight_bytes(layers: int, dtype) -> int:
+    """Shared memory beside the window: the run-time variant's weights
+    (pw and H in the planes' type, rounded up to 16 bytes); the compiled
+    march keeps them in registers."""
     if layers <= COMPILED_LAYERS:
-        shape = tile(K, 3 * layers * dtype.itemsize + 1)
-        return shape.ty, shape.tx
-    budget = SMEM_LIMIT - _MANY_STATIC
-    for edge in MANY_TILES:
-        if window_bytes(layers, dtype, K, edge) <= budget:
-            return edge, edge
-    fits = max((n for n in range(1, layers)
-                if window_bytes(n, dtype, K, MANY_TILES[-1]) <= budget),
-               default=0)
+        return 0
+    return -(-2 * layers * dtype.itemsize // 16) * 16
+
+
+def _rule(layers: int, dtype, K: int):
+    return tile(K, _bpp(layers, dtype), march=True,
+                extra=weight_bytes(layers, dtype))
+
+
+def kernel_shape(layers: int, dtype, K: int):
+    """The kernel's window (:class:`..ops.stencil_sweep.Shape`) for
+    ``layers`` at ``dtype`` and K: the skeleton's tile rule with the
+    march's widths, for 3L planes and the code (ring K) and the weights
+    beside them (:func:`weight_bytes`).  Raises ValueError, naming the
+    budget and the most layers that fit, where no window fits the shared
+    memory a block may use."""
+    shape = _rule(layers, dtype, K)
+    if shape is not None:
+        return shape
+    fits = 0
+    while _rule(fits + 1, dtype, K) is not None:
+        fits += 1
     raise ValueError(
         f"{layers} layers at {dtype} and K={K} do not fit the shared "
-        f"memory budget of a block (227 KiB, {budget} B for the window): "
-        f"even an {MANY_TILES[-1]}-cell tile stages "
-        f"{window_bytes(layers, dtype, K, MANY_TILES[-1])} B; at most "
+        f"memory budget of a block (227 KiB, {SMEM_LIMIT} B): even an "
+        f"8-cell tile's window of {3 * layers} planes does not; at most "
         f"{fits} layers fit")
 
 
-def kernel_variant(layers: int, dtype, K: int) -> int:
-    """The kernel variant that takes ``layers`` at ``dtype`` and K."""
-    edge = kernel_tile(layers, dtype, K)[0]
-    if layers <= COMPILED_LAYERS:
-        return layers - 1
-    return COMPILED_LAYERS + MANY_TILES.index(edge)
+def kernel_tile(layers: int, dtype, K: int) -> tuple[int, int]:
+    """The kernel's tile ``(rows, columns)`` (:func:`kernel_shape`)."""
+    shape = kernel_shape(layers, dtype, K)
+    return shape.ty, shape.tx
+
+
+class NLayerSweepKernel(StencilSweepKernel):
+    """ctypes wrapper of ``csrc/nlayer_sweep.cu``: K sub-steps on the three
+    (L, ny, nx) level blocks eta, u, v (contiguous CUDA tensors of one
+    float dtype), with the (ny, nx) int8 mask code and the weights
+    (pw[0..L), H[0..L) in the planes' dtype); the outputs are three new
+    level blocks.  The layer count is the blocks'; the kernel takes every
+    L whose window fits a CTA (:func:`kernel_tile`).  ``launches`` counts
+    the launches this wrapper has made."""
+
+    _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+                 ctypes.c_int, ctypes.c_void_p]
+
+    def __init__(self):
+        super().__init__("nlayer_sweep", n_state=3, has_code=True,
+                         kmax=(RING,))
+
+    def _check_blocks(self, state, code, weights, consts, K):
+        if len(state) != 3:
+            raise ValueError(f"{self.name}: expected 3 level blocks (eta, "
+                             f"u, v), got {len(state)}")
+        if not 1 <= K <= self.kmax[0]:
+            raise ValueError(f"{self.name} takes 1..{self.kmax[0]} "
+                             f"sub-steps, got {K}")
+        ref = state[0]
+        if ref.device.type != "cuda":
+            raise ValueError(f"{self.name} needs CUDA tensors, got "
+                             f"{ref.device}")
+        if ref.dtype not in self._DTYPE_CODES:
+            raise TypeError(f"{self.name} takes float32/float64 planes, "
+                            f"got {ref.dtype}")
+        if ref.dim() != 3:
+            raise ValueError(f"expected (L, ly, lx) level blocks, got "
+                             f"{tuple(ref.shape)}")
+        L = ref.shape[0]
+        if len(consts) > 3 and consts[3] != L:
+            raise ValueError(f"{self.name}: the constants give "
+                             f"{consts[3]:g} layers, the blocks {L}")
+        named = ([(f"state[{i}]", t, ref.dtype, ref.shape)
+                  for i, t in enumerate(state)]
+                 + [("mask_codes", code, torch.int8, ref.shape[1:]),
+                    ("weights", weights, ref.dtype, (2 * L,))])
+        for name, t, dt, shape in named:
+            if t.device != ref.device or t.dtype != dt or t.shape != shape:
+                raise ValueError(
+                    f"{name}: expected {dt} {tuple(shape)} on {ref.device}, "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        kernel_shape(L, ref.dtype, K)
+
+    def __call__(self, state, code, weights, *, consts, K: int):
+        """Advance the level blocks ``state`` by K steps; returns new
+        blocks."""
+        state = tuple(state)
+        self._check_blocks(state, code, weights, consts, K)
+        self.build()
+        if len(consts) != self._nconsts:
+            raise ValueError(f"{self.name}: expected {self._nconsts} "
+                             f"constants, got {len(consts)}")
+        out = tuple(torch.empty_like(s) for s in state)
+
+        def ptrs(ts):
+            return (ctypes.c_void_p * 3)(*(t.data_ptr() for t in ts))
+        _, ny, nx = state[0].shape
+        err = self._fn(self._DTYPE_CODES[state[0].dtype], K, ptrs(state),
+                       ptrs(out), weights.data_ptr(), code.data_ptr(), ny,
+                       nx, (ctypes.c_double * len(consts))(*consts),
+                       len(consts),
+                       torch.cuda.current_stream(state[0].device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return out
+
+    def threads(self, dtype, layers: int, K: int) -> int:
+        """Threads a CTA the kernel launches with for ``layers`` layers of
+        ``dtype`` and K (0 where no window fits), as the library plans
+        its launch; builds the library."""
+        fn = self.build().lib.nlayer_sweep_threads
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return fn(self._DTYPE_CODES[dtype], layers, K)
+
+
+#: the process's one wrapper of the N-layer sweep kernel
+nlayer_sweep = NLayerSweepKernel()
 
 
 class NLayerModel(SweepClient):
@@ -148,6 +226,7 @@ class NLayerModel(SweepClient):
             (self._t_upd, self._u_wet, self._v_wet)).contiguous()
         self._step_aux = (self._t_upd, self._u_wet, self._v_wet)
         self._sweep_aux = (self._mask_codes,)
+        self._weights = {}
         self._init_fast_path()
 
     # ------------------------------------------------------------------
@@ -212,7 +291,7 @@ class NLayerModel(SweepClient):
 
     # ------------------------------------------------------------------
     def enable_fast_path(self, steps_per_sweep: int = 1) -> None:
-        """Switch to the fused 3L-plane sweep (the JAX package's
+        """Switch to the fused sweep of the level blocks (the JAX package's
         ``enable_pallas``); needs ``halo_width >= K``.  On a CUDA grid
         the layers must fit the kernel (:func:`kernel_tile`); more raise
         here, and nothing falls back to the plain version."""
@@ -220,47 +299,58 @@ class NLayerModel(SweepClient):
             kernel_tile(self.layers, self.grid.dtype, int(steps_per_sweep))
         super().enable_fast_path(steps_per_sweep)
 
-    def _kernel_variant(self, K: int) -> int:
-        """The kernel variant for K; on a CPU grid, where the plain
-        version takes any L, layers the kernel cannot take get none (-1,
-        which the wrapper refuses for a tensor off the CPU)."""
-        try:
-            return kernel_variant(self.layers, self.grid.dtype, K)
-        except ValueError:
-            if self.grid.device.type != "cpu":
-                raise
-            return -1
-
-    def _sweep_step(self, *planes):
-        """:meth:`_layer_step` on the sweep's flat state, the 3L planes
-        (etas, us, vs) followed by the decoded masks: the kernel's plain
+    def _sweep_step(self, eta, u, v, *masks):
+        """:meth:`_layer_step` on the sweep's state, the three (L, ly, lx)
+        level blocks, followed by the decoded masks: the kernel's plain
         version is this step K times."""
+        out = self._layer_step(eta.unbind(0), u.unbind(0), v.unbind(0),
+                               *masks)
         L = self.layers
-        return self._layer_step(planes[:L], planes[L:2 * L],
-                                planes[2 * L:3 * L], *planes[3 * L:])
+        return tuple(torch.stack(out[i * L:(i + 1) * L]) for i in range(3))
 
     def _prepare(self, aux):
         return st.unpack_mask_bits(aux[0], 3, self.grid.dtype)
 
     def kernel_constants(self) -> list[float]:
-        """The kernel's scalars: dt, dx, dy, the layer count, then the
-        pressure weights and thicknesses, zero-padded to
-        KERNEL_MAX_LAYERS each."""
-        pw = np.zeros(KERNEL_MAX_LAYERS)
-        H = np.zeros(KERNEL_MAX_LAYERS)
-        n = min(self.layers, KERNEL_MAX_LAYERS)
-        pw[:n], H[:n] = self._pw[:n], self._H[:n]
-        return [self.dt, self.grid.dx, self.grid.dy, float(self.layers),
-                *pw.tolist(), *H.tolist()]
+        """The kernel's scalars: dt, dx, dy and the layer count (the
+        weights go in :meth:`kernel_weights`).
 
-    def _to_planes(self, state):
-        """(eta, u, v) level tensors -> the 3L planes (etas, us, vs)."""
-        return tuple(f[k] for f in state for k in range(self.layers))
+        The kernel multiplies by 1/dx and 1/dy rounded in the planes'
+        dtype, because PyTorch's CUDA division of a tensor by a Python
+        scalar (``st.ddx(pk, dx)`` in :meth:`_layer_step`) is that
+        product; the CPU's plain version divides, which is the same only
+        where dx and dy are powers of two.  The card test
+        ``test_nlayer_kernel_other_spacings`` (tests/test_torch_gpu.py)
+        holds the kernel bitwise to the plain version at spacings 0.7 x
+        1.3 and fails if a PyTorch version divides instead."""
+        return [self.dt, self.grid.dx, self.grid.dy, float(self.layers)]
 
-    def _from_planes(self, planes):
-        L = self.layers
-        return tuple(torch.stack(planes[i * L:(i + 1) * L])
-                     for i in range(3))
+    def kernel_weights(self, like: torch.Tensor) -> torch.Tensor:
+        """pw[0..L) then H[0..L), in the dtype and on the device of
+        ``like`` (rounded once from double, as the plain step rounds
+        them), made once per dtype and device."""
+        key = (like.dtype, like.device)
+        if key not in self._weights:
+            self._weights[key] = torch.tensor(
+                np.concatenate([self._pw, self._H]), dtype=like.dtype,
+                device=like.device)
+        return self._weights[key]
+
+    def _make_sweep(self, K: int):
+        """The fused K-step sweep on the level blocks: the CUDA kernel
+        for CUDA tensors, its plain version for CPU tensors."""
+        if K not in self._sweep_cache:
+            consts = self.kernel_constants()
+
+            def sweep(state, aux):
+                if state[0].device.type == "cpu":
+                    return stencil_sweep_reference(
+                        self._sweep_step, K, state, self._prepare(aux))
+                return nlayer_sweep(state, aux[0],
+                                    self.kernel_weights(state[0]),
+                                    consts=consts, K=K)
+            self._sweep_cache[K] = sweep
+        return self._sweep_cache[K]
 
     def checksums(self) -> dict:
         return {"eta": self.eta.checksum(), "u": self.u.checksum(),
@@ -270,14 +360,16 @@ class NLayerModel(SweepClient):
 def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.02,
           layers: int = 3, tmask=None, halo_width: int = 1,
           fused: bool = False, steps_per_sweep: int = 1, dtype=None,
-          device=None, **kw) -> NLayerModel:
-    """Walled grid (dx = dy = 1) + model on ``device`` (default: the card);
-    ``fused``/``steps_per_sweep`` as in :func:`.gravity_wave.build`."""
+          device=None, dx: float = 1.0, dy: float = 1.0,
+          **kw) -> NLayerModel:
+    """Walled grid (spacings dx, dy; the JAX package's build takes 1)
+    + model on ``device`` (default: the card); ``fused``/
+    ``steps_per_sweep`` as in :func:`.gravity_wave.build`."""
     halo_width = fast_path_grid_args(fused, steps_per_sweep, 1, halo_width)
     grid = Grid(ARAKAWA_C, (BC_EXTERNAL, BC_EXTERNAL, BC_NONE), OFFSET_NE,
                 dtype=dtype, device=device)
     grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
-    grid_init(grid, 1.0, 1.0, default_tmask(gnx, gny) if tmask is None
+    grid_init(grid, dx, dy, default_tmask(gnx, gny) if tmask is None
               else tmask)
     model = NLayerModel(grid, dt=dt, layers=layers, **kw)
     if fused:

@@ -67,14 +67,12 @@ class SweepClient:
     A subclass sets ``sweep_kernel`` (its :class:`~.stencil_sweep.
     StencilSweepKernel`), ``_fields`` (the names of its state Field
     attributes) and, where they differ from the defaults, ``reach`` and
-    ``_variant`` (the kernel variant, or :meth:`_kernel_variant` where
-    it depends on K); it sets ``_step_aux`` (the plain
+    ``_variant`` (the kernel variant); it sets ``_step_aux`` (the plain
     step's trailing arguments) and ``_sweep_aux`` (the sweep's aux: float
     planes, then the mask code), calls :meth:`_init_fast_path`, and
     defines ``_step_math(*state, *step_aux) -> state``, ``_prepare(aux)
-    -> step_aux`` and ``kernel_constants()``.  A model whose state is not
-    the sweep's planes as they are (the N-layer model's level fields)
-    overrides :meth:`_to_planes`, :meth:`_from_planes` and
+    -> step_aux`` and ``kernel_constants()``.  A model whose kernel takes
+    another call (the N-layer model's) overrides :meth:`_make_sweep` and
     :meth:`_sweep_step`."""
 
     reach = 1
@@ -103,22 +101,10 @@ class SweepClient:
         set_steps_per_exchange(self, reach=self.reach,
                                steps_per_sweep=steps_per_sweep)
 
-    def _to_planes(self, state):
-        """The state as the sweep's planes (the fused path converts once
-        per run, not per sweep)."""
-        return state
-
-    def _from_planes(self, planes):
-        return planes
-
     def _sweep_step(self, *planes_and_aux):
         """The sweep's one step on its planes: the kernel's plain
         version is this step K times."""
         return self._step_math(*planes_and_aux)
-
-    def _kernel_variant(self, K: int) -> int:
-        """The kernel variant of the K-step sweep."""
-        return self._variant
 
     def _make_sweep(self, K: int):
         """The fused K-step sweep: the CUDA kernel for CUDA tensors, its
@@ -127,7 +113,7 @@ class SweepClient:
             self._sweep_cache[K] = make_sweep(
                 self.sweep_kernel, self._sweep_step, K=K,
                 consts=self.kernel_constants(), prepare=self._prepare,
-                variant=self._kernel_variant(K))
+                variant=self._variant)
         return self._sweep_cache[K]
 
     def _block_step(self, exch, *state):
@@ -152,8 +138,6 @@ class SweepClient:
 
         def prog(state):
             state = tuple(state)
-            if fused:
-                state = tuple(self._to_planes(state))
             base = 0
             if blocked:
                 for _ in range(nsteps // K):
@@ -165,7 +149,7 @@ class SweepClient:
             for _ in range(base, nsteps):
                 state = (self._make_sweep(1)(exch1(state), self._sweep_aux)
                          if fused else self._block_step(exch1, *state))
-            return tuple(self._from_planes(state)) if fused else state
+            return state
         return prog
 
     def run(self, nsteps: int) -> None:

@@ -47,6 +47,8 @@ TILE_Y_MIN = 8
 MAX_OVERHEAD = 2560
 WINDOW_X = (96, 64, 32)
 SQUARES = (32, 16, 8)
+#: the march's owned columns of a warp (kMarchLanes)
+MARCH_LANES = 31
 
 
 class Shape(NamedTuple):
@@ -69,13 +71,25 @@ def _overhead(s: Shape, ring: int) -> int:
     return (s.ty + 2 * ring) * s.wx * 1024 // (s.ty * s.tx)
 
 
-def tile(ring: int, bpp: int, wx: int = 0,
-         ty_max: int = TILE_Y_MAX) -> Shape | None:
+def march_width(ring: int, n: int) -> int:
+    """The march's window width for ``n`` column strips (the header's
+    ``march_width``): the tile's columns, a multiple of 4, and the ring
+    on both sides less one column fill ``n`` strips of MARCH_LANES."""
+    tx = (MARCH_LANES * n - 2 * ring + 1) // 4 * 4
+    rl = -(-ring // 4) * 4
+    return -(-(rl + tx + ring) // 4) * 4
+
+
+def tile(ring: int, bpp: int, wx: int = 0, ty_max: int = TILE_Y_MAX,
+         march: bool = False, extra: int = 0) -> Shape | None:
     """The skeleton's tile for a ring of ``ring`` cells and ``bpp``
     shared bytes per window point (every staged and scratch plane), a
     window width fixed by the kernel (``wx``; 0: the rule's) and a most
-    rows: the mirror of csrc/stencil_sweep.cuh ``pick_shape``.  None
-    where no window fits a CTA.
+    rows: the mirror of csrc/stencil_sweep.cuh ``pick_shape``.  With
+    ``march``, the widths are the column march's (:func:`march_width`
+    of 3, 2, 1 strips, and the squares only at one CTA per SM);
+    ``extra`` bytes per CTA sit beside the window.  None where no window
+    fits a CTA.
 
     For ``CTAS_PER_SM`` CTAs per SM down to one: each width of
     WINDOW_X (or ``wx``) with ``rl`` = the ring rounded up to 4 and the
@@ -86,17 +100,19 @@ def tile(ring: int, bpp: int, wx: int = 0,
     with the ring on every side); it is taken if its overhead is at most
     MAX_OVERHEAD or at one CTA per SM."""
     rl = -(-ring // 4) * 4
+    widths = ((wx,) if wx else tuple(march_width(ring, n) for n in (3, 2, 1))
+              if march else WINDOW_X)
     for c in range(CTAS_PER_SM, 0, -1):
-        budget = SMEM_PER_SM // c - SMEM_RESERVE
+        budget = SMEM_PER_SM // c - SMEM_RESERVE - extra
         cands = []
-        for w in ((wx,) if wx else WINDOW_X):
+        for w in widths:
             tx = (w - rl - ring) // 4 * 4
             ty = ty_max
             while ty >= TILE_Y_MIN and (ty + 2 * ring) * w * bpp > budget:
                 ty -= 4
             if tx >= 8 and ty >= TILE_Y_MIN:
                 cands.append(Shape(ty, tx, rl, w, c))
-        for e in (() if wx or cands else SQUARES):
+        for e in (() if wx or cands or (march and c > 1) else SQUARES):
             if (e + 2 * ring) ** 2 * bpp <= budget:
                 cands.append(Shape(e, e, ring, e + 2 * ring, c))
         best = None
@@ -134,6 +150,12 @@ class StencilSweepKernel:
     nothing else); callers may reset it."""
 
     _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+    #: ``<name>_launch``'s arguments: dtype code, K, variant, in, out,
+    #: aux, code, ny, nx, consts, their count, stream
+    _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+                 ctypes.c_int, ctypes.c_void_p]
 
     def __init__(self, name: str, *, n_state: int, n_aux: int = 0,
                  has_code: bool = False, kmax=(RING,)):
@@ -153,12 +175,7 @@ class StencilSweepKernel:
         built = load_library(self.name, (self.source,))
         if self._fn is None:
             fn = getattr(built.lib, f"{self.name}_launch")
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int,
-                           ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                           ctypes.c_void_p]
+            fn.argtypes = self._ARGTYPES
             fn.restype = ctypes.c_int
             nconst = getattr(built.lib, f"{self.name}_num_consts")
             nconst.argtypes = []

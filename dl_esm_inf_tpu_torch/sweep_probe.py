@@ -2,7 +2,7 @@
 (a second one with ``--skeleton``: the sweeps on the shared skeleton).
 
     python dl_esm_inf_tpu_torch/sweep_probe.py [--root DIR] [--n 1024]
-        [--ranks] [--skeleton]
+        [--ranks] [--skeleton] [--nlayer-run]
 
 Run as a file, it imports the port from the checkout at ``--root``
 (default: this file's checkout), so one command can time two trees in
@@ -27,11 +27,17 @@ that checkout, each a CUDA graph of its launches (best of 5 replays),
 and prints them as a second JSON line (``skeleton_*`` keys, µs per
 sweep): gravity wave, shallow and two-layer at K=8, tracer van Leer at
 K=4, the Chebyshev sweep at K = 1, 2, 4, 8 (float32) and K=4 (float64),
-lam 50, the N-layer sweep at L=3, K=8, the PSy light sweep and the
+lam 50, the N-layer sweep at L=3, K=8 and at ``NLAYER_KEYS`` (null where
+that checkout's kernel refuses the layers; beside them one sweep's max
+abs against its plain version on a 256^2 grid of spacings 0.7 x 1.3,
+``nlayer_dx07_max_abs``), the PSy light sweep and the
 levels=N chain's light sweep at L=3 and L=8 (float32) and L=8
 (float64); beside them the Helmholtz solve (K=4, float32) in ms on the
 kernel and the plain path with its iterations, and each library's
 registers and spilled bytes from its build log.
+
+``--nlayer-run`` prints one more line: where the N-layer rows' ``run``
+spends its time (:func:`probe_nlayer_run`).
 
 ``--ranks`` also runs ``chip_smoke.phase_ranks()`` of that checkout (the
 rdma exchange and the fused transport across 2 and 4 ranks) and prints
@@ -228,10 +234,24 @@ def probe_skeleton(n: int) -> dict:
     m = nlm.build(n, n, layers=3, fused=True, steps_per_sweep=8,
                   device=cs.DEV)
     m.set_initial(cs._nlayer_eta0(n, 3))
-    flat = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    flat = _nlayer_state(m)
     sweep = m._make_sweep(8)
     out["skeleton_nlayer_L3_K8_us"] = us(lambda: sweep(flat,
                                                        m._sweep_aux))
+    for L, dname, K in NLAYER_KEYS:
+        key = f"skeleton_nlayer_L{L}_{dname}_K{K}_us"
+        dt = getattr(torch, dname)
+        try:
+            m = nlm.build(n, n, layers=L, fused=True, steps_per_sweep=K,
+                          dtype=dt, device=cs.DEV)
+        except ValueError:      # more layers than that checkout's kernel
+            out[key] = None
+            continue
+        m.set_initial(cs._nlayer_eta0(n, L))
+        flat = _nlayer_state(m)
+        sweep = m._make_sweep(K)
+        out[key] = us(lambda: sweep(flat, m._sweep_aux))
+    out["nlayer_dx07_max_abs"] = _nlayer_spacing_max_abs(cs, 256)
     m = NemoLite2DPsy(n, n, halo_width=8, device=cs.DEV)
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
     m.run(4, fused=True)
@@ -249,6 +269,145 @@ def probe_skeleton(n: int) -> dict:
         "gravity_wave", "shallow", "twolayer", "tracer", "helmholtz",
         "nlayer", "schedule_sweep"))
     return out
+
+
+#: the N-layer rows whose ``run`` chip_smoke.py times at float32:
+#: (layers, K)
+NLAYER_RUN = ((3, 8), (5, 8), (8, 8), (33, 8), (48, 4))
+
+
+def probe_nlayer_run(n: int) -> dict:
+    """Where ``run``'s time goes in the N-layer rows of ``chip_smoke.py``
+    (float32, n^2), for each (L, K) of NLAYER_RUN (``nlayer_run_L*_K*``,
+    µs per step unless named): ``run(20 K)`` as chip_smoke's
+    ``_run_step_us`` times it (``run_us``: the mean of 3 runs in one
+    CUDA-event window after a warm-up run; ``mallocs``: the segments the
+    caching allocator took from cudaMalloc in that window) and each of 3
+    more runs alone (``runs_us``); the same window again after the plain
+    sweeps chip_smoke runs just before ``run`` (four timed, one counted:
+    ``run_after_plain_us``, ``mallocs_after_plain``); the
+    sweep's CUDA graph on the initial state and on the state the runs
+    left (``graph_us``, ``graph_after_us``, per step);
+    and one more run under torch.profiler: the sweep kernel's launches
+    and their device µs per launch (``kernel_us``: mean, min, max), the
+    device's busy µs per step (every kernel, memset and copy) and the
+    span from the first one's start to the last one's end per step
+    (``span_us``); null where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from dl_esm_inf_tpu_torch.models import nlayer as nlm
+    from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
+
+    def mallocs():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def events_ms(fn, reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    out = {}
+    for L, K in NLAYER_RUN:
+        steps = 20 * K
+        m = nlm.build(n, n, layers=L, fused=True, steps_per_sweep=K,
+                      device=cs.DEV)
+        m.set_initial(cs._nlayer_eta0(n, L))
+        sweep = m._make_sweep(K)
+        state = (m.eta.data, m.u.data, m.v.data)
+        graph_us = 1e3 * _graph_ms(lambda: sweep(state, m._sweep_aux),
+                                   20) / K
+        m.run(steps)
+        torch.cuda.synchronize()
+        n0 = mallocs()
+        row = {"run_us": 1e3 * events_ms(lambda: m.run(steps), 3) / steps,
+               "mallocs": mallocs() - n0,
+               "runs_us": [1e3 * events_ms(lambda: m.run(steps), 1) / steps
+                           for _ in range(3)]}
+        state = (m.eta.data, m.u.data, m.v.data)
+        prep = m._prepare(m._sweep_aux)
+        def plain():
+            return stencil_sweep_reference(m._sweep_step, K, state, prep)
+        for _ in range(4):
+            plain()
+        cs._count_ops(plain)
+        m.run(steps)
+        torch.cuda.synchronize()
+        n0 = mallocs()
+        row["run_after_plain_us"] = 1e3 * events_ms(lambda: m.run(steps),
+                                                    3) / steps
+        row["mallocs_after_plain"] = mallocs() - n0
+        state = (m.eta.data, m.u.data, m.v.data)
+        row["graph_us"] = graph_us
+        row["graph_after_us"] = 1e3 * _graph_ms(
+            lambda: sweep(state, m._sweep_aux), 20) / K
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.run(steps)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [e.time_range.end - e.time_range.start for e in dev
+                if "nlayer_kernel" in e.name]
+        if dev:
+            row["launches"] = len(kern)
+            row["kernel_us"] = ([sum(kern) / len(kern), min(kern),
+                                 max(kern)] if kern else None)
+            row["busy_us"] = sum(e.time_range.end - e.time_range.start
+                                 for e in dev) / steps
+            row["span_us"] = (max(e.time_range.end for e in dev)
+                              - min(e.time_range.start for e in dev)) / steps
+        else:
+            row.update(launches=None, kernel_us=None, busy_us=None,
+                       span_us=None)
+        out[f"nlayer_run_L{L}_K{K}"] = row
+        del m, sweep, state
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the N-layer sweeps ``--skeleton`` also times: (layers, dtype, K)
+NLAYER_KEYS = ((5, "float32", 8), (8, "float32", 8), (5, "float64", 8),
+               (8, "float64", 8), (16, "float32", 8), (32, "float32", 8),
+               (48, "float32", 4))
+
+
+def _nlayer_state(m):
+    """An N-layer model's sweep state: its three level blocks, or, in a
+    checkout whose kernel takes single planes (``_to_planes``), those."""
+    state = (m.eta.data, m.u.data, m.v.data)
+    return m._to_planes(state) if hasattr(m, "_to_planes") else state
+
+
+def _nlayer_spacing_max_abs(cs, n: int) -> float:
+    """One N-layer sweep (3 layers, K=4, float32) on a grid of spacings
+    0.7 x 1.3, kernel vs its plain version on the card: max abs on
+    internal points (through the model's API, which both checkouts
+    share)."""
+    import torch
+
+    import dl_esm_inf_tpu_torch as tdl
+    from dl_esm_inf_tpu_torch.models import nlayer as nlm
+    from dl_esm_inf_tpu_torch.ops.stencil_sweep import stencil_sweep_reference
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE,
+                 dtype=torch.float32, device=cs.DEV)
+    g.decompose(n, n, ndomains=1, halo_width=4)
+    tdl.grid_init(g, 0.7, 1.3, nlm.default_tmask(n, n))
+    m = nlm.NLayerModel(g, dt=0.01, layers=3)
+    m.enable_fast_path(4)
+    m.set_initial(cs._nlayer_eta0(n, 3))
+    flat = _nlayer_state(m)
+    ker = m._make_sweep(4)(flat, m._sweep_aux)
+    ref = stencil_sweep_reference(m._sweep_step, 4, flat,
+                                  m._prepare(m._sweep_aux))
+    return cs._internal_max_abs(g, ker, ref)
 
 
 def _light_sweep(sched, rows):
@@ -274,6 +433,9 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=1024, help="global N x N")
     ap.add_argument("--skeleton", action="store_true",
                     help="also time the sweeps on the shared skeleton")
+    ap.add_argument("--nlayer-run", action="store_true",
+                    help="also split the N-layer rows' run into device "
+                    "and host time")
     ap.add_argument("--ranks", action="store_true",
                     help="also run that checkout's chip_smoke.phase_ranks()")
     args = ap.parse_args(argv)
@@ -289,6 +451,9 @@ def main(argv=None) -> None:
     print(json.dumps({"root": root, **probe(args.n)}), flush=True)
     if args.skeleton:
         print(json.dumps({"root": root, **probe_skeleton(args.n)}),
+              flush=True)
+    if args.nlayer_run:
+        print(json.dumps({"root": root, **probe_nlayer_run(args.n)}),
               flush=True)
     if args.ranks:
         from concurrent.futures import ThreadPoolExecutor

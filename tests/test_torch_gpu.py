@@ -321,17 +321,12 @@ def _nlayer_eta0(layers):
                      for k in range(layers)])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("ndom", [1, 4])
-@pytest.mark.parametrize("K", list(range(1, 9)))
-@pytest.mark.parametrize("layers", [1, 2, 3, 4])
-def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
-    """The N-layer kernel against the model's plain path after 19 steps
-    (n // K sweeps + n % K single steps): bitwise."""
+def _nlayer_pair(device, layers, K, ndom, dtype, **kw):
+    """(kernel model, plain model) after 19 steps from the same start
+    (n // K sweeps + n % K single steps); the kernel's launches checked."""
     ms = [nlm.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=layers,
-                    fused=f, steps_per_sweep=K, dtype=dtype,
-                    device=cuda_device) for f in (True, False)]
+                    fused=f, steps_per_sweep=K, dtype=dtype, device=device,
+                    **kw) for f in (True, False)]
     for m in ms:
         m.set_initial(_nlayer_eta0(layers))
     before = nlm.nlayer_sweep.launches
@@ -339,7 +334,10 @@ def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
     torch.cuda.synchronize()
     assert nlm.nlayer_sweep.launches - before == 19 // K + 19 % K
     ms[1].run(19)
-    got, want = ms[0].gather(), ms[1].gather()
+    return ms[0].gather(), ms[1].gather()
+
+
+def _assert_bitwise(got, want):
     for k in want:
         assert np.all(np.isfinite(got[k])), k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -347,53 +345,89 @@ def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("layers", [5, 8])
-def test_nlayer_kernel_many_layers_matches_plain(cuda_device, layers, dtype):
-    """More than four layers (the run-time layer variants, on the tile
-    the shared-memory budget gives: f32 32 cells, f64 16) at K=8, 1 and
-    4 tiles: bitwise with the plain path after 19 steps."""
+@pytest.mark.parametrize("ndom", [1, 4])
+@pytest.mark.parametrize("K", list(range(1, 9)))
+@pytest.mark.parametrize("layers", list(range(1, 9)))
+def test_nlayer_kernel_matches_plain(cuda_device, layers, K, ndom, dtype):
+    """The N-layer kernel (the compiled march, L = 1..8) against the
+    model's plain path after 19 steps: bitwise."""
+    _assert_bitwise(*_nlayer_pair(cuda_device, layers, K, ndom, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,K,dtype", [
+    (9, 8, torch.float32), (16, 8, torch.float32), (33, 8, torch.float32),
+    (48, 4, torch.float32), (64, 4, torch.float32), (9, 8, torch.float64),
+    (16, 8, torch.float64)])
+def test_nlayer_kernel_many_layers_matches_plain(cuda_device, layers, K,
+                                                 dtype):
+    """More than eight layers (the run-time variant, up to what one
+    window holds: 33 at float32 and K=8), 1 and 4 tiles: bitwise with
+    the plain path after 19 steps."""
+    assert layers > nlm.COMPILED_LAYERS
     for ndom in (1, 4):
-        ms = [nlm.build(GNX, GNY, ndomains=ndom, dt=0.01, layers=layers,
-                        fused=f, steps_per_sweep=8, dtype=dtype,
-                        device=cuda_device) for f in (True, False)]
-        for m in ms:
-            m.set_initial(_nlayer_eta0(layers))
-        assert ms[0]._kernel_variant(8) == 4 + nlm.MANY_TILES.index(
-            nlm.kernel_tile(layers, dtype, 8)[0])
-        before = nlm.nlayer_sweep.launches
-        ms[0].run(19)
-        torch.cuda.synchronize()
-        assert nlm.nlayer_sweep.launches - before == 19 // 8 + 19 % 8
-        ms[1].run(19)
-        got, want = ms[0].gather(), ms[1].gather()
-        for k in want:
-            assert np.all(np.isfinite(got[k])), k
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        _assert_bitwise(*_nlayer_pair(cuda_device, layers, K, ndom, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [3, 9])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nlayer_kernel_other_spacings(cuda_device, layers, dtype):
+    """Spacings that are no powers of two (dx 0.7, dy 1.3): the plain
+    path on the card multiplies by the reciprocals, as the kernel does;
+    bitwise after 19 steps on 4 tiles, K=4."""
+    _assert_bitwise(*_nlayer_pair(cuda_device, layers, 4, 4, dtype, dx=0.7,
+                                  dy=1.3))
 
 
 @pytest.mark.gpu
 def test_nlayer_outside_the_kernel_set_raises(cuda_device):
-    """Layers beyond the shared-memory budget or the kernel's 32, or K
-    beyond 8, raise on the card: nothing runs the plain version
+    """Layers beyond what one window holds (the shared-memory budget),
+    or K beyond 8, raise on the card: nothing runs the plain version
     instead."""
     with pytest.raises(ValueError, match="shared memory budget"):
         nlm.build(GNX, GNY, layers=17, fused=True, steps_per_sweep=8,
                   dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 32 layers"):
-        nlm.build(GNX, GNY, layers=33, fused=True, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 33 layers"):
+        nlm.build(GNX, GNY, layers=34, fused=True, steps_per_sweep=8,
+                  halo_width=8, dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="steps_per_sweep"):
         nlm.build(GNX, GNY, layers=3, fused=True, steps_per_sweep=9,
                   device=cuda_device)
     m = nlm.build(GNX, GNY, layers=2, fused=True, device=cuda_device)
-    planes = m._to_planes((m.eta.data, m.u.data, m.v.data))
+    state = (m.eta.data, m.u.data, m.v.data)
+    w = m.kernel_weights(m.eta.data)
     before = nlm.nlayer_sweep.launches
-    with pytest.raises(ValueError, match="no variant 7"):
-        nlm.nlayer_sweep(planes + planes[:9], (), m._mask_codes,
-                         consts=m.kernel_constants(), K=1, variant=7)
+    with pytest.raises(ValueError, match="3 level blocks"):
+        nlm.nlayer_sweep(state + state[:1], m._mask_codes, w,
+                         consts=m.kernel_constants(), K=1)
     with pytest.raises(ValueError, match="sub-steps"):
-        nlm.nlayer_sweep(planes, (), m._mask_codes,
-                         consts=m.kernel_constants(), K=9, variant=1)
+        nlm.nlayer_sweep(state, m._mask_codes, w,
+                         consts=m.kernel_constants(), K=9)
+    with pytest.raises(ValueError, match="weights"):
+        nlm.nlayer_sweep(state, m._mask_codes, w[:3],
+                         consts=m.kernel_constants(), K=1)
+    with pytest.raises(ValueError, match="layers"):
+        nlm.nlayer_sweep(state, m._mask_codes, w,
+                         consts=m.kernel_constants()[:3] + [3.0], K=1)
     assert nlm.nlayer_sweep.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nlayer_threads_are_whole_strips(cuda_device, dtype):
+    """The threads the library launches with: whole warps of whole column
+    strips, at most 1024, and 0 exactly where the tile rule raises."""
+    for K in (1, 4, 8):
+        for L in (1, 3, 8, 9, 16, 33, 34):
+            threads = nlm.nlayer_sweep.threads(dtype, L, K)
+            try:
+                ty, tx = nlm.kernel_tile(L, dtype, K)
+            except ValueError:
+                assert threads == 0, (L, K)
+                continue
+            strips = -(-(tx + 2 * K - 1) // 31)
+            assert threads % (32 * strips) == 0 and 0 < threads <= 1024
 
 
 # --- the fused schedule sweep generated from a kernel schedule -----------

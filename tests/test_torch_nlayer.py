@@ -86,13 +86,13 @@ def test_step_math_and_layer_step_match_jax(layers):
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL)
-    split = [torch.from_numpy(a[k]) for a in (eta, u, v)
-             for k in range(layers)]
-    flat = mt._sweep_step(*split, *masks)
+    blocks = mt._sweep_step(*(torch.from_numpy(a) for a in (eta, u, v)),
+                            *masks)
     wl = mj._layer_step([eta[k] for k in range(layers)],
                         [u[k] for k in range(layers)],
                         [v[k] for k in range(layers)], *jm)
-    assert len(flat) == len(wl) == 3 * layers
+    assert len(blocks) == 3 and len(wl) == 3 * layers
+    flat = [b[k] for b in blocks for k in range(layers)]
     for w, g in zip(wl, flat):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL)
@@ -114,9 +114,10 @@ def test_sweep_reference_matches_jax_pallas_interpret():
     ly, lx = mj.grid.halo_spec.local_ny, mj.grid.halo_spec.local_nx
     (eta, u, v), code = _block(L, ly, lx, seed=7)
     planes = [a[k] for a in (eta, u, v) for k in range(L)]
-    got = stencil_sweep_reference(
-        mt._sweep_step, K, [torch.from_numpy(p) for p in planes],
+    blocks = stencil_sweep_reference(
+        mt._sweep_step, K, [torch.from_numpy(a) for a in (eta, u, v)],
         mt._prepare((torch.from_numpy(code),)))
+    got = [b[k] for b in blocks for k in range(L)]
     pal = mj._make_sweep(K)(*(jnp.asarray(p) for p in planes),
                             jnp.asarray(code))
     assert len(pal) == len(got) == 3 * L
@@ -271,40 +272,40 @@ def test_state_carried_from_jax():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_tile_chooser(dtype):
     """The N-layer kernel's tile per (L, dtype, K): the skeleton's tile
-    rule for the compiled L <= 4 at every K (3L planes and the code, ring
-    K), whose window fits a CTA; beyond, the largest square of 32, 16, 8
-    whose window (3L planes of (tile + 2K)^2 points and the code) fits
-    227 KiB less the run-time variants' 2 KiB of static shared memory; a
-    ValueError naming the budget above what the 8-cell tile holds, and
-    the parameter block's 32 layers."""
-    item = 8 if dtype == torch.float64 else 4
-    assert tnl.window_bytes(9, dtype, 8, 16) == 9 * 3 * 32 * 32 * item + 1024
-    assert tnl.window_bytes(4, dtype, 8, 32) == 4 * 3 * 48 * 48 * item + 2304
+    rule with the column march's widths for 3L planes and the code, ring
+    K; beyond the compiled 8 layers the weights (2L values, 16-byte
+    rounded) sit beside the window.  Every window fits the share of an SM
+    its CTAs leave, and a ValueError naming the budget and the most
+    layers that fit comes at the first L whose window fits no CTA
+    (float32, K=8: 34; float64, K=8: 17)."""
+    item = dtype.itemsize
     for K in range(1, 9):
-        for L in range(1, 5):
-            shape = tsst.tile(K, 3 * L * item + 1)
+        for L in list(range(1, 20)) + [24, 33, 48, 64]:
+            bpp = 3 * L * item + 1
+            extra = 0 if L <= 8 else -(-2 * L * item // 16) * 16
+            assert tnl.weight_bytes(L, dtype) == extra
+            shape = tsst.tile(K, bpp, march=True, extra=extra)
+            if shape is None:
+                with pytest.raises(ValueError, match="227 KiB"):
+                    tnl.kernel_tile(L, dtype, K)
+                continue
+            assert tnl.kernel_shape(L, dtype, K) == shape
             assert tnl.kernel_tile(L, dtype, K) == (shape.ty, shape.tx)
-            assert shape.window_bytes(K, 3 * L * item + 1) <= 232448
-            assert tnl.kernel_variant(L, dtype, K) == L - 1
-    # K=8 boundaries: f64 16-cell tiles to 9 layers, 8-cell to 16;
-    # f32 32-cell to 8, 16-cell to 18, 8-cell to the 32-layer cap
-    last = ({32: 4, 16: 9, 8: 16} if dtype == torch.float64
-            else {32: 8, 16: 18, 8: 32})
-    lo = 5
-    for tile, hi in last.items():
-        for L in range(lo, hi + 1):
-            assert tnl.kernel_tile(L, dtype, 8) == (tile, tile), L
-            assert tnl.kernel_variant(L, dtype, 8) == \
-                4 + tnl.MANY_TILES.index(tile)
-            assert tnl.window_bytes(L, dtype, 8, tile) <= 232448 - 2048
-        lo = max(lo, hi + 1)
-    if dtype == torch.float64:
-        assert tnl.window_bytes(17, dtype, 8, 8) > 232448 - 2048
-        with pytest.raises(ValueError, match=r"227 KiB.*at most 16 layers"):
-            tnl.kernel_tile(17, dtype, 8)
-        assert tnl.kernel_tile(17, dtype, 4) == (8, 8)
-    with pytest.raises(ValueError, match="at most 32 layers"):
-        tnl.kernel_tile(33, dtype, 1)
+            assert shape.window_bytes(K, bpp) + extra <= \
+                tsst.SMEM_PER_SM // shape.ctas - tsst.SMEM_RESERVE
+            # the velocity columns fill at most three strips of 31 lanes
+            assert shape.tx + 2 * K - 1 <= 3 * 31
+    first = 34 if dtype == torch.float32 else 17
+    assert tnl.kernel_tile(first - 1, dtype, 8) == (8, 8)
+    with pytest.raises(ValueError, match=rf"227 KiB.*at most {first - 1} "
+                       "layers fit"):
+        tnl.kernel_tile(first, dtype, 8)
+    # K=4 and K=1 hold more (float32: 75 and 192; float64: 37 and 96)
+    for K, most in ((4, 75 if item == 4 else 37), (1, 192 if item == 4
+                                                     else 96)):
+        assert tnl.kernel_tile(most, dtype, K)
+        with pytest.raises(ValueError, match=f"at most {most} layers"):
+            tnl.kernel_tile(most + 1, dtype, K)
 
 
 def test_guards_and_no_fallback():
@@ -325,42 +326,80 @@ def test_guards_and_no_fallback():
     with pytest.raises(ValueError, match="shape"):
         m.set_initial(np.zeros((3, 32, 32)))
     kern = tnl.nlayer_sweep
-    assert len(m.kernel_constants()) == 4 + 2 * tnl.KERNEL_MAX_LAYERS
-    assert m.kernel_constants()[3] == 2.0          # the layer count
+    assert m.kernel_constants() == [m.dt, 1.0, 1.0, 2.0]
 
-    def meta(n, dtype=torch.float64):
-        return [torch.empty((8, 8), dtype=dtype, device="meta")
+    def meta(L, n=3, dtype=torch.float64):
+        return [torch.empty((L, 8, 8), dtype=dtype, device="meta")
                 for _ in range(n)]
-    code = meta(1, torch.int8)[0]
+    code = torch.empty((8, 8), dtype=torch.int8, device="meta")
+    w = torch.empty(4, dtype=torch.float64, device="meta")
     call = dict(consts=m.kernel_constants(), K=1)
     before = kern.launches
     with pytest.raises(ValueError, match="CUDA"):
-        m._make_sweep(1)(meta(6), (code,))
-    # the run-time layer variants take 5..32 layers, nothing beyond
-    with pytest.raises(ValueError, match="no variant 7"):
-        kern(meta(15), (), code, variant=7, **call)
-    with pytest.raises(ValueError, match=r"expected 15\.\.96 \(step 3\)"):
-        kern(meta(99), (), code, variant=4, **call)
-    with pytest.raises(ValueError, match=r"expected 15\.\.96"):
-        kern(meta(12), (), code, variant=6, **call)
-    with pytest.raises(ValueError, match="expected 6 state"):
-        kern(meta(9), (), code, variant=1, **call)
+        m._make_sweep(1)(meta(2), (code,))
+    with pytest.raises(ValueError, match="CUDA"):
+        kern(meta(2), code, w, **call)
+    with pytest.raises(ValueError, match="3 level blocks"):
+        kern(meta(2, 6), code, w, **call)
     with pytest.raises(ValueError, match="sub-steps"):
-        kern(meta(6), (), code, variant=1, **dict(call, K=9))
+        kern(meta(2), code, w, **dict(call, K=9))
     assert kern.launches == before
-    # a grid that is not on the CPU refuses up front the layers the
-    # kernel's shared memory or parameter block cannot hold
+    # a grid that is not on the CPU refuses up front the layers whose
+    # window fits no CTA
     m17 = tnl.build(16, 16, layers=17, halo_width=8, **CPU)
     m17.grid.device = torch.device("meta")
     with pytest.raises(ValueError, match="shared memory budget"):
         m17.enable_fast_path(8)
     m17.enable_fast_path(4)                  # fits with K=4
-    m33 = tnl.build(16, 16, layers=33, **CPU)
-    m33.grid.device = torch.device("meta")
-    with pytest.raises(ValueError, match="at most 32 layers"):
-        m33.enable_fast_path(1)
-    # on the CPU five layers run the plain version, as documented
+    m34 = tnl.build(16, 16, layers=34, halo_width=8, dtype="float32",
+                    **CPU)
+    m34.grid.device = torch.device("meta")
+    with pytest.raises(ValueError, match="at most 33 layers"):
+        m34.enable_fast_path(8)
+    m34.enable_fast_path(4)
+    # on the CPU more layers than any window holds run the plain version
     m5 = tnl.build(GNX, GNY, layers=5, fused=True, steps_per_sweep=2, **CPU)
     m5.set_initial(np.concatenate([init_eta(3), init_eta(2)]))
     m5.run(5)
     assert all(np.isfinite(a).all() for a in m5.gather().values())
+
+
+def test_kernel_constants_and_weights_layout():
+    """The kernel's constants are dt, dx, dy and the layer count (the
+    launch carries nothing per layer); the weights are pw then H in the
+    planes' dtype, rounded once from double, one tensor per dtype and
+    device; the grid's spacings reach the constants as given."""
+    m = tnl.build(32, 24, layers=5, dt=0.015, gp=[0.03, 0.02, 0.01, 0.005],
+                  thickness=[10.0, 20.0, 30.0, 40.0, 50.0], dx=0.7, dy=1.3,
+                  **CPU)
+    assert m.kernel_constants() == [0.015, 0.7, 1.3, 5.0]
+    for dtype in (torch.float32, torch.float64):
+        like = torch.zeros(1, dtype=dtype)
+        w = m.kernel_weights(like)
+        assert w.dtype == dtype and tuple(w.shape) == (10,)
+        want = torch.tensor([9.81, 0.03, 0.02, 0.01, 0.005, 10.0, 20.0,
+                             30.0, 40.0, 50.0], dtype=torch.float64)
+        assert torch.equal(w, want.to(dtype))
+        assert m.kernel_weights(like) is w
+    assert (m.grid.dx, m.grid.dy) == (0.7, 1.3)
+
+
+@pytest.mark.parametrize("layers,K", [(33, 4), (48, 2), (64, 1)])
+def test_many_layers_match_jax(layers, K):
+    """Layer counts beyond the parameter block the kernel once had: the
+    port's fused path on the CPU (the kernel's plain version, on the
+    level blocks) against the JAX package's plain path at float64, 2 x 2
+    tiles, 9 steps (sweeps and a remainder), within 1e-12."""
+    n = 24
+    rng = np.random.default_rng(layers)
+    e0 = 0.1 * rng.normal(size=(layers, n, n))
+    kw = dict(ndomains=4, dt=0.01, layers=layers,
+              gp=0.02 + 0.001 * np.arange(layers - 1),
+              thickness=1.0 + np.arange(layers, dtype=np.float64))
+    mj = jnl.build(n, n, **kw)
+    mt = tnl.build(n, n, fused=True, steps_per_sweep=K, **kw, **CPU)
+    assert mt.use_fused and mt._sweep_K == K
+    for m in (mj, mt):
+        m.set_initial(e0)
+        m.run(9)
+    _assert_close(mt.gather(), mj.gather())

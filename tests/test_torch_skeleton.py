@@ -144,30 +144,51 @@ def test_schedule_sweeps_follow_the_rule(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_nlayer_compiled_tiles_follow_the_rule(dtype):
+    """The N-layer march's tiles, compiled (L <= 8) and at run time: the
+    rule with the march's widths, whose velocity columns fill whole
+    strips of 31 lanes (squares only at one CTA per SM)."""
     es = dtype.itemsize
     for K in range(1, 9):
-        for L in range(1, tnl.COMPILED_LAYERS + 1):
-            s = sst.tile(K, 3 * L * es + 1)
+        for L in range(1, 2 * tnl.COMPILED_LAYERS + 1):
+            bpp = 3 * L * es + 1
+            extra = tnl.weight_bytes(L, dtype)
+            s = sst.tile(K, bpp, march=True, extra=extra)
+            if s is None:
+                continue
             assert tnl.kernel_tile(L, dtype, K) == (s.ty, s.tx)
-            assert s.window_bytes(K, 3 * L * es + 1) <= BLOCK_SMEM
-        # the run-time variants keep their square tiles
-        for L in (5, 8):
-            edge = tnl.kernel_tile(L, dtype, K)[0]
-            assert tnl.kernel_tile(L, dtype, K) == (edge, edge)
-            assert edge in tnl.MANY_TILES
+            assert s.window_bytes(K, bpp) + extra <= BLOCK_SMEM
+            assert s.rl >= K and s.wx - s.rl - s.tx >= K
+            widths = [sst.march_width(K, c) for c in (3, 2, 1)]
+            if s.wx in widths and s.rl == -(-K // 4) * 4:
+                # a march width: n strips of 31 owned lanes
+                assert s.tx + 2 * K - 1 <= 31 * (3 - widths.index(s.wx))
+                assert s.wx % 4 == 0 and s.rl % 4 == 0 and s.tx % 4 == 0
+            else:
+                assert s.ctas == 1 and s.tx in sst.SQUARES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_every_layer_count_still_builds(dtype):
-    """The layer counts the kernel took before (every L <= 4 at every K;
-    beyond, what an 8-cell square holds) still get a tile."""
+    """The layer counts the kernel took before (every L <= 4 at every K
+    on the skeleton's rule; 5..32 where an 8-cell square window and 2 KiB
+    of static shared memory fitted) still get a tile, and so does every
+    L up to the first that fits no window."""
+    es = dtype.itemsize
     for K in range(1, 9):
-        for L in range(1, tnl.KERNEL_MAX_LAYERS + 1):
-            fitted = L <= tnl.COMPILED_LAYERS or tnl.window_bytes(
-                L, dtype, K, 8) <= BLOCK_SMEM - 2048
+        for L in range(1, 33):
+            fitted = (sst.tile(K, 3 * L * es + 1) is not None if L <= 4
+                      else 3 * L * (8 + 2 * K) ** 2 * es + (8 + 2 * K) ** 2
+                      <= BLOCK_SMEM - 2048)
             if fitted:
                 ty, tx = tnl.kernel_tile(L, dtype, K)
                 assert ty >= 8 and tx >= 8
+        L = 1
+        while sst.tile(K, 3 * L * es + 1, march=True,
+                       extra=tnl.weight_bytes(L, dtype)) is not None:
+            L += 1
+        with pytest.raises(ValueError, match="shared memory budget"):
+            tnl.kernel_tile(L, dtype, K)
+        assert L > 16 if es == 4 else L > 8
 
 
 @pytest.mark.parametrize("K", range(1, 9))
@@ -197,10 +218,19 @@ def _rule_source():
     return text[a:b]
 
 
-def test_header_rule_equals_the_mirror(tmp_path):
-    """The header's pick_shape, compiled for the host, against the
-    mirror on every ring, a range of bytes per point, a fixed width and
-    two row caps."""
+def test_march_constants_mirror_the_header():
+    assert _const(HEADER, "kMarchLanes") == sst.MARCH_LANES
+    for ring in RINGS[1:]:
+        for n in (1, 2, 3):
+            w = sst.march_width(ring, n)
+            tx = (w - -(-ring // 4) * 4 - ring) // 4 * 4
+            assert w % 4 == 0 and tx >= 8
+            assert tx + 2 * ring - 1 <= 31 * n < tx + 4 + 2 * ring - 1
+
+
+def _compile_rule(tmp_path, body):
+    """Compile the header's rule with ``body`` as main's for the host;
+    its output lines, or a skip without a C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to compile the header's rule")
@@ -211,7 +241,59 @@ def test_header_rule_equals_the_mirror(tmp_path):
         "constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }\n"
         + _rule_source() +
         "}\n"
-        "int main() {\n"
+        "int main() {\n" + body + "}\n")
+    exe = tmp_path / "rule"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(src)],
+                   check=True, capture_output=True, timeout=120)
+    return subprocess.run([str(exe)], check=True, capture_output=True,
+                          text=True, timeout=60).stdout.splitlines()
+
+
+def test_header_march_rule_equals_the_mirror(tmp_path):
+    """The header's march rule (pick_shape with the march's widths and
+    bytes beside the window), compiled for the host, against the mirror
+    on every ring, a range of bytes per point and three extras; and the
+    header's march_threads (two warp budgets, two strip heights) against
+    its own contract: whole column strips, at most the warp budget over
+    the CTAs of an SM, no more row strips than window rows."""
+    out = _compile_rule(tmp_path, (
+        "  const int extra[3] = {0, 144, 1056};\n"
+        "  for (int R = 1; R <= 8; ++R)\n"
+        "    for (int bpp = 13; bpp <= 800; bpp += 12)\n"
+        "      for (int e = 0; e < 3; ++e) {\n"
+        "        const sweep::Shape s = sweep::pick_shape(\n"
+        "            R, bpp, 0, sweep::kTileYMax, true, extra[e]);\n"
+        "        const int nx = s.ty ? sweep::march_strips(s, R) : 0;\n"
+        "        const int t1 = s.ty ? sweep::march_threads(s, R) : 0;\n"
+        "        const int t2 = s.ty ? sweep::march_threads(s, R, 32, 1) : 0;\n"
+        "        std::printf(\"%d %d %d %d %d %d %d %d %d %d %d %d %d\\n\",\n"
+        "                    R, bpp, extra[e], s.ty, s.tx, s.rl, s.wx,\n"
+        "                    s.ctas, nx, t1, t2, sweep::kMarchWarps,\n"
+        "                    sweep::kMarchRows);\n"
+        "      }\n"))
+    n = 0
+    for line in out:
+        R, bpp, extra, *shape, nx, t1, t2, warps, rows = map(int,
+                                                            line.split())
+        got = sst.tile(R, bpp, march=True, extra=extra)
+        assert (tuple(got) if got else (0, 0, 0, 0, 0)) == tuple(shape), \
+            (R, bpp, extra)
+        if got:
+            cols = got.tx + 2 * R - 1
+            assert (nx - 1) * sst.MARCH_LANES < cols <= nx * sst.MARCH_LANES
+            for t, w, r in ((t1, warps, rows), (t2, 32, 1)):
+                assert t % (32 * nx) == 0 and t <= 1024
+                assert t // 32 * got.ctas <= max(w, nx * got.ctas)
+                assert t // (32 * nx) <= -(-(got.ty + 2 * R) // r)
+        n += 1
+    assert n == 8 * 66 * 3
+
+
+def test_header_rule_equals_the_mirror(tmp_path):
+    """The header's pick_shape, compiled for the host, against the
+    mirror on every ring, a range of bytes per point, a fixed width and
+    two row caps."""
+    out = _compile_rule(tmp_path, (
         "  const int wfix[2] = {0, 92}, tymax[2] = {16, 40};\n"
         "  for (int R = 0; R <= 8; ++R)\n"
         "    for (int bpp = 1; bpp <= 400; bpp += 3)\n"
@@ -222,15 +304,9 @@ def test_header_rule_equals_the_mirror(tmp_path):
         "          std::printf(\"%d %d %d %d %d %d %d %d %d\\n\", R, bpp,\n"
         "                      wfix[a], tymax[b], s.ty, s.tx, s.rl, s.wx,\n"
         "                      s.ctas);\n"
-        "        }\n"
-        "}\n")
-    exe = tmp_path / "rule"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(src)],
-                   check=True, capture_output=True, timeout=120)
-    out = subprocess.run([str(exe)], check=True, capture_output=True,
-                         text=True, timeout=60).stdout
+        "        }\n"))
     n = 0
-    for line in out.splitlines():
+    for line in out:
         R, bpp, wfix, tymax, *shape = map(int, line.split())
         got = sst.tile(R, bpp, wfix, tymax)
         assert (tuple(got) if got else (0, 0, 0, 0, 0)) == tuple(shape), \
