@@ -39,9 +39,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
    steps_per_sweep=4, device="cuda"), run(n) with the launch counter
    reset just before; then the kernel against its plain version on the
    same inputs, and times on the card (CUDA events, after warm-up);
-6. for each client model (the tracer with both schemes where stated):
+6. for each client model (the tracer with both schemes, with and
+   without diffusion, where stated):
    a. kernel vs plain, float64, 256^2, every K the kernel takes, 1 and
-      4 tiles, 50 steps;
+      4 tiles, 50 steps; and at spacings 0.7 x 1.3 (build()'s dx, dy
+      where it takes them, else its grid initialised with them), float64
+      and float32, the main path's K, 1 and 4 tiles, 50 steps, bitwise
+      (the plain step on the card multiplies by the reciprocals);
    b. kernel vs the model's numpy golden, float64, at the sizes and
       tolerances of the JAX package's tests, with the launch count;
    c. its main path, float32 1024^2, configured as the reference
@@ -49,7 +53,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
       with the model's launch counter reset just before, finiteness,
       kernel vs plain after the run and for one sweep, and times on the
       card (one sweep as a CUDA graph of its launches, the card's time,
-      beside one wrapper call's);
+      beside one wrapper call's); the tracer's upwind sweep at K = 8
+      beside its van Leer main path, against its plain version and timed
+      the same way;
 7. the fused Chebyshev sweep: kernel vs plain bitwise at float64 and
    float32 (K = 1..8, 1 and 4 tiles, a land ring with an island, four
    chained sweeps with scalars that change per sweep), and a fused
@@ -73,8 +79,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
    graphs, beside the wrapper call's time);
 10. the fused schedule sweep (a CUDA kernel generated from a kernel
    schedule, each point body hand-written or derived from the torch
-   body by ops/point_trace.py), the plain fused tier replaced by a
-   raising function on every kernel run: the generated kernel against
+   body by ops/point_trace.py): each generated source's plan (passes,
+   barriers and calls in place per repeat); with the plain fused tier
+   replaced by a raising function on every kernel run, the generated
+   kernel against
    the plain fused tier at float64 and float32 on the PSy-built flagship
    (256^2, repeats 1-3 at halo 8, 1 and 4 tiles, 30 steps, through
    fused_program and fused), with its hand-written bodies and with all
@@ -206,6 +214,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import inspect
 import itertools
 import json
 import os
@@ -370,21 +379,30 @@ def phase_build() -> None:
     n_gen = sum(1 for b in built if b.source is not None)
     print(f"build: {len(built)} libraries ({n_gen} generated schedule "
           f"sweeps) in {wall:.1f}s (in parallel)", flush=True)
-    # every instantiation of the skeleton's kernel and of the N-layer
-    # march spills nothing, and the Chebyshev march synchronises no warp
-    # (its trip count is uniform)
-    skel = {name: spill for b in built
-            for name, spill in _ptxas_spills(b.log).items()
-            if "sweep_kernel" in name or "nlayer_kernel" in name}
+    # every instantiation of the skeleton's kernel (the client sweeps,
+    # the tracer's march, every generated schedule sweep) and of the
+    # N-layer march spills nothing, and the Chebyshev march synchronises
+    # no warp (its trip count is uniform)
+    skel, where = {}, {"tracer": 0, "generated": 0}
+    for b in built:
+        for name, spill in _ptxas_spills(b.log).items():
+            if "sweep_kernel" in name or "nlayer_kernel" in name:
+                skel[(b.path.name, name)] = spill
+                if b.source is not None:
+                    where["generated"] += 1
+                elif b.path.name.startswith("libtracer_sweep"):
+                    where["tracer"] += 1
     spilled = {n: v for n, v in skel.items() if v}
-    if not skel or spilled:
-        raise AssertionError(f"skeleton kernels spill: {spilled}")
+    if not skel or spilled or not all(where.values()):
+        raise AssertionError(f"skeleton kernels spill: {spilled} "
+                             f"(instantiations seen: {where})")
     cheb = _sass_counts(so.helmholtz_cheb_sweep.build().path, "WARPSYNC")
     if not cheb or any(cheb.values()):
         raise AssertionError(f"WARPSYNC in the Chebyshev sweep: {cheb}")
     print(f"build: {len(skel)} instantiations of the skeleton's kernel and "
-          f"the N-layer march, 0 bytes spilled; {len(cheb)} Chebyshev "
-          f"kernels, no WARPSYNC in their SASS", flush=True)
+          f"the N-layer march ({where['tracer']} of the tracer's march, "
+          f"{where['generated']} generated), 0 bytes spilled; {len(cheb)} "
+          f"Chebyshev kernels, no WARPSYNC in their SASS", flush=True)
 
 
 def _ptxas_spills(log: str) -> dict:
@@ -673,9 +691,30 @@ CLIENTS = (
            lambda m, n: m.set_initial_tracer(gaussian_eta(n, n, amp=1.0)
                                              + 0.01),
            4, 402, ((lambda n: _tracer_kw(n, "upwind"), 8),
-                    (lambda n: _tracer_kw(n, "vanleer"), 4)),
+                    (lambda n: _tracer_kw(n, "vanleer"), 4),
+                    (lambda n: dict(_tracer_kw(n, "upwind"), kappa=0.0), 8),
+                    (lambda n: dict(_tracer_kw(n, "vanleer"), kappa=0.0),
+                     4)),
            "dl_esm_inf_tpu/models/tracer.py:191"),
 )
+
+
+#: the spacings of phase 6a's bitwise case: no powers of two
+SPACED = (0.7, 1.3)
+
+
+def _build_spaced(c: Client, kw: dict, n: int, **build_kw):
+    """A client at the spacings SPACED: through build() where it takes
+    them, else on build()'s grid initialised with them."""
+    dx, dy = SPACED
+    if "dx" in inspect.signature(c.mod.build).parameters:
+        return c.mod.build(n, n, dx=dx, dy=dy, **build_kw, **kw)
+    base = c.mod.grid_init
+    c.mod.grid_init = lambda g, _x, _y, *a, **k: base(g, dx, dy, *a, **k)
+    try:
+        return c.mod.build(n, n, **build_kw, **kw)
+    finally:
+        c.mod.grid_init = base
 
 
 def phase_client_parity(c: Client) -> None:
@@ -705,6 +744,36 @@ def phase_client_parity(c: Client) -> None:
     print(f"{c.name} parity f64: kernel vs plain {n}^2, {cases} cases "
           f"(every K, ndomains 1 and 4), {steps} steps: max rel diff "
           f"{worst:.3e} (tol {TOL_F64})", flush=True)
+    cases = 0
+    for kw_of, kmax in c.parity:
+        for dtype in (torch.float64, torch.float32):
+            for ndom in (1, 4):
+                K = min(c.K, kmax)
+                ms = [_build_spaced(c, kw_of(n), n, ndomains=ndom, fused=f,
+                                    steps_per_sweep=K, dtype=dtype,
+                                    device=DEV) for f in (True, False)]
+                if (ms[0].grid.dx, ms[0].grid.dy) != SPACED:
+                    raise AssertionError(f"{c.name}: spacings not taken")
+                for m in ms:
+                    c.init(m, n)
+                before = c.kernel.launches
+                ms[0].run(steps)
+                if c.kernel.launches - before != steps // K + steps % K:
+                    raise AssertionError(f"{c.name} spacings: the fused "
+                                         "run did not go through the kernel")
+                ms[1].run(steps)
+                ga, gb = ms[0].gather(), ms[1].gather()
+                for k in gb:
+                    d = float(np.abs(ga[k] - gb[k]).max())
+                    if d != 0.0 or not np.isfinite(ga[k]).all():
+                        raise AssertionError(
+                            f"{c.name} kernel vs plain at dx, dy = {SPACED} "
+                            f"{dtype} ndomains={ndom} K={K} {k}: max abs "
+                            f"{d:.3e}, bitwise required")
+                cases += 1
+    print(f"{c.name} parity at dx, dy = {SPACED}: kernel vs plain {n}^2, "
+          f"{cases} cases (f64 and f32, K={c.K}, ndomains 1 and 4), "
+          f"{steps} steps: bitwise", flush=True)
 
 
 def _rotating(n):
@@ -860,12 +929,46 @@ def phase_client_main(c: Client) -> dict:
           f"us), plain {plain_ms * 1e3:.2f} us", flush=True)
     ops = _count_ops(lambda: stencil_sweep_reference(m._step_math, K, state,
                                                      prep))
-    return {"name": c.name, "route": "cuda",
-            "source": f"dl_esm_inf_tpu_torch/csrc/{kern.source}",
-            "replaces": c.replaces, "launches": launches,
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            **_bound(_nbytes(*state, *aux, *ker), ops, state[0].dtype),
-            "device_ms": device_ms}
+    entry = {"name": c.name, "route": "cuda",
+             "source": f"dl_esm_inf_tpu_torch/csrc/{kern.source}",
+             "replaces": c.replaces, "launches": launches,
+             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+             **_bound(_nbytes(*state, *aux, *ker), ops, state[0].dtype),
+             "device_ms": device_ms}
+    if c.mod is tr:
+        entry.update(_tracer_upwind(N))
+    return entry
+
+
+def _tracer_upwind(N: int) -> dict:
+    """The tracer's upwind sweep at K = 8 on the main path's velocities:
+    one sweep against its plain version and its times (CUDA graph and
+    wrapper call)."""
+    K = 8
+    m = tr.build(N, N, fused=True, steps_per_sweep=K, device=DEV,
+                 **_tracer_kw(N, "upwind"))
+    m.set_initial_tracer(gaussian_eta(N, N, amp=1.0) + 0.01)
+    m.run(2 * K)
+    state, aux = (m.c.data,), m._sweep_aux
+    sweep, prep = m._make_sweep(K), m._prepare(aux)
+    ker = sweep(state, aux)
+    ref = stencil_sweep_reference(m._step_math, K, state, prep)
+    inner = m.c.internal_mask.bool()
+    max_abs = float((ker[0] - ref[0]).abs()[inner].max())
+    if not max_abs <= TOL_F32 * float(ref[0].abs()[inner].max()):
+        raise AssertionError(f"tracer upwind K=8 one sweep kernel vs plain "
+                             f"f32: {max_abs:.3e}")
+    device_ms = _device_ms(lambda: sweep(state, aux), 20)
+    ms = _time_ms(lambda: sweep(state, aux), 200)
+    plain_ms = _time_ms(lambda: stencil_sweep_reference(
+        m._step_math, K, state, prep), 20)
+    print(f"tracer_sweep upwind f32 {N}^2 K={K}: one sweep max abs "
+          f"{max_abs:.3e} vs plain; kernel {device_ms * 1e3:.2f} us on the "
+          f"card (CUDA graph; {device_ms * 1e3 / K:.2f} us/step; wrapper "
+          f"call {ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us",
+          flush=True)
+    return {"upwind_K8_device_ms": device_ms, "upwind_K8_ms": ms,
+            "upwind_K8_plain_ms": plain_ms, "upwind_K8_max_abs_err": max_abs}
 
 
 # --- the elliptic-solver path ---------------------------------------------
@@ -1638,6 +1741,17 @@ def _check_derived_psy(label, dtype, ndom, r, variant):
     if d_abs != 0.0:
         raise AssertionError(f"{label} {dtype}: derived vs hand-written "
                              f"bodies {d_abs:.3e}, expected bitwise")
+
+
+def phase_schedule_plans() -> None:
+    """Each generated source's plan (ops/schedule_sweep.py::plan): its
+    passes, barriers and calls in place per repeat."""
+    gens = ss.schedule_sweep.generated
+    for gen in gens.values():
+        print(f"schedule_sweep plan {gen.name} ({gen.dtype}, K={gen.K}, "
+              f"{len(gen.plan.names)} calls: {gen.plan.names[0]} .. "
+              f"{gen.plan.names[-1]}): {gen.plan.summary()}", flush=True)
+    print(f"schedule_sweep plans: {len(gens)} generated sources", flush=True)
 
 
 def phase_schedule_parity() -> None:
@@ -3318,6 +3432,7 @@ def main() -> None:
     phase_nlayer_parity()
     phase_nlayer_golden()
     kernels.append(phase_nlayer_main())
+    phase_schedule_plans()
     phase_schedule_parity()
     phase_psy_vs_production()
     kernels.extend(phase_psy_main())

@@ -7,11 +7,14 @@
 // reach 1, K <= 8.  It computes, per sub-step and in the grouping of
 // the plain PyTorch step (dl_esm_inf_tpu_torch/models/gravity_wave.py::
 // GravityWaveModel._step_math):
-//   u' = (u - (g*dt) * ((eta[i+1] - eta[i]) / dx)) * u_wet
-//   v' = (v - (g*dt) * ((eta[j+1] - eta[j]) / dy)) * v_wet
-//   eta' = t_upd ? eta - (H*dt) * ((u'[i] - u'[i-1]) / dx
-//                                  + (v'[j] - v'[j-1]) / dy) : eta
-// The differences are true divisions by dx, dy.
+//   u' = (u - (g*dt) * ((eta[i+1] - eta[i]) * rdx)) * u_wet
+//   v' = (v - (g*dt) * ((eta[j+1] - eta[j]) * rdy)) * v_wet
+//   eta' = t_upd ? eta - (H*dt) * ((u'[i] - u'[i-1]) * rdx
+//                                  + (v'[j] - v'[j-1]) * rdy) : eta
+// with rdx = 1 / dx rounded once in T: on the card PyTorch computes a
+// tensor divided by the Python scalar dx as that product.  Where dx is
+// a power of two, rdx is exact and the product is also the true division
+// the CPU's plain version takes.
 //
 // Phases.  u' and v' read only their own old value and eta, so they are
 // written in place; after a barrier eta' reads the new u', v' of its
@@ -41,11 +44,12 @@ struct GravityWaveStep {
   using G = typename Tile::G;
   using Consts = ::Consts;
 
-  T gdt, hdt, dx, dy;
+  T gdt, hdt, rdx, rdy;
 
   __device__ explicit GravityWaveStep(const Consts& c)
       : gdt(static_cast<T>(c.gdt)), hdt(static_cast<T>(c.hdt)),
-        dx(static_cast<T>(c.dx)), dy(static_cast<T>(c.dy)) {}
+        rdx(static_cast<T>(1) / static_cast<T>(c.dx)),
+        rdy(static_cast<T>(1) / static_cast<T>(c.dy)) {}
 
   __device__ void substep(Tile& t, int k) const {
     T* eta = t.s[0];
@@ -53,13 +57,13 @@ struct GravityWaveStep {
     T* v = t.s[2];
     constexpr int WX = G::WX;
     sweep::for_box<G>(sweep::inset<G>(k, k + 1), [&](int i, int, int) {
-      u[i] = (u[i] - gdt * ((eta[i + 1] - eta[i]) / dx)) * t.bit(i, 1);
-      v[i] = (v[i] - gdt * ((eta[i + WX] - eta[i]) / dy)) * t.bit(i, 2);
+      u[i] = (u[i] - gdt * ((eta[i + 1] - eta[i]) * rdx)) * t.bit(i, 1);
+      v[i] = (v[i] - gdt * ((eta[i + WX] - eta[i]) * rdy)) * t.bit(i, 2);
     });
     __syncthreads();
     sweep::for_box<G>(sweep::inset<G>(k + 1, k + 1), [&](int i, int, int) {
       if (t.code[i] & 1) {
-        const T div = (u[i] - u[i - 1]) / dx + (v[i] - v[i - WX]) / dy;
+        const T div = (u[i] - u[i - 1]) * rdx + (v[i] - v[i - WX]) * rdy;
         eta[i] = eta[i] - hdt * div;
       }
     });

@@ -11,9 +11,15 @@
 // with U_i west of T_i and V_j south of T_j:
 //   v_at_u = 0.25 * (((v + v[i-1]) + v[j+1]) + v[j+1, i-1])
 //   u_at_v = 0.25 * (((u + u[j-1]) + u[i+1]) + u[j-1, i+1])
-//   u' = (u + (f*dt) * v_at_u) - (g*dt) * ((eta - eta[i-1]) / dx)
-//   v' = (v - (f*dt) * u_at_v) - (g*dt) * ((eta - eta[j-1]) / dy)
-//   eta' = eta - (H*dt) * ((u'[i+1] - u') / dx + (v'[j+1] - v') / dy)
+//   u' = (u + (f*dt) * v_at_u) - (g*dt) * ((eta - eta[i-1]) * rdx)
+//   v' = (v - (f*dt) * u_at_v) - (g*dt) * ((eta - eta[j-1]) * rdy)
+//   eta' = eta - (H*dt) * ((u'[i+1] - u') * rdx + (v'[j+1] - v') * rdy)
+// with rdx = 1 / dx rounded once in T, as PyTorch on the card computes a
+// tensor divided by the Python scalar dx (exact where dx is a power of
+// two, where it is also the CPU's true division).  The host rounds rdx
+// and rdy as PyTorch's host code does before its launch
+// (ops/stencil_sweep.py::reciprocal): a division in the kernel makes the
+// float64 K=1 instantiation spill.
 //
 // Phases.  u' reads v of its neighbours and v' reads u of theirs, so the
 // new velocities wait in registers until every thread has read the old
@@ -30,7 +36,7 @@ struct Consts {
   double fdt;   // f0*dt
   double gdt;   // g*dt
   double hdt;   // H*dt
-  double dx, dy;
+  double rdx, rdy;   // 1 / dx, 1 / dy rounded in the planes' type
 };
 
 template <typename TT, int KK>
@@ -43,12 +49,12 @@ struct ShallowStep {
   using G = typename Tile::G;
   using Consts = ::Consts;
 
-  T fdt, gdt, hdt, dx, dy;
+  T fdt, gdt, hdt, rdx, rdy;
 
   __device__ explicit ShallowStep(const Consts& c)
       : fdt(static_cast<T>(c.fdt)), gdt(static_cast<T>(c.gdt)),
-        hdt(static_cast<T>(c.hdt)), dx(static_cast<T>(c.dx)),
-        dy(static_cast<T>(c.dy)) {}
+        hdt(static_cast<T>(c.hdt)),
+        rdx(static_cast<T>(c.rdx)), rdy(static_cast<T>(c.rdy)) {}
 
   __device__ void substep(Tile& t, int k) const {
     T* eta = t.s[0];
@@ -66,17 +72,17 @@ struct ShallowStep {
           if (wx >= 1 && wy < WY - 1) {
             const T v_at_u =
                 quarter * (((v[i] + v[i - 1]) + v[i + WX]) + v[i + WX - 1]);
-            o[0] = (u[i] + fdt * v_at_u) - gdt * ((eta[i] - eta[i - 1]) / dx);
+            o[0] = (u[i] + fdt * v_at_u) - gdt * ((eta[i] - eta[i - 1]) * rdx);
           }
           if (wy >= 1 && wx < WX - 1) {
             const T u_at_v =
                 quarter * (((u[i] + u[i - WX]) + u[i + 1]) + u[i + 1 - WX]);
-            o[1] = (v[i] - fdt * u_at_v) - gdt * ((eta[i] - eta[i - WX]) / dy);
+            o[1] = (v[i] - fdt * u_at_v) - gdt * ((eta[i] - eta[i - WX]) * rdy);
           }
         });
     __syncthreads();
     sweep::for_box<G>(sweep::inset<G>(k + 1, k + 1), [&](int i, int, int) {
-      const T div = (u[i + 1] - u[i]) / dx + (v[i + WX] - v[i]) / dy;
+      const T div = (u[i + 1] - u[i]) * rdx + (v[i + WX] - v[i]) * rdy;
       eta[i] = eta[i] - hdt * div;
     });
     __syncthreads();

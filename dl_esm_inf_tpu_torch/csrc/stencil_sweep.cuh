@@ -64,15 +64,17 @@
 // with the flagship's step (nemolite2d_step.cuh).
 //
 // Sub-steps.  The K loop is unrolled (K <= 8), so each sub-step's box
-// is a compile-time constant.  for_box, staged_update and next_update
-// put warps over rows and lanes over columns: thread (warp, lane) takes
-// rows warp, warp + NW, ... and columns lane, lane + 32, ... of the box,
-// a fixed number of each (QY x QX, from the window), with no division
-// per point; the row test is uniform over a warp.  staged_update holds
-// its new values in registers across a barrier (QY x QX x NV of them,
-// unrolled) and keeps every plane's old values outside its box;
-// next_update writes them to scratch planes that become the state after
-// one barrier (rows in a loop, the code of one point per column).
+// is a compile-time constant.  for_box and staged_update put warps over
+// rows and lanes over columns: thread (warp, lane) takes rows warp,
+// warp + NW, ... and columns lane, lane + 32, ... of the box, a fixed
+// number of each (QY x QX, from the window), with no division per
+// point; the row test is uniform over a warp.  staged_update holds its
+// new values in registers across a barrier (QY x QX x NV of them,
+// unrolled) and keeps every plane's old values outside its box.  The
+// generated schedule sweeps' passes (for_points, staged_points) give a
+// window point the same thread whatever the box, so calls in place need
+// no barrier between them.  A march (Ring<..., MARCH = true>: the
+// tracer) runs its own loops.
 //
 // The output tile goes back with 16-byte stores where the block's rows
 // are 16-byte aligned, scalar stores otherwise.  A client that writes
@@ -243,22 +245,29 @@ struct Geom {
 
 // What a client names: K sub-steps of a step of reach REACH, a ring
 // (K * REACH unless given), a window width (0: the tile rule's), the
-// CTA's threads (0: by the window's size) and the tile's most rows.
+// CTA's threads (0: by the window's size) and the tile's most rows; a
+// column march (MARCH) takes the march's widths and march_threads with
+// WARPS and ROWS.
 template <int K_, int REACH_, int RING_ = K_ * REACH_, int WX_ = 0,
-          int NT_ = 0, int TYMAX_ = kTileYMax>
+          int NT_ = 0, int TYMAX_ = kTileYMax, bool MARCH_ = false,
+          int WARPS_ = kMarchWarps, int ROWS_ = kMarchRows>
 struct Ring {
   static constexpr int K = K_, REACH = REACH_, RING = RING_, WX = WX_;
   static constexpr int THREADS = NT_, TYMAX = TYMAX_;
+  static constexpr bool MARCH = MARCH_;
+  static constexpr int WARPS = WARPS_, ROWS = ROWS_;
 };
 
 // The geometry the tile rule gives a ring with `bpp` bytes per point.
 template <class RG, int BPP>
 struct RuleGeom {
-  static constexpr Shape S = pick_shape(RG::RING, BPP, RG::WX, RG::TYMAX);
+  static constexpr Shape S =
+      pick_shape(RG::RING, BPP, RG::WX, RG::TYMAX, RG::MARCH);
   static_assert(S.ty > 0, "the window does not fit a CTA's shared memory");
   static constexpr int THREADS =
-      RG::THREADS ? RG::THREADS
-                  : (S.ty + 2 * RG::RING >= kTallRows ? kThreadsTall : NT);
+      RG::THREADS  ? RG::THREADS
+      : RG::MARCH ? march_threads(S, RG::RING, RG::WARPS, RG::ROWS)
+      : (S.ty + 2 * RG::RING >= kTallRows ? kThreadsTall : NT);
   using type = Geom<RG::K, RG::REACH, RG::RING, S.ty, S.tx, S.rl, S.wx,
                     THREADS>;
 };
@@ -344,11 +353,6 @@ struct Tile {
   __device__ __forceinline__ T bit(int i, int b) const {
     return static_cast<T>((static_cast<int>(code[i]) >> b) & 1);
   }
-
-  // mask bit b of code plane c at window index i
-  __device__ __forceinline__ bool bit_set(int i, int c, int b) const {
-    return ((static_cast<int>(code[c * G::WC + i]) >> b) & 1) != 0;
-  }
 };
 
 // Square root in the type of its argument, correctly rounded (as
@@ -407,6 +411,80 @@ struct LevPut : Lev<V, WX, WC, N> {
   }
 };
 
+// The tile grown by m cells on every side, within the window inset by d
+// cells (m < 0: no points).
+template <class G>
+__device__ __forceinline__ Box around(int m, int d) {
+  if (m < 0) return Box{0, 0, 0, 0};
+  return Box{max(G::R - m, d), min(G::R + G::TY + m, G::WY - d),
+             max(G::RL - m, d), min(G::RL + G::TX + m, G::WX - d)};
+}
+
+__device__ __forceinline__ bool inside(const Box& b, int wy, int wx) {
+  return wy >= b.y0 && wy < b.y1 && wx >= b.x0 && wx < b.x1;
+}
+
+// The smallest box holding a and b (an empty box holds nothing).
+__device__ __forceinline__ Box hull(const Box& a, const Box& b) {
+  if (a.y0 >= a.y1 || a.x0 >= a.x1) return b;
+  if (b.y0 >= b.y1 || b.x0 >= b.x1) return a;
+  return Box{min(a.y0, b.y0), max(a.y1, b.y1), min(a.x0, b.x0),
+             max(a.x1, b.x1)};
+}
+
+// The passes of a generated sweep give window point (wy, wx) to warp
+// wy % NW and lane wx % 32 whatever the box, so a call sees the values
+// earlier calls stored at its own point without a barrier.
+
+// f(i, wy, wx) for the thread's points of `b`, a row at a time (rows in a
+// loop, columns unrolled).
+template <class G, class F>
+__device__ __forceinline__ void for_points(const Box& b, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = b.y0 + (warp + G::NW - b.y0 % G::NW) % G::NW;
+#pragma unroll 1
+  for (int wy = first; wy < b.y1; wy += G::NW) {
+#pragma unroll
+    for (int q = 0; q < G::QX; ++q) {
+      const int wx = lane + 32 * q;
+      if (wx >= b.x0 && wx < b.x1) f(wy * G::WX + wx, wy, wx);
+    }
+  }
+}
+
+// One call that reads off-point a plane it writes, on the thread's
+// points of `b`: its new values into registers, a barrier (every thread
+// has read the old values), then the stores.  The caller adds the
+// barrier that must follow the stores before another thread reads them.
+template <class G, typename T, int NV, class F>
+__device__ __forceinline__ void staged_points(const Box& b,
+                                              T* const (&dst)[NV], F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T v[G::QY][G::QX][NV];
+#pragma unroll
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = warp + p * G::NW;
+#pragma unroll
+    for (int q = 0; q < G::QX; ++q) {
+      const int wx = lane + 32 * q;
+      if (inside(b, wy, wx)) f(wy * G::WX + wx, wy, wx, v[p][q]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < G::QY; ++p) {
+    const int wy = warp + p * G::NW;
+#pragma unroll
+    for (int q = 0; q < G::QX; ++q) {
+      const int wx = lane + 32 * q;
+      if (inside(b, wy, wx)) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) dst[c][wy * G::WX + wx] = v[p][q][c];
+      }
+    }
+  }
+}
+
 // f(i, wy, wx) for every window point of `b`: warps over rows, lanes
 // over columns, QY x QX points a thread (the rows in a loop, so that K
 // unrolled sub-steps keep the code small).
@@ -460,44 +538,6 @@ __device__ __forceinline__ void staged_update(const Box& b, T* const (&dst)[NV],
         }
       }
     }
-  }
-}
-
-// Compute NV new values per point of `b` with f(i, wy, wx, out) into
-// the scratch planes t.x[0..NV), then, after one barrier, make them the
-// state planes: state plane planes[c] swaps with t.x[c].  Outside `b`
-// the new state planes hold what the scratch planes held, values of no
-// meaning, so this is for steps whose box is the region still valid
-// after the sub-step.  No barrier is needed after it: the next phase
-// reads the new planes, which nobody writes.
-template <class G, class Tl, int NV, class F>
-__device__ __forceinline__ void next_update(Tl& t, const Box& b,
-                                            const int (&planes)[NV], F f) {
-  using T = typename Tl::Value;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll 1
-  for (int p = 0; p < G::QY; ++p) {
-    const int wy = b.y0 + warp + p * G::NW;
-    if (wy < b.y1) {
-#pragma unroll
-      for (int q = 0; q < G::QX; ++q) {
-        const int wx = b.x0 + lane + 32 * q;
-        if (wx < b.x1) {
-          const int i = wy * G::WX + wx;
-          T o[NV];
-          f(i, wy, wx, o);
-#pragma unroll
-          for (int c = 0; c < NV; ++c) t.x[c][i] = o[c];
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    T* const old = t.s[planes[c]];
-    t.s[planes[c]] = t.x[c];
-    t.x[c] = old;
   }
 }
 

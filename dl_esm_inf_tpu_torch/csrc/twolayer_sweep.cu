@@ -8,11 +8,14 @@
 // grouping of the plain PyTorch step (dl_esm_inf_tpu_torch/models/
 // twolayer.py::TwoLayerModel._step_math), with p1 = g*eta1 and
 // p2 = g*eta1 + gp*eta2:
-//   u1' = (u1 - dt * ((p1[i+1] - p1) / dx)) * u_wet      (v1', u2', v2'
+//   u1' = (u1 - dt * ((p1[i+1] - p1) * rdx)) * u_wet     (v1', u2', v2'
 //                                                          alike)
-//   div_l = (ul'[i] - ul'[i-1]) / dx + (vl'[j] - vl'[j-1]) / dy
+//   div_l = (ul'[i] - ul'[i-1]) * rdx + (vl'[j] - vl'[j-1]) * rdy
 //   eta1' = t_upd ? eta1 - dt * (H1*div1 + H2*div2) : eta1
 //   eta2' = t_upd ? eta2 - (dt*H2) * div2 : eta2
+// with rdx = 1 / dx rounded once in T, as PyTorch on the card computes a
+// tensor divided by the Python scalar dx (exact where dx is a power of
+// two, where it is also the CPU's true division).
 //
 // Phases.  The four velocities read only their own old value and the
 // etas, so they are written in place; after a barrier the etas read the
@@ -44,13 +47,14 @@ struct TwoLayerStep {
   using G = typename Tile::G;
   using Consts = ::Consts;
 
-  T g, gp, dt, h1, h2, dth2, dx, dy;
+  T g, gp, dt, h1, h2, dth2, rdx, rdy;
 
   __device__ explicit TwoLayerStep(const Consts& c)
       : g(static_cast<T>(c.g)), gp(static_cast<T>(c.gp)),
         dt(static_cast<T>(c.dt)), h1(static_cast<T>(c.h1)),
         h2(static_cast<T>(c.h2)), dth2(static_cast<T>(c.dth2)),
-        dx(static_cast<T>(c.dx)), dy(static_cast<T>(c.dy)) {}
+        rdx(static_cast<T>(1) / static_cast<T>(c.dx)),
+        rdy(static_cast<T>(1) / static_cast<T>(c.dy)) {}
 
   __device__ void substep(Tile& t, int k) const {
     T* eta1 = t.s[0];
@@ -68,16 +72,18 @@ struct TwoLayerStep {
       const T p2 = g * eta1[i] + gp * eta2[i];
       const T p2e = g * eta1[i + 1] + gp * eta2[i + 1];
       const T p2n = g * eta1[i + WX] + gp * eta2[i + WX];
-      u1[i] = (u1[i] - dt * ((p1e - p1) / dx)) * uw;
-      v1[i] = (v1[i] - dt * ((p1n - p1) / dy)) * vw;
-      u2[i] = (u2[i] - dt * ((p2e - p2) / dx)) * uw;
-      v2[i] = (v2[i] - dt * ((p2n - p2) / dy)) * vw;
+      u1[i] = (u1[i] - dt * ((p1e - p1) * rdx)) * uw;
+      v1[i] = (v1[i] - dt * ((p1n - p1) * rdy)) * vw;
+      u2[i] = (u2[i] - dt * ((p2e - p2) * rdx)) * uw;
+      v2[i] = (v2[i] - dt * ((p2n - p2) * rdy)) * vw;
     });
     __syncthreads();
     sweep::for_box<G>(sweep::inset<G>(k + 1, k + 1), [&](int i, int, int) {
       if (t.code[i] & 1) {
-        const T div1 = (u1[i] - u1[i - 1]) / dx + (v1[i] - v1[i - WX]) / dy;
-        const T div2 = (u2[i] - u2[i - 1]) / dx + (v2[i] - v2[i - WX]) / dy;
+        const T div1 =
+            (u1[i] - u1[i - 1]) * rdx + (v1[i] - v1[i - WX]) * rdy;
+        const T div2 =
+            (u2[i] - u2[i - 1]) * rdx + (v2[i] - v2[i - WX]) * rdy;
         eta1[i] = eta1[i] - dt * (h1 * div1 + h2 * div2);
         eta2[i] = eta2[i] - dth2 * div2;
       }

@@ -27,7 +27,7 @@ from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
 from ..ops.fastpath import SweepClient, fast_path_grid_args
-from ..ops.stencil_sweep import StencilSweepKernel
+from ..ops.stencil_sweep import StencilSweepKernel, reciprocal
 
 #: the process's one wrapper of the shallow sweep kernel
 shallow_sweep = StencilSweepKernel("shallow_sweep", n_state=3)
@@ -82,9 +82,11 @@ class ShallowModel(SweepClient):
 
     def kernel_constants(self) -> list[float]:
         """The kernel's scalars, folded as the plain step's Python
-        scalars are."""
+        scalars are; the spacings as the reciprocals PyTorch multiplies by
+        on the card."""
+        dt = self.grid.dtype
         return [self.f0 * self.dt, self.g * self.dt, self.depth * self.dt,
-                self.grid.dx, self.grid.dy]
+                reciprocal(self.grid.dx, dt), reciprocal(self.grid.dy, dt)]
 
     def checksums(self) -> dict:
         return {k: getattr(self, k).checksum() for k in self._fields}

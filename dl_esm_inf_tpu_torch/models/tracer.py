@@ -32,7 +32,7 @@ from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
 from ..ops.fastpath import SweepClient, fast_path_grid_args
-from ..ops.stencil_sweep import StencilSweepKernel
+from ..ops.stencil_sweep import StencilSweepKernel, march_threads, tile
 from ..parallel.collectives import masked_sum
 from .gravity_wave import gaussian_eta, wet_update_masks
 
@@ -42,6 +42,22 @@ tracer_sweep = StencilSweepKernel("tracer_sweep", n_state=1, n_aux=2,
                                   has_code=True, kmax=(8, 4))
 
 _SCHEMES = ("upwind", "vanleer")
+
+#: the kernel's column march: warps an SM and rows of a row strip
+#: (csrc/tracer_sweep.cu: kWarps, kRows)
+MARCH_WARPS = 40
+MARCH_ROWS = 2
+
+
+def kernel_shape(scheme: str, dtype, K: int):
+    """``(shape, threads)``: the kernel's tile and window and its threads a
+    CTA for ``scheme`` at ``dtype`` and K, the skeleton's rule with the
+    march's widths (:func:`..ops.stencil_sweep.tile` with ``march``) for a
+    ring of K * reach and a window of c, u, v, the next c and the code."""
+    ring = K * (1 if scheme == "upwind" else 2)
+    shape = tile(ring, 4 * torch.empty((), dtype=dtype).element_size() + 1,
+                 march=True)
+    return shape, march_threads(shape, ring, MARCH_WARPS, MARCH_ROWS)
 
 
 def _van_leer(r):

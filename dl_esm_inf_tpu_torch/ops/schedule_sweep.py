@@ -20,21 +20,40 @@ Python floats), so new forcing or another ``run(n)`` reuses the library.
 The tile and its window follow the skeleton's tile rule
 (:func:`.stencil_sweep.tile`) for the planes a sweep stages.
 
-Inside the kernel, per repeat and per call: the call's outputs are
-computed into registers over the window inset by the call's own stencil
-depth (``sweep::staged_update``: a call may read off-point a plane that
-it writes), merged under the call's write mask (decoded from the int8
-code planes), and stored after a barrier; a second barrier closes the
-call.  Cells near the window edge that a call cannot compute keep their
-old values; the schedule's dataflow erosion
-(:meth:`~..api.kernel_meta.Schedule.fused_erosion`), which is the ring,
-bounds how far they reach, so the output tile is exact on internal
-points.
+Inside the kernel the calls run by a :class:`Plan` that :func:`plan`
+works out from the schedule's dataflow (the bindings and stencil depths
+that :meth:`~..api.kernel_meta.Schedule.fused_erosion` walks):
 
-What bounds it: a call costs two barriers and one pass over the window
-per repeat, and the NEMOLite2D schedule has 13 calls; like the other
-sweeps, it is bound by in-SM work and barriers, not by its bytes (the
-light variant of that schedule moves 61 B per point and sweep at f32).
+* a call that reads each plane it writes only at its own point computes
+  and stores in place; one that reads such a plane off-point computes
+  into registers and stores after a barrier (staged,
+  ``sweep::staged_points``);
+* consecutive in-place calls share one pass over the window, running one
+  after another at each point (``sweep::for_points``); a point has the
+  same thread in every pass, so a call reads what earlier calls stored
+  at its own point without a barrier.  A pass loads its scalars once
+  (what a body folds from them alone leaves the point loop) and each
+  point's mask-code bytes once.  A barrier comes between two calls only
+  where the later one reads off-point a plane written since the last
+  barrier, or writes a plane read off-point since then (grid properties
+  and read-only slots are never written, so they force none); a barrier
+  ends each repeat;
+* each call computes, in each repeat, only the region its later readers
+  and the output tile need (the tile grown by a margin, walking the K
+  repeats backwards; never more than the window inset by its depth),
+  merged under its write mask (decoded from the int8 code planes).
+  Cells it does not compute keep their old values, which nothing that
+  reaches the output tile reads, so the tile is exact on internal
+  points.
+
+For the NEMOLite2D schedule that is 4 passes and 4 barriers per repeat
+(13 calls, of which none reads off-point a plane it writes), where one
+pass and two barriers per call took 13 and 26.
+
+What bounds it: like the other sweeps, staging and in-SM work, not its
+bytes (the light variant of that schedule moves 61 B per point and
+sweep at f32, 19.69 µs at 1024² against 48.3-48.5 µs measured on an
+H100).
 
 :class:`ScheduleSweepKernel` (one instance, :data:`schedule_sweep`)
 builds a generated source through :func:`.cuda_build.load_library`,
@@ -61,6 +80,135 @@ _RESERVED = {"T", "sweep", "int32_t", "int8_t", "size_t"}
 
 
 @dataclass(frozen=True)
+class Plan:
+    """How a generated sweep runs a schedule's calls in each repeat.
+
+    ``passes`` holds the calls of each pass in order (the calls between
+    two barriers), the same in every repeat; ``barrier_before[p]`` says
+    whether a barrier precedes pass p.  A call that is not ``in_place`` makes a pass of its
+    own with a barrier inside (between its computation and its stores).
+    ``margins[k][c]`` is the cells around the output tile that call c
+    computes in repeat k (None: nothing later reads what it would
+    compute there); ``depths[c]`` its own read depth, so it never
+    computes beyond the window inset by that depth."""
+    names: tuple          # kernel name per call
+    in_place: tuple       # per call
+    depths: tuple         # per call
+    passes: tuple         # per pass: the calls it runs, in order
+    barrier_before: tuple  # per pass
+    margins: tuple        # [repeat][call] -> int or None
+
+    @property
+    def barriers(self) -> int:
+        """Barriers per repeat: before passes, inside the staged calls,
+        and the one that ends the repeat."""
+        return (sum(self.barrier_before)
+                + sum(1 for f in self.in_place if not f) + 1)
+
+    def box(self, k: int, c: int, shape: Shape, ring: int):
+        """``(y0, y1, x0, x1)``, half open, in window points: what call c
+        computes in repeat k on a window of ``shape`` and ``ring`` (as the
+        kernel's ``sweep::around``); None where it computes nothing."""
+        m, d = self.margins[k][c], self.depths[c]
+        if m is None:
+            return None
+        wy, wx = shape.ty + 2 * ring, shape.wx
+        return (max(ring - m, d), min(ring + shape.ty + m, wy - d),
+                max(shape.rl - m, d), min(shape.rl + shape.tx + m, wx - d))
+
+    def summary(self) -> str:
+        """The plan in one line, as the generated source states it."""
+        staged = sum(1 for f in self.in_place if not f)
+        return (f"{len(self.passes)} passes and {self.barriers} barriers "
+                f"per repeat; {len(self.in_place) - staged} of "
+                f"{len(self.in_place)} calls in place")
+
+
+def _uniq_written(s) -> list:
+    out = []
+    for si, _ in s["written"]:
+        if si not in out:
+            out.append(si)
+    return out
+
+
+def plan(steps, *, K: int, ring: int, state_slots) -> Plan:
+    """The plan of a sweep of ``steps`` (``Schedule._steps``) repeated K
+    times in a window of ``ring`` cells, whose outputs are the slots
+    ``state_slots`` (every other written slot, a scratch slot, is needed
+    only by later calls).
+
+    Barriers: walking one repeat's calls, a barrier goes before a call
+    that reads off-point a slot written since the last barrier (read
+    after write) or that writes a slot read off-point since then (write
+    after read); a call that reads off-point a slot it writes is staged
+    (a pass of its own, its stores after a barrier, so only the first
+    hazard applies to it).  Regions: walking the K repeats backwards from
+    the output tile (every state slot needed at margin 0), a call
+    computes the largest margin at which one of its written slots is
+    still needed, and needs each slot it reads at that margin plus the
+    argument's stencil depth (a written slot stays needed where it was:
+    the masked merge keeps old values).  Raises ``ValueError`` where a
+    region and its depth would leave the ring (the ring is smaller than
+    the schedule's erosion)."""
+    from ..api.kernel_meta import _reads
+    names, in_place, depths, reads_off, writes = [], [], [], [], []
+    for s in steps:
+        w = set(_uniq_written(s))
+        off = {idx for (kind, idx), a in zip(s["binding"], s["meta"].args)
+               if kind == "f" and _reads(a) and a.stencil.reaches_off_point()}
+        names.append(s["meta"].name)
+        writes.append(w)
+        reads_off.append(off)
+        in_place.append(not (off & w))
+        depths.append(_depth(s, _reads))
+
+    passes, barrier_before = [], []
+    written, read_off = set(), set()
+    for c in range(len(steps)):
+        raw = bool(reads_off[c] & written)
+        war = bool(writes[c] & read_off)
+        if not in_place[c]:
+            passes.append([c])
+            barrier_before.append(raw)
+            written, read_off = set(writes[c]), set()
+            continue
+        if raw or war or not passes or not in_place[passes[-1][0]]:
+            passes.append([])
+            barrier_before.append(raw or war)
+            if raw or war:
+                written, read_off = set(), set()
+        passes[-1].append(c)
+        written |= writes[c]
+        read_off |= reads_off[c]
+
+    need = {si: 0 for si in state_slots}
+    margins = []
+    for _ in range(int(K)):
+        row = [None] * len(steps)
+        for c in reversed(range(len(steps))):
+            ms = [need[si] for si in writes[c] if si in need]
+            if not ms:
+                continue
+            m = max(ms)
+            if m + depths[c] > ring:
+                raise ValueError(
+                    f"call {c} ({names[c]}) needs {m + depths[c]} ring "
+                    f"cells, the window has {ring}")
+            row[c] = m
+            s = steps[c]
+            for (kind, idx), a in zip(s["binding"], s["meta"].args):
+                if kind == "f" and _reads(a):
+                    need[idx] = max(need.get(idx, 0), m + a.stencil.depth())
+        margins.append(tuple(row))
+    return Plan(names=tuple(names), in_place=tuple(in_place),
+                depths=tuple(depths),
+                passes=tuple(tuple(p) for p in passes),
+                barrier_before=tuple(barrier_before),
+                margins=tuple(reversed(margins)))
+
+
+@dataclass(frozen=True)
 class GeneratedSweep:
     """One generated sweep kernel: its source and what it takes."""
     name: str             # library name, keyed by a hash of the source
@@ -75,6 +223,7 @@ class GeneratedSweep:
     n_scalars: int        # scalars per repeat
     smem_bytes: int       # dynamic shared memory per CTA
     tile: Shape           # the skeleton's tile and window
+    plan: Plan            # passes, barriers and regions of each repeat
 
     @property
     def n_consts(self) -> int:
@@ -184,6 +333,10 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
     shape, smem = window_tile(n_state + n_aux, n_int, n_codes, ring, dtype)
     reach = max(-(-ring // K), 1)
 
+    pl = plan(steps, K=K, ring=ring, state_slots=state_slots)
+    # the scalars each call reads: a pass loads them into registers once,
+    # so that what a body folds from them alone leaves its point loop
+    scalars_used = [set() for _ in steps]
     calls = []
     for ci, s in enumerate(steps):
         meta = s["meta"]
@@ -203,19 +356,9 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
         lines = []
         for pname, ((kind, idx), a) in zip(names, pairs):
             if kind == "s":
-                lines.append(f"const double {pname} = sw_sc[{idx}];")
-        d = _depth(s, _reads)
-        uniq = []
-        for si, _ in s["written"]:
-            if si not in uniq:
-                uniq.append(si)
-        dst = [p for si in uniq for p in plane[("f", si)][1]]
-        nw = len(dst)
-        lines.append(f"{T}* const sw_dst[{nw}] = {{{', '.join(dst)}}};")
-        lines.append(
-            f"sweep::staged_update<G, {T}, {nw}>(sweep::inset<G>({d}, "
-            f"{d}), sw_dst, [&](int sw_i, int, int, {T} (&sw_o)[{nw}]) {{")
-        inner = []
+                lines.append(f"const double {pname} = sw_s{idx};")
+                scalars_used[ci].add(idx)
+        uniq = _uniq_written(s)
         wit = iter(s["written"])
         written_args = []
         for pname, ((kind, idx), a) in zip(names, pairs):
@@ -229,17 +372,17 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 written_args.append((pname, nlev, dtype))
                 if nlev:
                     olds = ", ".join(f"{p}[sw_i]" for p in ptrs)
-                    inner.append(f"sweep::LevPut<{vt}, G::WX, G::WC, {nlev}> "
+                    lines.append(f"sweep::LevPut<{vt}, G::WX, G::WC, {nlev}> "
                                  f"{pname}{{{{{ptrs[0]} + sw_i}}, "
                                  f"{{{olds}}}}};")
                 else:
-                    inner.append(f"sweep::Put<{vt}, G::WX> {pname}{{{{"
+                    lines.append(f"sweep::Put<{vt}, G::WX> {pname}{{{{"
                                  f"{ptrs[0]} + sw_i}}, {ptrs[0]}[sw_i]}};")
             elif nlev:
-                inner.append(f"const sweep::Lev<{vt}, G::WX, G::WC, {nlev}> "
+                lines.append(f"const sweep::Lev<{vt}, G::WX, G::WC, {nlev}> "
                              f"{pname}{{{ptrs[0]} + sw_i}};")
             else:
-                inner.append(f"const sweep::At<{vt}, G::WX> {pname}"
+                lines.append(f"const sweep::At<{vt}, G::WX> {pname}"
                              f"{{{ptrs[0]} + sw_i}};")
         if meta.cuda is not None:
             text, how = meta.cuda.strip(), "hand-written"
@@ -248,32 +391,85 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
             rec = point_trace.trace(s["fn"], meta.name, specs, stencils)
             text, how = point_trace.cuda_body(rec, names, written_args), \
                 "derived"
-        inner.append("{")
-        inner.extend("  " + ln for ln in text.splitlines())
-        inner.append("}")
+        lines.append("{")
+        lines.extend("  " + ln for ln in text.splitlines())
+        lines.append("}")
+        # the merge under the write masks into sw_o, which the pass
+        # stores at once (in place) or after a barrier (staged)
         k = 0
         for si in uniq:
             for lv, ptr in enumerate(plane[("f", si)][1]):
-                inner.append(f"{T} sw_v{k} = {ptr}[sw_i];")
+                lines.append(f"{T} sw_v{k} = {ptr}[sw_i];")
                 for pname, mi in written_names[si]:
                     val = f"{pname}.v[{lv}]" if levels[si] else f"{pname}.v"
-                    inner.append(f"sw_v{k} = sw_t.bit_set(sw_i, {mi // 8}, "
-                                 f"{mi % 8}) ? {val} : sw_v{k};")
-                inner.append(f"sw_o[{k}] = sw_v{k};")
+                    lines.append(f"sw_v{k} = ((sw_cd{mi // 8} >> {mi % 8}) "
+                                 f"& 1) ? {val} : sw_v{k};")
+                lines.append(f"sw_o[{k}] = sw_v{k};")
                 k += 1
-        lines.extend("  " + ln for ln in inner)
-        lines.append("});")
-        lines.append("__syncthreads();")
-        calls.append((ci, f"{meta.name} ({how})", d, lines))
+        dst = [p for si in uniq for p in plane[("f", si)][1]]
+        codes = sorted({mi // 8 for _, mi in s["written"]})
+        calls.append((f"{meta.name} ({how})", dst,
+                      [f"// call {ci}: {meta.name} ({how}) (read depth "
+                       f"{pl.depths[ci]})"] + lines, codes))
+
+    def code_loads(planes, indent):
+        """The mask-code bytes of a point, once for the calls that merge
+        with them."""
+        return [f"{indent}const int sw_cd{c} = sw_t.code[{c} * G::WC + "
+                f"sw_i];" for c in planes]
 
     body = []
-    for ci, kname, d, lines in calls:
-        body.append(f"    // call {ci}: {kname} (read depth {d})")
+    for pi, (cs, bar) in enumerate(zip(pl.passes, pl.barrier_before)):
+        staged = not pl.in_place[cs[0]]
+        body.append(f"    // pass {pi}: calls {list(cs)}, "
+                    + ("staged" if staged else "in place"))
+        if bar:
+            body.append("    __syncthreads();")
         body.append("    {")
-        body.extend("      " + ln for ln in lines)
+        body.extend(f"      const double sw_s{i} = sw_sc[{i}];"
+                    for i in sorted(set().union(
+                        *(scalars_used[c] for c in cs))))
+        for c in cs:
+            body.append(f"      const sweep::Box sw_b{c} = sweep::around<G>("
+                        f"sw_m[sw_k][{c}], {pl.depths[c]});")
+        hull = f"sw_b{cs[0]}"
+        for c in cs[1:]:
+            hull = f"sweep::hull({hull}, sw_b{c})"
+        if staged:
+            kname, dst, lines, codes = calls[cs[0]]
+            body.append(f"      {T}* const sw_dst[{len(dst)}] = "
+                        f"{{{', '.join(dst)}}};")
+            body.append(f"      sweep::staged_points<G, {T}, {len(dst)}>("
+                        f"sw_b{cs[0]}, sw_dst, [&](int sw_i, int, int, "
+                        f"{T} (&sw_o)[{len(dst)}]) {{")
+            body.extend(code_loads(codes, "        "))
+            body.extend("        " + ln for ln in lines)
+            body.append("      });")
+        else:
+            body.append(f"      sweep::for_points<G>({hull}, [&](int sw_i, "
+                        "int sw_y, int sw_x) {")
+            body.extend(code_loads(sorted(set().union(
+                *(calls[c][3] for c in cs))), "        "))
+            for c in cs:
+                kname, dst, lines, codes = calls[c]
+                body.append(f"        if (sweep::inside(sw_b{c}, sw_y, "
+                            "sw_x)) {")
+                body.append(f"          {T} sw_o[{len(dst)}];")
+                body.append("          {")
+                body.extend("            " + ln for ln in lines)
+                body.append("          }")
+                body.extend(f"          {d}[sw_i] = sw_o[{k}];"
+                            for k, d in enumerate(dst))
+                body.append("        }")
+            body.append("      });")
         body.append("    }")
+    body.append("    __syncthreads();")
+    margins = ",\n        ".join(
+        "{" + ", ".join(str(-1 if m is None else m) for m in row) + "}"
+        for row in pl.margins)
     nsc = max(n_scalars, 1)
-    summary = ", ".join(k for _, k, _, _ in calls)
+    summary = ", ".join(c[0] for c in calls)
+    in_place = ", ".join(str(c) for c, f in enumerate(pl.in_place) if f)
     text = f"""\
 // Generated by dl_esm_inf_tpu_torch/ops/schedule_sweep.py from a kernel
 // schedule; do not edit.  The fused schedule sweep of:
@@ -282,6 +478,12 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
 // {shape.wx}-column window; {n_state} state
 // planes, {n_aux} float and {n_int} int32 aux planes, {n_codes} mask-code
 // plane(s); {n_scalars} scalars per repeat.
+// Plan: {pl.summary()}
+// (in place: calls {in_place or "none"}); passes (calls, barrier before):
+//   {"; ".join(f"{list(p)}{' B' if b else ''}"
+               for p, b in zip(pl.passes, pl.barrier_before))}
+// Regions: call c computes the tile grown by sw_m[k][c] cells in repeat
+// k (-1: nothing).
 #include "point_ops.cuh"
 #include "stencil_sweep.cuh"
 
@@ -305,8 +507,10 @@ struct Step {{
 
   __device__ explicit Step(const Consts& c) : sw_c(&c) {{}}
 
-  __device__ void substep(Tile& sw_t, int sw_k) const {{
+  __device__ __forceinline__ void substep(Tile& sw_t, int sw_k) const {{
     const double* const sw_sc = sw_c->sc[sw_k];
+    constexpr int sw_m[{K}][{len(steps)}] = {{
+        {margins}}};
 {chr(10).join(body)}
   }}
 }};
@@ -356,17 +560,20 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
     return GeneratedSweep(
         name=f"schedule_sweep_{digest}", text=text, dtype=dtype, K=K,
         ring=ring, n_state=n_state, n_aux=n_aux, n_int=n_int,
-        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, tile=shape)
+        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, tile=shape,
+        plan=pl)
 
 
 class ScheduleSweepKernel:
     """ctypes wrapper of the generated schedule sweeps.
 
     ``launches`` counts the launches of every generated sweep made
-    through this wrapper (and nothing else); callers may reset it."""
+    through this wrapper (and nothing else); callers may reset it.
+    ``generated`` holds every source built, by name."""
 
     def __init__(self):
         self.launches = 0
+        self.generated: dict = {}
         self._fns: dict = {}
 
     def build(self, gen: GeneratedSweep):
@@ -389,6 +596,7 @@ class ScheduleSweepKernel:
                 raise RuntimeError(f"{gen.name}: library takes {nconst()} "
                                    f"constants, expected {gen.n_consts}")
             self._fns[gen.name] = fn
+            self.generated[gen.name] = gen
         return built
 
     @staticmethod

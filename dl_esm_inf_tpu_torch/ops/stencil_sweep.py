@@ -80,6 +80,18 @@ def march_width(ring: int, n: int) -> int:
     return -(-(rl + tx + ring) // 4) * 4
 
 
+def march_threads(s: Shape, ring: int, warps: int, rows: int) -> int:
+    """The march's threads a CTA (the header's ``march_threads``): the
+    column strips of MARCH_LANES owned lanes that the tile's columns and
+    the ring less one column need, times row strips of about ``rows``
+    window rows, at most ``warps`` warps over the ``s.ctas`` CTAs of an
+    SM (at least one row strip)."""
+    nx = -(-(s.tx + 2 * ring - 1) // MARCH_LANES)
+    want = -(-(s.ty + 2 * ring) // rows)
+    most = warps // s.ctas // nx
+    return 32 * nx * (want if want < most else most if most > 1 else 1)
+
+
 def tile(ring: int, bpp: int, wx: int = 0, ty_max: int = TILE_Y_MAX,
          march: bool = False, extra: int = 0) -> Shape | None:
     """The skeleton's tile for a ring of ``ring`` cells and ``bpp``
@@ -123,6 +135,13 @@ def tile(ring: int, bpp: int, wx: int = 0, ty_max: int = TILE_Y_MAX,
                                  <= MAX_OVERHEAD):
             return best
     return None
+
+
+def reciprocal(x: float, dtype) -> float:
+    """``1 / x`` rounded once in ``dtype``: the factor PyTorch's CUDA
+    ``tensor / x`` (``x`` a Python scalar) multiplies by, which its host
+    code computes before the launch."""
+    return float(torch.ones((), dtype=dtype) / torch.tensor(x, dtype=dtype))
 
 
 def stencil_sweep_reference(step_fn, K: int, state, aux=(), scalars=None):

@@ -26,12 +26,12 @@ launches timed with CUDA events (the best of 5 replays):
 that checkout, each a CUDA graph of its launches (best of 5 replays),
 and prints them as a second JSON line (``skeleton_*`` keys, µs per
 sweep): gravity wave, shallow and two-layer at K=8, tracer van Leer at
-K=4, the Chebyshev sweep at K = 1, 2, 4, 8 (float32) and K=4 (float64),
+K=4 and upwind at K=8, the Chebyshev sweep at K = 1, 2, 4, 8 (float32) and K=4 (float64),
 lam 50, the N-layer sweep at L=3, K=8 and at ``NLAYER_KEYS`` (null where
 that checkout's kernel refuses the layers; beside them one sweep's max
 abs against its plain version on a 256^2 grid of spacings 0.7 x 1.3,
-``nlayer_dx07_max_abs``), the PSy light sweep and the
-levels=N chain's light sweep at L=3 and L=8 (float32) and L=8
+``nlayer_dx07_max_abs``), the PSy light sweep at repeats 1, 2 and 3
+and the levels=N chain's light sweep at L=3 and L=8 (float32) and L=8
 (float64); beside them the Helmholtz solve (K=4, float32) in ms on the
 kernel and the plain path with its iterations, and each library's
 registers and spilled bytes from its build log.
@@ -190,8 +190,8 @@ def probe_skeleton(n: int) -> dict:
     tasks = [k.build for k in (
         cs.gw.gravity_wave_sweep, cs.sh.shallow_sweep, cs.tl.twolayer_sweep,
         cs.tr.tracer_sweep, so.helmholtz_cheb_sweep, nlm.nlayer_sweep)]
-    tasks += [functools.partial(cs._psy_case, torch.float32, 1, 1, "light",
-                                False, n=64, steps=2)]
+    tasks += [functools.partial(cs._psy_case, torch.float32, 1, r, "light",
+                                False, n=64, steps=2 * r) for r in (1, 2, 3)]
     tasks += [functools.partial(cs._level_case, "chain", dt, lv, False,
                                 n=64, ndom=1)
               for lv, dt in ((3, torch.float32), (8, torch.float32),
@@ -211,6 +211,13 @@ def probe_skeleton(n: int) -> dict:
         state = tuple(getattr(m, f).data for f in m._fields)
         sweep, aux = m._make_sweep(c.K), m._sweep_aux
         out[f"skeleton_{c.name}_K{c.K}_us"] = us(lambda: sweep(state, aux))
+    m = cs.tr.build(n, n, fused=True, steps_per_sweep=8, device=cs.DEV,
+                    **cs._tracer_kw(n, "upwind"))
+    m.set_initial_tracer(gaussian_eta(n, n, amp=1.0) + 0.01)
+    m.run(16)
+    state, aux = (m.c.data,), m._sweep_aux
+    sweep = m._make_sweep(8)
+    out["skeleton_tracer_upwind_K8_us"] = us(lambda: sweep(state, aux))
     lam = 50.0
     for K, dt in ((1, torch.float32), (2, torch.float32), (4, torch.float32),
                   (8, torch.float32), (4, torch.float64)):
@@ -255,9 +262,12 @@ def probe_skeleton(n: int) -> dict:
     m = NemoLite2DPsy(n, n, halo_width=8, device=cs.DEV)
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
     m.run(4, fused=True)
-    out["skeleton_psy_light_us"] = us(_light_sweep(m._sched, [tuple(
-        float(v) for v in m._sched._user_scalar_vector(
-            m._scalars_at(m._step)))]))
+    for r in (1, 2, 3):
+        key = "skeleton_psy_light_us" if r == 1 else \
+            f"skeleton_psy_light_r{r}_us"
+        out[key] = us(_light_sweep(m._sched, [tuple(
+            float(v) for v in m._sched._user_scalar_vector(
+                m._scalars_at(m._step + j))) for j in range(r)], r))
     for lv, dt in ((3, torch.float32), (8, torch.float32),
                    (8, torch.float64)):
         sched, _ = cs._level_main(lv, dt, (1, 1))
@@ -410,12 +420,12 @@ def _nlayer_spacing_max_abs(cs, n: int) -> float:
     return cs._internal_max_abs(g, ker, ref)
 
 
-def _light_sweep(sched, rows):
-    """One launch of the light sweep of a schedule's 4-step program on
-    its current slots, as ``chip_smoke.py``'s PSy and levels phases time
-    it."""
-    sweep, st_slots, x_slots = sched._fused_prog(4, 1)[3]["light"]
-    ro_slots = sched._fused_prog(4, 1)[2]
+def _light_sweep(sched, rows, repeats=1):
+    """One launch of the light sweep of a schedule's 4-step program at
+    ``repeats`` (one scalar row each) on its current slots, as
+    ``chip_smoke.py``'s PSy and levels phases time it."""
+    sweep, st_slots, x_slots = sched._fused_prog(4, repeats)[3]["light"]
+    ro_slots = sched._fused_prog(4, repeats)[2]
 
     def planes(idx):
         return tuple(p for i in idx for p in (

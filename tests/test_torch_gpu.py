@@ -140,6 +140,16 @@ CLIENTS = {
                                 scheme="vanleer"),
                        lambda m: m.set_initial_tracer(
                            gaussian_eta(GNX, GNY, width=0.08) + 0.01), 4),
+    # without diffusion: the kernel skips the gradients (kappa == 0)
+    "tracer_upwind_advect": (tr, dict(dt=0.2, u=_U, v=_V, scheme="upwind"),
+                             lambda m: m.set_initial_tracer(
+                                 gaussian_eta(GNX, GNY, width=0.08) + 0.01),
+                             8),
+    "tracer_vanleer_advect": (tr, dict(dt=0.2, u=_U, v=_V,
+                                       scheme="vanleer"),
+                              lambda m: m.set_initial_tracer(
+                                  gaussian_eta(GNX, GNY, width=0.08)
+                                  + 0.01), 4),
 }
 CLIENT_K = [(name, K) for name, c in CLIENTS.items()
             for K in range(1, c[3] + 1)]
@@ -171,6 +181,49 @@ def test_client_kernel_matches_plain(cuda_device, name, K, ndom, dtype):
         assert np.all(np.isfinite(got[k])), k
         np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-13,
                                    err_msg=k)
+
+
+#: the client builds at other spacings: a client whose build() takes no
+#: spacing is built on a grid initialised with it
+SPACED = {"gravity_wave": ("gravity_wave",),
+          "shallow": ("shallow",),
+          "twolayer": ("twolayer",),
+          "tracer": ("tracer_upwind", "tracer_vanleer")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("client", list(SPACED))
+def test_client_kernel_other_spacings(cuda_device, monkeypatch, client,
+                                      dtype):
+    """Spacings that are no powers of two (dx 0.7, dy 1.3): the plain
+    step on the card multiplies by the reciprocals (PyTorch's CUDA
+    ``tensor / python_scalar``), as the kernels do; bitwise after 19
+    steps at K=4 on 1 and 4 tiles, both tracer schemes."""
+    dx, dy = 0.7, 1.3
+    for name in SPACED[client]:
+        mod, kw, init, _ = CLIENTS[name]
+        if "dx" in mod.build.__code__.co_varnames:
+            kw = dict(kw, dx=dx, dy=dy)
+        else:
+            base = mod.grid_init
+            monkeypatch.setattr(mod, "grid_init",
+                                lambda g, _x, _y, *a, **k:
+                                base(g, dx, dy, *a, **k))
+        for ndom in (1, 4):
+            ms = [mod.build(GNX, GNY, ndomains=ndom, fused=f,
+                            steps_per_sweep=4, dtype=dtype,
+                            device=cuda_device, **kw) for f in (True, False)]
+            assert (ms[0].grid.dx, ms[0].grid.dy) == (dx, dy)
+            for m in ms:
+                init(m)
+            kern = ms[0].sweep_kernel
+            before = kern.launches
+            ms[0].run(19)
+            torch.cuda.synchronize()
+            assert kern.launches - before == 19 // 4 + 19 % 4
+            ms[1].run(19)
+            _assert_bitwise(ms[0].gather(), ms[1].gather())
 
 
 @pytest.mark.gpu

@@ -719,7 +719,10 @@ def test_generator_emits_the_psy_and_fuzz_schedules():
             assert gen.K == rep and gen.ring == ring
             assert '#include "stencil_sweep.cuh"' in gen.text
             assert "schedule_sweep_launch" in gen.text
-            assert gen.text.count("__syncthreads();") == 13
+            # the plan: 4 passes, 3 barriers between them and one that
+            # ends each repeat (tests/test_torch_schedule_plan.py)
+            assert gen.text.count("__syncthreads();") == 4
+            assert gen.plan.barriers == 4 and all(gen.plan.in_place)
             for kname in ("next_sshu_code", "momentum_v_code",
                           "bc_flather_u_code", "copy_code"):
                 assert kname in gen.text
@@ -743,6 +746,11 @@ def test_generator_emits_the_psy_and_fuzz_schedules():
             calls.append((fuzz_kernel(nm, sp, f"g{trial}{k}")[1], b, cur, s))
             cur = b
         gen = _generated(tkm.Schedule(*calls), nsteps=1)[0]
+        # each call after the first reads off-point the slot it writes:
+        # staged, a barrier before it (it reads what the call before
+        # wrote) and one inside it; one barrier ends the repeat
+        assert gen.plan.in_place == (True,) + (False,) * (len(names) - 1)
+        assert gen.plan.barriers == 2 * len(names) - 1
         assert gen.text.count("__syncthreads();") == len(names)
         assert SHIFTS[names[-1]][3] in gen.text
 

@@ -23,12 +23,14 @@ import pytest
 import torch
 
 from dl_esm_inf_tpu_torch.models import nlayer as tnl
+from dl_esm_inf_tpu_torch.models import tracer as ttr
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as tss
 from dl_esm_inf_tpu_torch.ops import stencil_sweep as sst
 
 CSRC = Path(__file__).resolve().parents[1] / "dl_esm_inf_tpu_torch" / "csrc"
 HEADER = CSRC / "stencil_sweep.cuh"
 CHEB = CSRC / "helmholtz_cheb_sweep.cu"
+TRACER = CSRC / "tracer_sweep.cu"
 #: the largest dynamic shared memory of one H100 block
 BLOCK_SMEM = 232448
 RINGS = range(0, 9)
@@ -281,12 +283,49 @@ def test_header_march_rule_equals_the_mirror(tmp_path):
         if got:
             cols = got.tx + 2 * R - 1
             assert (nx - 1) * sst.MARCH_LANES < cols <= nx * sst.MARCH_LANES
+            assert sst.march_threads(got, R, warps, rows) == t1
+            assert sst.march_threads(got, R, 32, 1) == t2
             for t, w, r in ((t1, warps, rows), (t2, 32, 1)):
                 assert t % (32 * nx) == 0 and t <= 1024
                 assert t // 32 * got.ctas <= max(w, nx * got.ctas)
                 assert t // (32 * nx) <= -(-(got.ty + 2 * R) // r)
         n += 1
     assert n == 8 * 66 * 3
+
+
+def test_header_tracer_march_equals_the_mirror(tmp_path):
+    """The tracer march's tile and threads, the header's rule compiled for
+    the host with the march's warps and rows read from the kernel's
+    source, against ``models/tracer.py::kernel_shape`` for both schemes,
+    both dtypes and every K; its warps are whole column strips of owned
+    lanes over the widest region (the tile and K - 1 reaches each
+    side)."""
+    text = TRACER.read_text()
+    warps, rows = _const(TRACER, "kWarps"), _const(TRACER, "kRows")
+    assert (warps, rows) == (ttr.MARCH_WARPS, ttr.MARCH_ROWS)
+    assert ("sweep::Ring<K, REACH, K * REACH, 0, 0, sweep::kTileYMax, "
+            "true, kWarps,") in " ".join(text.split())
+    cases = [(scheme, reach, es, K)
+             for scheme, reach, kmax in (("upwind", 1, 8), ("vanleer", 2, 4))
+             for es in (4, 8) for K in range(1, kmax + 1)]
+    out = _compile_rule(tmp_path, "".join(
+        f"  {{ const sweep::Shape s = sweep::pick_shape({K * reach}, "
+        f"{4 * es + 1}, 0, sweep::kTileYMax, true);\n"
+        f"    std::printf(\"%d %d %d %d %d %d\\n\", s.ty, s.tx, s.rl, s.wx, "
+        f"s.ctas, sweep::march_threads(s, {K * reach}, {warps}, {rows})); }}\n"
+        for _, reach, es, K in cases))
+    assert len(out) == len(cases)
+    for line, (scheme, reach, es, K) in zip(out, cases):
+        *shape, threads = map(int, line.split())
+        dtype = torch.float32 if es == 4 else torch.float64
+        got, got_threads = ttr.kernel_shape(scheme, dtype, K)
+        assert tuple(got) == tuple(shape), (scheme, dtype, K)
+        assert got_threads == threads, (scheme, dtype, K)
+        ring = K * reach
+        strips = -(-(got.tx + 2 * ring - 1) // sst.MARCH_LANES)
+        assert got.tx + 2 * (ring - reach) <= strips * sst.MARCH_LANES
+        assert threads % (32 * strips) == 0 and threads <= 1024
+        assert got.rl >= ring and got.wx - got.rl - got.tx >= ring
 
 
 def test_header_rule_equals_the_mirror(tmp_path):
