@@ -117,11 +117,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
    grid (rows no multiple of 4 points, sides no multiple of any tile)
    and a 37x45 grid (smaller than one tile) at float32 and each main
    path's K, and on the 1000x1030 grid at float64 and K = 4;
-11. the exchange kernel against the plain exchange, bitwise on every
-   cell: 1, 2x1, 1x2, 2x2, 3x2 and 4x4 tiles, walled, x-, y- and doubly
-   periodic, halo 1, 2 and 8 at every depth, float32, float64 and int32,
-   2D and 3 levels; then Field.halo_exchange(transport="remote_dma") with
-   the plain exchange replaced by a function that raises;
+11. both forms of the exchange kernel against the plain exchange and the
+   exchange_index gather, bitwise on every cell: 1, 2x1, 1x2, 2x2, 3x2
+   and 4x4 tiles, walled, x-, y- and doubly periodic, halo 1, 2 and 8 at
+   every depth, float32, float64 and int32, 2D and 3 levels (rows moved
+   by 16-byte words and by elements both counted); the functional form on
+   every case, the field's exchange on a clone, which takes the ring form
+   in place wherever ring_in_place holds and the functional form where
+   the depth exceeds the tile extent (the launch counters show which ran;
+   the ring form refuses those); then Field.halo_exchange(transport=
+   "remote_dma") in place with the plain exchange replaced by a function
+   that raises;
 12. the flagship kernel with variable bathymetry (a seeded positive
    depth plane) against its plain version, bitwise, float64 and float32,
    K = 1..4, 1 and 4 tiles, 101 steps;
@@ -135,10 +141,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
    tiles at K = 4 with the fused and the ppermute transport (us/step,
    launches = n / K, the plain exchange replaced by a raising function
    throughout, and no arithmetic beside the forcing), the flagship with
-   variable bathymetry, the exchange through Field.halo_exchange in 1,
-   2x2 and 4x4 tiles at halo 8, depth 1 and 8, 2D and 3 levels (us per
-   call: kernel, plain, and the exchange_index gather as one indexing
-   call), and the example model on the card under both transports;
+   variable bathymetry, the exchange in 1, 2x2 and 4x4 tiles at halo 8,
+   depth 1 and 8, 2D and 3 levels through Field.halo_exchange (the ring
+   form, in place) and through make_block_exchange (the functional form),
+   each with the launch counts zeroed just before it (us per call of
+   both forms as a CUDA graph and as one wrapper call, the plain
+   exchange, the exchange_index gather as one indexing call, and each
+   form's byte bound), both forms again at 4096^2, and the example model
+   on the card under both transports;
 15. the kernel-variant microbench's variants (csrc/nemolite2d_variants.cu):
    dma and compute kernel vs plain bitwise on every cell (f64 and f32,
    K = 1..4, 1 and 4 tiles, compute at reps 1 and 3), compute(reps=1) vs
@@ -347,7 +357,8 @@ def phase_device() -> str:
 
 KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            tl.twolayer_sweep, tr.tracer_sweep, so.helmholtz_cheb_sweep,
-           nlm.nlayer_sweep, hk.halo_exchange, fs.variant_dma,
+           nlm.nlayer_sweep, hk.halo_exchange, hk.halo_exchange_ring,
+           fs.variant_dma,
            rdma.halo_exchange_rdma, fo.fence_oracle,
            fs.nemolite2d_sweep_rdma)
 
@@ -2263,36 +2274,82 @@ def _unique_block(shape, dtype, seed=0):
     return torch.from_numpy(vals).to(DEV, dtype)
 
 
+def _words16(spec, dtype) -> bool:
+    """Whether the exchange kernel moves this block's rows in 16-byte
+    words (csrc/halo_exchange.cu: rows a whole number of them; the
+    caching allocator's blocks are 16-byte aligned), else elements."""
+    es = torch.empty((), dtype=dtype).element_size()
+    return spec.array_shape[1] * es % 16 == 0
+
+
 def phase_exchange_parity() -> None:
-    """The exchange kernel against the plain exchange (and the gather of
-    exchange_index) on the card: bitwise on every cell."""
-    kern, cases = hk.halo_exchange, 0
-    before = kern.launches
+    """Both forms of the exchange kernel against the plain exchange and
+    the gather of exchange_index on the card, bitwise on every cell: the
+    functional form on every case, and the field's exchange
+    (remote_dma_exchange) on a clone, which takes the ring form in place
+    wherever ring_in_place holds and the functional form elsewhere (the
+    launch counters show which ran; the ring form refuses the rest)."""
+    fun, ring = hk.halo_exchange, hk.halo_exchange_ring
+    f0, r0 = fun.launches, ring.launches
+    cases, n_ring, n_fun = 0, 0, 0
+    words = {"16-byte": 0, "element": 0}
     for ndx, ndy in EXCH_TILES:
         for wrap in EXCH_WRAPS:
             for halo in (1, 2, 8):
                 spec = _exch_grid(ndx, ndy, wrap, halo).halo_spec
                 for depth in range(1, halo + 1):
                     rows, cols = halo_mod.exchange_index(spec, depth, DEV)
+                    in_place = hk.ring_in_place(spec, depth)
                     for dtype in (torch.float32, torch.float64, torch.int32):
                         for lead in ((), (3,)):
                             a = _unique_block(lead + spec.array_shape, dtype,
                                               cases)
-                            got = hk.exchange_kernel(a, spec, depth)
                             want = halo_mod._exchange_blocks((a,), spec,
                                                              depth)[0]
                             gather = a.index_select(-2, rows).index_select(
                                 -1, cols)
-                            if not (torch.equal(got, want)
-                                    and torch.equal(got, gather)):
+                            got = fun(a, spec, depth)
+                            blk = a.clone()
+                            before = (fun.launches, ring.launches)
+                            res = hk.remote_dma_exchange(blk, spec, depth)
+                            took = (fun.launches - before[0],
+                                    ring.launches - before[1])
+                            tag = (f"{ndx}x{ndy} wrap={wrap} halo={halo} "
+                                   f"depth={depth} {dtype} lead={lead}")
+                            if took != ((0, 1) if in_place else (1, 0)) or (
+                                    (res is blk) != in_place):
                                 raise AssertionError(
-                                    f"exchange kernel {ndx}x{ndy} wrap={wrap}"
-                                    f" halo={halo} depth={depth} {dtype} "
-                                    f"lead={lead}: not bitwise equal")
+                                    f"exchange {tag}: launches (functional, "
+                                    f"ring) {took}, in place {res is blk}; "
+                                    f"ring_in_place says {in_place}")
+                            if not (torch.equal(got, want)
+                                    and torch.equal(got, gather)
+                                    and torch.equal(res, want)):
+                                raise AssertionError(
+                                    f"exchange kernel {tag}: not bitwise "
+                                    f"equal")
                             cases += 1
+                            n_ring += in_place
+                            n_fun += 1 + (not in_place)
+                            words["16-byte" if _words16(spec, dtype)
+                                  else "element"] += 1
+                    if not in_place:
+                        try:
+                            ring(_unique_block(spec.array_shape,
+                                               torch.float32), spec, depth)
+                        except ValueError:
+                            pass
+                        else:
+                            raise AssertionError(
+                                f"the ring form took depth {depth} on "
+                                f"{ndx}x{ndy} tiles of {spec.tile_ny}x"
+                                f"{spec.tile_nx} at halo {halo}")
     torch.cuda.synchronize()
-    if kern.launches - before != cases:
-        raise AssertionError("exchange parity did not go through the kernel")
+    if (fun.launches - f0, ring.launches - r0) != (n_fun, n_ring):
+        raise AssertionError("exchange parity did not go through the kernels")
+    if not (n_ring and cases - n_ring and all(words.values())):
+        raise AssertionError(f"exchange parity missed a path: {n_ring} ring"
+                             f" cases of {cases}, rows by {words}")
 
     # the kernel path never calls the plain exchange
     g = _exch_grid(2, 2, (True, True), 2, n=32)
@@ -2300,15 +2357,23 @@ def phase_exchange_parity() -> None:
     fa = tdl.Field(g, tdl.T_POINTS, init_global_data=vals, levels=3)
     fb = tdl.Field(g, tdl.T_POINTS, init_global_data=vals, levels=3)
     fb.halo_exchange(2)
+    ptr = fa.data.data_ptr()
     _plain_exchange_refused(lambda: fa.halo_exchange(2, transport="remote_dma"))
-    if not torch.equal(fa.data, fb.data):
-        raise AssertionError("Field.halo_exchange remote_dma != ppermute")
-    print(f"halo_exchange parity: kernel vs plain exchange and vs the "
+    if not torch.equal(fa.data, fb.data) or fa.data.data_ptr() != ptr:
+        raise AssertionError("Field.halo_exchange remote_dma != ppermute, or"
+                             " not in place")
+    print(f"halo_exchange parity: both forms vs plain exchange and vs the "
           f"exchange_index gather, {cases} cases ({len(EXCH_TILES)} tilings,"
           f" walled / x / y / xy periodic, halo 1, 2, 8 at every depth, "
-          f"f32, f64, int32, 2D and 3 levels): bitwise on every cell; "
-          f"Field.halo_exchange(transport='remote_dma') with the plain "
-          f"exchange raising: equal to ppermute", flush=True)
+          f"f32, f64, int32, 2D and 3 levels; rows moved in "
+          f"{words['16-byte']} cases by 16-byte words, in "
+          f"{words['element']} by elements): bitwise on every cell; the "
+          f"field's exchange took the ring form in place in {n_ring} cases "
+          f"and the functional form in {cases - n_ring} (depth > tile "
+          f"extent, where the ring form refuses); functional launches "
+          f"{n_fun}, ring launches {n_ring}; Field.halo_exchange(transport="
+          f"'remote_dma') with the plain exchange raising: equal to "
+          f"ppermute, in place", flush=True)
 
 
 def _bathymetry(n, seed=11):
@@ -2457,6 +2522,64 @@ def _gather_ms(a, spec, depth, want, reps) -> float:
     return _time_ms(lambda: a[..., rows, cols], reps)
 
 
+def _exchange_times(a, f, spec, depth, want, plain_reps) -> dict:
+    """ms of both forms of the exchange on the block ``a`` (the functional
+    form) and on the field ``f`` (Field.halo_exchange, the ring form in
+    place): the card's time as a CUDA graph of 20 calls (device_ms) and
+    one wrapper call (ms); the plain exchange, the exchange_index gather
+    (library_ms) and each form's byte bound (functional: the block read
+    and written; ring: its ring, the cells the map moves)."""
+    def functional():
+        return hk.exchange_kernel(a, spec, depth)
+
+    def field():
+        f.halo_exchange(depth, transport="remote_dma")
+    rows, cols = halo_mod.exchange_index(spec, depth, DEV)
+    moved = ((rows != torch.arange(rows.numel(), device=DEV))[:, None]
+             | (cols != torch.arange(cols.numel(), device=DEV)))
+    ring_bytes = int(moved.sum()) * a.numel() // moved.numel() * \
+        a.element_size()
+    row = {"ms": _time_ms(functional, 200),
+           "device_ms": _device_ms(functional, 20),
+           "ring_ms": _time_ms(field, 200),
+           "ring_device_ms": _device_ms(field, 20),
+           "plain_ms": _time_ms(lambda: halo_mod.exchange(a, spec, depth),
+                                plain_reps),
+           "library_ms": _gather_ms(a, spec, depth, want, 200),
+           "bound_ms": _bound(2 * _nbytes(a), 0, a.dtype)["bound_ms"],
+           "ring_bound_ms": _bound(2 * ring_bytes, 0, a.dtype)["bound_ms"]}
+    if not torch.equal(f.data, want):
+        raise AssertionError("the timed ring exchanges changed the field")
+    row["text"] = (
+        f"functional {row['device_ms'] * 1e3:.2f} us on the card (CUDA "
+        f"graph; wrapper call {row['ms'] * 1e3:.2f} us, bound "
+        f"{row['bound_ms'] * 1e3:.2f} us), ring in place "
+        f"{row['ring_device_ms'] * 1e3:.2f} us (wrapper call "
+        f"{row['ring_ms'] * 1e3:.2f} us, bound "
+        f"{row['ring_bound_ms'] * 1e3:.3f} us), plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, index gather "
+        f"{row['library_ms'] * 1e3:.2f} us")
+    return row
+
+
+def _exchange_entries(row: dict, fun_launches: int,
+                      ring_launches: int) -> list:
+    """The two kernel entries of the exchange: the functional form and
+    the ring form, from one row of _exchange_times."""
+    base = {"route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/csrc/halo_exchange.cu",
+            "replaces": "dl_esm_inf_tpu/parallel/halo_pallas.py:46",
+            "max_abs_err": 0.0, "plain_ms": row["plain_ms"],
+            "library_ms": row["library_ms"], "bound_by": "bytes"}
+    return [{"name": "halo_exchange", **base, "launches": fun_launches,
+             "ms": row["ms"], "device_ms": row["device_ms"],
+             "bound_ms": row["bound_ms"]},
+            {"name": "halo_exchange_ring", **base,
+             "launches": ring_launches, "ms": row["ring_ms"],
+             "device_ms": row["ring_device_ms"],
+             "bound_ms": row["ring_bound_ms"]}]
+
+
 def _program_ops(m, n) -> int:
     """Arithmetic element-operations (``_count_ops``) of the model's
     n-step program beyond its forcing series (the host-side bc_ssh
@@ -2503,6 +2626,94 @@ def _flagship_entry(m, K, launches, name, replaces, extra_bytes=()):
                      state[0].dtype)}
 
 
+def _exchange_main(N: int) -> list:
+    """The standalone exchange's main paths at N^2 float32, halo 8:
+    Field.halo_exchange(transport="remote_dma") (the ring form, in place)
+    and a user's own make_block_exchange (the functional form), each with
+    both launch counts zeroed just before it; both forms timed there and
+    at (4N)^2.  Returns the two kernel entries."""
+    configs = [((1, 1), (True, True), 8), ((2, 2), (False, False), 1),
+               ((2, 2), (False, False), 8), ((4, 4), (False, False), 1),
+               ((4, 4), (False, False), 8)]
+    fun, ring = hk.halo_exchange, hk.halo_exchange_ring
+    fields, report = [], []
+    for tiles, wrap, depth in configs:
+        g = _exch_grid(*tiles, wrap, 8, n=N)
+        for levels in (None, 3):
+            lead = () if levels is None else (levels,)
+            f = tdl.Field(g, tdl.T_POINTS, levels=levels)
+            f.data = _unique_block(lead + g.array_shape, torch.float32)
+            # the block before the exchange: f.data is exchanged in place
+            fields.append((tiles, wrap, depth, levels, f, f.data.clone(),
+                           f.data.data_ptr()))
+    fun.launches = ring.launches = 0
+    for _, _, depth, _, f, _, _ in fields:
+        f.halo_exchange(depth, transport="remote_dma")
+    torch.cuda.synchronize()
+    ring_launches = (fun.launches, ring.launches)
+    if ring_launches != (0, len(fields)):
+        raise AssertionError(f"Field.halo_exchange launched (functional, "
+                             f"ring) {ring_launches} for {len(fields)} calls")
+    fn_outs = []
+    fun.launches = ring.launches = 0
+    for _, _, depth, levels, f, a, _ in fields:
+        lead = () if levels is None else (levels,)
+        fn_outs.append(hk.make_block_exchange(f.grid.halo_spec, depth,
+                                              lead)(a))
+    torch.cuda.synchronize()
+    fun_launches = (fun.launches, ring.launches)
+    if fun_launches != (len(fields), 0):
+        raise AssertionError(f"make_block_exchange launched (functional, "
+                             f"ring) {fun_launches} for {len(fields)} calls")
+    for (tiles, wrap, depth, levels, f, a, ptr), fn_out in zip(fields,
+                                                              fn_outs):
+        spec = f.grid.halo_spec
+        want = halo_mod.exchange(a, spec, depth)
+        if not (torch.equal(f.data, want) and torch.equal(fn_out, want)):
+            raise AssertionError(f"exchange {tiles} depth {depth} levels "
+                                 f"{levels}: kernel != plain")
+        if f.data.data_ptr() != ptr:
+            raise AssertionError(f"exchange {tiles} depth {depth}: the field"
+                                 f" was not exchanged in place")
+        row = _exchange_times(a, f, spec, depth, want, plain_reps=50)
+        report.append(f"{tiles[0]}x{tiles[1]}{' periodic' if wrap[0] else ''}"
+                      f" depth {depth} {'2D' if levels is None else '3 levels'}"
+                      f": {row['text']}")
+        if (tiles, depth, levels) == ((2, 2), 8, None):
+            main_row = row
+    ex_entries = _exchange_entries(main_row, fun_launches[0],
+                                   ring_launches[1])
+    print(f"halo_exchange main f32 {N}^2 halo 8: Field.halo_exchange("
+          f"transport='remote_dma') {len(fields)} calls, ring launches "
+          f"{ring_launches[1]}, functional {ring_launches[0]}, each in place;"
+          f" make_block_exchange {len(fields)} calls, functional launches "
+          f"{fun_launches[0]}, ring {fun_launches[1]}; both bitwise equal to "
+          f"the plain exchange; " + "; ".join(report), flush=True)
+    # a block large enough for the kernels' own time to show past the
+    # host's cost of a call, and past the L2
+    big = 4 * N
+    g = _exch_grid(2, 2, (False, False), 8, n=big)
+    spec = g.halo_spec
+    f = tdl.Field(g, tdl.T_POINTS)
+    f.data = _unique_block(spec.array_shape, torch.float32)
+    a = f.data.clone()
+    want = halo_mod.exchange(a, spec, 8)
+    f.halo_exchange(8, transport="remote_dma")
+    if not (torch.equal(hk.exchange_kernel(a, spec, 8), want)
+            and torch.equal(f.data, want)):
+        raise AssertionError(f"exchange {big}^2: kernel != plain")
+    row = _exchange_times(a, f, spec, 8, want, plain_reps=20)
+    for e in ex_entries:
+        key = "" if e["name"] == "halo_exchange" else "ring_"
+        e.update({f"{k}_4096": row[key + k] for k in (
+            "ms", "device_ms", "bound_ms")}, library_ms_4096=row["library_ms"],
+            plain_ms_4096=row["plain_ms"], max_abs_err_4096=0.0)
+    print(f"halo_exchange f32 {big}^2 2x2 halo 8 depth 8: {row['text']} "
+          f"(functional {2 * _nbytes(a) / row['device_ms'] / 1e6:.0f} GB/s);"
+          f" bitwise equal", flush=True)
+    return ex_entries
+
+
 def phase_transport_main() -> list:
     N, K, n = MAIN_SIZE, 4, 400
     kernels = []
@@ -2513,10 +2724,12 @@ def phase_transport_main() -> list:
     mp.run(K)
     torch.cuda.synchronize()
     fs.nemolite2d_sweep.launches = hk.halo_exchange.launches = 0
+    hk.halo_exchange_ring.launches = 0
     _plain_exchange_refused(lambda: mf.run(n))
     torch.cuda.synchronize()
     launches, ex_launches = (fs.nemolite2d_sweep.launches,
-                             hk.halo_exchange.launches)
+                             (hk.halo_exchange.launches,
+                              hk.halo_exchange_ring.launches))
     if launches != n // K:
         raise AssertionError(f"fused transport main path launched "
                              f"{launches} sweeps, expected {n // K}")
@@ -2537,7 +2750,8 @@ def phase_transport_main() -> list:
     us_p2 = _run_step_us(mp, n, 5)
     print(f"fused transport main f32 {N}^2 2x2 tiles K={K}: run({n}) "
           f"launches={launches} (= {n}/{K}), exchange-kernel launches "
-          f"{ex_launches} (the trailing face-ssh exchange), plain exchange "
+          f"(functional, ring) {ex_launches} (the trailing face-ssh "
+          f"exchange, in place), plain exchange "
           f"raising throughout; fused vs ppermute after {n} steps rel "
           f"{d:.3e}; arithmetic element-operations of the {n}-step program "
           f"besides the forcing: fused {ops_f}, ppermute {ops_p}", flush=True)
@@ -2599,71 +2813,7 @@ def phase_transport_main() -> list:
           f"us, bound {entry['bound_ms'] * 1e3:.2f} us", flush=True)
     kernels.append(entry)
 
-    # the standalone exchange through Field.halo_exchange
-    configs = [((1, 1), (True, True), 8), ((2, 2), (False, False), 1),
-               ((2, 2), (False, False), 8), ((4, 4), (False, False), 1),
-               ((4, 4), (False, False), 8)]
-    fields, report = [], []
-    for tiles, wrap, depth in configs:
-        g = _exch_grid(*tiles, wrap, 8, n=N)
-        for levels in (None, 3):
-            lead = () if levels is None else (levels,)
-            f = tdl.Field(g, tdl.T_POINTS, levels=levels)
-            f.data = _unique_block(lead + g.array_shape, torch.float32)
-            fields.append((tiles, wrap, depth, levels, f, f.data))
-    hk.halo_exchange.launches = 0
-    for _, _, depth, _, f, _ in fields:
-        f.halo_exchange(depth, transport="remote_dma")
-    torch.cuda.synchronize()
-    launches = hk.halo_exchange.launches
-    if launches != len(fields):
-        raise AssertionError(f"Field.halo_exchange launched {launches} "
-                             f"kernels for {len(fields)} calls")
-    for tiles, wrap, depth, levels, f, a in fields:
-        spec = f.grid.halo_spec
-        want = halo_mod.exchange(a, spec, depth)
-        if not torch.equal(f.data, want):
-            raise AssertionError(f"exchange {tiles} depth {depth} levels "
-                                 f"{levels}: kernel != plain")
-        max_abs = float((f.data - want).abs().max())
-        ms = _time_ms(lambda: hk.exchange_kernel(a, spec, depth), 200)
-        plain_ms = _time_ms(lambda: halo_mod.exchange(a, spec, depth), 50)
-        lib_ms = _gather_ms(a, spec, depth, want, 200)
-        bound = {**_bound(2 * _nbytes(a), 0, torch.float32),
-                 "library_ms": lib_ms}
-        report.append(f"{tiles[0]}x{tiles[1]}{' periodic' if wrap[0] else ''}"
-                      f" depth {depth} {'2D' if levels is None else '3 levels'}"
-                      f": kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-                      f"us, index gather {lib_ms * 1e3:.2f} us, bound "
-                      f"{bound['bound_ms'] * 1e3:.2f} us")
-        if (tiles, depth, levels) == ((2, 2), 8, None):
-            kernels.append({
-                "name": "halo_exchange", "route": "cuda",
-                "source": "dl_esm_inf_tpu_torch/csrc/halo_exchange.cu",
-                "replaces": "dl_esm_inf_tpu/parallel/halo_pallas.py:46",
-                "launches": launches, "max_abs_err": max_abs, "ms": ms,
-                "plain_ms": plain_ms, **bound})
-    print(f"halo_exchange main f32 {N}^2 halo 8 through Field.halo_exchange"
-          f"(transport='remote_dma'): {launches} calls, {launches} launches, "
-          f"bitwise equal to the plain exchange; " + "; ".join(report),
-          flush=True)
-    # a block large enough for the kernel's own time to show past the
-    # host's cost of a call
-    big = 4 * N
-    spec = _exch_grid(2, 2, (False, False), 8, n=big).halo_spec
-    a = _unique_block(spec.array_shape, torch.float32)
-    want = halo_mod.exchange(a, spec, 8)
-    if not torch.equal(hk.exchange_kernel(a, spec, 8), want):
-        raise AssertionError(f"exchange {big}^2: kernel != plain")
-    ms = _time_ms(lambda: hk.exchange_kernel(a, spec, 8), 100)
-    plain_ms = _time_ms(lambda: halo_mod.exchange(a, spec, 8), 20)
-    lib_ms = _gather_ms(a, spec, 8, want, 100)
-    bound = _bound(2 * _nbytes(a), 0, torch.float32)["bound_ms"]
-    print(f"halo_exchange f32 {big}^2 2x2 halo 8 depth 8: kernel "
-          f"{ms * 1e3:.2f} us ({2 * _nbytes(a) / ms / 1e6:.0f} GB/s), plain "
-          f"{plain_ms * 1e3:.2f} us, index gather {lib_ms * 1e3:.2f} us "
-          f"({2 * _nbytes(a) / lib_ms / 1e6:.0f} GB/s), bound "
-          f"{bound * 1e3:.2f} us; bitwise equal", flush=True)
+    kernels.extend(_exchange_main(N))
 
     # the example model on the card, both transports
     for ndom in (1, 2, 4):

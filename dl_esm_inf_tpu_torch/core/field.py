@@ -166,14 +166,20 @@ class Field:
         width), every level at once (field_mod.f90:1231-1256).
 
         ``transport``: ``"ppermute"``, the plain exchange of
-        :mod:`..parallel.halo`, or ``"remote_dma"``, the exchange kernel
-        (:mod:`..parallel.halo_kernel`: one launch on a CUDA grid, its
-        plain version on the CPU).  The names are the JAX package's."""
+        :mod:`..parallel.halo`, which assigns a new tensor to
+        :attr:`data`, or ``"remote_dma"``, the exchange kernel
+        (:func:`..parallel.halo_kernel.remote_dma_exchange`: one launch on
+        a CUDA grid, its plain version on the CPU).  With every tile on
+        this rank and ``depth`` at most the tile extent, ``"remote_dma"``
+        updates :attr:`data` in place, on the card and on the CPU alike
+        (only the halo ring is written): a tensor taken from
+        :attr:`data` before the call sees the exchange.  Otherwise it
+        assigns a new tensor.  The names are the JAX package's."""
         if transport == "ppermute":
             self.data = halo_mod.exchange(self.data, self.grid.halo_spec,
                                           depth)
         elif transport == "remote_dma":
-            self.data = halo_kernel.exchange_kernel(
+            self.data = halo_kernel.remote_dma_exchange(
                 self.data, self.grid.halo_spec, depth)
         else:
             raise ValueError(f"unknown halo transport {transport!r}")

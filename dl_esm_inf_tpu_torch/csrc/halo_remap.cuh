@@ -1,8 +1,8 @@
 // Geometry of the two-phase halo exchange on the stacked layout: the one
 // place that says which cell each point of an exchanged block is copied
 // from.  Both exchange kernels include it: the standalone block exchange
-// (halo_exchange.cu) and the exchange inside the flagship sweep
-// (nemolite2d_sweep.cu, EXCH).  It plays the part of the JAX package's
+// (halo_exchange.cu, both its forms) and the exchange inside the flagship
+// sweep (nemolite2d_sweep.cu, EXCH).  It plays the part of the JAX package's
 // dl_esm_inf_tpu/parallel/rdma.py, which keeps the pieces the two TPU
 // transports must not let drift in one place; its Python mirror is
 // dl_esm_inf_tpu_torch/parallel/halo.py::exchange_index.
@@ -27,11 +27,13 @@
 // side of a walled (non-periodic) axis; one tile on a periodic axis is
 // its own neighbour on both sides.
 //
-// On one card every tile is in one array and the exchange reads only its
-// input and writes a separate output, so no block depends on another:
+// On one card every tile is in one array, read and written by one launch:
 // the readiness fence and the entry barrier the TPU transports need
 // between devices (rdma.py: make_fence, entry_barrier) have nothing to
-// order here.  They come back with exchanges between cards.
+// order here.  They come back with exchanges between cards.  Where the
+// launch writes the array it reads (halo_exchange.cu's ring form), no
+// source may lie in a strip: d <= t on every axis that moves strips, as
+// proved there.
 #pragma once
 
 struct HaloRemap {
@@ -65,4 +67,35 @@ __host__ __device__ inline int halo_remap_row(const HaloRemap& m, int y) {
 __host__ __device__ inline int halo_remap_col(const HaloRemap& m, int x) {
   return halo_remap_axis(x, m.halo, m.depth, m.tile_nx, m.local_nx, m.nprocx,
                          m.wrap_x);
+}
+
+// Whether any column of [x0, x0 + n) reads another column: the same map
+// as halo_remap_col, with one division for the span (which may run on
+// into the tiles after x0's; x0 + n <= nprocx * local_nx).
+__host__ __device__ inline bool halo_remap_cols_move(const HaloRemap& m,
+                                                     int x0, int n) {
+  const int h = m.halo, d = m.depth, t = m.tile_nx, l = m.local_nx;
+  int k = x0 / l, r = x0 - k * l;
+  while (n > 0) {
+    const int e = r + n < l ? r + n : l;  // [r, e) lies in tile k
+    if ((k > 0 || m.wrap_x) && r < h && e > h - d) return true;
+    if ((k < m.nprocx - 1 || m.wrap_x) && r < h + t + d && e > h + t) {
+      return true;
+    }
+    n -= e - r;
+    ++k;
+    r = 0;
+  }
+  return false;
+}
+
+// The first index of the strip that tile k receives along one axis on
+// side 0 (from the tile before it: west or south) or side 1 (from the
+// tile after it: east or north), or -1 where it has no neighbour there.
+// The strips are the indices halo_remap_axis moves, d each.
+__host__ __device__ inline int halo_strip_start(int k, int side, int h,
+                                                int d, int t, int l, int nt,
+                                                int wrap) {
+  if (side == 0) return k > 0 || wrap ? k * l + h - d : -1;
+  return k < nt - 1 || wrap ? k * l + h + t : -1;
 }

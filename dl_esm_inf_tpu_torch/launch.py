@@ -32,13 +32,16 @@ def _free_port() -> int:
 
 def launch(script: str | None, args, num_processes: int = 2,
            port: int | None = None, base_env: dict | None = None, *,
-           module: str | None = None, timeout: float | None = None) -> int:
+           module: str | None = None, timeout: float | None = None,
+           stderr=None) -> int:
     """Spawn ``num_processes`` ranks of ``script`` (or of ``module``);
     returns the first nonzero exit code (0 if all succeed).
     ``port=None`` picks a free rendezvous port (concurrent launches on one
     host must not collide); ``base_env`` replaces the inherited
     environment.  ``timeout`` (seconds) bounds the whole gang: past it
-    every rank is stopped and ``TimeoutError`` raised."""
+    every rank is stopped and ``TimeoutError`` raised.  ``stderr``: a
+    file every rank writes its standard error to (default: this
+    process's)."""
     if (script is None) == (module is None):
         raise ValueError("give exactly one of script and module")
     if num_processes < 1:
@@ -56,7 +59,7 @@ def launch(script: str | None, args, num_processes: int = 2,
                        RANK=str(rank), WORLD_SIZE=str(num_processes),
                        LOCAL_RANK=str(rank))
             procs.append(subprocess.Popen(
-                [sys.executable, *target, *args], env=env))
+                [sys.executable, *target, *args], env=env, stderr=stderr))
         # Poll the whole gang: the first rank to die with a nonzero
         # status terminates the rest, instead of survivors blocking in a
         # collective until its timeout.

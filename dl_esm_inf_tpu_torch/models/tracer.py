@@ -2,7 +2,7 @@
 
 Counterpart of ``dl_esm_inf_tpu/models/tracer.py`` (the standalone
 :class:`TracerModel`; the online-coupled ``CoupledTracer`` is not
-ported yet, ROADMAP A6).  Finite-volume flux form with the tmask
+ported yet, ROADMAP A4).  Finite-volume flux form with the tmask
 philosophy throughout (a face is wet only if both adjacent T cells
 are), so land is a no-flux wall and tracer mass is conserved to
 roundoff.  Two advection schemes:

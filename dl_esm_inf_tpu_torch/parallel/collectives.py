@@ -56,8 +56,9 @@ def gather_to_host(data: torch.Tensor, spec=None) -> np.ndarray:
     """Host copy of a stacked-layout tensor as a numpy array.  With more
     than one rank ``data`` is this rank's block and ``spec`` (the grid's
     :class:`~.halo.HaloSpec`) places it: every rank receives the whole
-    stacked layout."""
-    local = data.detach().cpu()
+    stacked layout.  Always a copy, also of a CPU tensor, so that an
+    in-place exchange of the field later does not change it."""
+    local = data.detach().to("cpu", copy=True)
     nranks = env.get_num_ranks()
     if nranks == 1:
         return local.numpy()

@@ -1,24 +1,32 @@
-"""The halo exchange as one CUDA kernel launch.
+"""The halo exchange as one CUDA kernel launch, in two forms.
 
 Counterpart of ``dl_esm_inf_tpu/parallel/halo_pallas.py``, the JAX
-package's remote-DMA transport.  :func:`make_block_exchange` returns
-``fn(blk) -> blk`` refreshing the halo rings of every tile of one
-stacked-layout block (leading level dims carried) to a depth; what runs
-depends only on where the block lies:
+package's remote-DMA transport.  ``csrc/halo_exchange.cu`` refreshes the
+halo rings of every tile of one stacked-layout block (leading level dims
+carried) to a depth, in one of two launch forms:
 
-* a CUDA tensor launches the hand-written kernel ``csrc/halo_exchange.cu``
-  through :data:`halo_exchange` (built with ``nvcc`` at first use, see
-  :mod:`..ops.cuda_build`), or raises;
-* a CPU tensor runs the kernel's plain version, the port's plain exchange
-  :func:`.halo._exchange_blocks`.
+* functional (:data:`halo_exchange`, :func:`exchange_kernel`,
+  :func:`make_block_exchange`): a new block, as the JAX function
+  returns;
+* ring (:data:`halo_exchange_ring`, :func:`exchange_ring`): the same
+  exchange in place, writing only the ring.  It is race-free only where
+  :func:`ring_in_place` holds (depth <= tile extent on every axis that
+  moves strips).
 
-Both evaluate the two-phase exchange of :mod:`.halo`; the kernel as the
-gather of ``csrc/halo_remap.cuh`` (mirrored by
-:func:`.halo.exchange_index`), one read and one write of the block.
-float32, float64 and int32 blocks move bit for bit.  That is the
-exchange of one rank holding every tile; across ranks (one tile per
-rank) :func:`exchange_kernel` is :func:`.rdma.exchange`, the fenced
-exchange through peer memory.
+What runs depends only on where the block lies: a CUDA tensor launches
+the kernel (built with ``nvcc`` at first use, see
+:mod:`..ops.cuda_build`), or raises; a CPU tensor runs the kernel's
+plain version, the port's plain exchange :func:`.halo._exchange_blocks`
+(the ring form writes its result into the block with ``copy_``, so the
+CPU sees the aliasing the card has).  Both evaluate the two-phase
+exchange of :mod:`.halo` as the gather of ``csrc/halo_remap.cuh``
+(mirrored by :func:`.halo.exchange_index`).  float32, float64 and int32
+blocks move bit for bit.
+
+:func:`remote_dma_exchange` is ``Field.halo_exchange(transport=
+"remote_dma")``: the ring form in place where :func:`ring_in_place`
+holds, else the functional form; across ranks (one tile per rank) the
+fenced exchange through peer memory, :func:`.rdma.exchange`.
 """
 from __future__ import annotations
 
@@ -42,26 +50,57 @@ def remap_args(spec: HaloSpec, depth: int):
     return (ctypes.c_int * len(vals))(*vals)
 
 
-class HaloExchangeKernel:
-    """ctypes wrapper of ``csrc/halo_exchange.cu``.
+def ring_in_place(spec: HaloSpec, depth: int) -> bool:
+    """Whether the exchange of ``depth`` may run in place (the ring form):
+    one rank holds every tile, and ``depth`` is at most the tile extent
+    on every axis that moves strips.  Then every cell of the ring reads a
+    tile's interior, which the exchange does not write
+    (``csrc/halo_exchange.cu`` has the proof); above it a strip reads a
+    neighbour's strip of the same exchange."""
+    return (spec.num_ranks == 1
+            and not ((spec.nprocx > 1 or spec.wrap_x)
+                     and depth > spec.tile_nx)
+            and not ((spec.nprocy > 1 or spec.wrap_y)
+                     and depth > spec.tile_ny))
 
-    ``launches`` counts the kernel launches this wrapper has made (and
-    nothing else); callers may reset it."""
+
+def _check_ring(spec: HaloSpec, depth: int) -> None:
+    if not ring_in_place(spec, depth):
+        raise ValueError(
+            f"the in-place exchange needs depth <= the tile extent on every "
+            f"axis that moves strips (depth {depth}, tiles {spec.tile_ny}x"
+            f"{spec.tile_nx}): take the functional form")
+
+
+class HaloExchangeKernel:
+    """ctypes wrapper of one launch form of ``csrc/halo_exchange.cu``:
+    the functional form (``in_place=False``: returns a new block) or the
+    ring form (``in_place=True``: updates the block, returns it).
+
+    The library is built and bound once, the remap array kept per (spec,
+    depth).  ``launches`` counts the kernel launches this wrapper has
+    made (and nothing else); callers may reset it."""
 
     source = "halo_exchange.cu"
 
-    def __init__(self):
+    def __init__(self, in_place: bool):
+        self.in_place = in_place
         self.launches = 0
         self._fn = None
+        self._remaps: dict = {}
 
     def build(self):
         """Build (once) and bind the library; returns its BuiltLibrary."""
         from ..ops.cuda_build import load_library
         built = load_library("halo_exchange", (self.source,))
         if self._fn is None:
-            fn = built.lib.halo_exchange_launch
-            fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 3
+            if self.in_place:
+                fn = built.lib.halo_exchange_ring_launch
+                ptrs = [ctypes.c_void_p]
+            else:
+                fn = built.lib.halo_exchange_launch
+                ptrs = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_int] + ptrs + [ctypes.c_int] * 3
                            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -82,16 +121,30 @@ class HaloExchangeKernel:
                              f"{tuple(data.shape)}")
         if not data.is_contiguous():
             raise ValueError("the exchanged block must be contiguous")
+        if data.numel() >= 2 ** 31:
+            raise ValueError(f"the exchange kernel takes blocks of fewer "
+                             f"than 2**31 elements, got {data.numel()}")
         _check_depth(spec, depth)
         _check_one_rank(spec)
-        self.build()
-        out = torch.empty_like(data)
+        if self.in_place:
+            _check_ring(spec, depth)
+        if self._fn is None:
+            self.build()
+        remap = self._remaps.get((spec, depth))
+        if remap is None:
+            remap = self._remaps[(spec, depth)] = remap_args(spec, depth)
         ny, nx = spec.array_shape
-        remap = remap_args(spec, depth)
-        err = self._fn(_ELEM_BYTES[data.dtype], data.data_ptr(),
-                       out.data_ptr(), data.numel() // (ny * nx), ny, nx,
-                       remap, len(remap),
-                       torch.cuda.current_stream(data.device).cuda_stream)
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        if self.in_place:
+            out = data
+            err = self._fn(_ELEM_BYTES[data.dtype], data.data_ptr(),
+                           data.numel() // (ny * nx), ny, nx, remap,
+                           len(remap), stream)
+        else:
+            out = torch.empty_like(data)
+            err = self._fn(_ELEM_BYTES[data.dtype], data.data_ptr(),
+                           out.data_ptr(), data.numel() // (ny * nx), ny, nx,
+                           remap, len(remap), stream)
         if err != 0:
             raise RuntimeError(f"halo exchange kernel launch failed: CUDA "
                                f"error {err}")
@@ -99,8 +152,10 @@ class HaloExchangeKernel:
         return out
 
 
-#: the process's one wrapper of the exchange kernel
-halo_exchange = HaloExchangeKernel()
+#: the process's wrappers of the exchange kernel: the functional form and
+#: the ring form
+halo_exchange = HaloExchangeKernel(in_place=False)
+halo_exchange_ring = HaloExchangeKernel(in_place=True)
 
 
 def make_block_exchange(spec: HaloSpec, depth: int = 1,
@@ -131,7 +186,7 @@ def make_block_exchange(spec: HaloSpec, depth: int = 1,
 def exchange_kernel(data: torch.Tensor, spec: HaloSpec,
                     depth: int = 1) -> torch.Tensor:
     """Refresh the halo rings of one stacked-layout tensor through the
-    kernel (its plain version on the CPU); a drop-in for
+    functional form (its plain version on the CPU); a drop-in for
     :func:`.halo.exchange`.  Across ranks: :func:`.rdma.exchange`."""
     if spec.num_ranks > 1:
         return rdma.exchange(data, spec, depth)
@@ -139,3 +194,31 @@ def exchange_kernel(data: torch.Tensor, spec: HaloSpec,
         _check_depth(spec, depth)
         return _exchange_blocks((data,), spec, depth)[0]
     return halo_exchange(data, spec, depth)
+
+
+def exchange_ring(data: torch.Tensor, spec: HaloSpec,
+                  depth: int = 1) -> torch.Tensor:
+    """Refresh the halo rings of one stacked-layout tensor in place
+    through the ring form, and return it.  On the CPU the plain exchange
+    is written into ``data``.  Raises where :func:`ring_in_place` does
+    not hold."""
+    if data.device.type != "cpu":
+        return halo_exchange_ring(data, spec, depth)
+    _check_depth(spec, depth)
+    _check_one_rank(spec)
+    _check_ring(spec, depth)
+    out = _exchange_blocks((data,), spec, depth)[0]
+    if out is not data:
+        data.copy_(out)
+    return data
+
+
+def remote_dma_exchange(data: torch.Tensor, spec: HaloSpec,
+                        depth: int = 1) -> torch.Tensor:
+    """The exchange of ``Field.halo_exchange(transport="remote_dma")``:
+    in place by the ring form where :func:`ring_in_place` holds (returns
+    ``data``), else a new tensor from the functional form, or across
+    ranks from :func:`.rdma.exchange`."""
+    if ring_in_place(spec, depth):
+        return exchange_ring(data, spec, depth)
+    return exchange_kernel(data, spec, depth)

@@ -2,7 +2,7 @@
 (a second one with ``--skeleton``: the sweeps on the shared skeleton).
 
     python dl_esm_inf_tpu_torch/sweep_probe.py [--root DIR] [--n 1024]
-        [--ranks] [--skeleton] [--nlayer-run]
+        [--ranks] [--skeleton] [--nlayer-run] [--exchange]
 
 Run as a file, it imports the port from the checkout at ``--root``
 (default: this file's checkout), so one command can time two trees in
@@ -38,6 +38,15 @@ registers and spilled bytes from its build log.
 
 ``--nlayer-run`` prints one more line: where the N-layer rows' ``run``
 spends its time (:func:`probe_nlayer_run`).
+
+``--exchange`` prints one more line: the standalone exchange
+(``csrc/halo_exchange.cu``) at ``chip_smoke.py``'s configurations
+(:func:`probe_exchange`): the functional form ``exchange_kernel`` and
+``Field.halo_exchange(d, transport="remote_dma")`` (the ring form in
+place, where that checkout has it), each the card's time as a CUDA graph
+of 20 calls (best of 5 replays) beside one wrapper call's time, the
+``aten::index`` gather of ``exchange_index`` and a ``torch.clone`` of
+the block beside them, and each form's byte bound.
 
 ``--ranks`` also runs ``chip_smoke.phase_ranks()`` of that checkout (the
 rdma exchange and the fused transport across 2 and 4 ranks) and prints
@@ -382,6 +391,97 @@ def probe_nlayer_run(n: int) -> dict:
     return out
 
 
+#: the exchanges ``--exchange`` times at float32, halo 8: (tiles, doubly
+#: periodic, depth, levels, global N as a multiple of ``--n``)
+EXCHANGE_CASES = (((2, 2), False, 1, None, 1), ((2, 2), False, 8, None, 1),
+                  ((4, 4), False, 8, None, 1), ((1, 1), True, 8, None, 1),
+                  ((2, 2), False, 8, 3, 1), ((2, 2), False, 8, None, 4))
+
+
+def probe_exchange(n: int) -> dict:
+    """The exchange rows of the module docstring (``exchange_*`` keys, µs
+    unless named), each checked bitwise against the gather first:
+    ``kernel_us`` / ``kernel_call_us`` the functional form,
+    ``field_us`` / ``field_call_us`` ``Field.halo_exchange(d,
+    transport="remote_dma")``, ``gather_us`` the ``aten::index`` gather,
+    ``clone_us`` a ``torch.clone`` of the block (the card's copy rate),
+    ``bound_us`` two passes over the block, ``ring_bound_us`` two over
+    its ring (the cells the exchange map moves), ``field_in_place``
+    whether the field's tensor kept its storage."""
+    import numpy as np
+    import torch
+
+    import dl_esm_inf_tpu_torch as tdl
+    from dl_esm_inf_tpu_torch.parallel import halo as halo_mod
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+
+    dev = torch.device("cuda")
+
+    def call_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return 1e3 * t0.elapsed_time(t1) / reps
+
+    out = {}
+    for tiles, wrap, depth, levels, scale in EXCHANGE_CASES:
+        N = n * scale
+        bc = tdl.BC_PERIODIC if wrap else tdl.BC_EXTERNAL
+        g = tdl.Grid(tdl.ARAKAWA_C, (bc, bc, tdl.BC_NONE), tdl.OFFSET_NE,
+                     dtype=torch.float32, device=dev)
+        g.decompose(N, N, ndomainx=tiles[0], ndomainy=tiles[1],
+                    halo_width=8)
+        tdl.grid_init(g, 1.0, 1.0)
+        spec = g.halo_spec
+        lead = () if levels is None else (levels,)
+        shape = lead + spec.array_shape
+        a = torch.from_numpy(np.random.default_rng(0).permutation(
+            int(np.prod(shape))).reshape(shape)).to(dev, torch.float32)
+        rows, cols = halo_mod.exchange_index(spec, depth, dev)
+        rows = rows[:, None]
+        want = a[..., rows, cols]
+        if not torch.equal(hk.exchange_kernel(a, spec, depth), want):
+            raise AssertionError(f"exchange {tiles} depth {depth} at {N}^2:"
+                                 " kernel != gather")
+        f = tdl.Field(g, tdl.T_POINTS, levels=levels)
+        f.data = a.clone()
+        ptr = f.data.data_ptr()
+        f.halo_exchange(depth, transport="remote_dma")
+        if not torch.equal(f.data, want):
+            raise AssertionError(f"Field.halo_exchange {tiles} depth {depth}"
+                                 f" at {N}^2 != gather")
+        in_place = f.data.data_ptr() == ptr
+        moved = ((rows[:, 0] != torch.arange(rows.shape[0], device=dev))[
+            :, None] | (cols != torch.arange(cols.shape[0], device=dev)))
+        ring_bytes = int(moved.sum()) * (levels or 1) * a.element_size()
+        key = (f"exchange_{N}_{tiles[0]}x{tiles[1]}"
+               f"{'_periodic' if wrap else ''}_d{depth}"
+               f"{'_l%d' % levels if levels else ''}")
+        out[key] = {
+            "kernel_us": 1e3 * _graph_ms(
+                lambda: hk.exchange_kernel(a, spec, depth), 20),
+            "kernel_call_us": call_us(
+                lambda: hk.exchange_kernel(a, spec, depth)),
+            "field_us": 1e3 * _graph_ms(
+                lambda: f.halo_exchange(depth, transport="remote_dma"), 20),
+            "field_call_us": call_us(
+                lambda: f.halo_exchange(depth, transport="remote_dma")),
+            "gather_us": 1e3 * _graph_ms(lambda: a[..., rows, cols], 20),
+            "clone_us": 1e3 * _graph_ms(a.clone, 20),
+            "bound_us": 2 * a.numel() * a.element_size() / 3.35e12 * 1e6,
+            "ring_bound_us": 2 * ring_bytes / 3.35e12 * 1e6,
+            "field_in_place": in_place}
+        del a, f, want
+        torch.cuda.empty_cache()
+    return out
+
+
 #: the N-layer sweeps ``--skeleton`` also times: (layers, dtype, K)
 NLAYER_KEYS = ((5, "float32", 8), (8, "float32", 8), (5, "float64", 8),
                (8, "float64", 8), (16, "float32", 8), (32, "float32", 8),
@@ -446,6 +546,8 @@ def main(argv=None) -> None:
     ap.add_argument("--nlayer-run", action="store_true",
                     help="also split the N-layer rows' run into device "
                     "and host time")
+    ap.add_argument("--exchange", action="store_true",
+                    help="also time the standalone exchange's two forms")
     ap.add_argument("--ranks", action="store_true",
                     help="also run that checkout's chip_smoke.phase_ranks()")
     args = ap.parse_args(argv)
@@ -464,6 +566,9 @@ def main(argv=None) -> None:
               flush=True)
     if args.nlayer_run:
         print(json.dumps({"root": root, **probe_nlayer_run(args.n)}),
+              flush=True)
+    if args.exchange:
+        print(json.dumps({"root": root, **probe_exchange(args.n)}),
               flush=True)
     if args.ranks:
         from concurrent.futures import ThreadPoolExecutor

@@ -1,7 +1,8 @@
 """The port's grid/field/communication API against the JAX package.
 
-The five functional oracles of the JAX package (ROADMAP A3) run against
-the port with the JAX tests' expected values: the hill halo oracle with
+The five functional oracles of the JAX package (ROADMAP.md, "Pruned as
+done": PR 1-6) run against the port with the JAX tests' expected
+values: the hill halo oracle with
 its corners, periodic, integer and multi-level cases
 (tests/test_halo_exchange.py), the checksum and scatter/gather oracles
 (tests/test_reductions.py), the staggered-bounds truth table and the

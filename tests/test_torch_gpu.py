@@ -676,6 +676,114 @@ def test_exchange_kernel_matches_plain(cuda_device, tiles, wrap, halo):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("halo", [1, 2, 8])
+@pytest.mark.parametrize("wrap", [(False, False), (True, False),
+                                  (False, True), (True, True)])
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 1), (1, 2), (2, 2), (3, 2),
+                                   (4, 4)])
+def test_exchange_ring_matches_plain(cuda_device, tiles, wrap, halo):
+    """The ring form updates the block in place (only the ring), bitwise
+    equal to the plain exchange on every cell, at every depth, for
+    float32, float64 and int32, 2D and 3 levels (tiles of at least the
+    halo: every depth is in place)."""
+    from dl_esm_inf_tpu_torch.parallel import halo as hm
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    spec = _exch_grid(cuda_device, tiles, wrap, halo).halo_spec
+    rng = np.random.default_rng(halo)
+    before = hk.halo_exchange_ring.launches
+    n = 0
+    for depth in range(1, halo + 1):
+        assert hk.ring_in_place(spec, depth)
+        for dtype in (torch.float32, torch.float64, torch.int32):
+            for lead in ((), (3,)):
+                shape = lead + spec.array_shape
+                a = torch.from_numpy(rng.permutation(int(np.prod(shape)))
+                                     .reshape(shape)).to(cuda_device, dtype)
+                want = hm._exchange_blocks((a,), spec, depth)[0]
+                blk = a.clone()
+                assert hk.halo_exchange_ring(blk, spec, depth) is blk
+                assert torch.equal(blk, want), (depth, dtype, lead)
+                n += 1
+    torch.cuda.synchronize()
+    assert hk.halo_exchange_ring.launches - before == n
+
+
+def _odd_rows_grid(device, tiles, gnx, gny, halo):
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, device=device)
+    g.decompose(gnx, gny, ndomainx=tiles[0], ndomainy=tiles[1],
+                halo_width=halo)
+    tdl.grid_init(g, 1.0, 1.0)
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("tiles,gnx,gny,halo", [((1, 1), 7, 6, 1),
+                                                ((2, 2), 13, 11, 1),
+                                                ((2, 2), 25, 20, 2),
+                                                ((3, 2), 40, 33, 8)])
+def test_exchange_kernel_element_rows(cuda_device, tiles, gnx, gny, halo,
+                                      dtype, offset):
+    """Rows that are no whole number of 16-byte words (widths of 9, 18,
+    34 and 90 columns: every one at 4 bytes, the 9 at 8), or blocks that
+    are not 16-byte aligned (``offset``): both forms copy by elements
+    there, bitwise equal to the plain exchange."""
+    from dl_esm_inf_tpu_torch.parallel import halo as hm
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    spec = _odd_rows_grid(cuda_device, tiles, gnx, gny, halo).halo_spec
+    es = torch.empty((), dtype=dtype).element_size()
+    shape = (2,) + spec.array_shape
+    n = int(np.prod(shape))
+    vals = torch.from_numpy(np.random.default_rng(gnx).permutation(n + 1))
+    a = vals.to(cuda_device, dtype)[offset:offset + n].view(shape)
+    assert spec.array_shape[1] * es % 16 or a.data_ptr() % 16 or not offset
+    for depth in range(1, halo + 1):
+        want = hm._exchange_blocks((a,), spec, depth)[0]
+        assert torch.equal(hk.halo_exchange(a, spec, depth), want), depth
+        if hk.ring_in_place(spec, depth):
+            blk = vals.to(cuda_device, dtype)[offset:offset + n].view(shape)
+            assert hk.halo_exchange_ring(blk, spec, depth) is blk
+            assert torch.equal(blk, want), depth
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_exchange_ring_checks_its_inputs(cuda_device):
+    from dl_esm_inf_tpu_torch.parallel import halo as hm
+    from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
+    spec = _exch_grid(cuda_device, (2, 2), (True, True), 2).halo_spec
+    a = torch.zeros(spec.array_shape, device=cuda_device)
+    ring = hk.halo_exchange_ring
+    before = ring.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ring(a.cpu(), spec, 1)
+    with pytest.raises(TypeError, match="float32/float64/int32"):
+        ring(a.to(torch.int16), spec, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ring(a.t().contiguous().t(), spec, 1)
+    with pytest.raises(ValueError, match="blocks"):
+        ring(a[:-1], spec, 1)
+    with pytest.raises(ValueError, match="depth"):
+        ring(a, spec, 3)
+    over = hm.HaloSpec(**{**spec.__dict__, "repx": 1})
+    with pytest.raises(NotImplementedError, match="every tile"):
+        ring(torch.zeros(over.array_shape, device=cuda_device), over, 1)
+    small = _odd_rows_grid(cuda_device, (3, 2), 7, 6, 4).halo_spec
+    assert small.tile_nx < 4
+    b = torch.zeros(small.array_shape, device=cuda_device)
+    with pytest.raises(ValueError, match="tile extent"):
+        ring(b, small, 4)
+    assert ring.launches == before
+    # the field's exchange takes the functional form there
+    fun = hk.halo_exchange.launches
+    assert hk.remote_dma_exchange(b, small, 4) is not b
+    assert hk.halo_exchange.launches == fun + 1
+
+
+@pytest.mark.gpu
 def test_exchange_kernel_checks_its_inputs(cuda_device):
     from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk
     spec = _exch_grid(cuda_device, (2, 2), (True, True), 2).halo_spec

@@ -75,13 +75,24 @@ def _gang(tmp_path_factory, nproc, ndomains, legs, *extra):
     with FileLock(str(out) + ".lock"):
         if not out.exists():
             tmp = root / f"torch_mp_np{nproc}.tmp.npz"
-            rc = launch(None, ["--out", str(tmp), "--device", "cpu",
-                               "--ndomains", str(ndomains), "--legs", legs,
-                               *extra],
-                        num_processes=nproc, base_env=_env(),
-                        module="dl_esm_inf_tpu_torch.parallel.mp_check",
-                        timeout=GANG_TIMEOUT)
-            assert rc == 0, f"{nproc}-rank gang exited {rc}"
+            log = root / f"torch_mp_np{nproc}.stderr"
+            t0 = time.monotonic()
+            with open(log, "wb") as err:
+                try:
+                    rc = launch(None, ["--out", str(tmp), "--device", "cpu",
+                                       "--ndomains", str(ndomains), "--legs",
+                                       legs, *extra],
+                                num_processes=nproc, base_env=_env(),
+                                module="dl_esm_inf_tpu_torch.parallel."
+                                "mp_check", timeout=GANG_TIMEOUT, stderr=err)
+                except TimeoutError as e:
+                    rc = e
+            secs = time.monotonic() - t0
+            tail = log.read_bytes()[-3000:].decode(errors="replace")
+            assert rc == 0, (f"{nproc}-rank gang ({legs}): "
+                             f"{'exit code ' if isinstance(rc, int) else ''}"
+                             f"{rc} after {secs:.1f} s (limit {GANG_TIMEOUT}"
+                             f" s); the ranks' stderr ends:\n{tail}")
             os.replace(tmp, out)
     return dict(np.load(out))
 
