@@ -13,7 +13,9 @@ history file and checkpoint, and the port across ranks: the fence's
 oracles and gangs of 2 and 4 ranks on the one card (the launcher, the
 exchange between processes through peer memory, the 2-rank flagship, and
 the flagship's fused transport across ranks: the exchange between
-processes inside the sweep).
+processes inside the sweep), and the differentiable and ensemble paths
+(checkpointed adjoints, the adjoint CG, the coupled tracer, ensembles
+and 4D-Var), which run plain PyTorch on the card.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -199,7 +201,31 @@ Phases (each prints a line; any failure raises and exits non-zero):
    with remote_dma exchanges on the same spec and with the last rank
    50 ms late, bitwise, the rdma sweep's launches (one per sweep), one
    sweep against its plain version, and us per sweep and per step beside
-   the gloo ppermute transport.
+   the gloo ppermute transport;
+20. the adjoint and ensembles on the card (plain PyTorch: the kernels
+   have no backward, and no TPU kernel lies on this path): (a) the
+   flagship at 1024^2 f32 on the plain path, one observation at step
+   64, make_cost_fn's cost and autograd gradient with remat_chunk None,
+   1 and 8, each bitwise equal to the plain one, with ms per cost +
+   gradient and of its forward pass (host clock) and the peak device
+   memory above the memory allocated before it (max_memory_allocated
+   after reset_peak_memory_stats), remat's peak required below the
+   plain one, and one plain cost + gradient under torch.profiler: its
+   device operations per step and the device's busy share;
+   (b) float64 at 32^2, the card against the CPU within 1e-12 relative,
+   cost and gradient of the flagship, the semi-implicit model
+   (differentiable=True) and the coupled tracer, and the semi-implicit
+   gradient against central differences (1e-6); (c) CoupledTracer at
+   1024^2 f32, 100 steps: the flow bitwise equal to a plain flagship run
+   on the card, the tracer's mass (summed in float64) within 1e-7
+   relative, us/step beside the plain flagship's; (d) Ensemble of 8
+   members at 1024^2 f32 for the gravity wave and the flagship, 20
+   steps: every member bitwise equal to its own sequential run, us per
+   ensemble step beside 8 x a single step, and 5 steps of each under
+   torch.profiler (device operations per step, busy share); (e) a
+   50-iteration Adam twin
+   run of the flagship at 256^2 f32: the cost must fall.  The phase
+   prints its seconds.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -3566,6 +3592,385 @@ def _fused_entry(f2: dict, f4: dict, m) -> dict:
     return entry
 
 
+# --- the differentiable and ensemble paths ---------------------------------
+
+#: (a)'s flagship: the main path's width, one observation at step ADJ_STEP
+ADJ_SIZE = 1024
+ADJ_STEP = 64
+#: remat chunks of (a); None is the plain adjoint
+ADJ_CHUNKS = (None, 1, 8)
+#: (b): float64, the card against the CPU
+ADJ_F64_SIZE = 32
+TOL_ADJ_F64 = 1e-12
+#: (c) and (d): steps of the coupled tracer and of the ensembles
+COUPLED_STEPS = 100
+ENS_MEMBERS = 8
+ENS_STEPS = 20
+#: (e): the Adam twin run
+TWIN_SIZE = 256
+TWIN_ITERS = 50
+#: (c): the float32 tracer's mass drift over COUPLED_STEPS steps,
+#: relative.  Each step rounds every cell's update once in float32; over
+#: ~1e6 cells those roundings cancel in the sum like a random walk,
+#: ~eps32 * sqrt(steps / cells) ~ 1e-9 (the card reads 0 to 2.5e-9).  The
+#: worst case, steps * eps32 ~ 1e-5, would let a leak of 1e-7 a step
+#: pass; this limit catches one of 1e-9 a step.
+TOL_MASS_F32 = 1e-7
+
+
+def _smooth_field(seed: int, n: int, amp: float) -> np.ndarray:
+    """A seeded smooth asymmetric field (low Fourier modes): off the
+    upwind selections' exact ties."""
+    rng = np.random.default_rng(seed)
+    z = np.fft.rfft2(rng.standard_normal((n, n)))
+    ky = np.abs(np.fft.fftfreq(n) * n)[:, None]
+    kx = (np.fft.rfftfreq(n) * n)[None, :]
+    f = np.fft.irfft2(np.where((ky <= 3) & (kx <= 3), z, 0), s=(n, n))
+    return amp * f / np.abs(f).max()
+
+
+def _flagship_obs(n, steps, dtype, device, seed=41) -> dict:
+    truth = nl.build(n, n, open_north=True, dtype=dtype, device=device)
+    truth.set_initial_ssh(gaussian_eta(n, n, amp=0.2)
+                          + _smooth_field(seed, n, 0.05))
+    obs, done = {}, 0
+    for t in steps:
+        truth.run(t - done)
+        done = t
+        obs[t] = truth.gather()["sshn"]
+    return obs
+
+
+def _cost_grad(model, obs, x0, remat_chunk=None, index=0, marks=None):
+    """The cost and its autograd gradient at ``x0``; with a list
+    ``marks``, the host clock after the forward pass (the card
+    synchronised) is appended to it."""
+    from dl_esm_inf_tpu_torch.models.assimilation import make_cost_fn
+    cost, pack, _ = make_cost_fn(model, obs, remat_chunk=remat_chunk,
+                                 obs_state_index=index)
+    x = pack(x0).requires_grad_(True)
+    c = cost(x)
+    if marks is not None:
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    (g,) = torch.autograd.grad(c, x)
+    return c.detach(), g
+
+
+def _device_share(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its host ms (the card
+    synchronised at the end), the device operations it ran (kernels,
+    memsets and copies), their summed device ms and the busy share, that
+    sum over the host ms (the operations run one at a time on one
+    stream).  Null where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e.time_range.end - e.time_range.start for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return {"host_ms": wall, "device_ops": None, "busy_ms": None,
+                "busy_share": None}
+    busy = sum(dev) / 1e3
+    return {"host_ms": wall, "device_ops": len(dev), "busy_ms": busy,
+            "busy_share": busy / wall}
+
+
+def _share_text(d: dict, per: int, unit: str, timed_ms: float) -> str:
+    """``_device_share``'s reading; the profiler slows the host, so the
+    busy time is also given over ``timed_ms``, the same work timed
+    without it (stored as ``busy_share_untraced``)."""
+    if d["device_ops"] is None:
+        return "device busy share not measured (the profiler saw no device)"
+    d["busy_share_untraced"] = d["busy_ms"] / timed_ms
+    return (f"device busy share {d['busy_share']:.2f} ({d['busy_ms']:.1f} of "
+            f"{d['host_ms']:.1f} ms traced; {d['busy_share_untraced']:.2f} "
+            f"of {timed_ms:.1f} ms untraced), {d['device_ops'] / per:.0f} "
+            f"device operations per {unit}")
+
+
+def _adjoint_remat() -> dict:
+    """(a) the flagship's plain adjoint at the main path's width against
+    remat: cost and gradient bitwise, ms per cost + gradient, peak device
+    memory above what was allocated before."""
+    n, dtype = ADJ_SIZE, torch.float32
+    obs = _flagship_obs(n, [ADJ_STEP], dtype, DEV)
+    x0 = _smooth_field(42, n, 0.05)
+    out, ref = {}, None
+    for ck in ADJ_CHUNKS:
+        m = nl.build(n, n, open_north=True, dtype=dtype, device=DEV)
+        _cost_grad(m, obs, x0, ck)                     # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+        c, g = _cost_grad(m, obs, x0, ck, marks=marks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - marks[0]) * 1e3
+        fwd_ms = (marks[1] - marks[0]) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (torch.isfinite(c) and torch.isfinite(g).all()):
+            raise AssertionError(f"adjoint remat={ck}: not finite")
+        if ref is None:
+            ref = (c, g)
+            if not float(g.abs().max()) > 0:
+                raise AssertionError("adjoint: zero gradient")
+        elif not (torch.equal(c, ref[0]) and torch.equal(g, ref[1])):
+            raise AssertionError(
+                f"adjoint remat={ck} differs from the plain adjoint: cost "
+                f"{float(c)} vs {float(ref[0])}, gradient max abs diff "
+                f"{float((g - ref[1]).abs().max()):.3e}")
+        out[str(ck)] = {"ms": ms, "forward_ms": fwd_ms,
+                        "peak_bytes": int(peak)}
+        if ck is None:
+            out["trace"] = _device_share(lambda: _cost_grad(m, obs, x0))
+        del c, g, m
+    plain = out["None"]["peak_bytes"]
+    for ck in ADJ_CHUNKS[1:]:
+        if not out[str(ck)]["peak_bytes"] < plain:
+            raise AssertionError(f"remat={ck} peak {out[str(ck)]} not below "
+                                 f"the plain adjoint's {plain}")
+    print(f"adjoint (a): flagship {n}^2 f32, obs at step {ADJ_STEP}: "
+          + "; ".join(f"remat {ck}: {out[str(ck)]['ms']:.1f} ms per cost + "
+                      f"gradient (forward {out[str(ck)]['forward_ms']:.1f}),"
+                      f" peak {out[str(ck)]['peak_bytes'] / 2**20:.1f} MiB"
+                      for ck in ADJ_CHUNKS)
+          + " (host clock; cost and gradient bitwise equal to plain); "
+          + "plain, traced: " + _share_text(out["trace"], ADJ_STEP, "step",
+                                            out["None"]["ms"]),
+          flush=True)
+    return out
+
+
+def _f64_cases():
+    """(b)'s models at ADJ_F64_SIZE, float64, on ``device``: name ->
+    (build, observations, first guess, observed index)."""
+    n = ADJ_F64_SIZE
+    f64 = torch.float64
+
+    def flagship(dev):
+        return nl.build(n, n, open_north=True, dtype=f64, device=dev)
+
+    def semi(dev):
+        return si.build(n, n, dt=1.0, depth=10.0, tol=1e-14,
+                        differentiable=True, dtype=f64, device=dev)
+
+    def coupled(dev):
+        fs = nl.build(n, n, open_north=True, halo_width=2, dtype=f64,
+                      device=dev)
+        fs.set_initial_ssh(gaussian_eta(n, n, amp=0.2)
+                           + _smooth_field(43, n, 0.05))
+        return tr.CoupledTracer(fs, kappa=0.01)
+
+    def obs_of(m, key, setter, x_true, steps):
+        getattr(m, setter)(x_true)
+        out, done = {}, 0
+        for t in steps:
+            m.run(t - done)
+            done = t
+            out[t] = m.gather()[key]
+        return out
+
+    cpu = torch.device("cpu")
+    return {
+        "flagship": (flagship, _flagship_obs(n, [4, 8], f64, cpu),
+                     _smooth_field(44, n, 0.05), 0),
+        "semi_implicit": (semi, obs_of(semi(cpu), "eta", "set_initial_eta",
+                                       gaussian_eta(n, n, amp=0.5), [2, 4]),
+                          0.1 * _smooth_field(45, n, 1.0), 0),
+        "coupled_tracer": (coupled, obs_of(
+            coupled(cpu), "c", "set_initial_tracer",
+            _smooth_field(46, n, 0.8) + 1.0, [5, 10]),
+            _smooth_field(47, n, 0.5) + 1.0, 3),
+    }
+
+
+def _adjoint_f64() -> dict:
+    """(b) cost and gradient at float64 on the card against the CPU, and
+    the semi-implicit gradient against central differences."""
+    from dl_esm_inf_tpu_torch.core import layout
+    from dl_esm_inf_tpu_torch.models.assimilation import make_cost_fn
+    worst = {}
+    cases = _f64_cases()
+    for name, (build, obs, x0, index) in cases.items():
+        got = []
+        for dev in (DEV, torch.device("cpu")):
+            m = build(dev)
+            c, g = _cost_grad(m, obs, x0, index=index)
+            got.append((float(c), layout.unstack_internal(
+                m.grid.decomp, g).cpu().numpy()))
+        (cd, gd), (cc, gc_) = got
+        dc = abs(cd - cc) / abs(cc)
+        dg = float(np.abs(gd - gc_).max() / np.abs(gc_).max())
+        if not (dc <= TOL_ADJ_F64 and dg <= TOL_ADJ_F64):
+            raise AssertionError(f"adjoint f64 {name}: card vs CPU cost "
+                                 f"{dc:.3e}, gradient {dg:.3e}")
+        worst[name] = {"cost": dc, "gradient": dg}
+    # the semi-implicit gradient against central differences
+    build, obs, _x0, _i = cases["semi_implicit"]
+    n = ADJ_F64_SIZE
+    cost, pack, _ = make_cost_fn(build(DEV), obs)
+    x = pack(np.zeros((n, n))).requires_grad_(True)
+    (g,) = torch.autograd.grad(cost(x), x)
+    x = x.detach()
+    h, fd_worst = 1e-6, 0.0
+    with torch.no_grad():
+        for idx in ((6, 8), (11, 5), (20, 17)):
+            ep, em = x.clone(), x.clone()
+            ep[idx] = h
+            em[idx] = -h
+            fd = float((cost(ep) - cost(em)) / (2 * h))
+            err = abs(fd - float(g[idx])) / max(abs(fd), 1e-3)
+            if not err <= 1e-6:
+                raise AssertionError(f"semi-implicit gradient vs central "
+                                     f"differences at {idx}: {err:.3e}")
+            fd_worst = max(fd_worst, err)
+    worst["semi_implicit_fd"] = fd_worst
+    print(f"adjoint (b): f64 {n}^2, card vs CPU max rel diff "
+          + ", ".join(f"{k} cost {v['cost']:.2e} gradient {v['gradient']:.2e}"
+                      for k, v in worst.items() if isinstance(v, dict))
+          + f" (tol {TOL_ADJ_F64:g}); semi-implicit gradient vs central "
+          f"differences {fd_worst:.2e} (tol 1e-6)", flush=True)
+    return worst
+
+
+def _coupled_main() -> dict:
+    """(c) CoupledTracer at the main path's width: its flow bitwise equal
+    to a plain flagship run on the card, tracer mass conserved, us/step."""
+    from dl_esm_inf_tpu_torch.core import layout
+    n, steps = MAIN_SIZE, COUPLED_STEPS
+    ssh0 = gaussian_eta(n, n, amp=0.2) + _smooth_field(48, n, 0.05)
+    plain = nl.build(n, n, open_north=True, halo_width=2, device=DEV)
+    plain.set_initial_ssh(ssh0)
+    plain.run(steps)
+    fs = nl.build(n, n, open_north=True, halo_width=2, device=DEV)
+    fs.set_initial_ssh(ssh0)
+    ct = tr.CoupledTracer(fs, kappa=0.01)
+    ct.set_initial_tracer(gaussian_eta(n, n, amp=1.0, width=0.1) + 0.01)
+    wet = ct._t_upd.double() * torch.from_numpy(
+        layout.internal_mask(fs.grid.decomp)).to(DEV)
+
+    def mass64():
+        """The tracer's mass summed in float64 (the model's own
+        ``mass()`` sums a float32 field in float32)."""
+        return float((ct.c.data.double() * wet).sum())
+
+    m0 = mass64()
+    ct.run(steps)
+    drift = abs(mass64() - m0) / abs(m0)
+    for a, b in ((fs.sshn_t, plain.sshn_t), (fs.un, plain.un),
+                 (fs.vn, plain.vn)):
+        if not torch.equal(a.data, b.data):
+            raise AssertionError("coupled flow differs from the plain "
+                                 "flagship run")
+    if not torch.isfinite(ct.c.data).all():
+        raise AssertionError("coupled tracer not finite")
+    if not drift <= TOL_MASS_F32:
+        raise AssertionError(f"coupled tracer mass drift {drift:.3e}")
+    us = 1e3 * _time_ms(lambda: ct.run(10), 3) / 10
+    us_plain = 1e3 * _time_ms(lambda: plain.run(10), 3) / 10
+    print(f"coupled tracer (c): {n}^2 f32, {steps} steps: flow bitwise "
+          f"equal to the plain flagship, mass drift {drift:.2e} (tol "
+          f"{TOL_MASS_F32:g}); {us:.1f} us/step (plain flagship alone "
+          f"{us_plain:.1f})", flush=True)
+    return {"us_per_step": us, "flagship_us_per_step": us_plain,
+            "mass_drift": drift}
+
+
+def _ensemble_main() -> dict:
+    """(d) Ensembles of ENS_MEMBERS at the main path's width: every
+    member bitwise equal to its own sequential run; us per ensemble step
+    beside the members' sequential steps."""
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    n, M, steps = MAIN_SIZE, ENS_MEMBERS, ENS_STEPS
+    rng = np.random.default_rng(49)
+    out = {}
+    for name, build, setter, amp in (
+            ("gravity_wave", lambda: gw.build(n, n, dt=0.05, depth=10.0,
+                                              device=DEV),
+             "set_initial_eta", 0.5),
+            ("flagship", lambda: nl.build(n, n, open_north=True, device=DEV),
+             "set_initial_ssh", 0.2)):
+        base = gaussian_eta(n, n, amp=amp)
+        x0 = np.stack([base * (1 + 0.1 * k)
+                       + 0.01 * amp * rng.standard_normal((n, n))
+                       for k in range(M)])
+        ens = Ensemble(build(), M)
+        ens.set_member_states(0, x0)
+        ens.run(steps)
+        got = ens.gather_all()
+        for k in range(M):
+            m = build()
+            getattr(m, setter)(x0[k])
+            m.run(steps)
+            want = m.gather()
+            for f, w in zip(ens._field_names, want.values()):
+                if not np.array_equal(got[f][k], w):
+                    raise AssertionError(f"ensemble {name} member {k} field "
+                                         f"{f} differs from its sequential run")
+            if k == 0:
+                single = m
+        if not np.isfinite(got[ens._field_names[0]]).all():
+            raise AssertionError(f"ensemble {name} not finite")
+        us_ens = 1e3 * _time_ms(lambda: ens.run(5), 3) / 5
+        us_one = 1e3 * _time_ms(lambda: single.run(5), 3) / 5
+        tr_ens = _device_share(lambda: ens.run(5))
+        tr_one = _device_share(lambda: single.run(5))
+        out[name] = {"us_per_ensemble_step": us_ens,
+                     "us_per_member_step": us_one,
+                     "us_M_sequential_steps": M * us_one,
+                     "trace_ensemble": tr_ens, "trace_single": tr_one}
+        print(f"ensemble (d): {name} {n}^2 f32, M={M}, {steps} steps: every "
+              f"member bitwise equal to its sequential run; {us_ens:.1f} us "
+              f"per ensemble step vs M x single {M * us_one:.1f} "
+              f"({us_one:.1f} per single step); traced 5 steps: ensemble "
+              f"{_share_text(tr_ens, 5, 'step', 5e-3 * us_ens)}; single "
+              f"{_share_text(tr_one, 5, 'step', 5e-3 * us_one)}", flush=True)
+    return out
+
+
+def _adam_twin() -> dict:
+    """(e) a TWIN_ITERS-iteration Adam twin run of the flagship at
+    TWIN_SIZE^2 f32 on the card: the cost must fall."""
+    from dl_esm_inf_tpu_torch.models.assimilation import assimilate
+    n = TWIN_SIZE
+    obs = _flagship_obs(n, [8, 16], torch.float32, DEV, seed=50)
+    m = nl.build(n, n, open_north=True, device=DEV)
+    t0 = time.perf_counter()
+    res = assimilate(m, obs, iters=TWIN_ITERS, learning_rate=0.05)
+    s = time.perf_counter() - t0
+    hist = res["cost_history"]
+    if not (np.isfinite(hist).all() and np.isfinite(res["eta0"]).all()):
+        raise AssertionError("Adam twin run not finite")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"Adam twin run: cost {hist[0]} -> {hist[-1]}")
+    print(f"adam twin (e): flagship {n}^2 f32, {TWIN_ITERS} iterations: "
+          f"cost {hist[0]:.4e} -> {hist[-1]:.4e} ({hist[-1] / hist[0]:.3e}),"
+          f" {s:.1f} s", flush=True)
+    return {"cost_first": hist[0], "cost_last": hist[-1], "seconds": s}
+
+
+def phase_adjoint_ensembles() -> dict:
+    """Phase 20, the adjoint and ensembles on the card: (a) remat vs the
+    plain adjoint at the flagship's main width, (b) float64 card vs CPU,
+    (c) the coupled tracer, (d) ensembles, (e) an Adam twin run."""
+    t0 = time.perf_counter()
+    out = {"remat": _adjoint_remat(), "f64": _adjoint_f64(),
+           "coupled": _coupled_main(), "ensemble": _ensemble_main(),
+           "adam": _adam_twin()}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"adjoint and ensembles: phase took {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -3598,6 +4003,7 @@ def main() -> None:
     phase_large(kernels)
     kernels.append(phase_fence())
     kernels.extend(phase_ranks())
+    phase_adjoint_ensembles()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,7 @@ from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..core import kinds
 from ..ops import stencils as st
+from ..ops.adjoint import checkpointed_fori
 from ..ops.fastpath import (enable_fast_path, fast_path_grid_args,
                             set_steps_per_exchange)
 from ..ops.fused_step import KMAX, fused_step_reference, make_fused_step
@@ -578,7 +579,17 @@ class NemoLite2D:
         """The schedule of ``nsteps`` steps as a callable
         ``prog(istep0, state, mask_codes[, ht]) -> state``:
         ``nsteps // K`` sweeps of K steps, each after one depth-2K
-        exchange, then ``nsteps % K`` single steps."""
+        exchange, then ``nsteps % K`` single steps.
+
+        ``remat_chunk`` checkpoints the loop for bounded-memory reverse
+        mode (:func:`..ops.adjoint.checkpointed_fori`); it needs the
+        plain path with one step per exchange (the kernels have no
+        backward).  Forward values are bitwise unchanged."""
+        if remat_chunk is not None and (self.use_fused
+                                        or self._sweep_K > 1):
+            raise ValueError(
+                "remat_chunk needs the plain differentiable path: build "
+                "the flagship without fused/steps_per_sweep")
         if overlap:
             if self._in_sweep_exchange:
                 raise ValueError(
@@ -586,10 +597,6 @@ class NemoLite2D:
                     "would exchange twice")
             raise NotImplementedError(
                 f"overlap mode is not ported yet ({_ROADMAP})")
-        if remat_chunk is not None:
-            raise NotImplementedError(
-                "remat_chunk (checkpointed adjoint) is not ported yet "
-                "(see ROADMAP.md queue A10)")
         spec = self.grid.halo_spec
         exch = exchange_multi_fn(spec, depth=min(spec.halo, 2) or 1)
         K = self._sweep_K
@@ -609,10 +616,11 @@ class NemoLite2D:
                         exchK, fusedK, forcing[j * K: (j + 1) * K], *state,
                         mask_codes, dep=dep)
                 base = (nsteps // K) * K
-            for i in range(base, nsteps):
-                state = self._block_step(exch, forcing[i], *state,
-                                         mask_codes, dep=dep)
-            return state
+            # the single steps; with remat_chunk, all of them (K = 1)
+            return checkpointed_fori(
+                nsteps - base, lambda i, s: self._block_step(
+                    exch, forcing[base + i], *s, mask_codes, dep=dep),
+                state, remat_chunk)
         return prog
 
     def run(self, nsteps: int) -> None:

@@ -352,6 +352,15 @@ class NLayerModel(SweepClient):
             self._sweep_cache[K] = sweep
         return self._sweep_cache[K]
 
+    def step_program(self, nsteps: int, remat_chunk: int | None = None):
+        """The K-step schedule of :class:`SweepClient`; the N-layer model
+        has no checkpointed loop (the JAX package's ``step_program``
+        takes no ``remat_chunk``), so a ``remat_chunk`` raises."""
+        if remat_chunk is not None:
+            raise TypeError("the N-layer model's step_program takes no "
+                            "remat_chunk (it has no checkpointed loop)")
+        return super().step_program(nsteps)
+
     def checksums(self) -> dict:
         return {"eta": self.eta.checksum(), "u": self.u.checksum(),
                 "v": self.v.checksum()}

@@ -34,9 +34,10 @@ from ..core.constants import (ARAKAWA_C, BC_EXTERNAL, BC_NONE, OFFSET_NE,
 from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
+from ..ops.adjoint import checkpointed_fori
 from ..ops.solvers import (chebyshev_block, chebyshev_iterations,
                            default_tol, helmholtz_coefficients,
-                           make_helmholtz_matvec, pcg_block)
+                           make_helmholtz_matvec, pcg_block, pcg_solve)
 from ..parallel import environment as env
 from ..parallel import halo as halo_mod
 from ..parallel.collectives import masked_sum
@@ -68,8 +69,11 @@ class SemiImplicitModel:
         preserved) while the explicit part and the external elevation
         ride the rhs.
 
-        ``differentiable=True`` (the JAX package's adjoint solve through
-        ``lax.custom_linear_solve``) is not ported yet."""
+        ``differentiable=True`` swaps the in-step CG for
+        :func:`..ops.solvers.pcg_solve`: reverse mode flows through the
+        implicit step by the adjoint (same symmetric) solve instead of
+        recording the iterations.  The iteration count is then not
+        available (``run`` reports 0)."""
         env.require_one_rank("the semi-implicit model", "M2")
         if not 0.5 <= theta <= 1.0:
             raise ValueError(f"theta must be in [0.5, 1], got {theta}"
@@ -77,15 +81,11 @@ class SemiImplicitModel:
         if solver not in ("cg", "chebyshev"):
             raise ValueError(f"solver must be 'cg' or 'chebyshev', "
                              f"got {solver!r}")
-        if differentiable:
-            if solver != "cg":
-                raise ValueError("differentiable=True requires solver='cg' "
-                                 "(the adjoint linear solve)")
-            raise NotImplementedError(
-                "differentiable=True (the adjoint solve as a "
-                "torch.autograd.Function) is not ported yet (see "
-                "ROADMAP.md queue A10)")
+        if differentiable and solver != "cg":
+            raise ValueError("differentiable=True requires solver='cg' "
+                             "(the adjoint linear solve)")
         self.solver = solver
+        self.differentiable = bool(differentiable)
         self.grid = grid
         self.dt = float(dt)
         self.theta = float(theta)
@@ -236,6 +236,11 @@ class SemiImplicitModel:
                 k = min(k, self.maxiter)
             sol = chebyshev_block(rhs, eta, matvec=mv, lam_min=lmin,
                                   lam_max=lmax, niters=k)
+        elif self.differentiable:
+            sol = pcg_solve(mv, rhs, self._weight, tol=self.tol,
+                            maxiter=self.maxiter, inv_diag=self._inv_diag,
+                            x0=eta, constants=self._coeffs)
+            k = 0
         else:
             sol, k, _rel = pcg_block(mv, rhs, eta, self._weight,
                                      tol=self.tol, maxiter=self.maxiter,
@@ -255,18 +260,21 @@ class SemiImplicitModel:
     def step_program(self, nsteps: int = 1, remat_chunk: int | None = None):
         """``prog(istep0, eta, u, v) -> (eta, u, v, iterations)``
         advancing ``nsteps`` implicit steps; ``iterations`` is the total
-        solver iteration count."""
-        if remat_chunk is not None:
-            raise NotImplementedError(
-                "remat_chunk (checkpointed adjoint) is not ported yet "
-                "(see ROADMAP.md queue A10)")
+        solver iteration count.
 
+        ``remat_chunk`` checkpoints the loop for bounded-memory reverse
+        mode (:func:`..ops.adjoint.checkpointed_fori`).  The trade is
+        steeper here: the backward pass re-runs each step's forward
+        solve (recomputation) besides the adjoint solve of
+        ``differentiable=True``."""
         def prog(istep0, eta, u, v):
-            its = 0
-            for i in range(nsteps):
+            def one(i, carry):
+                eta, u, v, its = carry
                 eta, u, v, k = self._block_step(istep0 + i, eta, u, v)
-                its += k
-            return eta, u, v, its
+                return eta, u, v, its + k
+
+            return checkpointed_fori(nsteps, one, (eta, u, v, 0),
+                                     remat_chunk)
         return prog
 
     def run(self, nsteps: int) -> dict:

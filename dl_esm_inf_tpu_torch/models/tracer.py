@@ -1,8 +1,8 @@
 """Passive tracer transport: flux-form advection-diffusion on the C grid.
 
-Counterpart of ``dl_esm_inf_tpu/models/tracer.py`` (the standalone
-:class:`TracerModel`; the online-coupled ``CoupledTracer`` is not
-ported yet, ROADMAP A4).  Finite-volume flux form with the tmask
+Counterpart of ``dl_esm_inf_tpu/models/tracer.py``: the standalone
+:class:`TracerModel` and :class:`CoupledTracer`, a tracer advected
+online by the evolving flagship flow.  Finite-volume flux form with the tmask
 philosophy throughout (a face is wet only if both adjacent T cells
 are), so land is a no-flux wall and tracer mass is conserved to
 roundoff.  Two advection schemes:
@@ -18,7 +18,8 @@ exchanged once to FULL halo depth, so the temporal-blocking sweep
 recomputes halo cells exactly like their interior twins.
 ``build(fused=True)`` advances K steps per depth-K*reach exchange
 through ``csrc/tracer_sweep.cu`` on a CUDA grid, and through K chained
-plain steps on the CPU.
+plain steps on the CPU.  :class:`CoupledTracer` runs the plain path
+only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,9 +32,12 @@ from ..core.constants import (ARAKAWA_C, BC_EXTERNAL, BC_NONE, OFFSET_NE,
 from ..core.field import Field
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
+from ..ops.adjoint import checkpointed_fori
 from ..ops.fastpath import SweepClient, fast_path_grid_args
 from ..ops.stencil_sweep import StencilSweepKernel, march_threads, tile
+from ..parallel import environment as env
 from ..parallel.collectives import masked_sum
+from ..parallel.halo import exchange_multi_fn
 from .gravity_wave import gaussian_eta, wet_update_masks
 
 #: the process's one wrapper of the tracer sweep kernel; variant 0 is
@@ -190,6 +194,110 @@ class TracerModel(SweepClient):
 
     def checksums(self) -> dict:
         return {"c": self.c.checksum()}
+
+
+class CoupledTracer:
+    """Passive tracer advected ONLINE by the evolving flagship flow (the
+    age/plume-tracer workflow): NEMOLite2D dynamics and tracer transport
+    advance together, with one coalesced 4-field depth-2 halo exchange a
+    step.
+
+    The tracer advects with the START-of-step velocities (first-order
+    operator splitting): they are freshly exchanged and so valid one ring
+    into the halo, where the just-computed end-of-step velocities are
+    not.  The flow is untouched: the coupled flagship trajectory equals a
+    plain flagship run bitwise, and tracer mass is conserved as in the
+    standalone model.  Plain path only (the JAX package's too)."""
+
+    def __init__(self, flagship, kappa: float = 0.0,
+                 scheme: str = "vanleer"):
+        from .nemolite2d import NemoLite2D
+        env.require_one_rank("CoupledTracer", "M3")
+        if not isinstance(flagship, NemoLite2D):
+            raise TypeError("CoupledTracer rides a NemoLite2D model, "
+                            f"got {type(flagship).__name__}")
+        if flagship.use_fused or flagship._sweep_K > 1:
+            raise ValueError(
+                "CoupledTracer wraps the plain path: build the flagship "
+                "without fused/steps_per_sweep")
+        if scheme not in _SCHEMES:
+            raise ValueError(f"scheme must be 'upwind' or 'vanleer', "
+                             f"got {scheme!r}")
+        reach = 1 if scheme == "upwind" else 2
+        h = flagship.grid.halo_spec.halo
+        if h < 2 or h < reach:
+            raise ValueError(
+                "CoupledTracer needs halo_width >= 2 (the flagship's "
+                "communication-free reach-2 chain) and >= the tracer "
+                f"scheme's reach; got {h}")
+        self.flagship = flagship
+        self.grid = flagship.grid
+        self.kappa = float(kappa)
+        self.scheme = scheme
+        self.c = Field(self.grid, T_POINTS)
+        self._t_upd, self._u_wet, self._v_wet = wet_update_masks(
+            self.grid, self.grid.dtype)
+
+    set_initial_tracer = TracerModel.set_initial_tracer
+    mass = TracerModel.mass
+
+    @property
+    def _istep0(self) -> int:
+        """The coupled clock is the flagship's (the ensemble reads it to
+        continue the tidal forcing)."""
+        return self.flagship._istep0
+
+    def _step(self, exch, forcing, ssh, un, vn, c, dep):
+        """One coupled step after one exchange of the four fields (works
+        on blocks with leading axes: an ensemble's members)."""
+        from . import nemolite2d as nl
+        fs = self.flagship
+        dx, dy = self.grid.dx, self.grid.dy
+        ssh, un, vn, c = exch((ssh, un, vn, c))
+        ssh2, un2, vn2 = nl.step_math(ssh, un, vn, fs._mask_codes, fs.p,
+                                      dx, dy, fs._fcor, dep, forcing)
+        c2 = tracer_step(c, un * self._u_wet, vn * self._v_wet,
+                         self._t_upd, self._u_wet, self._v_wet, dx=dx,
+                         dy=dy, dt=fs.p.rdt, kappa=self.kappa,
+                         scheme=self.scheme)
+        return ssh2, un2, vn2, c2
+
+    def step_program(self, nsteps: int = 1,
+                     remat_chunk: int | None = None):
+        """``prog(istep0, (ssh, un, vn, c)[, ht]) -> (ssh, un, vn, c)``
+        advancing ``nsteps`` coupled steps; the tidal forcing of step i
+        is the flagship's at its clock ``istep0 + i``.  ``remat_chunk``
+        checkpoints the loop for reverse mode (source inversion through
+        the evolving flow)."""
+        fs = self.flagship
+        exch = exchange_multi_fn(self.grid.halo_spec, depth=2)
+
+        def prog(istep0, state, *bathy):
+            dep = bathy[0] if bathy else fs.depth
+            forcing = fs.forcing_series(istep0, nsteps)
+
+            def one(i, s):
+                return self._step(exch, forcing[i], *s, dep)
+
+            return checkpointed_fori(nsteps, one, state, remat_chunk)
+        return prog
+
+    def run(self, nsteps: int) -> None:
+        fs = self.flagship
+        bathy = (fs._ht,) if fs._ht is not None else ()
+        out = self.step_program(nsteps)(
+            fs._istep0, (fs.sshn_t.data, fs.un.data, fs.vn.data,
+                         self.c.data), *bathy)
+        fs.sshn_t.data, fs.un.data, fs.vn.data, self.c.data = out
+        fs._istep0 += nsteps
+        # keep the flagship's U/V-face ssh in sync, as its own run does
+        fs.sshn_t.halo_exchange(1, transport=fs._field_transport)
+        fs._sync_face_ssh()
+
+    def gather(self) -> dict:
+        out = self.flagship.gather()
+        out["c"] = self.c.gather_inner_data()
+        return out
 
 
 def streamfunction_velocities(psi: np.ndarray, dx: float = 1.0,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from ..parallel import environment as env
 from ..parallel.halo import exchange_multi_fn
+from .adjoint import checkpointed_fori
 from .stencil_sweep import RING, make_sweep, stencil_sweep_reference
 
 
@@ -124,11 +125,18 @@ class SweepClient:
         """``prog(state) -> state`` advancing ``nsteps``: ``nsteps // K``
         sweeps of K steps, each after one depth-K*reach exchange, then
         ``nsteps % K`` single steps (through the kernel with K = 1 on
-        the fused path)."""
-        if remat_chunk is not None:
-            raise NotImplementedError(
-                "remat_chunk (checkpointed adjoint) is not ported yet "
-                "(see ROADMAP.md queue A10)")
+        the fused path).
+
+        ``remat_chunk`` checkpoints the loop of plain steps for
+        bounded-memory reverse mode (:func:`..ops.adjoint.
+        checkpointed_fori`); the kernels have no backward, so it needs
+        the plain path with one step per exchange.  Forward values are
+        bitwise unchanged."""
+        if remat_chunk is not None and (self.use_fused
+                                        or self._sweep_K > 1):
+            raise ValueError(
+                "remat_chunk needs the plain differentiable path: build "
+                "the model without fused/steps_per_sweep")
         spec = self.grid.halo_spec
         K, fused = self._sweep_K, self.use_fused
         exch1 = exchange_multi_fn(spec, depth=self.reach)
@@ -146,10 +154,14 @@ class SweepClient:
                              else stencil_sweep_reference(
                                  self._step_math, K, s, self._step_aux))
                 base = (nsteps // K) * K
-            for _ in range(base, nsteps):
-                state = (self._make_sweep(1)(exch1(state), self._sweep_aux)
-                         if fused else self._block_step(exch1, *state))
-            return state
+            if fused:
+                for _ in range(base, nsteps):
+                    state = self._make_sweep(1)(exch1(state), self._sweep_aux)
+                return state
+            # the plain single steps; with remat_chunk, all of them (K = 1)
+            return checkpointed_fori(
+                nsteps - base, lambda _i, s: self._block_step(exch1, *s),
+                state, remat_chunk)
         return prog
 
     def run(self, nsteps: int) -> None:

@@ -106,6 +106,67 @@ def pcg_block(matvec, b, x0, weight, *, tol: float, maxiter: int,
     return x, k, rel
 
 
+class _PCGSolve(torch.autograd.Function):
+    """The projected symmetric solve with an implicit backward: the
+    forward is CG under ``no_grad``; the backward is one more solve of
+    the same symmetric system with the cotangent as right-hand side
+    (what ``lax.custom_linear_solve(symmetric=True)`` does in the JAX
+    package), so the iterations are never recorded."""
+
+    @staticmethod
+    def forward(ctx, b, x0, sym_mv, weight, tol, maxiter, inv_diag):
+        start = weight * x0
+        with torch.no_grad():
+            x, _k, _rel = pcg_block(sym_mv, weight * b, start, weight,
+                                    tol=tol, maxiter=maxiter,
+                                    inv_diag=inv_diag)
+        ctx.solve = (sym_mv, start, weight, tol, maxiter, inv_diag)
+        return weight * x
+
+    @staticmethod
+    def backward(ctx, g):
+        sym_mv, start, weight, tol, maxiter, inv_diag = ctx.solve
+        with torch.no_grad():
+            # the JAX package's solve closes over the forward's start
+            # and takes it for the transposed solve too
+            y, _k, _rel = pcg_block(sym_mv, g, start, weight, tol=tol,
+                                    maxiter=maxiter, inv_diag=inv_diag)
+        return weight * (weight * y), None, None, None, None, None, None
+
+
+def pcg_solve(matvec, b, weight, *, tol: float, maxiter: int,
+              inv_diag=None, x0=None, constants=()):
+    """Differentiable per-block solve (the contract of :func:`pcg_block`
+    without the iteration count), the counterpart of the JAX package's
+    ``pcg_solve``: reverse mode never records the CG iterations.
+
+    The raw exchange-then-stencil ``matvec`` is not symmetric on the
+    whole padded block (halo rows break it), so both sides are
+    projected with ``weight``: ``x -> weight * matvec(weight * x)`` is
+    the global symmetric operator on canonical (halo-zeroed) vectors
+    and zero elsewhere.  The forward solves it from ``weight * x0`` with
+    right-hand side ``weight * b``; the backward solves it with the
+    cotangent (implicit differentiation), so the gradient reaches ``b``
+    alone: the start ``x0`` carries none, and the operator must be
+    constant.  ``constants`` are the tensors ``matvec`` closes over
+    (its coefficients); if any of them, ``weight`` or ``inv_diag``
+    requires a gradient this raises.  Returns the canonical solution
+    (halo cells zero: exchange it before stencil use)."""
+    for t in (weight, inv_diag, *constants):
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise ValueError(
+                "pcg_solve differentiates with respect to the right-hand "
+                "side only: the operator's coefficients, weight and "
+                "inv_diag must not require a gradient")
+
+    def sym_mv(x):
+        return weight * matvec(weight * x)
+
+    start = torch.zeros_like(b) if x0 is None else x0.detach()
+    return _PCGSolve.apply(b, start, sym_mv, weight, float(tol),
+                           int(maxiter), inv_diag)
+
+
 def default_tol(dtype) -> float:
     """Dtype-aware default stopping tolerance: 50*eps, floored at 1e-10
     (f64 -> 1e-10, f32 -> 6e-6).  A fixed 1e-10 would make a float32

@@ -133,6 +133,8 @@ def leg_guards(res, a):
     from dl_esm_inf_tpu_torch.models import (gravity_wave, nlayer,
                                              semi_implicit, shallow, tracer,
                                              twolayer)
+    from dl_esm_inf_tpu_torch.models.assimilation import make_cost_fn
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
     from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
     from dl_esm_inf_tpu_torch.ops import solvers
     from dl_esm_inf_tpu_torch.utils import checkpoint
@@ -172,6 +174,9 @@ def leg_guards(res, a):
             "never-written.npz", {"f": fld}),
         "checkpoint_load": lambda: checkpoint.load_fields(
             "never-read.npz", {"f": fld}),
+        "coupled_tracer": lambda: tracer.CoupledTracer(flag),
+        "ensemble": lambda: Ensemble(flag, 2),
+        "assimilation": lambda: make_cost_fn(flag, {1: np.zeros((n, n))}),
     }
     raised, ran = [], []
     for name, fn in cases.items():

@@ -332,7 +332,7 @@ def test_guards_and_no_fallback(name):
     m = c.tmod.build(GNX, GNY, fused=True, **c.kw, **CPU)       # halo = reach
     with pytest.raises(ValueError, match="halo_width"):
         m.enable_fast_path(steps_per_sweep=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="remat"):     # no backward
         m.step_program(4, remat_chunk=2)
     kern = m.sweep_kernel
     meta = [torch.empty((8, 8), dtype=torch.float64, device="meta")

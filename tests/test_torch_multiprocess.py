@@ -233,7 +233,7 @@ def test_gang_guards_raise(np2):
     assert list(np2["guards_raised"]) == sorted(
         set(np2["guards_all"]) - ported)
     assert list(np2["guards_ran"]) == sorted(ported)
-    assert len(np2["guards_all"]) == 15
+    assert len(np2["guards_all"]) == 18
     assert bool(np2["fused_multi_tile_refused"])
 
 

@@ -284,7 +284,7 @@ def test_guards():
         m.enable_fast_path(steps_per_sweep=2, transport="carrier-pigeon")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.step_program(4, overlap=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="remat"):     # no backward
         m.step_program(4, remat_chunk=2)
     fused = m._make_fused(2)
     with pytest.raises(ValueError, match="forcing"):

@@ -321,7 +321,7 @@ def test_guards_and_no_fallback():
     m = tnl.build(32, 32, layers=2, fused=True, **CPU)           # halo = 1
     with pytest.raises(ValueError, match="halo_width"):
         m.enable_fast_path(steps_per_sweep=2)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="remat_chunk"):
         m.step_program(4, remat_chunk=2)
     with pytest.raises(ValueError, match="shape"):
         m.set_initial(np.zeros((3, 32, 32)))
