@@ -13,9 +13,10 @@ history file and checkpoint, and the port across ranks: the fence's
 oracles and gangs of 2 and 4 ranks on the one card (the launcher, the
 exchange between processes through peer memory, the 2-rank flagship, and
 the flagship's fused transport across ranks: the exchange between
-processes inside the sweep), and the differentiable and ensemble paths
+processes inside the sweep), the differentiable and ensemble paths
 (checkpointed adjoints, the adjoint CG, the coupled tracer, ensembles
-and 4D-Var), which run plain PyTorch on the card.
+and 4D-Var), which run plain PyTorch on the card, and the ETKF/LETKF,
+grid nesting and the flagship's overlap mode.
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -225,7 +226,35 @@ Phases (each prints a line; any failure raises and exits non-zero):
    torch.profiler (device operations per step, busy share); (e) a
    50-iteration Adam twin
    run of the flagship at 256^2 f32: the cost must fall.  The phase
-   prints its seconds.
+   prints its seconds;
+21. the ETKF and LETKF, nesting and overlap mode on the card (the filter
+   and the nests run plain PyTorch, as the JAX package runs them; overlap
+   runs the flagship kernel at K=1): (a) one global ETKF analysis of the
+   surface of 8 flagship members at 1024^2 f32 (phase 20 (d)'s set-up)
+   against a truth run: the innovation falls, ms per analysis; (b) the
+   LETKF on 8 gravity-wave members at 1024^2 f32, observations on every
+   64th point per axis (256), L = 6: points farther than 2L + 1 from every
+   observation unchanged within TOL_F32 of each field's largest value,
+   points within L moved, ms per analysis, the batched eigh's ms (CUDA
+   events around its calls) and the peak device memory above the memory
+   held before; (c) scripts/da_demo.py's configuration at f32 (48^2, M=8,
+   4 LETKF cycles with adaptive inflation, then hybrid 4D-EnVar against
+   the static transform) with the demo's asserts; (d) float64 at 24^2,
+   the card against the CPU within 1e-11: the global ETKF's and the
+   LETKF's ensembles after one analysis, a two-way ratio-2 nest after 10
+   parent steps; (e) a gravity-wave parent at 1024^2 f32 with a two-way
+   ratio-4 child over a 256^2 window, 20 parent steps: finite; a ratio-1
+   nest's interior bitwise equal to its parent's window; us per nest step
+   beside one parent step plus 4 child steps; (f) overlap mode, the
+   flagship at 1024^2 f32, halo 2, one tile, 40 steps, plain and
+   fused=True at K=1: bitwise equal to the non-overlapped step on
+   internal points, us/step of both, the K=1 sweep's launches (one per
+   step) and its kernel entry (its card time as a CUDA graph); (g) the
+   same on a 2-rank gang, one tile per rank: bitwise against one process
+   with 2 tiles on the non-overlapped step, us/step with and without
+   overlap, and one overlapped step's device work in order beside the
+   host's exchange call (torch.profiler).  The phase prints its
+   seconds, and each part's.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -3971,6 +4000,528 @@ def phase_adjoint_ensembles() -> dict:
     return out
 
 
+# --- the filter, nesting and overlap mode ------------------------------------
+
+#: (b) the LETKF: observations on every LETKF_STRIDE-th point per axis,
+#: localisation radius LETKF_RADIUS cells
+LETKF_STRIDE = 64
+LETKF_RADIUS = 6.0
+#: (d) float64, the card against the CPU: the CPU tests' tolerance
+DA_F64_SIZE = 24
+TOL_DA_F64 = 1e-11
+#: (d) the nest's gradient: nest steps, and the directional derivative
+#: against central differences (relative; the CPU test's tolerance)
+NEST_GRAD_STEPS = 3
+TOL_NEST_FD = 1e-6
+#: (e) a two-way nest of ratio NEST_RATIO over a NEST_WINDOW^2 window
+NEST_WINDOW = 256
+NEST_RATIO = 4
+NEST_STEPS = 20
+#: (f), (g) overlap mode: steps per run
+OVERLAP_STEPS = 40
+
+
+def _gw_members(n, M, seed, device, dtype=None, amp=0.5):
+    """An Ensemble of M gravity-wave members (dt 0.05, depth 10) from a
+    seeded spread of the bump, and a truth run's start: their mean plus
+    a member-space offset."""
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    rng = np.random.default_rng(seed)
+    base = gaussian_eta(n, n, amp=amp)
+    perts = np.stack([0.2 * _smooth_field(seed + k, n, amp)
+                      for k in range(M)])
+    ens = Ensemble(gw.build(n, n, dt=0.05, depth=10.0, dtype=dtype,
+                            device=device), M)
+    ens.set_member_states(0, base + perts)
+    truth0 = (base + perts.mean(0) + 0.5 * (perts[1] - perts[3])
+              + 0.01 * amp * rng.standard_normal((n, n)))
+    return ens, truth0
+
+
+def _gw_truth(n, x0, steps, device, dtype=None):
+    m = gw.build(n, n, dt=0.05, depth=10.0, dtype=dtype, device=device)
+    m.set_initial_eta(x0)
+    m.run(steps)
+    return m.gather()["eta"]
+
+
+def _analysis_ms(ens, filt, y, mask, reps=3) -> float:
+    """ms per analysis (host clock around synchronised calls), each from
+    the same forecast, restored outside the timed call."""
+    saved = tuple(s.clone() for s in ens.states)
+    total = 0.0
+    for _ in range(reps):
+        ens.states = tuple(s.clone() for s in saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        filt.analysis(y, obs_mask=mask)
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    ens.states = saved
+    return total / reps * 1e3
+
+
+def _etkf_global() -> dict:
+    """(a) one global ETKF analysis of the surface of ENS_MEMBERS
+    flagship members at the main width (phase 20 (d)'s set-up), against
+    a truth run: the innovation falls; ms per analysis."""
+    from dl_esm_inf_tpu_torch.models.enkf import ETKF
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    n, M, steps = MAIN_SIZE, ENS_MEMBERS, ENS_STEPS
+    rng = np.random.default_rng(49)
+    base = gaussian_eta(n, n, amp=0.2)
+    x0 = np.stack([base * (1 + 0.1 * k)
+                   + 0.01 * 0.2 * rng.standard_normal((n, n))
+                   for k in range(M)])
+    truth = nl.build(n, n, open_north=True, device=DEV)
+    truth.set_initial_ssh(base * 1.3 + _smooth_field(52, n, 0.01))
+    truth.run(steps)
+    y = truth.gather()["sshn"]
+    ens = Ensemble(nl.build(n, n, open_north=True, device=DEV), M)
+    ens.set_member_states(0, x0)
+    ens.run(steps)
+    filt = ETKF(ens, sigma=0.01)
+    saved = tuple(s.clone() for s in ens.states)
+    d = filt.analysis(y)
+    if not (d["rms_innovation_after"] < d["rms_innovation_before"]
+            and all(torch.isfinite(s).all() for s in ens.states)):
+        raise AssertionError(f"global ETKF at {n}^2: {d}")
+    ens.states = saved
+    ms = _analysis_ms(ens, filt, y, None)
+    print(f"ETKF (a): global, flagship {n}^2 f32, M={M}, {steps} steps, "
+          f"sigma 0.01 on every wet point: innovation "
+          f"{d['rms_innovation_before']:.4e} -> "
+          f"{d['rms_innovation_after']:.4e}, spread "
+          f"{d['spread_before']:.4e} -> {d['spread_after']:.4e}; "
+          f"{ms:.2f} ms per analysis (host clock)", flush=True)
+    return {"ms": ms, **d}
+
+
+def _letkf_main() -> dict:
+    """(b) the LETKF on ENS_MEMBERS gravity-wave members at the main
+    width, observations on every LETKF_STRIDE-th point per axis: points
+    beyond 2L (+1 cell) of every observation unchanged to the rounding of
+    the identity transform, points near them moved; ms per analysis, the
+    batched eigh's share of it (CUDA events around each eigh call), and
+    the peak device memory above the memory held before."""
+    from dl_esm_inf_tpu_torch.core import layout
+    from dl_esm_inf_tpu_torch.models.enkf import ETKF
+    n, M = MAIN_SIZE, ENS_MEMBERS
+    ens, truth0 = _gw_members(n, M, 53, DEV)
+    y = _gw_truth(n, truth0, 10, DEV)
+    ens.run(10)
+    mask = np.zeros((n, n))
+    off = LETKF_STRIDE // 2
+    mask[off::LETKF_STRIDE, off::LETKF_STRIDE] = 1.0
+    p = int(mask.sum())
+    filt = ETKF(ens, sigma=0.02, localization_radius=LETKF_RADIUS)
+    d_ = ens.grid.decomp
+    before = [layout.unstack_internal(d_, s).clone() for s in ens.states]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    diag = filt.analysis(y, obs_mask=mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    after = [layout.unstack_internal(d_, s) for s in ens.states]
+    # distance of every point to its nearest observation (a lattice)
+    idx = np.arange(n)
+    near1 = np.abs(((idx - off + LETKF_STRIDE // 2) % LETKF_STRIDE)
+                   - LETKF_STRIDE // 2).astype(np.float64)
+    dist = np.sqrt(near1[:, None] ** 2 + near1[None, :] ** 2)
+    far = torch.from_numpy(dist > 2 * LETKF_RADIUS + 1).to(DEV)
+    near = torch.from_numpy(dist <= LETKF_RADIUS).to(DEV)
+    worst = {}
+    for name, b, a in zip(ens._field_names, before, after):
+        scale = float(b.abs().max())
+        far_d = float((a - b).abs()[:, far].max())
+        near_d = float((a - b).abs()[:, near].max())
+        worst[name] = {"far": far_d, "near": near_d, "scale": scale}
+        if not far_d <= TOL_F32 * scale:
+            raise AssertionError(f"LETKF moved {name} beyond 2L of every "
+                                 f"observation: {far_d:.3e} (scale "
+                                 f"{scale:.3e})")
+        if not near_d > TOL_F32 * scale:
+            raise AssertionError(f"LETKF left {name} near the observations "
+                                 f"unchanged: {near_d:.3e}")
+    if not diag["rms_innovation_after"] < diag["rms_innovation_before"]:
+        raise AssertionError(f"LETKF at {n}^2: {diag}")
+    # time it, with CUDA events around every batched eigh
+    eigh, spans = torch.linalg.eigh, []
+
+    def timed_eigh(a):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = eigh(a)
+        t1.record()
+        spans.append((t0, t1))
+        return out
+    reps = 3
+    torch.linalg.eigh = timed_eigh
+    try:
+        ms = _analysis_ms(ens, filt, y, mask, reps)
+    finally:
+        torch.linalg.eigh = eigh
+    torch.cuda.synchronize()
+    eigh_ms = sum(a.elapsed_time(b) for a, b in spans) / reps
+    print(f"LETKF (b): gravity wave {n}^2 f32, M={M}, {p} observations "
+          f"(every {LETKF_STRIDE}th point per axis), L={LETKF_RADIUS:g}: "
+          f"innovation {diag['rms_innovation_before']:.4e} -> "
+          f"{diag['rms_innovation_after']:.4e}; beyond 2L+1 of every "
+          f"observation max |change| "
+          + ", ".join(f"{k} {v['far']:.2e} (near {v['near']:.2e})"
+                      for k, v in worst.items())
+          + f" (tol {TOL_F32:g} x max|field|); {ms:.2f} ms per analysis "
+          f"(host clock), batched eigh of {ens.grid.array_shape[0]}x"
+          f"{ens.grid.array_shape[1]} ({M}, {M}) matrices in "
+          f"{len(spans) // reps} calls {eigh_ms:.2f} ms "
+          f"({eigh_ms / ms:.2f} of it); peak {peak / 2**30:.2f} GiB above "
+          f"the memory held before", flush=True)
+    return {"ms": ms, "eigh_ms": eigh_ms, "peak_bytes": int(peak),
+            "observations": p, "unchanged": worst}
+
+
+def _da_demo() -> dict:
+    """(c) scripts/da_demo.py's configuration on the card at float32:
+    48^2, M=8, 4 cycles of LETKF with adaptive inflation, then hybrid
+    4D-EnVar against the static transform, with the demo's asserts."""
+    from dl_esm_inf_tpu_torch.models.assimilation import assimilate
+    from dl_esm_inf_tpu_torch.models.enkf import ETKF
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+
+    def smooth_noise(rng, N, ncut=3):
+        z = np.fft.rfft2(rng.standard_normal((N, N)))
+        ky = np.abs(np.fft.fftfreq(N) * N)[:, None]
+        kx = (np.fft.rfftfreq(N) * N)[None, :]
+        f = np.fft.irfft2(np.where((ky <= ncut) & (kx <= ncut), z, 0),
+                          s=(N, N))
+        return f / np.abs(f).max()
+
+    t0 = time.perf_counter()
+    N, M, fsteps, cycles = 48, 8, 6, 4
+    rng = np.random.default_rng(0)
+    base = gaussian_eta(N, N, amp=0.3)
+    perts = np.stack([0.2 * smooth_noise(rng, N) for _ in range(M)])
+    eta_true = (base + perts.mean(0) + 0.5 * (perts[1] - perts[3])
+                + 0.05 * smooth_noise(rng, N))
+
+    def model():
+        return gw.build(N, N, dt=0.05, depth=10.0, device=DEV)
+    truth = model()
+    truth.set_initial_eta(eta_true)
+    obs = []
+    for _ in range(cycles):
+        truth.run(fsteps)
+        obs.append(truth.gather()["eta"])
+    ens = Ensemble(model(), M)
+    ens.set_member_states(0, base + perts)
+    filt = ETKF(ens, sigma=1e-3, localization_radius=6.0,
+                adaptive_inflation=True, inflation_max=10.0)
+    cyc = []
+    for y in obs:
+        ens.run(fsteps)
+        d = filt.analysis(y)
+        cyc.append(d)
+        if not d["rms_innovation_after"] < d["rms_innovation_before"]:
+            raise AssertionError(f"DA demo LETKF cycle {len(cyc)}: {d}")
+    ow = np.zeros((N, N))
+    ow[2::4, 2::4] = 1.0
+    sparse_obs = {(k + 1) * fsteps: o for k, o in enumerate(obs[:2])}
+    ens0 = Ensemble(model(), M)
+    ens0.set_member_states(0, base + perts)
+    err = {}
+    for mode in ("static", "hybrid"):
+        res = assimilate(model(), sparse_obs, iters=60, optimizer="lbfgs",
+                         obs_weight=ow, smooth_scale=2.0,
+                         background_weight=1e-5,
+                         ensemble=ens0 if mode == "hybrid" else None)
+        err[mode] = float(np.sqrt(np.mean(
+            (res["eta0"][1:-1, 1:-1] - eta_true[1:-1, 1:-1]) ** 2)))
+    if not err["hybrid"] < err["static"]:
+        raise AssertionError(f"DA demo: hybrid 4D-EnVar {err['hybrid']:.4e}"
+                             f" not below the static transform "
+                             f"{err['static']:.4e}")
+    s = time.perf_counter() - t0
+    print("DA demo (c): 48^2 f32, M=8, LETKF cycles innovation "
+          + ", ".join(f"{d['rms_innovation_before']:.4f}->"
+                      f"{d['rms_innovation_after']:.4f} (rho "
+                      f"{d['inflation']:.2f})" for d in cyc)
+          + f"; 4D-EnVar RMS error hybrid {err['hybrid']:.4f} < static "
+          f"{err['static']:.4f}; {s:.1f} s", flush=True)
+    return {"cycles": cyc, "error": err, "seconds": s}
+
+
+def _da_f64() -> dict:
+    """(d) float64 at DA_F64_SIZE^2, the card against the CPU: the
+    global ETKF's and the LETKF's ensembles after one analysis, and a
+    two-way ratio-2 nest after 10 parent steps."""
+    from dl_esm_inf_tpu_torch.models.enkf import ETKF
+    from dl_esm_inf_tpu_torch.models.nesting import OneWayNest
+    n, f64 = DA_F64_SIZE, torch.float64
+    cpu = torch.device("cpu")
+    worst = {}
+    for rad in (None, 4.0):
+        got = []
+        for dev in (DEV, cpu):
+            ens, truth0 = _gw_members(n, 5, 54, dev, dtype=f64)
+            y = _gw_truth(n, truth0, 4, cpu, dtype=f64)
+            ens.run(4)
+            ETKF(ens, sigma=0.02, localization_radius=rad).analysis(y)
+            got.append(ens.gather_all())
+        worst["letkf" if rad else "etkf"] = max(
+            float(np.abs(got[0][k] - got[1][k]).max()) for k in got[0])
+    got = []
+    for dev in (DEV, cpu):
+        parent = gw.build(n, n, dt=0.02, depth=10.0, dtype=f64, device=dev)
+        parent.set_initial_eta(gaussian_eta(n, n, width=0.08))
+        nest_ = OneWayNest(parent, origin=(6, 6), shape=(12, 12), ratio=2,
+                           two_way=True)
+        nest_.sync_from_parent()
+        nest_.run(10)
+        got.append([parent.eta.gather_inner_data(),
+                    nest_.child.eta.gather_inner_data(),
+                    nest_.child.u.gather_inner_data()])
+    worst["nest"] = max(float(np.abs(a - b).max())
+                        for a, b in zip(*got))
+    if not all(v <= TOL_DA_F64 for v in worst.values()):
+        raise AssertionError(f"filter / nest f64 card vs CPU: {worst}")
+    grad = _nest_grad_f64()
+    print(f"f64 (d): {n}^2, the card against the CPU, max abs: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (tol {TOL_DA_F64:g}); nest gradient: card vs CPU "
+          f"{grad['card_vs_cpu']:.2e} of its largest entry (tol "
+          f"{TOL_DA_F64:g}), directional derivative vs central differences "
+          f"{grad['vs_fd_rel']:.2e} relative (tol {TOL_NEST_FD:g}), two "
+          f"card runs differ by {grad['card_repeat']:.2e} (atomic adds; "
+          f"not required bitwise)", flush=True)
+    return {**worst, **{f"nest_grad_{k}": v for k, v in grad.items()}}
+
+
+def _nest_grad_f64() -> dict:
+    """(d) the two-way ratio-2 nest's gradient at float64: d/d(parent
+    eta) of the child's eta energy after NEST_GRAD_STEPS nest steps, on
+    the card and on the CPU.  The backward of the ring's bilinear gather
+    adds into repeated indices (atomic adds on the card), so the card's
+    gradient is held to the CPU's within TOL_DA_F64 of its largest entry
+    and its directional derivative to central differences within
+    TOL_NEST_FD relative, never bitwise."""
+    from dl_esm_inf_tpu_torch.models.nesting import OneWayNest
+    n, f64 = DA_F64_SIZE, torch.float64
+    grads, fd, vdot = {}, None, None
+    for where, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        parent = gw.build(n, n, dt=0.02, depth=10.0, dtype=f64, device=dev)
+        parent.set_initial_eta(gaussian_eta(n, n, width=0.08))
+        nest_ = OneWayNest(parent, origin=(6, 6), shape=(12, 12), ratio=2,
+                           two_way=True)
+        nest_.sync_from_parent()
+        prog, c = nest_.step_program(NEST_GRAD_STEPS), nest_.child
+        tree0 = (((c.eta.data, c.u.data, c.v.data), ()),)
+        eta0 = parent.eta.data
+
+        def loss(p_eta):
+            out = prog(((p_eta, parent.u.data, parent.v.data), tree0))
+            return torch.sum(out[1][0][0][0] ** 2)
+
+        def grad():
+            x = eta0.clone().requires_grad_(True)
+            return torch.autograd.grad(loss(x), x)[0]
+        g = grad()
+        grads[where] = g.cpu().numpy()
+        if where == "card":
+            repeat = float((grad() - g).abs().max())
+            v = torch.from_numpy(np.random.RandomState(0).normal(
+                size=tuple(eta0.shape))).to(dev)
+            eps = 1e-6
+            with torch.no_grad():
+                fd = (float(loss(eta0 + eps * v))
+                      - float(loss(eta0 - eps * v))) / (2 * eps)
+            vdot = float(torch.sum(g * v))
+    scale = float(np.abs(grads["cpu"]).max())
+    out = {"card_vs_cpu": float(np.abs(grads["card"] - grads["cpu"]).max())
+           / scale,
+           "vs_fd_rel": abs(vdot - fd) / abs(fd), "card_repeat": repeat}
+    if not (scale > 0.0 and out["card_vs_cpu"] <= TOL_DA_F64
+            and out["vs_fd_rel"] <= TOL_NEST_FD):
+        raise AssertionError(f"nest gradient on the card: {out}")
+    return out
+
+
+def _nest_main() -> dict:
+    """(e) a gravity-wave parent at the main width with a two-way child
+    of ratio NEST_RATIO over a NEST_WINDOW^2 window, NEST_STEPS parent
+    steps: finite; a ratio-1 nest's interior bitwise equal to its
+    parent's window; us per nest step beside one parent step plus
+    NEST_RATIO child steps."""
+    from dl_esm_inf_tpu_torch.models.nesting import OneWayNest
+    n, w, r = MAIN_SIZE, NEST_WINDOW, NEST_RATIO
+    o = (n - w) // 2
+
+    def parent():
+        p = gw.build(n, n, dt=0.05, depth=10.0, device=DEV)
+        p.set_initial_eta(gaussian_eta(n, n, amp=0.5))
+        return p
+    p1 = parent()
+    one = OneWayNest(p1, origin=(o, o), shape=(w, w), ratio=1)
+    one.sync_from_parent()
+    one.run(NEST_STEPS)
+    pg = p1.eta.gather_inner_data()
+    cg = one.child.eta.gather_inner_data()
+    if not np.array_equal(cg[2:-2, 2:-2], pg[o + 2:o + w - 2,
+                                             o + 2:o + w - 2]):
+        raise AssertionError("ratio-1 nest: child interior differs from "
+                             "the parent window")
+    p = parent()
+    nest_ = OneWayNest(p, origin=(o, o), shape=(w, w), ratio=r,
+                       two_way=True)
+    nest_.sync_from_parent()
+    nest_.run(NEST_STEPS)
+    for f in (p.eta, p.u, p.v, nest_.child.eta, nest_.child.u,
+              nest_.child.v):
+        if not torch.isfinite(f.data).all():
+            raise AssertionError("two-way nest not finite")
+    us = 1e3 * _time_ms(lambda: nest_.run(5), 3) / 5
+    us_p = 1e3 * _time_ms(lambda: p.run(5), 3) / 5
+    us_c = 1e3 * _time_ms(lambda: nest_.child.run(5 * r), 3) / 5
+    cny = nest_.child.grid.decomp.global_ny
+    print(f"nest (e): gravity wave {n}^2 f32, two-way ratio {r} over a "
+          f"{w}^2 window (child {cny}^2), {NEST_STEPS} parent steps: "
+          f"finite; ratio-1 child interior bitwise equal to the parent "
+          f"window; {us:.1f} us per nest step vs parent step {us_p:.1f} + "
+          f"{r} child steps {us_c:.1f} = {us_p + us_c:.1f}", flush=True)
+    return {"us_per_nest_step": us, "us_parent_step": us_p,
+            "us_child_steps": us_c}
+
+
+def _overlap_one() -> tuple[dict, dict]:
+    """(f) the flagship at the main width, halo 2, one tile, OVERLAP_STEPS
+    steps, plain and fused=True at K=1: overlap bitwise equal to the
+    non-overlapped step at internal points; us/step of both; the K=1
+    sweep's launches on the overlapped run and its kernel entry."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    n, steps = MAIN_SIZE, OVERLAP_STEPS
+    out, entry = {}, None
+    for fused in (False, True):
+        m = mpc.overlap_model(n, n, 1, fused, False, DEV)
+        inner = m.sshn_t.internal_mask.bool()
+        ref = mpc.overlap_run(m, steps, False)
+        torch.cuda.synchronize()
+        fs.nemolite2d_sweep.launches = 0
+        got = mpc.overlap_run(m, steps, True)
+        torch.cuda.synchronize()
+        launches = fs.nemolite2d_sweep.launches
+        for a, b in zip(got, ref):
+            if not torch.equal(a[inner], b[inner]):
+                raise AssertionError(
+                    f"overlap (fused={fused}) differs from the "
+                    f"non-overlapped step: max abs "
+                    f"{float((a - b).abs()[inner].max()):.3e}")
+        if launches != (steps if fused else 0):
+            raise AssertionError(f"overlap fused={fused}: {launches} sweep "
+                                 f"launches in {steps} steps")
+        nt = mpc.OVERLAP_TIMED_STEPS
+        us = {ov: 1e3 * _time_ms(lambda: mpc.overlap_run(m, nt, ov), 3)
+              / nt for ov in (False, True)}
+        tag = "fused" if fused else "plain"
+        out[tag] = {"us_step": us[False], "us_overlap": us[True]}
+        print(f"overlap (f): flagship {n}^2 f32 halo 2, one tile, {steps} "
+              f"steps, {tag}: bitwise equal to the non-overlapped step on "
+              f"internal points; {us[True]:.2f} us/step overlapped vs "
+              f"{us[False]:.2f} not; sweep launches {launches}", flush=True)
+        if fused:
+            entry = _flagship_entry(m, 1, launches,
+                                    "nemolite2d_sweep_k1_overlap",
+                                    "dl_esm_inf_tpu/ops/pallas_step.py:33")
+            fused1 = m._make_fused(1)
+            state = (m.sshn_t.data, m.un.data, m.vn.data)
+            forcing = m.forcing_series(m._istep0, 1)
+            entry["wrapper_ms"] = entry["ms"]
+            entry["ms"] = _graph_ms(
+                lambda: fused1(*state, m._mask_codes, forcing), 20)
+            entry["path"] = ("the overlapped step's interior (K=1 on the "
+                             "un-exchanged block), 1 launch per step")
+    return out, entry
+
+
+def _overlap_ranks() -> dict:
+    """(g) overlap on a 2-rank gang, one tile per rank: every
+    configuration bitwise against one process with 2 tiles on the
+    non-overlapped step; us/step with and without overlap; one
+    overlapped step's device work in order beside the host's exchange
+    call."""
+    import tempfile
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    n, steps = MAIN_SIZE, OVERLAP_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        r2 = _gang(2, "overlap", Path(tmp) / "ov2.npz", "--overlap-shape",
+                   f"{n}x{n}", "--overlap-steps", str(steps),
+                   "--overlap-depths", "flat")
+    out = {}
+    for fused in (False, True):
+        tag = f"{'fused' if fused else 'plain'}_flat"
+        m = mpc.overlap_model(n, n, 2, fused, False, DEV)
+        want = mpc.overlap_gather(m, mpc.overlap_run(m, steps, False))
+        for k, v in want.items():
+            for mode in ("overlap", "step"):
+                if not np.array_equal(r2[f"ov_{tag}_{mode}_{k}"], v):
+                    raise AssertionError(f"2 ranks {tag} {mode} {k} differs "
+                                         f"from one process with 2 tiles")
+        if fused and int(r2[f"ov_launches_{tag}"]) != 2 * steps:
+            raise AssertionError(f"2 ranks {tag}: "
+                                 f"{int(r2[f'ov_launches_{tag}'])} sweep "
+                                 f"launches per rank in 2 x {steps} steps")
+        out[tag] = {"us_step": float(r2[f"ov_us_{tag}_step"]),
+                    "us_overlap": float(r2[f"ov_us_{tag}_overlap"])}
+        shown = ""
+        if fused:
+            starts = r2[f"ov_order_start_us_{tag}"]
+            t_0 = float(starts.min()) if len(starts) else 0.0
+            out[tag]["order"] = order = [
+                (str(nm), float(a) - t_0, float(b) - t_0)
+                for nm, a, b in zip(r2[f"ov_order_{tag}"], starts,
+                                    r2[f"ov_order_end_us_{tag}"])]
+            wait = (None if f"ov_wait_us_{tag}" not in r2 else
+                    [float(x) - t_0 for x in r2[f"ov_wait_us_{tag}"]])
+            out[tag]["wait"] = wait
+            shown = ("; one overlapped step on rank 0 (us from its first "
+                     "device operation): "
+                     + "; ".join(f"{nm[:40]} {a:.0f}-{b:.0f}"
+                                 for nm, a, b in order[:12])
+                     + "; the host's exchange call "
+                     + ("not traced" if wait is None
+                        else f"{wait[0]:.0f}-{wait[1]:.0f}"))
+        print(f"overlap (g): 2 ranks x 1 tile, flagship {n}^2 f32 halo 2, "
+              f"{steps} steps, {tag}: overlapped and not, bitwise equal to "
+              f"one process with 2 tiles; {out[tag]['us_overlap']:.2f} "
+              f"us/step overlapped vs {out[tag]['us_step']:.2f} not"
+              + shown, flush=True)
+    return out
+
+
+def phase_filter_nest_overlap() -> tuple[dict, dict]:
+    """Phase 21, the ETKF and LETKF, nesting and overlap mode on the card:
+    (a) the global ETKF and (b) the LETKF at the main width, (c) the DA
+    demo's configuration, (d) float64 card vs CPU, (e) nesting at the
+    main width, (f) overlap in one process and (g) on 2 ranks.  Returns
+    the phase's numbers and the overlap's kernel entry."""
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for name, part in (("etkf", _etkf_global), ("letkf", _letkf_main),
+                       ("da_demo", _da_demo), ("f64", _da_f64),
+                       ("nest", _nest_main), ("overlap", _overlap_one),
+                       ("overlap_ranks", _overlap_ranks)):
+        t1 = time.perf_counter()
+        out[name] = part()
+        secs[name] = time.perf_counter() - t1
+    out["overlap"], entry = out["overlap"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"filter, nesting and overlap: phase took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")",
+          flush=True)
+    return out, entry
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -4004,6 +4555,7 @@ def main() -> None:
     kernels.append(phase_fence())
     kernels.extend(phase_ranks())
     phase_adjoint_ensembles()
+    kernels.append(phase_filter_nest_overlap()[1])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

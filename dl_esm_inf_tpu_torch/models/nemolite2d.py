@@ -44,9 +44,7 @@ from ..ops.adjoint import checkpointed_fori
 from ..ops.fastpath import (enable_fast_path, fast_path_grid_args,
                             set_steps_per_exchange)
 from ..ops.fused_step import KMAX, fused_step_reference, make_fused_step
-from ..parallel.halo import exchange_multi_fn
-
-_ROADMAP = "see ROADMAP.md queue M4"
+from ..parallel.halo import exchange_multi, exchange_multi_fn
 
 
 @dataclass(frozen=True)
@@ -427,6 +425,8 @@ class NemoLite2D:
         #: around the kernel) or "fused" (the exchange inside it)
         self._transport = "ppermute"
         self._fused_cache = {}
+        #: the overlapped step's side stream (made on its first CUDA use)
+        self._side_stream = None
 
     def _valid_cell_mask(self) -> np.ndarray:
         """Cells representing a real global cell (internal, or a halo
@@ -584,20 +584,37 @@ class NemoLite2D:
         ``remat_chunk`` checkpoints the loop for bounded-memory reverse
         mode (:func:`..ops.adjoint.checkpointed_fori`); it needs the
         plain path with one step per exchange (the kernels have no
-        backward).  Forward values are bitwise unchanged."""
+        backward).  Forward values are bitwise unchanged.
+
+        ``overlap=True`` runs one step at a time with the halo exchange
+        overlapped by the interior's compute (:meth:`_block_step_overlap`;
+        one tile per rank, halo >= 2, K = 1); internal points are bitwise
+        the non-overlapped step's."""
         if remat_chunk is not None and (self.use_fused
                                         or self._sweep_K > 1):
             raise ValueError(
                 "remat_chunk needs the plain differentiable path: build "
                 "the flagship without fused/steps_per_sweep")
+        spec = self.grid.halo_spec
         if overlap:
             if self._in_sweep_exchange:
                 raise ValueError(
-                    "overlap mode is redundant with transport='fused' and "
-                    "would exchange twice")
-            raise NotImplementedError(
-                f"overlap mode is not ported yet ({_ROADMAP})")
-        spec = self.grid.halo_spec
+                    "overlap mode is redundant with transport='fused' (the "
+                    "sweep already exchanges inside the kernel) and would "
+                    "exchange twice")
+            if spec.repx > 1 or spec.repy > 1:
+                raise NotImplementedError(
+                    "overlap mode supports one tile per rank")
+            if spec.halo < 2:
+                raise ValueError("overlap mode needs halo_width >= 2")
+            if spec.tile_nx < 8 or spec.tile_ny < 8:
+                raise ValueError("overlap mode needs tiles >= 8x8")
+            if self._sweep_K > 1:
+                raise ValueError(
+                    "overlap mode runs one step at a time; rebuild with "
+                    "steps_per_sweep=1 (temporal blocking already "
+                    "amortises the exchange it would overlap)")
+            return self._overlap_program(nsteps, remat_chunk)
         exch = exchange_multi_fn(spec, depth=min(spec.halo, 2) or 1)
         K = self._sweep_K
         if K > 1 and nsteps >= K:
@@ -620,6 +637,94 @@ class NemoLite2D:
             return checkpointed_fori(
                 nsteps - base, lambda i, s: self._block_step(
                     exch, forcing[base + i], *s, mask_codes, dep=dep),
+                state, remat_chunk)
+        return prog
+
+    def _block_step_overlap(self, forcing, sshn_t, un, vn, mask_codes,
+                            dep=None):
+        """One step with the exchange overlapped by the interior's
+        compute (the JAX package's ``_block_step_overlap``).
+
+        The interior is computed from the STALE block (the un-exchanged
+        state) while the block is exchanged: on the card it runs on a
+        side stream, so the exchange on the current stream (across
+        ranks, its strips staged to the host) does not queue behind it.
+        Only four 8-wide bands, the cells within stencil reach of a
+        halo, are then recomputed from the exchanged block by the plain
+        step and pasted over the interior's result at ``[2, B-2)`` of
+        each band.  Each point's arithmetic is the non-overlapped step's,
+        so internal points are bitwise equal to it; halo cells differ
+        (the plain step computes them).  With ``use_fused`` the interior
+        is the K=1 sweep kernel."""
+        spec = self.grid.halo_spec
+        h = spec.halo
+        w, hgt = spec.tile_nx, spec.tile_ny
+        B = 8                                   # band slice thickness
+        ht = dep if self._ht is not None else None
+
+        def run(s, u, v, c, ht=None):
+            # variable bathymetry: face depths derived per (sub-)block;
+            # band edges polluted by the average's wrap lie outside the
+            # pasted rows, like the state's rolls
+            dd = ((ht, st.avg_x(ht), st.avg_y(ht)) if ht is not None
+                  else self.depth)
+            return step_math(s, u, v, c, self.p, self.grid.dx, self.grid.dy,
+                             self._fcor, dd, forcing, exch_mid=None)
+
+        def interior():
+            if self.use_fused:
+                return list(self._make_fused(1)(sshn_t, un, vn, mask_codes,
+                                                [forcing], ht=ht))
+            return list(run(sshn_t, un, vn, mask_codes, ht=ht))
+
+        def exchange():
+            with torch.profiler.record_function("nemolite2d.overlap_exchange"):
+                return exchange_multi((sshn_t, un, vn), spec, depth=2)
+
+        dev = sshn_t.device
+        if dev.type == "cuda":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(dev)
+            main, side = torch.cuda.current_stream(dev), self._side_stream
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = interior()
+            fresh = exchange()
+            main.wait_stream(side)
+            for t in out:               # made on the side stream, used here
+                t.record_stream(main)
+        else:
+            out = interior()
+            fresh = exchange()
+
+        def paste(sl, tgt, src):
+            band = run(*(f[sl] for f in fresh), mask_codes[sl],
+                       ht=None if ht is None else ht[sl])
+            for k in range(3):
+                # the interior's outputs are fresh tensors no operation
+                # saved for its backward, so the bands write them in place
+                out[k][tgt] = band[k][src]
+
+        inner, every = slice(2, B - 2), slice(None)
+        for r0 in (h - 2, h + hgt - (B - 2)):      # south, north rows
+            paste((slice(r0, r0 + B), every),
+                  (slice(r0 + 2, r0 + B - 2), every), (inner, every))
+        for c0 in (h - 2, h + w - (B - 2)):        # west, east columns
+            paste((every, slice(c0, c0 + B)),
+                  (every, slice(c0 + 2, c0 + B - 2)), (every, inner))
+        return tuple(out)
+
+    def _overlap_program(self, nsteps: int, remat_chunk: int | None):
+        """``step_program(nsteps, overlap=True)``: one overlapped step at
+        a time (checkpointed with ``remat_chunk``)."""
+        have_ht = self._ht is not None
+
+        def prog(istep0, state, mask_codes, *bathy):
+            dep = bathy[0] if have_ht else None
+            forcing = self.forcing_series(istep0, nsteps)
+            return checkpointed_fori(
+                nsteps, lambda i, s: self._block_step_overlap(
+                    forcing[i], *s, mask_codes, dep=dep),
                 state, remat_chunk)
         return prog
 

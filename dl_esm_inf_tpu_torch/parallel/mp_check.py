@@ -54,7 +54,16 @@ Legs (``--legs``, comma separated):
   field on the same spec; the model's fields and each exchange held
   against the runs without alternation and the plain exchange;
 * ``fused_skew``: the same sweeps with the last rank 50 ms late before
-  the second, held against the run without skew.
+  the second, held against the run without skew;
+* ``overlap``: the flagship's overlap mode, one tile per rank
+  (``--overlap-shape``, halo 2, open north, ``--overlap-steps`` steps
+  from a Gaussian bump), on the plain path and with ``fused=True`` at
+  K=1, over each of ``--overlap-depths`` (flat, and variable:
+  tests/test_nemolite2d.py:187-214's plane): the gathered fields of
+  ``step_program(n, overlap=True)`` and of the non-overlapped step; on
+  the card also µs per step of both and the order of one overlapped
+  step's device work beside the host's exchange call
+  (torch.profiler).
 """
 from __future__ import annotations
 
@@ -66,12 +75,14 @@ import torch
 import torch.distributed as dist
 
 import dl_esm_inf_tpu_torch as dl
+from dl_esm_inf_tpu_torch.core import layout
 from dl_esm_inf_tpu_torch.models import nemolite2d as nl
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu_torch.ops import fused_step as fs
 from dl_esm_inf_tpu_torch.parallel import environment as env
 from dl_esm_inf_tpu_torch.parallel import halo as halo_mod
 from dl_esm_inf_tpu_torch.parallel import rdma
+from dl_esm_inf_tpu_torch.parallel.collectives import gather_to_host
 from dl_esm_inf_tpu_torch.testing import init_field_hill
 
 WALLED = (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE)
@@ -571,13 +582,110 @@ def leg_fused_skew(res, a):
     _alternation(res, a, skew=True)
 
 
+def overlap_depth(gnx: int, gny: int) -> np.ndarray:
+    """The sloping bottom of the JAX package's variable-depth overlap
+    test (tests/test_nemolite2d.py:192-194)."""
+    yy = np.linspace(0.0, 1.0, gny)[:, None]
+    xx = np.linspace(0.0, 1.0, gnx)[None, :]
+    return 70.0 + 40.0 * yy + 10.0 * np.sin(2 * np.pi * xx)
+
+
+def overlap_model(gnx, gny, ndomains, fused, variable_depth, device):
+    """The overlap leg's flagship: halo 2, open north, from the JAX
+    tests' bump; ``fused=True`` is the K=1 sweep."""
+    m = nl.build(gnx, gny, ndomains=ndomains, halo_width=2,
+                 open_north=True, fused=fused,
+                 depth=(overlap_depth(gnx, gny) if variable_depth
+                        else 100.0), device=device)
+    m.set_initial_ssh(gaussian_eta(gnx, gny, amp=0.5))
+    return m
+
+
+def overlap_run(m, nsteps, overlap):
+    """``step_program(nsteps, overlap=...)`` from the model's state; the
+    model's fields are left as they were."""
+    prog = m.step_program(nsteps, overlap=overlap)
+    bathy = (m._ht,) if m._ht is not None else ()
+    return prog(0, (m.sshn_t.data, m.un.data, m.vn.data), m._mask_codes,
+                *bathy)
+
+
+def overlap_gather(m, state) -> dict:
+    """The gathered internal points of a state of ``m`` (collective)."""
+    d, spec = m.grid.decomp, m.grid.halo_spec
+    return {k: layout.unstack_internal(d, gather_to_host(v, spec))
+            for k, v in zip(("sshn", "un", "vn"), state)}
+
+
+def leg_overlap(res, a):
+    gnx, gny = (int(v) for v in a.overlap_shape.split("x"))
+    nranks = env.get_num_ranks()
+    depths = a.overlap_depths.split(",")
+    for fused in (False, True):
+        for var in (d == "variable" for d in depths):
+            m = overlap_model(gnx, gny, nranks, fused, var, a.device)
+            tag = f"{'fused' if fused else 'plain'}_{'ht' if var else 'flat'}"
+            fs.nemolite2d_sweep.launches = 0
+            for ov in (False, True):
+                got = overlap_gather(m, overlap_run(m, a.overlap_steps, ov))
+                for k, v in got.items():
+                    res[f"ov_{tag}_{'overlap' if ov else 'step'}_{k}"] = v
+            res[f"ov_launches_{tag}"] = np.asarray(
+                fs.nemolite2d_sweep.launches)
+            if m.grid.device.type == "cuda" and not var:
+                _overlap_timing(res, a, m, tag)
+
+
+#: steps of each timed run of the overlap leg
+OVERLAP_TIMED_STEPS = 10
+
+
+def _overlap_timing(res, a, m, tag):
+    """On the card: µs per step with and without overlap (host clock
+    around synchronised runs of OVERLAP_TIMED_STEPS, after a warm-up),
+    and, with the K=1 sweep, under torch.profiler, the device work of
+    one overlapped step in the order it started beside the host's
+    exchange call (``nemolite2d.overlap_exchange``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev, n = m.grid.device, OVERLAP_TIMED_STEPS
+    for ov in (False, True):
+        res[f"ov_us_{tag}_{'overlap' if ov else 'step'}"] = np.asarray(
+            _us_per_call(lambda: overlap_run(m, n, ov), dev, 2) / n)
+    if not m.use_fused:
+        return
+    prog = m.step_program(1, overlap=True)
+    state = (m.sshn_t.data, m.un.data, m.vn.data)
+    prog(0, state, m._mask_codes)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog(0, state, m._mask_codes)
+        torch.cuda.synchronize(dev)
+    evs = prof.events()
+    work = sorted((e for e in evs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    wait = [e for e in evs if e.name == "nemolite2d.overlap_exchange"
+            and e.device_type == DeviceType.CPU]
+    res[f"ov_order_{tag}"] = np.array([e.name[:80] for e in work])
+    res[f"ov_order_start_us_{tag}"] = np.asarray(
+        [e.time_range.start for e in work], dtype=np.float64)
+    res[f"ov_order_end_us_{tag}"] = np.asarray(
+        [e.time_range.end for e in work], dtype=np.float64)
+    if wait:
+        res[f"ov_wait_us_{tag}"] = np.asarray(
+            [wait[0].time_range.start, wait[0].time_range.end],
+            dtype=np.float64)
+
+
 LEGS = {"core": leg_core, "periodic": leg_periodic,
         "hill_rdma": leg_hill_rdma, "guards": leg_guards,
         "exchange": leg_exchange, "skew": leg_skew,
         "flagship": leg_flagship, "fence": leg_fence,
         "flagship_fused": leg_flagship_fused,
         "fused_alternate": leg_fused_alternate,
-        "fused_skew": leg_fused_skew}
+        "fused_skew": leg_fused_skew, "overlap": leg_overlap}
 
 
 def main(argv=None) -> None:
@@ -602,6 +710,11 @@ def main(argv=None) -> None:
     ap.add_argument("--fused-shape", default="1024x1024",
                     help="GNXxGNY of the fused legs")
     ap.add_argument("--fused-sweeps", type=int, default=10)
+    ap.add_argument("--overlap-shape", default="1024x1024",
+                    help="GNXxGNY of the overlap leg")
+    ap.add_argument("--overlap-steps", type=int, default=40)
+    ap.add_argument("--overlap-depths", default="flat,variable",
+                    help="bathymetries of the overlap leg: flat, variable")
     a = ap.parse_args(argv)
     dl.initialise()
     if a.ndomains is None:

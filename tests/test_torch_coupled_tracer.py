@@ -3,8 +3,9 @@
 ``models/tracer.py::CoupledTracer``: the flagship flow and a passive
 tracer advanced together with one 4-field depth-2 exchange a step, at
 float64 on the CPU.  The twins of tests/test_tracer.py's coupled cases
-(without the ETKF one, which needs the port's ETKF), the run against
-the JAX ``CoupledTracer`` on the same seeded inputs, and the guards.
+(its ETKF case's twin is in tests/test_torch_enkf.py, with the port's
+ETKF), the run against the JAX ``CoupledTracer`` on the same seeded
+inputs, and the guards.
 
 Tolerances: port vs JAX 1e-12 relative to each field's largest value
 (the same operations in the same order); the coupled flow vs a plain

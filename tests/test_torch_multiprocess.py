@@ -8,7 +8,9 @@ runs against the JAX fused-transport kernel bitwise at float64 (driven
 in a child process, tests/jax_fused_reference.py, whose XLA emits no
 FMA, so that it rounds where the port does), the 2x2 run against the
 port's single-process 4-tile run on the ppermute transport, bitwise; and
-sweeps alternating with standalone exchanges, and a skewed rank.
+sweeps alternating with standalone exchanges, and a skewed rank; and
+the flagship's overlap mode (one tile per rank, 2x2) against the
+non-overlapped step bitwise and the JAX package's 4-device overlap run.
 
 Gangs run ``python -m dl_esm_inf_tpu_torch.launch -n N -m
 dl_esm_inf_tpu_torch.parallel.mp_check`` (the port's counterpart of
@@ -31,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 from filelock import FileLock
+
+import jax.numpy as jnp
 
 import dl_esm_inf_tpu as jdl
 from dl_esm_inf_tpu.models import nemolite2d as jnl
@@ -108,15 +112,21 @@ FUSED_LAYOUTS, FUSED_K, FUSED_SHAPE, FUSED_SWEEPS = ("4x1,1x4,2x2", "2,4",
                                                      "48x64", 3)
 
 
+#: the overlap leg: tests/test_nemolite2d.py:157-214's extent and steps
+OVERLAP_SHAPE, OVERLAP_STEPS = "48x40", 30
+
+
 @pytest.fixture(scope="module")
 def np4(tmp_path_factory):
     """4 ranks x 2 tiles: rank seams on both axes; and the fused
-    transport's legs, one tile per rank."""
+    transport's legs and the overlap leg, one tile per rank."""
     return _gang(tmp_path_factory, 4, 8,
-                 "core,periodic,flagship_fused,fused_alternate,fused_skew",
+                 "core,periodic,flagship_fused,fused_alternate,fused_skew,"
+                 "overlap",
                  "--fused-layouts", FUSED_LAYOUTS, "--fused-k", FUSED_K,
                  "--fused-shape", FUSED_SHAPE, "--fused-sweeps",
-                 str(FUSED_SWEEPS))
+                 str(FUSED_SWEEPS), "--overlap-shape", OVERLAP_SHAPE,
+                 "--overlap-steps", str(OVERLAP_STEPS))
 
 
 @pytest.fixture(scope="module")
@@ -295,6 +305,36 @@ def test_gang_fused_transport_alternating_and_skewed(np4, leg):
                                       np4[f"ff_{tag}_{k}"], err_msg=k)
     if leg == "falt":
         assert bool(np4["falt_exch_equal"])
+
+
+@pytest.mark.parametrize("interior", ["plain", "fused"])
+@pytest.mark.parametrize("depth", ["flat", "ht"])
+def test_gang_overlap_matches_jax(np4, depth, interior):
+    """The flagship's overlap mode across 4 ranks, one tile each (2x2,
+    48x40, halo 2, open north, 30 steps): bitwise equal to the
+    non-overlapped step at internal points, the interior on the plain
+    step or on the K=1 sweep's plain version, and within RTOL / ATOL of
+    the JAX package's 4-device overlap run (the ndom=4 cases of
+    tests/test_nemolite2d.py:157-214)."""
+    from dl_esm_inf_tpu_torch.parallel.mp_check import overlap_depth
+    gnx, gny = (int(v) for v in OVERLAP_SHAPE.split("x"))
+    tag = f"{interior}_{depth}"
+    m = jnl.build(gnx, gny, ndomains=4, halo_width=2, open_north=True,
+                  depth=(overlap_depth(gnx, gny) if depth == "ht"
+                         else 100.0))
+    m.set_initial_ssh(gaussian_eta(gnx, gny, amp=0.5))
+    bathy = (m._ht,) if m._ht is not None else ()
+    m.sshn_t.data, m.un.data, m.vn.data = m.step_program(
+        OVERLAP_STEPS, overlap=True)(
+        jnp.int32(0), (m.sshn_t.data, m.un.data, m.vn.data), m._mask_codes,
+        *bathy)
+    want = m.gather()
+    for k, v in want.items():
+        got = np4[f"ov_{tag}_overlap_{k}"]
+        np.testing.assert_array_equal(got, np4[f"ov_{tag}_step_{k}"],
+                                      err_msg=k)
+        np.testing.assert_allclose(got, v, rtol=RTOL, atol=ATOL, err_msg=k)
+    assert int(np4[f"ov_launches_{tag}"]) == 0
 
 
 # --- the launcher ---------------------------------------------------------------

@@ -25,6 +25,7 @@ from dl_esm_inf_tpu_torch.interop import load_reference_state
 from dl_esm_inf_tpu_torch.models import nemolite2d as tnl
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu_torch.ops import fused_step as tfs
+from dl_esm_inf_tpu_torch.parallel.mp_check import overlap_depth
 
 from nemolite2d_golden import golden_run
 
@@ -282,13 +283,114 @@ def test_guards():
     m = tnl.build(32, 32, fused=True, steps_per_sweep=2, **CPU)
     with pytest.raises(ValueError, match="unknown transport"):
         m.enable_fast_path(steps_per_sweep=2, transport="carrier-pigeon")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the JAX package's guard (tests/test_pallas_step.py:133-136): one
+    # step at a time, so no temporal blocking under overlap
+    with pytest.raises(ValueError, match="overlap"):
         m.step_program(4, overlap=True)
     with pytest.raises(ValueError, match="remat"):     # no backward
         m.step_program(4, remat_chunk=2)
     fused = m._make_fused(2)
     with pytest.raises(ValueError, match="forcing"):
         fused(m.sshn_t.data, m.un.data, m.vn.data, m._mask_codes, [0.0])
+
+
+# --- overlap mode (the JAX package's tests/test_nemolite2d.py:157-221) -------
+
+#: tests/test_nemolite2d.py:187-214's extent, sloping bottom and bump;
+#: across ranks (one tile per rank, 2x2) in tests/test_torch_multiprocess.py
+OV_GNX, OV_GNY, OV_STEPS = 48, 40, 30
+
+
+def _ov_runs(mod, depth, **kw):
+    """{overlap: gathered fields after OV_STEPS of step_program} for one
+    package's flagship (1 tile, halo 2, open north, from the bump)."""
+    out = {}
+    for ov in (False, True):
+        m = mod.build(OV_GNX, OV_GNY, ndomains=1, halo_width=2,
+                      open_north=True, depth=depth, **kw)
+        m.set_initial_ssh(gaussian_eta(OV_GNX, OV_GNY, amp=0.5))
+        bathy = (m._ht,) if m._ht is not None else ()
+        istep0 = jnp.int32(0) if mod is jnl else 0
+        state = m.step_program(OV_STEPS, overlap=ov)(
+            istep0, (m.sshn_t.data, m.un.data, m.vn.data), m._mask_codes,
+            *bathy)
+        m.sshn_t.data, m.un.data, m.vn.data = state
+        out[ov] = m.gather()
+    return out
+
+
+def _check_overlap(depth, fused):
+    """Overlap equals the non-overlapped step bitwise at internal points
+    (the port's invariant: each point's arithmetic is the same), and the
+    JAX package's overlap run within RTOL / ATOL (its test's tolerance)."""
+    got = _ov_runs(tnl, depth, fused=fused, **CPU)
+    _assert_close(got[True], got[False], rtol=0, atol=0)
+    want = _ov_runs(jnl, depth)[True]
+    _assert_close(got[True], want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_overlap_step_matches_plain(fused):
+    """Twin of tests/test_nemolite2d.py::test_overlap_step_matches_plain
+    on one tile (its 4-tile case is the 4-rank gang's overlap leg): the
+    plain step and the fused K=1 sweep's plain version as the interior."""
+    _check_overlap(100.0, fused)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_overlap_variable_bathymetry_matches_plain(fused):
+    """Twin of tests/test_nemolite2d.py::
+    test_overlap_variable_bathymetry_matches_plain on one tile."""
+    _check_overlap(overlap_depth(OV_GNX, OV_GNY), fused)
+
+
+def test_overlap_guards():
+    """Twin of tests/test_nemolite2d.py::test_overlap_guards, with the
+    rest of the JAX package's overlap guards (its models/nemolite2d.py:
+    784-802): one tile per rank, not with the fused transport, halo >= 2,
+    tiles >= 8x8, one step per exchange."""
+    m = tnl.build(16, 16, ndomains=1, **CPU)                  # halo 1
+    with pytest.raises(ValueError, match="halo_width"):
+        m.step_program(1, overlap=True)
+    m = tnl.build(32, 32, ndomains=4, halo_width=2, **CPU)
+    with pytest.raises(NotImplementedError, match="one tile per rank"):
+        m.step_program(1, overlap=True)
+    m = tnl.build(12, 12, ndomains=1, halo_width=2, **CPU)
+    m.step_program(1, overlap=True)
+    m = tnl.build(7, 12, ndomains=1, halo_width=2, **CPU)
+    with pytest.raises(ValueError, match="8x8"):
+        m.step_program(1, overlap=True)
+    m = tnl.build(32, 32, ndomains=1, halo_width=8, **CPU)
+    m.enable_fast_path(2, transport="fused")
+    with pytest.raises(ValueError, match="redundant"):
+        m.step_program(2, overlap=True)
+
+
+def test_overlap_remat_composes():
+    """``remat_chunk`` composes with overlap as in the JAX package: the
+    forward bitwise unchanged, and the gradient of the surface's energy
+    after 6 steps with respect to the initial surface equal to the
+    non-overlapped step's within 1e-12 relative."""
+    m = tnl.build(OV_GNX, OV_GNY, ndomains=1, halo_width=2, open_north=True,
+                  **CPU)
+    m.set_initial_ssh(gaussian_eta(OV_GNX, OV_GNY, amp=0.5))
+    rng = np.random.default_rng(5)
+    bump = torch.from_numpy(0.01 * rng.standard_normal(m.sshn_t.data.shape))
+    grads, fwd = [], []
+    for ov, ck in ((False, None), (True, None), (True, 2)):
+        x = (m.sshn_t.data + bump).requires_grad_(True)
+        out = m.step_program(6, overlap=ov, remat_chunk=ck)(
+            0, (x, m.un.data, m.vn.data), m._mask_codes)
+        inner = m.sshn_t.internal_mask.bool()
+        loss = (out[0][inner] ** 2).sum()
+        (g,) = torch.autograd.grad(loss, x)
+        fwd.append(out[0].detach()[inner])
+        grads.append(g[inner])
+    assert torch.equal(fwd[1], fwd[0]) and torch.equal(fwd[2], fwd[1])
+    assert torch.equal(grads[2], grads[1])
+    scale = float(grads[0].abs().max())
+    assert scale > 0
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-12 * scale
 
 
 def test_wrapper_never_falls_back():
