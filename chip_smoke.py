@@ -110,9 +110,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
    bandwidth of the card measured in the same run; and the levels=N
    main path: the nlayer-style chain at 1024^2, halo 4, through
    fused_program(20) (levels 3 and 8 at float32 on 1 and 2x2 tiles,
-   levels 8 at float64): launches = 20, vs the plain fused tier, one
-   light sweep timed (CUDA graph, and the wrapper call) against its
-   plain version and its bound, us/step of both; then the skeleton's
+   levels 8 at float64), each in the shared-memory form: launches = 20,
+   vs the plain fused tier, one light sweep timed (CUDA graph, and the
+   wrapper call) against its plain version and its bound, us/step of
+   both; the same chain at the fewest levels whose window does not fit a
+   CTA's shared memory even on 8-cell tiles (scratch_levels(), computed:
+   29 at float64), float64 on 2x2 tiles, in the skeleton's scratch form
+   (the window in a device buffer, a persistent grid): both sweeps in
+   that form and one level fewer in the shared form, fused_program(10)
+   launches = 10, bitwise against the plain fused tier but for the level
+   sum, one light sweep against its plain version, its card time as a
+   CUDA graph, its CTAs and its byte bound; then the skeleton's
    edge shapes: every kernel on csrc/stencil_sweep.cuh (gravity wave,
    shallow, two-layer, tracer upwind and van Leer, N-layer 3 and 9
    layers, Chebyshev, the PSy and levels=3 schedule sweeps) against its
@@ -202,7 +210,21 @@ Phases (each prints a line; any failure raises and exits non-zero):
    with remote_dma exchanges on the same spec and with the last rank
    50 ms late, bitwise, the rdma sweep's launches (one per sweep), one
    sweep against its plain version, and us per sweep and per step beside
-   the gloo ppermute transport;
+   the gloo ppermute transport; then the slice across ranks on a 2-rank
+   gang, 2 ranks x 1 tile at 1024^2 f32 (mp_check's solvers,
+   semi_implicit, clients, schedule, psy, coupled and checkpoint legs),
+   each against one process with 2 tiles: every client at its main
+   path's K (tracer van Leer K=4, the others K=8), 40 steps, bitwise,
+   with its kernel's launches per rank; the fused schedule of two east
+   shifts and its plain run bitwise, invoke's sum, min and max within
+   TOL_RED; the PSy flagship on Schedule.fused and the coupled tracer,
+   40 steps, bitwise; a Helmholtz solve (lam 50) with CG and with the
+   fused Chebyshev sweep at K=4: iterations within 2, each relative
+   residual below tol, solutions within 10 x tol of their largest value;
+   5 semi-implicit steps (walled; open north) within 10 x tol of the
+   state's largest value; a checkpoint saved on the 2 ranks and loaded
+   back on them into 4 tiles and here into one, bitwise; and for each,
+   us per step (ms per solve or save) on 2 ranks beside one process;
 20. the adjoint and ensembles on the card (plain PyTorch: the kernels
    have no backward, and no TPU kernel lies on this path): (a) the
    flagship at 1024^2 f32 on the plain path, one observation at step
@@ -395,7 +417,13 @@ def _bound(nbytes: int, ops: int, dtype) -> dict:
             "library_ms": None}
 
 
+#: the card's name and power limit as nvidia-smi gives them (phase 1),
+#: printed beside the numbers of the phases this slice added
+SMI = "not read"
+
+
 def phase_device() -> str:
+    global SMI
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
                            "run needs a CUDA GPU")
@@ -403,6 +431,7 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    SMI = smi
     print(f"device: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
@@ -1505,6 +1534,10 @@ PSY_MAIN_N = 100
 LEVELS = (3, 8)
 LEVEL_N, LEVEL_HALO, LEVEL_STEPS = 96, 4, 6
 LEVEL_MAIN_N = 20
+#: the chain's scratch form (a window past the shared memory of a CTA):
+#: dtype, tiles and steps at 1024^2; its level count is computed
+#: (scratch_levels)
+SCRATCH_DTYPE, SCRATCH_TILES, SCRATCH_STEPS = torch.float64, (2, 2), 10
 
 #: (stencil rows, torch shift, CUDA read) of the generic schedules
 _SHIFTS = {
@@ -1706,10 +1739,34 @@ def _level_case(kind, dtype, levels, plain, n=LEVEL_N, ndom=4,
     return prog, fs_, (steps if chain else 1), (4 if chain else None)
 
 
+def scratch_levels() -> int:
+    """The fewest levels at which the nlayer-style chain's window does not
+    fit a CTA's shared memory even on 8-cell tiles, so that its sweeps
+    take the scratch form: both of its sweeps stream 4L + 1 float planes
+    (u, v, eta and the forcing at L levels, and the level sum) and one
+    code plane, at the chain's erosion at halo LEVEL_HALO."""
+    g = _sched_grid(64, 1, LEVEL_HALO, SCRATCH_DTYPE)
+    ring = km.Schedule(*sc.ml_calls(*sc.ml_fields(g, 3))).fused_erosion(1)
+    L = 1
+    while ss.window_tile(4 * L + 1, 0, 1, ring, SCRATCH_DTYPE)[0].ctas:
+        L += 1
+    return L
+
+
+def _east_schedule_build():
+    """Build the fused sweep of phase 19's schedule leg (two east shifts,
+    float32), which its ranks then load."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    g, fa, fb, east = mpc.schedule_case(64, 1, DEV)
+    km.Schedule((east, fb, fa), (east, fb, fb))._fused_prog(1, 1)
+
+
 def _schedule_builds():
     """One task per generated source phase 10 needs: each builds its
     case's kernel side, which generates and compiles the sources."""
-    tasks = []
+    tasks = [functools.partial(_level_case, "chain", SCRATCH_DTYPE,
+                               scratch_levels(), False, n=64, ndom=1),
+             _east_schedule_build]
     for dtype in (torch.float64, torch.float32):
         for r in (1, 2, 3):
             for derived in (False, True):
@@ -2147,6 +2204,10 @@ def phase_levels_main() -> list:
               f"planes, {nbytes / state[0].numel():.1f} B/pt, bound "
               f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})",
               flush=True)
+        form = sweep.generated.form
+        if form != "shared":
+            raise AssertionError(f"{label}: the {form} form; every window "
+                                 "that fits shared memory keeps it")
         if tiles == (1, 1):
             entries.append({
                 "name": f"schedule_sweep (levels={levels}, "
@@ -2155,7 +2216,97 @@ def phase_levels_main() -> list:
                 "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
                 "launches": launches, "max_abs_err": max_abs, "ms": ms,
                 "plain_ms": plain_ms, **bound, "device_ms": device_ms})
+    entries.append(_levels_scratch())
     return entries
+
+
+def _levels_scratch() -> dict:
+    """The chain at scratch_levels() levels, SCRATCH_DTYPE, 1024^2 on
+    SCRATCH_TILES tiles: both sweeps generated in the scratch form (and
+    the level count below it in the shared form); SCRATCH_STEPS steps
+    through fused_program with the launches reset just before and the
+    plain tier refused, bitwise against the plain fused tier on internal
+    points but for the level sum (within TOL_LEVEL_SUM); one light sweep
+    against its plain version, timed as a CUDA graph beside its bound."""
+    L, dtype, tiles, n = (scratch_levels(), SCRATCH_DTYPE, SCRATCH_TILES,
+                          SCRATCH_STEPS)
+    label = (f"levels={L} {str(dtype)[6:]} {tiles[0]}x{tiles[1]} tiles "
+             f"{MAIN_SIZE}^2")
+    sched, f = _level_main(L, dtype, tiles)
+    prog = sched.fused_program(n)
+    variants = sched._fused_prog(n, 1)[3]
+    forms = {k: v[0].generated.form for k, v in variants.items()}
+    gen = variants["light"][0].generated
+    below = ss.window_tile(gen.n_state + gen.n_aux - 4, 0, gen.n_codes,
+                           gen.ring, dtype)[0]
+    if set(forms.values()) != {"scratch"} or below.ctas == 0:
+        raise AssertionError(f"{label}: forms {forms}; {L - 1} levels "
+                             f"take the tile {below}")
+    psched, pf = _level_main(L, dtype, tiles)
+    pprog = psched.fused_program(n, plain=True)
+    torch.cuda.synchronize()
+    ss.schedule_sweep.launches = 0
+    _plain_tier_refused(prog)
+    torch.cuda.synchronize()
+    launches = ss.schedule_sweep.launches
+    if launches != n:
+        raise AssertionError(f"{label}: {launches} launches, expected {n}")
+    for x in f:
+        if not torch.isfinite(x.data).all():
+            raise AssertionError(f"{label}: not finite")
+    pprog()
+    d_run = _inner_diff(f[:4], pf[:4])[0]
+    d_sum = _inner_diff(f[4:], pf[4:])[1]
+    if d_run != 0.0 or not d_sum <= TOL_LEVEL_SUM[dtype]:
+        raise AssertionError(f"{label}: kernel vs plain after {n} steps "
+                             f"{d_run:.3e}, level sum {d_sum:.3e}")
+    sweep, st_slots, x_slots = variants["light"]
+    psweep = sched._fused_prog(n, 1, True)[3]["light"][0]
+    ro_slots = sched._fused_prog(n, 1)[2]
+    slot = lambda i: sched._slots[i].data  # noqa: E731
+    planes = lambda idx: tuple(  # noqa: E731
+        p for i in idx for p in ((slot(i),) if slot(i).dim() == 2
+                                 else slot(i).unbind(0)))
+    state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
+    rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
+    ker = sweep(state, ros, extra, rows)
+    ref = psweep(state, ros, extra, rows)
+    inner = f[0].internal_mask.bool()
+    max_abs = max(float((a - b).abs()[inner].max())
+                  for a, b in zip(ker, ref))
+    if max_abs != 0.0:
+        raise AssertionError(f"{label}: one light sweep kernel vs plain "
+                             f"{max_abs:.3e}")
+    ms = _time_ms(lambda: sweep(state, ros, extra, rows), 10)
+    device_ms = _device_ms(lambda: sweep(state, ros, extra, rows), 5)
+    plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 2)
+    ops = _count_ops(lambda: psweep(state, ros, extra, rows))
+    nbytes = _nbytes(*state, *ker, *ros, *extra,
+                     torch.stack(sched._fused_masks()))
+    bound = _bound(nbytes, ops, dtype)
+    lib = ss.schedule_sweep.build(gen).lib
+    ly, lx = state[0].shape
+    ctas = lib.schedule_sweep_ctas(ly, lx, ss.SCRATCH_BYTES)
+    print(f"levels scratch form {label}: window {gen.window_bytes} B per CTA "
+          f"(tile {gen.tile.ty}x{gen.tile.tx} in a {gen.tile.wx}-column "
+          f"window, ring {gen.ring}), {ctas} CTAs; {L - 1} levels keep the "
+          f"shared form; fused_program({n}) launches={launches} (= n), "
+          f"finite, plain tier refused; vs plain fused tier after {n} "
+          f"steps: bitwise (level sum rel {d_sum:.3e}); one light sweep "
+          f"{device_ms * 1e3:.2f} us on the card (CUDA graph; wrapper call "
+          f"{ms * 1e3:.2f} us) vs plain {plain_ms * 1e3:.2f} us, "
+          f"{len(state)} state + {len(ros) + len(extra)} read-only planes, "
+          f"{nbytes / state[0].numel():.1f} B/pt, bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
+          f"[{SMI}]", flush=True)
+    return {"name": f"schedule_sweep (levels={L}, {str(dtype)[6:]}, scratch "
+                    "form)", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
+            "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, **bound, "device_ms": device_ms,
+            "form": gen.form, "window_bytes": gen.window_bytes,
+            "ctas": ctas, "tiles": list(tiles)}
 
 
 # --- the skeleton's sweeps on edge shapes -----------------------------------
@@ -4522,6 +4673,235 @@ def phase_filter_nest_overlap() -> tuple[dict, dict]:
     return out, entry
 
 
+# --- phase 19, the slice across ranks ----------------------------------------
+
+#: the slice's legs across 2 ranks x 1 tile on the card
+SLICE_LEGS = "solvers,semi_implicit,clients,schedule,psy,coupled,checkpoint"
+#: a float32 reduction over the 2^20 points of the schedule leg's field
+#: on 2 ranks against one process, relative: its partial sums are added
+#: in another order
+TOL_RED = 1e-5
+
+
+def _us_run(fn, steps: int, reps: int = 3) -> float:
+    """µs per step of ``fn`` (``steps`` steps a call), CUDA events."""
+    return 1e3 * _time_ms(fn, reps) / steps
+
+
+def _one_process_clients(r: dict, n: int, steps: int) -> dict:
+    """Each client in one process on 2 tiles against the gang: bitwise,
+    launches per rank; µs per step of both.  Returns kernel name ->
+    the numbers its kernel entry gains."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    out = {}
+    for name, (mod, kw, K, init) in mpc.client_cases(n).items():
+        m = mpc.client_model(name, n, 2, DEV)
+        m.run(steps)
+        d = max(float(np.abs(r[f"cl_{name}_{k}"] - v).max())
+                for k, v in m.gather().items())
+        want = steps // K + steps % K
+        got = int(r[f"cl_launches_{name}"])
+        if d != 0.0 or got != want:
+            raise AssertionError(f"2 ranks, {name}: max abs {d} against one "
+                                 f"process; {got} launches per rank, "
+                                 f"expected {want}")
+        us_1 = _us_run(lambda: m.run(steps), steps)
+        us_2 = float(r[f"cl_us_{name}"])
+        print(f"2 ranks x 1 tile, {name} f32 {n}^2 K={K}, {steps} steps: "
+              f"bitwise equal to one process with 2 tiles; {got} launches "
+              f"per rank; {us_2:.2f} us/step on 2 ranks vs {us_1:.2f} in one "
+              f"process [{SMI}]", flush=True)
+        out[(m.sweep_kernel.name, name)] = {"ranks2_launches": got,
+                             "ranks2_us_per_step": us_2,
+                             "one_process_2_tiles_us_per_step": us_1}
+    return out
+
+
+def _solver_close(label, xr, x1, tol, scale=None) -> float:
+    """max |x_ranks - x_one| over ``scale`` (default: the largest |x|);
+    raises above 10 tol."""
+    scale = float(np.abs(x1).max()) if scale is None else scale
+    d = float(np.abs(xr - x1).max()) / max(scale, 1e-30)
+    if not d <= 10 * tol:
+        raise AssertionError(f"2 ranks, {label}: {d:.3e} of the largest "
+                             f"value > 10 x tol {tol}")
+    return d
+
+
+def _one_process_solvers(r: dict, n: int) -> dict:
+    """The Helmholtz solves (CG, fused Chebyshev K=4) and 5 semi-implicit
+    steps (CG; open north) in one process on 2 tiles against the gang:
+    iterations within 2, residuals below tol, solutions within 10 tol of
+    their largest value; ms per solve and per step of both."""
+    from dl_esm_inf_tpu_torch.core import layout
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    g, rhs = mpc.solver_case(n, 2, DEV)
+    b = tdl.Field(g, tdl.T_POINTS, init_global_data=rhs)
+    out = {}
+    for tag, kw in mpc.SOLVES.items():
+        s = so.HelmholtzSolver(g, mpc.LAM, mpc.LAM, tol=mpc.solver_tol(
+            g.dtype), **kw)
+        so.helmholtz_cheb_sweep.launches = 0
+        (x, info), ms_1 = mpc.timed_call(lambda: s.solve(b), DEV)
+        launches = so.helmholtz_cheb_sweep.launches
+        x1 = layout.unstack_internal(g.decomp, x.cpu().numpy())
+        it_2, it_1 = int(r[f"hs_{tag}_iters"]), info["iterations"]
+        rel_2 = float(r[f"hs_{tag}_rel_res"])
+        if abs(it_2 - it_1) > 2 or not (rel_2 <= s.tol
+                                       and info["rel_res"] <= s.tol):
+            raise AssertionError(f"2 ranks, Helmholtz {tag}: iterations "
+                                 f"{it_2} vs {it_1}, residuals {rel_2:.3e} "
+                                 f"/ {info['rel_res']:.3e}, tol {s.tol}")
+        if int(r[f"hs_{tag}_launches"]) != launches:
+            raise AssertionError(f"2 ranks, Helmholtz {tag}: "
+                                 f"{int(r[f'hs_{tag}_launches'])} sweep "
+                                 f"launches per rank vs {launches}")
+        d = _solver_close(f"Helmholtz {tag}", r[f"hs_{tag}_x"], x1, s.tol)
+        ms_2 = float(r[f"hs_{tag}_ms"])
+        print(f"2 ranks x 1 tile, Helmholtz {tag} f32 {n}^2 lam {mpc.LAM}: "
+              f"{it_2} iterations vs {it_1} in one process with 2 tiles, "
+              f"relative residual {rel_2:.3e} (tol {s.tol:.1e}), solutions "
+              f"{d:.3e} of the largest value apart; sweep launches per rank "
+              f"{launches}; {ms_2:.2f} ms per solve on 2 ranks vs {ms_1:.2f} "
+              f"in one process [{SMI}]", flush=True)
+        out[tag] = {"ranks2_launches": launches, "ranks2_ms_per_solve": ms_2,
+                    "one_process_2_tiles_ms_per_solve": ms_1,
+                    "ranks2_iterations": it_2}
+    for tag, north in (("si", False), ("sio", True)):
+        m = mpc.semi_implicit_model(n, 2, DEV, north)
+        info, ms_1 = mpc.timed_call(lambda: m.run(5), DEV)
+        ms_1 /= 5
+        g1 = m.gather()
+        scale = max(float(np.abs(v).max()) for v in g1.values())
+        d = max(_solver_close(f"semi-implicit {tag} {k}", r[f"{tag}_{k}"], v,
+                              m.tol, scale) for k, v in g1.items())
+        ms_2 = float(r[f"{tag}_ms_per_step"])
+        where = "open north" if north else "walled"
+        print(f"2 ranks x 1 tile, semi-implicit ({where}) f32 {n}^2, 5 "
+              f"steps: {int(r[f'{tag}_iters'])} CG iterations vs "
+              f"{info['cg_iterations']} in one process with 2 tiles, "
+              f"fields {d:.3e} of the state's largest value apart (tol 10 x "
+              f"{m.tol:.1e}); {ms_2:.2f} ms/step on 2 ranks vs {ms_1:.2f} "
+              f"[{SMI}]", flush=True)
+        out[tag] = {"ranks2_ms_per_step": ms_2,
+                    "one_process_2_tiles_ms_per_step": ms_1}
+    return out
+
+
+def _one_process_schedules(r: dict, n: int, steps: int) -> dict:
+    """The fused schedule, its reductions, the PSy flagship and the
+    coupled tracer in one process on 2 tiles against the gang."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    g, fa, fb, east = mpc.schedule_case(n, 2, DEV)
+    sched = km.Schedule((east, fb, fa), (east, fb, fb))
+    sched.fused()
+    reds = [mpc.reduction_kernel(km, acc) for acc in mpc.REDUCTIONS]
+    red_1 = [km.invoke(k, fa) for k in reds]
+    red_2 = [float(r[f"sc_invoke_{acc}"]) for acc in mpc.REDUCTIONS]
+    red_ok = all(abs(a - b) <= TOL_RED * abs(b) for a, b in zip(red_2, red_1))
+    if (not np.array_equal(r["sc_fused"], fb.gather_inner_data())
+            or not np.array_equal(r["sc_plain"], fb.gather_inner_data())
+            or int(r["sc_launches"]) != 1 or not red_ok):
+        raise AssertionError(f"2 ranks, fused schedule: launches "
+                             f"{int(r['sc_launches'])}; reductions {red_2} "
+                             f"vs {red_1}")
+    us_s1 = 1e3 * _time_ms(sched.fused, 10)
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    m = NemoLite2DPsy(n, n, ndomains=2, halo_width=8, device=DEV)
+    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    m.run(steps, fused=True)
+    d = max(float(np.abs(r[f"psy_{k}"] - v).max())
+            for k, v in m.gather().items())
+    if d != 0.0 or int(r["psy_launches"]) != steps:
+        raise AssertionError(f"2 ranks, PSy flagship: max abs {d}, "
+                             f"{int(r['psy_launches'])} launches per rank")
+    us_p1 = _us_run(lambda: m.run(steps, fused=True), steps)
+    ct = mpc.coupled_model(n, 2, DEV)
+    ct.run(steps)
+    d_c = max(float(np.abs(r[f"cp_{k}"] - v).max())
+              for k, v in ct.gather().items())
+    if d_c != 0.0:
+        raise AssertionError(f"2 ranks, coupled tracer: max abs {d_c}")
+    us_c1 = _us_run(lambda: ct.run(steps), steps, 1)
+    us_s2, us_p2, us_c2 = (float(r["sc_fused_us"]), float(r["psy_us"]),
+                           float(r["cp_us"]))
+    print(f"2 ranks x 1 tile, f32 {n}^2: fused schedule (two east shifts, "
+          f"halo 2) and its plain run bitwise equal to one process with 2 "
+          f"tiles, 1 launch per rank, invoke's sum/min/max within "
+          f"{TOL_RED}; {us_s2:.1f} us per fused call on 2 ranks vs "
+          f"{us_s1:.1f}; PSy flagship on Schedule.fused, {steps} steps: "
+          f"bitwise, {int(r['psy_launches'])} launches per rank, "
+          f"{us_p2:.2f} us/step vs {us_p1:.2f}; coupled tracer {steps} "
+          f"steps: bitwise, {us_c2:.1f} us/step vs {us_c1:.1f} [{SMI}]",
+          flush=True)
+    return {"schedule": {"ranks2_us_per_call": us_s2,
+                         "one_process_2_tiles_us_per_call": us_s1},
+            "psy": {"ranks2_launches": int(r["psy_launches"]),
+                    "ranks2_us_per_step": us_p2,
+                    "one_process_2_tiles_us_per_step": us_p1},
+            "coupled": {"ranks2_us_per_step": us_c2,
+                        "one_process_2_tiles_us_per_step": us_c1}}
+
+
+def _one_process_checkpoint(r: dict, n: int) -> dict:
+    """The gang's checkpoint loaded in one process on one tile: bitwise
+    equal to the saved arrays; ms per save of both."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    from dl_esm_inf_tpu_torch.utils import checkpoint
+    want = mpc.checkpoint_fields(n)
+    g = _sched_grid(n, 1, 1, None)        # the ranks' default dtype
+    got = {"f": tdl.Field(g, tdl.T_POINTS),
+           "f3": tdl.Field(g, tdl.T_POINTS, levels=3)}
+    meta = checkpoint.load_fields(str(r["ck_path"]), got)
+    for k, v in want.items():
+        here = got[k].gather_inner_data()
+        v = v.astype(here.dtype)
+        if not (np.array_equal(here, v)
+                and np.array_equal(r[f"ck_{k}"], v)) or meta["step"] != 7:
+            raise AssertionError(f"checkpoint saved on 2 ranks: {k} differs "
+                                 "loaded in one process or on the ranks")
+    path = str(r["ck_path"]) + ".one.npz"
+    ms_1 = mpc.timed_call(lambda: checkpoint.save_fields(path, got, step=7),
+                          DEV)[1]
+    ms_2 = float(r["ck_save_ms"])
+    print(f"checkpoint f32 {n}^2 (a field and a 3-level one) saved on 2 "
+          f"ranks x 1 tile: loaded back on the ranks into 4 tiles and in one "
+          f"process into 1 tile, bitwise; {ms_2:.1f} ms per save on 2 "
+          f"ranks vs {ms_1:.1f} in one process [{SMI}]", flush=True)
+    return {"ranks2_ms_per_save": ms_2, "one_process_ms_per_save": ms_1}
+
+
+def phase_slice_ranks(kernels: list) -> dict:
+    """Phase 19's slice across ranks: a 2-rank gang, 2 ranks x 1 tile, at
+    the main width f32 (parallel/mp_check.py's slice legs), each held
+    against one process with 2 tiles (bitwise; the solvers and the
+    semi-implicit model within 10 x tol, their sums added in another
+    order), with µs per step (ms per solve or save) of both; the kernel
+    entries of the clients, the Chebyshev sweep and the schedule sweep
+    gain their launches and times on 2 ranks."""
+    import tempfile
+    n, steps = MAIN_SIZE, GANG_STEPS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = _gang(2, SLICE_LEGS, Path(tmp) / "s2.npz", "--ndomains", "2")
+        out = {"checkpoint": _one_process_checkpoint(r, n)}
+        out["clients"] = _one_process_clients(r, n, steps)
+        out.update(_one_process_solvers(r, n))
+        out.update(_one_process_schedules(r, n, steps))
+    by_name = {e["name"]: e for e in kernels}
+    for (kern, name), extra in out["clients"].items():
+        if kern in by_name:
+            by_name[kern].setdefault("ranks2", {})[name] = extra
+    if "helmholtz_cheb_sweep" in by_name:
+        by_name["helmholtz_cheb_sweep"]["ranks2"] = out["cheb"]
+    psy = [e for e in kernels if e["name"].startswith("schedule_sweep")]
+    if psy:
+        psy[0]["ranks2"] = out["psy"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"slice across ranks: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -4554,6 +4934,7 @@ def main() -> None:
     phase_large(kernels)
     kernels.append(phase_fence())
     kernels.extend(phase_ranks())
+    phase_slice_ranks(kernels)
     phase_adjoint_ensembles()
     kernels.append(phase_filter_nest_overlap()[1])
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,11 +20,13 @@ the middle layer; here they are live:
   kernel's point body: its ``cuda=`` body, or the one derived from its
   torch body (:mod:`..ops.point_trace`).
 
-Differences from the JAX package: every tile of a grid lies in one
-stacked tensor on one device, so a kernel body runs ONCE on the whole
-stacked block (the JAX package runs it once per shard).  Shifts agree on
-internal points; a reduction over the block equals the JAX package's
-``psum``/``pmin``/``pmax`` of per-shard ones up to summation order.
+Differences from the JAX package: every tile a rank holds lies in one
+stacked tensor on its device, so a kernel body runs ONCE on the rank's
+whole block (the JAX package runs it once per shard).  Shifts agree on
+internal points; a reduction over the block, all-reduced across ranks
+(:func:`..parallel.collectives.all_reduce` with the access's operation),
+equals the JAX package's ``psum``/``pmin``/``pmax`` of per-shard ones up
+to summation order.
 Kernel bodies are torch functions on :mod:`..ops.stencils` shifts, and
 scalars reach them as Python values.
 """
@@ -35,12 +37,13 @@ from enum import IntEnum
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.field import Field
 from ..ops import schedule_sweep as ss
 from ..ops.stencil_sweep import RING, stencil_sweep_reference
 from ..ops.stencils import pack_mask_bits, unpack_mask_bits
-from ..parallel import environment as env
+from ..parallel.collectives import all_reduce
 from ..parallel.halo import _exchange_blocks, exchange, exchange_multi
 
 
@@ -409,6 +412,20 @@ def _outputs(fn, meta: KernelMeta, outs, n_written: int, n_red: int):
     return outs
 
 
+_REDUCE_OPS = {Access.SUM: dist.ReduceOp.SUM, Access.MIN: dist.ReduceOp.MIN,
+               Access.MAX: dist.ReduceOp.MAX}
+
+
+def _reduced(meta: KernelMeta, outs) -> list:
+    """A call's reduction results as Python floats, each all-reduced
+    across ranks with its declared access (GO_SUM, GO_MIN, GO_MAX)."""
+    accs = [a.access for a in meta.args if _is_reduction(a)]
+    return [float(all_reduce(r if isinstance(r, torch.Tensor)
+                             else torch.tensor(float(r), dtype=torch.float64),
+                             _REDUCE_OPS[acc]))
+            for acc, r in zip(accs, outs)]
+
+
 def _merge(mask, new, old):
     """``where(mask, new, old)`` with ``new`` in ``old``'s dtype."""
     new = torch.as_tensor(new, dtype=old.dtype, device=old.device)
@@ -422,9 +439,9 @@ def invoke(kern, *args, exchange_halos: bool = True):
     :class:`Field` for CU/CV/CT/CF/EVERY arguments, nothing for grid
     properties (fetched from the grid), and Python numbers for scalars.
     Written fields are updated in place (their ``.data`` is replaced);
-    reduction results are returned as Python floats.
+    reduction results are returned as Python floats, reduced over every
+    rank's block.
     """
-    env.require_one_rank("invoke", "M3")
     meta: KernelMeta = kern._meta
     grid, records = _bind_call(meta, args)
 
@@ -462,7 +479,7 @@ def invoke(kern, *args, exchange_halos: bool = True):
               for (_, old, m), nb in zip(written, outs)]
     for (f, _, _), nd in zip(written, merged):
         f.data = nd
-    reds = tuple(float(r) for r in outs[len(written):])
+    reds = tuple(_reduced(meta, outs[len(written):]))
     if n_red == 1:
         return reds[0]
     return reds or None
@@ -494,7 +511,6 @@ class Schedule:
     """
 
     def __init__(self, *calls, exchange_halos: bool = True):
-        env.require_one_rank("a kernel Schedule", "M3")
         if not calls:
             raise ValueError("empty schedule")
         self._slots: list = []          # distinct Fields, in first-use order
@@ -628,7 +644,7 @@ class Schedule:
                             len(s["written"]), s["n_red"])
             for (si, mi), nb in zip(s["written"], outs):
                 cur[si] = _merge(self._masks[mi], nb, cur[si])
-            reds.extend(float(r) for r in outs[len(s["written"]):])
+            reds.extend(_reduced(s["meta"], outs[len(s["written"]):]))
         for f, d in zip(self._slots, cur):
             f.data = d
         if len(reds) == 1:
@@ -898,6 +914,7 @@ class Schedule:
                     return ss.schedule_sweep(
                         gen, state_p, tuple(extra_p) + tuple(ros_p)
                         + float_c, int_c, code_stack, rows)
+                sweep.generated = gen      # its source, tile and form
                 return sweep
 
             def stepf(*args):

@@ -76,6 +76,19 @@
 // no barrier between them.  A march (Ring<..., MARCH = true>: the
 // tracer) runs its own loops.
 //
+// The scratch form (a Ring with SCRATCH, ScratchRing).  A window that
+// does not fit a CTA's shared memory even on 8-cell tiles (a schedule of
+// many levels) lives in global memory instead: each CTA of a persistent
+// grid owns a slice of a scratch buffer and takes the tiles in turn, by
+// a grid-stride loop.  The same steps run on that window unchanged:
+// __syncthreads orders a CTA's global-memory accesses as it orders its
+// shared-memory ones.  The tile is scratch_shape's (8 rows, a 32-column
+// window: one warp of lanes a row), the staging is clamped scalar reads
+// (cp.async writes shared memory only), the threads a CTA are the
+// ring's, and the CTAs are at most those resident at once and at most
+// what keeps the windows of all of them within the bytes the caller
+// names (scratch_ctas).
+//
 // The output tile goes back with 16-byte stores where the block's rows
 // are 16-byte aligned, scalar stores otherwise.  A client that writes
 // the tile itself from its last sub-step (WRITES_OUT) skips that pass.
@@ -138,6 +151,8 @@ constexpr int kTallRows = 32;
 constexpr int kMarchLanes = 31;
 constexpr int kMarchRows = 2;
 constexpr int kMarchWarps = 16;
+// the scratch form's window columns
+constexpr int kScratchWX = 32;
 
 // A tile and its window: TY x TX output points, RL window columns left
 // of the tile, WX window columns, CTAS per SM that the rule aimed at.
@@ -206,6 +221,14 @@ constexpr Shape pick_shape(int R, int bpp, int wfix, int tymax,
   return Shape{0, 0, 0, 0, 0};
 }
 
+// The scratch form's tile for ring R: 8 rows, the columns a 32-column
+// window leaves with RL = R rounded up to 4 on the left and at least R
+// on the right; ctas 0 (its CTA count is set at launch).
+constexpr Shape scratch_shape(int R) {
+  const int rl = round_up(R, 4);
+  return Shape{kTileYMin, (kScratchWX - rl - R) / 4 * 4, rl, kScratchWX, 0};
+}
+
 // The march's column strips for a tile and ring: the velocity columns
 // (the tile's, R west and R - 1 east) over the owned columns a strip.
 constexpr int march_strips(const Shape& s, int R) {
@@ -247,22 +270,29 @@ struct Geom {
 // (K * REACH unless given), a window width (0: the tile rule's), the
 // CTA's threads (0: by the window's size) and the tile's most rows; a
 // column march (MARCH) takes the march's widths and march_threads with
-// WARPS and ROWS.
+// WARPS and ROWS; SCRATCH takes the scratch form.
 template <int K_, int REACH_, int RING_ = K_ * REACH_, int WX_ = 0,
           int NT_ = 0, int TYMAX_ = kTileYMax, bool MARCH_ = false,
-          int WARPS_ = kMarchWarps, int ROWS_ = kMarchRows>
+          int WARPS_ = kMarchWarps, int ROWS_ = kMarchRows,
+          bool SCRATCH_ = false>
 struct Ring {
   static constexpr int K = K_, REACH = REACH_, RING = RING_, WX = WX_;
   static constexpr int THREADS = NT_, TYMAX = TYMAX_;
-  static constexpr bool MARCH = MARCH_;
+  static constexpr bool MARCH = MARCH_, SCRATCH = SCRATCH_;
   static constexpr int WARPS = WARPS_, ROWS = ROWS_;
 };
+
+// The ring of the scratch form, NT threads a CTA.
+template <int K, int REACH, int RING, int NT>
+using ScratchRing = Ring<K, REACH, RING, kScratchWX, NT, kTileYMax, false,
+                         kMarchWarps, kMarchRows, true>;
 
 // The geometry the tile rule gives a ring with `bpp` bytes per point.
 template <class RG, int BPP>
 struct RuleGeom {
   static constexpr Shape S =
-      pick_shape(RG::RING, BPP, RG::WX, RG::TYMAX, RG::MARCH);
+      RG::SCRATCH ? scratch_shape(RG::RING)
+                  : pick_shape(RG::RING, BPP, RG::WX, RG::TYMAX, RG::MARCH);
   static_assert(S.ty > 0, "the window does not fit a CTA's shared memory");
   static constexpr int THREADS =
       RG::THREADS  ? RG::THREADS
@@ -313,15 +343,16 @@ struct Out {
   int ny, nx, oy, ox;
 };
 
-// The shared-memory window: N state planes, M aux planes, NS scratch
-// planes (not staged), MI int32 aux planes, NC code planes (one when
-// CODE, by default).  G is the geometry the tile rule gives the ring RG
-// for these planes.
+// The window: N state planes, M aux planes, NS scratch planes (not
+// staged), MI int32 aux planes, NC code planes (one when CODE, by
+// default), in shared memory, or in global memory in the scratch form.
+// G is the geometry the tile rule gives the ring RG for these planes.
 template <typename T, int N, int M, bool CODE, class RG, int MI = 0,
           int NC = (CODE ? 1 : 0), int NS = 0>
 struct Tile {
   using Value = T;
   static constexpr int NINT = MI, NCODE = NC, NSCRATCH = NS;
+  static constexpr bool SCRATCH = RG::SCRATCH;
   static constexpr int BPP = (N + M + NS) * static_cast<int>(sizeof(T)) +
                              4 * MI + NC;
   using G = typename RuleGeom<RG, BPP>::type;
@@ -572,7 +603,7 @@ __device__ __forceinline__ void stage(typename S::Tile& t,
   constexpr int MI = S::Tile::NINT, NC = S::Tile::NCODE;
   constexpr int WX = G::WX, WC = G::WC;
   const size_t plane = static_cast<size_t>(p.ny) * p.nx;
-  bool chunks = G::CHUNKS && (p.nx % 4) == 0 &&
+  bool chunks = !S::Tile::SCRATCH && G::CHUNKS && (p.nx % 4) == 0 &&
                 (NC == 0 || staging::aligned4(p.code));
 #pragma unroll
   for (int f = 0; f < N; ++f) chunks = chunks && staging::aligned16(p.in[f]);
@@ -647,15 +678,16 @@ __device__ __forceinline__ void stage(typename S::Tile& t,
   }
 }
 
-// Write the output tile from the state planes to the block: 16 bytes per
-// store where the block's rows are 16-byte aligned.
+// Write the output tile (by, bx) from the state planes to the block: 16
+// bytes per store where the block's rows are 16-byte aligned.
 template <class S>
 __device__ __forceinline__ void write_back(const typename S::Tile& t,
-                                           const PlanesOf<S>& p) {
+                                           const PlanesOf<S>& p, int by,
+                                           int bx) {
   using G = typename S::G;
   using T = typename S::T;
   constexpr int N = S::N, V = 16 / static_cast<int>(sizeof(T));
-  const int gy0 = blockIdx.y * G::TY, gx0 = blockIdx.x * G::TX;
+  const int gy0 = by * G::TY, gx0 = bx * G::TX;
   bool vec = G::CHUNKS && (p.nx % 4) == 0;
 #pragma unroll
   for (int f = 0; f < N; ++f) vec = vec && staging::aligned16(p.out[f]);
@@ -709,7 +741,87 @@ sweep_kernel(PlanesOf<S> p, typename S::Consts c) {
 #pragma unroll
   for (int k = 0; k < S::K; ++k) step.substep(t, k);
 
-  if constexpr (!WritesOut<S>::value) write_back<S>(t, p);
+  if constexpr (!WritesOut<S>::value) {
+    write_back<S>(t, p, blockIdx.y, blockIdx.x);
+  }
+}
+
+// The scratch form of sweep_kernel: CTA b's window is the `stride` bytes
+// of `scratch` from b * stride, and the CTAs take the tiles (row-major)
+// in turn.
+template <class S>
+__global__ void __launch_bounds__(S::G::NT)
+sweep_kernel_scratch(PlanesOf<S> p, typename S::Consts c,
+                     unsigned char* scratch, size_t stride) {
+  using G = typename S::G;
+  static_assert(S::Tile::SCRATCH, "a ScratchRing");
+  typename S::Tile t(scratch + blockIdx.x * stride);
+  const S step(c);
+  const int ntx = (p.nx + G::TX - 1) / G::TX;
+  const int tiles = ntx * ((p.ny + G::TY - 1) / G::TY);
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int by = tile / ntx, bx = tile - by * ntx;
+    const int oy = by * G::TY - G::R;
+    const int ox = bx * G::TX - G::RL;
+    __syncthreads();        // the last tile's write-back has read the window
+    stage<S>(t, p, oy, ox);
+    if constexpr (WritesOut<S>::value) {
+#pragma unroll
+      for (int f = 0; f < S::N; ++f) t.out.p[f] = p.out[f];
+      t.out.ny = p.ny;
+      t.out.nx = p.nx;
+      t.out.oy = oy;
+      t.out.ox = ox;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < S::K; ++k) step.substep(t, k);
+    if constexpr (!WritesOut<S>::value) write_back<S>(t, p, by, bx);
+  }
+}
+
+// The bytes of one CTA's slice of the scratch form's buffer: its window,
+// rounded up to 256.
+template <class S>
+constexpr size_t scratch_stride() {
+  return (S::Tile::bytes + 255) / 256 * 256;
+}
+
+// The scratch form's CTAs for a (ny, nx) block: one per tile, at most
+// those resident at once on the current device, and at most what keeps
+// their windows within `cap` bytes (at least one).  -1 on a CUDA error.
+template <class S>
+int scratch_ctas(int ny, int nx, long long cap) {
+  using G = typename S::G;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sweep_kernel_scratch<S>, G::NT, 0) != cudaSuccess) {
+    return -1;
+  }
+  const long long tiles = static_cast<long long>((nx + G::TX - 1) / G::TX) *
+                          ((ny + G::TY - 1) / G::TY);
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 1 ? per_sm : 1);
+  long long fit = cap / static_cast<long long>(scratch_stride<S>());
+  fit = fit > 1 ? fit : 1;
+  long long n = tiles < resident ? tiles : resident;
+  return static_cast<int>(n < fit ? n : fit);
+}
+
+// Launch the scratch form with `ctas` CTAs on a buffer of at least
+// ctas * scratch_stride<S>() bytes.
+template <class S>
+cudaError_t launch_scratch(const PlanesOf<S>& p, const typename S::Consts& c,
+                           void* scratch, int ctas, cudaStream_t stream) {
+  using G = typename S::G;
+  if (ctas < 1 || scratch == nullptr) return cudaErrorInvalidValue;
+  sweep_kernel_scratch<S><<<ctas, G::NT, 0, stream>>>(
+      p, c, static_cast<unsigned char*>(scratch), scratch_stride<S>());
+  return cudaGetLastError();
 }
 
 // The launch grid of a (ny, nx) block: one CTA per tile of G.

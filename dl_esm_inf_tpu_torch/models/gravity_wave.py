@@ -64,9 +64,9 @@ def wet_update_masks(grid: Grid, dtype):
     d = grid.decomp
     gx = layout.global_x_index(d)
     gy = layout.global_y_index(d)
-    geo = torch.from_numpy(((gy >= 0) & (gy < d.global_ny))[:, None]
-                           & ((gx >= 0) & (gx < d.global_nx))[None, :])
-    return ((wet_t & geo.to(tm.device)).to(dtype),
+    geo = grid.block_tensor(((gy >= 0) & (gy < d.global_ny))[:, None]
+                            & ((gx >= 0) & (gx < d.global_nx))[None, :])
+    return ((wet_t & geo).to(dtype),
             (wet_t & (st.xp(tm) == 1)).to(dtype),
             (wet_t & (st.yp(tm) == 1)).to(dtype))
 

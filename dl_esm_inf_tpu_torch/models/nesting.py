@@ -28,8 +28,8 @@ The glue writes with out-of-place ``index_put`` (the JAX package's
 ``.at[].set``), so autograd flows through the ring scatter, the child
 substeps and the feedback.  Plain path only: the glue runs every parent
 step, so a parent on the fused sweep or with steps_per_sweep > 1 is
-refused, as in the JAX package.  Across ranks the child, a
-``SweepClient``, raises (ROADMAP M3).
+refused, as in the JAX package.  Across ranks nesting raises (ROADMAP
+M9): the glue reads and writes the whole stacked layout of one rank.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ import torch
 from ..core import kinds, layout
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
+from ..parallel import environment as env
 from .gravity_wave import GravityWaveModel
 
 
@@ -124,6 +125,7 @@ class OneWayNest:
     def __init__(self, parent: GravityWaveModel, *, origin, shape,
                  ratio: int, two_way: bool = False, child_ndomains=None,
                  child_ndomainx=None, child_ndomainy=None):
+        env.require_one_rank("grid nesting", "M9")
         if parent.use_fused or parent._sweep_K > 1:
             raise ValueError(
                 "one-way nesting needs the parent on the plain path (the "
@@ -358,6 +360,7 @@ class NestSet:
     so their feedbacks commute."""
 
     def __init__(self, nests):
+        env.require_one_rank("grid nesting", "M9")
         nests = tuple(nests)
         if not nests:
             raise ValueError("NestSet needs at least one nest")

@@ -73,8 +73,14 @@ class SemiImplicitModel:
         :func:`..ops.solvers.pcg_solve`: reverse mode flows through the
         implicit step by the adjoint (same symmetric) solve instead of
         recording the iterations.  The iteration count is then not
-        available (``run`` reports 0)."""
-        env.require_one_rank("the semi-implicit model", "M2")
+        available (``run`` reports 0).  Across ranks it is not ported:
+        its backward would run through the exchange between ranks.
+
+        Across ranks each rank holds its block of tiles, and the solver's
+        dot products are all-reduced (:func:`..ops.solvers.pcg_block`)."""
+        if differentiable:
+            env.require_one_rank("the semi-implicit model's adjoint "
+                                 "(differentiable=True)", "M8")
         if not 0.5 <= theta <= 1.0:
             raise ValueError(f"theta must be in [0.5, 1], got {theta}"
                              " (below 0.5 the scheme is unstable)")
@@ -118,7 +124,7 @@ class SemiImplicitModel:
                    & ((gx >= 0) & (gx < d.global_nx))[None, :])
             obc = ((grid._tmask_np == 1) & geo
                    & (gy == d.global_ny - 1)[:, None])
-            self._obc = torch.from_numpy(obc.astype(npdt)).to(grid.device)
+            self._obc = grid.block_tensor(obc.astype(npdt))
             # the boundary face (NE offset: v_j sits above T_j) is not
             # driven by the interior momentum update: its value is the
             # Flather velocity, set after each solve
@@ -173,8 +179,7 @@ class SemiImplicitModel:
         self._coeffs = helmholtz_coefficients(grid, lam_x, lam_y,
                                               diag_extra=diag_extra)
         self._inv_diag = 1.0 / self._coeffs[4]
-        self._weight = torch.from_numpy(
-            layout.internal_mask(d).astype(npdt)).to(grid.device)
+        self._weight = grid.region_mask(dtype=dtype)
         if hu_g is None:
             full = np.full((d.global_ny, d.global_nx), self.depth,
                            dtype=npdt)

@@ -35,7 +35,6 @@ from ..ops import stencils as st
 from ..ops.adjoint import checkpointed_fori
 from ..ops.fastpath import SweepClient, fast_path_grid_args
 from ..ops.stencil_sweep import StencilSweepKernel, march_threads, tile
-from ..parallel import environment as env
 from ..parallel.collectives import masked_sum
 from ..parallel.halo import exchange_multi_fn
 from .gravity_wave import gaussian_eta, wet_update_masks
@@ -188,8 +187,7 @@ class TracerModel(SweepClient):
     def mass(self) -> float:
         """Total tracer over wet internal cells (conserved exactly: flux
         form with no-flux walls telescopes)."""
-        w = torch.from_numpy(layout.internal_mask(self.grid.decomp)).to(
-            device=self.grid.device, dtype=self.grid.dtype)
+        w = self.grid.region_mask(dtype=self.grid.dtype)
         return masked_sum(self.c.data, w * self._t_upd)
 
     def checksums(self) -> dict:
@@ -212,7 +210,6 @@ class CoupledTracer:
     def __init__(self, flagship, kappa: float = 0.0,
                  scheme: str = "vanleer"):
         from .nemolite2d import NemoLite2D
-        env.require_one_rank("CoupledTracer", "M3")
         if not isinstance(flagship, NemoLite2D):
             raise TypeError("CoupledTracer rides a NemoLite2D model, "
                             f"got {type(flagship).__name__}")

@@ -13,7 +13,6 @@ sweep (gravity wave, shallow, two-layer, tracer) share.
 """
 from __future__ import annotations
 
-from ..parallel import environment as env
 from ..parallel.halo import exchange_multi_fn
 from .adjoint import checkpointed_fori
 from .stencil_sweep import RING, make_sweep, stencil_sweep_reference
@@ -78,11 +77,6 @@ class SweepClient:
 
     reach = 1
     _variant = 0
-
-    def __new__(cls, *args, **kwargs):
-        # before any of the subclass's set-up, which is one-rank only
-        env.require_one_rank(f"the {cls.__name__} sweep client", "M3")
-        return super().__new__(cls)
 
     def _init_fast_path(self) -> None:
         #: advance with the fused sweep (the CUDA kernel on a CUDA grid)

@@ -18,7 +18,13 @@ source depends on the number of steps or on scalar values: those ride
 each launch as per-repeat constants (doubles, as the torch bodies see
 Python floats), so new forcing or another ``run(n)`` reuses the library.
 The tile and its window follow the skeleton's tile rule
-(:func:`.stencil_sweep.tile`) for the planes a sweep stages.
+(:func:`.stencil_sweep.tile`) for the planes a sweep stages.  A window
+that does not fit a CTA's shared memory even on 8-cell tiles (a chain of
+many levels) takes the skeleton's scratch form instead: the same
+generated body on a window in a per-CTA slice of a device buffer, CTAs
+that take the tiles in turn, the tile of
+:func:`.stencil_sweep.scratch_tile` (:func:`window_tile` says which form a
+window takes, and :attr:`GeneratedSweep.form` which one a sweep took).
 
 Inside the kernel the calls run by a :class:`Plan` that :func:`plan`
 works out from the schedule's dataflow (the bindings and stencil depths
@@ -73,9 +79,18 @@ from dataclasses import dataclass
 import torch
 
 from . import point_trace
-from .stencil_sweep import RING, Shape, tile
+from .stencil_sweep import RING, Shape, scratch_tile, tile
 
 _CTYPES = {torch.float32: "float", torch.float64: "double"}
+
+#: the scratch form's threads a CTA, and the most device memory the
+#: windows of all its CTAs may take: a launch takes every CTA that can be
+#: resident (3 an SM at 29 levels, 190 MB of windows), as long as their
+#: windows fit.  On an H100 that beat keeping the windows in the 50 MB
+#: L2 with fewer CTAs (6.85 ms a sweep against 14.21 at 32 MiB; 512
+#: threads were no faster; PERF.md §6, row 10)
+SCRATCH_THREADS = 256
+SCRATCH_BYTES = 1 << 30
 _RESERVED = {"T", "sweep", "int32_t", "int8_t", "size_t"}
 
 
@@ -221,9 +236,11 @@ class GeneratedSweep:
     n_int: int            # int32 planes in (consts)
     n_codes: int          # int8 mask-code planes
     n_scalars: int        # scalars per repeat
-    smem_bytes: int       # dynamic shared memory per CTA
+    smem_bytes: int       # dynamic shared memory per CTA (0: scratch)
     tile: Shape           # the skeleton's tile and window
     plan: Plan            # passes, barriers and regions of each repeat
+    form: str = "shared"  # the window in "shared" memory or in "scratch"
+    window_bytes: int = 0  # the window of one CTA, in either form
 
     @property
     def n_consts(self) -> int:
@@ -253,16 +270,14 @@ def window_tile(n_float: int, n_int: int, n_codes: int, ring: int,
     """``(shape, bytes)``: the skeleton's tile (:func:`.stencil_sweep.tile`)
     for a window of ``n_float`` planes of ``dtype``, ``n_int`` int32
     planes and ``n_codes`` int8 code planes with ``ring`` cells on every
-    side, and the window's bytes.  Raises ``ValueError`` where even the
-    smallest tile's window does not fit a CTA."""
+    side, and the window's bytes.  Where even the smallest tile's window
+    does not fit a CTA's shared memory, the scratch form's tile
+    (:func:`.stencil_sweep.scratch_tile`, ``ctas`` 0) and its window's
+    bytes, which lie in global memory."""
     bpp = n_float * dtype.itemsize + 4 * n_int + n_codes
     shape = tile(ring, bpp)
     if shape is None:
-        raise ValueError(
-            f"schedule sweep needs {(8 + 2 * ring) ** 2 * bpp} B of shared "
-            f"memory per CTA even on 8-cell tiles (ring {ring}, {n_float} "
-            f"float + {n_int} int32 planes, {dtype}), more than a CTA may "
-            "take; use fewer repeats or fewer levels")
+        shape = scratch_tile(ring)
     return shape, shape.window_bytes(ring, bpp)
 
 
@@ -330,7 +345,8 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 f"grid-property plane of dtype {c.dtype} in a {dtype} "
                 "schedule sweep (it takes the fields' dtype and int32)")
     n_codes = -(-n_masks // 8)
-    shape, smem = window_tile(n_state + n_aux, n_int, n_codes, ring, dtype)
+    shape, window = window_tile(n_state + n_aux, n_int, n_codes, ring, dtype)
+    scratch = shape.ctas == 0
     reach = max(-(-ring // K), 1)
 
     pl = plan(steps, K=K, ring=ring, state_slots=state_slots)
@@ -470,6 +486,30 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
     nsc = max(n_scalars, 1)
     summary = ", ".join(c[0] for c in calls)
     in_place = ", ".join(str(c) for c, f in enumerate(pl.in_place) if f)
+    # the scratch form: the window in a slice of a device buffer per CTA,
+    # a persistent grid (the shared form's source is as it was before)
+    ring_type = "ScratchRing" if scratch else "Ring"
+    nt = f", {SCRATCH_THREADS}" if scratch else ""
+    form_note = (f"// The window ({window} B per CTA) exceeds shared memory: "
+                 "the scratch form,\n// in a device buffer of "
+                 "schedule_sweep_scratch_stride() B per CTA.\n"
+                 if scratch else "")
+    scratch_entries = ("""
+// Bytes of one CTA's slice of the scratch buffer, and the CTAs a (ny, nx)
+// block launches with their windows in `cap` bytes (-1 on a CUDA error).
+size_t schedule_sweep_scratch_stride() {
+  return sweep::scratch_stride<Step>();
+}
+int schedule_sweep_ctas(int ny, int nx, long long cap) {
+  return sweep::scratch_ctas<Step>(ny, nx, cap);
+}
+""" if scratch else "")
+    scratch_params = ("void* scratch, int ctas,\n                          "
+                      if scratch else "")
+    launch_call = ("sweep::launch_scratch<Step>(\n          p, c, scratch, "
+                   "ctas, static_cast<cudaStream_t>(stream))" if scratch
+                   else "sweep::launch<Step>(p, c, static_cast<cudaStream_t>"
+                   "(stream))")
     text = f"""\
 // Generated by dl_esm_inf_tpu_torch/ops/schedule_sweep.py from a kernel
 // schedule; do not edit.  The fused schedule sweep of:
@@ -479,7 +519,7 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
 // planes, {n_aux} float and {n_int} int32 aux planes, {n_codes} mask-code
 // plane(s); {n_scalars} scalars per repeat.
 // Plan: {pl.summary()}
-// (in place: calls {in_place or "none"}); passes (calls, barrier before):
+{form_note}// (in place: calls {in_place or "none"}); passes (calls, barrier before):
 //   {"; ".join(f"{list(p)}{' B' if b else ''}"
                for p, b in zip(pl.passes, pl.barrier_before))}
 // Regions: call c computes the tile grown by sw_m[k][c] cells in repeat
@@ -498,7 +538,7 @@ struct Step {{
   static constexpr int K = {K};
   static constexpr int N = {n_state}, M = {n_aux};
   static constexpr bool CODE = true;
-  using Tile = sweep::Tile<T, N, M, CODE, sweep::Ring<K, {reach}, {ring}>,
+  using Tile = sweep::Tile<T, N, M, CODE, sweep::{ring_type}<K, {reach}, {ring}{nt}>,
                            {n_int}, {n_codes}>;
   using G = Tile::G;
   using Consts = ::Consts;
@@ -522,7 +562,7 @@ extern "C" {{
 // Number of doubles schedule_sweep_launch expects in `consts`: K rows of
 // the schedule's scalars.
 int schedule_sweep_num_consts() {{ return sweep::num_consts<Consts>(); }}
-
+{scratch_entries}
 // in/out: N state planes; aux: M float planes; auxi: the int32 planes;
 // code: the mask-code planes, one after another; all contiguous (ny, nx)
 // device arrays.  Launches on `stream` and returns cudaGetLastError().
@@ -530,7 +570,7 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
                           const void* const* aux, const void* const* auxi,
                           const void* code, int ny, int nx,
                           const double* consts, int n_consts,
-                          void* stream) {{
+                          {scratch_params}void* stream) {{
   if (n_consts != sweep::num_consts<Consts>() || ny < 1 || nx < 1) {{
     return static_cast<int>(cudaErrorInvalidValue);
   }}
@@ -551,7 +591,7 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
   double* dst = reinterpret_cast<double*>(&c);
   for (int i = 0; i < n_consts; ++i) dst[i] = consts[i];
   return static_cast<int>(
-      sweep::launch<Step>(p, c, static_cast<cudaStream_t>(stream)));
+      {launch_call});
 }}
 
 }}  // extern "C"
@@ -560,8 +600,9 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
     return GeneratedSweep(
         name=f"schedule_sweep_{digest}", text=text, dtype=dtype, K=K,
         ring=ring, n_state=n_state, n_aux=n_aux, n_int=n_int,
-        n_codes=n_codes, n_scalars=n_scalars, smem_bytes=smem, tile=shape,
-        plan=pl)
+        n_codes=n_codes, n_scalars=n_scalars,
+        smem_bytes=0 if scratch else window, tile=shape, plan=pl,
+        form="scratch" if scratch else "shared", window_bytes=window)
 
 
 class ScheduleSweepKernel:
@@ -569,12 +610,16 @@ class ScheduleSweepKernel:
 
     ``launches`` counts the launches of every generated sweep made
     through this wrapper (and nothing else); callers may reset it.
-    ``generated`` holds every source built, by name."""
+    ``generated`` holds every source built, by name.  A sweep of the
+    scratch form runs on one buffer per device, grown on demand and kept
+    (the wrapper's sweeps on one device run one after another on the
+    current stream)."""
 
     def __init__(self):
         self.launches = 0
         self.generated: dict = {}
         self._fns: dict = {}
+        self._scratch: dict = {}        # device -> uint8 buffer
 
     def build(self, gen: GeneratedSweep):
         """Build (once) and bind one generated kernel; returns its
@@ -587,8 +632,16 @@ class ScheduleSweepKernel:
                            ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                           *((ctypes.c_void_p, ctypes.c_int)
+                             if gen.form == "scratch" else ()),
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            if gen.form == "scratch":
+                built.lib.schedule_sweep_scratch_stride.restype = \
+                    ctypes.c_size_t
+                built.lib.schedule_sweep_ctas.argtypes = [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+                built.lib.schedule_sweep_ctas.restype = ctypes.c_int
             nconst = built.lib.schedule_sweep_num_consts
             nconst.argtypes = []
             nconst.restype = ctypes.c_int
@@ -651,15 +704,34 @@ class ScheduleSweepKernel:
             return (ctypes.c_void_p * max(len(ts), 1))(
                 *(t.data_ptr() for t in ts))
         ny, nx = state[0].shape
+        extra = ()
+        if gen.form == "scratch":
+            extra = self._scratch_args(gen, state[0].device, ny, nx)
         err = self._fns[gen.name](
             ptrs(state), ptrs(out), ptrs(aux), ptrs(auxi), codes.data_ptr(),
-            ny, nx, (ctypes.c_double * len(flat))(*flat), len(flat),
+            ny, nx, (ctypes.c_double * len(flat))(*flat), len(flat), *extra,
             torch.cuda.current_stream(state[0].device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{gen.name} kernel launch failed: CUDA "
                                f"error {err}")
         self.launches += 1
         return out
+
+    def _scratch_args(self, gen, device, ny: int, nx: int):
+        """``(buffer pointer, CTAs)`` of one scratch-form launch on an
+        (ny, nx) block: the CTAs the library asks for within
+        SCRATCH_BYTES, each with its slice of the device's buffer."""
+        lib = self.build(gen).lib
+        ctas = lib.schedule_sweep_ctas(ny, nx, SCRATCH_BYTES)
+        if ctas < 1:
+            raise RuntimeError(f"{gen.name}: the scratch form's CTA count "
+                               f"failed ({ctas})")
+        need = ctas * lib.schedule_sweep_scratch_stride()
+        buf = self._scratch.get(device)
+        if buf is None or buf.numel() < need:
+            buf = torch.empty(need, dtype=torch.uint8, device=device)
+            self._scratch[device] = buf
+        return buf.data_ptr(), ctas
 
 
 #: the wrapper of every generated schedule sweep

@@ -1,13 +1,16 @@
-"""Iterative elliptic solvers (PCG + Chebyshev) on one device.
+"""Iterative elliptic solvers (PCG + Chebyshev) on a rank's block.
 
 Counterpart of ``dl_esm_inf_tpu/ops/solvers.py``.  Semi-implicit
 free-surface codes need one elliptic solve per time step: a CG with
 halo exchanges inside the matvec and global dot products.  Here every
-tile of the decomposition lives in one stacked tensor, so
+tile a rank holds lives in one stacked tensor, so
 
 * the matvec is a depth-1 halo exchange plus the local 5-point stencil;
-* a dot product is one masked reduction, accumulated in
-  :func:`..core.kinds.sum_dtype` of the data;
+* a dot product is one masked reduction of the rank's block,
+  accumulated in :func:`..core.kinds.sum_dtype` of the data, then
+  all-reduced across ranks (:func:`..parallel.collectives.all_reduce`;
+  CG's two dots per iteration in one call, as the JAX package's one
+  ``psum``);
 * CG's ``lax.while_loop`` becomes a Python loop whose tolerance test
   reads one scalar from the device per iteration.
 
@@ -30,8 +33,8 @@ import numpy as np
 import torch
 
 from ..core import kinds, layout
-from ..parallel import environment as env
 from ..parallel import halo as halo_mod
+from ..parallel.collectives import all_reduce
 from ..parallel.halo import exchange_multi_fn
 from . import stencils as st
 from .stencil_sweep import RING, StencilSweepKernel, stencil_sweep_reference
@@ -65,19 +68,19 @@ def pcg_block(matvec, b, x0, weight, *, tol: float, maxiter: int,
 
     Returns ``(x, iters, rel_res)`` with ``x``'s halo ring stale,
     ``iters`` a Python int and ``rel_res`` a 0-dim tensor of the
-    accumulation dtype."""
-    env.require_one_rank("CG's dot products", "M2")
+    accumulation dtype.  Across ranks each dot product is all-reduced,
+    so every rank runs the same iterations."""
     acc = kinds.sum_dtype(b.dtype)
     w = weight.to(acc)
     zero = torch.zeros((), dtype=acc, device=b.device)
 
     def pdot(u, v):
-        return (u.to(acc) * v.to(acc) * w).sum()
+        return all_reduce((u.to(acc) * v.to(acc) * w).sum())
 
     def pdot2(u1, v1, u2, v2):
-        """Two dot products in ONE reduction."""
+        """Two dot products in ONE reduction and one all-reduce."""
         uv = torch.stack((u1.to(acc) * v1.to(acc), u2.to(acc) * v2.to(acc)))
-        return (uv * w).sum(dim=(-2, -1))
+        return all_reduce((uv * w).sum(dim=(-2, -1)))
 
     def prec(r):
         return r * inv_diag if inv_diag is not None else r
@@ -203,7 +206,7 @@ def helmholtz_coefficients(grid, lam_x, lam_y, diag_extra=None):
     # mask stamps each halo cell with its source cell's validity, and
     # leaves non-wrap outer halos at their stale False.
     geo_x = halo_mod.exchange(
-        torch.from_numpy(geo.astype(kinds.np_dtype(dtype))).to(grid.device),
+        grid.block_tensor(geo.astype(kinds.np_dtype(dtype))),
         grid.halo_spec, depth=d.halo)
     a = ((grid.tmask == 1) & (geo_x > 0.5)).to(dtype)
 
@@ -379,8 +382,6 @@ class HelmholtzSolver:
         if grid.halo_spec is None or grid.tmask is None:
             raise ValueError("grid must be initialised (grid_init) "
                              "before building a solver")
-        env.require_one_rank("the Helmholtz solver (its dot products and "
-                             "residuals)", "M2")
         if method not in ("cg", "chebyshev"):
             raise ValueError(f"method must be 'cg' or 'chebyshev', "
                              f"got {method!r}")
@@ -436,8 +437,7 @@ class HelmholtzSolver:
             self._codes = st.pack_mask_bits(
                 [c != 0 for c in coeffs[:4]]).contiguous()
         self._inv_diag = 1.0 / coeffs[4] if precondition else None
-        self._weight = torch.from_numpy(layout.internal_mask(d).astype(
-            kinds.np_dtype(grid.dtype))).to(grid.device)
+        self._weight = grid.region_mask(dtype=grid.dtype)
         self._sweep_cache = {}
 
     # ------------------------------------------------------------------
@@ -463,6 +463,7 @@ class HelmholtzSolver:
         w = self._weight.to(acc)
         rr = (r.to(acc) ** 2 * w).sum()
         bb = (b.to(acc) ** 2 * w).sum()
+        rr, bb = all_reduce(torch.stack((rr, bb))).unbind()
         return torch.sqrt(rr / torch.clamp(bb, min=_tiny(acc)))
 
     def _make_cheb_sweep(self, K: int):
@@ -568,7 +569,7 @@ class HelmholtzSolver:
         raw = raw.to(self.grid.device)
         b64 = raw.to(torch.float64)
         w64 = self._weight.to(torch.float64)
-        bb = float(((b64 * w64) ** 2).sum()) or 1.0
+        bb = float(all_reduce(((b64 * w64) ** 2).sum())) or 1.0
 
         # the first solve runs at working precision even for an f64 rhs
         x, info = self.solve(raw.to(self.grid.dtype))
@@ -581,7 +582,7 @@ class HelmholtzSolver:
             converged = converged and dinfo["converged"]
             x64 = x64 + dx.to(torch.float64)
         r64 = self._residual64(b64, x64)
-        rel = float(torch.sqrt(((r64 * w64) ** 2).sum() / bb))
+        rel = float(torch.sqrt(all_reduce(((r64 * w64) ** 2).sum()) / bb))
         return x64, {"iterations": total, "refined_rel_res": rel,
                      "working_rel_res": info["rel_res"],
                      "converged": converged}

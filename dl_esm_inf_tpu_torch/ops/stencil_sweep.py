@@ -49,6 +49,8 @@ WINDOW_X = (96, 64, 32)
 SQUARES = (32, 16, 8)
 #: the march's owned columns of a warp (kMarchLanes)
 MARCH_LANES = 31
+#: the scratch form's window columns (kScratchWX)
+SCRATCH_WX = 32
 
 
 class Shape(NamedTuple):
@@ -135,6 +137,16 @@ def tile(ring: int, bpp: int, wx: int = 0, ty_max: int = TILE_Y_MAX,
                                  <= MAX_OVERHEAD):
             return best
     return None
+
+
+def scratch_tile(ring: int) -> Shape:
+    """The scratch form's tile for ``ring`` (the header's
+    ``scratch_shape``): 8 rows, a 32-column window with the ring rounded
+    up to 4 on its left and at least the ring on its right; ``ctas`` 0,
+    as its CTA count is set at launch."""
+    rl = -(-ring // 4) * 4
+    return Shape(TILE_Y_MIN, (SCRATCH_WX - rl - ring) // 4 * 4, rl,
+                 SCRATCH_WX, 0)
 
 
 def reciprocal(x: float, dtype) -> float:

@@ -23,13 +23,23 @@ def _acc(data: torch.Tensor) -> torch.Tensor:
     return data.to(kinds.sum_dtype(data.dtype))
 
 
+def all_reduce(local: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The all-reduce of one rank's small partial result (a few values:
+    dot products, residual norms), in its dtype, on its device: ``local``
+    itself with one rank.  Across ranks the values move through host
+    memory in one gloo call, so two sums cost one collective (the JAX
+    package's ``psum`` of a stacked pair), and the result carries no
+    gradient."""
+    if env.get_num_ranks() == 1:
+        return local
+    buf = local.detach().reshape(-1).to("cpu", copy=True)
+    dist.all_reduce(buf, op=op)
+    return buf.reshape(local.shape).to(local.device)
+
+
 def _all_reduce(local: torch.Tensor, op) -> float:
     """The all-reduce of one rank's 0-d partial result, in its dtype."""
-    if env.get_num_ranks() > 1:
-        buf = local.detach().reshape(1).cpu()
-        dist.all_reduce(buf, op=op)
-        return float(buf[0])
-    return float(local)
+    return float(all_reduce(local, op))
 
 
 def global_sum(data: torch.Tensor) -> float:

@@ -104,6 +104,12 @@ def on_master() -> bool:
     return get_rank() == 0
 
 
+def barrier() -> None:
+    """Wait for every rank of the gang (nothing with one rank)."""
+    if get_num_ranks() > 1:
+        dist.barrier()
+
+
 def require_one_rank(what: str, queue: str) -> None:
     """Raise ``NotImplementedError`` for ``what`` when this run has more
     than one rank: a path that is not ported across ranks must not

@@ -20,9 +20,12 @@ Legs (``--legs``, comma separated):
 * ``hill_rdma``: the hill leg with ``transport="remote_dma"`` (one tile
   per rank);
 * ``guards``: every path that is not ported across ranks must raise
-  ``NotImplementedError``; records which did, and which ran (the
-  flagship's fused transport, one tile per rank), and that the fused
-  transport refuses several tiles per rank;
+  ``NotImplementedError`` naming ROADMAP; records which did, which ran
+  (the ported paths: solvers, the semi-implicit model, the clients,
+  invoke, Schedule, the PSy flagship, the coupled tracer, the flagship's
+  fused transport), that the fused transport refuses several tiles per
+  rank, and that the kernel-variant microbench refuses ranks with a
+  ``ValueError``;
 * ``exchange``: ``Field.halo_exchange`` at ``--n``^2 (halo 8, depth 1
   and 8, 2D and 3 levels, walled and doubly periodic) under both
   transports, each held bitwise against the plain single-rank exchange
@@ -64,10 +67,32 @@ Legs (``--legs``, comma separated):
   the card also µs per step of both and the order of one overlapped
   step's device work beside the host's exchange call
   (torch.profiler).
+
+The legs of the slice across ranks, at ``--n``^2 on ``--ndomains`` tiles,
+``--steps`` steps, each gathered for a single process to compare with
+(on the card also its µs per step, or ms per solve or save):
+
+* ``solvers``: ``HelmholtzSolver`` with CG and with the fused Chebyshev
+  sweep at K=4 (walled, an island, lam LAM) on a seeded rhs: the
+  solutions, iterations, relative residuals, and the sweep's launches;
+* ``semi_implicit``: ``tests/mp_worker.py``'s two runs (CG; and the
+  open north boundary), 5 steps each;
+* ``clients``: gravity wave, shallow (periodic), two-layer, N-layer and
+  the tracer (van Leer and upwind) on their fused sweeps at their main
+  paths' K (:func:`client_cases`), with each kernel's launches;
+* ``schedule``: ``tests/mp_worker.py``'s fused schedule (two east shifts,
+  halo 2), its plain run, and the ``invoke`` and ``Schedule``
+  reductions (sum, min, max);
+* ``psy``: ``NemoLite2DPsy`` (halo 8) on ``Schedule.fused``;
+* ``coupled``: ``CoupledTracer`` on the open-north flagship (halo 2);
+* ``checkpoint``: ``save_fields`` of a seeded field (and a 3-level one)
+  at step 7, loaded back on these ranks into a grid of another tiling;
+  the file stays for the caller (``<out>.ckpt.npz``).
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import time
 
 import numpy as np
@@ -139,7 +164,8 @@ def leg_hill_rdma(res, a):
 
 
 def leg_guards(res, a):
-    """Each path not ported across ranks must raise NotImplementedError."""
+    """Each path not ported across ranks must raise NotImplementedError
+    naming ROADMAP; the ported ones run."""
     from dl_esm_inf_tpu_torch.api import kernel_meta as km
     from dl_esm_inf_tpu_torch.models import (gravity_wave, nlayer,
                                              semi_implicit, shallow, tracer,
@@ -147,8 +173,8 @@ def leg_guards(res, a):
     from dl_esm_inf_tpu_torch.models.assimilation import make_cost_fn
     from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
     from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    from dl_esm_inf_tpu_torch.models.nesting import OneWayNest
     from dl_esm_inf_tpu_torch.ops import solvers
-    from dl_esm_inf_tpu_torch.utils import checkpoint
 
     dev = a.device
     n = 8 * a.ndomains
@@ -163,6 +189,8 @@ def leg_guards(res, a):
             maxiter=2),
         "semi_implicit": lambda: semi_implicit.build(
             n, n, ndomains=a.ndomains, device=dev),
+        "semi_implicit_differentiable": lambda: semi_implicit.build(
+            n, n, ndomains=a.ndomains, differentiable=True, device=dev),
         "schedule": lambda: km.Schedule((_copy_kernel(km), fld, fld)),
         "invoke": lambda: km.invoke(_copy_kernel(km), fld, fld),
         "psy": lambda: NemoLite2DPsy(n, n, ndomains=a.ndomains,
@@ -177,15 +205,12 @@ def leg_guards(res, a):
                                        device=dev),
         "nlayer": lambda: nlayer.build(n, n, ndomains=a.ndomains,
                                        device=dev),
-        "kbench": lambda: __import__(
-            "dl_esm_inf_tpu_torch.kbench", fromlist=["_model"])._model(
-                n, torch.device(dev)),
         "fused_transport": lambda: _fused_runs(n, dev),
-        "checkpoint_save": lambda: checkpoint.save_fields(
-            "never-written.npz", {"f": fld}),
-        "checkpoint_load": lambda: checkpoint.load_fields(
-            "never-read.npz", {"f": fld}),
-        "coupled_tracer": lambda: tracer.CoupledTracer(flag),
+        "coupled_tracer": lambda: tracer.CoupledTracer(
+            nl.build(n, n, ndomains=a.ndomains, halo_width=2, device=dev)),
+        "nesting": lambda: OneWayNest(
+            gravity_wave.build(n, n, ndomains=a.ndomains, device=dev),
+            origin=(n // 4, n // 4), shape=(n // 2, n // 2), ratio=2),
         "ensemble": lambda: Ensemble(flag, 2),
         "assimilation": lambda: make_cost_fn(flag, {1: np.zeros((n, n))}),
     }
@@ -206,6 +231,13 @@ def leg_guards(res, a):
     except ValueError as e:
         refused = "one tile per rank" in str(e)
     res["fused_multi_tile_refused"] = np.asarray(refused)
+    try:       # the microbench times one device
+        from dl_esm_inf_tpu_torch import kbench
+        kbench._model(n, torch.device(dev) if dev else None)
+        refused = False
+    except ValueError as e:
+        refused = "one device" in str(e)
+    res["guards_kbench_refused"] = np.asarray(refused)
 
 
 def _fused_runs(n, dev):
@@ -679,13 +711,335 @@ def _overlap_timing(res, a, m, tag):
             dtype=np.float64)
 
 
+# --- the slice across ranks: solvers, clients, schedules, checkpoint ------
+
+#: the Helmholtz couplings of the solvers leg (bench.py measure_solver's)
+LAM = 50.0
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_us(fn, dev, reps: int) -> float:
+    """µs per call of ``fn`` on this rank after a barrier (CUDA events);
+    every rank calls it, so the collectives inside ``fn`` pair up."""
+    env.barrier()
+    return _local_us(fn, dev, reps)
+
+
+def timed_call(fn, dev):
+    """``(fn(), ms)``: one call after a barrier, timed with CUDA events on
+    the card (ms None on the CPU) -- for the calls that take 0.1 s or
+    more, which are timed where they are checked, not run again."""
+    env.barrier()
+    if dev.type != "cuda":
+        return fn(), None
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def island_tmask(n: int) -> np.ndarray:
+    """A walled n x n T mask with a 3 x 3 island (the solver tests')."""
+    t = np.ones((n, n), np.int32)
+    t[0, :] = t[-1, :] = 0
+    t[:, 0] = t[:, -1] = 0
+    t[n // 3: n // 3 + 3, n // 3: n // 3 + 3] = 0
+    return t
+
+
+def solver_case(n: int, ndomains: int, device, seed: int = 3):
+    """(grid, rhs) of the solvers leg: halo 4, the island mask, a seeded
+    rhs on wet points."""
+    g = dl.Grid(dl.ARAKAWA_C, WALLED, dl.OFFSET_NE, device=device)
+    g.decompose(n, n, ndomains=ndomains, halo_width=4)
+    tm = island_tmask(n)
+    dl.grid_init(g, 1.0, 1.0, tm)
+    rhs = np.random.default_rng(seed).standard_normal((n, n)) * (tm == 1)
+    return g, rhs
+
+
+def solver_tol(dtype):
+    """The solvers leg's tolerance: tests/test_torch_solvers.py's 1e-12
+    in float64, the default one in float32."""
+    return 1e-12 if dtype == torch.float64 else None
+
+
+#: the solvers leg's two solves: tag -> HelmholtzSolver keywords
+SOLVES = {"cg": dict(method="cg"),
+          "cheb": dict(method="chebyshev", fused=True, steps_per_exchange=4)}
+
+
+def leg_solvers(res, a):
+    from dl_esm_inf_tpu_torch.ops import solvers
+    g, rhs = solver_case(a.n, a.ndomains, a.device)
+    dev, d, spec = g.device, g.decomp, g.halo_spec
+    b = dl.Field(g, dl.T_POINTS, init_global_data=rhs)
+    for tag, kw in SOLVES.items():
+        s = solvers.HelmholtzSolver(g, LAM, LAM, tol=solver_tol(g.dtype),
+                                    **kw)
+        solvers.helmholtz_cheb_sweep.launches = 0
+        (x, info), ms = timed_call(lambda: s.solve(b), dev)
+        res[f"hs_{tag}_x"] = layout.unstack_internal(
+            d, gather_to_host(x, spec))
+        res[f"hs_{tag}_iters"] = np.asarray(info["iterations"])
+        res[f"hs_{tag}_rel_res"] = np.asarray(info["rel_res"])
+        res[f"hs_{tag}_tol"] = np.asarray(s.tol)
+        res[f"hs_{tag}_launches"] = np.asarray(
+            solvers.helmholtz_cheb_sweep.launches)
+        if ms is not None:
+            res[f"hs_{tag}_ms"] = np.asarray(ms)
+
+
+def semi_implicit_model(n: int, ndomains: int, device, open_north: bool):
+    """``tests/mp_worker.py``'s semi-implicit run (dt 1, depth 10; open
+    north with bc_amp 0.05), at tol 1e-11 in float64 and the default
+    tolerance in float32."""
+    from dl_esm_inf_tpu_torch.core import kinds
+    from dl_esm_inf_tpu_torch.models import semi_implicit as si
+    dev = env.resolve_device(device)
+    tol = 1e-11 if kinds.wp(dev) == torch.float64 else None
+    kw = dict(open_north=True, bc_amp=0.05) if open_north else {}
+    m = si.build(n, n, ndomains=ndomains, dt=1.0, depth=10.0, tol=tol,
+                 device=dev, **kw)
+    if not open_north:
+        m.set_initial_eta(si.gaussian_eta(n, n, amp=0.5))
+    return m
+
+
+def leg_semi_implicit(res, a):
+    for tag, north in (("si", False), ("sio", True)):
+        m = semi_implicit_model(a.n, a.ndomains, a.device, north)
+        info, ms = timed_call(lambda: m.run(5), m.grid.device)
+        for k, v in m.gather().items():
+            res[f"{tag}_{k}"] = v
+        res[f"{tag}_iters"] = np.asarray(info["cg_iterations"])
+        res[f"{tag}_tol"] = np.asarray(m.tol)
+        if ms is not None:
+            res[f"{tag}_ms_per_step"] = np.asarray(ms / 5)
+
+
+def _tracer_kw(n: int) -> dict:
+    """The tracer's configuration (bench.py measure_client_models)."""
+    from dl_esm_inf_tpu_torch.models import tracer
+    u, v = tracer.streamfunction_velocities(gaussian_eta(n, n, amp=20.0,
+                                                         width=0.2))
+    return dict(dt=0.2, u=u, v=v, kappa=0.02)
+
+
+def _nlayer_eta0(n: int, layers: int = 3) -> np.ndarray:
+    return np.stack([gaussian_eta(n, n, amp=0.5 * (k + 1)) * (-1) ** k
+                     for k in range(layers)])
+
+
+def client_cases(n: int) -> dict:
+    """name -> (model module's name, build keywords, K, initial state
+    ``init(model)``): the clients at their main paths' K.  The keywords
+    and the initial state suit the JAX package's models too."""
+    trk = _tracer_kw(n)
+
+    def tracer0(m):
+        m.set_initial_tracer(gaussian_eta(n, n, amp=1.0) + 0.01)
+    return {
+        "gravity_wave": ("gravity_wave", dict(dt=0.005), 8,
+                         lambda m: m.set_initial_eta(
+                             gaussian_eta(n, n, amp=0.1))),
+        "shallow": ("shallow", {}, 8, lambda m: m.set_initial_eta(
+            gaussian_eta(n, n, amp=0.3))),
+        "twolayer": ("twolayer", {}, 8, lambda m: m.set_initial(
+            gaussian_eta(n, n, amp=0.5), -gaussian_eta(n, n, amp=2.0))),
+        "nlayer": ("nlayer", {}, 8,
+                   lambda m: m.set_initial(_nlayer_eta0(n))),
+        "tracer_vanleer": ("tracer", dict(trk, scheme="vanleer"), 4,
+                           tracer0),
+        "tracer_upwind": ("tracer", dict(trk, scheme="upwind"), 8,
+                          tracer0),
+    }
+
+
+def client_model(name: str, n: int, ndomains: int, device):
+    """A client of :func:`client_cases` on its fused sweep at its K, at
+    its initial state."""
+    mod, kw, K, init = client_cases(n)[name]
+    mod = importlib.import_module(f"dl_esm_inf_tpu_torch.models.{mod}")
+    m = mod.build(n, n, ndomains=ndomains, fused=True, steps_per_sweep=K,
+                  device=device, **kw)
+    init(m)
+    return m
+
+
+def leg_clients(res, a):
+    for name in client_cases(a.n):
+        m = client_model(name, a.n, a.ndomains, a.device)
+        dev, kern = m.grid.device, m.sweep_kernel
+        _sync(dev)
+        kern.launches = 0
+        m.run(a.steps)
+        _sync(dev)
+        res[f"cl_launches_{name}"] = np.asarray(kern.launches)
+        for k, v in m.gather().items():
+            res[f"cl_{name}_{k}"] = v
+        if dev.type == "cuda":
+            res[f"cl_us_{name}"] = np.asarray(
+                _timed_us(lambda: m.run(a.steps), dev, 3) / a.steps)
+
+
+def schedule_case(n: int, ndomains: int, device):
+    """``tests/mp_worker.py``'s fused schedule: (grid, fa, fb, the east
+    shift kernel): fa holds 0 .. n*n - 1, halo 2, rows aligned to 8."""
+    from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import stencils as st
+    g = dl.Grid(dl.ARAKAWA_C, WALLED, dl.OFFSET_NE, device=device)
+    g.decompose(n, n, ndomains=ndomains, halo_width=2, align_y=8)
+    dl.grid_init(g, 1.0, 1.0)
+    fa = dl.Field(g, dl.T_POINTS,
+                  init_global_data=np.arange(float(n * n)).reshape(n, n))
+    fb = dl.Field(g, dl.T_POINTS)
+
+    @km.kernel(args=[km.go_arg(km.GO_WRITE, km.GO_CT),
+                     km.go_arg(km.GO_READ, km.GO_CT,
+                               km.go_stencil(0, 11, 0))])
+    def mp_east(out, x):
+        return st.xp(x)
+    return g, fa, fb, mp_east
+
+
+#: the reductions of the schedule leg, by access
+REDUCTIONS = ("GO_SUM", "GO_MIN", "GO_MAX")
+
+
+def reduction_kernel(km, access: str):
+    """A kernel returning one reduction of its field over the block."""
+    f = {"GO_SUM": torch.sum, "GO_MIN": torch.amin,
+         "GO_MAX": torch.amax}[access]
+
+    @km.kernel(args=[km.go_arg(getattr(km, access), km.GO_R_SCALAR),
+                     km.go_arg(km.GO_READ, km.GO_CT)],
+               name=f"mp_{access[3:].lower()}")
+    def red(x):
+        return f(x)
+    return red
+
+
+def leg_schedule(res, a):
+    from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    g, fa, fb, east = schedule_case(a.n, a.ndomains, a.device)
+    dev = g.device
+    sched = km.Schedule((east, fb, fa), (east, fb, fb))
+    ss.schedule_sweep.launches = 0
+    sched.fused()
+    _sync(dev)
+    res["sc_launches"] = np.asarray(ss.schedule_sweep.launches)
+    res["sc_fused"] = fb.gather_inner_data()
+    _, pa, pb, _ = schedule_case(a.n, a.ndomains, a.device)
+    km.Schedule((east, pb, pa), (east, pb, pb))()
+    res["sc_plain"] = pb.gather_inner_data()
+    reds = [reduction_kernel(km, acc) for acc in REDUCTIONS]
+    for acc, k in zip(REDUCTIONS, reds):
+        res[f"sc_invoke_{acc}"] = np.asarray(km.invoke(k, fa))
+    res["sc_schedule_reds"] = np.asarray(km.Schedule(
+        *((k, fa) for k in reds))())
+    if dev.type == "cuda":
+        res["sc_fused_us"] = np.asarray(_timed_us(sched.fused, dev, 10))
+
+
+def leg_psy(res, a):
+    from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    m = NemoLite2DPsy(a.n, a.n, ndomains=a.ndomains, halo_width=8,
+                      device=a.device)
+    m.set_initial_ssh(gaussian_eta(a.n, a.n, amp=0.2))
+    dev = m.grid.device
+    ss.schedule_sweep.launches = 0
+    m.run(a.steps, fused=True)
+    _sync(dev)
+    res["psy_launches"] = np.asarray(ss.schedule_sweep.launches)
+    for k, v in m.gather().items():
+        res[f"psy_{k}"] = v
+    if dev.type == "cuda":
+        res["psy_us"] = np.asarray(_timed_us(
+            lambda: m.run(a.steps, fused=True), dev, 3) / a.steps)
+
+
+def coupled_model(n: int, ndomains: int, device):
+    """The coupled tracer on the open-north flagship (halo 2), van Leer,
+    kappa 0.01, from a seeded surface and a tracer blob."""
+    from dl_esm_inf_tpu_torch.models import tracer
+    fs_ = nl.build(n, n, ndomains=ndomains, open_north=True, halo_width=2,
+                   device=device)
+    ct = tracer.CoupledTracer(fs_, kappa=0.01, scheme="vanleer")
+    rng = np.random.default_rng(0)
+    fs_.set_initial_ssh(gaussian_eta(n, n, amp=0.2)
+                        + 0.01 * rng.standard_normal((n, n)))
+    ct.set_initial_tracer(gaussian_eta(n, n, amp=1.0, width=0.08) + 0.05)
+    return ct
+
+
+def leg_coupled(res, a):
+    ct = coupled_model(a.n, a.ndomains, a.device)
+    ct.run(a.steps)
+    for k, v in ct.gather().items():
+        res[f"cp_{k}"] = v
+    res["cp_mass"] = np.asarray(ct.mass())
+    dev = ct.grid.device
+    if dev.type == "cuda":
+        res["cp_us"] = np.asarray(_timed_us(lambda: ct.run(a.steps), dev, 1)
+                                  / a.steps)
+
+
+def checkpoint_fields(n: int) -> dict:
+    """The checkpoint leg's seeded global arrays: a 2D field and a
+    3-level one."""
+    rng = np.random.default_rng(17)
+    return {"f": rng.standard_normal((n, n)),
+            "f3": rng.standard_normal((3, n, n))}
+
+
+def other_tiling(ndomains: int) -> int:
+    """A tiling other than ``ndomains`` that the same ranks can hold."""
+    return 4 if ndomains != 4 else 8
+
+
+def leg_checkpoint(res, a):
+    from dl_esm_inf_tpu_torch.utils import checkpoint
+    path = a.out + ".ckpt.npz"
+    arrays = checkpoint_fields(a.n)
+    g = _grid(WALLED, a.n, a.n, a.ndomains, a.device)
+    fields = {"f": dl.Field(g, dl.T_POINTS, init_global_data=arrays["f"]),
+              "f3": dl.Field(g, dl.T_POINTS, init_global_data=arrays["f3"],
+                             levels=3)}
+    _, ms = timed_call(lambda: checkpoint.save_fields(path, fields, step=7),
+                       g.device)
+    g2 = _grid(WALLED, a.n, a.n, other_tiling(a.ndomains), a.device)
+    back = {"f": dl.Field(g2, dl.T_POINTS),
+            "f3": dl.Field(g2, dl.T_POINTS, levels=3)}
+    meta = checkpoint.load_fields(path, back)
+    res["ck_step"] = np.asarray(meta["step"])
+    for k, f in back.items():
+        res[f"ck_{k}"] = f.gather_inner_data()
+    res["ck_path"] = np.asarray(path)
+    if ms is not None:
+        res["ck_save_ms"] = np.asarray(ms)
+
+
 LEGS = {"core": leg_core, "periodic": leg_periodic,
         "hill_rdma": leg_hill_rdma, "guards": leg_guards,
         "exchange": leg_exchange, "skew": leg_skew,
         "flagship": leg_flagship, "fence": leg_fence,
         "flagship_fused": leg_flagship_fused,
         "fused_alternate": leg_fused_alternate,
-        "fused_skew": leg_fused_skew, "overlap": leg_overlap}
+        "fused_skew": leg_fused_skew, "overlap": leg_overlap,
+        "solvers": leg_solvers, "semi_implicit": leg_semi_implicit,
+        "clients": leg_clients, "schedule": leg_schedule, "psy": leg_psy,
+        "coupled": leg_coupled, "checkpoint": leg_checkpoint}
 
 
 def main(argv=None) -> None:

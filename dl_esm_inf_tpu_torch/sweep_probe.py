@@ -2,7 +2,7 @@
 (a second one with ``--skeleton``: the sweeps on the shared skeleton).
 
     python dl_esm_inf_tpu_torch/sweep_probe.py [--root DIR] [--n 1024]
-        [--ranks] [--skeleton] [--nlayer-run] [--exchange]
+        [--ranks] [--skeleton] [--nlayer-run] [--exchange] [--scratch]
 
 Run as a file, it imports the port from the checkout at ``--root``
 (default: this file's checkout), so one command can time two trees in
@@ -47,6 +47,12 @@ place, where that checkout has it), each the card's time as a CUDA graph
 of 20 calls (best of 5 replays) beside one wrapper call's time, the
 ``aten::index`` gather of ``exchange_index`` and a ``torch.clone`` of
 the block beside them, and each form's byte bound.
+
+``--scratch`` prints one more line: the generated schedule sweep's
+scratch form (:func:`probe_scratch`) on ``chip_smoke.py``'s case, the
+levels=N chain past the shared-memory budget at float64 on 2x2 tiles,
+one light sweep as a CUDA graph at each thread count a CTA and each cap
+on the bytes its CTAs' windows may take, beside the launch's CTAs.
 
 ``--ranks`` also runs ``chip_smoke.phase_ranks()`` of that checkout (the
 rdma exchange and the fused transport across 2 and 4 ranks) and prints
@@ -520,6 +526,52 @@ def _nlayer_spacing_max_abs(cs, n: int) -> float:
     return cs._internal_max_abs(g, ker, ref)
 
 
+#: the scratch form's settings --scratch times: threads a CTA, and MiB
+#: its CTAs' windows may take (16-64: a share of the 50 MB L2; 0: every
+#: resident CTA)
+SCRATCH_THREADS = (256, 512)
+SCRATCH_CAPS_MIB = (16, 32, 48, 64, 0)
+
+
+def probe_scratch(n: int) -> dict:
+    """One light sweep of the levels chain in the scratch form
+    (``chip_smoke.scratch_levels()`` levels, float64, 2x2 tiles at
+    ``n``^2) at each of SCRATCH_THREADS and SCRATCH_CAPS_MIB: µs on the
+    card (a CUDA graph of 3 launches, best of 5 replays), the CTAs it
+    launched, and whether its result equals the first setting's bitwise
+    on every cell."""
+    import torch
+    import chip_smoke as cs
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    L = cs.scratch_levels()
+    saved = ss.SCRATCH_THREADS, ss.SCRATCH_BYTES
+    out, ref = {"scratch_levels": L}, None
+    try:
+        for nt in SCRATCH_THREADS:
+            ss.SCRATCH_THREADS = nt
+            sched, _ = cs._level_main(L, torch.float64, (2, 2))
+            rows = [tuple(float(v)
+                          for v in sched._user_scalar_vector(None))]
+            fn = _light_sweep(sched, rows)
+            gen = sched._fused_prog(4, 1)[3]["light"][0].generated
+            lib = ss.schedule_sweep.build(gen).lib
+            for mib in SCRATCH_CAPS_MIB:
+                ss.SCRATCH_BYTES = (mib << 20) if mib else 1 << 62
+                got = fn()
+                ref = got if ref is None else ref
+                ly, lx = got[0].shape
+                key = f"scratch_nt{nt}_cap{mib}"
+                out[key + "_ctas"] = lib.schedule_sweep_ctas(
+                    ly, lx, ss.SCRATCH_BYTES)
+                out[key + "_equal"] = all(torch.equal(a, b)
+                                          for a, b in zip(got, ref))
+                out[key + "_us"] = _graph_ms(fn, 3) * 1e3
+            out[f"scratch_nt{nt}_regs"] = _build_report((gen.name,))
+    finally:
+        ss.SCRATCH_THREADS, ss.SCRATCH_BYTES = saved
+    return out
+
+
 def _light_sweep(sched, rows, repeats=1):
     """One launch of the light sweep of a schedule's 4-step program at
     ``repeats`` (one scalar row each) on its current slots, as
@@ -548,6 +600,9 @@ def main(argv=None) -> None:
                     "and host time")
     ap.add_argument("--exchange", action="store_true",
                     help="also time the standalone exchange's two forms")
+    ap.add_argument("--scratch", action="store_true",
+                    help="also time the schedule sweep's scratch form at "
+                    "its settings")
     ap.add_argument("--ranks", action="store_true",
                     help="also run that checkout's chip_smoke.phase_ranks()")
     args = ap.parse_args(argv)
@@ -569,6 +624,10 @@ def main(argv=None) -> None:
               flush=True)
     if args.exchange:
         print(json.dumps({"root": root, **probe_exchange(args.n)}),
+              flush=True)
+    if args.scratch:
+        os.chdir(root)
+        print(json.dumps({"root": root, **probe_scratch(args.n)}),
               flush=True)
     if args.ranks:
         from concurrent.futures import ThreadPoolExecutor

@@ -11,9 +11,13 @@ written by either package loads in the other.
 
 Restart on a different decomposition works through the global form:
 the arrays are gathered to (global_ny, global_nx) and re-scattered into
-the target grid's layout.  The JAX package's orbax backend (sharded
-device arrays without a host gather) is not ported: orbax is a JAX
-library, and on one card the host gather is the whole of the data.
+the target grid's layout.  Across ranks both calls are collective: on
+save every rank joins the gather and rank 0 alone writes the file; on
+load every rank reads the file and keeps its own block.  The file is the
+same whatever the ranks or tiles of the run that wrote it.  The JAX
+package's orbax backend (sharded device arrays without a host gather) is
+not ported: orbax is a JAX library, and on one card the host gather is
+the whole of the data.
 """
 from __future__ import annotations
 
@@ -24,14 +28,15 @@ import numpy as np
 
 from ..core import kinds, layout
 from ..core.field import Field
-from ..parallel.environment import require_one_rank
+from ..parallel import environment as env
 
 
 def save_fields(path: str, fields: dict, step: int = 0,
                 attrs: dict | None = None) -> None:
     """Save named fields' *global internal* arrays + metadata to .npz
-    (written to a temporary name, then moved into place)."""
-    require_one_rank("saving a checkpoint", "M5")
+    (written to a temporary name, then moved into place).  Collective
+    across ranks: rank 0 writes, and every rank returns once the file is
+    in place."""
     arrays = {}
     meta = {"step": int(step), "names": sorted(fields), "version": 1}
     if attrs:
@@ -43,17 +48,19 @@ def save_fields(path: str, fields: dict, step: int = 0,
             arrays[name] = np.asarray(fld)
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8)
-    tmp = path + ".tmp"
-    np.savez_compressed(tmp, **arrays)
-    os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+    if env.on_master():
+        tmp = path + ".tmp"
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+    env.barrier()
 
 
 def load_fields(path: str, fields: dict) -> dict:
     """Restore named fields in place, re-scattering onto each field's
     own decomposition (which may differ from the saving run's), and
     refresh their depth-1 halos.  Returns the metadata dict; plain
-    arrays in ``fields`` come back under its ``"arrays"``."""
-    require_one_rank("loading a checkpoint", "M5")
+    arrays in ``fields`` come back under its ``"arrays"``.  Collective
+    across ranks: each rank reads the file and keeps its block."""
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         loaded = {}

@@ -548,6 +548,42 @@ def _level_grid(device, dtype, ndom):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ndom", [1, 4])
+def test_schedule_sweep_scratch_form(cuda_device, ndom):
+    """The levels chain at 29 levels, float64 (a window past a CTA's
+    shared memory even on 8-cell tiles): both sweeps take the scratch
+    form and equal the plain fused tier bitwise but for the level sum,
+    with one launch a step; 28 levels keep the shared form."""
+    from dl_esm_inf_tpu_torch import level_schedules as sc
+    from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    out = {}
+    for kind in ("kernel", "plain"):
+        f = sc.ml_fields(_level_grid(cuda_device, torch.float64, ndom), 29)
+        sched = km.Schedule(*sc.ml_calls(*f))
+        before = ss.schedule_sweep.launches
+        sched.fused_program(3, plain=kind == "plain")()
+        torch.cuda.synchronize()
+        assert ss.schedule_sweep.launches - before == (
+            3 if kind == "kernel" else 0)
+        if kind == "kernel":
+            forms = {v[0].generated.form
+                     for v in sched._fused_prog(3, 1)[3].values()}
+            assert forms == {"scratch"}
+        out[kind] = [x.gather_inner_data() for x in f]
+    for i, (k, p) in enumerate(zip(out["kernel"], out["plain"])):
+        if i < 4:
+            np.testing.assert_array_equal(k, p)
+        else:            # the vertical sum
+            assert np.abs(k - p).max() <= TOL_LEVEL_SUM[torch.float64] * \
+                np.abs(p).max()
+    f = sc.ml_fields(_level_grid(cuda_device, torch.float64, ndom), 28)
+    sched = km.Schedule(*sc.ml_calls(*f))
+    assert {v[0].generated.form for v in sched._fused_prog(
+        3, 1)[3].values()} == {"shared"}
+
+
+@pytest.mark.gpu
 def test_schedule_sweep_refuses_what_it_cannot_generate(cuda_device):
     """On a CUDA grid every schedule the JAX fused tier takes runs
     through the generated kernel.  A kernel without a CUDA body gets one

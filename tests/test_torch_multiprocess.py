@@ -11,6 +11,13 @@ port's single-process 4-tile run on the ppermute transport, bitwise; and
 sweeps alternating with standalone exchanges, and a skewed rank; and
 the flagship's overlap mode (one tile per rank, 2x2) against the
 non-overlapped step bitwise and the JAX package's 4-device overlap run.
+A second 2-rank gang (2 ranks x 4 tiles, its own timeout) runs the
+slice across ranks: the Helmholtz solver (CG and the fused Chebyshev
+sweep's plain version), the semi-implicit model, the client models on
+their sweeps' plain versions, invoke and Schedule (plain, fused,
+reductions), the PSy flagship, the coupled tracer and the checkpoint,
+each against the JAX package's single-process run on 8 tiles at its own
+JAX twin's tolerance (the checkpoint bitwise, also loaded here).
 
 Gangs run ``python -m dl_esm_inf_tpu_torch.launch -n N -m
 dl_esm_inf_tpu_torch.parallel.mp_check`` (the port's counterpart of
@@ -37,6 +44,7 @@ from filelock import FileLock
 import jax.numpy as jnp
 
 import dl_esm_inf_tpu as jdl
+from dl_esm_inf_tpu.core import layout as jlayout
 from dl_esm_inf_tpu.models import nemolite2d as jnl
 from dl_esm_inf_tpu.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu.parallel import halo as jhalo
@@ -68,18 +76,21 @@ def _env():
     return env
 
 
-def _gang(tmp_path_factory, nproc, ndomains, legs, *extra):
-    """Rank 0's results of one gang, run once per test session: under
-    xdist the workers share the session's temporary root, and the first
-    to ask runs the gang while the others wait for its file."""
+def _gang(tmp_path_factory, nproc, ndomains, legs, *extra, name=None,
+          timeout=GANG_TIMEOUT):
+    """Rank 0's results of one gang (``name``: its files' stem), run once
+    per test session: under xdist the workers share the session's
+    temporary root, and the first to ask runs the gang while the others
+    wait for its file."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
-    out = root / f"torch_mp_np{nproc}.npz"
+    name = name or f"torch_mp_np{nproc}"
+    out = root / f"{name}.npz"
     with FileLock(str(out) + ".lock"):
         if not out.exists():
-            tmp = root / f"torch_mp_np{nproc}.tmp.npz"
-            log = root / f"torch_mp_np{nproc}.stderr"
+            tmp = root / f"{name}.tmp.npz"
+            log = root / f"{name}.stderr"
             t0 = time.monotonic()
             with open(log, "wb") as err:
                 try:
@@ -88,14 +99,14 @@ def _gang(tmp_path_factory, nproc, ndomains, legs, *extra):
                                        legs, *extra],
                                 num_processes=nproc, base_env=_env(),
                                 module="dl_esm_inf_tpu_torch.parallel."
-                                "mp_check", timeout=GANG_TIMEOUT, stderr=err)
+                                "mp_check", timeout=timeout, stderr=err)
                 except TimeoutError as e:
                     rc = e
             secs = time.monotonic() - t0
             tail = log.read_bytes()[-3000:].decode(errors="replace")
             assert rc == 0, (f"{nproc}-rank gang ({legs}): "
                              f"{'exit code ' if isinstance(rc, int) else ''}"
-                             f"{rc} after {secs:.1f} s (limit {GANG_TIMEOUT}"
+                             f"{rc} after {secs:.1f} s (limit {timeout}"
                              f" s); the ranks' stderr ends:\n{tail}")
             os.replace(tmp, out)
     return dict(np.load(out))
@@ -236,15 +247,225 @@ def test_gang_exchange_legs_bitwise(np6):
 
 def test_gang_guards_raise(np2):
     """Every path not ported across ranks raises NotImplementedError
-    naming ROADMAP.md with 2 ranks, instead of a per-rank answer; the
-    flagship's fused transport (ported) runs with one tile per rank and
-    refuses several with a ValueError naming the rule."""
-    ported = {"fused_transport"}
-    assert list(np2["guards_raised"]) == sorted(
-        set(np2["guards_all"]) - ported)
-    assert list(np2["guards_ran"]) == sorted(ported)
-    assert len(np2["guards_all"]) == 18
+    naming ROADMAP.md with 2 ranks, instead of a per-rank answer: the
+    ensemble (M7), the adjoint paths (M8) and nesting (M9); the ported
+    paths run; the flagship's fused transport refuses several tiles per
+    rank with a ValueError naming the rule, and the microbench, which
+    times one device, refuses ranks with a ValueError."""
+    not_ported = {"ensemble", "assimilation", "semi_implicit_differentiable",
+                  "nesting"}
+    assert list(np2["guards_raised"]) == sorted(not_ported)
+    assert list(np2["guards_ran"]) == sorted(
+        set(np2["guards_all"]) - not_ported)
+    assert len(np2["guards_all"]) == 17
     assert bool(np2["fused_multi_tile_refused"])
+    assert bool(np2["guards_kbench_refused"])
+
+
+# --- the slice across ranks (2 ranks x 4 tiles) -----------------------------
+
+#: the slice gang: legs, extent, steps and its own time limit
+SLICE_LEGS = "solvers,semi_implicit,clients,schedule,psy,coupled,checkpoint"
+SLICE_N, SLICE_STEPS, SLICE_TIMEOUT = 32, 10, 120.0
+
+
+@pytest.fixture(scope="module")
+def np2s(tmp_path_factory):
+    """2 ranks x 4 tiles (8 domains): the solvers, semi-implicit, client,
+    schedule, PSy, coupled-tracer and checkpoint legs."""
+    return _gang(tmp_path_factory, 2, 8, SLICE_LEGS, "--n", str(SLICE_N),
+                 "--steps", str(SLICE_STEPS), name="torch_mp_np2_slice",
+                 timeout=SLICE_TIMEOUT)
+
+
+def _mp():
+    from dl_esm_inf_tpu_torch.parallel import mp_check
+    return mp_check
+
+
+@pytest.mark.parametrize("tag", ["cg", "cheb"])
+def test_gang_helmholtz_matches_jax(np2s, tag):
+    """HelmholtzSolver across 2 ranks (its dot products and residuals
+    all-reduced; the fused Chebyshev sweep's plain version per rank after
+    the exchange between ranks) against the JAX solver on 8 tiles in one
+    process: atol 1e-12 on wet points (tests/test_torch_solvers.py's),
+    Chebyshev's iteration count equal, CG's within one (its dot products
+    add in another order), both converged."""
+    from dl_esm_inf_tpu.ops import solvers as jso
+    mp = _mp()
+    n = SLICE_N
+    tm = mp.island_tmask(n)
+    rhs = np.random.default_rng(3).standard_normal((n, n)) * (tm == 1)
+    g = jdl.Grid(jdl.ARAKAWA_C, WALLED, jdl.OFFSET_NE)
+    g.decompose(n, n, ndomains=8, halo_width=4)
+    jdl.grid_init(g, 1.0, 1.0, tm)
+    kw = dict(mp.SOLVES[tag])
+    if kw.pop("fused", False):
+        kw["pallas"] = False            # JAX's plain Chebyshev at that K
+    s = jso.HelmholtzSolver(g, mp.LAM, mp.LAM, tol=1e-12, **kw)
+    x, info = s.solve(jdl.Field(g, jdl.T_POINTS, init_global_data=rhs))
+    want = jlayout.unstack_internal(g.decomp, np.asarray(x))
+    got = np2s[f"hs_{tag}_x"]
+    np.testing.assert_allclose(got * (tm == 1), want * (tm == 1), rtol=0,
+                               atol=1e-12)
+    iters = int(np2s[f"hs_{tag}_iters"])
+    assert abs(iters - info["iterations"]) <= (1 if tag == "cg" else 0)
+    assert float(np2s[f"hs_{tag}_rel_res"]) <= 1e-12
+    assert int(np2s[f"hs_{tag}_launches"]) == 0      # no card here
+
+
+@pytest.mark.parametrize("tag", ["si", "sio"])
+def test_gang_semi_implicit_matches_jax(np2s, tag):
+    """The semi-implicit model across 2 ranks (CG, and the open north
+    boundary) against the JAX model on 8 tiles in one process, 5 steps:
+    atol 1e-9 (tests/test_multiprocess.py:252-272)."""
+    from dl_esm_inf_tpu.models import semi_implicit as jsi
+    n = SLICE_N
+    kw = dict(open_north=True, bc_amp=0.05) if tag == "sio" else {}
+    m = jsi.build(n, n, ndomains=8, dt=1.0, depth=10.0, tol=1e-11, **kw)
+    if tag == "si":
+        m.set_initial_eta(jsi.gaussian_eta(n, n, amp=0.5))
+    m.run(5)
+    for k, v in m.gather().items():
+        np.testing.assert_allclose(np2s[f"{tag}_{k}"], v, rtol=0, atol=1e-9,
+                                   err_msg=k)
+    assert float(np2s[f"{tag}_tol"]) == 1e-11
+
+
+CLIENT_NAMES = ["gravity_wave", "shallow", "twolayer", "nlayer",
+                "tracer_vanleer", "tracer_upwind"]
+
+
+@pytest.mark.parametrize("name", CLIENT_NAMES)
+def test_gang_clients_match_jax(np2s, name):
+    """Each client across 2 ranks on its fused sweep (the kernel's plain
+    version per rank, after the plain exchange between ranks) at its main
+    path's K, 10 steps, against the JAX model on 8 tiles in one process:
+    rtol 1e-12, atol 1e-13 (tests/test_torch_clients.py's)."""
+    import importlib
+    mp = _mp()
+    n = SLICE_N
+    assert list(mp.client_cases(n)) == CLIENT_NAMES
+    mod, kw, K, init = mp.client_cases(n)[name]
+    jmod = importlib.import_module(f"dl_esm_inf_tpu.models.{mod}")
+    m = jmod.build(n, n, ndomains=8, **kw)
+    init(m)
+    m.run(SLICE_STEPS)
+    for k, v in m.gather().items():
+        got = np2s[f"cl_{name}_{k}"]
+        assert np.all(np.isfinite(got)), k
+        np.testing.assert_allclose(got, np.asarray(v), rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+    assert int(np2s[f"cl_launches_{name}"]) == 0     # no card here
+
+
+def test_gang_schedule_matches_jax(np2s):
+    """The fused schedule across 2 ranks (tests/test_multiprocess.py:
+    226-249's two east shifts, halo 2) bitwise equal to the JAX fused
+    schedule on 8 tiles in one process, and so is its plain run; invoke's
+    and Schedule's reductions (sum, min, max over every rank's block)
+    within 1e-12 relative of the JAX package's."""
+    from dl_esm_inf_tpu.api import kernel_meta as jkm
+    from dl_esm_inf_tpu.ops import stencils as jst
+    n = SLICE_N
+
+    @jkm.kernel(args=[jkm.go_arg(jkm.GO_WRITE, jkm.GO_CT),
+                      jkm.go_arg(jkm.GO_READ, jkm.GO_CT,
+                                 jkm.go_stencil(0, 11, 0))])
+    def sp_east(out, x):
+        return jst.xp(x)
+
+    def fields():
+        g = jdl.Grid(jdl.ARAKAWA_C, WALLED, jdl.OFFSET_NE)
+        g.decompose(n, n, ndomains=8, halo_width=2, align_y=8)
+        jdl.grid_init(g, 1.0, 1.0)
+        return (jdl.Field(g, jdl.T_POINTS, init_global_data=np.arange(
+            float(n * n)).reshape(n, n)), jdl.Field(g, jdl.T_POINTS))
+    fa, fb = fields()
+    jkm.Schedule((sp_east, fb, fa), (sp_east, fb, fb)).fused(interpret=True)
+    np.testing.assert_array_equal(np2s["sc_fused"], fb.gather_inner_data())
+    pa, pb = fields()
+    jkm.Schedule((sp_east, pb, pa), (sp_east, pb, pb))()
+    np.testing.assert_array_equal(np2s["sc_plain"], pb.gather_inner_data())
+    ops = {"GO_SUM": jnp.sum, "GO_MIN": jnp.min, "GO_MAX": jnp.max}
+    reds = []
+    for acc, f in ops.items():
+        k = jkm.kernel(args=[jkm.go_arg(getattr(jkm, acc), jkm.GO_R_SCALAR),
+                             jkm.go_arg(jkm.GO_READ, jkm.GO_CT)],
+                       name=f"j_{acc}")(lambda x, f=f: f(x))
+        reds.append(k)
+        want = float(jkm.invoke(k, fa))
+        assert float(np2s[f"sc_invoke_{acc}"]) == pytest.approx(
+            want, rel=1e-12, abs=0)
+    want = jkm.Schedule(*((k, fa) for k in reds))()
+    np.testing.assert_allclose(np2s["sc_schedule_reds"],
+                               np.asarray(want, float), rtol=1e-12, atol=0)
+    assert int(np2s["sc_launches"]) == 0
+
+
+def test_gang_psy_matches_jax(np2s):
+    """NemoLite2DPsy across 2 ranks on Schedule.fused (halo 8), 10 steps,
+    against the JAX PSy model on 8 tiles in one process: 1e-10
+    (tests/test_torch_nemolite2d_psy.py's)."""
+    from dl_esm_inf_tpu.models.nemolite2d_psy import NemoLite2DPsy as JPsy
+    n = SLICE_N
+    m = JPsy(n, n, ndomains=8)
+    m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
+    m.run(SLICE_STEPS)
+    for k, v in m.gather().items():
+        np.testing.assert_allclose(np2s[f"psy_{k}"], np.asarray(v),
+                                   rtol=1e-10, atol=1e-10, err_msg=k)
+    assert int(np2s["psy_launches"]) == 0
+
+
+def test_gang_coupled_tracer_matches_jax(np2s):
+    """CoupledTracer across 2 ranks, 10 steps, against the JAX coupled
+    tracer on 8 tiles in one process: atol 1e-12 of each field's largest
+    value, mass within 1e-12 (tests/test_torch_coupled_tracer.py's)."""
+    from dl_esm_inf_tpu.models import tracer as jtr
+    n = SLICE_N
+    jfs = jnl.build(n, n, ndomains=8, open_north=True, halo_width=2)
+    jct = jtr.CoupledTracer(jfs, kappa=0.01, scheme="vanleer")
+    rng = np.random.default_rng(0)
+    jfs.set_initial_ssh(gaussian_eta(n, n, amp=0.2)
+                        + 0.01 * rng.standard_normal((n, n)))
+    jct.set_initial_tracer(gaussian_eta(n, n, amp=1.0, width=0.08) + 0.05)
+    jct.run(SLICE_STEPS)
+    for k, v in jct.gather().items():
+        v = np.asarray(v)
+        np.testing.assert_allclose(np2s[f"cp_{k}"], v, rtol=0,
+                                   atol=1e-12 * np.abs(v).max(), err_msg=k)
+    mass = float(jct.mass())
+    assert abs(float(np2s["cp_mass"]) - mass) <= 1e-12 * abs(mass)
+
+
+def test_gang_checkpoint_bitwise(np2s):
+    """A checkpoint saved on 2 ranks x 4 tiles (rank 0 writes, every rank
+    joins the gather): loaded back on those ranks into 4 tiles, in this
+    process into one tile, and by the JAX package on 8 tiles, each
+    bitwise equal to the saved arrays; the step comes back."""
+    from dl_esm_inf_tpu.utils import checkpoint as jck
+    from dl_esm_inf_tpu_torch.utils import checkpoint
+    want = _mp().checkpoint_fields(SLICE_N)
+    path = str(np2s["ck_path"])
+    assert int(np2s["ck_step"]) == 7
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE, device="cpu")
+    g.decompose(SLICE_N, SLICE_N, ndomains=1)
+    tdl.grid_init(g, 1.0, 1.0)
+    here = {"f": tdl.Field(g, tdl.T_POINTS),
+            "f3": tdl.Field(g, tdl.T_POINTS, levels=3)}
+    assert checkpoint.load_fields(path, here)["step"] == 7
+    jg = _jax_grid(WALLED, SLICE_N, SLICE_N, 8)
+    there = {"f": jdl.Field(jg, jdl.T_POINTS),
+             "f3": jdl.Field(jg, jdl.T_POINTS, levels=3)}
+    jck.load_fields(path, there)
+    for k, v in want.items():
+        np.testing.assert_array_equal(np2s[f"ck_{k}"], v, err_msg=k)
+        np.testing.assert_array_equal(here[k].gather_inner_data(), v,
+                                      err_msg=k)
+        np.testing.assert_array_equal(there[k].gather_inner_data(), v,
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("K", [2, 4])

@@ -851,8 +851,59 @@ def test_tile_edge_follows_shared_memory():
                                                               32, 1)
     assert tss.window_tile(33, 0, 1, 8, torch.float64)[0] == (8, 16, 8,
                                                               32, 1)
-    with pytest.raises(ValueError, match="8-cell tiles"):
-        tss.window_tile(120, 0, 1, 8, torch.float64)
+    # 120 float64 planes at ring 8 exceed shared memory even on 8-cell
+    # tiles: the scratch form's tile (ctas 0), its window in global memory
+    shape, nbytes = tss.window_tile(120, 0, 1, 8, torch.float64)
+    assert shape == tsst.scratch_tile(8) == (8, 16, 8, 32, 0)
+    assert nbytes == 24 * 32 * (120 * 8 + 1)
+    # the chain whose window that is, generated in the scratch form: no
+    # shared-memory window and a persistent launch on a scratch buffer
+    L = _scratch_levels(4, torch.float64)
+    g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                 tdl.BC_NONE), tdl.OFFSET_NE,
+                 dtype=torch.float64, **CPU)
+    g.decompose(32, 32, ndomains=4, halo_width=4)
+    tdl.grid_init(g, 1.0, 1.0)
+    for levels, form in ((L - 1, "shared"), (L, "scratch")):
+        sched = tkm.Schedule(*_ml_calls(1, *_ml_fields(g, levels)))
+        for gen in _generated(sched, nsteps=2)[:2]:
+            assert gen.form == form, (levels, gen.tile)
+            assert "extern __shared__" not in gen.text
+            if form == "scratch":
+                assert gen.tile == tsst.scratch_tile(4) and gen.smem_bytes == 0
+                assert gen.window_bytes == 16 * 32 * (
+                    (gen.n_state + gen.n_aux) * 8 + gen.n_codes)
+                assert "sweep::ScratchRing<K, 4, 4, 256>" in gen.text
+                assert "sweep::launch_scratch<Step>" in gen.text
+            else:
+                assert "sweep::Ring<K, 4, 4>" in gen.text
+                assert "scratch" not in gen.text
+
+
+def _scratch_levels(ring, dtype):
+    """The fewest levels whose chain (4L + 1 float planes, one code plane)
+    takes the scratch form at ``ring``."""
+    L = 1
+    while tss.window_tile(4 * L + 1, 0, 1, ring, dtype)[0].ctas:
+        L += 1
+    return L
+
+
+def test_scratch_levels_plain_tier_matches_jax():
+    """The levels chain at the fewest levels past the shared-memory
+    budget (29 at float64, ring 4), small grid, f64: the port's fused
+    tier on the CPU (the generated kernel's plain version) against the
+    JAX package's plain Schedule() at 1e-12."""
+    L = _scratch_levels(4, torch.float64)
+    assert L == 29
+    gj, gt = grids(24, 20, 4, halo=4)
+    fj, ft = _ml_fields(gj, L), _ml_fields(gt, L)
+    jkm.Schedule(*_ml_calls(0, *fj))()
+    sched = tkm.Schedule(*_ml_calls(1, *ft))
+    assert sched.fused_erosion(1) == 4
+    sched.fused()
+    for x_j, x_t in zip(fj, ft):
+        same(x_j, x_t, rtol=1e-12, atol=1e-12)
 
 
 def test_generator_checks_shared_memory_and_names():

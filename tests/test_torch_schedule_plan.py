@@ -37,6 +37,7 @@ from dl_esm_inf_tpu_torch.api import kernel_meta as tkm
 from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu_torch.models.nemolite2d_psy import NemoLite2DPsy
 from dl_esm_inf_tpu_torch.ops import schedule_sweep as tss
+from dl_esm_inf_tpu_torch.ops import stencil_sweep as sst
 from dl_esm_inf_tpu_torch.ops import stencils as tst
 
 torch.set_num_threads(2)
@@ -139,6 +140,10 @@ CASES.update({f"levels {kind} L={lv} r={r}":
                                   ("broadcast", 8, 3))})
 CASES.update({f"fuzz {t} r={r}": (functools.partial(_fuzz, t), r, 3)
               for t in range(8) for r in (1, 2)})
+#: past the shared-memory budget: the chain at 29 levels (float64, ring 4)
+#: takes the skeleton's scratch form
+SCRATCH_CASE = "levels chain L=29 r=1 (scratch form)"
+CASES[SCRATCH_CASE] = (functools.partial(_levels, "chain", 29), 1, 2)
 
 
 def _generate_on_card(sched, nsteps, repeats):
@@ -432,3 +437,13 @@ def test_plan_emulator_equals_plain_tier(monkeypatch, case, ndom):
         got, want = a.gather_inner_data(), b.gather_inner_data()
         assert np.all(np.isfinite(got))
         np.testing.assert_array_equal(got, want, err_msg=case)
+
+
+def test_scratch_case_takes_the_scratch_form():
+    """The case past the budget generates both sweeps in the scratch form,
+    on the scratch tile, with the plan the shared form would run."""
+    for kw, gen in _sweeps(SCRATCH_CASE):
+        assert gen.form == "scratch" and gen.tile.ctas == 0
+        assert gen.tile == sst.scratch_tile(gen.ring) == (8, 24, 4, 32, 0)
+        assert gen.plan == tss.plan(kw["steps"], K=gen.K, ring=gen.ring,
+                                    state_slots=kw["state_slots"])

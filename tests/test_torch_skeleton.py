@@ -72,6 +72,7 @@ def test_tile_rule_mirrors_the_header():
     assert _const(HEADER, "kMaxOverhead") == sst.MAX_OVERHEAD
     assert _const(HEADER, "kWindowX") == sst.WINDOW_X
     assert _const(HEADER, "kSquares") == sst.SQUARES
+    assert _const(HEADER, "kScratchWX") == sst.SCRATCH_WX
     assert sst.SMEM_PER_SM - sst.SMEM_RESERVE == BLOCK_SMEM
 
 
@@ -136,10 +137,9 @@ def test_schedule_sweeps_follow_the_rule(dtype):
                                         (33, 0, 1), (61, 0, 2)):
             bpp = n_float * es + 4 * n_int + n_codes
             s = sst.tile(ring, bpp)
-            if s is None:
-                with pytest.raises(ValueError, match="8-cell tiles"):
-                    tss.window_tile(n_float, n_int, n_codes, ring, dtype)
-                continue
+            if s is None:       # past shared memory: the scratch form
+                s = sst.scratch_tile(ring)
+                assert s.ctas == 0 and s.wx == 32 and s.ty == 8
             assert tss.window_tile(n_float, n_int, n_codes, ring, dtype) \
                 == (s, s.window_bytes(ring, bpp))
 
