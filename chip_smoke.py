@@ -276,7 +276,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
    with 2 tiles on the non-overlapped step, us/step with and without
    overlap, and one overlapped step's device work in order beside the
    host's exchange call (torch.profiler).  The phase prints its
-   seconds, and each part's.
+   seconds, and each part's;
+22. the ensemble, the adjoint and nesting across ranks: a 2-rank gang
+   (2 ranks x 1 tile, parallel/mp_check.py's ensemble, adjoint and nest
+   legs) at 1024^2 f32 against one process on 2 tiles: an ensemble of 8
+   gravity-wave members with one global ETKF and one LETKF of the same
+   256 observations (L = 6), the forecast before them bitwise, the analyses
+   and the forecasts after them within TOL_DA_ANALYSIS; the flagship's
+   64-step cost and gradient at remat_chunk=8 within TOL_DA_COST and
+   TOL_DA_GRAD; a two-way ratio-4 nest over a 256^2 window, NEST_RANKS_
+   STEPS steps, within TOL_DA_NEST; max abs and relative differences
+   printed beside each tolerance, host ms per analysis, per cost +
+   gradient and per nest step of both runs, with the card's name and
+   power limit.  The phase prints its seconds.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -4673,6 +4685,163 @@ def phase_filter_nest_overlap() -> tuple[dict, dict]:
     return out, entry
 
 
+# --- phase 22, the ensemble, the adjoint and nesting across ranks -----------
+
+#: the gang's legs, and the observed rows and columns of its global ETKF
+#: and LETKF (every LETKF_STRIDE-th from LETKF_STRIDE / 2: 16 x 16 = 256
+#: observations).  The global ETKF observes these 256 points, not every
+#: point: observing all 2^20 points at sigma 0.02, the largest
+#: eigenvalue of (m-1) I + S is ~1e6 against m-1 = 7 at the null
+#: direction, and a float32 eigh of that matrix moves the anomaly
+#: weights by ~4e-3 of themselves between moments that differ in their
+#: last bit (the card read 2e-3 of u's largest value apart)
+DA_RANKS_LEGS = "ensemble,adjoint,nest"
+DA_RANKS_OBS = f"{LETKF_STRIDE // 2}:{MAIN_SIZE}:{LETKF_STRIDE}"
+#: the flagship's cost and gradient: last observed step, remat chunk
+DA_RANKS_STEPS = ADJ_STEP
+DA_RANKS_REMAT = 8
+NEST_RANKS_STEPS = 5
+#: 2 ranks against one process, relative to each field's largest value
+#: (the gradient: to its largest component; the nest: to its model's
+#: largest state value, as phase 19 holds the semi-implicit model: a
+#: rounding of eta reaches u through g dt / dx ~ 0.5 a step, and u's
+#: largest value is ~30x smaller than eta's).  Where an all-reduce adds
+#: the ranks' partial sums, float32 rounds them in another order: the
+#: ETKF's (M, M) moments (the analysis inherits their rounding through
+#: a float32 eigh of condition ~1e3: ~eps * 1e3 of the increment), the
+#: cost two halves of the misfit, the feedback r x r = 16 child cells a
+#: parent cell
+TOL_DA_ANALYSIS = 1e-4
+TOL_DA_COST = 1e-5
+TOL_DA_GRAD = 1e-5
+TOL_DA_NEST = 1e-5
+
+
+def _rel_max(a, b) -> tuple[float, float]:
+    """(max |a - b|, that over max |b|)."""
+    d = float(np.abs(a - b).max())
+    return d, d / max(float(np.abs(b).max()), 1e-30)
+
+
+def _held(label: str, a, b, tol: float, scale=None) -> str:
+    """``a`` against ``b`` within ``tol`` of ``scale`` (default: ``b``'s
+    largest value), as printed text; raises beyond it."""
+    d, rel = _rel_max(a, b)
+    if scale is not None:
+        rel = d / scale
+    if not rel <= tol:
+        raise AssertionError(f"2 ranks, {label}: max abs {d:.3e}, "
+                             f"{rel:.3e} of the largest value > tol {tol}")
+    return f"{label} max abs {d:.3e} (rel {rel:.3e}, tol {tol:g})"
+
+
+def _da_ensemble(r: dict, n: int) -> dict:
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    one = mpc.ensemble_run(n, 2, DEV, ENS_MEMBERS, DA_RANKS_OBS,
+                           LETKF_RADIUS, etkf_obs=DA_RANKS_OBS)
+    for k in ("eta", "u", "v"):
+        if not np.array_equal(r[f"ef_{k}"], one[f"ef_{k}"]):
+            raise AssertionError(f"2 ranks, ensemble forecast {k}: max abs "
+                                 f"{_rel_max(r[f'ef_{k}'], one[f'ef_{k}'])}"
+                                 " against one process (bitwise expected)")
+    texts, out = [], {}
+    for tag, name in (("ek", "global ETKF"), ("lk", "LETKF")):
+        for stage, what in ((f"{tag}_an", "analysis"),
+                            (tag, "2 steps after")):
+            texts.append("; ".join(
+                _held(f"{name} {what} {k}", r[f"{stage}_{k}"],
+                      one[f"{stage}_{k}"], TOL_DA_ANALYSIS)
+                for k in ("eta", "u", "v")))
+            out[f"{stage}_rel"] = max(
+                _rel_max(r[f"{stage}_{k}"], one[f"{stage}_{k}"])[1]
+                for k in ("eta", "u", "v"))
+        out[f"{tag}_ms_ranks2"] = float(r[f"{tag}_ms"])
+        out[f"{tag}_ms_one"] = float(one[f"{tag}_ms"])
+    print(f"2 ranks x 1 tile, ensemble of {ENS_MEMBERS} gravity-wave members "
+          f"f32 {n}^2, 256 observations: forecast bitwise equal to one "
+          f"process with 2 tiles; " + "; ".join(texts)
+          + f"; global ETKF {out['ek_ms_ranks2']:.1f} ms per analysis on 2 "
+          f"ranks vs {out['ek_ms_one']:.1f}, LETKF (L={LETKF_RADIUS:g}) "
+          f"{out['lk_ms_ranks2']:.1f} vs "
+          f"{out['lk_ms_one']:.1f} (host clock) [{SMI}]", flush=True)
+    return out
+
+
+def _da_adjoint(r: dict, n: int) -> dict:
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    one = mpc.adjoint_run("flagship", n, DA_RANKS_STEPS, 2, DEV,
+                          DA_RANKS_REMAT)
+    c2, c1 = float(r["adj_flagship_cost"]), float(one["adj_flagship_cost"])
+    if not (c1 > 0 and abs(c2 - c1) <= TOL_DA_COST * c1):
+        raise AssertionError(f"2 ranks, flagship cost {c2} vs {c1}")
+    g_text = _held("gradient", r["adj_flagship_grad"],
+                   one["adj_flagship_grad"], TOL_DA_GRAD)
+    out = {"cost_rel": abs(c2 - c1) / c1,
+           "grad_rel": _rel_max(r["adj_flagship_grad"],
+                                one["adj_flagship_grad"])[1],
+           "ms_ranks2": float(r["adj_flagship_ms"]),
+           "ms_one": float(one["adj_flagship_ms"])}
+    print(f"2 ranks x 1 tile, flagship f32 {n}^2, {DA_RANKS_STEPS}-step "
+          f"cost and gradient at remat_chunk={DA_RANKS_REMAT}: cost {c2:.6e} "
+          f"vs {c1:.6e} in one process with 2 tiles (rel "
+          f"{out['cost_rel']:.3e}, tol {TOL_DA_COST:g}); {g_text}; "
+          f"{out['ms_ranks2']:.1f} ms per cost + gradient on 2 ranks vs "
+          f"{out['ms_one']:.1f} (host clock) [{SMI}]", flush=True)
+    return out
+
+
+def _da_nest(r: dict, n: int) -> dict:
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    case = mpc.nest_main_case(n, NEST_WINDOW, NEST_RATIO, NEST_RANKS_STEPS)
+    one = mpc.nest_run("main", case, 2, DEV)
+    fields = [(who, k) for who in ("p", "c0") for k in ("eta", "u", "v")]
+    scale = {who: max(float(np.abs(one[f"nest_main_{who}_{k}"]).max())
+                      for k in ("eta", "u", "v")) for who in ("p", "c0")}
+    texts = [_held(f"{who} {k}", r[f"nest_main_{who}_{k}"],
+                   one[f"nest_main_{who}_{k}"], TOL_DA_NEST, scale[who])
+             for who, k in fields]
+    out = {"rel": max(float(np.abs(r[f"nest_main_{w}_{k}"]
+                                   - one[f"nest_main_{w}_{k}"]).max())
+                      / scale[w] for w, k in fields),
+           "ms_ranks2": float(r["nest_main_ms_per_step"]),
+           "ms_one": float(one["nest_main_ms_per_step"])}
+    print(f"2 ranks x 1 tile, gravity wave f32 {n}^2 with a two-way ratio-"
+          f"{NEST_RATIO} nest over a {NEST_WINDOW}^2 window, "
+          f"{NEST_RANKS_STEPS} steps, against one process with 2 tiles "
+          f"(parent p, child c0; rel: of the model's largest state value): "
+          + "; ".join(texts)
+          + f"; {out['ms_ranks2']:.1f} ms per nest step on 2 ranks vs "
+          f"{out['ms_one']:.1f} (host clock) [{SMI}]", flush=True)
+    return out
+
+
+def phase_da_ranks() -> dict:
+    """Phase 22, the ensemble, the adjoint and nesting across ranks: a
+    2-rank gang, 2 ranks x 1 tile, at the main width f32, each path held
+    against one process with 2 tiles (module docstring), with host ms of
+    both."""
+    import tempfile
+    n = MAIN_SIZE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = _gang(2, DA_RANKS_LEGS, Path(tmp) / "da2.npz", "--ndomains", "2",
+                  "--ens-n", str(n), "--members", str(ENS_MEMBERS),
+                  "--letkf-obs", DA_RANKS_OBS, "--etkf-obs", DA_RANKS_OBS,
+                  "--letkf-radius",
+                  str(LETKF_RADIUS), "--adjoint-cases", "flagship",
+                  "--adjoint-n", str(n), "--adjoint-steps",
+                  str(DA_RANKS_STEPS), "--remat", str(DA_RANKS_REMAT),
+                  "--nest-cases", "main", "--nest-window", str(NEST_WINDOW),
+                  "--nest-ratio", str(NEST_RATIO), "--nest-steps",
+                  str(NEST_RANKS_STEPS))
+        out = {"ensemble": _da_ensemble(r, n), "adjoint": _da_adjoint(r, n),
+               "nest": _da_nest(r, n)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ensemble, adjoint and nesting across ranks: phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # --- phase 19, the slice across ranks ----------------------------------------
 
 #: the slice's legs across 2 ranks x 1 tile on the card
@@ -4937,6 +5106,7 @@ def main() -> None:
     phase_slice_ranks(kernels)
     phase_adjoint_ensembles()
     kernels.append(phase_filter_nest_overlap()[1])
+    phase_da_ranks()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

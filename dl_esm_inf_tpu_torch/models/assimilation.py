@@ -17,18 +17,31 @@ Usage::
     result["eta0"]                              # recovered initial eta
 
 The optimisers are the port's own (it does not import optax): Adam with
-optax's update rule, and ``torch.optim.LBFGS`` with a strong-Wolfe line
-search.  Across ranks this raises (ROADMAP M8: the adjoint of the
-exchange between ranks).
+optax's update rule, and :class:`LBFGS`, ``torch.optim.LBFGS``'s update
+rule with a strong-Wolfe line search.
+
+Across ranks each rank runs its block of the trajectory, and autograd
+crosses the exchange between ranks (:mod:`..parallel.halo`'s strip
+transfer); the cost is the :func:`..parallel.collectives.psum` of every
+rank's misfit, whose cotangent passes through, so every rank starts the
+same backward pass.  The hybrid control's ensemble weights are held
+alike by every rank and scale each rank's anomalies: their gradient is
+summed over the ranks once (:func:`..parallel.collectives.pbroadcast`).
+The optimisers' reductions (L-BFGS's dot products and norms, the
+largest gradient component) are all-reduced, so every rank takes the
+same steps.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import kinds, layout
 from ..ops import stencils as st
 from ..parallel import environment as env
+from ..parallel.collectives import (all_reduce, gather_to_host, global_max,
+                                    pbroadcast, psum)
 from ..parallel.halo import exchange_multi_fn
 
 
@@ -155,9 +168,12 @@ def hybrid_controls(model, ensemble, *, smooth_scale: float = 2.0,
     field in ``ensemble`` (a :class:`.ensemble.Ensemble`).  Returns
     ``(transform, penalty, zero_control)``: ``transform`` maps the
     ``{"w": block, "a": (M,)}`` control to the stacked initial state,
-    ``penalty`` is the preconditioned background term
-    ``||w||^2 + ||a||^2`` and ``zero_control()`` builds the rest start.
-    The ensemble states are constants (the EnVar linearisation)."""
+    ``penalty`` is this rank's share of the preconditioned background
+    term ``||w||^2 + ||a||^2`` (``||w||^2`` of its block; ``||a||^2`` on
+    rank 0 only, as ``a`` is held alike by every rank), to be summed over
+    the ranks with the cost, and ``zero_control()`` builds the rest
+    start.  The ensemble states are constants (the EnVar
+    linearisation)."""
     beta_s, beta_e = float(beta[0]), float(beta[1])
     sm = control_smoother(model, smooth_scale)
     eo = ensemble.states[0]
@@ -165,12 +181,17 @@ def hybrid_controls(model, ensemble, *, smooth_scale: float = 2.0,
     norm = 1.0 / np.sqrt(max(ensemble.n_members - 1, 1))
     anoms = (eo - em[None]) * norm
 
+    own = 1.0 if env.on_master() else 0.0
+
     def transform(x):
-        inc = beta_e * torch.einsum("k,kyx->yx", x["a"], anoms)
+        inc = beta_e * torch.einsum("k,kyx->yx", pbroadcast(x["a"]), anoms)
         return beta_s * sm(x["w"]) + inc
 
     def penalty(x):
-        return (x["w"] ** 2).sum() + (x["a"] ** 2).sum().to(x["w"].dtype)
+        a2 = (pbroadcast(x["a"]) ** 2).sum().to(x["w"].dtype)
+        # the same operations on every rank: the ranks' backward passes
+        # must run their collectives in the same order
+        return (x["w"] ** 2).sum() + a2 * own
 
     def zero_control():
         w = torch.zeros_like(em)
@@ -208,8 +229,12 @@ def make_cost_fn(model, observations: dict, obs_weight=None,
     background term is then ``control_penalty(x)`` where given (the
     preconditioned form, hybrid EnVar), else the state-space misfit
     ``||transform(x) - background||^2_w`` where a ``background`` is
-    given, else ``||w||^2_w``."""
-    env.require_one_rank("4D-Var (the adjoint)", "M8")
+    given, else ``||w||^2_w``.
+
+    Across ranks ``x`` is this rank's block; the cost is summed over
+    every rank's (:func:`..parallel.collectives.psum`), ``pack`` keeps
+    this rank's block of the global field and ``unpack`` gathers (both
+    collective)."""
     run_seg, t_mask, make_state = _trajectory_runner(model)
     if not observations:
         raise ValueError("observations must map step -> global array")
@@ -221,11 +246,10 @@ def make_cost_fn(model, observations: dict, obs_weight=None,
     npdt = kinds.np_dtype(grid.dtype)
 
     def stacked(g):
-        return torch.from_numpy(layout.stack_global(
-            d, np.asarray(g), mode="zeros", dtype=npdt)).to(grid.device)
+        return grid.block_tensor(layout.stack_global(
+            d, np.asarray(g), mode="zeros", dtype=npdt))
 
-    w = torch.from_numpy(layout.internal_mask(d).astype(npdt)).to(
-        grid.device) * t_mask
+    w = grid.block_tensor(layout.internal_mask(d).astype(npdt)) * t_mask
     if obs_weight is not None:
         w = w * stacked(obs_weight)
     obs_stacked = {t: stacked(o) for t, o in observations.items()}
@@ -261,7 +285,7 @@ def make_cost_fn(model, observations: dict, obs_weight=None,
             base = t
             c = c + ((state[obs_state_index] - obs_stacked[t]) ** 2
                      * w).sum()
-        return c
+        return psum(c)
 
     def pack(x0_global):
         return stacked(x0_global)
@@ -270,8 +294,8 @@ def make_cost_fn(model, observations: dict, obs_weight=None,
         with torch.no_grad():
             if control_transform is not None:
                 x_stacked = control_transform(x_stacked)
-            return layout.unstack_internal(d, x_stacked).detach().cpu(
-            ).numpy()
+            return layout.unstack_internal(
+                d, gather_to_host(x_stacked, grid.halo_spec))
 
     return cost, pack, unpack
 
@@ -326,6 +350,262 @@ class Adam:
         return out
 
 
+def _cubic_interpolate(x1, f1, g1, x2, f2, g2, bounds=None):
+    """The minimiser of the cubic through two points with their values
+    and slopes, clipped to ``bounds`` (``torch.optim.lbfgs``'s, as it
+    computes it)."""
+    if bounds is not None:
+        xmin_bound, xmax_bound = bounds
+    else:
+        xmin_bound, xmax_bound = (x1, x2) if x1 <= x2 else (x2, x1)
+    d1 = g1 + g2 - 3 * (f1 - f2) / (x1 - x2)
+    d2_square = d1 ** 2 - g1 * g2
+    if d2_square >= 0:
+        d2 = d2_square.sqrt()
+        if x1 <= x2:
+            min_pos = x2 - (x2 - x1) * ((g2 + d2 - d1) / (g2 - g1 + 2 * d2))
+        else:
+            min_pos = x1 - (x1 - x2) * ((g1 + d2 - d1) / (g1 - g2 + 2 * d2))
+        return min(max(min_pos, xmin_bound), xmax_bound)
+    return (xmin_bound + xmax_bound) / 2.0
+
+
+class LBFGS:
+    """L-BFGS with ``torch.optim.LBFGS``'s update rule at the settings
+    ``assimilate`` uses: one quasi-Newton iteration a step, history
+    ``history_size``, its strong-Wolfe line search (bracketing, cubic
+    zoom, at most ``max_eval - 1`` evaluations), no tolerance stops.  The
+    operations are PyTorch's, in its order, so on one rank its iterates
+    are ``torch.optim.LBFGS``'s bitwise.
+
+    Its dot products, the largest and the summed |component| are over
+    the whole control: across ranks the partial results of the leaves
+    that are rank blocks are all-reduced and those of the leaves every
+    rank holds alike (``replicated``) added once, so every rank takes the
+    same direction and the same step.  ``evaluate(leaves) -> (loss,
+    grads)`` is collective: every rank calls it the same number of
+    times."""
+
+    def __init__(self, leaves, replicated=None, history_size: int = 10,
+                 max_eval: int = 26):
+        self.leaves = list(leaves)
+        self.history_size = int(history_size)
+        self.max_eval = int(max_eval)
+        rep = ([False] * len(self.leaves) if replicated is None
+               else list(replicated))
+        sizes = [t.numel() for t in self.leaves]
+        flags = torch.cat([torch.full((n,), r, dtype=torch.bool)
+                           for n, r in zip(sizes, rep)])
+        dev = self.leaves[0].device
+        self._split = (None if env.get_num_ranks() == 1
+                       else (flags.logical_not().to(dev), flags.to(dev)))
+        self._any_replicated = any(rep)
+        self.n_iter = 0
+        self.d = self.t = self.H_diag = None
+        self.old_dirs, self.old_stps, self.ro = [], [], []
+        self.al = [None] * self.history_size
+        self.prev_flat_grad = None
+
+    # -- reductions over the whole control ------------------------------
+    def _over(self, f, op, *us):
+        """``f`` of flat control vectors ``us`` over the whole control:
+        across ranks, ``f`` of the rank blocks all-reduced by ``op``,
+        combined once with ``f`` of the replicated leaves."""
+        if self._split is None:
+            return f(*us)
+        loc, rep = self._split
+        out = all_reduce(f(*(u[loc] for u in us)), op)
+        if self._any_replicated:
+            r = f(*(u[rep] for u in us))
+            out = (out + r if op == dist.ReduceOp.SUM
+                   else torch.maximum(out, r))
+        return out
+
+    def _dot(self, u, v):
+        return self._over(torch.dot, dist.ReduceOp.SUM, u, v)
+
+    def _amax(self, u):
+        return self._over(lambda a: a.abs().max(), dist.ReduceOp.MAX, u)
+
+    def _asum(self, u):
+        return self._over(lambda a: a.abs().sum(), dist.ReduceOp.SUM, u)
+
+    # -- torch.optim.LBFGS's parameter handling ---------------------------
+    @staticmethod
+    def _flat(grads):
+        return torch.cat([g.reshape(-1) for g in grads], 0)
+
+    def _add_grad(self, step_size, update) -> None:
+        offset = 0
+        for p in self.leaves:
+            numel = p.numel()
+            p.add_(update[offset:offset + numel].view_as(p), alpha=step_size)
+            offset += numel
+
+    def _directional_evaluate(self, evaluate, x, t, d):
+        self._add_grad(t, d)
+        with torch.enable_grad():
+            loss, grads = evaluate(self.leaves)
+        flat_grad = self._flat(grads)
+        for p, pdata in zip(self.leaves, x):
+            p.copy_(pdata)
+        return float(loss), flat_grad
+
+    def _strong_wolfe(self, evaluate, x, t, d, f, g, gtd, c1=1e-4, c2=0.9,
+                      tolerance_change=1e-9, max_ls=25):
+        """``torch.optim.lbfgs._strong_wolfe`` with the dot products and
+        the norm over the whole control."""
+        d_norm = self._amax(d)
+        g = g.clone(memory_format=torch.contiguous_format)
+        f_new, g_new = self._directional_evaluate(evaluate, x, t, d)
+        ls_func_evals = 1
+        gtd_new = self._dot(g_new, d)
+        t_prev, f_prev, g_prev, gtd_prev = 0, f, g, gtd
+        done = False
+        ls_iter = 0
+        while ls_iter < max_ls:
+            if f_new > (f + c1 * t * gtd) or (ls_iter > 1 and f_new >= f_prev):
+                bracket = [t_prev, t]
+                bracket_f = [f_prev, f_new]
+                bracket_g = [g_prev, g_new.clone(
+                    memory_format=torch.contiguous_format)]
+                bracket_gtd = [gtd_prev, gtd_new]
+                break
+            if abs(gtd_new) <= -c2 * gtd:
+                bracket, bracket_f, bracket_g = [t], [f_new], [g_new]
+                done = True
+                break
+            if gtd_new >= 0:
+                bracket = [t_prev, t]
+                bracket_f = [f_prev, f_new]
+                bracket_g = [g_prev, g_new.clone(
+                    memory_format=torch.contiguous_format)]
+                bracket_gtd = [gtd_prev, gtd_new]
+                break
+            min_step = t + 0.01 * (t - t_prev)
+            max_step = t * 10
+            tmp = t
+            t = _cubic_interpolate(t_prev, f_prev, gtd_prev, t, f_new,
+                                   gtd_new, bounds=(min_step, max_step))
+            t_prev = tmp
+            f_prev = f_new
+            g_prev = g_new.clone(memory_format=torch.contiguous_format)
+            gtd_prev = gtd_new
+            f_new, g_new = self._directional_evaluate(evaluate, x, t, d)
+            ls_func_evals += 1
+            gtd_new = self._dot(g_new, d)
+            ls_iter += 1
+        if ls_iter == max_ls:
+            bracket = [0, t]
+            bracket_f = [f, f_new]
+            bracket_g = [g, g_new]
+        insuf_progress = False
+        low_pos, high_pos = (0, 1) if bracket_f[0] <= bracket_f[-1] else (1, 0)
+        while not done and ls_iter < max_ls:
+            if abs(bracket[1] - bracket[0]) * d_norm < tolerance_change:
+                break
+            t = _cubic_interpolate(bracket[0], bracket_f[0], bracket_gtd[0],
+                                   bracket[1], bracket_f[1], bracket_gtd[1])
+            eps = 0.1 * (max(bracket) - min(bracket))
+            if min(max(bracket) - t, t - min(bracket)) < eps:
+                if insuf_progress or t >= max(bracket) or t <= min(bracket):
+                    if abs(t - max(bracket)) < abs(t - min(bracket)):
+                        t = max(bracket) - eps
+                    else:
+                        t = min(bracket) + eps
+                    insuf_progress = False
+                else:
+                    insuf_progress = True
+            else:
+                insuf_progress = False
+            f_new, g_new = self._directional_evaluate(evaluate, x, t, d)
+            ls_func_evals += 1
+            gtd_new = self._dot(g_new, d)
+            ls_iter += 1
+            if f_new > (f + c1 * t * gtd) or f_new >= bracket_f[low_pos]:
+                bracket[high_pos] = t
+                bracket_f[high_pos] = f_new
+                bracket_g[high_pos] = g_new.clone(
+                    memory_format=torch.contiguous_format)
+                bracket_gtd[high_pos] = gtd_new
+                low_pos, high_pos = ((0, 1) if bracket_f[0] <= bracket_f[1]
+                                     else (1, 0))
+            else:
+                if abs(gtd_new) <= -c2 * gtd:
+                    done = True
+                elif gtd_new * (bracket[high_pos] - bracket[low_pos]) >= 0:
+                    bracket[high_pos] = bracket[low_pos]
+                    bracket_f[high_pos] = bracket_f[low_pos]
+                    bracket_g[high_pos] = bracket_g[low_pos]
+                    bracket_gtd[high_pos] = bracket_gtd[low_pos]
+                bracket[low_pos] = t
+                bracket_f[low_pos] = f_new
+                bracket_g[low_pos] = g_new.clone(
+                    memory_format=torch.contiguous_format)
+                bracket_gtd[low_pos] = gtd_new
+        return bracket_f[low_pos], bracket_g[low_pos], bracket[low_pos]
+
+    @torch.no_grad()
+    def step(self, evaluate):
+        """One L-BFGS iteration from the current leaves (updated in
+        place).  Returns ``(loss, grads)`` at the iterate it started
+        from."""
+        with torch.enable_grad():
+            loss0, grads0 = evaluate(self.leaves)
+        loss = float(loss0)
+        flat_grad = self._flat(grads0)
+        if self._amax(flat_grad) <= 0.0:
+            return loss0, grads0
+        self.n_iter += 1
+        if self.n_iter == 1:
+            d = flat_grad.neg()
+            self.old_dirs, self.old_stps, self.ro = [], [], []
+            self.H_diag = 1
+        else:
+            y = flat_grad.sub(self.prev_flat_grad)
+            s = self.d.mul(self.t)
+            ys = self._dot(y, s)
+            if ys > 1e-10:
+                if len(self.old_dirs) == self.history_size:
+                    self.old_dirs.pop(0)
+                    self.old_stps.pop(0)
+                    self.ro.pop(0)
+                self.old_dirs.append(y)
+                self.old_stps.append(s)
+                self.ro.append(1.0 / ys)
+                self.H_diag = ys / self._dot(y, y)
+            num_old = len(self.old_dirs)
+            al = self.al
+            q = flat_grad.neg()
+            for i in range(num_old - 1, -1, -1):
+                al[i] = self._dot(self.old_stps[i], q) * self.ro[i]
+                q.add_(self.old_dirs[i], alpha=-al[i])
+            d = r = torch.mul(q, self.H_diag)
+            for i in range(num_old):
+                be_i = self._dot(self.old_dirs[i], r) * self.ro[i]
+                r.add_(self.old_stps[i], alpha=al[i] - be_i)
+        if self.prev_flat_grad is None:
+            self.prev_flat_grad = flat_grad.clone(
+                memory_format=torch.contiguous_format)
+        else:
+            self.prev_flat_grad.copy_(flat_grad)
+        t = (min(1.0, 1.0 / self._asum(flat_grad)) if self.n_iter == 1
+             else 1.0)
+        gtd = self._dot(flat_grad, d)
+        if gtd > 0.0:
+            # torch breaks before the line search, keeping this d and t
+            self.d, self.t = d, t
+            return loss0, grads0
+        x_init = [p.clone(memory_format=torch.contiguous_format)
+                  for p in self.leaves]
+        _loss, _flat_grad, t = self._strong_wolfe(
+            evaluate, x_init, t, d, loss, flat_grad, gtd,
+            max_ls=self.max_eval - 1)
+        self._add_grad(t, d)
+        self.d, self.t = d, t
+        return loss0, grads0
+
+
 def assimilate(model, observations: dict, *, iters: int = 200,
                learning_rate: float = 0.2, first_guess=None,
                obs_weight=None, background=None,
@@ -340,10 +620,10 @@ def assimilate(model, observations: dict, *, iters: int = 200,
     the autograd gradient of the trajectory misfit.
 
     ``optimizer="adam"`` (default; :class:`Adam`, ``learning_rate``
-    applies) or ``"lbfgs"``: ``torch.optim.LBFGS`` (history 10, as
-    optax's ``lbfgs``) with PyTorch's strong-Wolfe line search, one
-    quasi-Newton iteration per iteration here (``learning_rate`` is
-    ignored).  That line search is not optax's zoom line search, so the
+    applies) or ``"lbfgs"``: :class:`LBFGS` (``torch.optim.LBFGS``'s
+    rule, history 10, as optax's ``lbfgs``) with PyTorch's strong-Wolfe
+    line search, one quasi-Newton iteration per iteration here
+    (``learning_rate`` is ignored).  That line search is not optax's zoom line search, so the
     iterates differ from the JAX package's; both drive these quadratic-
     dominated objectives to the same minimum.
 
@@ -356,7 +636,8 @@ def assimilate(model, observations: dict, *, iters: int = 200,
     Returns ``{"eta0": global array, "cost_history": [...],
     "grad_norm": float}`` (``eta0`` is always the physical state; hybrid
     runs add ``"ensemble_weights"``).  ``grad_norm`` is the largest
-    gradient component at the last iterate taken."""
+    gradient component at the last iterate taken.  Collective across
+    ranks: every rank gets the same result."""
     if optimizer not in ("adam", "lbfgs"):
         raise ValueError(f"optimizer must be 'adam' or 'lbfgs', "
                          f"got {optimizer!r}")
@@ -389,49 +670,36 @@ def assimilate(model, observations: dict, *, iters: int = 200,
         x = pack(np.zeros((d.global_ny, d.global_nx))
                  if first_guess is None else first_guess)
     leaves = [t.detach().clone().requires_grad_(True) for t in _leaves(x)]
+    # the hybrid control's ensemble weights are held alike by every rank
+    replicated = ([k == "a" for k in sorted(x)] if isinstance(x, dict)
+                  else [False])
 
-    def value_and_grad():
+    def value_and_grad(leaves):
         c = cost(_rebuild(x, leaves))
         grads = torch.autograd.grad(c, leaves)
         return c.detach(), grads
+
+    def largest(grads):
+        return max(global_max(g.abs()) for g in grads)
 
     history = []
     gmax = float("nan")
     if optimizer == "adam":
         opt = Adam(leaves, learning_rate)
         for _ in range(iters):
-            c, grads = value_and_grad()
+            c, grads = value_and_grad(leaves)
             history.append(float(c))
-            gmax = max(float(g.abs().max()) for g in grads)
+            gmax = largest(grads)
             leaves = [t.requires_grad_(True)
                       for t in opt.step(leaves, grads)]
     else:
         # one quasi-Newton iteration a step: one evaluation at the
-        # iterate, up to 25 in the line search (max_eval bounds both;
-        # its default, 5/4 of max_iter, would leave the search none)
-        opt = torch.optim.LBFGS(leaves, lr=1.0, max_iter=1, max_eval=26,
-                                history_size=10, tolerance_grad=0.0,
-                                tolerance_change=0.0,
-                                line_search_fn="strong_wolfe")
-        first = []
-
-        def closure():
-            opt.zero_grad()
-            c = cost(_rebuild(x, leaves))
-            c.backward()
-            if not first:
-                # a step evaluates the current iterate first; the line
-                # search's evaluations follow
-                first.append((float(c.detach()),
-                              max(float(p.grad.abs().max())
-                                  for p in leaves)))
-            return c
-
+        # iterate, up to 25 in the line search
+        opt = LBFGS(leaves, replicated, history_size=10, max_eval=26)
         for _ in range(iters):
-            first.clear()
-            opt.step(closure)
-            c, gmax = first[0]
-            history.append(c)
+            c, grads = opt.step(value_and_grad)
+            history.append(float(c))
+            gmax = largest(grads)
     xf = _rebuild(x, [t.detach() for t in leaves])
     out = {"eta0": unpack(xf), "cost_history": history,
            "grad_norm": gmax}

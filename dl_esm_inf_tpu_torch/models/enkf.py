@@ -7,18 +7,21 @@ the observation-space statistics to an (M, M) matrix and an (M,) vector,
 takes one symmetric eigendecomposition, and mixes the members point by
 point, ``X_a = x̄ + W^T X'``.
 
-The port's ``Ensemble`` is one process holding every tile of the
-stacked layout, so the JAX package's per-shard sums and ``psum`` become
-plain sums over the block.  Those sums weight each cell by the internal
-mask times the model's wet mask (``self._wet``): a halo copy of a cell
-counts 0, so an N-tile run sums the same points as a 1-tile run.  Every
-point of the block, halo copies included, is updated with the weights of
-its global position, so the analysis needs no halo exchange.
+Each rank sums over its block of the stacked layout and the partial
+sums are all-reduced, the JAX package's ``psum``: the global ETKF's
+``(M, M)`` and ``(M,)`` moments in one call, the LETKF's observed
+anomalies and means (each observation lives on the one rank whose block
+holds its internal cell) in another, and the diagnostics' sums.  Every
+rank then decomposes the same matrices and gets the same weights.  The
+sums weight each cell by the internal mask times the model's wet mask
+(``self._wet``): a halo copy of a cell counts 0, so an N-tile run sums
+the same points as a 1-tile run.  Every point of the block, halo copies
+included, is updated with the weights of its global position, so the
+analysis needs no halo exchange.
 
 Plain PyTorch on the card, as the JAX package runs plain jnp there (no
 TPU kernel lies on this path): the moments are matrix products and the
 LETKF's per-point eigendecompositions one batched ``torch.linalg.eigh``.
-Across ranks the ``Ensemble`` already raises (ROADMAP M7).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import numpy as np
 import torch
 
 from ..core import kinds, layout
+from ..parallel import environment as env
+from ..parallel.collectives import all_reduce
 
 
 #: matrices per batched ``eigh`` call: cuSOLVER's batched solver
@@ -179,11 +184,17 @@ class ETKF:
         if t_wet is not None:
             wet = wet * t_wet.to(wet.dtype)
         self._wet = wet
-        # per-row / per-column GLOBAL indices of the block (halo cells
-        # included, so a halo point gets its interior twin's distances,
-        # hence its weights)
-        self._gy = torch.from_numpy(layout.global_y_index(d)).to(grid.device)
-        self._gx = torch.from_numpy(layout.global_x_index(d)).to(grid.device)
+        # per-row / per-column GLOBAL indices of this rank's block (halo
+        # cells included, so a halo point gets its interior twin's
+        # distances, hence its weights)
+        spec = grid.halo_spec
+        iy, ix = spec.rank_coords(env.get_rank())
+        ny, nx = spec.array_shape
+        self._block0 = (iy * ny, ix * nx)
+        self._gy = torch.from_numpy(
+            layout.global_y_index(d)[iy * ny:(iy + 1) * ny]).to(grid.device)
+        self._gx = torch.from_numpy(
+            layout.global_x_index(d)[ix * nx:(ix + 1) * nx]).to(grid.device)
 
     # ------------------------------------------------------------------
     def _observed(self, state):
@@ -191,8 +202,9 @@ class ETKF:
         return eo if self._obs_level is None else eo[:, self._obs_level]
 
     def _global_update(self, obs, ow, sig_inv2, rho):
-        """The global ETKF: moments summed over the block, one (M, M)
-        eigendecomposition, the member-space mix at every point."""
+        """The global ETKF: moments summed over the block and
+        all-reduced in one call, one (M, M) eigendecomposition, the
+        member-space mix at every point."""
         states = self.ens.states
         m = self.ens.n_members
         w = ow * self._wet * sig_inv2
@@ -202,6 +214,8 @@ class ETKF:
         epf = ep.reshape(m, -1)
         S = epf @ (ep * w[None]).reshape(m, -1).T
         d = epf @ ((obs - em) * w).reshape(-1)
+        Sd = all_reduce(torch.cat((S.reshape(-1), d)))
+        S, d = Sd[:m * m].reshape(m, m), Sd[m * m:]
         wtot = _etkf_weights(S, d, m, rho)
         return tuple(_mix(wtot, f) for f in states)
 
@@ -215,7 +229,9 @@ class ETKF:
         observation on a dry point contributes nothing, as there.  The
         taper is the JAX package's ``(p, ly, lx)`` tensor, and weights S
         and d in the same order; without static shapes the observation
-        count needs no padding."""
+        count needs no padding.  Across ranks the rank whose block holds
+        an observation's internal cell gives its row, the others zeros,
+        and one all-reduce assembles ``yp`` and ``mo`` everywhere."""
         states = self.ens.states
         m = self.ens.n_members
         grid = self.ens.grid
@@ -224,14 +240,22 @@ class ETKF:
         eo = self._observed(states)
         em = torch.mean(eo, dim=0)
         ep = eo - em[None]
-        # the internal copy of each observed global cell
+        # the internal copy of each observed global cell, in the whole
+        # stacked layout, then in this rank's block (elsewhere: cell 0,
+        # deselected)
         h = d.halo
         sy = (oyi // d.tile_ny) * d.local_ny + h + oyi % d.tile_ny
         sx = (oxi // d.tile_nx) * d.local_nx + h + oxi % d.tile_nx
-        sel = self._wet[sy, sx] > 0
+        ly, lx = ep.shape[-2:]
+        sy, sx = sy - self._block0[0], sx - self._block0[1]
+        mine = (sy >= 0) & (sy < ly) & (sx >= 0) & (sx < lx)
+        sy, sx = torch.where(mine, sy, 0), torch.where(mine, sx, 0)
+        sel = mine & (self._wet[sy, sx] > 0)
         zero = torch.zeros((), dtype=dtype, device=dev)
-        yp = torch.where(sel, ep[:, sy, sx], zero).T            # (p, M)
-        mo = torch.where(sel, em[sy, sx], zero)
+        ypm = all_reduce(torch.cat(
+            (torch.where(sel, ep[:, sy, sx], zero),
+             torch.where(sel, em[sy, sx], zero)[None])).T)  # (p, M + 1)
+        yp, mo = ypm[:, :m], ypm[:, m]
         innov = ovals - mo
         # per-point taper of R^-1: the distances broadcast from the
         # block's row and column indices
@@ -305,12 +329,15 @@ class ETKF:
     def _obs_diagnostics(self, obs, ow):
         """(RMS mean innovation, mean member spread) on observed wet
         internal points; the spread is the population variance's root,
-        as ``jnp.var`` gives it."""
+        as ``jnp.var`` gives it.  The three sums are all-reduced in one
+        call."""
         w = ow * self._wet
-        npts = torch.clamp(torch.sum(w), min=1.0)
         eo = self._observed(self.ens.states)
         em = torch.mean(eo, dim=0)
-        rms = torch.sqrt(torch.sum((em - obs) ** 2 * w) / npts)
-        spread = torch.sqrt(torch.sum(torch.var(eo, dim=0, correction=0) * w)
-                            / npts)
+        sums = all_reduce(torch.stack((
+            torch.sum(w), torch.sum((em - obs) ** 2 * w),
+            torch.sum(torch.var(eo, dim=0, correction=0) * w))))
+        npts = torch.clamp(sums[0], min=1.0)
+        rms = torch.sqrt(sums[1] / npts)
+        spread = torch.sqrt(sums[2] / npts)
         return float(rms), float(spread)

@@ -11,7 +11,10 @@ operation sequence of the single run: members are bitwise equal to
 running the base model M times.
 
 Plain path only (the fused kernels are single-state), as in the JAX
-package.  Across ranks it raises (ROADMAP M7).
+package.  Across ranks each rank steps its block of every member (the
+strips of all members cross the rank seams together); host arrays are
+whole on every rank, as a field's are: loading scatters the whole
+stacked layout to this rank's block, and the gathers are collective.
 """
 from __future__ import annotations
 
@@ -114,7 +117,6 @@ class Ensemble:
     """M replicas of ``model``'s state, stepped together on its device."""
 
     def __init__(self, model, n_members: int):
-        env.require_one_rank("the ensemble", "M7")
         if n_members < 1:
             raise ValueError("n_members must be >= 1")
         self.model = model
@@ -134,7 +136,8 @@ class Ensemble:
     def set_member_states(self, field_index: int, globals_m) -> None:
         """Load per-member initial data for one state field from an
         ``(M, gny, gnx)`` global array, or ``(M, levels, gny, gnx)`` for a
-        multi-level field (scatter + halo exchange)."""
+        multi-level field (scatter + halo exchange; this rank keeps its
+        block)."""
         globals_m = np.asarray(globals_m)
         if globals_m.shape[0] != self.n_members:
             raise ValueError(f"expected leading dim {self.n_members}, "
@@ -148,8 +151,10 @@ class Ensemble:
                 return layout.stack_global(d, g, mode="zeros", dtype=npdt)
             return np.stack([stack(lvl) for lvl in g])
 
-        arr = torch.from_numpy(np.stack([stack(g) for g in globals_m])).to(
-            device=field.data.device, dtype=field.dtype)
+        whole = np.stack([stack(g) for g in globals_m])
+        arr = torch.from_numpy(np.ascontiguousarray(
+            self.grid.local_block(whole))).to(device=field.data.device,
+                                              dtype=field.dtype)
         arr = halo_mod.exchange(arr, self.grid.halo_spec, depth=d.halo)
         states = list(self.states)
         states[field_index] = arr
@@ -178,22 +183,28 @@ class Ensemble:
 
     # ------------------------------------------------------------------
     def member(self, i: int) -> dict:
-        """Gathered global fields of member ``i`` (internal points)."""
-        d = self.grid.decomp
-        return {k: gather_to_host(layout.unstack_internal(d, s[i]))
+        """Gathered global fields of member ``i`` (internal points;
+        collective)."""
+        d, spec = self.grid.decomp, self.grid.halo_spec
+        return {k: layout.unstack_internal(d, gather_to_host(s[i], spec))
                 for k, s in zip(self._field_names, self.states)}
 
     def gather_all(self) -> dict:
-        """All members' global fields: ``{name: (M, gny, gnx)}``."""
-        d = self.grid.decomp
-        return {k: gather_to_host(layout.unstack_internal(d, s))
+        """All members' global fields: ``{name: (M, gny, gnx)}``
+        (collective)."""
+        d, spec = self.grid.decomp, self.grid.halo_spec
+        return {k: layout.unstack_internal(d, gather_to_host(s, spec))
                 for k, s in zip(self._field_names, self.states)}
 
     def save(self, path: str) -> None:
         """Checkpoint all members (global internal form and the model
         clock under ``__step__``) to one ``.npz``, the JAX package's
-        format: either package loads the other's file."""
-        np.savez(path, __step__=np.int64(self._istep0), **self.gather_all())
+        format: either package loads the other's file.  Collective:
+        every rank gathers, rank 0 writes."""
+        fields = self.gather_all()
+        if env.on_master():
+            np.savez(path, __step__=np.int64(self._istep0), **fields)
+        env.barrier()
 
     def load(self, path: str) -> None:
         """Restore member states saved by :meth:`save` (scatter + halo

@@ -28,8 +28,25 @@ The glue writes with out-of-place ``index_put`` (the JAX package's
 ``.at[].set``), so autograd flows through the ring scatter, the child
 substeps and the feedback.  Plain path only: the glue runs every parent
 step, so a parent on the fused sweep or with steps_per_sweep > 1 is
-refused, as in the JAX package.  Across ranks nesting raises (ROADMAP
-M9): the glue reads and writes the whole stacked layout of one rank.
+refused, as in the JAX package.
+
+Across ranks the child grid is split over the parent's ranks, and the
+glue touches only each rank's own blocks (the JAX package's one program
+over sharded arrays, where XLA inserts the collectives):
+
+* **ring samples**: each rank contributes the parent T points of the
+  *band* the bilinear plan reads that lie in its block, and one
+  :func:`~..parallel.collectives.all_gather` (O(perimeter)) gives every
+  rank the band; a rank then interpolates and writes only the ring
+  targets in its child block.  The band holds the exact parent values,
+  so the ring is bitwise the one-process ring;
+* **feedback**: each rank sums the child cells it owns onto their parent
+  cells, one all-reduce (:func:`~..parallel.collectives.psum` of the
+  partial sums, then :func:`~..parallel.collectives.pbroadcast`: every
+  rank writes only the parent cells it owns, so the backward pass sums
+  the ranks' cotangents once) gives the sums, and the rank owning each
+  parent cell writes its average.  With more than one child cell per
+  parent cell the sums add in another order than one process's.
 """
 from __future__ import annotations
 
@@ -40,6 +57,7 @@ from ..core import kinds, layout
 from ..core.grid import Grid, grid_init
 from ..ops import stencils as st
 from ..parallel import environment as env
+from ..parallel.collectives import all_gather, pbroadcast, psum
 from .gravity_wave import GravityWaveModel
 
 
@@ -61,21 +79,14 @@ def _t_point_plan(cy, cx, pj0, pi0, ratio, pny, pnx):
     return y0, x0, wy, wx
 
 
-def _device_plan(plan, dtype, device):
-    """A plan's indices and weights as tensors (weights in ``dtype``)."""
-    y0, x0, wy, wx = plan
-    return (torch.from_numpy(y0).to(device), torch.from_numpy(x0).to(device),
-            torch.as_tensor(wy, dtype=dtype, device=device),
-            torch.as_tensor(wx, dtype=dtype, device=device))
-
-
-def _bilinear(pg, plan):
-    """Gather a device plan's values from a (gny, gnx) parent array."""
-    y0, x0, wy, wx = plan
-    v00 = pg[y0, x0]
-    v01 = pg[y0, x0 + 1]
-    v10 = pg[y0 + 1, x0]
-    v11 = pg[y0 + 1, x0 + 1]
+def _bilinear(band, plan):
+    """A ring plan's values from the parent band: ``plan`` holds the
+    band indices of each target's four corners and its weights."""
+    k00, k01, k10, k11, wy, wx = plan
+    v00 = band[k00]
+    v01 = band[k01]
+    v10 = band[k10]
+    v11 = band[k11]
     return ((1 - wy) * ((1 - wx) * v00 + wx * v01)
             + wy * ((1 - wx) * v10 + wx * v11))
 
@@ -94,6 +105,21 @@ def _stacked_indices(decomp, gy, gx):
 def _device_indices(idx, device):
     return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(device)
                  for a in idx)
+
+
+def _owned(grid, gy, gx):
+    """Where the internal copies of global cells ``(gy, gx)`` live:
+    ``(owner rank, mine, (by, bx))`` with ``mine`` true for the cells in
+    this rank's block and ``(by, bx)`` their block coordinates (0 for the
+    others)."""
+    spec = grid.halo_spec
+    sy, sx = _stacked_indices(grid.decomp, np.asarray(gy), np.asarray(gx))
+    ny, nx = spec.array_shape
+    owner = (sy // ny) * spec.ranks_x + sx // nx
+    mine = owner == env.get_rank()
+    iy, ix = spec.rank_coords(env.get_rank())
+    return (owner, mine, (np.where(mine, sy - iy * ny, 0),
+                          np.where(mine, sx - ix * nx, 0)))
 
 
 # ----------------------------------------------------------------------
@@ -125,7 +151,6 @@ class OneWayNest:
     def __init__(self, parent: GravityWaveModel, *, origin, shape,
                  ratio: int, two_way: bool = False, child_ndomains=None,
                  child_ndomainx=None, child_ndomainy=None):
-        env.require_one_rank("grid nesting", "M9")
         if parent.use_fused or parent._sweep_K > 1:
             raise ValueError(
                 "one-way nesting needs the parent on the plain path (the "
@@ -174,9 +199,18 @@ class OneWayNest:
         dev = pgrid.device
         cgrid = Grid(pgrid.name, pgrid.boundary_conditions, pgrid.offset,
                      dtype=pgrid.dtype, device=dev)
-        cgrid.decompose(cnx, cny, ndomains=child_ndomains,
-                        ndomainx=child_ndomainx, ndomainy=child_ndomainy,
-                        halo_width=pdec.halo)
+        try:
+            cgrid.decompose(cnx, cny, ndomains=child_ndomains,
+                            ndomainx=child_ndomainx,
+                            ndomainy=child_ndomainy, halo_width=pdec.halo)
+        except ValueError as e:
+            if "cannot be split over" not in str(e):
+                raise
+            raise ValueError(
+                "the child grid is split over its parent's "
+                f"{env.get_num_ranks()} ranks, an equal block of tiles "
+                "each: give the child a tile count on a factor grid of "
+                f"the rank count ({e})") from e
         grid_init(cgrid, pgrid.dx / r, pgrid.dy / r, tm_c)
         self.child = child = GravityWaveModel(
             cgrid, dt=parent.dt / r, g=parent.g, depth=parent.depth)
@@ -193,31 +227,54 @@ class OneWayNest:
         child._step_aux = (child._t_upd, child._u_wet, child._v_wet)
         child._sweep_aux = (child._mask_codes,)
 
-        # Static plans: ring scatter targets + parent gather weights.
+        # Static plans.  The band: every parent T point the ring's
+        # bilinear plan reads, with the owner of each and this rank's
+        # block coordinates of those it holds.
         dtype = cgrid.dtype
         ry, rx = np.nonzero(ring)
-        self._ring_scatter = _device_indices(
-            _stacked_indices(cdec, ry, rx), dev)
-        self._ring_plan = _device_plan(
-            _t_point_plan(ry, rx, pj0, pi0, r, pny, pnx), dtype, dev)
+        y0, x0, wy, wx = _t_point_plan(ry, rx, pj0, pi0, r, pny, pnx)
+        corners = [(y0 + a) * pnx + x0 + b for a in (0, 1) for b in (0, 1)]
+        band = np.unique(np.concatenate(corners))
+        owner, mine, blk = _owned(pgrid, band // pnx, band % pnx)
+        self._band = (torch.from_numpy(mine).to(dev),
+                      *_device_indices(blk, dev),
+                      *_device_indices((owner, np.arange(band.size)), dev))
+        # the ring targets in this rank's child block, and their plans
+        _, mine, blk = _owned(cgrid, ry, rx)
+        self._ring_scatter = _device_indices((b[mine] for b in blk), dev)
+        self._ring_plan = (
+            *_device_indices((np.searchsorted(band, c[mine])
+                              for c in corners), dev),
+            torch.as_tensor(wy[mine], dtype=dtype, device=dev),
+            torch.as_tensor(wx[mine], dtype=dtype, device=dev))
 
         if self.two_way:
             # Feedback plan: wet parent cells in the window interior
             # (inset 2 parent cells), each fed the r x r mean of its
-            # child cells.
+            # child cells: this rank's child cells with the index of
+            # their parent cell, and the parent cells it writes.
             fj, fi = np.mgrid[pj0 + 2:pj0 + ph - 2, pi0 + 2:pi0 + pw - 2]
             wet = ptm[fj, fi] == 1
-            self._fb_take = torch.from_numpy(
-                np.flatnonzero(wet)).to(dev)
-            self._fb_scatter = _device_indices(
-                _stacked_indices(pdec, fj[wet], fi[wet]), dev)
+            slot = np.full(fj.shape, -1)
+            slot[wet] = np.arange(int(wet.sum()))
+            self._fb_count = int(wet.sum())
+            cy, cx = np.mgrid[2 * r:(ph - 2) * r, 2 * r:(pw - 2) * r]
+            cslot = slot[cy // r - 2, cx // r - 2]
+            _, mine, blk = _owned(cgrid, cy, cx)
+            keep = mine & (cslot >= 0)
+            self._fb_gather = _device_indices(
+                (cslot[keep], blk[0][keep], blk[1][keep]), dev)
+            _, mine, blk = _owned(pgrid, fj[wet], fi[wet])
+            self._fb_take = torch.from_numpy(np.flatnonzero(mine)).to(dev)
+            self._fb_scatter = _device_indices((b[mine] for b in blk), dev)
         self._subnests = ()      # filled by NestSet for telescoping
         self._prog_cache = {}
 
     # ------------------------------------------------------------------
     def sync_from_parent(self) -> None:
         """Initialise the child's eta from the parent's (bilinear, on the
-        host at float64, as the JAX package does).
+        host at float64, as the JAX package does; across ranks from the
+        gathered parent, and each rank keeps its child block).
 
         u/v start at rest; for a fine-structure initial condition set
         the child's eta directly instead (``child.set_initial_eta``)."""
@@ -258,15 +315,25 @@ class OneWayNest:
         _run(self.parent, (self,), self.step_program(nsteps))
 
     # -- pieces shared with NestSet ------------------------------------
+    def _ring_values(self, p_eta):
+        """The ring's parent samples at this rank's ring targets, from
+        the band gathered from every rank (collective)."""
+        mine, by, bx, owner, slot = self._band
+        local = torch.where(mine, p_eta[by, bx], torch.zeros(
+            (), dtype=p_eta.dtype, device=p_eta.device))
+        return _bilinear(all_gather(local)[owner, slot], self._ring_plan)
+
     def _feedback(self, p_eta, c_eta):
-        """Restrict the child's eta onto the parent window."""
+        """Restrict the child's eta onto the parent window: the r x r
+        sums of every rank's child cells, all-reduced, averaged, written
+        where this rank owns the parent cell (collective)."""
         r = self.ratio
-        ph, pw = self.shape
-        cg = layout.unstack_internal(self.child.grid.decomp, c_eta)
-        blk = cg[2 * r:(ph - 2) * r, 2 * r:(pw - 2) * r]
-        avg = blk.reshape(ph - 4, r, pw - 4, r).mean(dim=(1, 3))
-        return p_eta.index_put(self._fb_scatter,
-                               avg.reshape(-1)[self._fb_take])
+        slot, cy, cx = self._fb_gather
+        part = torch.zeros(self._fb_count, dtype=c_eta.dtype,
+                           device=c_eta.device).index_add(0, slot,
+                                                          c_eta[cy, cx])
+        avg = pbroadcast(psum(part)) / (r * r)
+        return p_eta.index_put(self._fb_scatter, avg[self._fb_take])
 
 
 def _read_tree(nests):
@@ -312,14 +379,11 @@ def _make_nest_program(parent, nests, nsteps: int):
 
     def advance(model, ns, m_state, trees):
         """One step of ``model`` + all descendant nests."""
-        mdec = model.grid.decomp
-        pg_old = layout.unstack_internal(mdec, m_state[0])
-        rings_old = [_bilinear(pg_old, n._ring_plan) for n in ns]
+        rings_old = [n._ring_values(m_state[0]) for n in ns]
         m_eta, m_u, m_v = progs[id(model)](m_state)
-        pg_new = layout.unstack_internal(mdec, m_eta)
         new_trees = []
         for i, n in enumerate(ns):
-            ring_new = _bilinear(pg_new, n._ring_plan)
+            ring_new = n._ring_values(m_eta)
             c_state, sub = trees[i]
             r = n.ratio
             for k in range(r):
@@ -360,7 +424,6 @@ class NestSet:
     so their feedbacks commute."""
 
     def __init__(self, nests):
-        env.require_one_rank("grid nesting", "M9")
         nests = tuple(nests)
         if not nests:
             raise ValueError("NestSet needs at least one nest")

@@ -38,7 +38,6 @@ from ..ops.adjoint import checkpointed_fori
 from ..ops.solvers import (chebyshev_block, chebyshev_iterations,
                            default_tol, helmholtz_coefficients,
                            make_helmholtz_matvec, pcg_block, pcg_solve)
-from ..parallel import environment as env
 from ..parallel import halo as halo_mod
 from ..parallel.collectives import masked_sum
 from ..parallel.halo import exchange_multi_fn
@@ -73,14 +72,12 @@ class SemiImplicitModel:
         :func:`..ops.solvers.pcg_solve`: reverse mode flows through the
         implicit step by the adjoint (same symmetric) solve instead of
         recording the iterations.  The iteration count is then not
-        available (``run`` reports 0).  Across ranks it is not ported:
-        its backward would run through the exchange between ranks.
+        available (``run`` reports 0).
 
         Across ranks each rank holds its block of tiles, and the solver's
-        dot products are all-reduced (:func:`..ops.solvers.pcg_block`)."""
-        if differentiable:
-            env.require_one_rank("the semi-implicit model's adjoint "
-                                 "(differentiable=True)", "M8")
+        dot products are all-reduced (:func:`..ops.solvers.pcg_block`),
+        in the adjoint solve too; autograd crosses the exchange between
+        ranks (:mod:`..parallel.halo`)."""
         if not 0.5 <= theta <= 1.0:
             raise ValueError(f"theta must be in [0.5, 1], got {theta}"
                              " (below 0.5 the scheme is unstable)")

@@ -114,7 +114,10 @@ class _PCGSolve(torch.autograd.Function):
     forward is CG under ``no_grad``; the backward is one more solve of
     the same symmetric system with the cotangent as right-hand side
     (what ``lax.custom_linear_solve(symmetric=True)`` does in the JAX
-    package), so the iterations are never recorded."""
+    package), so the iterations are never recorded.  Across ranks both
+    solves all-reduce their dot products (:func:`pcg_block`), so every
+    rank runs the same adjoint iterations and gets its block of one
+    gradient."""
 
     @staticmethod
     def forward(ctx, b, x0, sym_mv, weight, tol, maxiter, inv_diag):

@@ -8,6 +8,29 @@ host memory).  :func:`gather_to_host` all-gathers every rank's block
 into the whole stacked layout on every rank, as the JAX package's
 ``process_allgather`` does.  With more than one rank each of these is
 collective: every rank calls it, in the same order.
+
+:func:`psum`, :func:`pbroadcast` and :func:`all_gather` are the forms
+autograd can cross, the JAX package's transposition rules under
+``jax.grad`` of a ``shard_map``.  Every rank computes the same
+replicated cost and starts its own backward pass from it, so what a
+collective's backward does depends on how its result is used:
+
+1. **a result every rank uses alike** (the cost, summed from each
+   rank's block): :func:`psum`, whose backward passes the cotangent
+   through unchanged -- ``psum`` transposes to a broadcast.  An
+   all-reduce there would multiply the gradient by the rank count;
+2. **a replicated value that then scales or fills rank-local data**
+   (the coefficients of a mix, a feedback average that only the rank
+   owning its cell writes, a replicated control that multiplies each
+   rank's block): :func:`pbroadcast` of it, whose backward sums the
+   ranks' cotangents exactly once -- a broadcast transposes to
+   ``psum``.  ``pbroadcast(psum(x))`` is an all-reduce both ways.
+
+:func:`all_gather` stacks every rank's part and hands each rank, in the
+backward pass, the sum of every rank's cotangent of its own part (a
+reduce-scatter), the second case again.  Backward passes are collective
+too: the ranks' graphs are the same, so they run their collectives in
+the same order.
 """
 from __future__ import annotations
 
@@ -35,6 +58,77 @@ def all_reduce(local: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     buf = local.detach().reshape(-1).to("cpu", copy=True)
     dist.all_reduce(buf, op=op)
     return buf.reshape(local.shape).to(local.device)
+
+
+class _PSum(torch.autograd.Function):
+    """All-reduce (sum) forward; the cotangent passes through."""
+
+    @staticmethod
+    def forward(ctx, local):
+        return all_reduce(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _PBroadcast(torch.autograd.Function):
+    """Identity forward; the cotangents are all-reduced (summed)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's part stacked on a new leading axis; the backward
+    pass sums the ranks' cotangents of this rank's part."""
+
+    @staticmethod
+    def forward(ctx, local):
+        rank = env.get_rank()
+        ctx.rank = rank
+        buf = local.detach().contiguous().to("cpu", copy=True)
+        parts = [torch.empty_like(buf) for _ in range(env.get_num_ranks())]
+        dist.all_gather(parts, buf)
+        return torch.stack(parts).to(local.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g)[ctx.rank]
+
+
+def psum(local: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``local`` (case 1 of the module
+    docstring): a result every rank uses alike, such as the cost; its
+    backward passes the cotangent through.  ``local`` itself with one
+    rank."""
+    if env.get_num_ranks() == 1:
+        return local
+    return _PSum.apply(local)
+
+
+def pbroadcast(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a value every rank holds alike, marked as used per rank
+    (case 2 of the module docstring): its backward sums every rank's
+    cotangent, once.  ``x`` itself with one rank."""
+    if env.get_num_ranks() == 1:
+        return x
+    return _PBroadcast.apply(x)
+
+
+def all_gather(local: torch.Tensor) -> torch.Tensor:
+    """``(num_ranks, *local.shape)``: every rank's ``local`` (the same
+    shape on every rank) in rank order, on ``local``'s device; the
+    backward pass reduce-scatters the cotangents.  ``local[None]`` with
+    one rank."""
+    if env.get_num_ranks() == 1:
+        return local[None]
+    return _AllGather.apply(local)
 
 
 def _all_reduce(local: torch.Tensor, op) -> float:

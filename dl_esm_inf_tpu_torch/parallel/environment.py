@@ -110,16 +110,6 @@ def barrier() -> None:
         dist.barrier()
 
 
-def require_one_rank(what: str, queue: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` when this run has more
-    than one rank: a path that is not ported across ranks must not
-    return one rank's answer as the whole's."""
-    if get_num_ranks() > 1:
-        raise NotImplementedError(
-            f"{what} across {get_num_ranks()} ranks is not ported yet "
-            f"(see ROADMAP.md queue {queue})")
-
-
 def stop(message: str = "") -> None:
     """Analogue of gocean_stop."""
     raise GOceanStop(message)

@@ -29,6 +29,14 @@ gather by a row and a column index (:func:`exchange_index`): the
 geometry the exchange kernels of :mod:`.halo_kernel` and the flagship
 sweep evaluate on the card.  :func:`_exchange_blocks` stays their plain
 version, and the plain transport between ranks.
+
+Autograd crosses the exchange between ranks: the strip transfer is a
+``torch.autograd.Function`` whose backward sends each received strip's
+cotangent back to the rank it came from (:class:`_Transfer`), the
+transpose of ``ppermute``; the local strip shifts are plain tensor
+operations.  The y phase's cotangents flow back before the x phase's,
+so a 2x2 rank grid's corners, which arrive by sequencing, transpose in
+reverse sequence.
 """
 from __future__ import annotations
 
@@ -104,14 +112,45 @@ def _shift_tiles(up, down, dim: int, nr: int, i: int, wrap: bool,
     if nr == 1:
         return torch.roll(up, 1, dims=dim), torch.roll(down, -1, dims=dim)
     n = up.shape[dim]
-    first = torch.zeros_like(up.narrow(dim, 0, 1))
-    last = torch.zeros_like(down.narrow(dim, 0, 1))
-    _send_recv([(up.narrow(dim, n - 1, 1), plus, i < nr - 1 or wrap, 0),
-                (down.narrow(dim, 0, 1), minus, i > 0 or wrap, 1)],
-               [(first, minus, i > 0 or wrap, 0),
-                (last, plus, i < nr - 1 or wrap, 1)])
+    first, last = _Transfer.apply(up.narrow(dim, n - 1, 1),
+                                  down.narrow(dim, 0, 1), plus, minus,
+                                  i < nr - 1 or wrap, i > 0 or wrap)
     return (torch.cat([first, up.narrow(dim, 0, n - 1)], dim),
             torch.cat([down.narrow(dim, 1, n - 1), last], dim))
+
+
+class _Transfer(torch.autograd.Function):
+    """The strips that cross the rank seams of one axis, as autograd sees
+    them (the JAX package's ``ppermute``).
+
+    Forward: ``up`` goes to the ``plus`` rank and ``down`` to the
+    ``minus`` rank; ``(first, last)`` are what the ``minus`` and ``plus``
+    ranks sent (zeros where no neighbour sends: ``to_plus`` is whether
+    there is a ``plus`` neighbour, ``to_minus`` a ``minus`` one).
+    Backward, the transpose (``ppermute``'s reverse permutation): the
+    cotangents of ``first`` and ``last`` go back to the ranks that sent
+    them, and ``up``'s and ``down``'s come from the ranks they went to.
+    One batch of messages each way, on every rank, so the backward pass
+    is collective like the forward."""
+
+    @staticmethod
+    def forward(ctx, up, down, plus, minus, to_plus, to_minus):
+        ctx.route = (plus, minus, to_plus, to_minus)
+        first = torch.zeros_like(up)
+        last = torch.zeros_like(down)
+        _send_recv([(up, plus, to_plus, 0), (down, minus, to_minus, 1)],
+                   [(first, minus, to_minus, 0), (last, plus, to_plus, 1)])
+        return first, last
+
+    @staticmethod
+    def backward(ctx, g_first, g_last):
+        plus, minus, to_plus, to_minus = ctx.route
+        g_up = torch.zeros_like(g_first)
+        g_down = torch.zeros_like(g_last)
+        _send_recv([(g_first, minus, to_minus, 0),
+                    (g_last, plus, to_plus, 1)],
+                   [(g_up, plus, to_plus, 0), (g_down, minus, to_minus, 1)])
+        return g_up, g_down, None, None, None, None
 
 
 def _send_recv(sends, recvs) -> None:

@@ -19,13 +19,13 @@ Legs (``--legs``, comma separated):
 * ``periodic``: a doubly periodic 16x16 field exchanged across ranks;
 * ``hill_rdma``: the hill leg with ``transport="remote_dma"`` (one tile
   per rank);
-* ``guards``: every path that is not ported across ranks must raise
-  ``NotImplementedError`` naming ROADMAP; records which did, which ran
-  (the ported paths: solvers, the semi-implicit model, the clients,
-  invoke, Schedule, the PSy flagship, the coupled tracer, the flagship's
-  fused transport), that the fused transport refuses several tiles per
-  rank, and that the kernel-variant microbench refuses ranks with a
-  ``ValueError``;
+* ``guards``: every path of the port runs across ranks; records which
+  ran and which raised ``NotImplementedError`` naming ROADMAP (none
+  should: the solvers, the semi-implicit model and its adjoint, the
+  clients, invoke, Schedule, the PSy flagship, the coupled tracer, the
+  flagship's fused transport, the ensemble, 4D-Var and nesting), that
+  the fused transport refuses several tiles per rank, and that the
+  kernel-variant microbench refuses ranks with a ``ValueError``;
 * ``exchange``: ``Field.halo_exchange`` at ``--n``^2 (halo 8, depth 1
   and 8, 2D and 3 levels, walled and doubly periodic) under both
   transports, each held bitwise against the plain single-rank exchange
@@ -88,6 +88,28 @@ The legs of the slice across ranks, at ``--n``^2 on ``--ndomains`` tiles,
 * ``checkpoint``: ``save_fields`` of a seeded field (and a 3-level one)
   at step 7, loaded back on these ranks into a grid of another tiling;
   the file stays for the caller (``<out>.ckpt.npz``).
+
+The legs of the ensemble, the adjoint and nesting across ranks, on
+``--ndomains`` tiles (host ms of each analysis, cost and gradient, or
+nest step beside the results):
+
+* ``ensemble``: :func:`ensemble_run`, tests/mp_worker.py's ensemble at
+  ``--ens-n``^2 with ``--members`` members: the forecast, a global ETKF
+  and a localized one (``--letkf-obs``, ``--letkf-radius``), each
+  followed by 2 steps;
+* ``adjoint``: the cases of ``--adjoint-cases``: the cost and gradient
+  of :func:`adjoint_cases` (flagship, semi_implicit, coupled) at
+  ``--adjoint-n``^2 (the flagship observed at ``--adjoint-steps``/2 and
+  ``--adjoint-steps``, ``--remat`` its remat_chunk), and
+  ``assimilate`` with the optimisers of :data:`OPTIMISERS` (adam,
+  lbfgs, hybrid);
+* ``nest``: the cases of ``--nest-cases`` (:data:`NEST_CASES`, and
+  ``main``: a two-way nest of ``--nest-ratio`` over a centred
+  ``--nest-window``^2 at ``--n``^2, ``--nest-steps`` steps): the
+  gathered parent and children, or the loss and gradient of ``grad``;
+* ``autograd``: :func:`autograd_probe` on a walled and a periodic grid:
+  the exchange's and the strip transfer's transposes, and the
+  differentiable collectives' gradients.
 """
 from __future__ import annotations
 
@@ -107,7 +129,8 @@ from dl_esm_inf_tpu_torch.ops import fused_step as fs
 from dl_esm_inf_tpu_torch.parallel import environment as env
 from dl_esm_inf_tpu_torch.parallel import halo as halo_mod
 from dl_esm_inf_tpu_torch.parallel import rdma
-from dl_esm_inf_tpu_torch.parallel.collectives import gather_to_host
+from dl_esm_inf_tpu_torch.parallel.collectives import (all_reduce,
+                                                       gather_to_host)
 from dl_esm_inf_tpu_torch.testing import init_field_hill
 
 WALLED = (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE)
@@ -164,8 +187,8 @@ def leg_hill_rdma(res, a):
 
 
 def leg_guards(res, a):
-    """Each path not ported across ranks must raise NotImplementedError
-    naming ROADMAP; the ported ones run."""
+    """Every path runs across ranks: records which ran and which raised
+    NotImplementedError naming ROADMAP."""
     from dl_esm_inf_tpu_torch.api import kernel_meta as km
     from dl_esm_inf_tpu_torch.models import (gravity_wave, nlayer,
                                              semi_implicit, shallow, tracer,
@@ -1030,6 +1053,490 @@ def leg_checkpoint(res, a):
         res["ck_save_ms"] = np.asarray(ms)
 
 
+# --- the ensemble, the adjoint and nesting across ranks ----------------------
+
+def _host_ms(fn, dev, warm=None):
+    """``(fn(), ms)``: one call after a barrier on the host clock, the
+    device synchronised before and after (a call that holds collectives
+    and host work: the ETKF's eigh, the adjoint's transfers).  ``warm``,
+    a call of the same work whose result is dropped, runs first: the
+    first call's set-up (library handles, kernels loaded on first use)
+    stays out of the time."""
+    if warm is not None:
+        warm()
+    env.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def obs_slice(text: str) -> slice:
+    """``START:STOP:STEP`` as a slice (the LETKF's observed rows and
+    columns)."""
+    return slice(*(int(v) for v in text.split(":")))
+
+
+def letkf_mask(n: int, obs: str) -> np.ndarray:
+    """The LETKF's observation mask: the rows and columns of ``obs``."""
+    mask = np.zeros((n, n))
+    sl = obs_slice(obs)
+    mask[sl, sl] = 1.0
+    return mask
+
+
+def ensemble_members(n: int, members: int) -> np.ndarray:
+    """tests/mp_worker.py's members: the bump plus seeded noise."""
+    rng = np.random.default_rng(5)
+    base = gaussian_eta(n, n, amp=0.3)
+    return np.stack([base + 0.1 * rng.standard_normal((n, n))
+                     for _ in range(members)])
+
+
+def ensemble_run(n: int, ndomains: int, device, members: int = 4,
+                 obs: str = "3:21:3", radius: float = 4.0,
+                 etkf_obs: str | None = None,
+                 save: str | None = None) -> dict:
+    """tests/mp_worker.py:162-189's ensemble case: gravity-wave members
+    (dt 0.05, depth 10), 4 steps, a global ETKF analysis of the bump
+    (sigma 0.02; on every point, or the ``etkf_obs`` rows and columns),
+    2 steps, a localized one (the ``obs`` rows and columns, radius
+    ``radius``), 2 steps; every gathered state, each analysis's
+    diagnostics and host ms; ``save``: the ensemble's checkpoint at the
+    end (rank 0 writes).  Collective."""
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models.enkf import ETKF
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    ens = Ensemble(gwm.build(n, n, ndomains=ndomains, dt=0.05, depth=10.0,
+                             device=device), members)
+    dev = ens.grid.device
+    ens.set_member_states(0, ensemble_members(n, members))
+    res = {}
+    ens.run(4)
+    res.update({f"ef_{k}": v for k, v in ens.gather_all().items()})
+    for tag, kw, y, mask in (
+            ("ek", {}, gaussian_eta(n, n, amp=0.35),
+             None if etkf_obs is None else letkf_mask(n, etkf_obs)),
+            ("lk", dict(localization_radius=radius),
+             gaussian_eta(n, n, amp=0.3), letkf_mask(n, obs))):
+        filt = ETKF(ens, sigma=0.02, **kw)
+        forecast = ens.states
+
+        def warm():
+            filt.analysis(y, obs_mask=mask)
+            ens.states = forecast
+        diag, ms = _host_ms(lambda: filt.analysis(y, obs_mask=mask), dev,
+                            warm)
+        res[f"{tag}_diag"] = np.asarray([diag[k] for k in sorted(diag)])
+        res[f"{tag}_ms"] = np.asarray(ms)
+        res.update({f"{tag}_an_{k}": v
+                    for k, v in ens.gather_all().items()})
+        ens.run(2)
+        res.update({f"{tag}_{k}": v for k, v in ens.gather_all().items()})
+    if save is not None:
+        ens.save(save)
+    return res
+
+
+def leg_ensemble(res, a):
+    path = a.out + ".ens.npz"
+    res.update(ensemble_run(a.ens_n, a.ndomains, a.device, a.members,
+                            a.letkf_obs, a.letkf_radius, a.etkf_obs,
+                            save=path))
+    res["ens_path"] = np.asarray(path)
+
+
+def smooth_noise(rng, n: int, ncut: int = 3) -> np.ndarray:
+    """A seeded smooth field of largest |value| 1 (the Fourier modes up
+    to ``ncut``; tests/test_torch_assimilation.py's)."""
+    z = np.fft.rfft2(rng.standard_normal((n, n)))
+    ky = np.abs(np.fft.fftfreq(n) * n)[:, None]
+    kx = (np.fft.rfftfreq(n) * n)[None, :]
+    f = np.fft.irfft2(np.where((ky <= ncut) & (kx <= ncut), z, 0), s=(n, n))
+    return f / np.abs(f).max()
+
+
+def _coupled(M, n, nd, kw):
+    """tests/test_torch_assimilation.py's coupled tracer: the open-north
+    flagship (halo 2) from a seeded surface, kappa 0.01."""
+    fs_ = M.nl.build(n, n, ndomains=nd, open_north=True, halo_width=2, **kw)
+    fs_.set_initial_ssh(gaussian_eta(n, n, amp=0.2)
+                        + 0.05 * smooth_noise(np.random.default_rng(21), n))
+    return M.tr.CoupledTracer(fs_, kappa=0.01)
+
+
+def adjoint_cases(n: int, steps: int, f64: bool = True) -> dict:
+    """name -> ``(build(M, ndomains, kw), observed key, observation
+    steps, the truth's setter, the truth's start, the first guess, the
+    observed state index)``: tests/test_torch_assimilation.py's
+    configurations of the flagship (observed at steps/2 and steps), the
+    semi-implicit model (differentiable=True; tol 1e-12 at float64) and
+    the coupled tracer at ``n``^2.  ``M`` holds the package's modules
+    ``nl``, ``si`` and ``tr``: the port's, or the JAX package's."""
+    tol = dict(tol=1e-12) if f64 else {}
+    return {
+        "flagship": (
+            lambda M, nd, kw: M.nl.build(n, n, ndomains=nd, open_north=True,
+                                         **kw),
+            "sshn", [steps // 2, steps], "set_initial_ssh",
+            gaussian_eta(n, n, amp=0.2)
+            + 0.05 * smooth_noise(np.random.default_rng(20), n),
+            0.05 * smooth_noise(np.random.default_rng(30), n), 0),
+        "semi_implicit": (
+            lambda M, nd, kw: M.si.build(n, n, ndomains=nd, dt=1.0,
+                                         depth=10.0, differentiable=True,
+                                         **tol, **kw),
+            "eta", [2, 4], "set_initial_eta", gaussian_eta(n, n, amp=0.5),
+            0.1 * smooth_noise(np.random.default_rng(30), n), 0),
+        "coupled": (
+            lambda M, nd, kw: _coupled(M, n, nd, kw),
+            "c", [5, 10], "set_initial_tracer",
+            0.8 * smooth_noise(np.random.default_rng(23), n) + 1.0,
+            0.5 * smooth_noise(np.random.default_rng(30), n) + 1.0, 3),
+    }
+
+
+def port_modules():
+    """The port's model modules under the names of :func:`adjoint_cases`."""
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models import semi_implicit as si
+    from dl_esm_inf_tpu_torch.models import tracer as tr
+    return SimpleNamespace(nl=nl, si=si, tr=tr, gw=gwm)
+
+
+def observe(m, steps, key: str, setter: str, x0) -> dict:
+    """Step -> the gathered ``key`` of a truth run of ``m`` from ``x0``."""
+    getattr(m, setter)(x0)
+    obs, done = {}, 0
+    for t in sorted(steps):
+        m.run(t - done)
+        done = t
+        obs[t] = m.gather()[key]
+    return obs
+
+
+def adjoint_run(name: str, n: int, steps: int, ndomains: int, device,
+                remat=None) -> dict:
+    """One case of :func:`adjoint_cases`: the truth's observations, the
+    cost and its gradient (internal points) at the first guess, and the
+    host ms of the cost and gradient.  Collective."""
+    from dl_esm_inf_tpu_torch.core import kinds
+    from dl_esm_inf_tpu_torch.models.assimilation import make_cost_fn
+    f64 = kinds.wp(env.resolve_device(device)) == torch.float64
+    build, key, steps_, setter, x_true, guess, index = adjoint_cases(
+        n, steps, f64)[name]
+    M, kw = port_modules(), dict(device=device)
+    obs = observe(build(M, ndomains, kw), steps_, key, setter, x_true)
+    m = build(M, ndomains, kw)
+    cost, pack, _ = make_cost_fn(m, obs, obs_state_index=index,
+                                 remat_chunk=remat)
+    x = pack(guess).requires_grad_(True)
+
+    def value_and_grad():
+        c = cost(x)
+        return c.detach(), torch.autograd.grad(c, x)[0]
+    (c, g), ms = _host_ms(value_and_grad, m.grid.device, value_and_grad)
+    out = {f"adj_{name}_obs_{t}": v for t, v in obs.items()}
+    out[f"adj_{name}_cost"] = np.asarray(float(c))
+    out[f"adj_{name}_grad"] = layout.unstack_internal(
+        m.grid.decomp, gather_to_host(g, m.grid.halo_spec))
+    out[f"adj_{name}_ms"] = np.asarray(ms)
+    return out
+
+
+def optimiser_obs(n: int) -> dict:
+    """The optimiser cases' observations: a gravity-wave truth (dt 0.05,
+    depth 10) from the bump, at steps 6 and 12, in one process on the
+    CPU at float64, as every run that is compared with them sees them."""
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    return observe(gwm.build(n, n, dt=0.05, depth=10.0, device="cpu",
+                             dtype=torch.float64), (6, 12), "eta",
+                   "set_initial_eta", gaussian_eta(n, n, amp=0.5))
+
+
+#: the optimiser cases: tag -> assimilate's keywords (5 iterations)
+OPTIMISERS = {"adam": dict(optimizer="adam", learning_rate=0.1),
+              "lbfgs": dict(optimizer="lbfgs"),
+              "hybrid": dict(optimizer="lbfgs", smooth_scale=2.0,
+                             background_weight=1e-5)}
+OPT_ITERS = 5
+
+
+def hybrid_ensemble(model, members: int = 4):
+    """The hybrid case's ensemble: the bump plus seeded smooth
+    perturbations (tests/test_torch_assimilation.py's hybrid test)."""
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    n = model.grid.decomp.global_nx
+    rng = np.random.default_rng(13)
+    perts = np.stack([0.2 * smooth_noise(rng, n) for _ in range(members)])
+    ens = Ensemble(model, members)
+    ens.set_member_states(0, gaussian_eta(n, n, amp=0.3) + perts)
+    return ens
+
+
+def optimiser_run(tag: str, n: int, ndomains: int, device) -> dict:
+    """``assimilate`` of a gravity wave at ``n``^2 for OPT_ITERS
+    iterations with the optimiser of ``tag`` (the hybrid: L-BFGS over a
+    smooth control and the span of a 4-member ensemble, observations at
+    1 point in 16); the cost history, the result and its host ms."""
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models.assimilation import assimilate
+    obs = optimiser_obs(n)
+
+    def model():
+        return gwm.build(n, n, ndomains=ndomains, dt=0.05, depth=10.0,
+                         device=device)
+    kw = dict(OPTIMISERS[tag])
+    if tag == "hybrid":
+        ow = np.zeros((n, n))
+        ow[2::4, 2::4] = 1.0
+        kw.update(obs_weight=ow, ensemble=hybrid_ensemble(model()))
+    m = model()
+    r, ms = _host_ms(lambda: assimilate(m, obs, iters=OPT_ITERS, **kw),
+                     m.grid.device)
+    out = {f"opt_{tag}_history": np.asarray(r["cost_history"]),
+           f"opt_{tag}_eta0": r["eta0"],
+           f"opt_{tag}_grad_norm": np.asarray(r["grad_norm"]),
+           f"opt_{tag}_ms": np.asarray(ms)}
+    if "ensemble_weights" in r:
+        out[f"opt_{tag}_weights"] = r["ensemble_weights"]
+    return out
+
+
+def leg_adjoint(res, a):
+    for name in a.adjoint_cases.split(","):
+        if name in OPTIMISERS:
+            res.update(optimiser_run(name, a.adjoint_n, a.ndomains,
+                                     a.device))
+        else:
+            res.update(adjoint_run(name, a.adjoint_n, a.adjoint_steps,
+                                   a.ndomains, a.device, a.remat))
+
+
+#: the nest cases: tests/test_torch_nesting.py's configurations (parent
+#: extent, parent dt, steps, and per nest (origin, shape, ratio,
+#: two-way, the index of the nest whose child is its parent or None));
+#: ``grad`` also differentiates the child's eta energy with respect to
+#: the parent's eta
+NEST_CASES = {
+    "r1": dict(n=48, dt=0.02, steps=30,
+               nests=(((12, 12), (24, 24), 1, False, None),)),
+    "r2": dict(n=64, dt=0.02, steps=15,
+               nests=(((16, 16), (32, 32), 2, True, None),)),
+    "set": dict(n=64, dt=0.02, steps=10,
+                nests=(((8, 8), (20, 20), 2, True, None),
+                       ((36, 32), (20, 24), 3, False, None),
+                       ((4, 4), (12, 12), 2, True, 0))),
+    "grad": dict(n=32, dt=0.02, steps=3,
+                 nests=(((8, 8), (16, 16), 2, True, None),)),
+}
+
+
+def nest_main_case(n: int, window: int, ratio: int, steps: int) -> dict:
+    """A two-way nest of ``ratio`` over a centred ``window``^2 at
+    ``n``^2 (dt 0.05, as chip_smoke.py's nesting phase)."""
+    o = (n - window) // 2
+    return dict(n=n, dt=0.05, steps=steps,
+                nests=(((o, o), (window, window), ratio, True, None),))
+
+
+def build_nests(pkg, case: dict, ndomains, device_kw: dict):
+    """``(parent, nests, runner)`` of a nest case in ``pkg`` (a namespace
+    with ``gw`` and ``nest``: the port's or the JAX package's), every grid
+    on ``ndomains`` tiles; ``runner`` is the NestSet of several nests or
+    the one nest."""
+    n = case["n"]
+    parent = pkg.gw.build(n, n, ndomains=ndomains, dt=case["dt"],
+                          depth=10.0, **device_kw)
+    parent.set_initial_eta(gaussian_eta(n, n, width=0.08))
+    nests = []
+    for origin, shape, ratio, two_way, inside in case["nests"]:
+        host = parent if inside is None else nests[inside].child
+        nst = pkg.nest.OneWayNest(host, origin=origin, shape=shape,
+                                  ratio=ratio, two_way=two_way,
+                                  child_ndomains=ndomains)
+        nst.sync_from_parent()
+        nests.append(nst)
+    runner = pkg.nest.NestSet(nests) if len(nests) > 1 else nests[0]
+    return parent, nests, runner
+
+
+def nest_run(tag: str, case: dict, ndomains: int, device) -> dict:
+    """A nest case run ``steps`` nest steps: the gathered parent and
+    children (eta, u, v), host ms per nest step; for ``grad`` instead
+    the loss and the gradient of the children's eta energy on their
+    internal cells (halo cells hold what the layout leaves there) with
+    respect to the parent's eta (internal points).  Collective."""
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models import nesting
+    from dl_esm_inf_tpu_torch.parallel.collectives import psum
+    pkg = SimpleNamespace(gw=gwm, nest=nesting)
+    parent, nests, runner = build_nests(pkg, case, ndomains,
+                                        dict(device=device))
+    dev, steps, p = parent.grid.device, case["steps"], parent
+    prog = runner.step_program(steps)
+    roots = runner.nests if len(nests) > 1 else (runner,)
+
+    def state():
+        return ((p.eta.data, p.u.data, p.v.data), nesting._read_tree(roots))
+    out = {}
+    if tag == "grad":
+        inner = [n.child.eta.internal_mask for n in roots]
+
+        def loss(p_eta):
+            _, tree = prog(((p_eta, p.u.data, p.v.data), state()[1]))
+            return psum(sum(torch.sum(t[0][0] ** 2 * w)
+                            for t, w in zip(tree, inner)))
+
+        def value_and_grad():
+            x = p.eta.data.clone().requires_grad_(True)
+            c = loss(x)
+            return c.detach(), torch.autograd.grad(c, x)[0]
+        (c, g), ms = _host_ms(value_and_grad, dev, value_and_grad)
+        out[f"nest_{tag}_loss"] = np.asarray(float(c))
+        out[f"nest_{tag}_grad"] = layout.unstack_internal(
+            p.grid.decomp, gather_to_host(g, p.grid.halo_spec))
+        out[f"nest_{tag}_ms"] = np.asarray(ms)
+        return out
+    _, ms = _host_ms(lambda: runner.run(steps), dev, lambda: prog(state()))
+    out[f"nest_{tag}_ms_per_step"] = np.asarray(ms / steps)
+    for who, model in [("p", parent)] + [(f"c{i}", nst.child)
+                                         for i, nst in enumerate(nests)]:
+        for k in ("eta", "u", "v"):
+            out[f"nest_{tag}_{who}_{k}"] = getattr(model, k).gather_inner_data()
+    return out
+
+
+def nest_refusal(ndomains: int, device) -> str:
+    """The ValueError of a child whose 3 tiles the ranks cannot hold
+    ('' if none is raised)."""
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models.nesting import OneWayNest
+    parent = gwm.build(32, 32, ndomains=ndomains, device=device)
+    try:
+        OneWayNest(parent, origin=(8, 8), shape=(12, 12), ratio=1,
+                   child_ndomains=3)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def leg_nest(res, a):
+    for tag in a.nest_cases.split(","):
+        case = (nest_main_case(a.n, a.nest_window, a.nest_ratio,
+                               a.nest_steps) if tag == "main"
+                else NEST_CASES[tag])
+        res.update(nest_run(tag, case, a.ndomains, a.device))
+    res["nest_refused"] = np.asarray(nest_refusal(a.ndomains, a.device))
+
+
+def autograd_probe(grid, seed: int = 0) -> dict:
+    """The collectives that autograd crosses, on ``grid``'s blocks of
+    seeded whole-layout arrays; the same call in one process gives the
+    single-process answers.  Returns host arrays, gathered:
+
+    * ``tx_y``, ``x_tty``: <T x, y> and <x, T^T y> for T the depth-2
+      exchange (T^T y by autograd), summed over the ranks; ``tty``;
+    * ``psum_grad``: the gradient of psum(sum(x^2 m)) (case 1: 2 x m);
+    * ``pb_grad_a``, ``pb_grad_x``: the gradients of psum(sum(a_k x_k))
+      with ``a`` held alike by every rank, through pbroadcast (case 2:
+      d/da sums every rank's block);
+    * ``fb_grad``: the gradient of a feedback-like sum: pbroadcast(psum
+      of per-row sums), each rank using the rows it owns;
+    * ``transfer_tx_y``, ``transfer_x_tty``: <T x, y> and <x, T^T y> of
+      the raw strip transfer around the ring of ranks (random strips,
+      walled and wrapped)."""
+    from dl_esm_inf_tpu_torch.parallel.collectives import (all_gather,
+                                                           pbroadcast, psum)
+    spec, dev, dt = grid.halo_spec, grid.device, grid.dtype
+    rng = np.random.default_rng(seed)
+
+    def block(lead=()):
+        return grid.block_tensor(rng.standard_normal(
+            lead + grid.global_array_shape), dtype=dt)
+
+    def dot(u, v):
+        return float(psum((u * v).sum()))
+    out = {}
+    x, y, m = block().requires_grad_(True), block(), block()
+    tx = halo_mod.exchange(x, spec, min(2, spec.halo))
+    (tty,) = torch.autograd.grad(tx, x, grad_outputs=y)
+    out["tx_y"], out["x_tty"] = dot(tx.detach(), y), dot(x.detach(), tty)
+    out["tty"] = gather_to_host(tty, spec)
+    (g,) = torch.autograd.grad(psum((x ** 2 * m).sum()), x)
+    out["psum_grad"] = gather_to_host(g, spec)
+    a = torch.as_tensor(rng.standard_normal(3), dtype=dt,
+                        device=dev).requires_grad_(True)
+    x3 = block((3,)).requires_grad_(True)
+    c = psum((pbroadcast(a)[:, None, None] * x3).sum())
+    ga, gx = torch.autograd.grad(c, (a, x3))
+    out["pb_grad_a"], out["pb_grad_x"] = ga.cpu().numpy(), gather_to_host(
+        gx, spec)
+    # feedback-like: every rank's partial per-row sums, all-reduced, each
+    # rank then weighting the rows of its own block
+    rows = (x ** 2 * m).sum(dim=-1)                 # this rank's rows
+    whole = torch.zeros(grid.global_array_shape[0], dtype=dt, device=dev)
+    iy, _ = spec.rank_coords(env.get_rank())
+    ny = spec.array_shape[0]
+    part = whole.index_add(0, torch.arange(iy * ny, (iy + 1) * ny,
+                                           device=dev), rows)
+    tot = pbroadcast(psum(part))
+    own = tot[iy * ny:(iy + 1) * ny] * y.sum(dim=-1)
+    (g,) = torch.autograd.grad(psum(own.sum()), x)
+    out["fb_grad"] = gather_to_host(g, spec)
+    # the raw strip transfer around the ring of ranks (across ranks
+    # only): every rank sends its up strip to the next rank and its down
+    # strip to the previous
+    nr, r = env.get_num_ranks(), env.get_rank()
+    srng = np.random.default_rng(seed + 1 + r)
+    for wrap in ((False, True) if nr > 1 else ()):
+        up, down, gf, gl = (torch.as_tensor(srng.standard_normal((3, 5)),
+                                            dtype=dt, device=dev)
+                            for _ in range(4))
+        up.requires_grad_(True)
+        down.requires_grad_(True)
+        first, last = halo_mod._Transfer.apply(
+            up, down, (r + 1) % nr, (r - 1) % nr, wrap or r < nr - 1,
+            wrap or r > 0)
+        gu, gd = torch.autograd.grad((first, last), (up, down),
+                                     grad_outputs=(gf, gl))
+        tag = "wrap" if wrap else "walled"
+        out[f"transfer_tx_y_{tag}"] = dot(first.detach(), gf) + dot(
+            last.detach(), gl)
+        out[f"transfer_x_tty_{tag}"] = dot(up.detach(), gu) + dot(
+            down.detach(), gd)
+    # all_gather: each rank's part, every rank weighting every part by
+    # its own seeded weights; the gradient of a part sums those weights
+    wts = torch.as_tensor(np.random.default_rng(seed + 100 + r)
+                          .standard_normal((nr, 4)), dtype=dt, device=dev)
+    part = x.reshape(-1)[:4]
+    (g,) = torch.autograd.grad(psum((all_gather(part) * wts).sum()), x)
+    want = all_gather(wts.detach()).sum(dim=0)[r]
+    out["gather_err"] = float(all_reduce(
+        (g.reshape(-1)[:4] - want).abs().max(), dist.ReduceOp.MAX))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+#: the autograd probe's grids: (tag, boundary conditions, extent)
+PROBE_GRIDS = (("walled", WALLED, 24), ("periodic", PERIODIC, 16))
+
+
+def probe_grid(bcs, n: int, ndomains: int, device):
+    return _grid(bcs, n, n, ndomains, device, halo=2)
+
+
+def leg_autograd(res, a):
+    for tag, bcs, n in PROBE_GRIDS:
+        for k, v in autograd_probe(probe_grid(bcs, n, a.ndomains,
+                                              a.device)).items():
+            res[f"ag_{tag}_{k}"] = v
+
+
 LEGS = {"core": leg_core, "periodic": leg_periodic,
         "hill_rdma": leg_hill_rdma, "guards": leg_guards,
         "exchange": leg_exchange, "skew": leg_skew,
@@ -1039,7 +1546,9 @@ LEGS = {"core": leg_core, "periodic": leg_periodic,
         "fused_skew": leg_fused_skew, "overlap": leg_overlap,
         "solvers": leg_solvers, "semi_implicit": leg_semi_implicit,
         "clients": leg_clients, "schedule": leg_schedule, "psy": leg_psy,
-        "coupled": leg_coupled, "checkpoint": leg_checkpoint}
+        "coupled": leg_coupled, "checkpoint": leg_checkpoint,
+        "ensemble": leg_ensemble, "adjoint": leg_adjoint, "nest": leg_nest,
+        "autograd": leg_autograd}
 
 
 def main(argv=None) -> None:
@@ -1069,6 +1578,30 @@ def main(argv=None) -> None:
     ap.add_argument("--overlap-steps", type=int, default=40)
     ap.add_argument("--overlap-depths", default="flat,variable",
                     help="bathymetries of the overlap leg: flat, variable")
+    ap.add_argument("--ens-n", type=int, default=24,
+                    help="N of the ensemble leg's N x N gravity wave")
+    ap.add_argument("--members", type=int, default=4)
+    ap.add_argument("--letkf-obs", default="3:21:3",
+                    help="START:STOP:STEP of the LETKF's observed rows "
+                         "and columns")
+    ap.add_argument("--letkf-radius", type=float, default=4.0)
+    ap.add_argument("--etkf-obs", default=None,
+                    help="START:STOP:STEP of the global ETKF's observed "
+                         "rows and columns (default: every point)")
+    ap.add_argument("--adjoint-cases",
+                    default="flagship,semi_implicit,coupled,adam,lbfgs,"
+                            "hybrid")
+    ap.add_argument("--adjoint-n", type=int, default=32)
+    ap.add_argument("--adjoint-steps", type=int, default=8,
+                    help="the flagship case's last observed step")
+    ap.add_argument("--remat", type=int, default=None,
+                    help="the adjoint cases' remat_chunk")
+    ap.add_argument("--nest-cases", default="r1,r2,set,grad",
+                    help="nest cases: r1, r2, set, grad, and main (a "
+                         "two-way nest at --n)")
+    ap.add_argument("--nest-window", type=int, default=256)
+    ap.add_argument("--nest-ratio", type=int, default=4)
+    ap.add_argument("--nest-steps", type=int, default=5)
     a = ap.parse_args(argv)
     dl.initialise()
     if a.ndomains is None:

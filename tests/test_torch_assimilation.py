@@ -468,6 +468,67 @@ def test_lbfgs_optimizer():
     assert err < 1e-4 * np.abs(eta_true).max()
 
 
+@pytest.mark.parametrize("hybrid", [False, True], ids=["field", "hybrid"])
+def test_port_lbfgs_is_torch_lbfgs_on_one_rank(hybrid):
+    """The port's LBFGS (whose reductions are all-reduced across ranks)
+    is torch.optim.LBFGS at assimilate's settings on one rank: 12
+    iterations give the same cost history and iterate, bitwise, on a
+    field control and on the hybrid's two leaves (the ensemble weights
+    first)."""
+    from dl_esm_inf_tpu_torch.models.assimilation import LBFGS
+    N = 16
+    obs = _truth_obs(gw.build(N, N, dt=0.05, depth=10.0, **CPU),
+                     gw.gaussian_eta(N, N, amp=0.5), [6])
+    m = gw.build(N, N, dt=0.05, depth=10.0, **CPU)
+    if hybrid:
+        ens = Ensemble(gw.build(N, N, dt=0.05, depth=10.0, **CPU), 3)
+        rng = np.random.default_rng(3)
+        ens.set_member_states(0, np.stack(
+            [0.2 * _smooth_noise(rng, N) for _ in range(3)]))
+        tf, pen, zero = hybrid_controls(m, ens)
+        cost, _, _ = make_cost_fn(m, obs, control_transform=tf,
+                                  control_penalty=pen,
+                                  background_weight=1e-3)
+        x0 = zero()
+        keys = sorted(x0)
+    else:
+        cost, pack, _ = make_cost_fn(m, obs)
+        x0, keys = {"x": pack(np.zeros((N, N)))}, ["x"]
+
+    def run(port):
+        leaves = [x0[k].clone().requires_grad_(True) for k in keys]
+
+        def value(ls):
+            d = dict(zip(keys, ls))
+            return cost(d if hybrid else d["x"])
+        hist = []
+        if port:
+            opt = LBFGS(leaves, [k == "a" for k in keys])
+
+            def evaluate(ls):
+                c = value(ls)
+                return c.detach(), torch.autograd.grad(c, ls)
+            for _ in range(12):
+                hist.append(float(opt.step(evaluate)[0]))
+        else:
+            opt = torch.optim.LBFGS(leaves, lr=1.0, max_iter=1, max_eval=26,
+                                    history_size=10, tolerance_grad=0.0,
+                                    tolerance_change=0.0,
+                                    line_search_fn="strong_wolfe")
+
+            def closure():
+                opt.zero_grad()
+                c = value(leaves)
+                c.backward()
+                return c
+            for _ in range(12):
+                hist.append(float(opt.step(closure).detach()))
+        return hist, [t.detach() for t in leaves]
+    (h_p, x_p), (h_t, x_t) = run(True), run(False)
+    assert h_p == h_t and h_p[-1] < h_p[0]
+    assert all(torch.equal(a, b) for a, b in zip(x_p, x_t))
+
+
 def test_tracer_source_inversion_4dvar():
     """Observing the tracer at two later times recovers the initial
     release by L-BFGS through the checkpointed loop (the JAX package's

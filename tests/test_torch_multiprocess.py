@@ -17,7 +17,15 @@ sweep's plain version), the semi-implicit model, the client models on
 their sweeps' plain versions, invoke and Schedule (plain, fused,
 reductions), the PSy flagship, the coupled tracer and the checkpoint,
 each against the JAX package's single-process run on 8 tiles at its own
-JAX twin's tolerance (the checkpoint bitwise, also loaded here).
+JAX twin's tolerance (the checkpoint bitwise, also loaded here).  A third
+2-rank gang (2 ranks x 4 tiles, its own timeout) runs the ensemble and
+the ETKF/LETKF, the adjoint (cost and gradient of three models, Adam,
+L-BFGS and hybrid 4D-EnVar) and grid nesting, each against the JAX
+package's single-process run at float64 (L-BFGS, whose line search is
+not optax's, against the port's), and probes the transposes autograd
+crosses: the strip transfer and the exchange, and the differentiable
+collectives; the 4-rank gang runs the flagship's adjoint and the probes
+on a 2x2 rank grid, whose corners transpose by sequencing.
 
 Gangs run ``python -m dl_esm_inf_tpu_torch.launch -n N -m
 dl_esm_inf_tpu_torch.parallel.mp_check`` (the port's counterpart of
@@ -133,11 +141,15 @@ def np4(tmp_path_factory):
     transport's legs and the overlap leg, one tile per rank."""
     return _gang(tmp_path_factory, 4, 8,
                  "core,periodic,flagship_fused,fused_alternate,fused_skew,"
-                 "overlap",
+                 "overlap,adjoint,autograd", *NP4_ADJOINT,
                  "--fused-layouts", FUSED_LAYOUTS, "--fused-k", FUSED_K,
                  "--fused-shape", FUSED_SHAPE, "--fused-sweeps",
                  str(FUSED_SWEEPS), "--overlap-shape", OVERLAP_SHAPE,
                  "--overlap-steps", str(OVERLAP_STEPS))
+
+
+#: the adjoint leg of the 4-rank gang: the flagship alone
+NP4_ADJOINT = ("--adjoint-cases", "flagship", "--adjoint-n", "32")
 
 
 @pytest.fixture(scope="module")
@@ -246,17 +258,13 @@ def test_gang_exchange_legs_bitwise(np6):
 
 
 def test_gang_guards_raise(np2):
-    """Every path not ported across ranks raises NotImplementedError
-    naming ROADMAP.md with 2 ranks, instead of a per-rank answer: the
-    ensemble (M7), the adjoint paths (M8) and nesting (M9); the ported
-    paths run; the flagship's fused transport refuses several tiles per
-    rank with a ValueError naming the rule, and the microbench, which
+    """No path of the port raises NotImplementedError across 2 ranks:
+    all 17 cases run, the ensemble, the adjoint paths and nesting
+    included; the flagship's fused transport still refuses several tiles
+    per rank with a ValueError naming the rule, and the microbench, which
     times one device, refuses ranks with a ValueError."""
-    not_ported = {"ensemble", "assimilation", "semi_implicit_differentiable",
-                  "nesting"}
-    assert list(np2["guards_raised"]) == sorted(not_ported)
-    assert list(np2["guards_ran"]) == sorted(
-        set(np2["guards_all"]) - not_ported)
+    assert list(np2["guards_raised"]) == []
+    assert list(np2["guards_ran"]) == sorted(np2["guards_all"])
     assert len(np2["guards_all"]) == 17
     assert bool(np2["fused_multi_tile_refused"])
     assert bool(np2["guards_kbench_refused"])
@@ -468,6 +476,302 @@ def test_gang_checkpoint_bitwise(np2s):
                                       err_msg=k)
 
 
+# --- the ensemble, the adjoint and nesting across ranks (2 x 4 tiles) -------
+
+#: the gang of the ensemble, the adjoint and nesting: legs and time limit
+DA_LEGS, DA_TIMEOUT = "ensemble,adjoint,nest,autograd", 180.0
+#: tolerances across ranks against the JAX package's one process:
+#: the ensemble (tests/test_multiprocess.py:304), costs, gradients and
+#: iterates (relative to the largest value), the nest's fields
+#: (tests/test_torch_nesting.py's port-vs-JAX)
+TOL_ENS, TOL_COST, TOL_GRAD, TOL_NEST = 1e-9, 1e-12, 1e-10, 1e-11
+
+
+@pytest.fixture(scope="module")
+def np2d(tmp_path_factory):
+    """2 ranks x 4 tiles (8 domains): the ensemble, adjoint, nest and
+    autograd legs."""
+    return _gang(tmp_path_factory, 2, 8, DA_LEGS, name="torch_mp_np2_da",
+                 timeout=DA_TIMEOUT)
+
+
+def _jax_modules():
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu.models import gravity_wave as jgw
+    from dl_esm_inf_tpu.models import nesting as jnest
+    from dl_esm_inf_tpu.models import semi_implicit as jsi
+    from dl_esm_inf_tpu.models import tracer as jtr
+    return SimpleNamespace(nl=jnl, si=jsi, tr=jtr, gw=jgw, nest=jnest)
+
+
+@pytest.fixture(scope="module")
+def jax_ensemble():
+    """tests/mp_worker.py:162-189's ensemble in the JAX package on 8
+    tiles: the forecast, and each analysis and the 2 steps after it."""
+    from dl_esm_inf_tpu.models.enkf import ETKF as JETKF
+    from dl_esm_inf_tpu.models.ensemble import Ensemble as JEnsemble
+    mp, n = _mp(), 24
+    ens = JEnsemble(_jax_modules().gw.build(n, n, ndomains=8, dt=0.05,
+                                            depth=10.0), 4)
+    ens.set_member_states(0, mp.ensemble_members(n, 4))
+    ens.run(4)
+    out = {f"ef_{k}": np.asarray(v) for k, v in ens.gather_all().items()}
+    for tag, kw, y, mask in (
+            ("ek", {}, gaussian_eta(n, n, amp=0.35), None),
+            ("lk", dict(localization_radius=4.0),
+             gaussian_eta(n, n, amp=0.3), mp.letkf_mask(n, "3:21:3"))):
+        diag = JETKF(ens, sigma=0.02, **kw).analysis(y, obs_mask=mask)
+        out[f"{tag}_diag"] = np.asarray([diag[k] for k in sorted(diag)])
+        out.update({f"{tag}_an_{k}": np.asarray(v)
+                    for k, v in ens.gather_all().items()})
+        ens.run(2)
+        out.update({f"{tag}_{k}": np.asarray(v)
+                    for k, v in ens.gather_all().items()})
+    return out
+
+
+@pytest.mark.parametrize("stage", ["ef", "ek_an", "ek", "lk_an", "lk"])
+def test_gang_ensemble_matches_jax(np2d, jax_ensemble, stage):
+    """The ensemble across 2 ranks (the member-coalesced exchange between
+    ranks, the all-reduced (M, M) moments, the LETKF's observed rows
+    assembled by one all-reduce, the collective gathers): the forecast,
+    the global ETKF's analysis and the forecast after it, the LETKF's and
+    the forecast after it, against the JAX package's run on 8 tiles at
+    1e-9 (tests/test_multiprocess.py:304); the diagnostics too."""
+    keys = [k for k in jax_ensemble if k.startswith(stage + "_")
+            and k[len(stage) + 1:] in ("eta", "u", "v")]
+    assert len(keys) == 3
+    for k in keys:
+        assert np2d[k].shape == (4, 24, 24)
+        np.testing.assert_allclose(np2d[k], jax_ensemble[k], rtol=0,
+                                   atol=TOL_ENS, err_msg=k)
+    if stage in ("ek", "lk"):
+        np.testing.assert_allclose(np2d[f"{stage}_diag"],
+                                   jax_ensemble[f"{stage}_diag"], rtol=1e-9,
+                                   atol=0)
+
+
+def test_gang_ensemble_checkpoint(np2d):
+    """The ensemble saved on 2 ranks (rank 0 writes the gathered members):
+    the file holds the last states and the clock, and the port's
+    one-process Ensemble loads it back bitwise."""
+    from dl_esm_inf_tpu_torch.models import gravity_wave as tgw
+    from dl_esm_inf_tpu_torch.models.ensemble import Ensemble
+    path = str(np2d["ens_path"])
+    with np.load(path) as f:
+        assert int(f["__step__"]) == 8
+        for k in ("eta", "u", "v"):
+            np.testing.assert_array_equal(f[k], np2d[f"lk_{k}"])
+    ens = Ensemble(tgw.build(24, 24, dt=0.05, depth=10.0, device="cpu"), 4)
+    ens.load(path)
+    for k, v in ens.gather_all().items():
+        np.testing.assert_array_equal(v, np2d[f"lk_{k}"], err_msg=k)
+
+
+def _jax_cost_and_grad(name, res, n=32, steps=8, ndom=8):
+    """The JAX package's cost and gradient (internal points) of an
+    adjoint case on the gang's observations."""
+    import jax
+    from dl_esm_inf_tpu.models import assimilation as jda
+    build, key, steps_, _, _, guess, index = _mp().adjoint_cases(
+        n, steps)[name]
+    obs = {t: res[f"adj_{name}_obs_{t}"] for t in steps_}
+    jm = build(_jax_modules(), ndom, {})
+    jcost, jpack, _ = jda.make_cost_fn(jm, obs, obs_state_index=index)
+    xj = jpack(guess)
+    g = jlayout.unstack_internal(jm.grid.decomp,
+                                 np.asarray(jax.jit(jax.grad(jcost))(xj)))
+    return float(jcost(xj)), g
+
+
+def _check_cost_and_grad(res, name, cost, grad):
+    assert cost > 0 and np.abs(grad).max() > 0
+    got = float(res[f"adj_{name}_cost"])
+    assert abs(got - cost) <= TOL_COST * cost, (got, cost)
+    # a factor of 2 or 1/2 (an all-reduce in the cost's backward, or a
+    # rank's share missing) is far outside this
+    err = np.abs(res[f"adj_{name}_grad"] - grad).max()
+    assert err <= TOL_GRAD * np.abs(grad).max(), err
+
+
+@pytest.mark.parametrize("name", ["flagship", "semi_implicit", "coupled"])
+def test_gang_cost_and_gradient_match_jax(np2d, name):
+    """make_cost_fn across 2 ranks (the cost the psum of the ranks'
+    misfits, autograd through the strip transfer between ranks; the
+    semi-implicit model's adjoint solve with all-reduced dots; the coupled
+    tracer observed at state index 3), tests/test_torch_assimilation.py's
+    configurations at 32^2: the cost within 1e-12 relative and the
+    gradient within 1e-10 of its largest component of the JAX package's
+    on 8 tiles in one process."""
+    _check_cost_and_grad(np2d, name, *_jax_cost_and_grad(name, np2d))
+
+
+def test_gang_flagship_gradient_2x2_matches_jax(np4):
+    """The flagship's cost and gradient on a 2x2 rank grid (2 tiles per
+    rank: the corners arrive by sequencing, and their cotangents go back
+    in reverse sequence) against the JAX package's."""
+    assert int(np4["world_size"]) == 4
+    _check_cost_and_grad(np4, "flagship",
+                         *_jax_cost_and_grad("flagship", np4))
+
+
+def test_gang_adam_matches_jax(np2d):
+    """assimilate with Adam across 2 ranks (the largest gradient component
+    a global max), 5 iterations on a 32^2 gravity wave: the cost history
+    within 1e-12 and the recovered field and the gradient norm within
+    1e-10 relative of the JAX package's (optax) on 8 tiles."""
+    from dl_esm_inf_tpu.models import assimilation as jda
+    mp, n = _mp(), 32
+    r = jda.assimilate(_jax_modules().gw.build(n, n, ndomains=8, dt=0.05,
+                                               depth=10.0),
+                       mp.optimiser_obs(n), iters=mp.OPT_ITERS,
+                       learning_rate=0.1)
+    np.testing.assert_allclose(np2d["opt_adam_history"], r["cost_history"],
+                               rtol=TOL_COST, atol=0)
+    scale = np.abs(r["eta0"]).max()
+    assert scale > 0
+    np.testing.assert_allclose(np2d["opt_adam_eta0"], r["eta0"], rtol=0,
+                               atol=TOL_GRAD * scale)
+    assert abs(float(np2d["opt_adam_grad_norm"]) - r["grad_norm"]) <= (
+        TOL_GRAD * r["grad_norm"])
+
+
+@pytest.mark.parametrize("tag", ["lbfgs", "hybrid"])
+def test_gang_lbfgs_matches_one_process(np2d, tag):
+    """The port's L-BFGS across 2 ranks (dot products and norms
+    all-reduced; the hybrid control's ensemble weights held alike by every
+    rank, their gradient summed over the ranks once), 5 iterations on a
+    32^2 gravity wave, against the port in one process on 8 tiles (the JAX
+    package's optax line search differs): the cost history within 1e-12,
+    the recovered field and the weights within 1e-10 relative; the cost
+    falls."""
+    mp = _mp()
+    want = mp.optimiser_run(tag, 32, 8, "cpu")
+    hist = want[f"opt_{tag}_history"]
+    assert hist[-1] < hist[0]
+    np.testing.assert_allclose(np2d[f"opt_{tag}_history"], hist,
+                               rtol=TOL_COST, atol=0)
+    for k in ("eta0", "weights"):
+        key = f"opt_{tag}_{k}"
+        if key in want:
+            scale = np.abs(want[key]).max()
+            assert scale > 0
+            np.testing.assert_allclose(np2d[key], want[key], rtol=0,
+                                       atol=TOL_GRAD * scale, err_msg=k)
+    assert (f"opt_{tag}_weights" in want) == (tag == "hybrid")
+
+
+def _jax_nest(case, ndom=8):
+    mp = _mp()
+    parent, nests, runner = mp.build_nests(_jax_modules(), case, ndom, {})
+    runner.run(case["steps"])
+    return [parent] + [n.child for n in nests]
+
+
+@pytest.mark.parametrize("tag", ["r1", "r2", "set"])
+def test_gang_nest_matches_jax(np2d, tag):
+    """Nesting across 2 ranks (the ring's parent band gathered from every
+    rank, the feedback's partial sums all-reduced): the ratio-1 one-way
+    nest (30 steps), the two-way ratio-2 nest (15 steps) and a NestSet of
+    a two-way ratio-2 nest, a one-way ratio-3 sibling and a two-way nest
+    telescoped in the first child (10 steps), against the JAX package on
+    8 tiles at 1e-11 (tests/test_torch_nesting.py's); the ratio-1 child's
+    interior bitwise equal to its parent's window, and the ratio-1 run
+    bitwise equal to the port in one process."""
+    mp = _mp()
+    case = mp.NEST_CASES[tag]
+    models = _jax_nest(case)
+    for who, m in zip(["p"] + [f"c{i}" for i in range(len(case["nests"]))],
+                      models):
+        for k in ("eta", "u", "v"):
+            got = np2d[f"nest_{tag}_{who}_{k}"]
+            assert np.all(np.isfinite(got))
+            np.testing.assert_allclose(got, np.asarray(getattr(
+                m, k).gather_inner_data()), rtol=0, atol=TOL_NEST,
+                err_msg=f"{who} {k}")
+    if tag == "r1":
+        one = mp.nest_run(tag, case, 8, "cpu")
+        for k, v in one.items():
+            if "_ms" not in k:
+                np.testing.assert_array_equal(np2d[k], v, err_msg=k)
+        np.testing.assert_array_equal(np2d["nest_r1_c0_eta"][2:-2, 2:-2],
+                                      np2d["nest_r1_p_eta"][14:34, 14:34])
+
+
+def test_gang_nest_refuses_what_the_ranks_cannot_hold(np2d):
+    """A child of 3 tiles cannot be split over 2 ranks: OneWayNest raises
+    a ValueError naming the rule (and the decomposition's own reason)."""
+    msg = str(np2d["nest_refused"])
+    assert "split over its parent's 2 ranks" in msg, msg
+    assert "cannot be split over 2 ranks" in msg, msg
+
+
+def test_gang_nest_gradient_matches_jax(np2d):
+    """The gradient of the child's eta energy (internal cells) after 3
+    steps of a two-way ratio-2 nest with respect to the parent's eta
+    (internal points), across 2 ranks (the
+    band's all-gather transposing to a reduce-scatter, the feedback's
+    all-reduce summing the ranks' cotangents once): the loss within 1e-12
+    and the gradient within 1e-10 of its largest entry of the JAX
+    package's on 8 tiles (tests/test_torch_nesting.py's configuration)."""
+    import jax
+    import jax.numpy as jnp
+    mp = _mp()
+    case = mp.NEST_CASES["grad"]
+    parent, nests, runner = mp.build_nests(_jax_modules(), case, 8, {})
+    prog = runner.step_program(case["steps"])
+    c = nests[0].child
+    tree0 = (((c.eta.data, c.u.data, c.v.data), ()),)
+    inner = jnp.asarray(jlayout.internal_mask(c.grid.decomp),
+                        c.eta.data.dtype)
+
+    def loss(p_eta):
+        out = prog(((p_eta, parent.u.data, parent.v.data), tree0))
+        return jnp.sum(out[1][0][0][0] ** 2 * inner)
+    want = float(loss(parent.eta.data))
+    g = jlayout.unstack_internal(parent.grid.decomp, np.asarray(
+        jax.grad(loss)(parent.eta.data)))
+    assert abs(float(np2d["nest_grad_loss"]) - want) <= TOL_COST * want
+    assert np.abs(g).max() > 0
+    err = np.abs(np2d["nest_grad_grad"] - g).max()
+    assert err <= TOL_GRAD * np.abs(g).max(), err
+
+
+@pytest.mark.parametrize("gang", ["np2d", "np4"])
+@pytest.mark.parametrize("grid", ["walled", "periodic"])
+def test_gang_autograd_transposes(gang, grid, request):
+    """The backward of the exchange between ranks is its transpose:
+    <T x, y> = <x, T^T y> (the depth-2 exchange, and the raw strip
+    transfer around the ring of ranks, walled and wrapped), and T^T y
+    equals the single-process exchange's (1e-13 of its largest value; on
+    4 ranks a 2x2 grid).  The two all-reduce cases give the single-process
+    gradients (1e-12 relative): psum's cotangent passes through (2 x m,
+    not 2 or 4 times it), pbroadcast sums every rank's cotangent once
+    (d/da of a replicated weight, and a feedback-like use of all-reduced
+    sums), and the all-gather's backward reduce-scatters."""
+    res = request.getfixturevalue(gang)
+    mp = _mp()
+    tag, bcs, n = next(t for t in mp.PROBE_GRIDS if t[0] == grid)
+    one = mp.autograd_probe(mp.probe_grid(bcs, n, 8, "cpu"))
+    r = {k[len(f"ag_{tag}_"):]: v for k, v in res.items()
+         if k.startswith(f"ag_{tag}_")}
+    assert abs(float(r["tx_y"]) - float(r["x_tty"])) <= 1e-12 * abs(
+        float(r["tx_y"]))
+    for wrap in ("walled", "wrap"):
+        a, b = (float(r[f"transfer_{k}_{wrap}"]) for k in ("tx_y", "x_tty"))
+        assert abs(a - b) <= 1e-12 * abs(a) and a != 0.0, (wrap, a, b)
+    scale = np.abs(one["tty"]).max()
+    np.testing.assert_allclose(r["tty"], one["tty"], rtol=0,
+                               atol=1e-13 * scale)
+    for k in ("psum_grad", "pb_grad_a", "pb_grad_x", "fb_grad"):
+        scale = np.abs(one[k]).max()
+        assert scale > 0
+        np.testing.assert_allclose(r[k], one[k], rtol=0, atol=1e-12 * scale,
+                                   err_msg=k)
+    assert float(r["gather_err"]) <= 1e-15
+
+
 @pytest.mark.parametrize("K", [2, 4])
 @pytest.mark.parametrize("layout", ["4x1", "1x4"])
 def test_gang_fused_transport_matches_jax(np4, jax_fused, layout, K):
@@ -628,7 +932,11 @@ def test_partial_env_protocol_raises(monkeypatch):
 def test_one_process_environment():
     assert (tenv.get_rank(), tenv.get_num_ranks(), tenv.on_master()) == \
         (0, 1, True)
-    tenv.require_one_rank("anything", "M1")      # one rank: no raise
+    # one rank: the differentiable collectives are the identity
+    from dl_esm_inf_tpu_torch.parallel import collectives as tcol
+    x = torch.arange(3.0)
+    assert tcol.psum(x) is x and tcol.pbroadcast(x) is x
+    assert torch.equal(tcol.all_gather(x), x[None])
 
 
 def test_default_device_is_the_local_rank_card(monkeypatch):
