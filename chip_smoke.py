@@ -115,12 +115,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
    wrapper call) against its plain version and its bound, us/step of
    both; the same chain at the fewest levels whose window does not fit a
    CTA's shared memory even on 8-cell tiles (scratch_levels(), computed:
-   29 at float64), float64 on 2x2 tiles, in the skeleton's scratch form
-   (the window in a device buffer, a persistent grid): both sweeps in
-   that form and one level fewer in the shared form, fused_program(10)
-   launches = 10, bitwise against the plain fused tier but for the level
-   sum, one light sweep against its plain version, its card time as a
-   CUDA graph, its CTAs and its byte bound; then the skeleton's
+   29 at float64) and at NEMO's 75 levels, float64 on 2x2 tiles, in the
+   skeleton's cluster form (the window's rows split over the CTAs of a
+   thread-block cluster, each band in its CTA's shared memory, rows of
+   another band read through distributed shared memory, a persistent
+   grid of clusters): both sweeps in that form and at 29 levels one
+   level fewer in the shared form, fused_program(10) launches = 10,
+   bitwise against the plain fused tier but for the level sum, one light
+   sweep bitwise against its plain version, its card time as a CUDA
+   graph, the window's bytes, its cluster, CTAs and threads and its byte
+   bound; the skeleton's scratch form (the window in a device buffer, a
+   persistent grid) kept launched past the largest cluster: level_ends
+   (a read-only levels field folded into a 2D one) then shift (the 2D
+   field relaxed towards its east neighbour: a barrier, a staged pass,
+   ring 1) at past_cluster_levels() levels (computed: 907 at float64) on
+   one 128^2 tile, fused_program(10) launches = 10, bitwise against the
+   plain fused tier, one sweep bitwise and timed beside its bound; then
+   the skeleton's
    edge shapes: every kernel on csrc/stencil_sweep.cuh (gravity wave,
    shallow, two-layer, tracer upwind and van Leer, N-layer 3 and 9
    layers, Chebyshev, the PSy and levels=3 schedule sweeps) against its
@@ -488,8 +499,15 @@ def phase_build() -> None:
           f"sweeps) in {wall:.1f}s (in parallel)", flush=True)
     # every instantiation of the skeleton's kernel (the client sweeps,
     # the tracer's march, every generated schedule sweep) and of the
-    # N-layer march spills nothing, and the Chebyshev march synchronises
-    # no warp (its trip count is uniform)
+    # N-layer march spills nothing but the two sweeps capped by their
+    # float planes and dtype, and the Chebyshev march synchronises no
+    # warp (its trip count is uniform)
+    by_planes = {(4 * NEMO_LEVELS + 1, SCRATCH_DTYPE): NEMO_SPILL_BYTES,
+                 (past_cluster_levels() + 1, SCRATCH_DTYPE):
+                 PAST_CLUSTER_SPILL_BYTES}
+    caps = {ss.schedule_sweep.build(g).path.name:
+            by_planes.get((g.n_state + g.n_aux, g.dtype), 0)
+            for g in ss.schedule_sweep.generated.values()}
     skel, where = {}, {"tracer": 0, "generated": 0}
     for b in built:
         for name, spill in _ptxas_spills(b.log).items():
@@ -499,17 +517,20 @@ def phase_build() -> None:
                     where["generated"] += 1
                 elif b.path.name.startswith("libtracer_sweep"):
                     where["tracer"] += 1
-    spilled = {n: v for n, v in skel.items() if v}
+    spilled = {n: v for n, v in skel.items() if v > caps.get(n[0], 0)}
     if not skel or spilled or not all(where.values()):
         raise AssertionError(f"skeleton kernels spill: {spilled} "
-                             f"(instantiations seen: {where})")
+                             f"(instantiations seen: {where}; caps "
+                             f"{by_planes})")
+    capped = {n: v for n, v in skel.items() if caps.get(n[0])}
     cheb = _sass_counts(so.helmholtz_cheb_sweep.build().path, "WARPSYNC")
     if not cheb or any(cheb.values()):
         raise AssertionError(f"WARPSYNC in the Chebyshev sweep: {cheb}")
     print(f"build: {len(skel)} instantiations of the skeleton's kernel and "
           f"the N-layer march ({where['tracer']} of the tracer's march, "
-          f"{where['generated']} generated), 0 bytes spilled; {len(cheb)} "
-          f"Chebyshev kernels, no WARPSYNC in their SASS", flush=True)
+          f"{where['generated']} generated), 0 bytes spilled but the "
+          f"capped {capped} (caps {by_planes}); {len(cheb)} Chebyshev "
+          f"kernels, no WARPSYNC in their SASS", flush=True)
 
 
 def _ptxas_spills(log: str) -> dict:
@@ -1546,10 +1567,22 @@ PSY_MAIN_N = 100
 LEVELS = (3, 8)
 LEVEL_N, LEVEL_HALO, LEVEL_STEPS = 96, 4, 6
 LEVEL_MAIN_N = 20
-#: the chain's scratch form (a window past the shared memory of a CTA):
-#: dtype, tiles and steps at 1024^2; its level count is computed
-#: (scratch_levels)
+#: the chain past the shared memory of a CTA (the cluster form): dtype,
+#: tiles and steps at 1024^2; its level counts: the fewest past one CTA
+#: (scratch_levels, computed) and NEMO's 75 vertical levels (eORCA1 L75)
 SCRATCH_DTYPE, SCRATCH_TILES, SCRATCH_STEPS = torch.float64, (2, 2), 10
+NEMO_LEVELS = 75
+#: the bytes two generated sweeps may spill (ptxas's spill stores and
+#: loads, as this script's build lines read them on an H100); every other
+#: sweep spills nothing.  Both sweeps of the chain at NEMO_LEVELS keep
+#: more values a point than 255 registers hold; the scratch form's
+#: level_ends and shift past the largest cluster spills at 40 registers
+NEMO_SPILL_BYTES, PAST_CLUSTER_SPILL_BYTES = 14636, 120
+#: the scratch form (a window past the largest cluster): level_ends (a
+#: read-only levels field folded into a 2D one, hand-written) and shift
+#: (that field relaxed east, ring 1) at the fewest levels whose window no
+#: cluster holds (past_cluster_levels), on one tile of this edge
+PAST_CLUSTER_N = 128
 
 #: (stencil rows, torch shift, CUDA read) of the generic schedules
 _SHIFTS = {
@@ -1754,13 +1787,26 @@ def _level_case(kind, dtype, levels, plain, n=LEVEL_N, ndom=4,
 def scratch_levels() -> int:
     """The fewest levels at which the nlayer-style chain's window does not
     fit a CTA's shared memory even on 8-cell tiles, so that its sweeps
-    take the scratch form: both of its sweeps stream 4L + 1 float planes
+    take the cluster form: both of its sweeps stream 4L + 1 float planes
     (u, v, eta and the forcing at L levels, and the level sum) and one
     code plane, at the chain's erosion at halo LEVEL_HALO."""
     g = _sched_grid(64, 1, LEVEL_HALO, SCRATCH_DTYPE)
     ring = km.Schedule(*sc.ml_calls(*sc.ml_fields(g, 3))).fused_erosion(1)
     L = 1
-    while ss.window_tile(4 * L + 1, 0, 1, ring, SCRATCH_DTYPE)[0].ctas:
+    while ss.window_tile(4 * L + 1, 0, 1, ring, SCRATCH_DTYPE)[2] == 1:
+        L += 1
+    return L
+
+
+def past_cluster_levels() -> int:
+    """The fewest levels at which the window of level_ends and shift (L + 1
+    float planes: the read-only levels field and the 2D result, and one
+    code plane, at ring 1) does not fit the largest cluster, so that its
+    sweep takes the scratch form."""
+    g = _sched_grid(64, 1, LEVEL_HALO, SCRATCH_DTYPE)
+    ring = km.Schedule(*sc.ends_calls(*sc.ends_fields(g, 3))).fused_erosion(1)
+    L = 1
+    while ss.window_tile(L + 1, 0, 1, ring, SCRATCH_DTYPE)[2]:
         L += 1
     return L
 
@@ -1776,9 +1822,10 @@ def _east_schedule_build():
 def _schedule_builds():
     """One task per generated source phase 10 needs: each builds its
     case's kernel side, which generates and compiles the sources."""
-    tasks = [functools.partial(_level_case, "chain", SCRATCH_DTYPE,
-                               scratch_levels(), False, n=64, ndom=1),
-             _east_schedule_build]
+    tasks = [functools.partial(_level_case, "chain", SCRATCH_DTYPE, L,
+                               False, n=64, ndom=1)
+             for L in (scratch_levels(), NEMO_LEVELS)]
+    tasks += [functools.partial(_past_cluster_case, 64), _east_schedule_build]
     for dtype in (torch.float64, torch.float32):
         for r in (1, 2, 3):
             for derived in (False, True):
@@ -2228,20 +2275,61 @@ def phase_levels_main() -> list:
                 "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
                 "launches": launches, "max_abs_err": max_abs, "ms": ms,
                 "plain_ms": plain_ms, **bound, "device_ms": device_ms})
-    entries.append(_levels_scratch())
+    for levels in (scratch_levels(), NEMO_LEVELS):
+        entries.append(_levels_cluster(levels))
+    entries.append(_scratch_past_cluster())
     return entries
 
 
-def _levels_scratch() -> dict:
-    """The chain at scratch_levels() levels, SCRATCH_DTYPE, 1024^2 on
-    SCRATCH_TILES tiles: both sweeps generated in the scratch form (and
-    the level count below it in the shared form); SCRATCH_STEPS steps
-    through fused_program with the launches reset just before and the
-    plain tier refused, bitwise against the plain fused tier on internal
-    points but for the level sum (within TOL_LEVEL_SUM); one light sweep
-    against its plain version, timed as a CUDA graph beside its bound."""
-    L, dtype, tiles, n = (scratch_levels(), SCRATCH_DTYPE, SCRATCH_TILES,
-                          SCRATCH_STEPS)
+def _light_sweep(sched, n: int, inner, label: str, dtype) -> dict:
+    """One light sweep (the full one where the program has no light
+    variant) of the schedule's fused_program(n) on its current slots
+    against its plain version (bitwise on ``inner`` points), the wrapper
+    call's and the card's time (a CUDA graph), the plain version's, and
+    the bound from this call's bytes and operations; also the generated
+    sweep (``gen``) and its launch (``run``)."""
+    variants = sched._fused_prog(n, 1)[3]
+    which = "light" if "light" in variants else "full"
+    sweep, st_slots, x_slots = variants[which]
+    psweep = sched._fused_prog(n, 1, True)[3][which][0]
+    ro_slots = sched._fused_prog(n, 1)[2]
+    slot = lambda i: sched._slots[i].data  # noqa: E731
+    planes = lambda idx: tuple(  # noqa: E731
+        p for i in idx for p in ((slot(i),) if slot(i).dim() == 2
+                                 else slot(i).unbind(0)))
+    state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
+    rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
+    ker = sweep(state, ros, extra, rows)
+    ref = psweep(state, ros, extra, rows)
+    max_abs = max(float((a - b).abs()[inner].max())
+                  for a, b in zip(ker, ref))
+    if max_abs != 0.0:
+        raise AssertionError(f"{label}: one light sweep kernel vs plain "
+                             f"{max_abs:.3e}")
+    run = lambda: sweep(state, ros, extra, rows)  # noqa: E731
+    nbytes = _nbytes(*state, *ker, *ros, *extra,
+                     torch.stack(sched._fused_masks()))
+    ops = _count_ops(lambda: psweep(state, ros, extra, rows))
+    return {"gen": sweep.generated, "run": run, "max_abs_err": max_abs,
+            "ms": _time_ms(run, 10), "device_ms": _device_ms(run, 5),
+            "plain_ms": _time_ms(lambda: psweep(state, ros, extra, rows),
+                                 2),
+            **_bound(nbytes, ops, dtype),
+            "planes": (len(state), len(ros) + len(extra)),
+            "bpt": nbytes / state[0].numel(), "block": state[0].shape}
+
+
+def _levels_cluster(L: int) -> dict:
+    """The chain at L levels (past a CTA's shared memory), SCRATCH_DTYPE,
+    1024^2 on SCRATCH_TILES tiles: both sweeps generated in the cluster
+    form (and, at scratch_levels(), one level fewer in the shared form);
+    SCRATCH_STEPS steps through fused_program with the launches reset just
+    before and the plain tier refused, bitwise against the plain fused
+    tier on internal points but for the level sum (within TOL_LEVEL_SUM);
+    one light sweep against its plain version, bitwise, timed as a CUDA
+    graph beside its bound; the window's bytes, its cluster, CTAs and
+    threads."""
+    dtype, tiles, n = SCRATCH_DTYPE, SCRATCH_TILES, SCRATCH_STEPS
     label = (f"levels={L} {str(dtype)[6:]} {tiles[0]}x{tiles[1]} tiles "
              f"{MAIN_SIZE}^2")
     sched, f = _level_main(L, dtype, tiles)
@@ -2250,10 +2338,11 @@ def _levels_scratch() -> dict:
     forms = {k: v[0].generated.form for k, v in variants.items()}
     gen = variants["light"][0].generated
     below = ss.window_tile(gen.n_state + gen.n_aux - 4, 0, gen.n_codes,
-                           gen.ring, dtype)[0]
-    if set(forms.values()) != {"scratch"} or below.ctas == 0:
+                           gen.ring, dtype)[2]
+    first = L == scratch_levels()
+    if set(forms.values()) != {"cluster"} or (first and below != 1):
         raise AssertionError(f"{label}: forms {forms}; {L - 1} levels "
-                             f"take the tile {below}")
+                             f"take {below} CTAs")
     psched, pf = _level_main(L, dtype, tiles)
     pprog = psched.fused_program(n, plain=True)
     torch.cuda.synchronize()
@@ -2272,53 +2361,106 @@ def _levels_scratch() -> dict:
     if d_run != 0.0 or not d_sum <= TOL_LEVEL_SUM[dtype]:
         raise AssertionError(f"{label}: kernel vs plain after {n} steps "
                              f"{d_run:.3e}, level sum {d_sum:.3e}")
-    sweep, st_slots, x_slots = variants["light"]
-    psweep = sched._fused_prog(n, 1, True)[3]["light"][0]
-    ro_slots = sched._fused_prog(n, 1)[2]
-    slot = lambda i: sched._slots[i].data  # noqa: E731
-    planes = lambda idx: tuple(  # noqa: E731
-        p for i in idx for p in ((slot(i),) if slot(i).dim() == 2
-                                 else slot(i).unbind(0)))
-    state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
-    rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
-    ker = sweep(state, ros, extra, rows)
-    ref = psweep(state, ros, extra, rows)
-    inner = f[0].internal_mask.bool()
-    max_abs = max(float((a - b).abs()[inner].max())
-                  for a, b in zip(ker, ref))
-    if max_abs != 0.0:
-        raise AssertionError(f"{label}: one light sweep kernel vs plain "
-                             f"{max_abs:.3e}")
-    ms = _time_ms(lambda: sweep(state, ros, extra, rows), 10)
-    device_ms = _device_ms(lambda: sweep(state, ros, extra, rows), 5)
-    plain_ms = _time_ms(lambda: psweep(state, ros, extra, rows), 2)
-    ops = _count_ops(lambda: psweep(state, ros, extra, rows))
-    nbytes = _nbytes(*state, *ker, *ros, *extra,
-                     torch.stack(sched._fused_masks()))
-    bound = _bound(nbytes, ops, dtype)
+    t = _light_sweep(sched, n, f[0].internal_mask.bool(), label, dtype)
+    ly, lx = t["block"]
     lib = ss.schedule_sweep.build(gen).lib
-    ly, lx = state[0].shape
-    ctas = lib.schedule_sweep_ctas(ly, lx, ss.SCRATCH_BYTES)
-    print(f"levels scratch form {label}: window {gen.window_bytes} B per CTA "
+    ctas = lib.schedule_sweep_clusters(ly, lx) * gen.cluster
+    print(f"levels cluster form {label}: window {gen.window_bytes} B "
           f"(tile {gen.tile.ty}x{gen.tile.tx} in a {gen.tile.wx}-column "
-          f"window, ring {gen.ring}), {ctas} CTAs; {L - 1} levels keep the "
-          f"shared form; fused_program({n}) launches={launches} (= n), "
-          f"finite, plain tier refused; vs plain fused tier after {n} "
-          f"steps: bitwise (level sum rel {d_sum:.3e}); one light sweep "
-          f"{device_ms * 1e3:.2f} us on the card (CUDA graph; wrapper call "
-          f"{ms * 1e3:.2f} us) vs plain {plain_ms * 1e3:.2f} us, "
-          f"{len(state)} state + {len(ros) + len(extra)} read-only planes, "
-          f"{nbytes / state[0].numel():.1f} B/pt, bound "
-          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
-          f"[{SMI}]", flush=True)
+          f"window, ring {gen.ring}) over a cluster of {gen.cluster} CTAs "
+          f"of {gen.smem_bytes} B shared memory and {ss.CLUSTER_THREADS} "
+          f"threads, {ctas} CTAs"
+          + (f"; {L - 1} levels keep the shared form" if first else "")
+          + f"; fused_program({n}) launches={launches} (= n), finite, "
+          f"plain tier refused; vs plain fused tier after {n} steps: "
+          f"bitwise (level sum rel {d_sum:.3e}); one light sweep bitwise, "
+          f"{t['device_ms'] * 1e3:.2f} us on the card (CUDA graph; wrapper "
+          f"call {t['ms'] * 1e3:.2f} us) vs plain {t['plain_ms'] * 1e3:.2f} "
+          f"us, {t['planes'][0]} state + {t['planes'][1]} read-only planes, "
+          f"{t['bpt']:.1f} B/pt, bound {t['bound_ms'] * 1e3:.2f} us "
+          f"({t['bound_by']}) [{SMI}]", flush=True)
+    return {"name": f"schedule_sweep (levels={L}, {str(dtype)[6:]}, cluster "
+                    "form)", "route": "cuda",
+            "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
+            "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
+            "launches": launches,
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "device_ms")},
+            "form": gen.form, "window_bytes": gen.window_bytes,
+            "cluster": gen.cluster, "smem_bytes": gen.smem_bytes,
+            "threads": ss.CLUSTER_THREADS, "ctas": ctas,
+            "tiles": list(tiles)}
+
+
+def _past_cluster_case(n: int):
+    """(schedule, fields) of level_ends and shift at past_cluster_levels()
+    levels, SCRATCH_DTYPE, on one n^2 tile; building its fused program
+    builds its kernel."""
+    g = _sched_grid(n, 1, LEVEL_HALO, SCRATCH_DTYPE)
+    f = sc.ends_fields(g, past_cluster_levels())
+    sched = km.Schedule(*sc.ends_calls(*f))
+    sched.fused_program(SCRATCH_STEPS)
+    return sched, f
+
+
+def _scratch_past_cluster() -> dict:
+    """The global-memory scratch form kept launched: level_ends (a
+    read-only levels field folded into a 2D one) and shift (a barrier,
+    then a staged pass that reads the 2D field one cell east: ring 1) at
+    past_cluster_levels() levels, SCRATCH_DTYPE, on one PAST_CLUSTER_N^2
+    tile, a window no cluster holds; SCRATCH_STEPS steps through
+    fused_program (each folds into the last: one launch a step) with the
+    launches reset just before and the plain tier refused, bitwise
+    against the plain fused tier on internal points; one sweep against
+    its plain version, bitwise, timed as a CUDA graph beside its
+    bound."""
+    L, dtype, n = past_cluster_levels(), SCRATCH_DTYPE, SCRATCH_STEPS
+    label = (f"level_ends+shift levels={L} {str(dtype)[6:]} 1 tile "
+             f"{PAST_CLUSTER_N}^2")
+    sched, f = _past_cluster_case(PAST_CLUSTER_N)
+    psched, pf = _past_cluster_case(PAST_CLUSTER_N)
+    prog, pprog = sched.fused_program(n), psched.fused_program(n, plain=True)
+    forms = {k: v[0].generated.form
+             for k, v in sched._fused_prog(n, 1)[3].items()}
+    if set(forms.values()) != {"scratch"}:
+        raise AssertionError(f"{label}: forms {forms}")
+    torch.cuda.synchronize()
+    ss.schedule_sweep.launches = 0
+    _plain_tier_refused(prog)
+    torch.cuda.synchronize()
+    launches = ss.schedule_sweep.launches
+    if launches != n:
+        raise AssertionError(f"{label}: {launches} launches, expected {n}")
+    pprog()
+    for x in f:
+        if not torch.isfinite(x.data).all():
+            raise AssertionError(f"{label}: not finite")
+    d = _inner_diff(f, pf)[0]
+    if d != 0.0:
+        raise AssertionError(f"{label}: kernel vs plain {d:.3e}")
+    t = _light_sweep(sched, n, f[0].internal_mask.bool(), label, dtype)
+    gen = t["gen"]
+    ly, lx = t["block"]
+    ctas = ss.schedule_sweep.build(gen).lib.schedule_sweep_ctas(
+        ly, lx, ss.SCRATCH_BYTES)
+    print(f"levels scratch form {label}: window {gen.window_bytes} B per "
+          f"CTA (tile {gen.tile.ty}x{gen.tile.tx} in a {gen.tile.wx}-column "
+          f"window, ring {gen.ring}), past the largest cluster, {ctas} "
+          f"CTAs; fused_program({n}) launches={launches} (= n), finite, "
+          f"plain tier refused; vs plain fused tier after {n} steps: "
+          f"bitwise; one sweep bitwise, {t['device_ms'] * 1e3:.2f} us on the card "
+          f"(CUDA graph; wrapper call {t['ms'] * 1e3:.2f} us) vs plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} "
+          f"us ({t['bound_by']}) [{SMI}]", flush=True)
     return {"name": f"schedule_sweep (levels={L}, {str(dtype)[6:]}, scratch "
                     "form)", "route": "cuda",
             "source": "dl_esm_inf_tpu_torch/ops/schedule_sweep.py",
             "replaces": "dl_esm_inf_tpu/api/kernel_meta.py:851",
-            "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, **bound, "device_ms": device_ms,
+            "launches": launches,
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "device_ms")},
             "form": gen.form, "window_bytes": gen.window_bytes,
-            "ctas": ctas, "tiles": list(tiles)}
+            "ctas": ctas, "tiles": [1, 1]}
 
 
 # --- the skeleton's sweeps on edge shapes -----------------------------------

@@ -40,7 +40,20 @@ def rank_grid(px: int, py: int, nranks: int) -> tuple[int, int]:
     block of tiles (the JAX package's ``_make_mesh``): the largest grid
     with ``my | py``, ``mx | px`` and ``my*mx <= nranks``, the most
     balanced among equals.  It must use every rank: a rank without tiles
-    raises."""
+    raises.
+
+    The JAX package has the same limit, without the message: its
+    ``_make_mesh`` (``dl_esm_inf_tpu/core/grid.py:46-73``) leaves the
+    devices of a process idle, and a process without tiles cannot read a
+    global array.  With 2 processes of one CPU device each and
+    ``decompose(24, 20, ndomains=3)``, process 1's ``Field.checksum()``
+    and ``collectives.global_sum`` raise "Fetching value for `jax.Array`
+    that spans non-addressable (non process local) devices is not
+    possible", and its ``gather_inner_data()``, a flagship
+    ``build(32, 32, ndomains=3).run(10)`` and ``checkpoint.save_fields``
+    raise "Array has no addressable shards"; process 0 then waits out a
+    Gloo context timeout in those three.  One process runs every one of
+    them."""
     best = None
     for my in range(1, py + 1):
         if py % my:

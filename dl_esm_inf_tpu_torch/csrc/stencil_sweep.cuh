@@ -76,18 +76,34 @@
 // no barrier between them.  A march (Ring<..., MARCH = true>: the
 // tracer) runs its own loops.
 //
+// The cluster form (a Ring with CLUSTER, ClusterRing; Hopper's
+// thread-block clusters).  A window that does not fit a CTA's shared
+// memory even on 8-cell tiles (a schedule of many levels) is split by
+// rows over the CL CTAs of a cluster, on neighbouring SMs, one CTA an
+// SM: CTA r holds window rows [r * BR, (r + 1) * BR) of every plane in
+// its own shared memory (BR = ceil(WY / CL); cluster_shape's tile), and
+// the window never goes to device memory.  A window point keeps one
+// (CTA, thread) in every pass, the passes take a point's own values
+// from its CTA's band, and a read of a row of another band goes to that
+// CTA's shared memory (distributed shared memory: the band accessors
+// BandAt/BandLev map the address to the owner's, band_read).  Every
+// barrier that orders accesses a peer can see is a cluster barrier
+// (release/acquire), and a CTA leaves only after a last one.  Each CTA
+// stages its rows with 16-byte cp.async as the shared form does, and
+// writes back the tile rows of its band; a persistent grid of every
+// cluster that can be resident takes the tiles in turn.
+//
 // The scratch form (a Ring with SCRATCH, ScratchRing).  A window that
-// does not fit a CTA's shared memory even on 8-cell tiles (a schedule of
-// many levels) lives in global memory instead: each CTA of a persistent
-// grid owns a slice of a scratch buffer and takes the tiles in turn, by
-// a grid-stride loop.  The same steps run on that window unchanged:
-// __syncthreads orders a CTA's global-memory accesses as it orders its
-// shared-memory ones.  The tile is scratch_shape's (8 rows, a 32-column
-// window: one warp of lanes a row), the staging is clamped scalar reads
-// (cp.async writes shared memory only), the threads a CTA are the
-// ring's, and the CTAs are at most those resident at once and at most
-// what keeps the windows of all of them within the bytes the caller
-// names (scratch_ctas).
+// does not fit even the largest cluster (kClusters) lives in global
+// memory instead: each CTA of a persistent grid owns a slice of a
+// scratch buffer and takes the tiles in turn, by a grid-stride loop.
+// The same steps run on that window unchanged: __syncthreads orders a
+// CTA's global-memory accesses as it orders its shared-memory ones.  The
+// tile is scratch_shape's (8 rows, a 32-column window: one warp of lanes
+// a row), the staging is clamped scalar reads (cp.async writes shared
+// memory only), the threads a CTA are the ring's, and the CTAs are at
+// most those resident at once and at most what keeps the windows of all
+// of them within the bytes the caller names (scratch_ctas).
 //
 // The output tile goes back with 16-byte stores where the block's rows
 // are 16-byte aligned, scalar stores otherwise.  A client that writes
@@ -153,6 +169,11 @@ constexpr int kMarchRows = 2;
 constexpr int kMarchWarps = 16;
 // the scratch form's window columns
 constexpr int kScratchWX = 32;
+// the cluster form's cluster sizes, smallest first (past 8 is not
+// portable: the kernel allows it by attribute).  None has 2 CTAs: a
+// window that two CTAs hold within kMaxOverhead, one CTA holds on an
+// 8-cell square (pick_shape)
+constexpr int kClusters[3] = {4, 8, 16};
 
 // A tile and its window: TY x TX output points, RL window columns left
 // of the tile, WX window columns, CTAS per SM that the rule aimed at.
@@ -229,6 +250,43 @@ constexpr Shape scratch_shape(int R) {
   return Shape{kTileYMin, (kScratchWX - rl - R) / 4 * 4, rl, kScratchWX, 0};
 }
 
+// The cluster form's tile: a window of `bpp` bytes per point and ring R
+// split by rows over the `cluster` CTAs of a thread-block cluster, one
+// CTA an SM, each holding ceil(WY / cluster) window rows.  For each of kClusters, smallest first, each width of
+// kWindowX gets the tallest tile (a multiple of 4 in [kTileYMin, tymax])
+// whose window rows the cluster's CTAs hold, and the least ring overhead
+// wins (the first of equal ones); it is taken if its overhead is at most
+// kMaxOverhead or at the largest cluster.  cluster 0: no cluster holds
+// an 8-row window.  ctas 0: the CTA count is set at launch.
+struct ClusterShape {
+  Shape s;
+  int cluster;
+};
+
+constexpr ClusterShape cluster_shape(int R, int bpp,
+                                     int tymax = kTileYMax) {
+  const int rl = round_up(R, 4);
+  const long long budget = kSmemPerSM - kSmemReserve;
+  for (int c = 0; c < 3; ++c) {
+    Shape best{0, 0, 0, 0, 0};
+    for (int n = 0; n < 3; ++n) {
+      const int w = kWindowX[n];
+      const int tx = (w - rl - R) / 4 * 4;
+      const long long rows =
+          kClusters[c] * (budget / (static_cast<long long>(w) * bpp));
+      int ty = tymax;
+      while (ty >= kTileYMin && ty + 2 * R > rows) ty -= 4;
+      if (tx >= 8 && ty >= kTileYMin) {
+        best = better(best, Shape{ty, tx, rl, w, 0}, R);
+      }
+    }
+    if (best.ty && (c == 2 || overhead(best, R) <= kMaxOverhead)) {
+      return ClusterShape{best, kClusters[c]};
+    }
+  }
+  return ClusterShape{Shape{0, 0, 0, 0, 0}, 0};
+}
+
 // The march's column strips for a tile and ring: the velocity columns
 // (the tile's, R west and R - 1 east) over the owned columns a strip.
 constexpr int march_strips(const Shape& s, int R) {
@@ -257,6 +315,7 @@ struct Geom {
   static constexpr int WY = TY + 2 * R;
   static constexpr int WC = WY * WX;                  // points per plane
   static constexpr int NT = NT_, NW = NT / 32;        // threads, warps
+  static constexpr int CL = 1;                         // CTAs of a window
   // the rows and columns of a thread in a pass over the window
   static constexpr int QY = (WY + NW - 1) / NW;
   static constexpr int QX = (WX + 31) / 32;
@@ -266,19 +325,35 @@ struct Geom {
   static_assert(NT % 32 == 0, "whole warps");
 };
 
+// The cluster form's geometry: the window of Geom split by rows over CL
+// CTAs, BR rows a CTA; WC is the points of a plane one CTA holds, and a
+// thread's rows in a pass are QY of its band.
+template <int K_, int REACH_, int R_, int TY_, int TX_, int RL_, int WX_,
+          int NT_, int CL_>
+struct ClusterGeom : Geom<K_, REACH_, R_, TY_, TX_, RL_, WX_, NT_> {
+  using Base = Geom<K_, REACH_, R_, TY_, TX_, RL_, WX_, NT_>;
+  static constexpr int CL = CL_;
+  static constexpr int BR = (Base::WY + CL - 1) / CL;
+  static constexpr int WC = BR * WX_;
+  static constexpr int QY = (BR + Base::NW - 1) / Base::NW;
+  static_assert(CL >= 4 && CL <= 16, "a cluster of 4-16 CTAs");
+};
+
 // What a client names: K sub-steps of a step of reach REACH, a ring
 // (K * REACH unless given), a window width (0: the tile rule's), the
 // CTA's threads (0: by the window's size) and the tile's most rows; a
 // column march (MARCH) takes the march's widths and march_threads with
-// WARPS and ROWS; SCRATCH takes the scratch form.
+// WARPS and ROWS; SCRATCH takes the scratch form, CLUSTER the cluster
+// form.
 template <int K_, int REACH_, int RING_ = K_ * REACH_, int WX_ = 0,
           int NT_ = 0, int TYMAX_ = kTileYMax, bool MARCH_ = false,
           int WARPS_ = kMarchWarps, int ROWS_ = kMarchRows,
-          bool SCRATCH_ = false>
+          bool SCRATCH_ = false, bool CLUSTER_ = false>
 struct Ring {
   static constexpr int K = K_, REACH = REACH_, RING = RING_, WX = WX_;
   static constexpr int THREADS = NT_, TYMAX = TYMAX_;
   static constexpr bool MARCH = MARCH_, SCRATCH = SCRATCH_;
+  static constexpr bool CLUSTER = CLUSTER_;
   static constexpr int WARPS = WARPS_, ROWS = ROWS_;
 };
 
@@ -287,8 +362,13 @@ template <int K, int REACH, int RING, int NT>
 using ScratchRing = Ring<K, REACH, RING, kScratchWX, NT, kTileYMax, false,
                          kMarchWarps, kMarchRows, true>;
 
+// The ring of the cluster form, NT threads a CTA.
+template <int K, int REACH, int RING, int NT>
+using ClusterRing = Ring<K, REACH, RING, 0, NT, kTileYMax, false,
+                         kMarchWarps, kMarchRows, false, true>;
+
 // The geometry the tile rule gives a ring with `bpp` bytes per point.
-template <class RG, int BPP>
+template <class RG, int BPP, bool CLUSTER = RG::CLUSTER>
 struct RuleGeom {
   static constexpr Shape S =
       RG::SCRATCH ? scratch_shape(RG::RING)
@@ -300,6 +380,15 @@ struct RuleGeom {
       : (S.ty + 2 * RG::RING >= kTallRows ? kThreadsTall : NT);
   using type = Geom<RG::K, RG::REACH, RG::RING, S.ty, S.tx, S.rl, S.wx,
                     THREADS>;
+};
+
+// The cluster form's: cluster_shape's tile and cluster, RG's threads.
+template <class RG, int BPP>
+struct RuleGeom<RG, BPP, true> {
+  static constexpr ClusterShape C = cluster_shape(RG::RING, BPP);
+  static_assert(C.cluster > 0, "the window does not fit the largest cluster");
+  using type = ClusterGeom<RG::K, RG::REACH, RG::RING, C.s.ty, C.s.tx,
+                           C.s.rl, C.s.wx, RG::THREADS, C.cluster>;
 };
 
 // Window points, half-open: rows [y0, y1), columns [x0, x1).
@@ -345,8 +434,9 @@ struct Out {
 
 // The window: N state planes, M aux planes, NS scratch planes (not
 // staged), MI int32 aux planes, NC code planes (one when CODE, by
-// default), in shared memory, or in global memory in the scratch form.
-// G is the geometry the tile rule gives the ring RG for these planes.
+// default), in shared memory, or in global memory in the scratch form;
+// in the cluster form a CTA's band of it (G::WC points a plane).  G is
+// the geometry the tile rule gives the ring RG for these planes.
 template <typename T, int N, int M, bool CODE, class RG, int MI = 0,
           int NC = (CODE ? 1 : 0), int NS = 0>
 struct Tile {
@@ -442,6 +532,83 @@ struct LevPut : Lev<V, WX, WC, N> {
   }
 };
 
+// The thread-block cluster of the cluster form: this CTA's rank in it, a
+// barrier of all its threads (arrive.release, wait.acquire: what a
+// thread of the cluster stored before it is seen by every thread after
+// it), and the address in CTA `rank`'s shared memory of a pointer into
+// this CTA's.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+template <typename V>
+__device__ __forceinline__ V* cluster_map(V* p, int rank) {
+  unsigned long long q;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(q) : "l"(p), "r"(rank));
+  return reinterpret_cast<V*>(q);
+}
+
+// The cluster form's read of window point (wy + dj, wx + di) of a plane,
+// `off` elements from p, the address of point (wy, wx) in this CTA's
+// band: a row of this band from this CTA's shared memory, a row of
+// another band from its CTA's, at the same offset in that band (every
+// CTA lays its band out alike).
+template <class G, typename V>
+__device__ __forceinline__ V band_read(const V* p, int wy, int dj, int off) {
+  const int me = wy / G::BR, at = (wy + dj) / G::BR;
+  const V* q = p + off;
+  if (at == me) return *q;
+  return *cluster_map(q + (me - at) * G::WC, at);
+}
+
+// At, Put, Lev and LevPut of the cluster form: p is the point's address in its CTA's band, wy its window row.
+template <typename V, class G>
+struct BandAt {
+  const V* p;
+  int wy;
+  __device__ __forceinline__ V operator()(int dj, int di) const {
+    return band_read<G>(p, wy, dj, dj * G::WX + di);
+  }
+  __device__ __forceinline__ V operator()() const { return *p; }
+};
+
+template <typename V, class G>
+struct BandPut : BandAt<V, G> {
+  V v;
+  __device__ __forceinline__ BandPut& operator=(V x) {
+    v = x;
+    return *this;
+  }
+};
+
+template <typename V, class G, int N>
+struct BandLev {
+  static constexpr int levels = N;
+  const V* p;
+  int wy;
+  __device__ __forceinline__ V operator()(int k, int dj, int di) const {
+    return band_read<G>(p, wy, dj, k * G::WC + dj * G::WX + di);
+  }
+  __device__ __forceinline__ V operator()(int k) const { return p[k * G::WC]; }
+};
+
+template <typename V, class G, int N>
+struct BandLevPut : BandLev<V, G, N> {
+  V v[N];
+  __device__ __forceinline__ V& operator[](int k) { return v[k]; }
+  __device__ __forceinline__ BandLevPut& operator=(V x) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = x;
+    return *this;
+  }
+};
+
 // The tile grown by m cells on every side, within the window inset by d
 // cells (m < 0: no points).
 template <class G>
@@ -465,13 +632,29 @@ __device__ __forceinline__ Box hull(const Box& a, const Box& b) {
 
 // The passes of a generated sweep give window point (wy, wx) to warp
 // wy % NW and lane wx % 32 whatever the box, so a call sees the values
-// earlier calls stored at its own point without a barrier.
+// earlier calls stored at its own point without a barrier.  In the
+// cluster form the point is the CTA's that holds row wy, and its warp is
+// (wy - the band's first row) % NW; i is its index in the band.
 
 // f(i, wy, wx) for the thread's points of `b`, a row at a time (rows in a
 // loop, columns unrolled).
 template <class G, class F>
 __device__ __forceinline__ void for_points(const Box& b, F f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (G::CL > 1) {
+    const int band0 = cluster_rank() * G::BR;
+    const int y0 = max(b.y0, band0), y1 = min(b.y1, band0 + G::BR);
+#pragma unroll 1
+    for (int wy = y0 + (warp + G::NW - (y0 - band0) % G::NW) % G::NW;
+         wy < y1; wy += G::NW) {
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = lane + 32 * q;
+        if (wx >= b.x0 && wx < b.x1) f((wy - band0) * G::WX + wx, wy, wx);
+      }
+    }
+    return;
+  }
   const int first = b.y0 + (warp + G::NW - b.y0 % G::NW) % G::NW;
 #pragma unroll 1
   for (int wy = first; wy < b.y1; wy += G::NW) {
@@ -485,13 +668,44 @@ __device__ __forceinline__ void for_points(const Box& b, F f) {
 
 // One call that reads off-point a plane it writes, on the thread's
 // points of `b`: its new values into registers, a barrier (every thread
-// has read the old values), then the stores.  The caller adds the
-// barrier that must follow the stores before another thread reads them.
+// has read the old values; in the cluster form every thread of the
+// cluster), then the stores.  The caller adds the barrier that must
+// follow the stores before another thread reads them.
 template <class G, typename T, int NV, class F>
 __device__ __forceinline__ void staged_points(const Box& b,
                                               T* const (&dst)[NV], F f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T v[G::QY][G::QX][NV];
+  if constexpr (G::CL > 1) {
+    const int band0 = cluster_rank() * G::BR;
+#pragma unroll
+    for (int p = 0; p < G::QY; ++p) {
+      const int ly = warp + p * G::NW;
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = lane + 32 * q;
+        if (ly < G::BR && inside(b, band0 + ly, wx)) {
+          f(ly * G::WX + wx, band0 + ly, wx, v[p][q]);
+        }
+      }
+    }
+    cluster_sync();
+#pragma unroll
+    for (int p = 0; p < G::QY; ++p) {
+      const int ly = warp + p * G::NW;
+#pragma unroll
+      for (int q = 0; q < G::QX; ++q) {
+        const int wx = lane + 32 * q;
+        if (ly < G::BR && inside(b, band0 + ly, wx)) {
+#pragma unroll
+          for (int c = 0; c < NV; ++c) {
+            dst[c][ly * G::WX + wx] = v[p][q][c];
+          }
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int p = 0; p < G::QY; ++p) {
     const int wy = warp + p * G::NW;
@@ -594,10 +808,13 @@ __device__ __forceinline__ void copy4_points(T* dst, const T* src) {
 }
 
 // Stage the CTA's window (oy, ox: the block point of window point
-// (0, 0)) into the tile's state, aux, int32 and code planes.
+// (0, 0)) into the tile's state, aux, int32 and code planes; its first
+// `rows` rows (the cluster form: the rows of its CTA's band, oy the
+// block row of the band's first).
 template <class S>
 __device__ __forceinline__ void stage(typename S::Tile& t,
-                                      const PlanesOf<S>& p, int oy, int ox) {
+                                      const PlanesOf<S>& p, int oy, int ox,
+                                      int rows = S::G::WY) {
   using G = typename S::G;
   constexpr int N = S::N, M = S::M;
   constexpr int MI = S::Tile::NINT, NC = S::Tile::NCODE;
@@ -617,7 +834,7 @@ __device__ __forceinline__ void stage(typename S::Tile& t,
   }
   if (chunks) {
     constexpr int CH = WX / 4;                        // chunks per row
-    for (int idx = threadIdx.x; idx < G::WY * CH; idx += G::NT) {
+    for (int idx = threadIdx.x; idx < rows * CH; idx += G::NT) {
       const int w = idx / CH, j = idx - w * CH;
       const int gy = oy + w, gx = ox + 4 * j;
       const int i = w * WX + 4 * j;
@@ -660,7 +877,7 @@ __device__ __forceinline__ void stage(typename S::Tile& t,
     staging::copy_async_wait();
     return;
   }
-  for (int i = threadIdx.x; i < WC; i += G::NT) {
+  for (int i = threadIdx.x; i < rows * WX; i += G::NT) {
     const int wy = i / WX, wx = i - wy * WX;
     const int gy = min(max(oy + wy, 0), p.ny - 1);
     const int gx = min(max(ox + wx, 0), p.nx - 1);
@@ -679,11 +896,15 @@ __device__ __forceinline__ void stage(typename S::Tile& t,
 }
 
 // Write the output tile (by, bx) from the state planes to the block: 16
-// bytes per store where the block's rows are 16-byte aligned.
+// bytes per store where the block's rows are 16-byte aligned.  The
+// cluster form writes tile rows [ty0, ty1), whose window rows its CTA
+// holds from window row `top` on.
 template <class S>
 __device__ __forceinline__ void write_back(const typename S::Tile& t,
                                            const PlanesOf<S>& p, int by,
-                                           int bx) {
+                                           int bx, int ty0 = 0,
+                                           int ty1 = S::G::TY,
+                                           int top = 0) {
   using G = typename S::G;
   using T = typename S::T;
   constexpr int N = S::N, V = 16 / static_cast<int>(sizeof(T));
@@ -693,11 +914,11 @@ __device__ __forceinline__ void write_back(const typename S::Tile& t,
   for (int f = 0; f < N; ++f) vec = vec && staging::aligned16(p.out[f]);
   if (vec) {
     constexpr int CH = G::TX / V;
-    for (int idx = threadIdx.x; idx < G::TY * CH; idx += G::NT) {
-      const int ty = idx / CH, j = idx - ty * CH;
+    for (int idx = threadIdx.x; idx < (ty1 - ty0) * CH; idx += G::NT) {
+      const int ty = ty0 + idx / CH, j = idx - (ty - ty0) * CH;
       const int gy = gy0 + ty, gx = gx0 + j * V;
       if (gy >= p.ny || gx >= p.nx) continue;
-      const int w = (ty + G::R) * G::WX + G::RL + j * V;
+      const int w = (ty + G::R - top) * G::WX + G::RL + j * V;
       const size_t g = static_cast<size_t>(gy) * p.nx + gx;
 #pragma unroll
       for (int f = 0; f < N; ++f) {
@@ -707,11 +928,11 @@ __device__ __forceinline__ void write_back(const typename S::Tile& t,
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < G::TY * G::TX; idx += G::NT) {
-    const int ty = idx / G::TX, tx = idx - ty * G::TX;
+  for (int idx = threadIdx.x; idx < (ty1 - ty0) * G::TX; idx += G::NT) {
+    const int ty = ty0 + idx / G::TX, tx = idx - (ty - ty0) * G::TX;
     const int gy = gy0 + ty, gx = gx0 + tx;
     if (gy >= p.ny || gx >= p.nx) continue;
-    const int w = (ty + G::R) * G::WX + G::RL + tx;
+    const int w = (ty + G::R - top) * G::WX + G::RL + tx;
     const size_t g = static_cast<size_t>(gy) * p.nx + gx;
 #pragma unroll
     for (int f = 0; f < N; ++f) p.out[f][g] = t.s[f][w];
@@ -821,6 +1042,127 @@ cudaError_t launch_scratch(const PlanesOf<S>& p, const typename S::Consts& c,
   if (ctas < 1 || scratch == nullptr) return cudaErrorInvalidValue;
   sweep_kernel_scratch<S><<<ctas, G::NT, 0, stream>>>(
       p, c, static_cast<unsigned char*>(scratch), scratch_stride<S>());
+  return cudaGetLastError();
+}
+
+// The cluster form of sweep_kernel: the CTAs of a cluster hold one
+// window, CTA r its band of rows r * BR ..., and the clusters take the
+// tiles (row-major) in turn.
+template <class S>
+__global__ void __launch_bounds__(S::G::NT)
+sweep_kernel_cluster(PlanesOf<S> p, typename S::Consts c) {
+  using G = typename S::G;
+  static_assert(G::CL > 1, "a ClusterRing");
+  static_assert(!WritesOut<S>::value, "the cluster form writes the tile");
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  typename S::Tile t(sweep_smem);
+  const S step(c);
+  const int ntx = (p.nx + G::TX - 1) / G::TX;
+  const int tiles = ntx * ((p.ny + G::TY - 1) / G::TY);
+  const int clusters = gridDim.x / G::CL;
+#pragma unroll 1
+  for (int tile = blockIdx.x / G::CL; tile < tiles; tile += clusters) {
+    const int by = tile / ntx, bx = tile - by * ntx;
+    // the band's first window row, and its rows
+    const int band0 = cluster_rank() * G::BR;
+    __syncthreads();        // the last tile's write-back has read the band
+    stage<S>(t, p, by * G::TY - G::R + band0, bx * G::TX - G::RL,
+             max(min(band0 + G::BR, G::WY) - band0, 0));
+    cluster_sync();         // every band of the window is staged
+#pragma unroll
+    for (int k = 0; k < S::K; ++k) step.substep(t, k);
+    // the band's first row again, read after the steps so that no
+    // register holds it through them (the chain at 29 levels f64 spills
+    // otherwise), and its tile rows
+    const int top = cluster_rank() * G::BR;
+    write_back<S>(t, p, by, bx, max(top - G::R, 0),
+                  min(top + G::BR - G::R, G::TY), top);
+  }
+  cluster_sync();           // no CTA leaves while a peer may read its band
+}
+
+// The cluster form's launch of `grid` CTAs on `stream` into cfg (its
+// cluster dimension in attr) and, once per device, its kernel's
+// attributes: a band's dynamic shared memory, and clusters past the
+// portable 8.
+template <class S>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           int grid, cudaStream_t stream) {
+  using G = typename S::G;
+  static int attr_device = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (attr_device != dev) {
+    err = cudaFuncSetAttribute(sweep_kernel_cluster<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(S::Tile::bytes));
+    if (err == cudaSuccess && G::CL > 8) {
+      err = cudaFuncSetAttribute(sweep_kernel_cluster<S>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+    }
+    if (err != cudaSuccess) return err;
+    attr_device = dev;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(G::NT);
+  cfg->dynamicSmemBytes = S::Tile::bytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G::CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// The cluster form's clusters for a (ny, nx) block: one per tile, at most
+// those resident at once on the current device (0 where none can be);
+// -1 on a CUDA error.
+template <class S>
+int cluster_count(int ny, int nx) {
+  using G = typename S::G;
+  static int count_device = -1, resident = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (count_device != dev) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    if (cluster_config<S>(&cfg, &attr, G::CL, nullptr) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(
+            &resident, reinterpret_cast<const void*>(sweep_kernel_cluster<S>),
+            &cfg) != cudaSuccess) {
+      return -1;
+    }
+    count_device = dev;
+  }
+  const long long tiles = static_cast<long long>((nx + G::TX - 1) / G::TX) *
+                          ((ny + G::TY - 1) / G::TY);
+  return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
+// Launch the cluster form: cluster_count clusters of G::CL CTAs, each a
+// band's shared memory.  A launch the device refuses (no cluster of
+// that size can be resident) returns its error; nothing else runs.
+template <class S>
+cudaError_t launch_cluster(const PlanesOf<S>& p, const typename S::Consts& c,
+                           cudaStream_t stream) {
+  using G = typename S::G;
+  const int n = cluster_count<S>(p.ny, p.nx);
+  if (n < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorUnknown;
+  }
+  if (n == 0) return cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<S>(&cfg, &attr, n * G::CL, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, sweep_kernel_cluster<S>, p, c);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -5,8 +5,10 @@ The JAX package's nlayer-style chain (tests/test_schedule.py:609-709):
 reverse-cumsum flux), ``vsum`` (a 2D vertical sum), and the broadcast
 pair ``set_all_levels`` (a 2D result for a levels=N slot) and ``relax``
 (per-level shifts), at any level count; ``wrong_levels`` returns two
-planes for any slot.  None carries a CUDA body: on the card the fused
-tier derives them.  ``*_hw`` are the same kernels with hand-written point
+planes for any slot; ``level_ends`` folds the end levels of a read-only
+levels=N field into a 2D one (hand-written: a body that does not grow
+with N) and ``shift`` relaxes a 2D field towards its east neighbour.  No
+other carries a CUDA body: on the card the fused tier derives them.  ``*_hw`` are the same kernels with hand-written point
 bodies through the level accessor (``e(k, dj, di)``, ``e[k] = ...``),
 following the torch bodies operation for operation.
 
@@ -31,6 +33,7 @@ CONT_SPEC = [("GO_READWRITE", "GO_CT"), ("GO_READ", "GO_CU", (0, 110, 0)),
              ("GO_READ", "GO_CV", (0, 10, 10)), ("GO_READ", "GO_CT"),
              ("GO_READ", "GO_R_SCALAR")]
 PAIR_SPEC = [("GO_WRITE", "GO_CT"), ("GO_READ", "GO_CT")]
+ENDS_SPEC = [("GO_READWRITE", "GO_CT"), ("GO_READ", "GO_CT")]
 RELAX_SPEC = [("GO_READWRITE", "GO_CT", (0, 11, 0))]
 DT = 0.05
 
@@ -65,8 +68,16 @@ def set_body(out3, c2):
     return 2.0 * c2
 
 
+def ends_body(out, x):
+    return 0.5 * out + 2.0 * x[0] + x[-1]
+
+
 def relax_body(e):
     return 0.5 * (e + torch.stack([st.xp(e[k]) for k in range(e.shape[0])]))
+
+
+def shift_body(a):
+    return 0.5 * (a + st.xp(a))
 
 
 _MOM_HW = """
@@ -91,6 +102,14 @@ vsum = km.kernel(args=args(km, PAIR_SPEC), name="vsum")(vsum_body)
 set_all_levels = km.kernel(args=args(km, PAIR_SPEC),
                            name="set_all_levels")(set_body)
 relax = km.kernel(args=args(km, RELAX_SPEC), name="relax")(relax_body)
+#: out = out / 2 + 2 x(0) + x(top): the end levels of a read-only
+#: levels=N field folded into a 2D one, hand-written (a window of N + 1
+#: planes, no stencil, a body that does not grow with N)
+level_ends = km.kernel(
+    args=args(km, ENDS_SPEC), name="level_ends",
+    cuda="out = out() * T(0.5) + x(0) * T(2.0) + x(x.levels - 1);")(
+    ends_body)
+shift = km.kernel(args=args(km, RELAX_SPEC), name="shift")(shift_body)
 wrong_levels = km.kernel(args=args(km, PAIR_SPEC), name="wrong_levels")(
     lambda out3, c2: torch.stack([c2, c2]))
 
@@ -134,3 +153,19 @@ def bc_fields(g, levels=3, seed=3):
 
 def bc_calls(e, c, set_=set_all_levels, rel=relax):
     return ((set_, e, c), (rel, e))
+
+
+def ends_fields(g, levels, seed=5):
+    """The 2D field level_ends folds into and a read-only levels field."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((g.global_ny, g.global_nx))
+    x = rng.standard_normal((levels, g.global_ny, g.global_nx))
+    return (Field(g, T_POINTS, init_global_data=a),
+            Field(g, T_POINTS, init_global_data=x, levels=levels))
+
+
+def ends_calls(out, x):
+    """level_ends then shift on its result: a pass that writes the 2D
+    field, a barrier, a pass that reads it one cell east (ring 1); each
+    step folds into the last."""
+    return ((level_ends, out, x), (shift, out))

@@ -20,11 +20,16 @@ Python floats), so new forcing or another ``run(n)`` reuses the library.
 The tile and its window follow the skeleton's tile rule
 (:func:`.stencil_sweep.tile`) for the planes a sweep stages.  A window
 that does not fit a CTA's shared memory even on 8-cell tiles (a chain of
-many levels) takes the skeleton's scratch form instead: the same
-generated body on a window in a per-CTA slice of a device buffer, CTAs
-that take the tiles in turn, the tile of
-:func:`.stencil_sweep.scratch_tile` (:func:`window_tile` says which form a
-window takes, and :attr:`GeneratedSweep.form` which one a sweep took).
+many levels) takes the skeleton's cluster form instead: the same
+generated body on a window split by rows over the CTAs of a thread-block
+cluster, each CTA's band in its own shared memory, rows of another band
+read from its CTA's (the tile of :func:`.stencil_sweep.cluster_tile`; the
+passes' barriers are cluster barriers).  Only a window past the largest
+cluster takes the scratch form: the window in a per-CTA slice of a
+device buffer, CTAs that take the tiles in turn, the tile of
+:func:`.stencil_sweep.scratch_tile`.  The form follows from the window's
+size alone (:func:`window_tile` says which form a window takes, and
+:attr:`GeneratedSweep.form` which one a sweep took).
 
 Inside the kernel the calls run by a :class:`Plan` that :func:`plan`
 works out from the schedule's dataflow (the bindings and stencil depths
@@ -79,7 +84,8 @@ from dataclasses import dataclass
 import torch
 
 from . import point_trace
-from .stencil_sweep import RING, Shape, scratch_tile, tile
+from .stencil_sweep import (RING, Shape, band_rows, cluster_tile,
+                            scratch_tile, tile)
 
 _CTYPES = {torch.float32: "float", torch.float64: "double"}
 
@@ -91,6 +97,9 @@ _CTYPES = {torch.float32: "float", torch.float64: "double"}
 #: threads were no faster; PERF.md §6, row 10)
 SCRATCH_THREADS = 256
 SCRATCH_BYTES = 1 << 30
+#: the cluster form's threads a CTA (one CTA an SM; a band of the
+#: window has at most a few hundred points; 512 were slower, PERF.md §6)
+CLUSTER_THREADS = 256
 _RESERVED = {"T", "sweep", "int32_t", "int8_t", "size_t"}
 
 
@@ -239,8 +248,10 @@ class GeneratedSweep:
     smem_bytes: int       # dynamic shared memory per CTA (0: scratch)
     tile: Shape           # the skeleton's tile and window
     plan: Plan            # passes, barriers and regions of each repeat
-    form: str = "shared"  # the window in "shared" memory or in "scratch"
-    window_bytes: int = 0  # the window of one CTA, in either form
+    form: str = "shared"  # the window in one CTA's "shared" memory, in a
+    #                       "cluster"'s, or in a device buffer ("scratch")
+    window_bytes: int = 0  # the whole window, in any form
+    cluster: int = 1      # CTAs that hold one window (0: scratch form)
 
     @property
     def n_consts(self) -> int:
@@ -266,19 +277,23 @@ def _check_name(kname: str, pname: str) -> None:
 
 
 def window_tile(n_float: int, n_int: int, n_codes: int, ring: int,
-                dtype) -> tuple[Shape, int]:
-    """``(shape, bytes)``: the skeleton's tile (:func:`.stencil_sweep.tile`)
-    for a window of ``n_float`` planes of ``dtype``, ``n_int`` int32
-    planes and ``n_codes`` int8 code planes with ``ring`` cells on every
-    side, and the window's bytes.  Where even the smallest tile's window
-    does not fit a CTA's shared memory, the scratch form's tile
-    (:func:`.stencil_sweep.scratch_tile`, ``ctas`` 0) and its window's
-    bytes, which lie in global memory."""
+                dtype) -> tuple[Shape, int, int]:
+    """``(shape, bytes, cluster)``: the skeleton's tile
+    (:func:`.stencil_sweep.tile`) for a window of ``n_float`` planes of
+    ``dtype``, ``n_int`` int32 planes and ``n_codes`` int8 code planes
+    with ``ring`` cells on every side, the window's bytes, and the CTAs
+    that hold it: 1, the shared form.  Where even the smallest tile's
+    window does not fit a CTA's shared memory, the cluster form's tile
+    (:func:`.stencil_sweep.cluster_tile`, ``ctas`` 0) and its cluster's
+    CTAs (4-16);
+    past the largest cluster, the scratch form's tile
+    (:func:`.stencil_sweep.scratch_tile`, ``ctas`` 0) and 0, its window
+    in global memory."""
     bpp = n_float * dtype.itemsize + 4 * n_int + n_codes
-    shape = tile(ring, bpp)
+    shape, cluster = tile(ring, bpp), 1
     if shape is None:
-        shape = scratch_tile(ring)
-    return shape, shape.window_bytes(ring, bpp)
+        shape, cluster = cluster_tile(ring, bpp) or (scratch_tile(ring), 0)
+    return shape, shape.window_bytes(ring, bpp), cluster
 
 
 def _specs(s, levels, consts, dtype):
@@ -345,11 +360,15 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 f"grid-property plane of dtype {c.dtype} in a {dtype} "
                 "schedule sweep (it takes the fields' dtype and int32)")
     n_codes = -(-n_masks // 8)
-    shape, window = window_tile(n_state + n_aux, n_int, n_codes, ring, dtype)
-    scratch = shape.ctas == 0
-    reach = max(-(-ring // K), 1)
-
     pl = plan(steps, K=K, ring=ring, state_slots=state_slots)
+    shape, window, cluster = window_tile(n_state + n_aux, n_int, n_codes,
+                                         ring, dtype)
+    form = {0: "scratch", 1: "shared"}.get(cluster, "cluster")
+    scratch, band = form == "scratch", form == "cluster"
+    # dynamic shared memory a CTA: the window, the rows of a band, or none
+    smem = (window // (shape.ty + 2 * ring) * band_rows(shape, ring, cluster)
+            if band else 0 if scratch else window)
+    reach = max(-(-ring // K), 1)
     # the scalars each call reads: a pass loads them into registers once,
     # so that what a body folds from them alone leaves its point loop
     scalars_used = [set() for _ in steps]
@@ -386,17 +405,32 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 si, mi = next(wit)
                 written_names.setdefault(si, []).append((pname, mi))
                 written_args.append((pname, nlev, dtype))
-                if nlev:
+                if nlev and band:
+                    olds = ", ".join(f"{p}[sw_i]" for p in ptrs)
+                    lines.append(f"sweep::BandLevPut<{vt}, G, {nlev}> "
+                                 f"{pname}{{{{{ptrs[0]} + sw_i, sw_y}}, "
+                                 f"{{{olds}}}}};")
+                elif nlev:
                     olds = ", ".join(f"{p}[sw_i]" for p in ptrs)
                     lines.append(f"sweep::LevPut<{vt}, G::WX, G::WC, {nlev}> "
                                  f"{pname}{{{{{ptrs[0]} + sw_i}}, "
                                  f"{{{olds}}}}};")
+                elif band:
+                    lines.append(f"sweep::BandPut<{vt}, G> {pname}{{{{"
+                                 f"{ptrs[0]} + sw_i, sw_y}}, "
+                                 f"{ptrs[0]}[sw_i]}};")
                 else:
                     lines.append(f"sweep::Put<{vt}, G::WX> {pname}{{{{"
                                  f"{ptrs[0]} + sw_i}}, {ptrs[0]}[sw_i]}};")
+            elif nlev and band:
+                lines.append(f"const sweep::BandLev<{vt}, G, {nlev}> "
+                             f"{pname}{{{ptrs[0]} + sw_i, sw_y}};")
             elif nlev:
                 lines.append(f"const sweep::Lev<{vt}, G::WX, G::WC, {nlev}> "
                              f"{pname}{{{ptrs[0]} + sw_i}};")
+            elif band:
+                lines.append(f"const sweep::BandAt<{vt}, G> {pname}"
+                             f"{{{ptrs[0]} + sw_i, sw_y}};")
             else:
                 lines.append(f"const sweep::At<{vt}, G::WX> {pname}"
                              f"{{{ptrs[0]} + sw_i}};")
@@ -434,13 +468,15 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
         return [f"{indent}const int sw_cd{c} = sw_t.code[{c} * G::WC + "
                 f"sw_i];" for c in planes]
 
+    # the cluster form's barriers order what the cluster's CTAs read
+    sync = "sweep::cluster_sync();" if band else "__syncthreads();"
     body = []
     for pi, (cs, bar) in enumerate(zip(pl.passes, pl.barrier_before)):
         staged = not pl.in_place[cs[0]]
         body.append(f"    // pass {pi}: calls {list(cs)}, "
                     + ("staged" if staged else "in place"))
         if bar:
-            body.append("    __syncthreads();")
+            body.append(f"    {sync}")
         body.append("    {")
         body.extend(f"      const double sw_s{i} = sw_sc[{i}];"
                     for i in sorted(set().union(
@@ -456,7 +492,8 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
             body.append(f"      {T}* const sw_dst[{len(dst)}] = "
                         f"{{{', '.join(dst)}}};")
             body.append(f"      sweep::staged_points<G, {T}, {len(dst)}>("
-                        f"sw_b{cs[0]}, sw_dst, [&](int sw_i, int, int, "
+                        f"sw_b{cs[0]}, sw_dst, [&](int sw_i, "
+                        f"{'int sw_y' if band else 'int'}, int, "
                         f"{T} (&sw_o)[{len(dst)}]) {{")
             body.extend(code_loads(codes, "        "))
             body.extend("        " + ln for ln in lines)
@@ -479,22 +516,31 @@ def generate(steps, *, state_slots, extra_slots, ro_slots, consts,
                 body.append("        }")
             body.append("      });")
         body.append("    }")
-    body.append("    __syncthreads();")
+    body.append(f"    {sync}")
     margins = ",\n        ".join(
         "{" + ", ".join(str(-1 if m is None else m) for m in row) + "}"
         for row in pl.margins)
     nsc = max(n_scalars, 1)
     summary = ", ".join(c[0] for c in calls)
     in_place = ", ".join(str(c) for c, f in enumerate(pl.in_place) if f)
-    # the scratch form: the window in a slice of a device buffer per CTA,
-    # a persistent grid (the shared form's source is as it was before)
-    ring_type = "ScratchRing" if scratch else "Ring"
-    nt = f", {SCRATCH_THREADS}" if scratch else ""
-    form_note = (f"// The window ({window} B per CTA) exceeds shared memory: "
-                 "the scratch form,\n// in a device buffer of "
-                 "schedule_sweep_scratch_stride() B per CTA.\n"
-                 if scratch else "")
-    scratch_entries = ("""
+    # the cluster form: the window's rows over a cluster's CTAs, a
+    # persistent grid of clusters; the scratch form: the window in a slice
+    # of a device buffer per CTA, a persistent grid (the shared form's
+    # source is as it was before either)
+    ring_type = {"scratch": "ScratchRing", "cluster": "ClusterRing"}.get(
+        form, "Ring")
+    nt = {"scratch": f", {SCRATCH_THREADS}",
+          "cluster": f", {CLUSTER_THREADS}"}.get(form, "")
+    form_note = {
+        "scratch": (f"// The window ({window} B per CTA) exceeds shared "
+                    "memory: the scratch form,\n// in a device buffer of "
+                    "schedule_sweep_scratch_stride() B per CTA.\n"),
+        "cluster": (f"// The window ({window} B) exceeds a CTA's shared "
+                    "memory: the cluster form, its\n// rows split over the "
+                    f"{cluster} CTAs of a thread-block cluster ({smem} B "
+                    "each).\n")
+    }.get(form, "")
+    form_entries = {"scratch": """
 // Bytes of one CTA's slice of the scratch buffer, and the CTAs a (ny, nx)
 // block launches with their windows in `cap` bytes (-1 on a CUDA error).
 size_t schedule_sweep_scratch_stride() {
@@ -503,13 +549,21 @@ size_t schedule_sweep_scratch_stride() {
 int schedule_sweep_ctas(int ny, int nx, long long cap) {
   return sweep::scratch_ctas<Step>(ny, nx, cap);
 }
-""" if scratch else "")
+""", "cluster": """
+// The clusters a (ny, nx) block launches: one per tile, at most those
+// resident at once (0: none can be; -1 on a CUDA error).
+int schedule_sweep_clusters(int ny, int nx) {
+  return sweep::cluster_count<Step>(ny, nx);
+}
+"""}.get(form, "")
     scratch_params = ("void* scratch, int ctas,\n                          "
                       if scratch else "")
-    launch_call = ("sweep::launch_scratch<Step>(\n          p, c, scratch, "
-                   "ctas, static_cast<cudaStream_t>(stream))" if scratch
-                   else "sweep::launch<Step>(p, c, static_cast<cudaStream_t>"
-                   "(stream))")
+    launch_call = {
+        "scratch": ("sweep::launch_scratch<Step>(\n          p, c, scratch, "
+                    "ctas, static_cast<cudaStream_t>(stream))"),
+        "cluster": ("sweep::launch_cluster<Step>(\n          p, c, "
+                    "static_cast<cudaStream_t>(stream))")}.get(
+        form, "sweep::launch<Step>(p, c, static_cast<cudaStream_t>(stream))")
     text = f"""\
 // Generated by dl_esm_inf_tpu_torch/ops/schedule_sweep.py from a kernel
 // schedule; do not edit.  The fused schedule sweep of:
@@ -562,7 +616,7 @@ extern "C" {{
 // Number of doubles schedule_sweep_launch expects in `consts`: K rows of
 // the schedule's scalars.
 int schedule_sweep_num_consts() {{ return sweep::num_consts<Consts>(); }}
-{scratch_entries}
+{form_entries}
 // in/out: N state planes; aux: M float planes; auxi: the int32 planes;
 // code: the mask-code planes, one after another; all contiguous (ny, nx)
 // device arrays.  Launches on `stream` and returns cudaGetLastError().
@@ -601,8 +655,8 @@ int schedule_sweep_launch(const void* const* in, void* const* out,
         name=f"schedule_sweep_{digest}", text=text, dtype=dtype, K=K,
         ring=ring, n_state=n_state, n_aux=n_aux, n_int=n_int,
         n_codes=n_codes, n_scalars=n_scalars,
-        smem_bytes=0 if scratch else window, tile=shape, plan=pl,
-        form="scratch" if scratch else "shared", window_bytes=window)
+        smem_bytes=smem, tile=shape, plan=pl, form=form,
+        window_bytes=window, cluster=cluster)
 
 
 class ScheduleSweepKernel:
@@ -611,9 +665,10 @@ class ScheduleSweepKernel:
     ``launches`` counts the launches of every generated sweep made
     through this wrapper (and nothing else); callers may reset it.
     ``generated`` holds every source built, by name.  A sweep of the
-    scratch form runs on one buffer per device, grown on demand and kept
-    (the wrapper's sweeps on one device run one after another on the
-    current stream)."""
+    cluster form launches the clusters its library asks for, and raises
+    where the device refuses them.  A sweep of the scratch form runs on
+    one buffer per device, grown on demand and kept (the wrapper's sweeps
+    on one device run one after another on the current stream)."""
 
     def __init__(self):
         self.launches = 0
@@ -636,6 +691,10 @@ class ScheduleSweepKernel:
                              if gen.form == "scratch" else ()),
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            if gen.form == "cluster":
+                built.lib.schedule_sweep_clusters.argtypes = [
+                    ctypes.c_int, ctypes.c_int]
+                built.lib.schedule_sweep_clusters.restype = ctypes.c_int
             if gen.form == "scratch":
                 built.lib.schedule_sweep_scratch_stride.restype = \
                     ctypes.c_size_t

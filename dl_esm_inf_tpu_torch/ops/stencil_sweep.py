@@ -51,6 +51,10 @@ SQUARES = (32, 16, 8)
 MARCH_LANES = 31
 #: the scratch form's window columns (kScratchWX)
 SCRATCH_WX = 32
+#: the cluster form's cluster sizes, smallest first (kClusters; none of 2
+#: CTAs: a window two CTAs hold within MAX_OVERHEAD, one CTA holds on an
+#: 8-cell square)
+CLUSTERS = (4, 8, 16)
 
 
 class Shape(NamedTuple):
@@ -147,6 +151,46 @@ def scratch_tile(ring: int) -> Shape:
     rl = -(-ring // 4) * 4
     return Shape(TILE_Y_MIN, (SCRATCH_WX - rl - ring) // 4 * 4, rl,
                  SCRATCH_WX, 0)
+
+
+def cluster_tile(ring: int, bpp: int,
+                 ty_max: int = TILE_Y_MAX) -> tuple[Shape, int] | None:
+    """``(shape, cluster)``: the cluster form's tile (the header's
+    ``cluster_shape``) for a window of ``bpp`` bytes per point and
+    ``ring``, split by rows over the ``cluster`` CTAs of a thread-block
+    cluster, one CTA an SM, each holding :func:`band_rows` of its rows;
+    ``ctas`` 0, as its CTA count is set at launch.  None
+    where no cluster holds a window of TILE_Y_MIN tile rows.
+
+    For each of CLUSTERS, smallest first: each width of WINDOW_X gets the
+    tallest tile (a multiple of 4 from TILE_Y_MIN to ``ty_max``) whose
+    window rows the cluster's CTAs hold, and the least ring overhead wins
+    (the first of equal ones); it is taken if its overhead is at most
+    MAX_OVERHEAD or at the largest cluster."""
+    rl = -(-ring // 4) * 4
+    budget = SMEM_PER_SM - SMEM_RESERVE
+    for c in CLUSTERS:
+        best = None
+        for w in WINDOW_X:
+            tx = (w - rl - ring) // 4 * 4
+            rows = c * (budget // (w * bpp))
+            ty = ty_max
+            while ty >= TILE_Y_MIN and ty + 2 * ring > rows:
+                ty -= 4
+            if tx >= 8 and ty >= TILE_Y_MIN:
+                s = Shape(ty, tx, rl, w, 0)
+                if best is None or _overhead(s, ring) < _overhead(best, ring):
+                    best = s
+        if best is not None and (c == CLUSTERS[-1] or _overhead(best, ring)
+                                 <= MAX_OVERHEAD):
+            return best, c
+    return None
+
+
+def band_rows(shape: Shape, ring: int, cluster: int) -> int:
+    """The window rows one CTA of the cluster form holds (the header's
+    ``ClusterGeom::BR``)."""
+    return -(-(shape.ty + 2 * ring) // cluster)
 
 
 def reciprocal(x: float, dtype) -> float:

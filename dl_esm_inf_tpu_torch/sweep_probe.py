@@ -3,6 +3,7 @@
 
     python dl_esm_inf_tpu_torch/sweep_probe.py [--root DIR] [--n 1024]
         [--ranks] [--skeleton] [--nlayer-run] [--exchange] [--scratch]
+        [--no-flagship]
 
 Run as a file, it imports the port from the checkout at ``--root``
 (default: this file's checkout), so one command can time two trees in
@@ -48,11 +49,14 @@ of 20 calls (best of 5 replays) beside one wrapper call's time, the
 ``aten::index`` gather of ``exchange_index`` and a ``torch.clone`` of
 the block beside them, and each form's byte bound.
 
-``--scratch`` prints one more line: the generated schedule sweep's
-scratch form (:func:`probe_scratch`) on ``chip_smoke.py``'s case, the
-levels=N chain past the shared-memory budget at float64 on 2x2 tiles,
-one light sweep as a CUDA graph at each thread count a CTA and each cap
-on the bytes its CTAs' windows may take, beside the launch's CTAs.
+``--scratch`` prints one more line: the generated schedule sweep past
+one CTA's shared memory (:func:`probe_scratch`), the levels=N chain at
+float64 on 2x2 tiles at ``chip_smoke.py``'s fewest levels past one CTA
+and at 75 levels, one light sweep as a CUDA graph beside its byte bound,
+the form that checkout gives it (the cluster form; the scratch form
+before it existed), its CTAs and its libraries' registers and spills;
+one level fewer (the shared form); and the cluster form's settings.
+``--no-flagship`` skips the first line (the flagship's timings).
 
 ``--ranks`` also runs ``chip_smoke.phase_ranks()`` of that checkout (the
 rdma exchange and the fused transport across 2 and 4 ranks) and prints
@@ -526,49 +530,85 @@ def _nlayer_spacing_max_abs(cs, n: int) -> float:
     return cs._internal_max_abs(g, ker, ref)
 
 
-#: the scratch form's settings --scratch times: threads a CTA, and MiB
-#: its CTAs' windows may take (16-64: a share of the 50 MB L2; 0: every
-#: resident CTA)
-SCRATCH_THREADS = (256, 512)
-SCRATCH_CAPS_MIB = (16, 32, 48, 64, 0)
+#: what --scratch times: the levels chain past one CTA at float64 on 2x2
+#: tiles, at the fewest levels past one CTA (chip_smoke.scratch_levels())
+#: and at NEMO's 75; one level fewer as the shared form's record; and, in
+#: a checkout with the cluster form, its threads a CTA at the fewest levels
+SCRATCH_NEMO_LEVELS = 75
+CLUSTER_THREADS = (256, 512)
+
+
+def _chain_light(cs, L: int, n: int):
+    """(one light sweep of the chain at L levels, float64, 2x2 tiles at
+    n^2, its generated sweep, the bytes it must move)."""
+    import torch
+    cs.MAIN_SIZE = n
+    sched, _ = cs._level_main(L, torch.float64, (2, 2))
+    rows = [tuple(float(v) for v in sched._user_scalar_vector(None))]
+    sweep, st_slots, x_slots = sched._fused_prog(4, 1)[3]["light"]
+    ro_slots = sched._fused_prog(4, 1)[2]
+
+    def planes(idx):
+        return tuple(p for i in idx for p in (
+            (sched._slots[i].data,) if sched._slots[i].data.dim() == 2
+            else sched._slots[i].data.unbind(0)))
+    state, ros, extra = planes(st_slots), planes(ro_slots), planes(x_slots)
+    nbytes = sum(2 * t.numel() * t.element_size() for t in state) + sum(
+        t.numel() * t.element_size()
+        for t in (*ros, *extra, torch.stack(sched._fused_masks())))
+    return (lambda: sweep(state, ros, extra, rows)), sweep.generated, nbytes
 
 
 def probe_scratch(n: int) -> dict:
-    """One light sweep of the levels chain in the scratch form
-    (``chip_smoke.scratch_levels()`` levels, float64, 2x2 tiles at
-    ``n``^2) at each of SCRATCH_THREADS and SCRATCH_CAPS_MIB: µs on the
-    card (a CUDA graph of 3 launches, best of 5 replays), the CTAs it
-    launched, and whether its result equals the first setting's bitwise
-    on every cell."""
+    """The levels chain past one CTA's shared memory (float64, 2x2 tiles
+    at ``n``^2) in the form the checkout gives it (the scratch form
+    before the cluster form existed): one light sweep as a CUDA graph of
+    3 launches (best of 5 replays), at ``chip_smoke.scratch_levels()``
+    levels and at SCRATCH_NEMO_LEVELS, beside its byte bound (inputs read
+    once, outputs written once, at 3.35 TB/s), its form, cluster and
+    CTAs; at one level fewer, the shared form (one CTA an SM).  In a
+    checkout with the cluster form, also each of CLUSTER_THREADS at the
+    fewest levels, with whether its result equals the default's bitwise
+    on every cell.  Each generated library's registers and spilled bytes
+    from its build log."""
     import torch
     import chip_smoke as cs
     from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
     L = cs.scratch_levels()
-    saved = ss.SCRATCH_THREADS, ss.SCRATCH_BYTES
-    out, ref = {"scratch_levels": L}, None
+    cluster = hasattr(ss, "CLUSTER_THREADS")
+    saved = getattr(ss, "CLUSTER_THREADS", None)
+    cases = [(L - 1, None), (L, None), (SCRATCH_NEMO_LEVELS, None)]
+    if cluster:
+        cases += [(L, nt) for nt in CLUSTER_THREADS if nt != saved]
+    out, ref = {"scratch_levels": L}, {}
     try:
-        for nt in SCRATCH_THREADS:
-            ss.SCRATCH_THREADS = nt
-            sched, _ = cs._level_main(L, torch.float64, (2, 2))
-            rows = [tuple(float(v)
-                          for v in sched._user_scalar_vector(None))]
-            fn = _light_sweep(sched, rows)
-            gen = sched._fused_prog(4, 1)[3]["light"][0].generated
+        for lv, nt in cases:
+            if nt is not None:
+                ss.CLUSTER_THREADS = nt
+            key = f"L{lv}" + ("" if nt is None else f"_nt{nt}")
+            fn, gen, nbytes = _chain_light(cs, lv, n)
+            got = fn()
+            ref.setdefault(lv, got)
+            out[key + "_us"] = _graph_ms(fn, 3) * 1e3
+            out[key + "_bound_us"] = nbytes / 3.35e12 * 1e6
+            out[key + "_form"] = gen.form
+            out[key + "_cluster"] = getattr(gen, "cluster", None)
+            out[key + "_tile"] = list(gen.tile)
+            out[key + "_equal"] = all(torch.equal(a, b)
+                                      for a, b in zip(got, ref[lv]))
             lib = ss.schedule_sweep.build(gen).lib
-            for mib in SCRATCH_CAPS_MIB:
-                ss.SCRATCH_BYTES = (mib << 20) if mib else 1 << 62
-                got = fn()
-                ref = got if ref is None else ref
-                ly, lx = got[0].shape
-                key = f"scratch_nt{nt}_cap{mib}"
-                out[key + "_ctas"] = lib.schedule_sweep_ctas(
-                    ly, lx, ss.SCRATCH_BYTES)
-                out[key + "_equal"] = all(torch.equal(a, b)
-                                          for a, b in zip(got, ref))
-                out[key + "_us"] = _graph_ms(fn, 3) * 1e3
-            out[f"scratch_nt{nt}_regs"] = _build_report((gen.name,))
+            ly, lx = got[0].shape
+            out[key + "_ctas"] = (
+                lib.schedule_sweep_clusters(ly, lx) * gen.cluster
+                if gen.form == "cluster" else lib.schedule_sweep_ctas(
+                    ly, lx, ss.SCRATCH_BYTES) if gen.form == "scratch"
+                else None)
+            out[key + "_build"] = _build_report((gen.name,))
+            del fn, got
+            torch.cuda.empty_cache()
     finally:
-        ss.SCRATCH_THREADS, ss.SCRATCH_BYTES = saved
+        if cluster:
+            ss.CLUSTER_THREADS = saved
     return out
 
 
@@ -601,8 +641,11 @@ def main(argv=None) -> None:
     ap.add_argument("--exchange", action="store_true",
                     help="also time the standalone exchange's two forms")
     ap.add_argument("--scratch", action="store_true",
-                    help="also time the schedule sweep's scratch form at "
-                    "its settings")
+                    help="also time the schedule sweep past one CTA's "
+                    "shared memory (the cluster form, or the scratch form "
+                    "before it)")
+    ap.add_argument("--no-flagship", action="store_true",
+                    help="skip the flagship timings of the first line")
     ap.add_argument("--ranks", action="store_true",
                     help="also run that checkout's chip_smoke.phase_ranks()")
     args = ap.parse_args(argv)
@@ -615,7 +658,8 @@ def main(argv=None) -> None:
     if not Path(port.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"the port was imported from {port.__file__}, not "
                          f"from {root}: run this file as a script")
-    print(json.dumps({"root": root, **probe(args.n)}), flush=True)
+    if not args.no_flagship:
+        print(json.dumps({"root": root, **probe(args.n)}), flush=True)
     if args.skeleton:
         print(json.dumps({"root": root, **probe_skeleton(args.n)}),
               flush=True)

@@ -551,9 +551,10 @@ def _level_grid(device, dtype, ndom):
 @pytest.mark.parametrize("ndom", [1, 4])
 def test_schedule_sweep_scratch_form(cuda_device, ndom):
     """The levels chain at 29 levels, float64 (a window past a CTA's
-    shared memory even on 8-cell tiles): both sweeps take the scratch
-    form and equal the plain fused tier bitwise but for the level sum,
-    with one launch a step; 28 levels keep the shared form."""
+    shared memory even on 8-cell tiles, which took the scratch form
+    before the cluster form existed): both sweeps take the cluster form
+    (4 CTAs a cluster) and equal the plain fused tier bitwise but for the
+    level sum, with one launch a step; 28 levels keep the shared form."""
     from dl_esm_inf_tpu_torch import level_schedules as sc
     from dl_esm_inf_tpu_torch.api import kernel_meta as km
     from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
@@ -567,9 +568,9 @@ def test_schedule_sweep_scratch_form(cuda_device, ndom):
         assert ss.schedule_sweep.launches - before == (
             3 if kind == "kernel" else 0)
         if kind == "kernel":
-            forms = {v[0].generated.form
-                     for v in sched._fused_prog(3, 1)[3].values()}
-            assert forms == {"scratch"}
+            gens = [v[0].generated
+                    for v in sched._fused_prog(3, 1)[3].values()]
+            assert {(g.form, g.cluster) for g in gens} == {("cluster", 4)}
         out[kind] = [x.gather_inner_data() for x in f]
     for i, (k, p) in enumerate(zip(out["kernel"], out["plain"])):
         if i < 4:
@@ -581,6 +582,44 @@ def test_schedule_sweep_scratch_form(cuda_device, ndom):
     sched = km.Schedule(*sc.ml_calls(*f))
     assert {v[0].generated.form for v in sched._fused_prog(
         3, 1)[3].values()} == {"shared"}
+
+
+@pytest.mark.gpu
+def test_schedule_sweep_scratch_form_past_the_largest_cluster(cuda_device):
+    """A window no cluster holds (level_ends and shift at the fewest levels
+    past the largest cluster, float64, one 128^2 tile: a pass, a barrier
+    and a staged pass that reads one cell east, ring 1) takes the
+    global-memory scratch form, and equals the plain fused tier bitwise
+    after 3 steps of one launch each."""
+    from dl_esm_inf_tpu_torch import level_schedules as sc
+    from dl_esm_inf_tpu_torch.api import kernel_meta as km
+    from dl_esm_inf_tpu_torch.ops import schedule_sweep as ss
+    L = 1
+    while ss.window_tile(L + 1, 0, 1, 1, torch.float64)[2]:
+        L += 1
+    out = {}
+    for kind in ("kernel", "plain"):
+        g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
+                                     tdl.BC_NONE), tdl.OFFSET_NE,
+                     dtype=torch.float64, device=cuda_device)
+        g.decompose(128, 128, ndomains=1, halo_width=4)
+        tdl.grid_init(g, 1.0, 1.0)
+        f = sc.ends_fields(g, L)
+        sched = km.Schedule(*sc.ends_calls(*f))
+        assert sched.fused_erosion(1) == 1
+        before = ss.schedule_sweep.launches
+        sched.fused_program(3, plain=kind == "plain")()
+        torch.cuda.synchronize()
+        assert ss.schedule_sweep.launches - before == (
+            3 if kind == "kernel" else 0)
+        if kind == "kernel":
+            gens = [v[0].generated
+                    for v in sched._fused_prog(3, 1)[3].values()]
+            assert {gen.form for gen in gens} == {"scratch"}
+            assert all(sum(gen.plan.barrier_before) for gen in gens)
+        out[kind] = [x.gather_inner_data() for x in f]
+    for k, p in zip(out["kernel"], out["plain"]):
+        np.testing.assert_array_equal(k, p)
 
 
 @pytest.mark.gpu

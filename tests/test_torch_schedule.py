@@ -844,45 +844,76 @@ def test_generator_emits_derived_and_level_sources():
 def test_tile_edge_follows_shared_memory():
     # 45 B per point (10 float32, 1 int32, 1 code plane), ring 4: a
     # 32-column window, 3 CTAs per SM
-    shape, nbytes = tss.window_tile(10, 1, 1, 4, torch.float32)
+    shape, nbytes, cluster = tss.window_tile(10, 1, 1, 4, torch.float32)
     assert shape == (40, 24, 4, 32, 3) and nbytes == 48 * 32 * 45
+    assert cluster == 1
     # 33 float64 planes: one CTA per SM, a 32-column window
     assert tss.window_tile(33, 0, 1, 4, torch.float64)[0] == (16, 24, 4,
                                                               32, 1)
     assert tss.window_tile(33, 0, 1, 8, torch.float64)[0] == (8, 16, 8,
                                                               32, 1)
     # 120 float64 planes at ring 8 exceed shared memory even on 8-cell
-    # tiles: the scratch form's tile (ctas 0), its window in global memory
-    shape, nbytes = tss.window_tile(120, 0, 1, 8, torch.float64)
-    assert shape == tsst.scratch_tile(8) == (8, 16, 8, 32, 0)
-    assert nbytes == 24 * 32 * (120 * 8 + 1)
-    # the chain whose window that is, generated in the scratch form: no
-    # shared-memory window and a persistent launch on a scratch buffer
+    # tiles: the cluster form's tile (ctas 0), its window's rows over 16
+    # CTAs of a cluster (8-CTA clusters' windows overhead > 2.5)
+    shape, nbytes, cluster = tss.window_tile(120, 0, 1, 8, torch.float64)
+    assert (shape, cluster) == tsst.cluster_tile(8, 120 * 8 + 1) \
+        == ((32, 48, 8, 64, 0), 16)
+    assert nbytes == 48 * 64 * (120 * 8 + 1)
+    # past the largest cluster: the scratch form's tile, its window in
+    # global memory
+    shape, nbytes, cluster = tss.window_tile(480, 0, 1, 8, torch.float64)
+    assert (shape, cluster) == (tsst.scratch_tile(8), 0)
+    assert shape == (8, 16, 8, 32, 0) and nbytes == 24 * 32 * (480 * 8 + 1)
+    # the chain whose window first exceeds one CTA, generated in the
+    # cluster form: a band of the window's rows in each CTA's shared
+    # memory and a persistent launch of clusters
     L = _scratch_levels(4, torch.float64)
     g = tdl.Grid(tdl.ARAKAWA_C, (tdl.BC_EXTERNAL, tdl.BC_EXTERNAL,
                                  tdl.BC_NONE), tdl.OFFSET_NE,
                  dtype=torch.float64, **CPU)
     g.decompose(32, 32, ndomains=4, halo_width=4)
     tdl.grid_init(g, 1.0, 1.0)
-    for levels, form in ((L - 1, "shared"), (L, "scratch")):
+    for levels, form in ((L - 1, "shared"), (L, "cluster")):
         sched = tkm.Schedule(*_ml_calls(1, *_ml_fields(g, levels)))
         for gen in _generated(sched, nsteps=2)[:2]:
             assert gen.form == form, (levels, gen.tile)
             assert "extern __shared__" not in gen.text
-            if form == "scratch":
-                assert gen.tile == tsst.scratch_tile(4) and gen.smem_bytes == 0
-                assert gen.window_bytes == 16 * 32 * (
-                    (gen.n_state + gen.n_aux) * 8 + gen.n_codes)
-                assert "sweep::ScratchRing<K, 4, 4, 256>" in gen.text
-                assert "sweep::launch_scratch<Step>" in gen.text
+            if form == "cluster":
+                bpp = (gen.n_state + gen.n_aux) * 8 + gen.n_codes
+                assert gen.tile == (20, 24, 4, 32, 0) and gen.cluster == 4
+                assert gen.window_bytes == 28 * 32 * bpp
+                assert gen.smem_bytes == 7 * 32 * bpp <= 232448
+                assert "sweep::ClusterRing<K, 4, 4, " in gen.text
+                assert "sweep::launch_cluster<Step>" in gen.text
+                assert "scratch" not in gen.text
             else:
                 assert "sweep::Ring<K, 4, 4>" in gen.text
                 assert "scratch" not in gen.text
+    # a window past the largest cluster (level_ends and shift, L + 1
+    # float planes at ring 1), generated in the scratch form: no
+    # shared-memory window and a persistent launch on a scratch buffer,
+    # a CTA barrier at each of the plan's barriers
+    L = 1
+    while tss.window_tile(L + 1, 0, 1, 1, torch.float64)[2]:
+        L += 1
+    sched = tkm.Schedule(*sc.ends_calls(*sc.ends_fields(g, L)))
+    [gen] = _generated(sched, nsteps=2)
+    assert gen.form == "scratch" and gen.cluster == 0 and gen.ring == 1
+    assert gen.tile == tsst.scratch_tile(1) and gen.smem_bytes == 0
+    bpp = (gen.n_state + gen.n_aux) * 8 + gen.n_codes
+    assert gen.window_bytes == 10 * 32 * bpp
+    assert tsst.cluster_tile(1, bpp) is None
+    assert "sweep::ScratchRing<K, 1, 1, 256>" in gen.text
+    assert "sweep::launch_scratch<Step>" in gen.text
+    assert "schedule_sweep_scratch_stride()" in gen.text
+    assert "extern __shared__" not in gen.text and "cluster" not in gen.text
+    assert sum(gen.plan.barrier_before) == 1
+    assert gen.text.count("__syncthreads();") == 2
 
 
 def _scratch_levels(ring, dtype):
     """The fewest levels whose chain (4L + 1 float planes, one code plane)
-    takes the scratch form at ``ring``."""
+    does not fit one CTA at ``ring``: it takes the cluster form."""
     L = 1
     while tss.window_tile(4 * L + 1, 0, 1, ring, dtype)[0].ctas:
         L += 1

@@ -141,7 +141,8 @@ CASES.update({f"levels {kind} L={lv} r={r}":
 CASES.update({f"fuzz {t} r={r}": (functools.partial(_fuzz, t), r, 3)
               for t in range(8) for r in (1, 2)})
 #: past the shared-memory budget: the chain at 29 levels (float64, ring 4)
-#: takes the skeleton's scratch form
+#: takes the skeleton's cluster form (the case id keeps the name of the
+#: form it took before the cluster form existed)
 SCRATCH_CASE = "levels chain L=29 r=1 (scratch form)"
 CASES[SCRATCH_CASE] = (functools.partial(_levels, "chain", 29), 1, 2)
 
@@ -222,8 +223,10 @@ def test_plan_passes_hold_no_hazard(case):
                     assert not (wb & offa), (case, "write after read")
         staged = sum(1 for f in pl.in_place if not f)
         assert pl.barriers == sum(pl.barrier_before) + staged + 1
-        assert gen.text.count("__syncthreads();") == (
-            sum(pl.barrier_before) + 1)
+        # the cluster form's barriers are cluster barriers
+        sync = ("sweep::cluster_sync();" if gen.form == "cluster"
+                else "__syncthreads();")
+        assert gen.text.count(sync) == sum(pl.barrier_before) + 1
 
 
 def _erode(ok, d):
@@ -440,10 +443,13 @@ def test_plan_emulator_equals_plain_tier(monkeypatch, case, ndom):
 
 
 def test_scratch_case_takes_the_scratch_form():
-    """The case past the budget generates both sweeps in the scratch form,
-    on the scratch tile, with the plan the shared form would run."""
+    """The case past the budget generates both sweeps in the cluster form
+    (which took the scratch form before it existed), on the cluster tile
+    of 4 CTAs, with the plan the shared form would run."""
     for kw, gen in _sweeps(SCRATCH_CASE):
-        assert gen.form == "scratch" and gen.tile.ctas == 0
-        assert gen.tile == sst.scratch_tile(gen.ring) == (8, 24, 4, 32, 0)
+        assert gen.form == "cluster" and gen.tile.ctas == 0
+        bpp = (gen.n_state + gen.n_aux) * 8 + gen.n_codes
+        assert (gen.tile, gen.cluster) == sst.cluster_tile(gen.ring, bpp) \
+            == ((20, 24, 4, 32, 0), 4)
         assert gen.plan == tss.plan(kw["steps"], K=gen.K, ring=gen.ring,
                                     state_slots=kw["state_slots"])

@@ -136,12 +136,14 @@ def test_schedule_sweeps_follow_the_rule(dtype):
         for n_float, n_int, n_codes in ((1, 0, 1), (7, 1, 1), (13, 2, 2),
                                         (33, 0, 1), (61, 0, 2)):
             bpp = n_float * es + 4 * n_int + n_codes
-            s = sst.tile(ring, bpp)
-            if s is None:       # past shared memory: the scratch form
+            s, cluster = sst.tile(ring, bpp), 1
+            if s is None:       # past shared memory: the cluster form
+                s, cluster = sst.cluster_tile(ring, bpp) or (None, 0)
+            if s is None:       # past the largest cluster: the scratch form
                 s = sst.scratch_tile(ring)
                 assert s.ctas == 0 and s.wx == 32 and s.ty == 8
             assert tss.window_tile(n_float, n_int, n_codes, ring, dtype) \
-                == (s, s.window_bytes(ring, bpp))
+                == (s, s.window_bytes(ring, bpp), cluster)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
