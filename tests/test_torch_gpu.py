@@ -1,8 +1,11 @@
 """The CUDA sweep kernels on the card, against their plain PyTorch version.
 
-Every test here needs a CUDA GPU and skips without one.  This file
-imports neither jax nor the JAX package, so on a machine with a GPU and
-no JAX it runs without the suite's conftest:
+Every test here needs a CUDA GPU.  On a machine without one the whole
+module skips while it is collected, so it adds no item to the suite
+there: every worker of a run on one machine sees the same answer, so all
+collect the same (empty) list.  This file imports neither jax nor the
+JAX package, so on a machine with a GPU and no JAX it runs without the
+suite's conftest:
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest
 """
@@ -28,6 +31,10 @@ from dl_esm_inf_tpu_torch.parallel.halo import exchange_multi_fn
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from nemolite2d_golden import golden_run  # noqa: E402
+
+if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)",
+                allow_module_level=True)
 
 torch.set_num_threads(2)
 

@@ -70,6 +70,7 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 GANG_TIMEOUT = 120.0
+JAX_FUSED_TIMEOUT = 300.0
 RTOL, ATOL = 1e-12, 1e-13          # tests/test_multiprocess.py:124-125
 
 WALLED = (jdl.BC_EXTERNAL, jdl.BC_EXTERNAL, jdl.BC_NONE)
@@ -84,40 +85,65 @@ def _env():
     return env
 
 
+def _session_root(tmp_path_factory):
+    """The test session's shared temporary root: under xdist the workers'
+    base temporaries are siblings in it."""
+    root = tmp_path_factory.getbasetemp()
+    return root.parent if os.environ.get("PYTEST_XDIST_WORKER") else root
+
+
+def _once(root, name, run):
+    """The arrays of ``root / name.npz``, made once per test session: the
+    first caller runs ``run(tmp)`` under a lock the workers share, which
+    writes ``tmp`` and returns None, or returns its failure's message;
+    later callers read the file.  A failure is written beside it
+    (``name.failed``), and every later caller, in any worker, fails with
+    that message without running again."""
+    out = root / f"{name}.npz"
+    failed = root / f"{name}.failed"
+    with FileLock(str(out) + ".lock"):
+        if failed.exists():
+            pytest.fail(failed.read_text(), pytrace=False)
+        if not out.exists():
+            tmp = root / f"{name}.tmp.npz"
+            msg = run(tmp)
+            if msg is not None:
+                failed.write_text(msg)
+                pytest.fail(msg, pytrace=False)
+            os.replace(tmp, out)
+    return dict(np.load(out))
+
+
 def _gang(tmp_path_factory, nproc, ndomains, legs, *extra, name=None,
           timeout=GANG_TIMEOUT):
     """Rank 0's results of one gang (``name``: its files' stem), run once
-    per test session: under xdist the workers share the session's
-    temporary root, and the first to ask runs the gang while the others
-    wait for its file."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
+    per test session (:func:`_once`); a gang that fails reports its exit
+    code or ``TimeoutError``, its seconds against ``timeout`` and the
+    end of the ranks' stderr."""
+    root = _session_root(tmp_path_factory)
     name = name or f"torch_mp_np{nproc}"
-    out = root / f"{name}.npz"
-    with FileLock(str(out) + ".lock"):
-        if not out.exists():
-            tmp = root / f"{name}.tmp.npz"
-            log = root / f"{name}.stderr"
-            t0 = time.monotonic()
-            with open(log, "wb") as err:
-                try:
-                    rc = launch(None, ["--out", str(tmp), "--device", "cpu",
-                                       "--ndomains", str(ndomains), "--legs",
-                                       legs, *extra],
-                                num_processes=nproc, base_env=_env(),
-                                module="dl_esm_inf_tpu_torch.parallel."
-                                "mp_check", timeout=timeout, stderr=err)
-                except TimeoutError as e:
-                    rc = e
-            secs = time.monotonic() - t0
-            tail = log.read_bytes()[-3000:].decode(errors="replace")
-            assert rc == 0, (f"{nproc}-rank gang ({legs}): "
-                             f"{'exit code ' if isinstance(rc, int) else ''}"
-                             f"{rc} after {secs:.1f} s (limit {timeout}"
-                             f" s); the ranks' stderr ends:\n{tail}")
-            os.replace(tmp, out)
-    return dict(np.load(out))
+
+    def run(tmp):
+        log = root / f"{name}.stderr"
+        t0 = time.monotonic()
+        with open(log, "wb") as err:
+            try:
+                rc = launch(None, ["--out", str(tmp), "--device", "cpu",
+                                   "--ndomains", str(ndomains), "--legs",
+                                   legs, *extra],
+                            num_processes=nproc, base_env=_env(),
+                            module="dl_esm_inf_tpu_torch.parallel.mp_check",
+                            timeout=timeout, stderr=err)
+            except TimeoutError as e:
+                rc = e
+        if rc == 0:
+            return None
+        tail = log.read_bytes()[-3000:].decode(errors="replace")
+        return (f"{nproc}-rank gang ({legs}): "
+                f"{'exit code ' if isinstance(rc, int) else ''}{rc} after "
+                f"{time.monotonic() - t0:.1f} s (limit {timeout} s); the "
+                f"ranks' stderr ends:\n{tail}")
+    return _once(root, name, run)
 
 
 @pytest.fixture(scope="module")
@@ -152,27 +178,40 @@ def np4(tmp_path_factory):
 NP4_ADJOINT = ("--adjoint-cases", "flagship", "--adjoint-n", "32")
 
 
-@pytest.fixture(scope="module")
-def jax_fused(tmp_path_factory):
-    """The JAX fused-transport kernel on the 4x1 and 1x4 layouts (one
-    child process per test run, as the gangs)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    out = root / "jax_fused_reference.npz"
-    with FileLock(str(out) + ".lock"):
-        if not out.exists():
-            env = _env()
-            env["JAX_PLATFORMS"] = "cpu"
-            env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
-                                "--xla_cpu_max_isa=SSE4_2")
+def _jax_fused(tmp_path_factory):
+    """The JAX fused-transport kernel's runs on the 4x1 and 1x4 layouts,
+    made once per test session (:func:`_once`) by one child process."""
+    env = _env()
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                        "--xla_cpu_max_isa=SSE4_2")
+
+    def run(tmp):
+        t0 = time.monotonic()
+        try:
             res = subprocess.run(
                 [sys.executable, str(REPO / "tests" / "jax_fused_reference.py"),
-                 str(out), FUSED_SHAPE, str(FUSED_SWEEPS), "4x1,1x4",
-                 FUSED_K], env=env, capture_output=True, text=True,
-                timeout=300)
-            assert res.returncode == 0, res.stderr[-3000:]
-    return dict(np.load(out))
+                 str(tmp), FUSED_SHAPE, str(FUSED_SWEEPS), "4x1,1x4", FUSED_K],
+                env=env, capture_output=True, text=True,
+                timeout=JAX_FUSED_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            rc, err = e, e.stderr or ""
+        else:
+            if res.returncode == 0:
+                return None
+            rc, err = f"exit code {res.returncode}", res.stderr
+        if isinstance(err, bytes):
+            err = err.decode(errors="replace")
+        return (f"tests/jax_fused_reference.py: {rc} after "
+                f"{time.monotonic() - t0:.1f} s (limit {JAX_FUSED_TIMEOUT} "
+                f"s); its stderr ends:\n{err[-3000:]}")
+    return _once(_session_root(tmp_path_factory), "jax_fused_reference", run)
+
+
+@pytest.fixture(scope="module")
+def jax_fused(tmp_path_factory):
+    """The JAX fused-transport kernel on the 4x1 and 1x4 layouts."""
+    return _jax_fused(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -506,29 +545,32 @@ def _jax_modules():
 
 
 @pytest.fixture(scope="module")
-def jax_ensemble():
+def jax_ensemble(tmp_path_factory):
     """tests/mp_worker.py:162-189's ensemble in the JAX package on 8
-    tiles: the forecast, and each analysis and the 2 steps after it."""
-    from dl_esm_inf_tpu.models.enkf import ETKF as JETKF
-    from dl_esm_inf_tpu.models.ensemble import Ensemble as JEnsemble
-    mp, n = _mp(), 24
-    ens = JEnsemble(_jax_modules().gw.build(n, n, ndomains=8, dt=0.05,
-                                            depth=10.0), 4)
-    ens.set_member_states(0, mp.ensemble_members(n, 4))
-    ens.run(4)
-    out = {f"ef_{k}": np.asarray(v) for k, v in ens.gather_all().items()}
-    for tag, kw, y, mask in (
-            ("ek", {}, gaussian_eta(n, n, amp=0.35), None),
-            ("lk", dict(localization_radius=4.0),
-             gaussian_eta(n, n, amp=0.3), mp.letkf_mask(n, "3:21:3"))):
-        diag = JETKF(ens, sigma=0.02, **kw).analysis(y, obs_mask=mask)
-        out[f"{tag}_diag"] = np.asarray([diag[k] for k in sorted(diag)])
-        out.update({f"{tag}_an_{k}": np.asarray(v)
-                    for k, v in ens.gather_all().items()})
-        ens.run(2)
-        out.update({f"{tag}_{k}": np.asarray(v)
-                    for k, v in ens.gather_all().items()})
-    return out
+    tiles: the forecast, and each analysis and the 2 steps after it; run
+    once per test session (:func:`_once`)."""
+    def run(tmp):
+        from dl_esm_inf_tpu.models.enkf import ETKF as JETKF
+        from dl_esm_inf_tpu.models.ensemble import Ensemble as JEnsemble
+        mp, n = _mp(), 24
+        ens = JEnsemble(_jax_modules().gw.build(n, n, ndomains=8, dt=0.05,
+                                                depth=10.0), 4)
+        ens.set_member_states(0, mp.ensemble_members(n, 4))
+        ens.run(4)
+        out = {f"ef_{k}": np.asarray(v) for k, v in ens.gather_all().items()}
+        for tag, kw, y, mask in (
+                ("ek", {}, gaussian_eta(n, n, amp=0.35), None),
+                ("lk", dict(localization_radius=4.0),
+                 gaussian_eta(n, n, amp=0.3), mp.letkf_mask(n, "3:21:3"))):
+            diag = JETKF(ens, sigma=0.02, **kw).analysis(y, obs_mask=mask)
+            out[f"{tag}_diag"] = np.asarray([diag[k] for k in sorted(diag)])
+            out.update({f"{tag}_an_{k}": np.asarray(v)
+                        for k, v in ens.gather_all().items()})
+            ens.run(2)
+            out.update({f"{tag}_{k}": np.asarray(v)
+                        for k, v in ens.gather_all().items()})
+        np.savez(tmp, **out)
+    return _once(_session_root(tmp_path_factory), "jax_ensemble", run)
 
 
 @pytest.mark.parametrize("stage", ["ef", "ek_an", "ek", "lk_an", "lk"])
@@ -916,6 +958,53 @@ def test_launch_timeout_stops_gang(tmp_path):
         launch(str(script), [], num_processes=2, base_env=_env(),
                timeout=1.0)
     assert time.monotonic() - t0 < 30
+
+
+@pytest.mark.parametrize("what", ["gang", "jax_fused"])
+def test_failed_gang_fails_once(tmp_path, monkeypatch, what):
+    """A gang (or the JAX fused-transport reference's child) that fails
+    is launched once per test session: the second caller, in this worker
+    or any other, fails with the first caller's message, exit code and
+    stderr included, without launching again."""
+    from types import SimpleNamespace
+    calls = []
+    if what == "gang":
+        script = tmp_path / "fail.py"
+        script.write_text("import sys\nsys.stderr.write('rank failed on "
+                          "purpose\\n')\nsys.exit(3)\n")
+        real = launch
+
+        def stub(_script, _args, **kw):
+            calls.append(kw["num_processes"])
+            return real(str(script), [], num_processes=kw["num_processes"],
+                        base_env=kw["base_env"], timeout=kw["timeout"],
+                        stderr=kw["stderr"])
+        monkeypatch.setitem(globals(), "launch", stub)
+        want = "exit code 3"
+    else:
+        real = subprocess.run
+
+        def stub(_cmd, **kw):
+            calls.append(_cmd)
+            return real([sys.executable, "-c", "import sys; sys.stderr."
+                         "write('reference failed on purpose\\n'); "
+                         "sys.exit(4)"], **kw)
+        monkeypatch.setattr(subprocess, "run", stub)
+        want = "exit code 4"
+    base = tmp_path / "basetemp"
+    base.mkdir()
+    factory = SimpleNamespace(getbasetemp=lambda: base)
+    msgs = []
+    for _ in range(2):
+        with pytest.raises(pytest.fail.Exception) as e:
+            if what == "gang":
+                _gang(factory, 2, 8, "core", name="stub")
+            else:
+                _jax_fused(factory)
+        msgs.append(str(e.value))
+    assert len(calls) == 1
+    assert msgs[0] == msgs[1]
+    assert want in msgs[0] and "failed on purpose" in msgs[0], msgs[0]
 
 
 # --- the environment and the rank grid ---------------------------------------
