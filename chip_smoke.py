@@ -26,8 +26,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the twelve hand-written kernel libraries from
-   dl_esm_inf_tpu_torch/csrc/ with nvcc, one process per source, and
+2. build: compiles the twelve hand-written kernel libraries and the
+   seam transport's (csrc/seam_transport.cu: copies and stream memory
+   operations, no kernel) from dl_esm_inf_tpu_torch/csrc/ with nvcc, one
+   process per source, and
    the schedule sweeps that phase 10 generates (one source per schedule
    structure, dtype and K), all at once (build/torch_kernels/); prints
    each library's registers and spills, and requires that no
@@ -234,8 +236,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
    residual below tol, solutions within 10 x tol of their largest value;
    5 semi-implicit steps (walled; open north) within 10 x tol of the
    state's largest value; a checkpoint saved on the 2 ranks and loaded
-   back on them into 4 tiles and here into one, bitwise; and for each,
-   us per step (ms per solve or save) on 2 ranks beside one process;
+   back on them into 4 tiles and here into one, bitwise; gravity wave
+   K=8 and the CG solve on 2 ranks x 4 tiles (the layout the remote-DMA
+   exchange refuses) against one process on 8 tiles, alike; and for
+   each, us per step (ms per solve or save) on 2 ranks beside one
+   process.  Every gang of the phase runs each leg that crosses a rank
+   seam twice, under the "peer" seam transport (the strips card to card
+   through peer-memory windows, parallel/seam.py) and under "gloo"
+   (through host memory): the two bitwise equal, each leg's transport
+   and the peer transport's batches per leg printed, times under both;
+   one strip transfer profiled under each (torch.profiler): the peer one
+   with no copy to or from the host and no host synchronisation; the
+   4-rank gang's exchange on a 2x2 rank grid, also on 2x2 tiles a rank;
 20. the adjoint and ensembles on the card (plain PyTorch: the kernels
    have no backward, and no TPU kernel lies on this path): (a) the
    flagship at 1024^2 f32 on the plain path, one observation at step
@@ -299,7 +311,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
    STEPS steps, within TOL_DA_NEST; max abs and relative differences
    printed beside each tolerance, host ms per analysis, per cost +
    gradient and per nest step of both runs, with the card's name and
-   power limit.  The phase prints its seconds.
+   power limit.  The gang runs its legs under "peer" and "gloo" seams as
+   phase 19's do: the forecast, the cost and the gradient bitwise
+   between the two, the analyses and the nest within their tolerances
+   (DA_SEAM_TOLERATED), times under both.  The phase prints its seconds.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -310,8 +325,10 @@ none does (none does for these multi-plane masked sweeps; for the
 exchange it is one advanced-indexing call with the row and column maps
 of exchange_index made beforehand; for the dma variant, three torch.add
 over its planes; for the exchange between ranks, the gloo ppermute
-exchange of the same block; for the sweep with the exchange between
-ranks, the gloo ppermute exchange followed by the sweep kernel).  The fence oracle's bound is its tile's
+exchange of the same block, with the ppermute exchange under peer seams
+beside it; for the sweep with the exchange between ranks, the gloo
+ppermute exchange followed by the sweep kernel, the peer one beside
+it).  The fence oracle's bound is its tile's
 bytes; what bounds a fence is latency, reported as the round trip.  The
 compute variants are bound by the plain step's
 element operations per point and step (ops_per_point) times the points,
@@ -368,6 +385,7 @@ from dl_esm_inf_tpu_torch.parallel import fence_oracle as fo  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel import halo as halo_mod  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel import halo_kernel as hk  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel import rdma  # noqa: E402
+from dl_esm_inf_tpu_torch.parallel import seam  # noqa: E402
 from dl_esm_inf_tpu_torch.parallel.halo import (  # noqa: E402
     exchange_multi_fn)
 from dl_esm_inf_tpu_torch.ops.stencil_sweep import (  # noqa: E402
@@ -467,15 +485,16 @@ KERNELS = (fs.nemolite2d_sweep, gw.gravity_wave_sweep, sh.shallow_sweep,
            nlm.nlayer_sweep, hk.halo_exchange, hk.halo_exchange_ring,
            fs.variant_dma,
            rdma.halo_exchange_rdma, fo.fence_oracle,
-           fs.nemolite2d_sweep_rdma)
+           fs.nemolite2d_sweep_rdma, seam.peer_seams)
 
 
-#: nvcc processes at once in phase 2 (the twelve libraries start first)
+#: nvcc processes at once in phase 2 (the thirteen libraries start
+#: first)
 BUILD_WORKERS = 24
 
 
 def phase_build() -> None:
-    """The twelve libraries and every generated schedule sweep phase 10
+    """The thirteen libraries and every generated schedule sweep phase 10
     needs, built in parallel (one nvcc per source)."""
     from dl_esm_inf_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -3624,6 +3643,60 @@ def phase_fence() -> dict:
             "control_ms": res["control_s"] * 1e3}
 
 
+#: the seam transports the gangs of phases 19 and 22 run each seam leg
+#: under, in one gang (parallel/mp_check.py --seams): the first one's
+#: results keep their names, the second's are prefixed gloo__
+SEAMS = ("--seams", "peer,gloo")
+
+
+def _g(r: dict, key: str) -> float:
+    """A number of the gang's legs under gloo seams."""
+    return float(r[f"gloo__{key}"])
+
+
+def _check_seams(r: dict, label: str, legs: str,
+                 tolerated: tuple = ()) -> dict:
+    """A gang's seam legs under "peer" seams (card to card) against the
+    same legs under "gloo" (through host memory): every result bitwise
+    but those starting with ``tolerated`` (the caller holds them), each
+    leg on its transport, and the peer transport's batches per leg on
+    rank 0; the one profiled peer transfer made no copy to or from the
+    host and no host synchronisation.  Prints the transports and the
+    counts; returns the batches per leg."""
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    pairs = mpc.seam_pairs(r)
+    bad = [k for k, same in pairs.items()
+           if not same and not k.startswith(tolerated)]
+    legs = [leg for leg in legs.split(",") if leg in mpc.SEAM_LEGS]
+    wrong = {leg: (str(r[f"seam_transport_{leg}"]),
+                   str(r[f"gloo__seam_transport_{leg}"])) for leg in legs}
+    wrong = {k: v for k, v in wrong.items() if v != ("peer", "gloo")}
+    batches = {leg: int(r[f"seam_batches_{leg}"]) for leg in legs}
+    if bad or wrong or not pairs or any(
+            int(r[f"gloo__seam_batches_{leg}"]) for leg in legs):
+        raise AssertionError(f"{label}: peer seams against gloo: differ in "
+                             f"{bad}; transports {wrong}")
+    text = ""
+    if "seam_profile_dtoh" in r:
+        prof = {k: (int(r[f"seam_profile_{k}"]),
+                    int(r[f"gloo__seam_profile_{k}"]))
+                for k in ("dtoh", "htod", "syncs", "dtod")}
+        if any(prof[k][0] for k in ("dtoh", "htod", "syncs")):
+            raise AssertionError(f"{label}: a profiled peer transfer "
+                                 f"touched the host: {prof}")
+        text = (f"; one strip transfer (depth 8, profiled): peer "
+                f"{float(r['seam_us_per_call']):.1f} us per call, gloo "
+                f"{_g(r, 'seam_us_per_call'):.1f}; (peer, gloo) Memcpy DtoH "
+                f"{prof['dtoh']}, HtoD {prof['htod']}, host synchronisations "
+                f"{prof['syncs']}, device-to-device copies {prof['dtod']}")
+    print(f"{label}: {len(pairs)} results of the legs under peer seams "
+          f"bitwise equal to the same legs under gloo"
+          + (f" (but those of {tolerated}, held below)" if tolerated else "")
+          + f"; transports per leg: peer, then gloo; peer batches per leg "
+          f"on rank 0: {batches}{text}", flush=True)
+    return batches
+
+
 def _gang(nproc: int, legs: str, out: Path, *extra) -> dict:
     """Rank 0's results of ``nproc`` ranks of mp_check on the card."""
     env = dict(os.environ)
@@ -3701,21 +3774,32 @@ def _check_exchange_legs(r: dict, nproc: int) -> None:
         raise AssertionError(f"{nproc} ranks: the plain protocol made "
                              f"{int(r['rdma_handoffs_per_call'])} hand-offs "
                              "per call, expected 1")
+    tiles = [bool(r[f"{p}exch_tiles_equal_{w}"]) for p in ("", "gloo__")
+             for w in ("walled", "periodic")]
+    if not all(tiles):
+        raise AssertionError(f"{nproc} ranks: the ppermute exchange on 4 "
+                             f"tiles a rank != one process: {tiles}")
     us = {k.removeprefix("exch_us_walled_2d_"): float(r[k]) for k in r
           if k.startswith("exch_us_walled_2d_")}
+    for d in (1, 8):
+        us[f"d{d}_ppermute_gloo"] = _g(r, f"exch_us_walled_2d_d{d}_ppermute")
     us["d8_remote_dma_settled"] = float(
         r["exch_us_settled_walled_2d_d8_remote_dma"])
     us["d8_remote_dma_kernels"] = float(
         r["exch_kernel_us_walled_2d_d8_remote_dma"])
-    print(f"{nproc} ranks, Field.halo_exchange f32 {MAIN_SIZE}^2 halo 8: 16 "
+    print(f"{nproc} ranks ({str(r['exch_rank_grid'])} rank grid), "
+          f"Field.halo_exchange f32 {MAIN_SIZE}^2 halo 8: 16 "
           f"exchanges (walled/periodic, depth 1/8, 2D/3 levels, both "
-          f"transports) bitwise equal to one process; skewed remote_dma pair "
+          f"transports; ppermute under peer and gloo seams) bitwise equal "
+          f"to one process, and the ppermute exchange at depth 8 on "
+          f"{str(r['exch_tiles_layout'])} (walled, periodic, both seams); "
+          f"skewed remote_dma pair "
           f"bitwise; rdma launches {int(r['exch_rdma_launches'])} = calls; "
           f"hand-offs per call {int(r['rdma_handoffs_per_call'])} (waits "
           f"{int(r['rdma_waits_per_call'])}, one per neighbour); "
-          f"us per call (walled 2D): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(us.items())),
-          flush=True)
+          f"us per call (walled 2D; ppermute under peer seams, _gloo under"
+          f" gloo): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                 sorted(us.items())), flush=True)
 
 
 #: the fused transport across ranks: K, sweeps (GANG_STEPS steps) and the
@@ -3773,6 +3857,8 @@ def _check_fused_legs(r: dict, nproc: int) -> tuple[dict, object]:
     us = {k: float(r[f"ff_{k}_{tag}"]) for k in (
         "sweep_us", "kernel_us", "pp_sweep_us", "run_us", "pp_run_us",
         "plain_us")}
+    us["pp_sweep_us_gloo"] = _g(r, f"ff_pp_sweep_us_{tag}")
+    us["pp_run_us_gloo"] = _g(r, f"ff_pp_run_us_{tag}")
     print(f"fused transport f32 {MAIN_SIZE}^2 K={K} halo 8, {nproc} ranks "
           f"({px}x{py} tiles, one each), {sweeps * K} steps: bitwise equal "
           f"to one process with the same tiles, and so is the same run at "
@@ -3781,10 +3867,12 @@ def _check_fused_legs(r: dict, nproc: int) -> tuple[dict, object]:
           f"plain exchange) and with the last rank 50 ms late: bitwise; rdma"
           f" sweep launches per rank {launches}; kernel vs plain one sweep "
           f"{err}; per sweep: kernel {us['sweep_us']:.1f} us (a rank's "
-          f"kernels {us['kernel_us']:.1f} us of it), gloo ppermute "
-          f"exchange + sweep {us['pp_sweep_us']:.1f} us, plain "
+          f"kernels {us['kernel_us']:.1f} us of it), ppermute exchange + "
+          f"sweep {us['pp_sweep_us']:.1f} us under peer seams, "
+          f"{us['pp_sweep_us_gloo']:.1f} under gloo, plain "
           f"{us['plain_us']:.1f} us; run: fused {us['run_us']:.2f} us/step, "
-          f"ppermute {us['pp_run_us']:.2f} us/step", flush=True)
+          f"ppermute {us['pp_run_us']:.2f} us/step under peer seams, "
+          f"{us['pp_run_us_gloo']:.2f} under gloo", flush=True)
     return {"launches": launches, "max_abs_err": err, "us": us,
             "bytes": int(r[f"ff_bytes_{tag}"])}, m
 
@@ -3798,14 +3886,18 @@ def phase_ranks() -> list:
     one process with the same tiles."""
     import tempfile
     fused_legs = "flagship_fused,fused_alternate,fused_skew"
+    legs2 = f"core,periodic,exchange,skew,flagship,fence,{fused_legs}"
+    legs4 = f"core,periodic,exchange,skew,{fused_legs}"
     with tempfile.TemporaryDirectory() as tmp:
-        r2 = _gang(2, f"core,periodic,exchange,skew,flagship,fence,"
-                      f"{fused_legs}", Path(tmp) / "r2.npz", *_fused_args(2))
-        r4 = _gang(4, f"core,periodic,exchange,skew,{fused_legs}",
-                   Path(tmp) / "r4.npz", *_fused_args(4))
-    for nproc, r in ((2, r2), (4, r4)):
+        r2 = _gang(2, legs2, Path(tmp) / "r2.npz", *_fused_args(2), *SEAMS)
+        r4 = _gang(4, legs4, Path(tmp) / "r4.npz", *_fused_args(4), *SEAMS)
+    for nproc, r, legs in ((2, r2, legs2), (4, r4, legs4)):
+        _check_seams(r, f"{nproc} ranks", legs)
         _check_small_legs(r, nproc)
         _check_exchange_legs(r, nproc)
+    if str(r4["exch_rank_grid"]) != "2x2":
+        raise AssertionError(f"the 4-rank exchange ran on a "
+                             f"{str(r4['exch_rank_grid'])} rank grid")
     (f2, m2), (f4, _) = _check_fused_legs(r2, 2), _check_fused_legs(r4, 4)
     rt_us = float(r2["fence_round_trip_us"])
     stream_us = float(r2["fence_stream_round_trip_us"])
@@ -3832,12 +3924,12 @@ def phase_ranks() -> list:
     if d != 0.0:
         raise AssertionError(f"2-rank flagship vs one process: max abs {d}")
     us_1 = _time_ms(lambda: m.run(GANG_STEPS), 3) * 1e3 / GANG_STEPS
-    us_2 = float(r2["nl_us_per_step"])
+    us_2, us_2g = float(r2["nl_us_per_step"]), _g(r2, "nl_us_per_step")
     print(f"flagship f32 {N}^2 K={K} halo 8, {GANG_STEPS} steps: 2 ranks x 1 "
           f"tile bitwise equal to one process with 2 tiles; {us_2:.2f} "
-          f"us/step on 2 ranks (gloo exchange), {us_1:.2f} us/step in one "
-          f"process (ppermute); sweep launches per rank "
-          f"{int(r2['nl_launches'])}", flush=True)
+          f"us/step on 2 ranks under peer seams, {us_2g:.2f} under gloo, "
+          f"{us_1:.2f} us/step in one process; sweep launches per rank "
+          f"{int(r2['nl_launches'])} [{SMI}]", flush=True)
 
     nbytes = int(r2["rdma_block_bytes"])
     entry = {"name": "halo_exchange_rdma", "route": "cuda",
@@ -3848,10 +3940,14 @@ def phase_ranks() -> list:
              "ms": float(r2["exch_us_walled_2d_d8_remote_dma"]) / 1e3,
              "plain_ms": float(r2["rdma_plain_us"]) / 1e3,
              **_bound(2 * nbytes, 0, torch.float32),
-             "library_ms": float(r2["exch_us_walled_2d_d8_ppermute"]) / 1e3,
+             "library_ms": _g(r2, "exch_us_walled_2d_d8_ppermute") / 1e3,
+             "library_ms_peer":
+                 float(r2["exch_us_walled_2d_d8_ppermute"]) / 1e3,
              "ranks": 2,
              "ms_4_ranks": float(r4["exch_us_walled_2d_d8_remote_dma"]) / 1e3,
              "library_ms_4_ranks":
+                 _g(r4, "exch_us_walled_2d_d8_ppermute") / 1e3,
+             "library_ms_peer_4_ranks":
                  float(r4["exch_us_walled_2d_d8_ppermute"]) / 1e3,
              "launches_4_ranks": int(r4["exch_rdma_launches"]),
              "handoffs_per_call": int(r2["rdma_handoffs_per_call"]),
@@ -3868,12 +3964,17 @@ def phase_ranks() -> list:
              "fence_round_trip_us": rt_us,
              "fence_stream_round_trip_us": stream_us,
              "flagship_2_ranks_us_per_step": us_2,
-             "flagship_1_process_us_per_step": us_1}
+             "flagship_2_ranks_gloo_us_per_step": us_2g,
+             "flagship_1_process_us_per_step": us_1,
+             "seam_transfer_us": float(r2["seam_us_per_call"]),
+             "seam_transfer_gloo_us": _g(r2, "seam_us_per_call")}
     print(f"halo_exchange_rdma f32 {N}^2 halo 8 depth 8 2D: 2 ranks "
-          f"{entry['ms'] * 1e3:.1f} us per call vs gloo ppermute "
-          f"{entry['library_ms'] * 1e3:.1f} us; 4 ranks "
+          f"{entry['ms'] * 1e3:.1f} us per call vs ppermute "
+          f"{entry['library_ms'] * 1e3:.1f} us under gloo seams, "
+          f"{entry['library_ms_peer'] * 1e3:.1f} under peer; 4 ranks "
           f"{entry['ms_4_ranks'] * 1e3:.1f} vs "
-          f"{entry['library_ms_4_ranks'] * 1e3:.1f} us; plain version "
+          f"{entry['library_ms_4_ranks'] * 1e3:.1f} / "
+          f"{entry['library_ms_peer_4_ranks'] * 1e3:.1f} us; plain version "
           f"(protocol simulated over 2 blocks) "
           f"{entry['plain_ms'] * 1e3:.1f} us; bound "
           f"{entry['bound_ms'] * 1e3:.2f} us", flush=True)
@@ -3905,22 +4006,28 @@ def _fused_entry(f2: dict, f4: dict, m) -> dict:
              "kernel_ms": u2["kernel_us"] / 1e3,
              "kernel_ms_4_ranks": u4["kernel_us"] / 1e3,
              **_bound(f2["bytes"], ops, m.grid.dtype),
-             "library_ms": u2["pp_sweep_us"] / 1e3,
+             "library_ms": u2["pp_sweep_us_gloo"] / 1e3,
+             "library_ms_peer": u2["pp_sweep_us"] / 1e3,
              "ranks": 2, "K": FUSED_K,
              "run_us_per_step": u2["run_us"],
-             "ppermute_run_us_per_step": u2["pp_run_us"],
+             "ppermute_run_us_per_step": u2["pp_run_us_gloo"],
+             "ppermute_peer_run_us_per_step": u2["pp_run_us"],
              "launches_4_ranks": f4["launches"],
              "max_abs_err_4_ranks": f4["max_abs_err"],
              "ms_4_ranks": u4["sweep_us"] / 1e3,
              "plain_ms_4_ranks": u4["plain_us"] / 1e3,
-             "library_ms_4_ranks": u4["pp_sweep_us"] / 1e3,
+             "library_ms_4_ranks": u4["pp_sweep_us_gloo"] / 1e3,
+             "library_ms_peer_4_ranks": u4["pp_sweep_us"] / 1e3,
              "run_us_per_step_4_ranks": u4["run_us"],
-             "ppermute_run_us_per_step_4_ranks": u4["pp_run_us"]}
+             "ppermute_run_us_per_step_4_ranks": u4["pp_run_us_gloo"],
+             "ppermute_peer_run_us_per_step_4_ranks": u4["pp_run_us"]}
     print(f"nemolite2d_sweep_rdma f32 {MAIN_SIZE}^2 K={FUSED_K}: 2 ranks "
-          f"{entry['ms'] * 1e3:.1f} us per sweep vs gloo ppermute "
-          f"{entry['library_ms'] * 1e3:.1f} us, 4 ranks "
+          f"{entry['ms'] * 1e3:.1f} us per sweep vs ppermute "
+          f"{entry['library_ms'] * 1e3:.1f} us under gloo seams, "
+          f"{entry['library_ms_peer'] * 1e3:.1f} under peer; 4 ranks "
           f"{entry['ms_4_ranks'] * 1e3:.1f} vs "
-          f"{entry['library_ms_4_ranks'] * 1e3:.1f} us; bound "
+          f"{entry['library_ms_4_ranks'] * 1e3:.1f} / "
+          f"{entry['library_ms_peer_4_ranks'] * 1e3:.1f} us; bound "
           f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']})",
           flush=True)
     return entry
@@ -4857,6 +4964,11 @@ TOL_DA_ANALYSIS = 1e-4
 TOL_DA_COST = 1e-5
 TOL_DA_GRAD = 1e-5
 TOL_DA_NEST = 1e-5
+#: phase 22's results held between the seam transports at the tolerances
+#: above, not bitwise: the analyses (a float32 eigh of their moments)
+#: and the forecasts after them, and the nest (its feedback adds child
+#: cells in an order the card may change between runs)
+DA_SEAM_TOLERATED = ("ek_", "lk_", "nest_main_")
 
 
 def _rel_max(a, b) -> tuple[float, float]:
@@ -4897,15 +5009,33 @@ def _da_ensemble(r: dict, n: int) -> dict:
             out[f"{stage}_rel"] = max(
                 _rel_max(r[f"{stage}_{k}"], one[f"{stage}_{k}"])[1]
                 for k in ("eta", "u", "v"))
+            # under gloo seams: the same tolerance, and peer vs gloo
+            for k in ("eta", "u", "v"):
+                _held(f"{name} {what} {k} (gloo seams)",
+                      r[f"gloo__{stage}_{k}"], one[f"{stage}_{k}"],
+                      TOL_DA_ANALYSIS)
+                _held(f"{name} {what} {k} (peer vs gloo seams)",
+                      r[f"{stage}_{k}"], r[f"gloo__{stage}_{k}"],
+                      TOL_DA_ANALYSIS)
+            out[f"{stage}_seams_bitwise"] = all(np.array_equal(
+                r[f"{stage}_{k}"], r[f"gloo__{stage}_{k}"])
+                for k in ("eta", "u", "v"))
         out[f"{tag}_ms_ranks2"] = float(r[f"{tag}_ms"])
+        out[f"{tag}_ms_ranks2_gloo"] = _g(r, f"{tag}_ms")
         out[f"{tag}_ms_one"] = float(one[f"{tag}_ms"])
     print(f"2 ranks x 1 tile, ensemble of {ENS_MEMBERS} gravity-wave members "
           f"f32 {n}^2, 256 observations: forecast bitwise equal to one "
           f"process with 2 tiles; " + "; ".join(texts)
-          + f"; global ETKF {out['ek_ms_ranks2']:.1f} ms per analysis on 2 "
-          f"ranks vs {out['ek_ms_one']:.1f}, LETKF (L={LETKF_RADIUS:g}) "
-          f"{out['lk_ms_ranks2']:.1f} vs "
-          f"{out['lk_ms_one']:.1f} (host clock) [{SMI}]", flush=True)
+          + f"; the same under gloo seams within the tolerance, peer vs gloo"
+          f" bitwise: " + ", ".join(f"{k.removesuffix('_seams_bitwise')} "
+                                   f"{v}" for k, v in out.items()
+                                   if k.endswith("_seams_bitwise"))
+          + f"; ms per analysis on 2 ranks under peer seams, under gloo and "
+          f"in one process: global ETKF {out['ek_ms_ranks2']:.1f} / "
+          f"{out['ek_ms_ranks2_gloo']:.1f} / {out['ek_ms_one']:.1f}, LETKF "
+          f"(L={LETKF_RADIUS:g}) {out['lk_ms_ranks2']:.1f} / "
+          f"{out['lk_ms_ranks2_gloo']:.1f} / {out['lk_ms_one']:.1f} (host "
+          f"clock) [{SMI}]", flush=True)
     return out
 
 
@@ -4922,12 +5052,15 @@ def _da_adjoint(r: dict, n: int) -> dict:
            "grad_rel": _rel_max(r["adj_flagship_grad"],
                                 one["adj_flagship_grad"])[1],
            "ms_ranks2": float(r["adj_flagship_ms"]),
+           "ms_ranks2_gloo": _g(r, "adj_flagship_ms"),
            "ms_one": float(one["adj_flagship_ms"])}
     print(f"2 ranks x 1 tile, flagship f32 {n}^2, {DA_RANKS_STEPS}-step "
           f"cost and gradient at remat_chunk={DA_RANKS_REMAT}: cost {c2:.6e} "
           f"vs {c1:.6e} in one process with 2 tiles (rel "
-          f"{out['cost_rel']:.3e}, tol {TOL_DA_COST:g}); {g_text}; "
-          f"{out['ms_ranks2']:.1f} ms per cost + gradient on 2 ranks vs "
+          f"{out['cost_rel']:.3e}, tol {TOL_DA_COST:g}); {g_text}; cost and "
+          f"gradient bitwise between peer and gloo seams; ms per cost + "
+          f"gradient on 2 ranks under peer seams, under gloo and in one "
+          f"process {out['ms_ranks2']:.1f} / {out['ms_ranks2_gloo']:.1f} / "
           f"{out['ms_one']:.1f} (host clock) [{SMI}]", flush=True)
     return out
 
@@ -4942,18 +5075,31 @@ def _da_nest(r: dict, n: int) -> dict:
     texts = [_held(f"{who} {k}", r[f"nest_main_{who}_{k}"],
                    one[f"nest_main_{who}_{k}"], TOL_DA_NEST, scale[who])
              for who, k in fields]
+    for who, k in fields:
+        _held(f"{who} {k} (gloo seams)", r[f"gloo__nest_main_{who}_{k}"],
+              one[f"nest_main_{who}_{k}"], TOL_DA_NEST, scale[who])
+        _held(f"{who} {k} (peer vs gloo seams)", r[f"nest_main_{who}_{k}"],
+              r[f"gloo__nest_main_{who}_{k}"], TOL_DA_NEST, scale[who])
+    bitwise = all(np.array_equal(r[f"nest_main_{w}_{k}"],
+                                 r[f"gloo__nest_main_{w}_{k}"])
+                  for w, k in fields)
     out = {"rel": max(float(np.abs(r[f"nest_main_{w}_{k}"]
                                    - one[f"nest_main_{w}_{k}"]).max())
                       / scale[w] for w, k in fields),
            "ms_ranks2": float(r["nest_main_ms_per_step"]),
-           "ms_one": float(one["nest_main_ms_per_step"])}
+           "ms_ranks2_gloo": _g(r, "nest_main_ms_per_step"),
+           "ms_one": float(one["nest_main_ms_per_step"]),
+           "seams_bitwise": bitwise}
     print(f"2 ranks x 1 tile, gravity wave f32 {n}^2 with a two-way ratio-"
           f"{NEST_RATIO} nest over a {NEST_WINDOW}^2 window, "
           f"{NEST_RANKS_STEPS} steps, against one process with 2 tiles "
           f"(parent p, child c0; rel: of the model's largest state value): "
           + "; ".join(texts)
-          + f"; {out['ms_ranks2']:.1f} ms per nest step on 2 ranks vs "
-          f"{out['ms_one']:.1f} (host clock) [{SMI}]", flush=True)
+          + f"; the same under gloo seams within the tolerance (peer vs gloo"
+          f" bitwise: {bitwise}); ms per nest step on 2 ranks under peer "
+          f"seams, under gloo and in one process {out['ms_ranks2']:.1f} / "
+          f"{out['ms_ranks2_gloo']:.1f} / {out['ms_one']:.1f} (host clock) "
+          f"[{SMI}]", flush=True)
     return out
 
 
@@ -4975,9 +5121,12 @@ def phase_da_ranks() -> dict:
                   str(DA_RANKS_STEPS), "--remat", str(DA_RANKS_REMAT),
                   "--nest-cases", "main", "--nest-window", str(NEST_WINDOW),
                   "--nest-ratio", str(NEST_RATIO), "--nest-steps",
-                  str(NEST_RANKS_STEPS))
-        out = {"ensemble": _da_ensemble(r, n), "adjoint": _da_adjoint(r, n),
-               "nest": _da_nest(r, n)}
+                  str(NEST_RANKS_STEPS), *SEAMS)
+        out = {"seam_batches": _check_seams(
+            r, "phase 22's 2-rank gang", DA_RANKS_LEGS,
+            tolerated=DA_SEAM_TOLERATED)}
+        out.update({"ensemble": _da_ensemble(r, n),
+                    "adjoint": _da_adjoint(r, n), "nest": _da_nest(r, n)})
     out["seconds"] = time.perf_counter() - t0
     print(f"ensemble, adjoint and nesting across ranks: phase took "
           f"{out['seconds']:.1f} s", flush=True)
@@ -4987,7 +5136,8 @@ def phase_da_ranks() -> dict:
 # --- phase 19, the slice across ranks ----------------------------------------
 
 #: the slice's legs across 2 ranks x 1 tile on the card
-SLICE_LEGS = "solvers,semi_implicit,clients,schedule,psy,coupled,checkpoint"
+SLICE_LEGS = ("solvers,semi_implicit,clients,schedule,psy,coupled,"
+              "checkpoint,tiles")
 #: a float32 reduction over the 2^20 points of the schedule leg's field
 #: on 2 ranks against one process, relative: its partial sums are added
 #: in another order
@@ -5017,13 +5167,15 @@ def _one_process_clients(r: dict, n: int, steps: int) -> dict:
                                  f"process; {got} launches per rank, "
                                  f"expected {want}")
         us_1 = _us_run(lambda: m.run(steps), steps)
-        us_2 = float(r[f"cl_us_{name}"])
+        us_2, us_2g = float(r[f"cl_us_{name}"]), _g(r, f"cl_us_{name}")
         print(f"2 ranks x 1 tile, {name} f32 {n}^2 K={K}, {steps} steps: "
               f"bitwise equal to one process with 2 tiles; {got} launches "
-              f"per rank; {us_2:.2f} us/step on 2 ranks vs {us_1:.2f} in one "
-              f"process [{SMI}]", flush=True)
+              f"per rank; {us_2:.2f} us/step on 2 ranks under peer seams, "
+              f"{us_2g:.2f} under gloo, {us_1:.2f} in one process [{SMI}]",
+              flush=True)
         out[(m.sweep_kernel.name, name)] = {"ranks2_launches": got,
                              "ranks2_us_per_step": us_2,
+                             "ranks2_gloo_us_per_step": us_2g,
                              "one_process_2_tiles_us_per_step": us_1}
     return out
 
@@ -5052,6 +5204,7 @@ def _one_process_solvers(r: dict, n: int) -> dict:
     for tag, kw in mpc.SOLVES.items():
         s = so.HelmholtzSolver(g, mpc.LAM, mpc.LAM, tol=mpc.solver_tol(
             g.dtype), **kw)
+        mpc.warm_up(lambda: s.solve(b), DEV)
         so.helmholtz_cheb_sweep.launches = 0
         (x, info), ms_1 = mpc.timed_call(lambda: s.solve(b), DEV)
         launches = so.helmholtz_cheb_sweep.launches
@@ -5068,18 +5221,22 @@ def _one_process_solvers(r: dict, n: int) -> dict:
                                  f"{int(r[f'hs_{tag}_launches'])} sweep "
                                  f"launches per rank vs {launches}")
         d = _solver_close(f"Helmholtz {tag}", r[f"hs_{tag}_x"], x1, s.tol)
-        ms_2 = float(r[f"hs_{tag}_ms"])
+        ms_2, ms_2g = float(r[f"hs_{tag}_ms"]), _g(r, f"hs_{tag}_ms")
         print(f"2 ranks x 1 tile, Helmholtz {tag} f32 {n}^2 lam {mpc.LAM}: "
               f"{it_2} iterations vs {it_1} in one process with 2 tiles, "
               f"relative residual {rel_2:.3e} (tol {s.tol:.1e}), solutions "
               f"{d:.3e} of the largest value apart; sweep launches per rank "
-              f"{launches}; {ms_2:.2f} ms per solve on 2 ranks vs {ms_1:.2f} "
-              f"in one process [{SMI}]", flush=True)
+              f"{launches}; {ms_2:.2f} ms per solve on 2 ranks under peer "
+              f"seams, {ms_2g:.2f} under gloo, {ms_1:.2f} in one process "
+              f"[{SMI}]", flush=True)
         out[tag] = {"ranks2_launches": launches, "ranks2_ms_per_solve": ms_2,
+                    "ranks2_gloo_ms_per_solve": ms_2g,
                     "one_process_2_tiles_ms_per_solve": ms_1,
                     "ranks2_iterations": it_2}
     for tag, north in (("si", False), ("sio", True)):
         m = mpc.semi_implicit_model(n, 2, DEV, north)
+        mpc.warm_up(lambda: mpc.semi_implicit_model(
+            n, 2, DEV, north).run(1), DEV)
         info, ms_1 = mpc.timed_call(lambda: m.run(5), DEV)
         ms_1 /= 5
         g1 = m.gather()
@@ -5087,14 +5244,17 @@ def _one_process_solvers(r: dict, n: int) -> dict:
         d = max(_solver_close(f"semi-implicit {tag} {k}", r[f"{tag}_{k}"], v,
                               m.tol, scale) for k, v in g1.items())
         ms_2 = float(r[f"{tag}_ms_per_step"])
+        ms_2g = _g(r, f"{tag}_ms_per_step")
         where = "open north" if north else "walled"
         print(f"2 ranks x 1 tile, semi-implicit ({where}) f32 {n}^2, 5 "
               f"steps: {int(r[f'{tag}_iters'])} CG iterations vs "
               f"{info['cg_iterations']} in one process with 2 tiles, "
               f"fields {d:.3e} of the state's largest value apart (tol 10 x "
-              f"{m.tol:.1e}); {ms_2:.2f} ms/step on 2 ranks vs {ms_1:.2f} "
+              f"{m.tol:.1e}); {ms_2:.2f} ms/step on 2 ranks under peer "
+              f"seams, {ms_2g:.2f} under gloo, {ms_1:.2f} in one process "
               f"[{SMI}]", flush=True)
         out[tag] = {"ranks2_ms_per_step": ms_2,
+                    "ranks2_gloo_ms_per_step": ms_2g,
                     "one_process_2_tiles_ms_per_step": ms_1}
     return out
 
@@ -5136,21 +5296,27 @@ def _one_process_schedules(r: dict, n: int, steps: int) -> dict:
     us_c1 = _us_run(lambda: ct.run(steps), steps, 1)
     us_s2, us_p2, us_c2 = (float(r["sc_fused_us"]), float(r["psy_us"]),
                            float(r["cp_us"]))
+    us_s2g, us_p2g, us_c2g = (_g(r, "sc_fused_us"), _g(r, "psy_us"),
+                              _g(r, "cp_us"))
     print(f"2 ranks x 1 tile, f32 {n}^2: fused schedule (two east shifts, "
           f"halo 2) and its plain run bitwise equal to one process with 2 "
           f"tiles, 1 launch per rank, invoke's sum/min/max within "
-          f"{TOL_RED}; {us_s2:.1f} us per fused call on 2 ranks vs "
+          f"{TOL_RED}; us per fused call on 2 ranks under peer seams, under "
+          f"gloo and in one process {us_s2:.1f} / {us_s2g:.1f} / "
           f"{us_s1:.1f}; PSy flagship on Schedule.fused, {steps} steps: "
-          f"bitwise, {int(r['psy_launches'])} launches per rank, "
-          f"{us_p2:.2f} us/step vs {us_p1:.2f}; coupled tracer {steps} "
-          f"steps: bitwise, {us_c2:.1f} us/step vs {us_c1:.1f} [{SMI}]",
-          flush=True)
+          f"bitwise, {int(r['psy_launches'])} launches per rank, us/step "
+          f"{us_p2:.2f} / {us_p2g:.2f} / {us_p1:.2f}; coupled tracer "
+          f"{steps} steps: bitwise, us/step {us_c2:.1f} / {us_c2g:.1f} / "
+          f"{us_c1:.1f} [{SMI}]", flush=True)
     return {"schedule": {"ranks2_us_per_call": us_s2,
+                         "ranks2_gloo_us_per_call": us_s2g,
                          "one_process_2_tiles_us_per_call": us_s1},
             "psy": {"ranks2_launches": int(r["psy_launches"]),
                     "ranks2_us_per_step": us_p2,
+                    "ranks2_gloo_us_per_step": us_p2g,
                     "one_process_2_tiles_us_per_step": us_p1},
             "coupled": {"ranks2_us_per_step": us_c2,
+                        "ranks2_gloo_us_per_step": us_c2g,
                         "one_process_2_tiles_us_per_step": us_c1}}
 
 
@@ -5174,12 +5340,61 @@ def _one_process_checkpoint(r: dict, n: int) -> dict:
     path = str(r["ck_path"]) + ".one.npz"
     ms_1 = mpc.timed_call(lambda: checkpoint.save_fields(path, got, step=7),
                           DEV)[1]
-    ms_2 = float(r["ck_save_ms"])
+    ms_2, ms_2g = float(r["ck_save_ms"]), _g(r, "ck_save_ms")
     print(f"checkpoint f32 {n}^2 (a field and a 3-level one) saved on 2 "
           f"ranks x 1 tile: loaded back on the ranks into 4 tiles and in one "
           f"process into 1 tile, bitwise; {ms_2:.1f} ms per save on 2 "
-          f"ranks vs {ms_1:.1f} in one process [{SMI}]", flush=True)
-    return {"ranks2_ms_per_save": ms_2, "one_process_ms_per_save": ms_1}
+          f"ranks under peer seams, {ms_2g:.1f} under gloo, {ms_1:.1f} in "
+          f"one process [{SMI}]", flush=True)
+    return {"ranks2_ms_per_save": ms_2, "ranks2_gloo_ms_per_save": ms_2g,
+            "one_process_ms_per_save": ms_1}
+
+
+def _one_process_tiles(r: dict, n: int, steps: int) -> dict:
+    """The tiles leg (2 ranks x 4 tiles, the layout the remote-DMA
+    exchange refuses) in one process on 8 tiles: gravity wave at K=8
+    bitwise, with its launches; the CG solve's iterations within 2,
+    residuals below tol, solutions within 10 tol; µs per step and ms per
+    solve under both seams and in one process."""
+    from dl_esm_inf_tpu_torch.core import layout
+    from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
+    nd = mpc.TILES_PER_RANK * 2
+    m = mpc.client_model("gravity_wave", n, nd, DEV)
+    m.run(steps)
+    d = max(float(np.abs(r[f"tl_gw_{k}"] - v).max())
+            for k, v in m.gather().items())
+    want = steps // 8 + steps % 8
+    if d != 0.0 or int(r["tl_gw_launches"]) != want:
+        raise AssertionError(f"2 ranks x 4 tiles, gravity wave: max abs {d}"
+                             f" against one process, "
+                             f"{int(r['tl_gw_launches'])} launches per rank")
+    us_1 = _us_run(lambda: m.run(steps), steps)
+    g, rhs = mpc.solver_case(n, nd, DEV)
+    b = tdl.Field(g, tdl.T_POINTS, init_global_data=rhs)
+    s = so.HelmholtzSolver(g, mpc.LAM, mpc.LAM, tol=mpc.solver_tol(g.dtype),
+                           **mpc.SOLVES["cg"])
+    mpc.warm_up(lambda: s.solve(b), DEV)
+    (x, info), ms_1 = mpc.timed_call(lambda: s.solve(b), DEV)
+    x1 = layout.unstack_internal(g.decomp, x.cpu().numpy())
+    it_2, rel_2 = int(r["tl_cg_iters"]), float(r["tl_cg_rel_res"])
+    if abs(it_2 - info["iterations"]) > 2 or not (
+            rel_2 <= s.tol and info["rel_res"] <= s.tol):
+        raise AssertionError(f"2 ranks x 4 tiles, CG: iterations {it_2} vs "
+                             f"{info['iterations']}, residual {rel_2:.3e}")
+    dx = _solver_close("CG on 4 tiles a rank", r["tl_cg_x"], x1, s.tol)
+    out = {"gw_us_per_step": (float(r["tl_gw_us"]), _g(r, "tl_gw_us"), us_1),
+           "cg_ms_per_solve": (float(r["tl_cg_ms"]), _g(r, "tl_cg_ms"),
+                               ms_1)}
+    print(f"{str(r['tl_layout'])} at {n}^2 f32 against one process on {nd} "
+          f"tiles: gravity wave K=8, {steps} steps, bitwise, "
+          f"{int(r['tl_gw_launches'])} launches per rank, us/step under peer"
+          f" seams, under gloo and in one process "
+          f"{out['gw_us_per_step'][0]:.2f} / {out['gw_us_per_step'][1]:.2f} "
+          f"/ {us_1:.2f}; Helmholtz CG {it_2} iterations vs "
+          f"{info['iterations']}, solutions {dx:.3e} of the largest value "
+          f"apart, ms per solve {out['cg_ms_per_solve'][0]:.2f} / "
+          f"{out['cg_ms_per_solve'][1]:.2f} / {ms_1:.2f} [{SMI}]", flush=True)
+    return out
 
 
 def phase_slice_ranks(kernels: list) -> dict:
@@ -5194,11 +5409,15 @@ def phase_slice_ranks(kernels: list) -> dict:
     n, steps = MAIN_SIZE, GANG_STEPS
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        r = _gang(2, SLICE_LEGS, Path(tmp) / "s2.npz", "--ndomains", "2")
-        out = {"checkpoint": _one_process_checkpoint(r, n)}
+        r = _gang(2, SLICE_LEGS, Path(tmp) / "s2.npz", "--ndomains", "2",
+                  *SEAMS)
+        out = {"seam_batches": _check_seams(r, "the slice's 2-rank gang",
+                                            SLICE_LEGS)}
+        out["checkpoint"] = _one_process_checkpoint(r, n)
         out["clients"] = _one_process_clients(r, n, steps)
         out.update(_one_process_solvers(r, n))
         out.update(_one_process_schedules(r, n, steps))
+        out["tiles"] = _one_process_tiles(r, n, steps)
     by_name = {e["name"]: e for e in kernels}
     for (kern, name), extra in out["clients"].items():
         if kern in by_name:

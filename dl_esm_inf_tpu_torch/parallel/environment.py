@@ -10,13 +10,17 @@ ranks move through the process group (:mod:`.halo`, :mod:`.rdma`).
 
 The process group is gloo only.  NCCL refuses two ranks on one GPU, and
 the machines this port is tested on have one card; NCCL comes with one
-card per rank (see ROADMAP.md).  A grid carries its ``torch.device``:
+card per rank (see ROADMAP.md).  The strips that cross a rank seam move
+by the gang's seam transport (:func:`seam_transport`): card to card
+through peer-memory windows (``"peer"``, :mod:`.seam`) or through host
+memory (``"gloo"``).  A grid carries its ``torch.device``:
 the card unless the caller names another one (``device="cpu"``), and
 never the CPU in place of a missing card.
 """
 from __future__ import annotations
 
 import os
+import threading
 from datetime import timedelta
 
 import torch
@@ -29,6 +33,15 @@ ENV_PROTOCOL = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
 
 #: how long the process group's collectives wait for a peer
 PG_TIMEOUT = timedelta(seconds=300)
+
+#: the gang's seam transport for CUDA strips: the name
+#: :func:`set_seam_transport` gave, else the default chosen at the first
+#: seam between CUDA strips; None before either
+_seam = {"name": None}
+
+#: a simulated rank of the calling thread (:func:`.seam.seam_reference`):
+#: its ``rank``, ``ranks`` and the ``send_recv`` its strips move by
+simulated = threading.local()
 
 
 class GOceanStop(RuntimeError):
@@ -86,18 +99,73 @@ def finalise() -> None:
     leaves the process group."""
     if not dist.is_initialized():
         return
-    from . import rdma
+    from . import rdma, seam
     dist.barrier()
-    rdma.close_windows()
+    try:
+        rdma.close_windows()
+    finally:
+        seam.close_windows()
+    _seam["name"] = None
     dist.destroy_process_group()
 
 
 def get_rank() -> int:
+    rank = getattr(simulated, "rank", None)
+    if rank is not None:
+        return rank
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def get_num_ranks() -> int:
+    ranks = getattr(simulated, "ranks", None)
+    if ranks is not None:
+        return ranks
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def seam_transport() -> str | None:
+    """The transport of the strips that cross a rank seam when they are
+    CUDA tensors: ``"peer"`` (card to card, :mod:`.seam`) or ``"gloo"``
+    (through host memory); the name :func:`set_seam_transport` gave, else
+    the default chosen at the gang's first seam between CUDA strips
+    (:func:`.seam.choose_seam_transport`), None before either.  CPU
+    strips always move by gloo."""
+    return _seam["name"]
+
+
+def set_seam_transport(name: str) -> None:
+    """Make ``name`` (``"peer"`` or ``"gloo"``) the gang's seam transport
+    for CUDA strips.  Collective: every rank passes the same name, or this
+    raises on every rank.  ``"peer"`` where a pair of ranks cannot open
+    each other's memory (another host, or cards without peer access)
+    raises, naming both cards."""
+    from . import seam
+    if name not in seam.TRANSPORTS:
+        raise ValueError(f"seam transport {name!r}: expected one of "
+                         f"{seam.TRANSPORTS}")
+    if get_num_ranks() > 1:
+        names = [None] * get_num_ranks()
+        dist.all_gather_object(names, name)
+        if len(set(names)) > 1:
+            raise ValueError(f"the ranks asked for different seam "
+                             f"transports: {names}")
+        if name == "peer" and torch.cuda.is_available():
+            seam.choose_seam_transport(
+                "cuda", seam.gather_cards(resolve_device()), "peer")
+    _seam["name"] = name
+
+
+def seam_transport_for(device: torch.device) -> str:
+    """The transport of strips on ``device``: gloo on the CPU; on a card
+    the gang's (:func:`seam_transport`), chosen by the ranks' layout at
+    the first call, which is then collective."""
+    if device.type != "cuda":
+        return "gloo"
+    if _seam["name"] is None:
+        from . import seam
+        _seam["name"] = seam.choose_seam_transport(
+            "cuda", seam.gather_cards(device))
+    return _seam["name"]
 
 
 def on_master() -> bool:

@@ -16,9 +16,11 @@ One exchange is two phases:
    corners arrive by sequencing.
 
 Every tile's strips shift one slot along the tile axis; the strip that
-crosses a rank seam travels to the neighbouring rank over
-``torch.distributed`` (the JAX package's ``ppermute``; gloo, with CUDA
-strips staged through host memory).  Periodic axes add the wrap pair.
+crosses a rank seam travels to the neighbouring rank (the JAX package's
+``ppermute``) by the gang's seam transport
+(:func:`.environment.seam_transport`): card to card through peer-memory
+windows (:mod:`.seam`), or over gloo, with CUDA strips staged through
+host memory.  Periodic axes add the wrap pair.
 A tile with no neighbour in some direction keeps its existing boundary
 values.  Fields are grouped by dtype and leading shape, and strips of
 one group move together; fields of different dtypes are never stacked
@@ -155,8 +157,17 @@ class _Transfer(torch.autograd.Function):
 
 def _send_recv(sends, recvs) -> None:
     """One batch of point-to-point messages, ``(tensor, peer, active,
-    tag)`` each; receives are written into their tensors.  gloo moves
-    host memory, so a CUDA strip is staged through the host."""
+    tag)`` each; receives are written into their tensors.  CUDA strips
+    move card to card where the gang's seam transport is ``"peer"``
+    (:mod:`.seam`); otherwise gloo moves host memory, so a CUDA strip is
+    staged through the host."""
+    sim = getattr(env.simulated, "send_recv", None)
+    if sim is not None:
+        return sim(sends, recvs)
+    device = (sends or recvs)[0][0].device
+    if env.seam_transport_for(device) == "peer":
+        from .seam import peer_seams
+        return peer_seams(sends, recvs)
     ops, staged = [], []
     for t, peer, active, tag in sends:
         if active:

@@ -29,7 +29,12 @@ Legs (``--legs``, comma separated):
 * ``exchange``: ``Field.halo_exchange`` at ``--n``^2 (halo 8, depth 1
   and 8, 2D and 3 levels, walled and doubly periodic) under both
   transports, each held bitwise against the plain single-rank exchange
-  of the whole stacked array on rank 0's device, with µs per call (on
+  of the whole stacked array on rank 0's device, and the ``ppermute``
+  exchange at depth 8 on 4 tiles a rank (walled and periodic), with µs
+  per call; on the card also one strip transfer (``halo._send_recv``)
+  under the gang's seam transport: µs per call, and in one profiled
+  call (torch.profiler) the copies to and from the host, the host
+  synchronisations and the copies between device buffers (on
   the card the depth-8 ``remote_dma`` call also checked before it
   returns, ``settle``, and its kernel time from torch.profiler); the
   rdma kernel's entry (one exchange against its plain version, the
@@ -87,7 +92,10 @@ The legs of the slice across ranks, at ``--n``^2 on ``--ndomains`` tiles,
 * ``coupled``: ``CoupledTracer`` on the open-north flagship (halo 2);
 * ``checkpoint``: ``save_fields`` of a seeded field (and a 3-level one)
   at step 7, loaded back on these ranks into a grid of another tiling;
-  the file stays for the caller (``<out>.ckpt.npz``).
+  the file stays for the caller (``<out>.ckpt.npz``);
+* ``tiles``: gravity wave at its main K and a Helmholtz CG solve on
+  :data:`TILES_PER_RANK` tiles a rank at ``--n``^2 (the layout the
+  remote-DMA exchange refuses), ``--steps`` steps.
 
 The legs of the ensemble, the adjoint and nesting across ranks, on
 ``--ndomains`` tiles (host ms of each analysis, cost and gradient, or
@@ -110,6 +118,14 @@ nest step beside the results):
 * ``autograd``: :func:`autograd_probe` on a walled and a periodic grid:
   the exchange's and the strip transfer's transposes, and the
   differentiable collectives' gradients.
+
+``--seams peer,gloo`` runs each leg of :data:`SEAM_LEGS` once under each
+seam transport (:func:`..environment.set_seam_transport`), in that order,
+in the same gang; the first transport's results keep their names, a
+later one's are prefixed ``<transport>__``.  Every leg also records the
+transport it ran under (``seam_transport_<leg>``) and the batches the
+``"peer"`` transport enqueued on rank 0 (``seam_batches_<leg>``).
+Without ``--seams`` every leg runs once, under the gang's default.
 """
 from __future__ import annotations
 
@@ -128,7 +144,7 @@ from dl_esm_inf_tpu_torch.models.gravity_wave import gaussian_eta
 from dl_esm_inf_tpu_torch.ops import fused_step as fs
 from dl_esm_inf_tpu_torch.parallel import environment as env
 from dl_esm_inf_tpu_torch.parallel import halo as halo_mod
-from dl_esm_inf_tpu_torch.parallel import rdma
+from dl_esm_inf_tpu_torch.parallel import rdma, seam
 from dl_esm_inf_tpu_torch.parallel.collectives import (all_reduce,
                                                        gather_to_host)
 from dl_esm_inf_tpu_torch.testing import init_field_hill
@@ -339,6 +355,27 @@ def leg_exchange(res, a):
     res["exch_rdma_calls"] = np.asarray(calls)
     res["exch_rdma_launches"] = np.asarray(
         rdma.halo_exchange_rdma.launches)
+    res["exch_rank_grid"] = np.asarray(f"{spec.ranks_y}x{spec.ranks_x}")
+    # the ppermute exchange on 4 tiles a rank, which remote_dma refuses
+    for bcs, wname in ((WALLED, "walled"), (PERIODIC, "periodic")):
+        grid = _grid(bcs, a.n, a.n, TILES_PER_RANK * nranks, a.device,
+                     halo=HALO)
+        spec = grid.halo_spec
+        full = _whole(spec, (), grid.dtype, seed=50 + len(wname))
+        f = dl.Field(grid, dl.T_POINTS)
+        f.set_data(full)
+        f.halo_exchange(HALO)
+        got = f.get_data()
+        if rank == 0:
+            want = halo_mod.exchange(full.to(dev), _one_rank_spec(spec),
+                                     HALO).cpu().numpy()
+            res[f"exch_tiles_equal_{wname}"] = np.asarray(
+                np.array_equal(got, want))
+            res["exch_tiles_layout"] = np.asarray(
+                f"{spec.ranks_y}x{spec.ranks_x} ranks of "
+                f"{spec.repy}x{spec.repx} tiles")
+    if dev.type == "cuda":
+        _seam_probe(res, grid, a.reps)
     # µs per call of each transport on the walled 2D blocks
     for tag, blk, spec, depth, transport in timed:
         fn = ((lambda: halo_mod.exchange(blk, spec, depth))
@@ -381,6 +418,54 @@ def leg_exchange(res, a):
             a.reps))
     res["rdma_block_bytes"] = np.asarray(f.data.numel()
                                          * f.data.element_size())
+
+
+#: the runtime calls that make the host wait for the card
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+              "cuCtxSynchronize", "cuEventSynchronize")
+
+
+def _seam_probe(res, grid, reps):
+    """One strip transfer of the exchange (``halo._Transfer``: the last
+    HALO columns of this rank's block of ``grid`` to the next rank, the
+    first HALO to the previous, none past the ends of the rank order)
+    under the gang's seam transport: µs per call, and in one profiled
+    call the copies to and from the host, the host synchronisations and
+    the copies between device buffers."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    dev = grid.device
+    r, nr = env.get_rank(), env.get_num_ranks()
+    blk = grid.block_tensor(np.zeros(grid.global_array_shape))
+    up, down = blk[:, -HALO:].clone(), blk[:, :HALO].clone()
+
+    def transfer():
+        return halo_mod._Transfer.apply(up, down, (r + 1) % nr,
+                                        (r - 1) % nr, r < nr - 1, r > 0)
+    res["seam_us_per_call"] = np.asarray(_us_per_call(transfer, dev, reps))
+    transfer()
+    _sync(dev)
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("seam_transfer"):
+            transfer()
+        _sync(dev)
+    events = prof.events()
+    call = next(e.time_range for e in events if e.name == "seam_transfer"
+                and str(e.device_type).endswith("CPU"))
+    names = [e.name for e in events]
+    res["seam_profile_dtoh"] = np.asarray(sum("Memcpy DtoH" in n
+                                              for n in names))
+    res["seam_profile_htod"] = np.asarray(sum("Memcpy HtoD" in n
+                                              for n in names))
+    res["seam_profile_dtod"] = np.asarray(sum(
+        "Memcpy DtoD" in n or "Memcpy PtoP" in n for n in names))
+    # the synchronisations inside the call (the profile's own after it
+    # is not the call's)
+    res["seam_profile_syncs"] = np.asarray(sum(
+        e.name in HOST_SYNCS and call.start <= e.time_range.start
+        <= call.end for e in events))
 
 
 def _kernel_us_per_call(fn, reps):
@@ -752,10 +837,20 @@ def _timed_us(fn, dev, reps: int) -> float:
     return _local_us(fn, dev, reps)
 
 
+def warm_up(fn, dev) -> None:
+    """On the card, one call of ``fn`` whose result is dropped, before a
+    timed one of the same work: the first use of the seams' windows (and
+    of gloo's pairs) stays out of the time.  Nothing on the CPU, where
+    nothing is timed."""
+    if dev.type == "cuda":
+        fn()
+
+
 def timed_call(fn, dev):
     """``(fn(), ms)``: one call after a barrier, timed with CUDA events on
     the card (ms None on the CPU) -- for the calls that take 0.1 s or
-    more, which are timed where they are checked, not run again."""
+    more, which are timed where they are checked, not run again (a
+    :func:`warm_up` may run first)."""
     env.barrier()
     if dev.type != "cuda":
         return fn(), None
@@ -808,6 +903,7 @@ def leg_solvers(res, a):
     for tag, kw in SOLVES.items():
         s = solvers.HelmholtzSolver(g, LAM, LAM, tol=solver_tol(g.dtype),
                                     **kw)
+        warm_up(lambda: s.solve(b), dev)
         solvers.helmholtz_cheb_sweep.launches = 0
         (x, info), ms = timed_call(lambda: s.solve(b), dev)
         res[f"hs_{tag}_x"] = layout.unstack_internal(
@@ -840,6 +936,8 @@ def semi_implicit_model(n: int, ndomains: int, device, open_north: bool):
 def leg_semi_implicit(res, a):
     for tag, north in (("si", False), ("sio", True)):
         m = semi_implicit_model(a.n, a.ndomains, a.device, north)
+        warm_up(lambda: semi_implicit_model(a.n, a.ndomains, a.device,
+                                            north).run(1), m.grid.device)
         info, ms = timed_call(lambda: m.run(5), m.grid.device)
         for k, v in m.gather().items():
             res[f"{tag}_{k}"] = v
@@ -1051,6 +1149,41 @@ def leg_checkpoint(res, a):
     res["ck_path"] = np.asarray(path)
     if ms is not None:
         res["ck_save_ms"] = np.asarray(ms)
+
+
+#: the tiles leg's tiles a rank
+TILES_PER_RANK = 4
+
+
+def leg_tiles(res, a):
+    nd = TILES_PER_RANK * env.get_num_ranks()
+    m = client_model("gravity_wave", a.n, nd, a.device)
+    dev, kern, spec = m.grid.device, m.sweep_kernel, m.grid.halo_spec
+    res["tl_layout"] = np.asarray(f"{spec.ranks_y}x{spec.ranks_x} ranks of "
+                                  f"{spec.repy}x{spec.repx} tiles")
+    _sync(dev)
+    kern.launches = 0
+    m.run(a.steps)
+    _sync(dev)
+    res["tl_gw_launches"] = np.asarray(kern.launches)
+    for k, v in m.gather().items():
+        res[f"tl_gw_{k}"] = v
+    if dev.type == "cuda":
+        res["tl_gw_us"] = np.asarray(
+            _timed_us(lambda: m.run(a.steps), dev, 3) / a.steps)
+    from dl_esm_inf_tpu_torch.ops import solvers
+    g, rhs = solver_case(a.n, nd, a.device)
+    b = dl.Field(g, dl.T_POINTS, init_global_data=rhs)
+    s = solvers.HelmholtzSolver(g, LAM, LAM, tol=solver_tol(g.dtype),
+                                **SOLVES["cg"])
+    warm_up(lambda: s.solve(b), dev)
+    (x, info), ms = timed_call(lambda: s.solve(b), dev)
+    res["tl_cg_x"] = layout.unstack_internal(g.decomp,
+                                             gather_to_host(x, g.halo_spec))
+    res["tl_cg_iters"] = np.asarray(info["iterations"])
+    res["tl_cg_rel_res"] = np.asarray(info["rel_res"])
+    if ms is not None:
+        res["tl_cg_ms"] = np.asarray(ms)
 
 
 # --- the ensemble, the adjoint and nesting across ranks ----------------------
@@ -1548,7 +1681,51 @@ LEGS = {"core": leg_core, "periodic": leg_periodic,
         "clients": leg_clients, "schedule": leg_schedule, "psy": leg_psy,
         "coupled": leg_coupled, "checkpoint": leg_checkpoint,
         "ensemble": leg_ensemble, "adjoint": leg_adjoint, "nest": leg_nest,
-        "autograd": leg_autograd}
+        "autograd": leg_autograd, "tiles": leg_tiles}
+
+#: the legs whose strips cross rank seams (``halo._send_recv``): each runs
+#: under every transport of ``--seams``
+SEAM_LEGS = ("core", "periodic", "exchange", "flagship", "flagship_fused",
+             "overlap", "solvers", "semi_implicit", "clients", "schedule",
+             "psy", "coupled", "checkpoint", "ensemble", "adjoint", "nest",
+             "autograd", "tiles")
+
+
+def seam_pairs(r: dict, other: str = "gloo") -> dict:
+    """Each result of the first seam transport that ``other`` gave too ->
+    whether the two are bitwise equal; times and the seam records
+    (transport, batches) left out."""
+    out = {}
+    for k, v in r.items():
+        base = k.removeprefix(f"{other}__")
+        if (base == k or base.startswith("seam_")
+                or any(t in base for t in ("_us", "_ms"))):
+            continue
+        out[base] = bool(np.array_equal(r[base], v))
+    return out
+
+
+def run_leg(res, a, leg: str, seams) -> None:
+    """Leg ``leg`` under each transport of ``seams`` (None: the gang's
+    default), the first one's results under their names, a later one's
+    prefixed ``<transport>__``."""
+    for i, name in enumerate(seams if leg in SEAM_LEGS else seams[:1]):
+        if name is not None:
+            env.set_seam_transport(name)
+        part = {}
+        seam.peer_seams.batches = 0
+        t0 = time.perf_counter()
+        LEGS[leg](part, a)
+        on_card = env.resolve_device(a.device).type == "cuda"
+        part[f"seam_transport_{leg}"] = np.asarray(
+            (env.seam_transport() or "none") if on_card else "gloo")
+        part[f"seam_batches_{leg}"] = np.asarray(seam.peer_seams.batches)
+        prefix = f"{name}__" if i else ""
+        res.update({prefix + k: v for k, v in part.items()})
+        if env.get_rank() == 0:
+            print(f"[mp_check] leg {leg} ({part[f'seam_transport_{leg}']} "
+                  f"seams) done in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
 
 def main(argv=None) -> None:
@@ -1602,6 +1779,9 @@ def main(argv=None) -> None:
     ap.add_argument("--nest-window", type=int, default=256)
     ap.add_argument("--nest-ratio", type=int, default=4)
     ap.add_argument("--nest-steps", type=int, default=5)
+    ap.add_argument("--seams", default="",
+                    help="seam transports to run the seam legs under, in "
+                         "order (peer, gloo; default: the gang's)")
     a = ap.parse_args(argv)
     dl.initialise()
     if a.ndomains is None:
@@ -1610,12 +1790,9 @@ def main(argv=None) -> None:
     res = {"world_size": np.asarray(env.get_num_ranks())}
     # a leg that raises exits this rank nonzero, and the launcher stops
     # the gang: no finalise (its barrier would wait for the dead)
+    seams = a.seams.split(",") if a.seams else [None]
     for leg in a.legs.split(","):
-        t0 = time.perf_counter()
-        LEGS[leg](res, a)
-        if rank == 0:
-            print(f"[mp_check] leg {leg} done in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        run_leg(res, a, leg, seams)
     if rank == 0:
         np.savez(a.out, **res)
     env.finalise()

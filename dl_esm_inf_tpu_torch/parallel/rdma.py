@@ -88,6 +88,7 @@ from .halo import HaloSpec, _check_depth, _check_rank_layout
 # must not share one.
 COLLECTIVE_ID_EXCHANGE = 1   # this module's exchange
 COLLECTIVE_ID_SWEEP = 2      # the fused-transport sweep across ranks
+COLLECTIVE_ID_SEAM = 3       # the seams' strips (parallel/seam.py)
 
 #: the slot layout of a window (csrc/rdma_fence.cuh; slot 4 is the spin
 #: ping-pong's, which only the kernel names)

@@ -1163,3 +1163,42 @@ def test_variant_staging_paths_match_plain(cuda_device, K, dtype, block):
         if reps == 1:
             for g, w in zip(got, prod):
                 assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_gang_peer_seams_match_gloo(cuda_device, tmp_path):
+    """A 2-rank gang sharing the card runs its seam legs under the
+    "peer" transport (the strips card to card, parallel/seam.py) and
+    then under "gloo" (through host memory): the exchanges (walled and
+    periodic, 1 and 4 tiles a rank, depth 1 and 8, 2D and 3 levels) and
+    the autograd probe (the exchange's and the strip transfer's
+    transposes) bitwise equal between the two; the peer legs enqueued
+    seam batches and the gloo legs none; one profiled peer transfer made
+    no copy to or from the host and no host synchronisation."""
+    import os
+
+    from dl_esm_inf_tpu_torch.launch import launch
+    from dl_esm_inf_tpu_torch.parallel import mp_check
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root)]
+                                                      + sys.path))
+    out = tmp_path / "seams.npz"
+    legs = ("periodic", "exchange", "autograd")
+    rc = launch(None, ["--out", str(out), "--legs", ",".join(legs),
+                       "--n", "64", "--ndomains", "8", "--reps", "2",
+                       "--seams", "peer,gloo"], num_processes=2,
+                base_env=env, module="dl_esm_inf_tpu_torch.parallel.mp_check",
+                timeout=300)
+    assert rc == 0
+    r = dict(np.load(out))
+    pairs = mp_check.seam_pairs(r)
+    assert len(pairs) > 30 and all(pairs.values()), [
+        k for k, same in pairs.items() if not same]
+    for leg in legs:
+        assert str(r[f"seam_transport_{leg}"]) == "peer"
+        assert str(r[f"gloo__seam_transport_{leg}"]) == "gloo"
+        assert int(r[f"seam_batches_{leg}"]) > 0
+        assert int(r[f"gloo__seam_batches_{leg}"]) == 0
+    assert all(int(r[f"seam_profile_{k}"]) == 0
+               for k in ("dtoh", "htod", "syncs"))
+    assert int(r["gloo__seam_profile_dtoh"]) > 0
