@@ -247,7 +247,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
    and the peer transport's batches per leg printed, times under both;
    one strip transfer profiled under each (torch.profiler): the peer one
    with no copy to or from the host and no host synchronisation; the
-   4-rank gang's exchange on a 2x2 rank grid, also on 2x2 tiles a rank;
+   collectives move by the same transport (parallel/collectives.py: one
+   gather of the ranks' parts, an all-reduce folded in rank order): one
+   all_reduce of two values and one all_gather of a nest's band, us per
+   call and profiled under each, the peer ones with no copy to or from
+   the host and no host synchronisation, and one CG iteration profiled
+   under each, whose only copy to the host under peer is the loop's
+   stopping test; the times of the paths the collectives serve beside
+   PR 23's (PR23_TIMES); the 4-rank gang's exchange on a 2x2 rank grid,
+   also on 2x2 tiles a rank;
 20. the adjoint and ensembles on the card (plain PyTorch: the kernels
    have no backward, and no TPU kernel lies on this path): (a) the
    flagship at 1024^2 f32 on the plain path, one observation at step
@@ -312,9 +320,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
    printed beside each tolerance, host ms per analysis, per cost +
    gradient and per nest step of both runs, with the card's name and
    power limit.  The gang runs its legs under "peer" and "gloo" seams as
-   phase 19's do: the forecast, the cost and the gradient bitwise
-   between the two, the analyses and the nest within their tolerances
-   (DA_SEAM_TOLERATED), times under both.  The phase prints its seconds.
+   phase 19's do (the analyses' all-reduces and the nest's band
+   all-gathers and feedback all-reduces too): the forecast, the cost and
+   the gradient bitwise between the two, the analyses and the nest
+   within their tolerances (DA_SEAM_TOLERATED), times under both, beside
+   PR 23's.  The phase prints its seconds.
 
 Every kernel entry carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over the H100's 3.35 TB/s
@@ -3660,9 +3670,11 @@ def _check_seams(r: dict, label: str, legs: str,
     same legs under "gloo" (through host memory): every result bitwise
     but those starting with ``tolerated`` (the caller holds them), each
     leg on its transport, and the peer transport's batches per leg on
-    rank 0; the one profiled peer transfer made no copy to or from the
-    host and no host synchronisation.  Prints the transports and the
-    counts; returns the batches per leg."""
+    rank 0; the one profiled peer transfer, all_reduce and all_gather
+    made no copy to or from the host and no host synchronisation, and a
+    profiled peer CG iteration copied only its stopping test to the
+    host.  Prints the transports and the counts; returns the batches per
+    leg."""
     from dl_esm_inf_tpu_torch.parallel import mp_check as mpc
     pairs = mpc.seam_pairs(r)
     bad = [k for k, same in pairs.items()
@@ -3678,23 +3690,86 @@ def _check_seams(r: dict, label: str, legs: str,
                              f"{bad}; transports {wrong}")
     text = ""
     if "seam_profile_dtoh" in r:
-        prof = {k: (int(r[f"seam_profile_{k}"]),
-                    int(r[f"gloo__seam_profile_{k}"]))
-                for k in ("dtoh", "htod", "syncs", "dtod")}
-        if any(prof[k][0] for k in ("dtoh", "htod", "syncs")):
-            raise AssertionError(f"{label}: a profiled peer transfer "
-                                 f"touched the host: {prof}")
-        text = (f"; one strip transfer (depth 8, profiled): peer "
-                f"{float(r['seam_us_per_call']):.1f} us per call, gloo "
-                f"{_g(r, 'seam_us_per_call'):.1f}; (peer, gloo) Memcpy DtoH "
-                f"{prof['dtoh']}, HtoD {prof['htod']}, host synchronisations "
-                f"{prof['syncs']}, device-to-device copies {prof['dtod']}")
+        text += _probe_text(r, label, "seam_profile_", "seam_us_per_call",
+                            "one strip transfer (depth 8, profiled)")
+    if "seam_allreduce_us_per_call" in r:
+        text += _probe_text(r, label, "seam_allreduce_profile_",
+                            "seam_allreduce_us_per_call",
+                            "one all_reduce of two values (profiled)")
+        text += _probe_text(r, label, "seam_allgather_profile_",
+                            "seam_allgather_us_per_call",
+                            f"one all_gather of a nest's band "
+                            f"({int(r['seam_allgather_band'])} values, "
+                            f"profiled)")
+    if "seam_cg_iteration_dtoh" in r:
+        text += _cg_iteration_text(r, label)
     print(f"{label}: {len(pairs)} results of the legs under peer seams "
           f"bitwise equal to the same legs under gloo"
           + (f" (but those of {tolerated}, held below)" if tolerated else "")
           + f"; transports per leg: peer, then gloo; peer batches per leg "
-          f"on rank 0: {batches}{text}", flush=True)
+          f"on rank 0: {batches}{text} [{SMI}]", flush=True)
     return batches
+
+
+#: what a profiled call counts (parallel/mp_check.py::_profiled): the
+#: copies to and from the host, host synchronisations, device copies
+PROFILE_KEYS = ("dtoh", "htod", "syncs", "dtod")
+
+
+def _profile_pair(r: dict, prefix: str) -> dict:
+    """Each count of a profiled call under peer and under gloo seams."""
+    return {k: (int(r[f"{prefix}{k}"]), int(r[f"gloo__{prefix}{k}"]))
+            for k in PROFILE_KEYS}
+
+
+def _probe_text(r: dict, label: str, prefix: str, us_key: str,
+                what: str) -> str:
+    """A probe of the gang's exchange leg (parallel/mp_check.py: the strip
+    transfer, the all_reduce, the all_gather) under both seam
+    transports, us per call and the profiled counts, as printed text; a
+    peer call that copied to or from the host or made the host wait
+    raises."""
+    prof = _profile_pair(r, prefix)
+    if any(prof[k][0] for k in ("dtoh", "htod", "syncs")):
+        raise AssertionError(f"{label}: {what} under peer seams touched "
+                             f"the host: {prof}")
+    return (f"; {what}: peer {float(r[us_key]):.1f} us per call, gloo "
+            f"{_g(r, us_key):.1f}; (peer, gloo) Memcpy DtoH {prof['dtoh']}, "
+            f"HtoD {prof['htod']}, host synchronisations {prof['syncs']}, "
+            f"device-to-device copies {prof['dtod']}")
+
+
+def _cg_iteration_text(r: dict, label: str) -> str:
+    """One profiled CG iteration (mp_check._cg_iteration_probe) under
+    both seam transports: under peer its one copy to the host is the
+    loop's stopping test (``float(rr)``), and nothing comes back."""
+    prof = _profile_pair(r, "seam_cg_iteration_")
+    if prof["dtoh"][0] != 1 or prof["htod"][0] != 0:
+        raise AssertionError(f"{label}: a peer CG iteration copied to or "
+                             f"from the host beyond its stopping test: "
+                             f"{prof}")
+    return (f"; one CG iteration (profiled, a solve capped at 2 iterations "
+            f"less one capped at 1): (peer, gloo) Memcpy DtoH "
+            f"{prof['dtoh']}, HtoD {prof['htod']}, host synchronisations "
+            f"{prof['syncs']}")
+
+
+#: PR 23's chip runs (PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W)
+#: of the paths the collectives serve, 2 ranks x 1 tile, ms per solve,
+#: step, analysis or nest step under (peer, gloo) seams, when the
+#: collectives went through host memory under both
+PR23_TIMES = {"cg": ("507.42-653.25", "619.20-746.99"),
+              "cheb": ("37.25-53.84", "82.66-111.89"),
+              "si": ("116.32-131.01", "138.34-176.15"),
+              "sio": ("435.84-544.62", "508.95-642.68"),
+              "ek": ("35.43-60.9", "22.5-50.48"),
+              "lk": ("134.4-147.6", "120.2-142.4"),
+              "nest": ("11.1-35.98", "16.4-35.67")}
+
+
+def _pr23(key: str) -> str:
+    peer, gloo = PR23_TIMES[key]
+    return f" (PR 23's runs: {peer} / {gloo})"
 
 
 def _gang(nproc: int, legs: str, out: Path, *extra) -> dict:
@@ -5032,10 +5107,11 @@ def _da_ensemble(r: dict, n: int) -> dict:
                                    if k.endswith("_seams_bitwise"))
           + f"; ms per analysis on 2 ranks under peer seams, under gloo and "
           f"in one process: global ETKF {out['ek_ms_ranks2']:.1f} / "
-          f"{out['ek_ms_ranks2_gloo']:.1f} / {out['ek_ms_one']:.1f}, LETKF "
-          f"(L={LETKF_RADIUS:g}) {out['lk_ms_ranks2']:.1f} / "
-          f"{out['lk_ms_ranks2_gloo']:.1f} / {out['lk_ms_one']:.1f} (host "
-          f"clock) [{SMI}]", flush=True)
+          f"{out['ek_ms_ranks2_gloo']:.1f} / {out['ek_ms_one']:.1f}"
+          f"{_pr23('ek')}, LETKF (L={LETKF_RADIUS:g}) "
+          f"{out['lk_ms_ranks2']:.1f} / {out['lk_ms_ranks2_gloo']:.1f} / "
+          f"{out['lk_ms_one']:.1f}{_pr23('lk')} (host clock) [{SMI}]",
+          flush=True)
     return out
 
 
@@ -5098,8 +5174,8 @@ def _da_nest(r: dict, n: int) -> dict:
           + f"; the same under gloo seams within the tolerance (peer vs gloo"
           f" bitwise: {bitwise}); ms per nest step on 2 ranks under peer "
           f"seams, under gloo and in one process {out['ms_ranks2']:.1f} / "
-          f"{out['ms_ranks2_gloo']:.1f} / {out['ms_one']:.1f} (host clock) "
-          f"[{SMI}]", flush=True)
+          f"{out['ms_ranks2_gloo']:.1f} / {out['ms_one']:.1f}{_pr23('nest')}"
+          f" (host clock) [{SMI}]", flush=True)
     return out
 
 
@@ -5227,8 +5303,8 @@ def _one_process_solvers(r: dict, n: int) -> dict:
               f"relative residual {rel_2:.3e} (tol {s.tol:.1e}), solutions "
               f"{d:.3e} of the largest value apart; sweep launches per rank "
               f"{launches}; {ms_2:.2f} ms per solve on 2 ranks under peer "
-              f"seams, {ms_2g:.2f} under gloo, {ms_1:.2f} in one process "
-              f"[{SMI}]", flush=True)
+              f"seams, {ms_2g:.2f} under gloo{_pr23(tag)}, {ms_1:.2f} in one "
+              f"process [{SMI}]", flush=True)
         out[tag] = {"ranks2_launches": launches, "ranks2_ms_per_solve": ms_2,
                     "ranks2_gloo_ms_per_solve": ms_2g,
                     "one_process_2_tiles_ms_per_solve": ms_1,
@@ -5251,8 +5327,8 @@ def _one_process_solvers(r: dict, n: int) -> dict:
               f"{info['cg_iterations']} in one process with 2 tiles, "
               f"fields {d:.3e} of the state's largest value apart (tol 10 x "
               f"{m.tol:.1e}); {ms_2:.2f} ms/step on 2 ranks under peer "
-              f"seams, {ms_2g:.2f} under gloo, {ms_1:.2f} in one process "
-              f"[{SMI}]", flush=True)
+              f"seams, {ms_2g:.2f} under gloo{_pr23(tag)}, {ms_1:.2f} in one "
+              f"process [{SMI}]", flush=True)
         out[tag] = {"ranks2_ms_per_step": ms_2,
                     "ranks2_gloo_ms_per_step": ms_2g,
                     "one_process_2_tiles_ms_per_step": ms_1}

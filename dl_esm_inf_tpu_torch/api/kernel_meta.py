@@ -24,9 +24,10 @@ Differences from the JAX package: every tile a rank holds lies in one
 stacked tensor on its device, so a kernel body runs ONCE on the rank's
 whole block (the JAX package runs it once per shard).  Shifts agree on
 internal points; a reduction over the block, all-reduced across ranks
-(:func:`..parallel.collectives.all_reduce` with the access's operation),
-equals the JAX package's ``psum``/``pmin``/``pmax`` of per-shard ones up
-to summation order.
+(:func:`..parallel.collectives.all_reduce` with the access's operation:
+equal in every rank's bits, summed in rank order), equals the JAX
+package's ``psum``/``pmin``/``pmax`` of per-shard ones up to summation
+order.
 Kernel bodies are torch functions on :mod:`..ops.stencils` shifts, and
 scalars reach them as Python values.
 """

@@ -3,11 +3,19 @@
 Counterpart of ``dl_esm_inf_tpu/parallel/collectives.py``.  A reduction
 reduces this rank's block in :func:`..core.kinds.sum_dtype` of the data
 (float64 for float64 data) and, with more than one rank, all-reduces
-the partial results in that dtype over the process group (gloo, through
-host memory).  :func:`gather_to_host` all-gathers every rank's block
-into the whole stacked layout on every rank, as the JAX package's
-``process_allgather`` does.  With more than one rank each of these is
-collective: every rank calls it, in the same order.
+the partial results in that dtype.  Every collective is one gather of
+the ranks' parts (:func:`_parts`): each rank sends its part to every
+other rank in one batch of :func:`.halo._send_recv`, so the parts move
+by the gang's seam transport (:func:`.environment.seam_transport`), as
+the strips of the exchange do: card to card where it is ``"peer"``,
+through host memory where it is ``"gloo"`` and for CPU tensors.  An
+all-reduce then folds the parts in rank order (``parts[0] + parts[1] +
+...``) on every rank, so every rank gets the same bits, and both
+transports give the same bits at any rank count.  :func:`gather_to_host`
+gathers every rank's block into the whole stacked layout on every rank,
+as the JAX package's ``process_allgather`` does.  With more than one
+rank each of these is collective: every rank calls it, in the same
+order.
 
 :func:`psum`, :func:`pbroadcast` and :func:`all_gather` are the forms
 autograd can cross, the JAX package's transposition rules under
@@ -40,24 +48,58 @@ import torch.distributed as dist
 
 from ..core import kinds
 from . import environment as env
+from .halo import _send_recv
+
+#: the tag of the collectives' messages in :func:`.halo._send_recv`: the
+#: exchange's strips use 0 and 1, a seam edge's hand-shake 65536 + tag
+COLLECTIVE_TAG = 2
+
+#: each reduction's fold of two parts
+_FOLDS = {dist.ReduceOp.SUM: torch.add, dist.ReduceOp.MIN: torch.minimum,
+          dist.ReduceOp.MAX: torch.maximum}
 
 
 def _acc(data: torch.Tensor) -> torch.Tensor:
     return data.to(kinds.sum_dtype(data.dtype))
 
 
+def _parts(local: torch.Tensor) -> list:
+    """Every rank's ``local`` (one shape and dtype on every rank), in rank
+    order, on ``local``'s device: this rank's is ``local`` itself
+    (detached), every other arrives in one batch of
+    :func:`.halo._send_recv` that sends ``local`` to each other rank and
+    receives that rank's part, as a ``(1, numel)`` plane (the seam
+    transport moves rows at one pitch).  Collective."""
+    rank, nranks = env.get_rank(), env.get_num_ranks()
+    mine = local.detach()
+    plane = mine.reshape(1, -1)
+    peers = [p for p in range(nranks) if p != rank]
+    got = {p: torch.empty_like(plane) for p in peers}
+    _send_recv([(plane, p, True, COLLECTIVE_TAG) for p in peers],
+               [(got[p], p, True, COLLECTIVE_TAG) for p in peers])
+    return [mine if p == rank else got[p].reshape(mine.shape)
+            for p in range(nranks)]
+
+
 def all_reduce(local: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The all-reduce of one rank's small partial result (a few values:
     dot products, residual norms), in its dtype, on its device: ``local``
-    itself with one rank.  Across ranks the values move through host
-    memory in one gloo call, so two sums cost one collective (the JAX
-    package's ``psum`` of a stacked pair), and the result carries no
-    gradient."""
+    itself with one rank.  Across ranks the parts move in one gather
+    (:func:`_parts`), so two sums cost one collective (the JAX package's
+    ``psum`` of a stacked pair), and fold in rank order with ``op``'s
+    ``torch.add``, ``torch.minimum`` or ``torch.maximum``: the same bits
+    on every rank and under either seam transport.  The result carries
+    no gradient.  An ``op`` other than SUM, MIN and MAX raises."""
+    fold = _FOLDS.get(op)
+    if fold is None:
+        raise ValueError(f"all_reduce: {op!r} is not one of SUM, MIN, MAX")
     if env.get_num_ranks() == 1:
         return local
-    buf = local.detach().reshape(-1).to("cpu", copy=True)
-    dist.all_reduce(buf, op=op)
-    return buf.reshape(local.shape).to(local.device)
+    parts = _parts(local)
+    out = parts[0]
+    for part in parts[1:]:
+        out = fold(out, part)
+    return out
 
 
 class _PSum(torch.autograd.Function):
@@ -90,12 +132,8 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, local):
-        rank = env.get_rank()
-        ctx.rank = rank
-        buf = local.detach().contiguous().to("cpu", copy=True)
-        parts = [torch.empty_like(buf) for _ in range(env.get_num_ranks())]
-        dist.all_gather(parts, buf)
-        return torch.stack(parts).to(local.device)
+        ctx.rank = env.get_rank()
+        return torch.stack(_parts(local))
 
     @staticmethod
     def backward(ctx, g):
@@ -159,19 +197,18 @@ def masked_sum(data: torch.Tensor, mask: torch.Tensor) -> float:
 def gather_to_host(data: torch.Tensor, spec=None) -> np.ndarray:
     """Host copy of a stacked-layout tensor as a numpy array.  With more
     than one rank ``data`` is this rank's block and ``spec`` (the grid's
-    :class:`~.halo.HaloSpec`) places it: every rank receives the whole
-    stacked layout.  Always a copy, also of a CPU tensor, so that an
-    in-place exchange of the field later does not change it."""
-    local = data.detach().to("cpu", copy=True)
+    :class:`~.halo.HaloSpec`) places it: the blocks are gathered on
+    ``data``'s device (:func:`_parts`), joined, and copied to the host
+    once, so every rank receives the whole stacked layout.  Always a new
+    array, also of a CPU tensor, so that an in-place exchange of the
+    field later does not change it."""
     nranks = env.get_num_ranks()
     if nranks == 1:
-        return local.numpy()
+        return data.detach().to("cpu", copy=True).numpy()
     if spec is None or spec.num_ranks != nranks:
         raise ValueError("gathering across ranks needs the grid's halo "
                          "spec, whose rank grid is this run's")
-    local = local.contiguous()
-    parts = [torch.empty_like(local) for _ in range(nranks)]
-    dist.all_gather(parts, local)
+    parts = _parts(data)
     rows = [torch.cat(parts[iy * spec.ranks_x: (iy + 1) * spec.ranks_x],
                       dim=-1) for iy in range(spec.ranks_y)]
-    return torch.cat(rows, dim=-2).numpy()
+    return torch.cat(rows, dim=-2).cpu().numpy()

@@ -10,10 +10,13 @@ ranks move through the process group (:mod:`.halo`, :mod:`.rdma`).
 
 The process group is gloo only.  NCCL refuses two ranks on one GPU, and
 the machines this port is tested on have one card; NCCL comes with one
-card per rank (see ROADMAP.md).  The strips that cross a rank seam move
-by the gang's seam transport (:func:`seam_transport`): card to card
-through peer-memory windows (``"peer"``, :mod:`.seam`) or through host
-memory (``"gloo"``).  A grid carries its ``torch.device``:
+card per rank (see ROADMAP.md).  The strips that cross a rank seam, and
+the parts of every collective (:mod:`.collectives`), move by the gang's
+seam transport (:func:`seam_transport`): card to card through
+peer-memory windows (``"peer"``, :mod:`.seam`) or through host memory
+(``"gloo"``); the process group itself carries only the start-up
+exchanges and hand-shakes (``all_gather_object``) and the barriers.  A
+grid carries its ``torch.device``:
 the card unless the caller names another one (``device="cpu"``), and
 never the CPU in place of a missing card.
 """

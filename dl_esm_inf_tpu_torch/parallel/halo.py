@@ -160,7 +160,8 @@ def _send_recv(sends, recvs) -> None:
     tag)`` each; receives are written into their tensors.  CUDA strips
     move card to card where the gang's seam transport is ``"peer"``
     (:mod:`.seam`); otherwise gloo moves host memory, so a CUDA strip is
-    staged through the host."""
+    staged through the host.  The collectives' parts move the same way,
+    on a tag of their own (:mod:`.collectives`)."""
     sim = getattr(env.simulated, "send_recv", None)
     if sim is not None:
         return sim(sends, recvs)

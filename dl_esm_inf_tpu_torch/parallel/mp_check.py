@@ -34,8 +34,9 @@ Legs (``--legs``, comma separated):
   per call; on the card also one strip transfer (``halo._send_recv``)
   under the gang's seam transport: µs per call, and in one profiled
   call (torch.profiler) the copies to and from the host, the host
-  synchronisations and the copies between device buffers (on
-  the card the depth-8 ``remote_dma`` call also checked before it
+  synchronisations and the copies between device buffers, and the same
+  of one ``all_reduce`` of two values and one ``all_gather`` of a nest's
+  band (on the card the depth-8 ``remote_dma`` call also checked before it
   returns, ``settle``, and its kernel time from torch.profiler); the
   rdma kernel's entry (one exchange against its plain version, the
   protocol simulated over the gathered blocks, and that simulation's
@@ -80,6 +81,8 @@ The legs of the slice across ranks, at ``--n``^2 on ``--ndomains`` tiles,
 * ``solvers``: ``HelmholtzSolver`` with CG and with the fused Chebyshev
   sweep at K=4 (walled, an island, lam LAM) on a seeded rhs: the
   solutions, iterations, relative residuals, and the sweep's launches;
+  on the card also one CG iteration's host copies and synchronisations
+  (torch.profiler);
 * ``semi_implicit``: ``tests/mp_worker.py``'s two runs (CG; and the
   open north boundary), 5 steps each;
 * ``clients``: gravity wave, shallow (periodic), two-layer, N-layer and
@@ -376,6 +379,7 @@ def leg_exchange(res, a):
                 f"{spec.repy}x{spec.repx} tiles")
     if dev.type == "cuda":
         _seam_probe(res, grid, a.reps)
+        _collective_probe(res, a)
     # µs per call of each transport on the walled 2D blocks
     for tag, blk, spec, depth, transport in timed:
         fn = ((lambda: halo_mod.exchange(blk, spec, depth))
@@ -426,14 +430,39 @@ HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cuCtxSynchronize", "cuEventSynchronize")
 
 
+def _profiled(fn, dev, label: str) -> dict:
+    """One call of ``fn`` under torch.profiler (every rank at once): the
+    copies to and from the host (``dtoh``, ``htod``) and between device
+    buffers (``dtod``) the card made, and the host synchronisations
+    (``syncs``) inside the call (the profile's own after it is not the
+    call's)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    _sync(dev)
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            fn()
+        _sync(dev)
+    events = prof.events()
+    call = next(e.time_range for e in events if e.name == label
+                and str(e.device_type).endswith("CPU"))
+    names = [e.name for e in events]
+    return {"dtoh": sum("Memcpy DtoH" in n for n in names),
+            "htod": sum("Memcpy HtoD" in n for n in names),
+            "dtod": sum("Memcpy DtoD" in n or "Memcpy PtoP" in n
+                        for n in names),
+            "syncs": sum(e.name in HOST_SYNCS and call.start
+                         <= e.time_range.start <= call.end for e in events)}
+
+
 def _seam_probe(res, grid, reps):
     """One strip transfer of the exchange (``halo._Transfer``: the last
     HALO columns of this rank's block of ``grid`` to the next rank, the
     first HALO to the previous, none past the ends of the rank order)
     under the gang's seam transport: µs per call, and in one profiled
     call the copies to and from the host, the host synchronisations and
-    the copies between device buffers."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    the copies between device buffers (:func:`_profiled`)."""
     dev = grid.device
     r, nr = env.get_rank(), env.get_num_ranks()
     blk = grid.block_tensor(np.zeros(grid.global_array_shape))
@@ -443,29 +472,45 @@ def _seam_probe(res, grid, reps):
         return halo_mod._Transfer.apply(up, down, (r + 1) % nr,
                                         (r - 1) % nr, r < nr - 1, r > 0)
     res["seam_us_per_call"] = np.asarray(_us_per_call(transfer, dev, reps))
-    transfer()
-    _sync(dev)
-    dist.barrier()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("seam_transfer"):
-            transfer()
-        _sync(dev)
-    events = prof.events()
-    call = next(e.time_range for e in events if e.name == "seam_transfer"
-                and str(e.device_type).endswith("CPU"))
-    names = [e.name for e in events]
-    res["seam_profile_dtoh"] = np.asarray(sum("Memcpy DtoH" in n
-                                              for n in names))
-    res["seam_profile_htod"] = np.asarray(sum("Memcpy HtoD" in n
-                                              for n in names))
-    res["seam_profile_dtod"] = np.asarray(sum(
-        "Memcpy DtoD" in n or "Memcpy PtoP" in n for n in names))
-    # the synchronisations inside the call (the profile's own after it
-    # is not the call's)
-    res["seam_profile_syncs"] = np.asarray(sum(
-        e.name in HOST_SYNCS and call.start <= e.time_range.start
-        <= call.end for e in events))
+    for k, v in _profiled(transfer, dev, "seam_transfer").items():
+        res[f"seam_profile_{k}"] = np.asarray(v)
+
+
+def _collective_probe(res, a):
+    """The collectives under the gang's seam transport, on the card: one
+    ``all_reduce`` of two values (CG's pair of dots, in the solver's
+    accumulation dtype) and one ``all_gather`` of a nest's band (the
+    parent T points the ring of :func:`nest_main_case`'s nest reads, at
+    ``--n``^2 with ``--nest-window`` (at most half of ``--n``) and
+    ``--nest-ratio``, this rank's values of them): µs per call of each,
+    the band's length, and in one
+    profiled call of each the copies to and from the host, the host
+    synchronisations and the copies between device buffers
+    (:func:`_profiled`)."""
+    from types import SimpleNamespace
+
+    from dl_esm_inf_tpu_torch.core import kinds
+    from dl_esm_inf_tpu_torch.models import gravity_wave as gwm
+    from dl_esm_inf_tpu_torch.models import nesting
+    from dl_esm_inf_tpu_torch.parallel.collectives import all_gather
+    case = nest_main_case(a.n, min(a.nest_window, a.n // 2), a.nest_ratio,
+                          1)
+    parent, nests, _ = build_nests(SimpleNamespace(gw=gwm, nest=nesting),
+                                   case, env.get_num_ranks(),
+                                   dict(device=a.device))
+    dev, p_eta = parent.grid.device, parent.eta.data
+    mine, by, bx, _, _ = nests[0]._band
+    band = torch.where(mine, p_eta[by, bx], torch.zeros(
+        (), dtype=p_eta.dtype, device=dev))
+    dots = torch.tensor([1.0, 2.0 + env.get_rank()], device=dev,
+                        dtype=kinds.sum_dtype(p_eta.dtype))
+    for tag, fn in (("allreduce", lambda: all_reduce(dots)),
+                    ("allgather", lambda: all_gather(band))):
+        res[f"seam_{tag}_us_per_call"] = np.asarray(
+            _us_per_call(fn, dev, a.reps))
+        for k, v in _profiled(fn, dev, f"seam_{tag}").items():
+            res[f"seam_{tag}_profile_{k}"] = np.asarray(v)
+    res["seam_allgather_band"] = np.asarray(band.numel())
 
 
 def _kernel_us_per_call(fn, reps):
@@ -895,6 +940,22 @@ SOLVES = {"cg": dict(method="cg"),
           "cheb": dict(method="chebyshev", fused=True, steps_per_exchange=4)}
 
 
+def _cg_iteration_probe(res, g, b) -> None:
+    """One CG iteration of the solvers leg's solve, profiled
+    (:func:`_profiled`): a solve capped at 2 iterations less one capped
+    at 1, whose set-up, residual and halo refresh cancel, in copies to
+    and from the host and host synchronisations."""
+    from dl_esm_inf_tpu_torch.ops import solvers
+    counts = []
+    for cap in (1, 2):
+        s = solvers.HelmholtzSolver(g, LAM, LAM, tol=solver_tol(g.dtype),
+                                    maxiter=cap, **SOLVES["cg"])
+        counts.append(_profiled(lambda: s.solve(b), g.device, "seam_cg"))
+    for k in counts[0]:
+        res[f"seam_cg_iteration_{k}"] = np.asarray(counts[1][k]
+                                                   - counts[0][k])
+
+
 def leg_solvers(res, a):
     from dl_esm_inf_tpu_torch.ops import solvers
     g, rhs = solver_case(a.n, a.ndomains, a.device)
@@ -915,6 +976,8 @@ def leg_solvers(res, a):
             solvers.helmholtz_cheb_sweep.launches)
         if ms is not None:
             res[f"hs_{tag}_ms"] = np.asarray(ms)
+    if dev.type == "cuda":
+        _cg_iteration_probe(res, g, b)
 
 
 def semi_implicit_model(n: int, ndomains: int, device, open_north: bool):

@@ -1173,8 +1173,10 @@ def test_gang_peer_seams_match_gloo(cuda_device, tmp_path):
     periodic, 1 and 4 tiles a rank, depth 1 and 8, 2D and 3 levels) and
     the autograd probe (the exchange's and the strip transfer's
     transposes) bitwise equal between the two; the peer legs enqueued
-    seam batches and the gloo legs none; one profiled peer transfer made
-    no copy to or from the host and no host synchronisation."""
+    seam batches and the gloo legs none; one profiled peer transfer, one
+    all_reduce and one all_gather (the collectives, which move by the
+    same transport) made no copy to or from the host and no host
+    synchronisation."""
     import os
 
     from dl_esm_inf_tpu_torch.launch import launch
@@ -1199,6 +1201,8 @@ def test_gang_peer_seams_match_gloo(cuda_device, tmp_path):
         assert str(r[f"gloo__seam_transport_{leg}"]) == "gloo"
         assert int(r[f"seam_batches_{leg}"]) > 0
         assert int(r[f"gloo__seam_batches_{leg}"]) == 0
-    assert all(int(r[f"seam_profile_{k}"]) == 0
-               for k in ("dtoh", "htod", "syncs"))
-    assert int(r["gloo__seam_profile_dtoh"]) > 0
+    for probe in ("seam_profile_", "seam_allreduce_profile_",
+                  "seam_allgather_profile_"):
+        assert all(int(r[f"{probe}{k}"]) == 0
+                   for k in ("dtoh", "htod", "syncs")), probe
+        assert int(r[f"gloo__{probe}dtoh"]) > 0, probe
